@@ -1,0 +1,389 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port's main path on one CUDA card and check its kernels.
+
+    python3 chip_smoke.py        # from the repository root, one GPU
+
+The port's three hand-written CUDA kernels (K1 segment march, K2 pack
+builder/quantiser, K3 detector) are built from ``synthpy_tpu_torch/kernels/
+csrc`` with nvcc, each is held to its plain PyTorch version on the card,
+and the bench configuration (512^3 bench lens, K = 512, 4,000,000 rays,
+rk2, slab weights, 431 x 321 bins) runs through the port's entry points
+at the bf16, int8/rk2s2 and int4/rk2s4 tiers. Each phase prints one JSON
+line; then a ``{"kernels": [...]}`` line with each kernel's launches on the
+main path, its time, its bound, its plain version's time and a library
+call's time; then the card's name and power limit; and last
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+exits nonzero and prints no "ok" line; it also exits nonzero without a
+CUDA device or without the ``synthpy_tpu_torch`` package beside it.
+Nothing here imports JAX.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+DIM, K, RAYS, BINS = 512, 512, 4_000_000, (431, 321)
+SUBSET = 65_536
+EXT = 5e-3
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+
+
+def fail(msg):
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs only on a GPU")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        from synthpy_tpu_torch import constants, pipeline
+        from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+        from synthpy_tpu_torch.kernels import _build, detector, march, pack
+        from synthpy_tpu_torch.ops.histogram import _bin_index
+        from synthpy_tpu_torch.optics.compose import (apply_stages,
+                                                      shadowgraphy_two_lens)
+        from synthpy_tpu_torch.optics.rtm import m_to_mm
+        from synthpy_tpu_torch.tracer import init_beam, ray_to_Jonesvector
+        from synthpy_tpu_torch.tracer import zscan
+    except ImportError as e:
+        fail(f"the synthpy_tpu_torch package is not beside this script ({e})")
+
+    dev = torch.device("cuda")
+    kernels = {"march": march.KERNEL, "pack": pack.KERNEL,
+               "detector": detector.KERNEL}
+
+    # -- 1. device and kernel build ------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _build.build({k.source: k.flags for k in kernels.values()})
+    for k in kernels.values():
+        k.load()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "build_s": round(time.perf_counter() - t0, 3)})
+
+    def timed(fn, reps, warmup=1):
+        """Best of ``reps`` CUDA-event timings of fn() [ms]."""
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b))
+        return best
+
+    # -- 2. kernels against their plain versions ------------------------------
+    domain = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                              LR=1.5e-3)
+    layout = layout_of(domain)
+    C = layout.n_channels
+    omega = constants.omega_from_lwl(1064e-9)
+    ca = domain.x.cpu()
+    dp = float(domain.z.cpu()[1] - domain.z.cpu()[0])
+    build_kw = dict(p_ax=2, layout=layout, K=K, n_seg=1,
+                    pref=-0.5 * constants.C**2
+                    / constants.critical_density(omega),
+                    da=float(ca[1] - ca[0]), db=float(ca[1] - ca[0]), dp=dp,
+                    omega=omega, verdet=0.0)
+    vols = {"ne": domain.ne, "Te": None, "Z": None, "B": None}
+
+    k2 = {}
+    f32_kernel = pack.build_tables(vols, dtype=torch.float32, **build_kw)
+    f32_plain = pack.build_tables_plain(vols, dtype=torch.float32,
+                                        **build_kw)
+    bf16_kernel = pack.build_tables(vols, dtype=torch.bfloat16, **build_kw)
+    bf16_plain = pack.build_tables_plain(vols, dtype=torch.bfloat16,
+                                         **build_kw)
+    for name, a, b in (("f32", f32_kernel, f32_plain),
+                       ("bf16", bf16_kernel, bf16_plain)):
+        a4 = a.float().reshape(-1, K + 1, C)
+        b4 = b.float().reshape(-1, K + 1, C)
+        rel = [float((a4[..., c] - b4[..., c]).abs().max()
+                     / b4[..., c].abs().max().clamp_min(1e-30))
+               for c in range(C)]
+        check(max(rel) <= 1e-6, f"K2 {name} table off by {rel}")
+        k2[name] = {"max_rel_per_channel": rel,
+                    "max_abs_err": float((a4 - b4).abs().max())}
+    k2_bf16_err = k2["bf16"]["max_abs_err"]
+    del f32_plain, bf16_plain
+    for name, bits in (("int8", 8), ("int4", 4)):
+        codes, scales = pack.quantize_tables(f32_kernel, K, C, bits)
+        pc, ps = pack.quantize_tables_plain(f32_kernel, K, C, bits)
+        same = torch.equal(codes, pc) and torch.equal(scales, ps)
+        check(same, f"K2 {name} quantiser differs from its plain version")
+        # the whole tier, kernel build + quantiser vs plain build + plain
+        # quantiser: codes within +-1
+        qc, qs = pack.quantize_tables_plain(
+            pack.build_tables_plain(vols, dtype=torch.float32, **build_kw),
+            K, C, bits)
+        if bits == 4:
+            a = torch.stack([pack.nibble_lo(codes), pack.nibble_hi(codes)])
+            b = torch.stack([pack.nibble_lo(qc), pack.nibble_hi(qc)])
+        else:
+            a, b = codes.to(torch.int16), qc.to(torch.int16)
+        diff = (a - b).abs()
+        srel = float(((scales - qs).abs() / qs.abs()).max())
+        check(int(diff.max()) <= 1, f"K2 {name} codes differ by > 1")
+        check(srel <= 1e-6, f"K2 {name} scales off by {srel}")
+        k2[name] = {"quantiser_bit_identical": same,
+                    "max_code_diff": int(diff.max()),
+                    "frac_codes_differ": float((diff > 0).float().mean()),
+                    "scale_max_rel": srel}
+        del qc, qs, a, b, diff
+    del f32_kernel, bf16_kernel
+    torch.cuda.empty_cache()
+    emit({"phase": "K2_vs_plain", "shape": [1, DIM * DIM, (K + 1) * C],
+          **k2})
+
+    s0 = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular", device=dev)
+    packs = {name: zscan.build_segment_pack_device(domain, K=K, dtype=dt)
+             for name, dt in (("f32", torch.float32),
+                              ("bf16", torch.bfloat16), ("int8", torch.int8),
+                              ("int4", "int4"))}
+    u_all = zscan.permute_state(s0, "z").contiguous()
+    u_sub = u_all[:SUBSET].contiguous()
+
+    def march_kw(sp, integrator, weights):
+        return dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+                    inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+                    layout=layout, K=sp.K, integrator=integrator,
+                    weights=weights, qbits=sp.qbits)
+
+    def march_close(a, b, what):
+        """Per-column error of kernel output a against plain output b."""
+        check(torch.equal(a.isnan(), b.isnan()), f"K1 {what} NaN pattern")
+        scale = b.abs().nan_to_num(0).amax(0).clamp_min(1e-30)
+        rel = ((a - b).abs().nan_to_num(0).amax(0) / scale).tolist()
+        check(max(rel) <= 1e-5, f"K1 {what} off by {rel}")
+        return {"max_rel_per_column": rel,
+                "max_abs_err": float((a - b).abs().nan_to_num(0).max())}
+
+    k1 = {}
+    for tier, integrator, weights in (("bf16", "rk2", "slab"),
+                                      ("f32", "rk4", "stage"),
+                                      ("int8", "rk2s2", "slab"),
+                                      ("int4", "rk2s4", "slab")):
+        sp = packs[tier]
+        kw = march_kw(sp, integrator, weights)
+        a = march.march(u_sub, sp.seg_planes, sp.scales, **kw)
+        torch.cuda.synchronize()
+        b = march.march_plain(u_sub, sp.seg_planes, sp.scales, **kw)
+        k1[f"{tier}/{integrator}/{weights}"] = march_close(
+            a, b, f"{tier}/{integrator}/{weights}")
+    half = zscan.decimate_segment_pack(packs["int4"], 2)
+    a = march.march(u_sub, half.seg_planes, half.scales,
+                    **march_kw(half, "rk2s2", "slab"))
+    b = march.march(u_sub, packs["int4"].seg_planes, packs["int4"].scales,
+                    **march_kw(packs["int4"], "rk2s4", "slab"))
+    check(torch.equal(a, b), "K1 int4 rk2s2/stride-2 != rk2s4/full")
+    k1["int4 rk2s2 on stride 2 == rk2s4 on full"] = True
+    del half, a, b
+    # the main path's own call: every ray, bf16 / rk2 / slab
+    sp = packs["bf16"]
+    p_end = sp.p0 + sp.seg_planes.shape[0] * sp.K * sp.dp
+    uf = march.march(u_all, sp.seg_planes, sp.scales,
+                     **march_kw(sp, "rk2", "slab"))
+    torch.cuda.synchronize()
+    k1_main = march_close(uf, march.march_plain(
+        u_all, sp.seg_planes, sp.scales, **march_kw(sp, "rk2", "slab")),
+        "bf16/rk2/slab, all rays")
+    emit({"phase": "K1_vs_plain", "rays": SUBSET, "tolerance":
+          "atol 1e-5 * max|column|, same NaNs", **k1,
+          f"bf16/rk2/slab at {RAYS} rays": k1_main})
+
+    stages = shadowgraphy_two_lens()
+    det_args = (p_end, domain.extent, "z", stages, BINS,
+                ((-9.0, 9.0), (-6.75, 6.75)))
+    H = detector.detect(uf, *det_args)
+    torch.cuda.synchronize()
+    Hp = detector.detect_plain(uf, *det_args)
+    check(torch.equal(H, Hp), "K3 image counts differ from the plain "
+          f"detector (sum {float(H.sum())} vs {float(Hp.sum())})")
+    k3_err = float((H - Hp).abs().max())
+    emit({"phase": "K3_vs_plain", "rays": RAYS, "counts_equal": True,
+          "image_sum": float(H.sum())})
+
+    # -- 3. the main path at full width ---------------------------------------
+    main = {}
+    tiers = (("bf16", torch.bfloat16, "rk2"), ("int8", torch.int8, "rk2s2"),
+             ("int4", "int4", "rk2s4"))
+    images = {}
+    launches = None
+    for tier, dtype, integrator in tiers:
+        for k in kernels.values():
+            k.launches = 0
+        dom = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                               LR=1.5e-3)
+        spack = zscan.build_segment_pack_device(dom, K=K, dtype=dtype)
+        rays = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular", device=dev)
+        Hm = pipeline.run(dom, rays, solver="zscan_seg", spack=spack,
+                          integrator=integrator, seg_weights="slab",
+                          bins=BINS)
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in kernels.items()}
+        check(all(v > 0 for v in counts.values()),
+              f"{tier}: a kernel of the path was not launched: {counts}")
+        if launches is None:
+            launches = counts
+        check(tuple(Hm.shape) == (BINS[1], BINS[0])
+              and bool(torch.isfinite(Hm).all()), f"{tier}: bad image")
+        ufm = march.march(zscan.permute_state(rays, "z").contiguous(),
+                          spack.seg_planes, spack.scales,
+                          **march_kw(spack, integrator, "slab"))
+        kept = float(detector.detect_plain(
+            ufm, spack.p0 + spack.seg_planes.shape[0] * spack.K * spack.dp,
+            dom.extent, "z", stages,
+            BINS, ((-9.0, 9.0), (-6.75, 6.75))).sum())
+        check(float(Hm.sum()) == kept > 0,
+              f"{tier}: image sum {float(Hm.sum())} != {kept} rays kept")
+
+        def run_once():
+            pipeline.run(dom, rays, solver="zscan_seg", spack=spack,
+                         integrator=integrator, seg_weights="slab",
+                         bins=BINS)
+
+        ms = timed(run_once, reps=3)
+        images[tier] = Hm
+        main[tier] = {"integrator": integrator, "launches": counts,
+                      "image_sum": float(Hm.sum()), "run_ms": ms,
+                      "rays_per_s": RAYS / (ms * 1e-3)}
+        del dom, spack, rays, ufm
+        torch.cuda.empty_cache()
+    for tier in ("int8", "int4"):
+        main[tier]["rel_l1_vs_bf16"] = float(
+            (images[tier] - images["bf16"]).abs().sum()
+            / images["bf16"].sum())
+    emit({"phase": "main_path", "dim": DIM, "K": K, "rays": RAYS,
+          "bins": list(BINS), "weights": "slab", **main})
+
+    # -- 4. kernel times at the main path's shapes, bounds, plain times -------
+    mkw = march_kw(sp, "rk2", "slab")
+    k1_ms = timed(lambda: march.march(u_all, sp.seg_planes, sp.scales,
+                                      **mkw), reps=5)
+    k1_plain_ms = timed(lambda: march.march_plain(
+        u_all, sp.seg_planes, sp.scales, **mkw), reps=1)
+    k2_ms = timed(lambda: pack.build_tables(vols, dtype=torch.bfloat16,
+                                            **build_kw), reps=10)
+    k2_plain_ms = timed(lambda: pack.build_tables_plain(
+        vols, dtype=torch.bfloat16, **build_kw), reps=2)
+    k3_ms = timed(lambda: detector.detect(uf, *det_args), reps=20)
+    k3_plain_ms = timed(lambda: detector.detect_plain(uf, *det_args), reps=3)
+
+    # the library yardstick for K3: index_put_(accumulate=True) of the
+    # precomputed bin indices (the port never calls it)
+    rf, _ = ray_to_Jonesvector(zscan.reassemble_state(uf, p_end, "z"),
+                               domain.extent, probing_direction="z")
+    r = apply_stages(m_to_mm(rf), stages)
+    ix, vx = _bin_index(r[0], -9.0, 9.0, BINS[0])
+    iy, vy = _bin_index(r[2], -6.75, 6.75, BINS[1])
+    flat = iy * BINS[0] + ix
+    w = (vx & vy).float()
+    Hl = torch.zeros(BINS[0] * BINS[1], device=dev)
+
+    def lib():
+        Hl.zero_()
+        Hl.index_put_((flat,), w, accumulate=True)
+
+    k3_lib_ms = timed(lib, reps=20)
+    check(torch.equal(Hl.reshape(BINS[1], BINS[0]), H),
+          "index_put_ yardstick disagrees with the detector")
+
+    # bounds: bytes each input read once and each output written once, or
+    # the float32 operations, over the card's peak rates
+    N = RAYS
+    # rows of the table this run's rays touch (one segment at K = 512)
+    ta = ((u_all[:, 0] - mkw["origin_ab"][0]) * mkw["inv_ab"][0]).floor()
+    tb = ((u_all[:, 1] - mkw["origin_ab"][1]) * mkw["inv_ab"][1]).floor()
+    base = (ta.clamp(0, DIM - 2) * DIM + tb.clamp(0, DIM - 2)).long()
+    rows = torch.unique(torch.cat([base, base + 1, base + DIM,
+                                   base + DIM + 1]))
+    row_bytes = sp.seg_planes.shape[-1] * sp.seg_planes.element_size()
+    k1_bytes = 2 * N * 32 + rows.numel() * row_bytes
+    # float32 operations a ray does per slab in the rk2 / slab-weights
+    # march (counted from march.cu): z-blend 8C, slab weights 24, two
+    # stages of (blend 7C + right-hand side 6), two 8-wide updates 32
+    k1_flops = N * sp.K * (8 * C + 24 + 2 * (7 * C + 6) + 32)
+    k2_bytes = domain.ne.numel() * 4 + sp.seg_planes.numel() * 2
+    # per table value: gradient stencil ~6, probe-axis difference ~5
+    k2_flops = sp.seg_planes.numel() * 6
+    k3_bytes = N * 32 + BINS[0] * BINS[1] * 4
+    # per ray: back-projection 6, two divisions and arctans (~20 each),
+    # the composed stages (4x4 matrices 28, apertures 4), binning 10
+    k3_flops = N * (6 + 40 + 2 * 28 + 2 * 4 + 10)
+
+    def bound(nbytes, flops):
+        tb_ = nbytes / HBM_BYTES_PER_S * 1e3
+        tf_ = flops / F32_FLOPS_PER_S * 1e3
+        return (max(tb_, tf_), "bytes" if tb_ >= tf_ else "operations")
+
+    k1_b, k2_b, k3_b = (bound(k1_bytes, k1_flops),
+                        bound(k2_bytes, k2_flops),
+                        bound(k3_bytes, k3_flops))
+    csrc = "synthpy_tpu_torch/kernels/csrc/"
+    rows_out = [
+        {"name": "march", "route": "cuda", "source": csrc + "march.cu",
+         "replaces": "synthpy_tpu/tracer/zscan.py:756",
+         "launches": launches["march"],
+         "max_abs_err": k1_main["max_abs_err"],
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_b[0],
+         "bound_by": k1_b[1], "library_ms": None},
+        {"name": "pack", "route": "cuda", "source": csrc + "pack.cu",
+         "replaces": "synthpy_tpu/tracer/zscan.py:1812",
+         "launches": launches["pack"], "max_abs_err": k2_bf16_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_b[0],
+         "bound_by": k2_b[1], "library_ms": None},
+        {"name": "detector", "route": "cuda", "source": csrc + "detector.cu",
+         "replaces": "synthpy_tpu/pipeline.py:76",
+         "launches": launches["detector"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_b[0],
+         "bound_by": k3_b[1], "library_ms": k3_lib_ms},
+    ]
+    detail = {"k1_table_rows_touched": int(rows.numel()),
+              "k1_bytes": k1_bytes, "k1_flops": k1_flops,
+              "k2_bytes": k2_bytes, "k3_bytes": k3_bytes,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"phase": "bounds", **detail})
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
+              "w") as f:
+        json.dump({"nvidia_smi": smi, "K1": k1, "K2": k2, "main": main,
+                   "kernels": rows_out, **detail}, f, indent=1)
+    emit({"kernels": rows_out})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,231 @@
+"""K2: segment-pack builder, quantiser and decimator.
+
+``build_tables``, ``quantize_tables`` and ``decimate_tables`` launch the
+CUDA kernels of ``csrc/pack.cu`` on CUDA tensors and run their plain
+PyTorch versions on CPU tensors. The plain versions repeat the JAX
+package's arithmetic (``synthpy_tpu/tracer/zscan.py`` seg_fn :1812,
+quantize_segment_pack.quant :493, decimate_segment_pack.dec :576/:597).
+
+Every divisor in the plain versions is a tensor on the data's device: on
+CUDA, PyTorch divides by a Python scalar as a multiplication by its
+reciprocal, which is not the IEEE quotient the kernels and JAX compute.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from synthpy_tpu_torch import constants
+from synthpy_tpu_torch.fields.domain import ChannelLayout, gradient
+from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
+
+KERNEL = Kernel("pack.cu", {
+    "pack_build": [P, I, P, P, P, P, L, L, L, I, I, I, I, I, I, I, I,
+                   F, F, F, F, F, F, F, F, I, I, I, P],
+    "pack_quantize": [P, I, P, P, P, I, I, I, I, I, P],
+    "pack_decimate": [P, P, I, I, I, I, I, I, I, P],
+}, flags=["--fmad=false"])
+
+
+def nibble_lo(w: torch.Tensor) -> torch.Tensor:
+    """Sign-extended low nibble of int8 bytes (plane 2j of the pair), int16."""
+    return ((w.to(torch.int16) & 15) ^ 8) - 8
+
+
+def nibble_hi(w: torch.Tensor) -> torch.Tensor:
+    """Sign-extended high nibble (plane 2j+1): arithmetic shift, int16."""
+    return w.to(torch.int16) >> 4
+
+
+def pack_nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(lo & 15) | ((hi & 15) << 4) as int8 bytes."""
+    return ((lo.to(torch.int16) & 15) | ((hi.to(torch.int16) & 15) << 4)
+            ).to(torch.uint8).view(torch.int8)
+
+
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtypes, device) -> None:
+    if t.device != device or t.dtype not in dtypes or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtypes} tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")
+
+
+# -- build -----------------------------------------------------------------
+
+def build_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
+                       p_ax: int, layout: ChannelLayout, K: int, n_seg: int,
+                       pref: float, da: float, db: float, dp: float,
+                       omega: float, verdet: float,
+                       dtype) -> torch.Tensor:
+    """Plain version of the float build: (n_seg, na*nb, (K+1)*C) tables."""
+    ne = vols["ne"]
+    pm = ne.movedim(p_ax, 0)                     # (n_p, na, nb)
+    n_p, na, nb = pm.shape
+    G = n_seg * K + 1                            # absolute planes 0..n_seg*K
+    padded = torch.cat([pm[:1], pm, pm.new_zeros((G + 1 - n_p, na, nb))])
+    body = padded[1:G + 1]
+    Gp = pref * (padded[2:G + 2] - padded[0:G]) / _scalar(2.0 * dp, ne)
+    g = torch.arange(G, device=ne.device)[:, None, None]
+    Gp = torch.where(g == 0, 2.0 * Gp, Gp)
+    Gp = torch.where(g == n_p - 1, 2.0 * Gp + pref * body / _scalar(dp, ne),
+                     Gp)
+    chans = [pref * gradient(body, da, 1), pref * gradient(body, db, 2), Gp]
+
+    def extra(e):
+        e = e.movedim(p_ax, 0)
+        return torch.cat([e, e.new_zeros((G - n_p, na, nb))])
+
+    if layout.inv_brems:
+        chans.append(constants.kappa(body, extra(vols["Te"]),
+                                     extra(vols["Z"]), omega))
+    if layout.phaseshift:
+        chans.append(omega * (constants.n_refrac(body, omega) - 1.0))
+    if layout.B_on:
+        a_ax, b_ax = [a for a in range(3) if a != p_ax]
+        for comp in (a_ax, b_ax, p_ax):
+            chans.append(verdet * body * extra(vols["B"][..., comp]))
+    out = torch.stack([c.to(dtype) for c in chans], dim=-1)
+    out = torch.where((g <= n_p - 1)[..., None], out, torch.zeros_like(out))
+    idx = (torch.arange(n_seg)[:, None] * K
+           + torch.arange(K + 1)[None, :]).to(ne.device)
+    C = out.shape[-1]
+    return out[idx].permute(0, 2, 3, 1, 4).reshape(n_seg, na * nb,
+                                                   (K + 1) * C)
+
+
+def build_tables(vols: Dict[str, Optional[torch.Tensor]], *, p_ax: int,
+                 layout: ChannelLayout, K: int, n_seg: int, pref: float,
+                 da: float, db: float, dp: float, omega: float,
+                 verdet: float, dtype) -> torch.Tensor:
+    """Float segment tables from the field volumes (ne, and Te, Z, B as the
+    layout switches them on), in f32 or bf16."""
+    ne = vols["ne"]
+    kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg, pref=pref, da=da,
+              db=db, dp=dp, omega=omega, verdet=verdet, dtype=dtype)
+    if ne.device.type == "cpu":
+        return build_tables_plain(vols, **kw)
+    dev = ne.device
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"table dtype must be f32 or bf16, got {dtype}")
+    used = {"ne": ne}
+    if layout.inv_brems:
+        used.update(Te=vols["Te"], Z=vols["Z"])
+    if layout.B_on:
+        used["B"] = vols["B"]
+    for name, t in used.items():
+        _check_cuda(name, t, (torch.float32,), dev)
+        want = tuple(ne.shape) + ((3,) if name == "B" else ())
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {want}")
+    a_ax, b_ax = [a for a in range(3) if a != p_ax]
+    dims, st = ne.shape, ne.stride()
+    na, nb = dims[a_ax], dims[b_ax]
+    C = layout.n_channels
+    out = torch.empty((n_seg, na * nb, (K + 1) * C), dtype=dtype,
+                      device=dev)
+
+    def ptr(name):
+        t = used.get(name)
+        return None if t is None else t.data_ptr()
+
+    KERNEL.launch(
+        "pack_build", dev, out.data_ptr(), int(dtype == torch.bfloat16),
+        ne.data_ptr(), ptr("Te"), ptr("Z"), ptr("B"),
+        st[p_ax], st[a_ax], st[b_ax], a_ax, b_ax, p_ax, n_seg, K,
+        dims[p_ax], na, nb, pref, da, db, 2.0 * dp, dp, omega,
+        constants.OMEGA_PE_COEFF**2 * 1e-6 / omega**2, verdet,
+        int(layout.inv_brems), int(layout.phaseshift), int(layout.B_on))
+    return out
+
+
+# -- quantise ----------------------------------------------------------------
+
+def quantize_tables_plain(table: torch.Tensor, K: int, C: int,
+                          bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: (codes, scales) of a float table."""
+    n_seg, cells, cols = table.shape
+    v = table.reshape(n_seg, cells, K + 1, C).to(torch.float32)
+    amax = v.abs().amax(dim=1)                       # (n_seg, K+1, C)
+    qmax = 127.0 if bits == 8 else 7.0
+    # amax * f32(1/qmax): the JAX package's compiled amax / qmax (XLA turns
+    # a division by a constant into a multiplication by its reciprocal)
+    scale = torch.where(amax > 0, amax * float(np.float32(1.0 / qmax)),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(v / scale[:, None]), -qmax, qmax)
+    if bits == 8:
+        return q.to(torch.int8).reshape(n_seg, cells, cols), scale
+    n_blk = K // 2 + 1
+    pad = 2 * n_blk - (K + 1)       # 1 for even K: the lone final plane
+    q = torch.cat([q, q.new_zeros((n_seg, cells, pad, C))], dim=2)
+    packed = pack_nibbles(q[:, :, 0::2], q[:, :, 1::2])
+    return packed.reshape(n_seg, cells, n_blk * C), scale
+
+
+def quantize_tables(table: torch.Tensor, K: int, C: int,
+                    bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(segment, plane, channel) int8 (``bits=8``) or int4
+    nibble-pair (``bits=4``) codes and their f32 scales."""
+    if table.device.type == "cpu":
+        return quantize_tables_plain(table, K, C, bits)
+    dev = table.device
+    _check_cuda("table", table, (torch.float32, torch.bfloat16), dev)
+    n_seg, cells, cols = table.shape
+    if cols != (K + 1) * C:
+        raise ValueError(f"table rows hold {cols} values, not (K+1)*C")
+    n_blk = K // 2 + 1 if bits == 4 else K + 1
+    codes = torch.empty((n_seg, cells, n_blk * C), dtype=torch.int8,
+                        device=dev)
+    scales = torch.empty((n_seg, K + 1, C), dtype=torch.float32, device=dev)
+    amax = torch.zeros((n_seg, K + 1, C), dtype=torch.int32, device=dev)
+    KERNEL.launch("pack_quantize", dev, table.data_ptr(),
+                  int(table.dtype == torch.bfloat16), codes.data_ptr(),
+                  scales.data_ptr(), amax.data_ptr(), n_seg, cells, K, C,
+                  bits)
+    return codes, scales
+
+
+# -- decimate ----------------------------------------------------------------
+
+def decimate_tables_plain(table: torch.Tensor, K: int, C: int, stride: int,
+                          nibbles: bool) -> torch.Tensor:
+    """Plain version: keep every ``stride``-th plane of each row."""
+    n_seg, cells, _ = table.shape
+    Kd = K // stride
+    if not nibbles:
+        v = table.reshape(n_seg, cells, K + 1, C)[:, :, ::stride]
+        return v.reshape(n_seg, cells, (Kd + 1) * C)
+    n_blk, n_blk_d = K // 2 + 1, Kd // 2 + 1
+    v = table.reshape(n_seg, cells, n_blk, C)
+    planes = torch.stack([nibble_lo(v), nibble_hi(v)], dim=3).reshape(
+        n_seg, cells, 2 * n_blk, C)[:, :, :K + 1:stride]
+    pad = 2 * n_blk_d - (Kd + 1)
+    planes = torch.cat([planes, planes.new_zeros((n_seg, cells, pad, C))],
+                       dim=2)
+    return pack_nibbles(planes[:, :, 0::2], planes[:, :, 1::2]).reshape(
+        n_seg, cells, n_blk_d * C)
+
+
+def decimate_tables(table: torch.Tensor, K: int, C: int, stride: int,
+                    nibbles: bool = False) -> torch.Tensor:
+    """Rows of a (n_seg, cells, blocks*C) table with every ``stride``-th
+    plane kept; ``nibbles`` marks int4 nibble-pair rows."""
+    if table.device.type == "cpu":
+        return decimate_tables_plain(table, K, C, stride, nibbles)
+    dev = table.device
+    _check_cuda("table", table,
+                (torch.float32, torch.bfloat16, torch.int8), dev)
+    n_seg, cells, _ = table.shape
+    Kd = K // stride
+    n_blk_d = Kd // 2 + 1 if nibbles else Kd + 1
+    out = torch.empty((n_seg, cells, n_blk_d * C), dtype=table.dtype,
+                      device=dev)
+    KERNEL.launch("pack_decimate", dev, table.data_ptr(), out.data_ptr(),
+                  table.element_size(), int(nibbles), n_seg, cells, K, C,
+                  stride)
+    return out

@@ -1,0 +1,169 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+These need a CUDA device and nvcc, so they skip elsewhere. On the card:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest imports JAX, which the GPU host
+need not have.) They cover what ``chip_smoke.py`` does not: every channel
+layout (C = 3 to 8), x- and y-probing, all the incoherent benches, the
+decimator, and the pipeline against its CPU run. Float tables and the
+march are held to the plain version's last place or better (observed: bit
+equal); detector counts exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from synthpy_tpu_torch import pipeline
+from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+from synthpy_tpu_torch.kernels import detector, march, pack
+from synthpy_tpu_torch.optics.compose import BENCHES
+from synthpy_tpu_torch.tracer import init_beam
+from synthpy_tpu_torch.tracer import zscan
+
+pytestmark = pytest.mark.cuda
+
+EXT = 5e-3
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def _domain(device, dims=17, probe="z", physics=False):
+    d = ScalarDomain(2 * EXT, dims, probing_direction=probe, device=device)
+    d.test_lens(ne_0=1e25 if physics else 5e24, LR=2e-3)
+    if physics:
+        shape = d.dims
+        d.external_Te(50.0 + 10.0 * torch.rand(shape, generator=torch.
+                                               Generator().manual_seed(1)))
+        d.external_Z(2.0 * torch.ones(shape))
+        d.inv_brems = d.phaseshift = True
+        d.test_B(Bmax=10.0)
+    return d
+
+
+def _pair(dev, **kw):
+    """The same scene on the card and on the CPU."""
+    g = _domain(dev, **kw)
+    c = _domain("cpu", **kw)
+    for name in ("ne", "Te", "Z", "B"):
+        v = getattr(g, name)
+        setattr(c, name, None if v is None else v.cpu())
+    return g, c
+
+
+SCENES = {
+    "lens_z": dict(),
+    "lens_y": dict(dims=(17, 21, 19), probe="y"),
+    "lens_x": dict(dims=(19, 17, 21), probe="x"),
+    "physics_z": dict(physics=True),
+}
+TIERS = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+         "int4": "int4"}
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_pack_kernel_matches_plain(dev, scene, tier):
+    g, c = _pair(dev, **SCENES[scene])
+    a = zscan.build_segment_pack_device(g, K=8, dtype=TIERS[tier])
+    b = zscan.build_segment_pack_device(c, K=8, dtype=TIERS[tier])
+    x, y = a.seg_planes.cpu(), b.seg_planes
+    assert x.shape == y.shape and x.dtype == y.dtype
+    if x.dtype == torch.int8:
+        if tier == "int4":
+            x = torch.stack([pack.nibble_lo(x), pack.nibble_hi(x)])
+            y = torch.stack([pack.nibble_lo(y), pack.nibble_hi(y)])
+        assert int((x.to(torch.int16) - y.to(torch.int16)).abs().max()) <= 1
+        torch.testing.assert_close(a.scales.cpu(), b.scales, rtol=1e-6,
+                                   atol=0)
+    else:
+        C = layout_of(c).n_channels
+        x = x.float().reshape(-1, C)
+        y = y.float().reshape(-1, C)
+        scale = y.abs().amax(0).clamp_min(1e-30)
+        assert float(((x - y).abs().amax(0) / scale).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("tier", ["int8", "int4", "bf16"])
+def test_decimate_kernel_matches_plain(dev, tier):
+    g, _ = _pair(dev)
+    sp = zscan.build_segment_pack_device(g, K=8, dtype=TIERS[tier])
+    a = zscan.decimate_segment_pack(sp, 2)
+    cpu = sp._replace(seg_planes=sp.seg_planes.cpu(),
+                      scales=None if sp.scales is None else sp.scales.cpu())
+    b = zscan.decimate_segment_pack(cpu, 2)
+    assert torch.equal(a.seg_planes.cpu(), b.seg_planes)
+
+
+# int4 packs run on the even-stride integrators only
+MARCHES = [(t, i) for t in ("f32", "int8", "int4")
+           for i in ("rk4", "rk2", "rk2s2", "rk2s4")
+           if t != "int4" or i in ("rk2s2", "rk2s4")]
+
+
+@pytest.mark.parametrize("weights", ["stage", "slab"])
+@pytest.mark.parametrize("tier,integrator", MARCHES)
+@pytest.mark.parametrize("scene", ["physics_z", "lens_y"])
+def test_march_kernel_matches_plain(dev, scene, tier, integrator, weights):
+    g, c = _pair(dev, **SCENES[scene])
+    K = 8 if tier == "int4" else 9
+    sp = zscan.build_segment_pack_device(g, K=K, dtype=TIERS[tier])
+    s0 = init_beam(0, 4096, 2.2e-3, 2e-3, g.extent, "circular",
+                   probing_direction=g.probing_direction, device=dev)
+    u = zscan.permute_state(s0, g.probing_direction).contiguous()
+    kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+              inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+              layout=layout_of(c), K=sp.K, integrator=integrator,
+              weights=weights, qbits=sp.qbits)
+    a = march.march(u, sp.seg_planes, sp.scales, **kw).cpu()
+    b = march.march_plain(u.cpu(), sp.seg_planes.cpu(),
+                          None if sp.scales is None else sp.scales.cpu(),
+                          **kw)
+    assert torch.equal(a.isnan(), b.isnan())
+    scale = b.abs().nan_to_num(0).amax(0).clamp_min(1e-30)
+    assert float(((a - b).abs().nan_to_num(0).amax(0) / scale).max()) \
+        <= 2e-6
+
+
+@pytest.mark.parametrize("probe", ["x", "y", "z"])
+@pytest.mark.parametrize("bench", sorted(n for n, (_, coh) in BENCHES.items()
+                                         if not coh))
+def test_detector_kernel_matches_plain(dev, bench, probe):
+    s0 = init_beam(3, 20000, 4e-3, 8e-3, EXT, "circular",
+                   probing_direction=probe, device=dev)
+    uf = zscan.permute_state(s0, probe).contiguous()
+    st = BENCHES[bench][0]()
+    w = torch.rand(uf.shape[0], generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    args = (EXT * 1.01, EXT, probe, st, (54, 40), ((-9.0, 9.0),
+                                                  (-6.75, 6.75)))
+    H = detector.detect(uf, *args).cpu()
+    Hp = detector.detect_plain(uf.cpu(), *args)
+    assert torch.equal(H, Hp) and float(H.sum()) > 0
+    Hw = detector.detect(uf, *args, weights=w).cpu()
+    Hwp = detector.detect_plain(uf.cpu(), *args, weights=w.cpu())
+    torch.testing.assert_close(Hw, Hwp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("tier,integrator", [("bf16", "rk2"),
+                                             ("int8", "rk2s2"),
+                                             ("int4", "rk2s4")])
+def test_pipeline_on_card_matches_cpu(dev, tier, integrator):
+    g, c = _pair(dev, dims=33, physics=True)
+    names = ("shadowgraphy", "polarimetry", "schlieren_lf")
+    kw = dict(pack_dtype=tier, seg_K=32, integrator=integrator,
+              seg_weights="slab", bins=(54, 40), diagnostic=names)
+    s0 = init_beam(0, 8192, 2e-3, 0.0, g.extent, "circular", device=dev)
+    Hg = pipeline.run(g, s0, **kw)
+    Hc = pipeline.run(c, s0.cpu(), **kw)
+    for n in names:
+        a, b = Hg[n].cpu(), Hc[n]
+        np.testing.assert_allclose(a.sum(), b.sum(), rtol=1e-5)
+        assert float((a - b).abs().sum()) <= 2e-3 * float(b.sum()) + 1e-3

@@ -1,0 +1,112 @@
+"""The port's surface: what it imports, where it runs, how it refuses.
+
+* no module of synthpy_tpu_torch, and not chip_smoke.py, imports JAX or
+  the JAX package;
+* entry points default to CUDA and raise on a host without a card;
+* kernel wrappers never fall back to their plain versions for a tensor
+  that is not on the CPU;
+* chip_smoke.py fails without a card, and alone in a directory.
+"""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import synthpy_tpu_torch
+from synthpy_tpu_torch.kernels import _build
+
+# one intra-op thread: the suite runs one worker process per core
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    names = ["synthpy_tpu_torch"]
+    for m in pkgutil.walk_packages(synthpy_tpu_torch.__path__,
+                                   "synthpy_tpu_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'synthpy_tpu.'))\n"
+        "             or m == 'synthpy_tpu')\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(_modules()) >= 20
+
+
+def test_sources_carry_their_note_and_build_flags():
+    for src in ("march.cu", "pack.cu", "detector.cu"):
+        text = (_build.CSRC / src).read_text()
+        assert "Replaces" in text and "bounds it on the H100" in text, src
+        assert "synthpy_tpu/" in text, src
+    cmd = " ".join(_build.ARCH + _build.BASE_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "fast-math" not in cmd and "fast_math" not in cmd
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from synthpy_tpu_torch import convert
+    from synthpy_tpu_torch.fields import ScalarDomain
+    from synthpy_tpu_torch.tracer import init_beam
+
+    for call in (lambda: ScalarDomain(1e-2, 9),
+                 lambda: init_beam(0, 16, 1e-3, 0.0, 5e-3),
+                 lambda: convert.tensor(np.zeros(3))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert ScalarDomain(1e-2, 9, device="cpu").device.type == "cpu"
+
+
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present: the wrappers would build and launch")
+    from synthpy_tpu_torch.fields.domain import ChannelLayout
+    from synthpy_tpu_torch.kernels import detector, march, pack
+
+    meta = torch.device("meta")
+    u = torch.empty((8, 8), device=meta)
+    table = torch.empty((1, 9, 9 * 3), device=meta)
+    lay = ChannelLayout(False, False, False)
+    calls = [
+        lambda: march.march(u, table, None, shape_ab=(3, 3),
+                            origin_ab=(0.0, 0.0), inv_ab=(1.0, 1.0),
+                            dp=1.0, layout=lay, K=8),
+        lambda: detector.detect(u, 1.0, 1.0, "z", [("aperture", 1.0)],
+                                (4, 4), ((-1.0, 1.0), (-1.0, 1.0))),
+        lambda: pack.quantize_tables(table, 8, 3, 8),
+        lambda: pack.decimate_tables(table, 8, 3, 2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    assert march.KERNEL.launches == 0
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for cwd, script in ((ROOT, "chip_smoke.py"), (tmp_path, "chip_smoke.py")):
+        if cwd == tmp_path:
+            shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+        res = subprocess.run([sys.executable, script], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
