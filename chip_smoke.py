@@ -189,7 +189,9 @@ def main():
                 "max_abs_err": float((a - b).abs().nan_to_num(0).max())}
 
     k1 = {}
+    # bf16 / rk2s2 / slab is the march of scratch/proto_pallas_march.py:53
     for tier, integrator, weights in (("bf16", "rk2", "slab"),
+                                      ("bf16", "rk2s2", "slab"),
                                       ("f32", "rk4", "stage"),
                                       ("int8", "rk2s2", "slab"),
                                       ("int4", "rk2s4", "slab")):
@@ -211,12 +213,56 @@ def main():
     # the main path's own call: every ray, bf16 / rk2 / slab
     sp = packs["bf16"]
     p_end = sp.p0 + sp.seg_planes.shape[0] * sp.K * sp.dp
-    uf = march.march(u_all, sp.seg_planes, sp.scales,
-                     **march_kw(sp, "rk2", "slab"))
+    mkw = march_kw(sp, "rk2", "slab")
+    geo = (sp.shape_ab, mkw["origin_ab"], mkw["inv_ab"])
+    uf = march.march(u_all, sp.seg_planes, sp.scales, **mkw)
     torch.cuda.synchronize()
-    k1_main = march_close(uf, march.march_plain(
-        u_all, sp.seg_planes, sp.scales, **march_kw(sp, "rk2", "slab")),
-        "bf16/rk2/slab, all rays")
+    uf_plain = march.march_plain(u_all, sp.seg_planes, sp.scales, **mkw)
+    k1_main = march_close(uf, uf_plain, "bf16/rk2/slab, all rays")
+
+    # every ray of the main path's call, fed in reversed and in entry-cell
+    # order: the plain march is per ray, so its result for a permutation
+    # of the rays is that permutation of its result
+    for name, perm in (("reversed", torch.arange(RAYS - 1, -1, -1,
+                                                 device=dev)),
+                       ("entry-cell order", march.ray_order(u_all, *geo))):
+        a = march.march(u_all[perm].contiguous(), sp.seg_planes, sp.scales,
+                        **mkw)
+        k1[f"bf16/rk2/slab, {RAYS} rays, {name}"] = march_close(
+            a, uf_plain[perm], f"{name} rays")
+    del a, perm
+    # an 8-segment pack (K = 64)
+    sp64 = zscan.build_segment_pack_device(domain, K=64, dtype=torch.bfloat16)
+    check(sp64.seg_planes.shape[0] == 8, "K = 64 pack is not 8 segments")
+    kw64 = march_kw(sp64, "rk2", "slab")
+    k1[f"bf16/rk2/slab, K = 64 x 8 segments, {RAYS} rays"] = march_close(
+        march.march(u_all, sp64.seg_planes, sp64.scales, **kw64),
+        march.march_plain(u_all, sp64.seg_planes, sp64.scales, **kw64),
+        "8 segments")
+    del sp64
+    # a square beam over the whole grid: ~15 rays a cell, and blocks that
+    # straddle two rows of cells
+    u_sq = zscan.permute_state(init_beam(1, RAYS, EXT, 0.0, EXT, "square",
+                                         device=dev), "z").contiguous()
+    k1[f"bf16/rk2/slab, whole-grid square beam, {RAYS} rays"] = march_close(
+        march.march(u_sq, sp.seg_planes, sp.scales, **mkw),
+        march.march_plain(u_sq, sp.seg_planes, sp.scales, **mkw),
+        "square beam")
+    del u_sq
+    # the beam moved 4 mm along a: a fifth of it outside the grid, and
+    # every 4099th ray with a NaN v_p
+    u_out = u_all.clone()
+    u_out[:, 0] += 4e-3
+    u_out[::4099, 4] = float("nan")
+    res = march.march(u_out, sp.seg_planes, sp.scales, **mkw)
+    check(bool(res.isnan().any()), "no NaN in the partly-outside bundle")
+    k1[f"bf16/rk2/slab, bundle partly outside, {RAYS} rays"] = {
+        **march_close(res, march.march_plain(u_out, sp.seg_planes,
+                                             sp.scales, **mkw),
+                      "partly outside"),
+        "outside": float(((u_out[:, 0] - mkw["origin_ab"][0])
+                          * mkw["inv_ab"][0] > DIM - 1).float().mean())}
+    del u_out, res
     emit({"phase": "K1_vs_plain", "rays": SUBSET, "tolerance":
           "atol 1e-5 * max|column|, same NaNs", **k1,
           f"bf16/rk2/slab at {RAYS} rays": k1_main})
@@ -233,11 +279,46 @@ def main():
     emit({"phase": "K3_vs_plain", "rays": RAYS, "counts_equal": True,
           "image_sum": float(H.sum())})
 
+    # bounds: bytes each input read once and each output written once, or
+    # the float32 operations, over the card's peak rates
+    N = RAYS
+
+    def bound(nbytes, flops):
+        tb_ = nbytes / HBM_BYTES_PER_S * 1e3
+        tf_ = flops / F32_FLOPS_PER_S * 1e3
+        return (max(tb_, tf_), "bytes" if tb_ >= tf_ else "operations")
+
+    # rows of the table this run's rays touch (one segment at K = 512)
+    cell = march.entry_cells(u_all, *geo).long()
+    rows = torch.unique(torch.cat([cell, cell + 1, cell + DIM,
+                                   cell + DIM + 1]))
+    del cell
+
+    def k1_flops(integrator, quantized):
+        """float32 operations of the march over all rays, counted from
+        march.cu: a stage is the blend 7C and the right-hand side 6 (one
+        division, five products), slab weights 24, an 8-wide update 16, a
+        dequantised value 1; rk2 also z-blends 8C a slab and reads one
+        plane a slab, rk2s2 / rk2s4 read two planes a step of 2 / 4 slabs."""
+        stage = 7 * C + 6
+        if integrator == "rk2":
+            return N * K * (8 * C + 24 + 2 * stage + 32
+                            + quantized * 4 * C)
+        stride = {"rk2s2": 2, "rk2s4": 4}[integrator]
+        return N * (K // stride) * (24 + 2 * stage + 32 + quantized * 8 * C)
+
+    def k1_bound(spack, integrator):
+        t = spack.seg_planes
+        nbytes = (2 * N * 32 + rows.numel() * t.shape[-1] * t.element_size()
+                  + (0 if spack.scales is None
+                     else spack.scales.numel() * 4))
+        return bound(nbytes, k1_flops(integrator, spack.scales is not None))
+
     # -- 3. the main path at full width ---------------------------------------
     main = {}
     tiers = (("bf16", torch.bfloat16, "rk2"), ("int8", torch.int8, "rk2s2"),
              ("int4", "int4", "rk2s4"))
-    images = {}
+    images, main_k1 = {}, {}
     launches = None
     for tier, dtype, integrator in tiers:
         for k in kernels.values():
@@ -257,9 +338,15 @@ def main():
             launches = counts
         check(tuple(Hm.shape) == (BINS[1], BINS[0])
               and bool(torch.isfinite(Hm).all()), f"{tier}: bad image")
-        ufm = march.march(zscan.permute_state(rays, "z").contiguous(),
-                          spack.seg_planes, spack.scales,
-                          **march_kw(spack, integrator, "slab"))
+        ut = zscan.permute_state(rays, "z").contiguous()
+        tkw = march_kw(spack, integrator, "slab")
+        ufm = march.march(ut, spack.seg_planes, spack.scales, **tkw)
+        if tier != "bf16":
+            # the tier's own call at every ray (bf16's is held above)
+            main_k1[f"{tier}/{integrator}/slab"] = march_close(
+                ufm, march.march_plain(ut, spack.seg_planes, spack.scales,
+                                       **tkw),
+                f"{tier}/{integrator}/slab, all rays")
         kept = float(detector.detect_plain(
             ufm, spack.p0 + spack.seg_planes.shape[0] * spack.K * spack.dp,
             dom.extent, "z", stages,
@@ -273,11 +360,15 @@ def main():
                          bins=BINS)
 
         ms = timed(run_once, reps=3)
+        k1_t = timed(lambda: march.march(ut, spack.seg_planes, spack.scales,
+                                         **tkw), reps=5)
+        b = k1_bound(spack, integrator)
         images[tier] = Hm
         main[tier] = {"integrator": integrator, "launches": counts,
                       "image_sum": float(Hm.sum()), "run_ms": ms,
-                      "rays_per_s": RAYS / (ms * 1e-3)}
-        del dom, spack, rays, ufm
+                      "rays_per_s": RAYS / (ms * 1e-3), "k1_ms": k1_t,
+                      "k1_bound_ms": b[0], "k1_bound_by": b[1]}
+        del dom, spack, rays, ufm, ut
         torch.cuda.empty_cache()
     for tier in ("int8", "int4"):
         main[tier]["rel_l1_vs_bf16"] = float(
@@ -285,11 +376,13 @@ def main():
             / images["bf16"].sum())
     emit({"phase": "main_path", "dim": DIM, "K": K, "rays": RAYS,
           "bins": list(BINS), "weights": "slab", **main})
+    emit({"phase": "K1_vs_plain_tiers", "rays": RAYS, "tolerance":
+          "atol 1e-5 * max|column|, same NaNs", **main_k1})
 
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
-    mkw = march_kw(sp, "rk2", "slab")
     k1_ms = timed(lambda: march.march(u_all, sp.seg_planes, sp.scales,
                                       **mkw), reps=5)
+    order_ms = timed(lambda: march.ray_order(u_all, *geo), reps=10)
     k1_plain_ms = timed(lambda: march.march_plain(
         u_all, sp.seg_planes, sp.scales, **mkw), reps=1)
     k2_ms = timed(lambda: pack.build_tables(vols, dtype=torch.bfloat16,
@@ -318,21 +411,7 @@ def main():
     check(torch.equal(Hl.reshape(BINS[1], BINS[0]), H),
           "index_put_ yardstick disagrees with the detector")
 
-    # bounds: bytes each input read once and each output written once, or
-    # the float32 operations, over the card's peak rates
-    N = RAYS
-    # rows of the table this run's rays touch (one segment at K = 512)
-    ta = ((u_all[:, 0] - mkw["origin_ab"][0]) * mkw["inv_ab"][0]).floor()
-    tb = ((u_all[:, 1] - mkw["origin_ab"][1]) * mkw["inv_ab"][1]).floor()
-    base = (ta.clamp(0, DIM - 2) * DIM + tb.clamp(0, DIM - 2)).long()
-    rows = torch.unique(torch.cat([base, base + 1, base + DIM,
-                                   base + DIM + 1]))
-    row_bytes = sp.seg_planes.shape[-1] * sp.seg_planes.element_size()
-    k1_bytes = 2 * N * 32 + rows.numel() * row_bytes
-    # float32 operations a ray does per slab in the rk2 / slab-weights
-    # march (counted from march.cu): z-blend 8C, slab weights 24, two
-    # stages of (blend 7C + right-hand side 6), two 8-wide updates 32
-    k1_flops = N * sp.K * (8 * C + 24 + 2 * (7 * C + 6) + 32)
+    k1_b = k1_bound(sp, "rk2")
     k2_bytes = domain.ne.numel() * 4 + sp.seg_planes.numel() * 2
     # per table value: gradient stencil ~6, probe-axis difference ~5
     k2_flops = sp.seg_planes.numel() * 6
@@ -341,14 +420,7 @@ def main():
     # the composed stages (4x4 matrices 28, apertures 4), binning 10
     k3_flops = N * (6 + 40 + 2 * 28 + 2 * 4 + 10)
 
-    def bound(nbytes, flops):
-        tb_ = nbytes / HBM_BYTES_PER_S * 1e3
-        tf_ = flops / F32_FLOPS_PER_S * 1e3
-        return (max(tb_, tf_), "bytes" if tb_ >= tf_ else "operations")
-
-    k1_b, k2_b, k3_b = (bound(k1_bytes, k1_flops),
-                        bound(k2_bytes, k2_flops),
-                        bound(k3_bytes, k3_flops))
+    k2_b, k3_b = bound(k2_bytes, k2_flops), bound(k3_bytes, k3_flops)
     csrc = "synthpy_tpu_torch/kernels/csrc/"
     rows_out = [
         {"name": "march", "route": "cuda", "source": csrc + "march.cu",
@@ -369,14 +441,17 @@ def main():
          "bound_by": k3_b[1], "library_ms": k3_lib_ms},
     ]
     detail = {"k1_table_rows_touched": int(rows.numel()),
-              "k1_bytes": k1_bytes, "k1_flops": k1_flops,
+              "k1_order_ms": order_ms,
+              "k1_flops": {i: k1_flops(i, q) for i, q in (
+                  ("rk2", False), ("rk2s2", True), ("rk2s4", True))},
               "k2_bytes": k2_bytes, "k3_bytes": k3_bytes,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit({"phase": "bounds", **detail})
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
               "w") as f:
-        json.dump({"nvidia_smi": smi, "K1": k1, "K2": k2, "main": main,
+        json.dump({"nvidia_smi": smi, "K1": k1, "K1_tiers": main_k1,
+                   "K2": k2, "main": main,
                    "kernels": rows_out, **detail}, f, indent=1)
     emit({"kernels": rows_out})
     print(smi, flush=True)

@@ -23,7 +23,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# -split-compile=0 optimises a source's kernels on all cores: march.cu, 32
+# template instances, builds in ~20 s instead of ~45 s on the H100 host
+BASE_FLAGS = ["-std=c++17", "-O3", "-split-compile=0", "-shared",
+              "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int

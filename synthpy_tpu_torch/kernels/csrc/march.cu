@@ -1,34 +1,57 @@
 // K1: the segment march.
 //
 // Replaces the JAX device program march_segment (synthpy_tpu/tracer/zscan.py
-// :756), looped over segments by trace_zscan_segments (:1102): per ray and
-// segment, freeze the corner cell ia0 = clip(floor(ta), 0, na-2) (:850-854),
+// :756), looped over segments by trace_zscan_segments (:1106): per ray and
+// segment, freeze the corner cell ia0 = clip(floor(ta), 0, na-2) (:849-854),
 // then march the segment's K slabs with rk4, rk2, rk2s2 (2-slab midpoint) or
 // rk2s4 (4-slab midpoint), blending the 4 corner rows bilinearly with
 // per-stage or per-slab weights (_cols_weights :700), dequantising int8 and
 // int4 tables with the per-(segment, plane, channel) scales, and evaluating
 // the 8-component right-hand side _cols_rhs (:636).
 //
-// What bounds it on the H100: the scattered corner reads. Every slab reads 4
-// corner rows of 2 planes x C channels (12 bytes each in bf16 at C = 3) at
-// data-dependent addresses, a 32-byte sector each; the arithmetic is ~100
-// flops a stage, in registers. The design: one thread per ray holds the ray's
-// state in registers across all segments and slabs of one launch, so the
-// state never goes back to device memory between slabs. Corner values are
-// read straight from the table at each slab: the JAX program's hoisted
-// (N, (K+1)*C) corner buffer (zscan.py:857-859) exists for the TPU's gather
-// engine and would cost 12 KB a ray at 512^3 bf16. Consecutive slabs read
-// neighbouring bytes of the same four rows, so L1 and L2 serve most reads
-// after the first.
+// What bounds it on the H100. Read in the caller's order, the 32 rays of
+// a warp sit in up to 32 cells of a random beam, and each scalar corner
+// load of a warp touched ~32 sectors for 2 useful bytes each (a model from
+// the rays' addresses): 80 ms at the 512^3 bf16 rk2 main path (4 M rays,
+// H100 80GB HBM3, 700 W). In entry-cell order a warp load touches ~1.3
+// sectors and the march takes ~17 ms, 4x its float32 operations bound.
+// What bounds it now is inferred from timed variants, not measured: no
+// hardware counter (issue slots, stalls, hit rates) could be read there.
+// No variant moved it by more than ~7%: staging each block's corner rows
+// in shared memory by cp.async (5-7% on bf16, none on int4, at the cost of
+// a second read path), more warps an SM or 256-thread blocks (under 3%),
+// the contracted build with far fewer instructions (6%). So neither the
+// corner reads nor the instruction count alone hold it; by elimination it
+// is the chain of ~200 dependent instructions a ray and slab at 28 warps
+// an SM, and whether issue or latency dominates there is not known.
+// The design:
+// - The wrapper orders the rays by entry cell (march.ray_order, a stable
+//   argsort); ray i of the launch is ray order[i] of the caller, and its
+//   result goes back to row order[i]. A warp's rays then share a few
+//   neighbouring cells and their corner reads share sectors in L1, in
+//   later segments too, since rays drift little.
+// - Corner rows are read straight from the table. Rows are row_len * elem
+//   bytes apart (3,078 B at 512^3 bf16 C = 3), so only 2-byte aligned, and
+//   a corner's C values are scalar loads.
+// - rk2 and rk4 slabs carry plane k+1's corner values in registers into
+//   the next slab as its plane k, which halves the corner reads; the state
+//   is read and written as two 16-byte vectors.
+// The arithmetic per ray is a 4-weight blend of C values and an 8-term
+// update with no operand shared across rays, so there is no matrix product
+// for the tensor cores.
 //
 // Arithmetic follows the JAX stage order (hoisted z-blend wm = 0.5*(w0+w1),
 // weights, blend, right-hand side), operation for operation as the plain
 // PyTorch version does it. This file is built with --fmad=false: contracted
 // multiply-adds round differently, and over the 512 slabs of a 512^3 march
 // that drifts a velocity column by ~1e-5 of its largest value away from the
-// plain version. The 2- and 4-slab midpoint steps share one code path
-// (midpoint_step), so rk2s2 on a stride-2 pack is bit-identical to rk2s4 on
-// the full pack here as it is in the JAX package.
+// plain version; the contracted build is only ~6% faster at the main path
+// (and __frcp_rn in place of the division ~2%), too little to give up
+// bit-equality with the plain version. The 2- and 4-slab midpoint
+// steps share one code path (midpoint_step), so rk2s2 on a stride-2 pack
+// is bit-identical to rk2s4 on the full pack here as it is in the JAX
+// package. The order moves only where a ray's result is computed, never
+// its arithmetic, so every ray's result is bit-identical in any order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -44,7 +67,8 @@ constexpr int THREADS = 128;
 struct Params {
   const float* u_in;
   float* u_out;
-  const void* table;
+  const long long* order;
+  const unsigned char* table;
   const float* scales;
   long long N;
   int n_seg, cells, row_len, K;
@@ -62,46 +86,59 @@ struct Layout {
   static constexpr bool inv_brems = IB, phaseshift = PS, B_on = BON;
 };
 
-// Per-ray, per-segment constants: frozen corner cell and the 4 corner rows.
+template <int DT>
+__host__ __device__ constexpr int elem_bytes() {
+  return DT == F32 ? 4 : DT == BF16 ? 2 : 1;
+}
+
+// Byte offset of plane k within a corner row: int4 rows pair planes 2j and
+// 2j+1 in the C bytes of block j.
+template <int DT, int C>
+__device__ __forceinline__ int plane_byte(int k) {
+  if constexpr (DT == I4) return (k >> 1) * C;
+  else return k * C * elem_bytes<DT>();
+}
+
+// Per-ray, per-segment constants: the frozen corner cell and its 4 corner
+// rows in the table.
 struct Corners {
-  long long row[4];     // element (byte for int4) offsets of rows 00, 01, 10, 11
-  const float* sc;      // this segment's (K+1, C) scales, or null
+  const unsigned char* row[4];  // rows 00, 01, 10, 11
+  const float* sc;              // the segment's (K+1, C) scales, or null
   float ia0f, ib0f;
 };
 
-// Channel values of plane k at one corner row, dequantised to f32.
+// Channel values of plane k at corner q, dequantised to f32.
 template <int DT, int C>
-__device__ __forceinline__ void load_plane(const Params& P, long long row,
-                                           const float* sc, int k,
+__device__ __forceinline__ void load_plane(const Corners& X, int q, int k,
                                            float out[C]) {
+  const unsigned char* t = X.row[q] + plane_byte<DT, C>(k);
   if constexpr (DT == I4) {
     // plane 2j is the low nibble of byte block j, plane 2j+1 the high one
-    const uint8_t* t = (const uint8_t*)P.table + row + (long long)(k >> 1) * C;
+    const float* sc = X.sc + k * C;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const unsigned w = t[c];
       const unsigned n = (k & 1) ? (w >> 4) & 15u : w & 15u;
-      out[c] = (float)((int)(n ^ 8u) - 8) * sc[k * C + c];
+      out[c] = (float)((int)(n ^ 8u) - 8) * sc[c];
     }
   } else {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const long long i = row + (long long)k * C + c;
       float v;
-      if constexpr (DT == F32) v = ((const float*)P.table)[i];
+      if constexpr (DT == F32) v = ((const float*)t)[c];
       else if constexpr (DT == BF16)
-        v = __bfloat162float(((const __nv_bfloat16*)P.table)[i]);
-      else v = (float)((const int8_t*)P.table)[i] * sc[k * C + c];
+        v = __bfloat162float(((const __nv_bfloat16*)t)[c]);
+      else v = (float)((const int8_t*)t)[c] * X.sc[k * C + c];
       out[c] = v;
     }
   }
 }
 
 template <int DT, int C>
-__device__ __forceinline__ void load_corners(const Params& P, const Corners& X,
-                                             int k, float v[4][C]) {
+__device__ __forceinline__ void load_corners(const Corners& X, int k,
+                                             float v[4][C]) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) load_plane<DT, C>(P, X.row[q], X.sc, k, v[q]);
+  for (int q = 0; q < 4; ++q) load_plane<DT, C>(X, q, k, v[q]);
 }
 
 // Transverse fractions and inside-mask of position (a, b) for the frozen
@@ -178,14 +215,17 @@ __device__ __forceinline__ void axpy(const float s[8], const float k[8],
   for (int q = 0; q < 8; ++q) out[q] = s[q] + c * k[q];
 }
 
-// One slab k -> k+1 with rk2 (midpoint) or rk4 (zscan.py:892-939).
+// One slab k -> k+1 with rk2 (midpoint) or rk4 (zscan.py:892-939). w0
+// holds plane k's corner values when ``have`` is set (carried from the
+// previous slab) and plane k+1's on return.
 template <int DT, class LY>
-__device__ void slab_step(const Params& P, const Corners& X, int k, bool rk4,
-                          float s[8]) {
+__device__ __forceinline__ void slab_step(const Params& P, const Corners& X,
+                                          int k, bool rk4, float s[8],
+                                          float w0[4][LY::C], bool& have) {
   constexpr int C = LY::C;
-  float w0[4][C], w1[4][C], wm[4][C];
-  load_corners<DT, C>(P, X, k, w0);
-  load_corners<DT, C>(P, X, k + 1, w1);
+  float w1[4][C], wm[4][C];
+  if (!have) load_corners<DT, C>(X, k, w0);
+  load_corners<DT, C>(X, k + 1, w1);
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
@@ -201,29 +241,36 @@ __device__ void slab_step(const Params& P, const Corners& X, int k, bool rk4,
   if (!rk4) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) s[q] = s[q] + h * k2[q];
-    return;
-  }
-  float k3[8], k4[8];
-  axpy(s, k2, hh, t);
-  stage<LY>(P, X, t, wm, ws, k3);
-  axpy(s, k3, h, t);
-  stage<LY>(P, X, t, w1, ws, k4);
-  const float h6 = h / 6.0f;
+  } else {
+    float k3[8], k4[8];
+    axpy(s, k2, hh, t);
+    stage<LY>(P, X, t, wm, ws, k3);
+    axpy(s, k3, h, t);
+    stage<LY>(P, X, t, w1, ws, k4);
+    const float h6 = h / 6.0f;
 #pragma unroll
-  for (int q = 0; q < 8; ++q)
-    s[q] = s[q] + h6 * (k1[q] + 2.0f * k2[q] + 2.0f * k3[q] + k4[q]);
+    for (int q = 0; q < 8; ++q)
+      s[q] = s[q] + h6 * (k1[q] + 2.0f * k2[q] + 2.0f * k3[q] + k4[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int c = 0; c < C; ++c) w0[q][c] = w1[q][c];
+  have = true;
 }
 
 // One midpoint step over planes k0 -> k0 + 2*(km - k0) with the midpoint
 // plane km read exactly: rk2s2 (km = k0+1, half = h, full = 2h) and rk2s4
 // (km = k0+2, half = 2h, full = 4h) (zscan.py:967-1070).
 template <int DT, class LY>
-__device__ void midpoint_step(const Params& P, const Corners& X, int k0,
-                              int km, float half, float full, float s[8]) {
+__device__ __forceinline__ void midpoint_step(const Params& P,
+                                              const Corners& X, int k0,
+                                              int km, float half, float full,
+                                              float s[8]) {
   constexpr int C = LY::C;
   float w0[4][C], wm[4][C];
-  load_corners<DT, C>(P, X, k0, w0);
-  load_corners<DT, C>(P, X, km, wm);
+  load_corners<DT, C>(X, k0, w0);
+  load_corners<DT, C>(X, km, wm);
   float ws[4];
   if (P.slab_weights) slab_weights(P, X, s, ws);
   float k1[8], k2[8], t[8];
@@ -234,79 +281,104 @@ __device__ void midpoint_step(const Params& P, const Corners& X, int k0,
   for (int q = 0; q < 8; ++q) s[q] = s[q] + full * k2[q];
 }
 
+// March the segment's K slabs.
+template <int DT, class LY>
+__device__ __forceinline__ void march_segment(const Params& P,
+                                              const Corners& X, float s[8]) {
+  const int K = P.K;
+  const float h = P.h;
+  int k = 0;
+  if (P.integrator == RK2S4) {
+    for (; k + 4 <= K; k += 4)
+      midpoint_step<DT, LY>(P, X, k, k + 2, 2.0f * h, 4.0f * h, s);
+  } else if (P.integrator == RK2S2) {
+    for (; k + 2 <= K; k += 2)
+      midpoint_step<DT, LY>(P, X, k, k + 1, h, 2.0f * h, s);
+  }
+  const bool rk4 = P.integrator == RK4;
+  float w0[4][LY::C];
+  bool have = false;
+  for (; k < K; ++k) slab_step<DT, LY>(P, X, k, rk4, s, w0, have);
+}
+
 template <int DT, class LY>
 __global__ void __launch_bounds__(THREADS) march_kernel(Params P) {
   constexpr int C = LY::C;
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long i = blockIdx.x * (long long)THREADS + threadIdx.x;
   if (i >= P.N) return;
+  const long long r = P.order[i];
   float s[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) s[q] = P.u_in[i * 8 + q];
-  const int K = P.K;
-  const float h = P.h;
+  {
+    const float4* u = reinterpret_cast<const float4*>(P.u_in + r * 8);
+    const float4 a = u[0], b = u[1];
+    s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+    s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+  }
+  const long long row_bytes = (long long)P.row_len * elem_bytes<DT>();
   for (int seg = 0; seg < P.n_seg; ++seg) {
-    Corners X;
     const float ta = (s[0] - P.oa) * P.inva;
     const float tb = (s[1] - P.ob) * P.invb;
     const int ia0 = (int)fminf(fmaxf(floorf(ta), 0.0f), (float)(P.na - 2));
     const int ib0 = (int)fminf(fmaxf(floorf(tb), 0.0f), (float)(P.nb - 2));
+    Corners X;
     X.ia0f = (float)ia0;
     X.ib0f = (float)ib0;
-    const long long base = (long long)seg * P.cells + (long long)ia0 * P.nb + ib0;
-    X.row[0] = base * P.row_len;
-    X.row[1] = (base + 1) * P.row_len;
-    X.row[2] = (base + P.nb) * P.row_len;
-    X.row[3] = (base + P.nb + 1) * P.row_len;
-    X.sc = P.scales ? P.scales + (long long)seg * (K + 1) * C : nullptr;
-    if (P.integrator == RK2S4) {
-      for (int j = 0; j < K / 4; ++j)
-        midpoint_step<DT, LY>(P, X, 4 * j, 4 * j + 2, 2.0f * h, 4.0f * h, s);
-      for (int k = K - K % 4; k < K; ++k) slab_step<DT, LY>(P, X, k, false, s);
-    } else if (P.integrator == RK2S2) {
-      for (int j = 0; j < K / 2; ++j)
-        midpoint_step<DT, LY>(P, X, 2 * j, 2 * j + 1, h, 2.0f * h, s);
-      if (K % 2) slab_step<DT, LY>(P, X, K - 1, false, s);
-    } else {
-      const bool rk4 = P.integrator == RK4;
-      for (int k = 0; k < K; ++k) slab_step<DT, LY>(P, X, k, rk4, s);
-    }
+    const unsigned char* r00 =
+        P.table +
+        ((long long)seg * P.cells + (long long)ia0 * P.nb + ib0) * row_bytes;
+    X.row[0] = r00;
+    X.row[1] = r00 + row_bytes;
+    X.row[2] = r00 + P.nb * row_bytes;
+    X.row[3] = X.row[2] + row_bytes;
+    X.sc = P.scales ? P.scales + (long long)seg * (P.K + 1) * C : nullptr;
+    march_segment<DT, LY>(P, X, s);
   }
-#pragma unroll
-  for (int q = 0; q < 8; ++q) P.u_out[i * 8 + q] = s[q];
+  float4* u = reinterpret_cast<float4*>(P.u_out + r * 8);
+  u[0] = make_float4(s[0], s[1], s[2], s[3]);
+  u[1] = make_float4(s[4], s[5], s[6], s[7]);
+}
+
+template <int DT, class LY>
+void launch(const Params& P, cudaStream_t st) {
+  const unsigned blocks = (unsigned)((P.N + THREADS - 1) / THREADS);
+  march_kernel<DT, LY><<<blocks, THREADS, 0, st>>>(P);
 }
 
 template <int DT>
 void launch_dtype(const Params& P, int layout, cudaStream_t st) {
-  const unsigned blocks = (unsigned)((P.N + THREADS - 1) / THREADS);
   switch (layout) {
-    case 0: march_kernel<DT, Layout<0, 0, 0>><<<blocks, THREADS, 0, st>>>(P); break;
-    case 1: march_kernel<DT, Layout<1, 0, 0>><<<blocks, THREADS, 0, st>>>(P); break;
-    case 2: march_kernel<DT, Layout<0, 1, 0>><<<blocks, THREADS, 0, st>>>(P); break;
-    case 3: march_kernel<DT, Layout<1, 1, 0>><<<blocks, THREADS, 0, st>>>(P); break;
-    case 4: march_kernel<DT, Layout<0, 0, 1>><<<blocks, THREADS, 0, st>>>(P); break;
-    case 5: march_kernel<DT, Layout<1, 0, 1>><<<blocks, THREADS, 0, st>>>(P); break;
-    case 6: march_kernel<DT, Layout<0, 1, 1>><<<blocks, THREADS, 0, st>>>(P); break;
-    default: march_kernel<DT, Layout<1, 1, 1>><<<blocks, THREADS, 0, st>>>(P); break;
+    case 0: launch<DT, Layout<0, 0, 0>>(P, st); break;
+    case 1: launch<DT, Layout<1, 0, 0>>(P, st); break;
+    case 2: launch<DT, Layout<0, 1, 0>>(P, st); break;
+    case 3: launch<DT, Layout<1, 1, 0>>(P, st); break;
+    case 4: launch<DT, Layout<0, 0, 1>>(P, st); break;
+    case 5: launch<DT, Layout<1, 0, 1>>(P, st); break;
+    case 6: launch<DT, Layout<0, 1, 1>>(P, st); break;
+    default: launch<DT, Layout<1, 1, 1>>(P, st); break;
   }
 }
 
 }  // namespace
 
-// u_in, u_out: (N, 8) f32 permuted states. table: (n_seg, cells, row_len)
-// of f32 / bf16 / int8 values or int4 nibble-pair bytes; scales: (n_seg, K+1,
-// C) f32 for the quantised tables, else null. Returns cudaGetLastError().
+// u_in, u_out: (N, 8) f32 permuted states, 16-byte aligned. order: (N,)
+// int64, ray order[i] is marched i-th. table: (n_seg, cells, row_len) of
+// f32 / bf16 / int8 values or int4 nibble-pair bytes; scales: (n_seg, K+1, C) f32 for the quantised tables, else null. Returns
+// cudaGetLastError().
 extern "C" int march_segments(const float* u_in, float* u_out,
-                              const void* table, const float* scales,
-                              long long N, int n_seg, int cells, int row_len,
-                              int K, int dtype, int integrator,
+                              const long long* order, const void* table,
+                              const float* scales, long long N, int n_seg,
+                              int cells,
+                              int row_len, int K, int dtype, int integrator,
                               int slab_weights, int na, int nb, float oa,
                               float ob, float inva, float invb, float h,
                               int inv_brems, int phaseshift, int B_on,
                               float atten_sign, void* stream) {
   if (N == 0) return 0;
   Params P;
-  P.u_in = u_in; P.u_out = u_out; P.table = table; P.scales = scales;
-  P.N = N; P.n_seg = n_seg; P.cells = cells; P.row_len = row_len; P.K = K;
+  P.u_in = u_in; P.u_out = u_out; P.order = order;
+  P.table = (const unsigned char*)table; P.scales = scales;
+  P.N = N;
+  P.n_seg = n_seg; P.cells = cells; P.row_len = row_len; P.K = K;
   P.integrator = integrator; P.slab_weights = slab_weights;
   P.na = na; P.nb = nb; P.oa = oa; P.ob = ob; P.inva = inva; P.invb = invb;
   P.h = h; P.atten_sign = atten_sign;

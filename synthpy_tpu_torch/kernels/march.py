@@ -7,6 +7,13 @@ march_segment :756 over trace_zscan_segments :1102) in the state's dtype
 (float32 or float64), vectorised over rays, with Python loops over segments
 and slabs; it gathers only the 2-plane window of each corner row a slab
 needs.
+
+On CUDA tensors the wrapper first orders the rays by entry cell
+(``ray_order``, a stable argsort of ``entry_cells``), so that each block of
+the kernel marches rays that share corner rows; the kernel writes every
+ray back to its own row, and the plain version ignores the order.
+``launch`` runs a given build of the kernel in a given order, without the
+checks of ``march``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
 from synthpy_tpu_torch.kernels.pack import nibble_hi, nibble_lo
 
 KERNEL = Kernel("march.cu", {
-    "march_segments": [P, P, P, P, L, I, I, I, I, I, I, I, I, I,
+    "march_segments": [P, P, P, P, P, L, I, I, I, I, I, I, I, I, I,
                        F, F, F, F, F, I, I, I, F, P],
 }, flags=["--fmad=false"])
 
@@ -32,6 +39,32 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 def plane_blocks(K: int, qbits: Optional[int]) -> int:
     """Byte blocks per (K+1)-plane corner row: nibble packs pair planes."""
     return K // 2 + 1 if qbits == 4 else K + 1
+
+
+def entry_cells(u: torch.Tensor, shape_ab: Tuple[int, int],
+                origin_ab: Sequence[float],
+                inv_ab: Sequence[float]) -> torch.Tensor:
+    """(N,) int32 frozen corner cell ia0 * nb + ib0 of each ray's first
+    segment, ia0 = clip(floor(ta), 0, na-2) as in the JAX march
+    (zscan.py:850-853); a NaN coordinate gives 0, as in the kernel."""
+    na, nb = shape_ab
+    idx = []
+    for col, o, inv, n in ((0, origin_ab[0], inv_ab[0], na),
+                           (1, origin_ab[1], inv_ab[1], nb)):
+        t = torch.floor((u[:, col] - float(np.float32(o)))
+                        * float(np.float32(inv)))
+        idx.append(t.nan_to_num(0.0).clamp(0, n - 2).to(torch.int32))
+    return idx[0] * nb + idx[1]
+
+
+def ray_order(u: torch.Tensor, shape_ab: Tuple[int, int],
+              origin_ab: Sequence[float],
+              inv_ab: Sequence[float]) -> torch.Tensor:
+    """(N,) int64 stable permutation of the rays by entry cell: the order
+    in which the kernel marches them, so that a block's rays share corner
+    rows."""
+    return torch.argsort(entry_cells(u, shape_ab, origin_ab, inv_ab),
+                         stable=True)
 
 
 def march_plain(u: torch.Tensor, seg_planes: torch.Tensor,
@@ -179,7 +212,9 @@ def march(u: torch.Tensor, seg_planes: torch.Tensor,
 
     ``seg_planes``: (n_seg, na*nb, blocks*C) f32, bf16 or int8 values, or
     int4 nibble pairs (``qbits=4``); ``seg_scales``: (n_seg, K+1, C) f32
-    for the quantised tables, else None.
+    for the quantised tables, else None. On CUDA tensors the kernel marches
+    the rays in ``ray_order`` and writes each back to its own row; the
+    result does not depend on the order.
     """
     kw = dict(shape_ab=shape_ab, origin_ab=origin_ab, inv_ab=inv_ab, dp=dp,
               layout=layout, K=K, integrator=integrator, weights=weights,
@@ -211,13 +246,32 @@ def march(u: torch.Tensor, seg_planes: torch.Tensor,
                       or not seg_scales.is_contiguous()):
         raise ValueError("scales must be a contiguous (n_seg, K+1, C) f32 "
                          "tensor on the rays' device")
+    # the kernel reads states as 16-byte vectors: a fresh allocation is
+    # aligned
+    if u.data_ptr() % 16:
+        u = u.clone()
+    return launch(KERNEL, u, seg_planes, seg_scales,
+                  ray_order(u, shape_ab, origin_ab, inv_ab), **kw)
+
+
+def launch(kernel: Kernel, u: torch.Tensor, seg_planes: torch.Tensor,
+           seg_scales: Optional[torch.Tensor], order: torch.Tensor, *,
+           shape_ab: Tuple[int, int], origin_ab: Sequence[float],
+           inv_ab: Sequence[float], dp: float, layout: ChannelLayout, K: int,
+           integrator: str = "rk4", weights: str = "stage",
+           qbits: Optional[int] = None,
+           atten_sign: float = -1.0) -> torch.Tensor:
+    """Launch ``kernel`` (a build of ``csrc/march.cu``) on inputs that
+    ``march`` has checked, marching ray ``order[i]`` i-th."""
     out = torch.empty_like(u)
-    dtype_code = 3 if qbits == 4 else _DTYPE_CODE[seg_planes.dtype]
-    KERNEL.launch(
-        "march_segments", dev, u.data_ptr(), out.data_ptr(),
-        seg_planes.data_ptr(),
-        None if seg_scales is None else seg_scales.data_ptr(),
-        u.shape[0], n_seg, cells, row, K, dtype_code,
+    n_seg, cells, row = seg_planes.shape
+    na, nb = shape_ab
+    kernel.launch(
+        "march_segments", u.device, u.data_ptr(), out.data_ptr(),
+        order.data_ptr(), seg_planes.data_ptr(),
+        None if seg_scales is None else seg_scales.data_ptr(), u.shape[0],
+        n_seg, cells, row, K,
+        3 if qbits == 4 else _DTYPE_CODE[seg_planes.dtype],
         INTEGRATORS.index(integrator), int(weights == "slab"), na, nb,
         float(origin_ab[0]), float(origin_ab[1]), float(inv_ab[0]),
         float(inv_ab[1]), float(dp), int(layout.inv_brems),

@@ -80,6 +80,7 @@ def synth_image_zscan(
     layout,
     p0: float,
     dp_static: float,
+    sort_rays: bool = False,
     seg_K: Optional[int] = None,
     shape_ab: Optional[Tuple[int, int]] = None,
     substeps: int = 1,
@@ -99,11 +100,24 @@ def synth_image_zscan(
     seg_qbits: Optional[int] = None,
 ):
     """Segmented z-scan pipeline on a (9, N) initial state; returns the
-    (ny, nx) image (a tuple for a tuple of diagnostics)."""
+    (ny, nx) image (a tuple for a tuple of diagnostics).
+
+    ``sort_rays`` reorders the rays by entry cell before the march, with
+    the JAX package's key (the image does not depend on the order). Kernel
+    K1 orders the rays it marches by itself, so on the card this only
+    costs time: a second argsort and a copy of the state.
+    """
     n_seg = planes.shape[0]
+    u = permute_state(s0, probing_direction)
+    if sort_rays:
+        ta = (u[:, 0] - origin_ab[0]) * inv_ab[0]
+        tb = (u[:, 1] - origin_ab[1]) * inv_ab[1]
+        cell = (ta.to(torch.int32).clamp_min(0) * shape_ab[1]
+                + tb.to(torch.int32).clamp_min(0))
+        u = u[torch.argsort(cell, stable=True)]
     uf = trace_zscan_segments(
-        permute_state(s0, probing_direction), planes, origin_ab, inv_ab,
-        dp_static, shape_ab=shape_ab, layout=layout, K=seg_K, n_seg=n_seg,
+        u, planes, origin_ab, inv_ab, dp_static, shape_ab=shape_ab,
+        layout=layout, K=seg_K, n_seg=n_seg,
         substeps=substeps, integrator=integrator, weights=seg_weights,
         seg_scales=seg_scales, qbits=seg_qbits)
     return _image_from_uf(
@@ -136,7 +150,8 @@ def run(
     the pack build across calls, or ``pack_dtype=`` ("f32", "bf16",
     "int8", "int4" or a torch dtype) to build one at that tier; otherwise
     an f32 pack is built. ``seg_K`` (default 64) sets the slabs per
-    segment, ``integrator`` and ``seg_weights`` select the march.
+    segment, ``integrator`` and ``seg_weights`` select the march, and
+    ``sort_rays=True`` orders the rays by entry cell first.
     ``diagnostic`` may be a list or tuple of names: the bundle is traced
     once and a dict {name: image} is returned.
     """

@@ -7,7 +7,8 @@ These need a CUDA device and nvcc, so they skip elsewhere. On the card:
 (``--noconftest``: the suite's conftest imports JAX, which the GPU host
 need not have.) They cover what ``chip_smoke.py`` does not: every channel
 layout (C = 3 to 8), x- and y-probing, all the incoherent benches, the
-decimator, and the pipeline against its CPU run. Float tables and the
+decimator, the march in any ray order, on scattered warps and over many
+segments, and the pipeline against its CPU run. Float tables and the
 march are held to the plain version's last place or better (observed: bit
 equal); detector counts exactly.
 """
@@ -130,6 +131,53 @@ def test_march_kernel_matches_plain(dev, scene, tier, integrator, weights):
     scale = b.abs().nan_to_num(0).amax(0).clamp_min(1e-30)
     assert float(((a - b).abs().nan_to_num(0).amax(0) / scale).max()) \
         <= 2e-6
+
+
+ORDER_CASES = ["shuffled", "sorted", "square_beam", "sparse_square",
+               "multi_segment"]
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_march_kernel_any_ray_order_matches_plain(dev, scene, case):
+    """The kernel marches rays in entry-cell order; in sparse_square a
+    warp's rays still lie scattered over the grid. Output row i is ray i
+    in every case, bit for bit whatever the order, and matches the plain
+    version."""
+    g, c = _pair(dev, **SCENES[scene])
+    K = 4 if case == "multi_segment" else 24
+    square = case in ("square_beam", "sparse_square")
+    s0 = init_beam(1, 300 if case == "sparse_square" else 4096,
+                   g.extent if square else 2.2e-3, 2e-3, g.extent,
+                   "square" if square else "circular",
+                   probing_direction=g.probing_direction, device=dev)
+    u = zscan.permute_state(s0, g.probing_direction).contiguous()
+    for tier, integrator, weights in (("f32", "rk4", "stage"),
+                                      ("bf16", "rk2", "slab"),
+                                      ("int4", "rk2s4", "slab")):
+        sp = zscan.build_segment_pack_device(g, K=K, dtype=TIERS[tier])
+        assert (sp.seg_planes.shape[0] > 1) == (case == "multi_segment")
+        kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+                  inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+                  layout=layout_of(c), K=sp.K, integrator=integrator,
+                  weights=weights, qbits=sp.qbits)
+        geo = (sp.shape_ab, kw["origin_ab"], kw["inv_ab"])
+        perm = (torch.randperm(u.shape[0], generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev) if case == "shuffled"
+            else march.ray_order(u, *geo) if case == "sorted"
+            else torch.arange(u.shape[0], device=dev))
+        up = u[perm].contiguous()
+        a = march.march(up, sp.seg_planes, sp.scales, **kw)
+        assert torch.equal(a, march.march(u, sp.seg_planes, sp.scales,
+                                          **kw)[perm])
+        b = march.march_plain(up.cpu(), sp.seg_planes.cpu(),
+                              None if sp.scales is None else sp.scales.cpu(),
+                              **kw)
+        a = a.cpu()
+        assert torch.equal(a.isnan(), b.isnan())
+        scale = b.abs().nan_to_num(0).amax(0).clamp_min(1e-30)
+        assert float(((a - b).abs().nan_to_num(0).amax(0)
+                      / scale).max()) <= 2e-6
 
 
 @pytest.mark.parametrize("probe", ["x", "y", "z"])
