@@ -8,10 +8,18 @@ builder/quantiser, K3 detector) are built from ``synthpy_tpu_torch/kernels/
 csrc`` with nvcc, each is held to its plain PyTorch version on the card,
 and the bench configuration (512^3 bench lens, K = 512, 4,000,000 rays,
 rk2, slab weights, 431 x 321 bins) runs through the port's entry points
-at the bf16, int8/rk2s2 and int4/rk2s4 tiers. Each phase prints one JSON
-line; then a ``{"kernels": [...]}`` line with each kernel's launches on the
-main path, its time, its bound, its plain version's time and a library
-call's time; then the card's name and power limit; and last
+at the bf16, int8/rk2s2 and int4/rk2s4 tiers. K2 builds every tier and
+``plane_stride=2`` straight from the volume, held bit-equal to the
+two-step (float table, then quantiser) and post-hoc (full build, then
+decimation) routes, each build timed with its bound and peak memory; K3
+is held to the plain detector on the rays in the caller's order and in
+K1's entry-cell order. Each phase prints one JSON line; then a
+``{"kernels": [...]}`` line with each kernel's launches on the main path
+(calls of its C entry point, which starts one device kernel, two for the
+int8 and int4 builds; a K2 row per tier), its time
+(CUDA events around a batch of back-to-back calls, per call), its bound,
+its plain version's time and a library call's time (best single calls);
+then the card's name and power limit; and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no "ok" line; it also exits nonzero without a
 CUDA device or without the ``synthpy_tpu_torch`` package beside it.
@@ -20,7 +28,6 @@ Nothing here imports JAX.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -58,6 +65,8 @@ def main():
         from synthpy_tpu_torch import constants, pipeline
         from synthpy_tpu_torch.fields import ScalarDomain, layout_of
         from synthpy_tpu_torch.kernels import _build, detector, march, pack
+        from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                         nvidia_smi)
         from synthpy_tpu_torch.ops.histogram import _bin_index
         from synthpy_tpu_torch.optics.compose import (apply_stages,
                                                       shadowgraphy_two_lens)
@@ -72,10 +81,7 @@ def main():
                "detector": detector.KERNEL}
 
     # -- 1. device and kernel build ------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     t0 = time.perf_counter()
     _build.build({k.source: k.flags for k in kernels.values()})
     for k in kernels.values():
@@ -85,22 +91,6 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "build_s": round(time.perf_counter() - t0, 3)})
-
-    def timed(fn, reps, warmup=1):
-        """Best of ``reps`` CUDA-event timings of fn() [ms]."""
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            best = min(best, a.elapsed_time(b))
-        return best
 
     # -- 2. kernels against their plain versions ------------------------------
     domain = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
@@ -134,18 +124,26 @@ def main():
         check(max(rel) <= 1e-6, f"K2 {name} table off by {rel}")
         k2[name] = {"max_rel_per_channel": rel,
                     "max_abs_err": float((a4 - b4).abs().max())}
-    k2_bf16_err = k2["bf16"]["max_abs_err"]
+    k2["f32"]["bit_equal"] = torch.equal(f32_kernel, f32_plain)
+    k2["bf16"]["bit_equal"] = torch.equal(bf16_kernel, bf16_plain)
     del f32_plain, bf16_plain
     for name, bits in (("int8", 8), ("int4", 4)):
-        codes, scales = pack.quantize_tables(f32_kernel, K, C, bits)
+        # the fused build straight from the volume == the two-step kernel
+        # route (f32 table, then the quantiser), bit for bit
+        codes, scales = pack.build_quantized_tables(vols, bits=bits,
+                                                    **build_kw)
+        tc, ts = pack.quantize_tables(f32_kernel, K, C, bits)
+        fused_same = torch.equal(codes, tc) and torch.equal(scales, ts)
+        check(fused_same, f"K2 {name} fused build != quantize_tables("
+              "build_tables(f32))")
         pc, ps = pack.quantize_tables_plain(f32_kernel, K, C, bits)
-        same = torch.equal(codes, pc) and torch.equal(scales, ps)
+        same = torch.equal(tc, pc) and torch.equal(ts, ps)
         check(same, f"K2 {name} quantiser differs from its plain version")
-        # the whole tier, kernel build + quantiser vs plain build + plain
-        # quantiser: codes within +-1
-        qc, qs = pack.quantize_tables_plain(
-            pack.build_tables_plain(vols, dtype=torch.float32, **build_kw),
-            K, C, bits)
+        del tc, ts, pc, ps
+        # the fused build vs its plain version (plain f32 build + plain
+        # quantiser): codes within +-1
+        qc, qs = pack.build_quantized_tables_plain(vols, bits=bits,
+                                                   **build_kw)
         if bits == 4:
             a = torch.stack([pack.nibble_lo(codes), pack.nibble_hi(codes)])
             b = torch.stack([pack.nibble_lo(qc), pack.nibble_hi(qc)])
@@ -155,15 +153,113 @@ def main():
         srel = float(((scales - qs).abs() / qs.abs()).max())
         check(int(diff.max()) <= 1, f"K2 {name} codes differ by > 1")
         check(srel <= 1e-6, f"K2 {name} scales off by {srel}")
-        k2[name] = {"quantiser_bit_identical": same,
+        k2[name] = {"fused_equals_two_step": fused_same,
+                    "quantiser_bit_identical": same,
                     "max_code_diff": int(diff.max()),
                     "frac_codes_differ": float((diff > 0).float().mean()),
                     "scale_max_rel": srel}
-        del qc, qs, a, b, diff
-    del f32_kernel, bf16_kernel
+        del codes, scales, qc, qs, a, b, diff
+    # plane_stride = 2 built directly == the decimated full build, every
+    # tier, bit for bit (the full f32 build is f32_kernel)
+    for name in ("f32", "bf16", "int8", "int4"):
+        if name in ("f32", "bf16"):
+            dt = torch.float32 if name == "f32" else torch.bfloat16
+            full = (f32_kernel if name == "f32" else
+                    pack.build_tables(vols, dtype=dt, **build_kw))
+            strided = pack.build_tables(vols, dtype=dt, plane_stride=2,
+                                        **build_kw)
+            same = torch.equal(strided,
+                               pack.decimate_tables(full, K, C, 2))
+        else:
+            bits = 8 if name == "int8" else 4
+            codes, scales = pack.build_quantized_tables(vols, bits=bits,
+                                                        **build_kw)
+            sc, ss = pack.build_quantized_tables(vols, bits=bits,
+                                                 plane_stride=2, **build_kw)
+            same = (torch.equal(sc, pack.decimate_tables(codes, K, C, 2,
+                                                         nibbles=bits == 4))
+                    and torch.equal(ss, scales[:, ::2]))
+            del codes, scales, sc, ss
+        check(same, f"K2 {name} plane_stride=2 != decimated full build")
+        k2[name]["stride2_equals_decimated"] = same
+    del f32_kernel, bf16_kernel, full, strided
     torch.cuda.empty_cache()
     emit({"phase": "K2_vs_plain", "shape": [1, DIM * DIM, (K + 1) * C],
           **k2})
+
+    # each build's time, bound and peak device memory (above what was
+    # allocated before it), and the routes it replaces in the same call
+    def bound(nbytes, flops):
+        tb_ = nbytes / HBM_BYTES_PER_S * 1e3
+        tf_ = flops / F32_FLOPS_PER_S * 1e3
+        return (max(tb_, tf_), "bytes" if tb_ >= tf_ else "operations")
+
+    def out_bytes(res):
+        ts = res if isinstance(res, tuple) else (res,)
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def build_stats(fn, reps=10):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        nbytes = domain.ne.numel() * 4 + out_bytes(res)
+        del res
+        b = bound(nbytes, 0)
+        ms = batch_ms(fn)
+        return {"ms": ms, "call_ms": best_ms(fn, reps=reps),
+                "bound_ms": b[0], "bound_by": b[1], "bytes": nbytes,
+                "peak_gb": peak / 1e9, "share_of_bound": b[0] / ms}
+
+    def two_step(bits):
+        return pack.quantize_tables(
+            pack.build_tables(vols, dtype=torch.float32, **build_kw),
+            K, C, bits)
+
+    def post_hoc_bf16():
+        full = pack.build_tables(vols, dtype=torch.float32, **build_kw)
+        return pack.decimate_tables(full, K, C, 2).to(torch.bfloat16)
+
+    builds = {
+        "f32": lambda: pack.build_tables(vols, dtype=torch.float32,
+                                         **build_kw),
+        "bf16": lambda: pack.build_tables(vols, dtype=torch.bfloat16,
+                                          **build_kw),
+        "int8": lambda: pack.build_quantized_tables(vols, bits=8,
+                                                    **build_kw),
+        "int4": lambda: pack.build_quantized_tables(vols, bits=4,
+                                                    **build_kw),
+        "bf16_stride2": lambda: pack.build_tables(
+            vols, dtype=torch.bfloat16, plane_stride=2, **build_kw),
+        "int8_two_step": lambda: two_step(8),
+        "int4_two_step": lambda: two_step(4),
+        "bf16_stride2_post_hoc": post_hoc_bf16,
+    }
+    k2_builds = {}
+    # A/B in turns: fused, two-step, two-step, fused
+    for name in ("f32", "bf16", "bf16_stride2", "bf16_stride2_post_hoc",
+                 "int8", "int8_two_step", "int4", "int4_two_step"):
+        k2_builds[name] = build_stats(builds[name])
+    for name in ("int8_two_step", "int8", "int4_two_step", "int4"):
+        k2_builds[name]["ms_second"] = batch_ms(builds[name])
+    for name in ("int8", "int4"):
+        saved = (k2_builds[name + "_two_step"]["peak_gb"]
+                 - k2_builds[name]["peak_gb"])
+        k2_builds[name]["peak_gb_below_two_step"] = saved
+        check(saved >= 1.5, f"K2 {name}: fused build peak only {saved} GB "
+              "below the two-step route")
+    k2_plain = {
+        "bf16": best_ms(lambda: pack.build_tables_plain(
+            vols, dtype=torch.bfloat16, **build_kw), reps=2),
+        "int8": best_ms(lambda: pack.build_quantized_tables_plain(
+            vols, bits=8, **build_kw), reps=2),
+        "int4": best_ms(lambda: pack.build_quantized_tables_plain(
+            vols, bits=4, **build_kw), reps=2)}
+    torch.cuda.empty_cache()
+    emit({"phase": "K2_builds", "plain_ms": k2_plain, **k2_builds})
 
     s0 = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular", device=dev)
     packs = {name: zscan.build_segment_pack_device(domain, K=K, dtype=dt)
@@ -270,23 +366,26 @@ def main():
     stages = shadowgraphy_two_lens()
     det_args = (p_end, domain.extent, "z", stages, BINS,
                 ((-9.0, 9.0), (-6.75, 6.75)))
-    H = detector.detect(uf, *det_args)
-    torch.cuda.synchronize()
+    # the exit states in the caller's order (as the main path hands them
+    # over) and in K1's entry-cell order: counts do not depend on it
+    k1_order = march.ray_order(u_all, *geo)
+    uf_k1 = uf[k1_order].contiguous()
     Hp = detector.detect_plain(uf, *det_args)
-    check(torch.equal(H, Hp), "K3 image counts differ from the plain "
-          f"detector (sum {float(H.sum())} vs {float(Hp.sum())})")
-    k3_err = float((H - Hp).abs().max())
-    emit({"phase": "K3_vs_plain", "rays": RAYS, "counts_equal": True,
+    k3_err = 0.0
+    for name, rays in (("caller order", uf), ("K1 order", uf_k1)):
+        H = detector.detect(rays, *det_args)
+        torch.cuda.synchronize()
+        check(torch.equal(H, Hp), f"K3 image counts in {name} differ from "
+              f"the plain detector (sum {float(H.sum())} vs "
+              f"{float(Hp.sum())})")
+        k3_err = max(k3_err, float((H - Hp).abs().max()))
+    emit({"phase": "K3_vs_plain", "rays": RAYS,
+          "counts_equal_caller_order": True, "counts_equal_K1_order": True,
           "image_sum": float(H.sum())})
 
     # bounds: bytes each input read once and each output written once, or
     # the float32 operations, over the card's peak rates
     N = RAYS
-
-    def bound(nbytes, flops):
-        tb_ = nbytes / HBM_BYTES_PER_S * 1e3
-        tf_ = flops / F32_FLOPS_PER_S * 1e3
-        return (max(tb_, tf_), "bytes" if tb_ >= tf_ else "operations")
 
     # rows of the table this run's rays touch (one segment at K = 512)
     cell = march.entry_cells(u_all, *geo).long()
@@ -319,7 +418,7 @@ def main():
     tiers = (("bf16", torch.bfloat16, "rk2"), ("int8", torch.int8, "rk2s2"),
              ("int4", "int4", "rk2s4"))
     images, main_k1 = {}, {}
-    launches = None
+    launches = {}
     for tier, dtype, integrator in tiers:
         for k in kernels.values():
             k.launches = 0
@@ -334,8 +433,7 @@ def main():
         counts = {n: k.launches for n, k in kernels.items()}
         check(all(v > 0 for v in counts.values()),
               f"{tier}: a kernel of the path was not launched: {counts}")
-        if launches is None:
-            launches = counts
+        launches[tier] = counts
         check(tuple(Hm.shape) == (BINS[1], BINS[0])
               and bool(torch.isfinite(Hm).all()), f"{tier}: bad image")
         ut = zscan.permute_state(rays, "z").contiguous()
@@ -359,9 +457,9 @@ def main():
                          integrator=integrator, seg_weights="slab",
                          bins=BINS)
 
-        ms = timed(run_once, reps=3)
-        k1_t = timed(lambda: march.march(ut, spack.seg_planes, spack.scales,
-                                         **tkw), reps=5)
+        ms = best_ms(run_once, reps=3)
+        k1_t = best_ms(lambda: march.march(ut, spack.seg_planes,
+                                           spack.scales, **tkw), reps=5)
         b = k1_bound(spack, integrator)
         images[tier] = Hm
         main[tier] = {"integrator": integrator, "launches": counts,
@@ -380,17 +478,19 @@ def main():
           "atol 1e-5 * max|column|, same NaNs", **main_k1})
 
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
-    k1_ms = timed(lambda: march.march(u_all, sp.seg_planes, sp.scales,
-                                      **mkw), reps=5)
-    order_ms = timed(lambda: march.ray_order(u_all, *geo), reps=10)
-    k1_plain_ms = timed(lambda: march.march_plain(
+    k1_call_ms = best_ms(lambda: march.march(u_all, sp.seg_planes,
+                                             sp.scales, **mkw), reps=5)
+    k1_ms = batch_ms(lambda: march.march(u_all, sp.seg_planes, sp.scales,
+                                         **mkw))
+    order_ms = best_ms(lambda: march.ray_order(u_all, *geo), reps=10)
+    k1_plain_ms = best_ms(lambda: march.march_plain(
         u_all, sp.seg_planes, sp.scales, **mkw), reps=1)
-    k2_ms = timed(lambda: pack.build_tables(vols, dtype=torch.bfloat16,
-                                            **build_kw), reps=10)
-    k2_plain_ms = timed(lambda: pack.build_tables_plain(
-        vols, dtype=torch.bfloat16, **build_kw), reps=2)
-    k3_ms = timed(lambda: detector.detect(uf, *det_args), reps=20)
-    k3_plain_ms = timed(lambda: detector.detect_plain(uf, *det_args), reps=3)
+    k3_call_ms = best_ms(lambda: detector.detect(uf, *det_args), reps=20)
+    k3_ms = batch_ms(lambda: detector.detect(uf, *det_args), calls=50)
+    k3_k1_order_ms = batch_ms(lambda: detector.detect(uf_k1, *det_args),
+                              calls=50)
+    k3_plain_ms = best_ms(lambda: detector.detect_plain(uf, *det_args),
+                          reps=3)
 
     # the library yardstick for K3: index_put_(accumulate=True) of the
     # precomputed bin indices (the port never calls it)
@@ -407,51 +507,82 @@ def main():
         Hl.zero_()
         Hl.index_put_((flat,), w, accumulate=True)
 
-    k3_lib_ms = timed(lib, reps=20)
+    k3_lib_ms = best_ms(lib, reps=20)
     check(torch.equal(Hl.reshape(BINS[1], BINS[0]), H),
           "index_put_ yardstick disagrees with the detector")
 
-    k1_b = k1_bound(sp, "rk2")
-    k2_bytes = domain.ne.numel() * 4 + sp.seg_planes.numel() * 2
-    # per table value: gradient stencil ~6, probe-axis difference ~5
-    k2_flops = sp.seg_planes.numel() * 6
-    k3_bytes = N * 32 + BINS[0] * BINS[1] * 4
-    # per ray: back-projection 6, two divisions and arctans (~20 each),
-    # the composed stages (4x4 matrices 28, apertures 4), binning 10
-    k3_flops = N * (6 + 40 + 2 * 28 + 2 * 4 + 10)
+    def warp_bin_groups(order):
+        """Distinct (warp, bin) pairs of the kept rays of each 32
+        consecutive threads: the atomics a detector that adds once per
+        (warp, bin) would issue (this one adds once per kept ray)."""
+        key = flat if order is None else flat[order]
+        kept = (w > 0) if order is None else (w > 0)[order]
+        warp = torch.arange(N, device=dev) // 32
+        pair = warp * (BINS[0] * BINS[1]) + key
+        return int(torch.unique(pair[kept]).numel())
 
-    k2_b, k3_b = bound(k2_bytes, k2_flops), bound(k3_bytes, k3_flops)
+    k3_groups = {"caller_order": warp_bin_groups(None),
+                 "K1_order": warp_bin_groups(k1_order),
+                 "kept_rays": int((w > 0).sum()),
+                 "distinct_bins": int(torch.unique(flat[w > 0]).numel())}
+
+    k1_b = k1_bound(sp, "rk2")
+    # per ray: back-projection 6, two divisions and arctans (~20 each),
+    # the composed stages (4x4 matrices 28, apertures 4), binning 10; the
+    # state row and the image (no weights on the shadowgraphy bench)
+    k3_flops = N * (6 + 40 + 2 * 28 + 2 * 4 + 10)
+    k3_bytes = N * 32 + BINS[0] * BINS[1] * 4
+    k3_b = bound(k3_bytes, k3_flops)
     csrc = "synthpy_tpu_torch/kernels/csrc/"
     rows_out = [
         {"name": "march", "route": "cuda", "source": csrc + "march.cu",
          "replaces": "synthpy_tpu/tracer/zscan.py:756",
-         "launches": launches["march"],
+         "launches": launches["bf16"]["march"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_b[0],
-         "bound_by": k1_b[1], "library_ms": None},
-        {"name": "pack", "route": "cuda", "source": csrc + "pack.cu",
-         "replaces": "synthpy_tpu/tracer/zscan.py:1812",
-         "launches": launches["pack"], "max_abs_err": k2_bf16_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_b[0],
-         "bound_by": k2_b[1], "library_ms": None},
+         "bound_by": k1_b[1], "library_ms": None}]
+    # K2 per tier; max_abs_err: bf16 values against the plain build, codes
+    # (int8, int4) against the plain build's codes
+    for tier in ("bf16", "int8", "int4"):
+        st = k2_builds[tier]
+        rows_out.append({
+            "name": f"pack_{tier}", "route": "cuda",
+            "source": csrc + "pack.cu",
+            "replaces": "synthpy_tpu/tracer/zscan.py:"
+                        + ("1812" if tier == "bf16" else "1852"),
+            "launches": launches[tier]["pack"],
+            "max_abs_err": (k2["bf16"]["max_abs_err"] if tier == "bf16"
+                            else k2[tier]["max_code_diff"]),
+            "ms": st["ms"], "plain_ms": k2_plain[tier],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "library_ms": None})
+    rows_out.append(
         {"name": "detector", "route": "cuda", "source": csrc + "detector.cu",
          "replaces": "synthpy_tpu/pipeline.py:76",
-         "launches": launches["detector"], "max_abs_err": k3_err,
+         "launches": launches["bf16"]["detector"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_b[0],
-         "bound_by": k3_b[1], "library_ms": k3_lib_ms},
-    ]
+         "bound_by": k3_b[1], "library_ms": k3_lib_ms})
     detail = {"k1_table_rows_touched": int(rows.numel()),
               "k1_order_ms": order_ms,
               "k1_flops": {i: k1_flops(i, q) for i, q in (
                   ("rk2", False), ("rk2s2", True), ("rk2s4", True))},
-              "k2_bytes": k2_bytes, "k3_bytes": k3_bytes,
+              "k3_bytes": k3_bytes, "k3_caller_order_ms": k3_ms,
+              "k3_K1_order_ms": k3_k1_order_ms, "k3_call_ms": k3_call_ms,
+              "k1_call_ms": k1_call_ms, "k3_warp_bin_groups": k3_groups,
+              "launches_by_tier": launches,
+              # device kernels one counted launch starts: the int8 and
+              # int4 builds run amax_pass, then rows_pass
+              "device_kernels_per_launch": {
+                  "march": 1, "pack_bf16": 1, "pack_int8": 2,
+                  "pack_int4": 2, "detector": 1},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit({"phase": "bounds", **detail})
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"nvidia_smi": smi, "K1": k1, "K1_tiers": main_k1,
-                   "K2": k2, "main": main,
+                   "K2": k2, "K2_builds": k2_builds, "K2_plain_ms": k2_plain,
+                   "main": main,
                    "kernels": rows_out, **detail}, f, indent=1)
     emit({"kernels": rows_out})
     print(smi, flush=True)

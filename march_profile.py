@@ -43,52 +43,6 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def timed(fn, reps=5, warmup=1):
-    """Best of ``reps`` CUDA-event timings of fn() [ms]."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        best = min(best, a.elapsed_time(b))
-    return best
-
-
-def ptxas_report(source: Path, flags):
-    """Registers / shared bytes / spills of each kernel in ``source``."""
-    from synthpy_tpu_torch.kernels import _build
-    out = _build.BUILD_DIR / (source.stem + "_ptxas.cubin")
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_build.nvcc(), *_build.ARCH, "-std=c++17", "-O3",
-           "-split-compile=0", "-cubin", "-Xptxas", "-v", *flags, "-o",
-           str(out), str(source)]
-    log = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    text = log.stdout + log.stderr
-    kernels, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            smem = re.search(r"(\d+) bytes smem", line)
-            kernels[name] = {"regs": int(m.group(1)),
-                             "smem": int(smem.group(1)) if smem else 0}
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            kernels.setdefault(name, {})["spill"] = [int(m.group(1)),
-                                                     int(m.group(2))]
-    return kernels, text, out
-
-
 def load_mix(cubin: Path, pattern: str) -> dict:
     """Counts of load opcodes (LDG global, LDS shared, LD generic) in the
     SASS of the kernels whose name matches ``pattern``."""
@@ -128,18 +82,17 @@ def main():
     from synthpy_tpu_torch import pipeline
     from synthpy_tpu_torch.fields import ScalarDomain, layout_of
     from synthpy_tpu_torch.kernels import _build, march
+    from synthpy_tpu_torch.kernels.profiling import (best_ms, nvidia_smi,
+                                                     ptxas, variant)
     from synthpy_tpu_torch.tracer import init_beam, zscan
 
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     report = {"nvidia_smi": smi}
 
     # -- ptxas -------------------------------------------------------------
     src = _build.CSRC / march.KERNEL.source
-    kern, log, cubin = ptxas_report(src, march.KERNEL.flags)
+    kern, log, cubin = ptxas(src, march.KERNEL.flags)
     report["ptxas"] = kern
     pattern = r"march_kernelILi1E.*LayoutILi0ELi0ELi0E"
     main_k = {n: v for n, v in kern.items() if re.search(pattern, n)}
@@ -189,39 +142,27 @@ def main():
 
     # -- variants ------------------------------------------------------------
     # Each variant is the shipped source with one change, built beside it:
-    # (name, text substitution or None, nvcc flags or None for the shipped)
-    text = src.read_text()
+    # (name, text substitutions, nvcc flags or None for the shipped)
     variants = {
-        "no_carry": (text.replace("if (!have) load_corners<DT, C>(X, k, w0);",
-                                  "load_corners<DT, C>(X, k, w0);"), None),
-        "fmad_contracted": (None, []),
-        "frcp_rn": (text.replace("1.0f / s[4]", "__frcp_rn(s[4])"), None),
-        "min_6_blocks": (text.replace("__launch_bounds__(THREADS)",
-                                      "__launch_bounds__(THREADS, 6)"), None),
-        "min_8_blocks": (text.replace("__launch_bounds__(THREADS)",
-                                      "__launch_bounds__(THREADS, 8)"), None),
-        "threads_256": (text.replace("constexpr int THREADS = 128;",
-                                     "constexpr int THREADS = 256;"), None),
+        "no_carry": ([("if (!have) load_corners<DT, C>(X, k, w0);",
+                       "load_corners<DT, C>(X, k, w0);")], None),
+        "fmad_contracted": ([], []),
+        "frcp_rn": ([("1.0f / s[4]", "__frcp_rn(s[4])")], None),
+        "min_6_blocks": ([("__launch_bounds__(THREADS)",
+                           "__launch_bounds__(THREADS, 6)")], None),
+        "min_8_blocks": ([("__launch_bounds__(THREADS)",
+                           "__launch_bounds__(THREADS, 8)")], None),
+        "threads_256": ([("constexpr int THREADS = 128;",
+                          "constexpr int THREADS = 256;")], None),
     }
-    for name, (body, _) in variants.items():
-        if body == text:
-            raise RuntimeError(f"variant {name} changes nothing")
     t0 = time.perf_counter()
-    kernels = {}
-    for name, (body, flags) in variants.items():
-        source = march.KERNEL.source
-        if body is not None:
-            path = _build.BUILD_DIR / f"march_{name}.cu"
-            path.write_text(body)
-            source = str(path)
-        kernels[name] = _build.Kernel(
-            source, march.KERNEL.functions,
-            march.KERNEL.flags if flags is None else flags)
+    kernels = {name: variant(march.KERNEL, name, subs, flags)
+               for name, (subs, flags) in variants.items()}
     _build.build({k.source: k.flags for k in kernels.values()})
     var = {"variant_build_s": time.perf_counter() - t0}
 
     identity = torch.arange(RAYS, device=dev)
-    var["order_ms"] = timed(lambda: march.ray_order(u, *geo))
+    var["order_ms"] = best_ms(lambda: march.ray_order(u, *geo))
     ref = march.march(u, sp.seg_planes, sp.scales, **kw)
     for name, k in [("shipped", march.KERNEL), *kernels.items()]:
         def run(order=None):
@@ -230,8 +171,8 @@ def main():
             return march.launch(k, u, sp.seg_planes, sp.scales, o, **kw)
 
         var[name] = {"max_abs_vs_shipped": float(
-            (run() - ref).abs().nan_to_num(0).max()), "ms": timed(run),
-            "caller_order_ms": timed(lambda: run(identity))}
+            (run() - ref).abs().nan_to_num(0).max()), "ms": best_ms(run),
+            "caller_order_ms": best_ms(lambda: run(identity))}
     report["variants"] = var
     emit({"part": "variants", **var})
 

@@ -7,14 +7,26 @@
 // stop, rectangle and knife-edge NaN kills (optics/compose.py:78), and
 // histogram2d's numpy-rule binning and scatter-add (ops/histogram.py:26-66).
 //
-// What bounds it on the H100: bytes. Each ray reads its 32-byte (N, 8) exit
-// state (and 4 bytes of weight) and does ~60 flops and 2 arctans, then one
-// atomicAdd into a (ny, nx) f32 image that fits in L2. The design fuses the
-// whole chain into one pass, one thread per ray, so no (9, N) or (4, N)
-// intermediate is written; the stage list sits in shared memory. The image is
-// zeroed by the caller. Built with --fmad=false: every product and sum is
-// rounded as the plain PyTorch version rounds it, so a ray near a bin edge
-// lands in the same bin and counts match exactly.
+// What bounds it on the H100: by count, bytes. Each ray reads its 32-byte
+// (N, 8) exit state (and 4 bytes of weight) and does ~60 flops and 2
+// arctans, then adds into a (ny, nx) f32 image that fits in L2. Measured at
+// the main path's shapes (4 M rays of a beam that lands on ~7,600 bins) it
+// runs at about a quarter of the bytes bound, and the atomics hold it:
+// without them it takes two fifths of the time, as adds to a few thousand
+// hot addresses queue in L2 (PERF.md). The design fuses the whole chain into
+// one pass, one thread per ray in the caller's order, so no (9, N) or
+// (4, N) intermediate is written; the stage list comes in as a kernel
+// parameter (no copy to the device per call) and sits in shared memory, and
+// the state row comes in as two 16-byte loads. Each kept ray adds once. In
+// the caller's order a warp's rays land on ~32 distinct bins, so adding
+// once per (warp, bin) (__match_any_sync) saves nothing; it saves a third
+// of the time on states stored in the march's entry-cell order (~2 bins a
+// warp), but the march writes each ray back to its own row, and reading
+// the states through that order, or copying them into it, costs more than
+// the atomics it saves.
+// Built with --fmad=false: every product and sum is rounded as the plain
+// PyTorch version rounds it, so a ray near a bin edge lands in the same bin
+// and counts match exactly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -23,6 +35,11 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int OP_WIDTH = 17;  // kind, then 16 parameters
+constexpr int MAX_OPS = 16;
+
+struct Ops {
+  float v[MAX_OPS * OP_WIDTH];
+};
 
 enum Op { MATRIX = 0, APERTURE = 1, STOP = 2, RECT = 3, KNIFE = 4 };
 
@@ -40,23 +57,16 @@ __device__ __forceinline__ bool bin_of(float v, float lo, float hi,
   return isfinite(v) && v >= lo && v <= hi;
 }
 
-__global__ void detect_kernel(const float* uf, const float* weights,
-                              float* H, long long N, int swap, float p_end,
-                              float depth, const float* ops, int n_ops,
-                              int nx, int ny, float xlo, float xhi, float xs,
-                              float ylo, float yhi, float ys) {
-  extern __shared__ float sops[];
-  for (int j = threadIdx.x; j < n_ops * OP_WIDTH; j += blockDim.x)
-    sops[j] = ops[j];
-  __syncthreads();
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const float* u = uf + i * 8;
-  // permuted state (a, b, va, vb, vp, ...): rows 0/2 of the RTM ray are
-  // (a, b), or (b, a) when probing along y
-  const float pa = swap ? u[1] : u[0], va = swap ? u[3] : u[2];
-  const float pb = swap ? u[0] : u[1], vb = swap ? u[2] : u[3];
-  const float vp = u[4];
+// Flat bin of one ray from its permuted exit state (lo = a, b, va, vb and
+// vp), or -1 when the optics or the detector drop it.
+__device__ __forceinline__ int ray_bin(float4 lo, float vp, int swap,
+                                       float p_end, float depth,
+                                       const float* sops, int n_ops, int nx,
+                                       int ny, float xlo, float xhi, float xs,
+                                       float ylo, float yhi, float ys) {
+  // rows 0/2 of the RTM ray are (a, b), or (b, a) when probing along y
+  const float pa = swap ? lo.y : lo.x, va = swap ? lo.w : lo.z;
+  const float pb = swap ? lo.x : lo.y, vb = swap ? lo.z : lo.w;
   const float t_bp = (p_end - depth) / vp;
   float r[4];
   r[0] = (pa - va * t_bp) * 1000.0f;
@@ -89,24 +99,45 @@ __global__ void detect_kernel(const float* uf, const float* weights,
   int ix, iy;
   const bool vx = bin_of(r[0], xlo, xhi, xs, nx, ix);
   const bool vy = bin_of(r[2], ylo, yhi, ys, ny, iy);
-  if (vx && vy)
-    atomicAdd(H + (long long)iy * nx + ix, weights ? weights[i] : 1.0f);
+  return vx && vy ? iy * nx + ix : -1;
+}
+
+// Thread i bins ray i.
+__global__ void detect_kernel(const float* uf, const float* weights, float* H,
+                              long long N, int swap, float p_end, float depth,
+                              const Ops ops, int n_ops, int nx, int ny,
+                              float xlo, float xhi, float xs, float ylo,
+                              float yhi, float ys) {
+  __shared__ float sops[MAX_OPS * OP_WIDTH];
+  for (int j = threadIdx.x; j < n_ops * OP_WIDTH; j += blockDim.x)
+    sops[j] = ops.v[j];
+  __syncthreads();
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const float4* u = reinterpret_cast<const float4*>(uf + i * 8);
+  const int key = ray_bin(u[0], u[1].x, swap, p_end, depth, sops, n_ops, nx,
+                          ny, xlo, xhi, xs, ylo, yhi, ys);
+  if (key >= 0) atomicAdd(H + key, weights ? weights[i] : 1.0f);
 }
 
 }  // namespace
 
-// uf: (N, 8) f32 exit states; weights: (N,) f32 or null; H: (ny, nx) f32,
-// zeroed; ops: (n_ops, 17) f32 stage table. Returns cudaGetLastError().
+// uf: (N, 8) f32 exit states, 16-byte aligned; weights: (N,) f32 or null;
+// H: (ny, nx) f32, zeroed; ops: (n_ops, 17) f32 stage table in host
+// memory, n_ops <= MAX_OPS. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue.
 extern "C" int detect_image(const float* uf, const float* weights, float* H,
                             long long N, int swap, float p_end, float depth,
                             const float* ops, int n_ops, int nx, int ny,
                             float xlo, float xhi, float xs, float ylo,
                             float yhi, float ys, void* stream) {
+  if (n_ops < 0 || n_ops > MAX_OPS) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
+  Ops table;
+  for (int j = 0; j < n_ops * OP_WIDTH; ++j) table.v[j] = ops[j];
   const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
-  const size_t smem = sizeof(float) * (size_t)(n_ops > 0 ? n_ops : 1) * OP_WIDTH;
-  detect_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      uf, weights, H, N, swap, p_end, depth, ops, n_ops, nx, ny, xlo, xhi, xs,
-      ylo, yhi, ys);
+  detect_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      uf, weights, H, N, swap, p_end, depth, table, n_ops, nx, ny, xlo, xhi,
+      xs, ylo, yhi, ys);
   return (int)cudaGetLastError();
 }

@@ -1,32 +1,59 @@
 // K2: segment-pack builder, quantiser and decimator.
 //
 // Replaces the JAX device programs of synthpy_tpu/tracer/zscan.py:
-//   * build_segment_pack_device's seg_fn (zscan.py:1812): per K-slab segment,
-//     the transverse gradients pref*jnp.gradient(ne), the probe-axis central
-//     difference with the first-plane x2 and last-plane 2*G + pref*ne/dp rules
-//     (zscan.py:1825-1838), the kappa, omega(n-1) and Verdet*ne*B channels,
-//     zeroed pad planes, stored as [seg, cell, k*C + c];
+//   * build_segment_pack_device's seg_fn (zscan.py:1812), float and fused
+//     quantised (:1852-1883), with plane_stride kept planes (:1821-1827):
+//     per K-slab segment, the transverse gradients pref*jnp.gradient(ne), the
+//     probe-axis central difference with the first-plane x2 and last-plane
+//     2*G + pref*ne/dp rules (zscan.py:1832-1838), the kappa, omega(n-1) and
+//     Verdet*ne*B channels, zeroed pad planes, stored as [seg, cell, k*C + c];
 //   * quantize_segment_pack.quant (zscan.py:493): per-(segment, plane,
 //     channel) amax over cells, scale = amax/qmax, round half to even, int8
 //     codes or int4 nibble pairs (plane 2j low, 2j+1 high);
 //   * decimate_segment_pack.dec (zscan.py:576, :597): keep every stride-th
 //     plane, repacking nibble pairs.
 //
-// What bounds it on the H100: bytes. Each output value costs a few flops
-// against 1-4 bytes written and ~4 bytes of ne read (the stencil's other
-// reads hit L1/L2), far below the card's ~20 flop/byte f32 balance point.
-// The design therefore makes every access coalesced: one thread per
-// (segment, cell, plane block) with the plane index fastest, so a warp writes
-// one contiguous run of a table row and, for z-probing (ne[x, y, z] with z
-// contiguous), reads consecutive ne values. No probe-major copy of the volume
-// is made (the JAX program's moveaxis + pad); pad planes are decided by index.
-// The quantised tiers reuse the float build: a quantised pack is the
-// quantisation of the f32 pack (as in the JAX package, whose fused quantiser
-// computes the same f32 values), done in two passes: a per-(segment, plane,
-// channel) amax by one atomicMax per thread over a chunk of cells, then the
-// codes. IEEE division (__fdiv_rn) and rintf keep the codes those of
+// What bounds it on the H100: bytes by count (each output value costs a few
+// flops against 1-4 bytes written and 4 bytes of ne read), but in practice
+// the instructions per output value: three IEEE divisions (kept, so that
+// the tables equal the plain version's bit for bit), the stencil's reads
+// and the loop around them. The design keeps that count low and reads ne
+// from device memory once:
+//   * A block owns CB consecutive cells of one segment (whole table rows)
+//     and walks the kept planes in chunks as long as its tile holds (one
+//     chunk at the main path's shapes). Per chunk it stages in shared memory
+//     the ne rows of its cells and their b-1/b+1 neighbours, from plane g-1
+//     to g+1, then computes every (cell, kept plane) from there. Consecutive
+//     threads take consecutive planes of a row, so a warp's table stores
+//     cover one contiguous run of it (staging the block's table span in
+//     shared memory and writing it as 16-byte vectors measured 8% slower;
+//     copying the next cells' rows by cp.async into a second tile while
+//     computing, 19% slower).
+//   * z-probing (ne[x, y, z], planes contiguous) stages rows with 16-byte
+//     loads and reads the a-1/a+1 neighbour rows straight from device
+//     memory (other blocks' own rows, held in L2; coalesced along planes);
+//     x- and y-probing (cells contiguous) stage all five stencil rows in a
+//     tile transposed through shared memory, a warp reading consecutive
+//     cells of one plane.
+//   * No division by a runtime integer per value: loop indices advance by
+//     addition, cell coordinates come from shared memory; index arithmetic
+//     is 32-bit inside a block, from a 64-bit base per row.
+//   * plane_stride S: output plane k of segment s is absolute plane
+//     s*K + k*S, and the probe-axis difference still reads planes g +- 1, so
+//     a strided pack is the decimation of the full one, built directly.
+//   * Quantised tiers never hold a float table: pass A recomputes the
+//     channel values on the same tiles and reduces |v| per (segment, kept
+//     plane, channel) in registers over a long run of cells (each thread
+//     owns its planes), with one atomicMax per block and column (warp
+//     shuffles and a shared-memory stage are not needed: no two threads
+//     of a block share a column); pass B recomputes the same values and
+//     writes codes, with each chunk's scales computed once. The values are
+//     the same f32 numbers by the same operations, so the codes and scales
+//     are those of quantize_tables of the f32 build, bit for bit.
+// IEEE division (__fdiv_rn) and rintf keep the codes those of
 // jnp.round(v / scale). This file is built with --fmad=false so that no
 // multiply-add is contracted and the plain PyTorch version can match it.
+// Te, Z and B (full-physics layouts) are read straight from device memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -43,6 +70,11 @@ constexpr float C_LIGHT = 2.99792458e8f;
 
 constexpr int THREADS = 256;
 constexpr int AMAX_CHUNK = 64;
+constexpr int CB_ROWS = 8;             // cells (whole rows) a block owns
+constexpr int TILE_BUDGET = 24 * 1024; // bytes of ne a block stages
+constexpr int DEFAULT_SMEM = 48 * 1024;
+
+enum Mode { F32 = 0, BF16 = 1, INT8 = 2, INT4 = 3 };
 
 struct Vol {
   const float* p;
@@ -54,7 +86,8 @@ struct Vol {
 
 struct Field {
   Vol ne, te, z, ba, bb, bp;
-  int n_seg, K, n_p, na, nb, cells;
+  int n_seg, K, S, Ko, n_p, na, nb, cells;
+  int vec_ok;  // ne rows start 16-byte aligned (z-probing)
   float pref, da, db, two_dp, dp, omega, n_coef, verdet;
 };
 
@@ -86,25 +119,163 @@ __device__ __forceinline__ float grad1(float lo, float hi, int i, int n,
   return (i == 0 || i == n - 1) ? (hi - lo) / h : (hi - lo) * 0.5f / h;
 }
 
-// Channel values of absolute plane g (segment s, plane k: g = s*K + k) at
-// transverse cell (a, b); exactly zero on the pad planes g > n_p - 1.
-template <class LY>
-__device__ void channel_values(const Field& F, int g, int a, int b,
-                               float v[LY::C]) {
+// ---- the staged tile ------------------------------------------------------
+//
+// Rows of the tile, for the CB cells c0..c0+CB-1 of a block:
+//   0 .. CB+1         cells c0-1 .. c0+CB (the b-1 / b+1 neighbours)
+//   CB+2 .. 2CB+1     the a-1 neighbour of cell c0+i (clamped at a = 0)
+//   2CB+2 .. 3CB+1    the a+1 neighbour (clamped at a = na-1)
+// Column j holds absolute plane P0 + j. Cells past the grid are clamped.
+// z-probing stages only the first CB+2 rows: a warp reads the a-1 / a+1
+// neighbours of consecutive planes straight from device memory (L2 holds
+// them: they are other blocks' own rows), so the tile can hold whole rows.
+
+__host__ __device__ inline int offset_rows(int CB) { return 3 * CB + 2; }
+__host__ __device__ inline int tile_rows(int CB, int pc) {
+  return pc ? CB + 2 : 3 * CB + 2;
+}
+
+// planes g-1 .. g+1 of KB kept planes S apart, plus the 16-byte alignment
+// of the first staged plane (z-probing) or an odd pitch (bank spread)
+__host__ __device__ inline int tile_pitch(int KB, int S, int pc) {
+  const int span = (KB - 1) * S + 3;
+  return pc ? 4 * ((span + 6) / 4) : (span | 1);
+}
+
+__host__ __device__ inline int tile_bytes(int CB, int pitch, int pc) {
+  return (tile_rows(CB, pc) * pitch * 4 + 15) / 16 * 16;
+}
+
+// bytes after the tile: each row's 64-bit offset in ne, each cell's (a, b)
+__host__ __device__ inline int meta_bytes(int CB) {
+  return (offset_rows(CB) * 8 + CB * 8 + 15) / 16 * 16;
+}
+
+struct Tile {
+  float* sm;
+  int pitch, P0, CB;
+  long long* rowoff;
+  int2* ab;
+  __device__ __forceinline__ float at(int r, int g) const {
+    return sm[r * pitch + (g - P0)];
+  }
+};
+
+// A tile and its row offsets and cell coordinates, from shared memory at p.
+template <int PC>
+__device__ __forceinline__ Tile tile_at(uint8_t* p, int CB, int pitch) {
+  Tile T;
+  T.sm = reinterpret_cast<float*>(p);
+  T.pitch = pitch;
+  T.P0 = 0;
+  T.CB = CB;
+  T.rowoff = reinterpret_cast<long long*>(p + tile_bytes(CB, pitch, PC));
+  T.ab = reinterpret_cast<int2*>(T.rowoff + offset_rows(CB));
+  return T;
+}
+
+__device__ __forceinline__ long long row_offset(const Field& F, int c0,
+                                                int CB, int r) {
+  int c;
+  if (r < CB + 2) {
+    c = min(max(c0 - 1 + r, 0), F.cells - 1);
+    const int a = c / F.nb;
+    return a * F.ne.sa + (c - a * F.nb) * F.ne.sb;
+  }
+  const bool hi = r >= 2 * CB + 2;
+  c = min(c0 + (r - CB - 2) % CB, F.cells - 1);
+  int a = c / F.nb;
+  const int b = c - a * F.nb;
+  a = hi ? (a == F.na - 1 ? a : a + 1) : (a == 0 ? 0 : a - 1);
+  return a * F.ne.sa + b * F.ne.sb;
+}
+
+// Stage planes [P0, P1] of every tile row for the cells c0 .. c0+CB-1.
+// Ends with __syncthreads. Loop indices advance without division.
+template <int PC>
+__device__ void stage(const Field& F, Tile& T, int c0, int glo, int ghi) {
+  const int R = tile_rows(T.CB, PC);
+  long long* rowoff = T.rowoff;
+  for (int r = threadIdx.x; r < offset_rows(T.CB); r += THREADS)
+    rowoff[r] = row_offset(F, c0, T.CB, r);
+  for (int i = threadIdx.x; i < T.CB; i += THREADS) {
+    const int cell = min(c0 + i, F.cells - 1), a = cell / F.nb;
+    T.ab[i] = make_int2(a, cell - a * F.nb);
+  }
+  int P0 = max(glo - 1, 0);
+  const int P1 = min(ghi + 1, F.n_p - 1);
+  if (PC) P0 &= ~3;
+  T.P0 = P0;
+  __syncthreads();
+  if (P1 < P0) return;  // only pad planes: nothing to read
+  if (PC) {
+    // planes contiguous: 16-byte loads along each row
+    const int NV = (P1 - P0 + 4) / 4;
+    const int dr = THREADS / NV, dv = THREADS - dr * NV;
+    int r = threadIdx.x / NV, v = threadIdx.x - r * NV;
+    for (; r < R; r += dr, v += dv) {
+      if (v >= NV) {
+        v -= NV;
+        ++r;
+        if (r >= R) break;
+      }
+      const int p = P0 + 4 * v;
+      const float* src = F.ne.p + rowoff[r] + p;
+      float4 x;
+      if (F.vec_ok && p + 3 <= F.n_p - 1) {
+        x = __ldg(reinterpret_cast<const float4*>(src));
+      } else {
+        x.x = p <= F.n_p - 1 ? __ldg(src) : 0.0f;
+        x.y = p + 1 <= F.n_p - 1 ? __ldg(src + 1) : 0.0f;
+        x.z = p + 2 <= F.n_p - 1 ? __ldg(src + 2) : 0.0f;
+        x.w = p + 3 <= F.n_p - 1 ? __ldg(src + 3) : 0.0f;
+      }
+      *reinterpret_cast<float4*>(T.sm + r * T.pitch + 4 * v) = x;
+    }
+  } else {
+    // cells contiguous: a warp reads consecutive cells of one plane
+    const int NP = P1 - P0 + 1;
+    const int dj = THREADS / R, dr = THREADS - dj * R;
+    int j = threadIdx.x / R, r = threadIdx.x - j * R;
+    for (; j < NP; j += dj, r += dr) {
+      if (r >= R) {
+        r -= R;
+        ++j;
+        if (j >= NP) break;
+      }
+      T.sm[r * T.pitch + j] =
+          __ldg(F.ne.p + rowoff[r] + (long long)(P0 + j) * F.ne.sp);
+    }
+  }
+  __syncthreads();
+}
+
+// Channel values of absolute plane g at cell i of the tile (grid cell
+// (a, b)); exactly zero on the pad planes g > n_p - 1.
+template <class LY, int PC>
+__device__ __forceinline__ void channel_values(const Field& F, const Tile& T,
+                                               int i, int g, float v[LY::C]) {
   if (g > F.n_p - 1) {
 #pragma unroll
     for (int c = 0; c < LY::C; ++c) v[c] = 0.0f;
     return;
   }
-  const float body = F.ne.at(g, a, b);
-  // one-sided at the edges, central inside (jnp.gradient)
-  const int a0 = a == 0 ? 0 : a - 1, a1 = a == F.na - 1 ? a : a + 1;
-  const int b0 = b == 0 ? 0 : b - 1, b1 = b == F.nb - 1 ? b : b + 1;
-  v[0] = F.pref * grad1(F.ne.at(g, a0, b), F.ne.at(g, a1, b), a, F.na, F.da);
-  v[1] = F.pref * grad1(F.ne.at(g, a, b0), F.ne.at(g, a, b1), b, F.nb, F.db);
+  const int CB = T.CB;
+  const int2 ab = T.ab[i];
+  const int a = ab.x, b = ab.y;
+  const float body = T.at(1 + i, g);
+  // one-sided at the edges, central inside (jnp.gradient); the a rows hold
+  // the clamped neighbours already
+  const float alo = PC ? __ldg(F.ne.p + T.rowoff[CB + 2 + i] + g)
+                       : T.at(CB + 2 + i, g);
+  const float ahi = PC ? __ldg(F.ne.p + T.rowoff[2 * CB + 2 + i] + g)
+                       : T.at(2 * CB + 2 + i, g);
+  v[0] = F.pref * grad1(alo, ahi, a, F.na, F.da);
+  const int rb0 = b == 0 ? 1 + i : i, rb1 = b == F.nb - 1 ? 1 + i : 2 + i;
+  v[1] = F.pref * grad1(T.at(rb0, g), T.at(rb1, g), b, F.nb, F.db);
   // padded volume: a duplicate of plane 0 in front, zeros behind
-  const float up = g + 1 <= F.n_p - 1 ? F.ne.at(g + 1, a, b) : 0.0f;
-  const float dn = F.ne.at(g >= 1 ? g - 1 : 0, a, b);
+  const float up = g + 1 <= F.n_p - 1 ? T.at(1 + i, g + 1) : 0.0f;
+  const float dn = T.at(1 + i, g >= 1 ? g - 1 : 0);
   float gp = F.pref * (up - dn) / F.two_dp;
   if (g == 0) gp = 2.0f * gp;
   if (g == F.n_p - 1) gp = 2.0f * gp + F.pref * body / F.dp;
@@ -122,40 +293,223 @@ __device__ void channel_values(const Field& F, int g, int a, int b,
   }
 }
 
-__device__ __forceinline__ void store(float* o, float v) { *o = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* o, float v) {
-  *o = __float2bfloat16_rn(v);
+// amax * f32(1/qmax), as the JAX package's compiled amax / qmax computes it
+// (XLA turns a division by a constant into a multiplication by its
+// correctly rounded reciprocal)
+__device__ __forceinline__ float scale_of(unsigned amax_bits, float qmax) {
+  const float am = __uint_as_float(amax_bits);
+  return am > 0.0f ? __fmul_rn(am, __frcp_rn(qmax)) : 1.0f;
 }
 
-// One thread per (segment, cell, plane k), k fastest: thread t writes the C
-// values at flat offset t*C of the (n_seg, cells, (K+1)*C) table.
-template <class LY, typename OUT>
-__global__ void build_kernel(Field F, OUT* out) {
+__device__ __forceinline__ int code_of(float v, float scale, float qmax) {
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -qmax), qmax);
+}
+
+__device__ __forceinline__ uint8_t nibble_pair(int lo, int hi) {
+  return (uint8_t)((lo & 15) | ((hi & 15) << 4));
+}
+
+// output blocks a row holds: planes, or plane pairs for int4
+__host__ __device__ inline int out_blocks(int mode, int Ko) {
+  return mode == INT4 ? Ko / 2 + 1 : Ko + 1;
+}
+
+// ---- pass A: amax over cells ----------------------------------------------
+//
+// Block (run, chunk, segment): kept planes [k0, k0+KB) over the cells
+// [run*CR, run*CR + CR), staged CB cells at a time with the row pass's
+// tile. Thread t owns the planes k0 + t + j*THREADS and keeps their running
+// |v| maxima in registers; at the end it sends one atomicMax per owned
+// (plane, channel) (|v| >= 0 orders as an unsigned integer).
+constexpr int AMAX_COLS = 3;  // planes a thread owns: KB <= 3 * THREADS
+
+template <class LY, int PC>
+__global__ void __launch_bounds__(THREADS)
+    amax_pass(Field F, unsigned* amax, int KB, int CB, int CR, int pitch) {
   constexpr int C = LY::C;
-  const long long nblk = F.K + 1;
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= (long long)F.n_seg * F.cells * nblk) return;
-  const int k = (int)(t % nblk);
-  const long long rest = t / nblk;
-  const int cell = (int)(rest % F.cells);
-  const int s = (int)(rest / F.cells);
-  float v[C];
-  channel_values<LY>(F, s * F.K + k, cell / F.nb, cell % F.nb, v);
-  OUT* o = out + t * C;
+  extern __shared__ uint4 smem_u4[];
+  const int s = blockIdx.z, k0 = (int)blockIdx.y * KB;
+  const int k1 = min(k0 + KB, F.Ko + 1);
+  Tile T = tile_at<PC>(reinterpret_cast<uint8_t*>(smem_u4), CB, pitch);
+  float m[AMAX_COLS][C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) store(o + c, v[c]);
+  for (int j = 0; j < AMAX_COLS; ++j)
+#pragma unroll
+    for (int c = 0; c < C; ++c) m[j][c] = 0.0f;
+  const int cend = min((int)(blockIdx.x + 1) * CR, F.cells);
+  for (int c0 = (int)blockIdx.x * CR; c0 < cend; c0 += CB) {
+    stage<PC>(F, T, c0, s * F.K + k0 * F.S, s * F.K + (k1 - 1) * F.S);
+    const int ncell = min(CB, cend - c0);
+#pragma unroll
+    for (int j = 0; j < AMAX_COLS; ++j) {
+      const int ko = k0 + (int)threadIdx.x + j * THREADS;
+      if (ko < k1) {
+        for (int i = 0; i < ncell; ++i) {
+          float v[C];
+          channel_values<LY, PC>(F, T, i, s * F.K + ko * F.S, v);
+#pragma unroll
+          for (int c = 0; c < C; ++c) m[j][c] = fmaxf(m[j][c], fabsf(v[c]));
+        }
+      }
+    }
+    __syncthreads();  // the tile is restaged next
+  }
+#pragma unroll
+  for (int j = 0; j < AMAX_COLS; ++j) {
+    const int ko = k0 + (int)threadIdx.x + j * THREADS;
+    if (ko < k1)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        atomicMax(amax + ((long long)s * (F.Ko + 1) + ko) * C + c,
+                  __float_as_uint(m[j][c]));
+  }
+}
+
+// ---- the table rows: float values, or pass B's codes ----------------------
+//
+// Block (cells, segment): the whole rows of cells [c0, c0 + CB), kept planes
+// in chunks of KB. Item (i, q) is cell i's output block q of the chunk: one
+// plane (C values or int8 codes) or, for int4, the plane pair 2q, 2q+1 (C
+// nibble-pair bytes). Consecutive threads take consecutive items, so a
+// warp's stores cover one contiguous run of the row. The chunk's scales are
+// computed once into shared memory; the first block of each segment writes
+// them out.
+template <class LY, int PC, int MODE>
+__global__ void __launch_bounds__(THREADS)
+    rows_pass(Field F, void* out, const unsigned* amax, float* scales,
+              int KB, int CB, int pitch) {
+  constexpr int C = LY::C;
+  constexpr int ES = MODE == F32 ? 4 : MODE == BF16 ? 2 : 1;
+  constexpr float QMAX = MODE == INT4 ? 7.0f : 127.0f;
+  extern __shared__ uint4 smem_u4[];
+  const int s = blockIdx.y, c0 = (int)blockIdx.x * CB;
+  const int ncell = min(CB, F.cells - c0);
+  const int nblk = out_blocks(MODE, F.Ko);
+  const long long row_bytes = (long long)nblk * C * ES;
+  uint8_t* tb = reinterpret_cast<uint8_t*>(smem_u4);
+  Tile T = tile_at<PC>(tb, CB, pitch);
+  // the chunk's scales (quantised modes)
+  float* ssc = reinterpret_cast<float*>(tb + tile_bytes(CB, pitch, PC) +
+                                        meta_bytes(CB));
+  uint8_t* g0 = reinterpret_cast<uint8_t*>(out) +
+                ((long long)s * F.cells + c0) * row_bytes;
+  for (int k0 = 0; k0 <= F.Ko; k0 += KB) {
+    const int k1 = min(k0 + KB, F.Ko + 1);
+    if constexpr (MODE == INT8 || MODE == INT4) {
+      const long long col0 = ((long long)s * (F.Ko + 1) + k0) * C;
+      for (int t = threadIdx.x; t < (k1 - k0) * C; t += THREADS) {
+        ssc[t] = scale_of(amax[col0 + t], QMAX);
+        if (blockIdx.x == 0) scales[col0 + t] = ssc[t];
+      }
+    }
+    stage<PC>(F, T, c0, s * F.K + k0 * F.S, s * F.K + (k1 - 1) * F.S);
+    const int q0 = MODE == INT4 ? k0 / 2 : k0;
+    const int nq = MODE == INT4 ? (k1 - k0 + 1) / 2 : k1 - k0;
+    // item (i, q - q0) = threadIdx.x + n * THREADS, advanced without division
+    const int di = THREADS / nq, dq = THREADS - di * nq;
+    int i = threadIdx.x / nq, q = q0 + threadIdx.x - i * nq;
+    for (; i < ncell; i += di, q += dq) {
+      if (q >= q0 + nq) {
+        q -= nq;
+        ++i;
+        if (i >= ncell) break;
+      }
+      uint8_t* o = g0 + (i * nblk + q) * C * ES;
+      if constexpr (MODE == F32 || MODE == BF16) {
+        float v[C];
+        channel_values<LY, PC>(F, T, i, s * F.K + q * F.S, v);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if constexpr (MODE == F32)
+            reinterpret_cast<float*>(o)[c] = v[c];
+          else
+            reinterpret_cast<__nv_bfloat16*>(o)[c] = __float2bfloat16_rn(v[c]);
+        }
+      } else {
+        const int k = MODE == INT4 ? 2 * q : q;
+        const float* sc = ssc + (k - k0) * C;
+        float v[C];
+        channel_values<LY, PC>(F, T, i, s * F.K + k * F.S, v);
+        if constexpr (MODE == INT8) {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            o[c] = (uint8_t)(int8_t)code_of(v[c], sc[c], QMAX);
+        } else {
+          const bool has_hi = k + 1 <= F.Ko;
+          float w[C];
+          if (has_hi)
+            channel_values<LY, PC>(F, T, i, s * F.K + (k + 1) * F.S, w);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int lo = code_of(v[c], sc[c], QMAX);
+            const int hi = has_hi ? code_of(w[c], sc[C + c], QMAX) : 0;
+            o[c] = nibble_pair(lo, hi);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile is restaged next chunk
+  }
+}
+
+// smem of pass A and of the row pass
+size_t rows_smem(int CB, int pitch, int pc, int KB, int C) {
+  return (size_t)tile_bytes(CB, pitch, pc) + (size_t)meta_bytes(CB) +
+         (size_t)KB * C * 4;
+}
+
+// raise a kernel's dynamic shared memory limit where it needs more than
+// the default 48 KB
+template <typename KernelT>
+int allow_smem(KernelT kernel, size_t smem) {
+  if (smem <= DEFAULT_SMEM) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <class LY, int PC>
+int build_layout(const Field& F, int mode, void* out, unsigned* amax,
+                 float* scales, cudaStream_t st) {
+  constexpr int C = LY::C;
+  // CB_ROWS cells' rows a block; kept planes in chunks as long as a
+  // TILE_BUDGET tile holds (all of them at the main path's shapes), even
+  // unless one chunk takes every plane
+  const int CB = CB_ROWS;
+  const int per_row = TILE_BUDGET / 4 / tile_rows(CB, PC);
+  int KB = (per_row - 9) / F.S + 1;
+  KB = KB < 2 ? 2 : KB & ~1;
+  if (KB > F.Ko + 1) KB = F.Ko + 1;
+  if (KB > AMAX_COLS * THREADS) KB = AMAX_COLS * THREADS;
+  const int pitch = tile_pitch(KB, F.S, PC);
+  const size_t smem = rows_smem(CB, pitch, PC, KB, C);
+  if (mode == INT8 || mode == INT4) {
+    // pass A: cells in runs of CR, ~2 waves of 8 blocks an SM
+    const int n_chunk = (F.Ko + KB) / KB;
+    const long long want = 132LL * 8 * 2 / ((long long)n_chunk * F.n_seg);
+    const int runs = (int)(want < 1 ? 1 : want);
+    int CR = (F.cells + runs - 1) / runs;
+    CR = (CR + CB - 1) / CB * CB;
+    const dim3 grid((F.cells + CR - 1) / CR, n_chunk, F.n_seg);
+    auto k = amax_pass<LY, PC>;
+    if (const int e = allow_smem(k, smem)) return e;
+    k<<<grid, THREADS, smem, st>>>(F, amax, KB, CB, CR, pitch);
+  }
+  const dim3 grid((F.cells + CB - 1) / CB, F.n_seg);
+  void (*k)(Field, void*, const unsigned*, float*, int, int, int) =
+      mode == F32    ? rows_pass<LY, PC, F32>
+      : mode == BF16 ? rows_pass<LY, PC, BF16>
+      : mode == INT8 ? rows_pass<LY, PC, INT8>
+                     : rows_pass<LY, PC, INT4>;
+  if (const int e = allow_smem(k, smem)) return e;
+  k<<<grid, THREADS, smem, st>>>(F, out, amax, scales, KB, CB, pitch);
+  return 0;
 }
 
 template <class LY>
-int build_layout(const Field& F, void* out, int out_bf16, cudaStream_t st) {
-  const long long total = (long long)F.n_seg * F.cells * (F.K + 1);
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  if (out_bf16)
-    build_kernel<LY, __nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        F, (__nv_bfloat16*)out);
-  else
-    build_kernel<LY, float><<<blocks, THREADS, 0, st>>>(F, (float*)out);
-  return 0;
+int build_probe(const Field& F, int mode, void* out, unsigned* amax,
+                float* scales, cudaStream_t st) {
+  return F.ne.sp == 1 ? build_layout<LY, 1>(F, mode, out, amax, scales, st)
+                      : build_layout<LY, 0>(F, mode, out, amax, scales, st);
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -163,9 +517,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// amax over cells of every (segment, column = k*C + c): a thread folds a
-// chunk of cells, then one atomicMax on the float's bits (|v| >= 0 orders as
-// an unsigned integer). Columns are fastest, so reads are coalesced.
+// Quantiser of a carried float table. amax over cells of every (segment,
+// column = k*C + c): a thread folds a chunk of cells, then one atomicMax on
+// the float's bits. Columns are fastest, so reads are coalesced.
 template <typename IN>
 __global__ void amax_kernel(const IN* tab, unsigned* amax, int n_seg,
                             int cells, int ncol) {
@@ -182,22 +536,6 @@ __global__ void amax_kernel(const IN* tab, unsigned* amax, int n_seg,
   for (int cell = c0; cell < c1; ++cell)
     m = fmaxf(m, fabsf(to_float(tab[((long long)s * cells + cell) * ncol + col])));
   atomicMax(amax + (long long)s * ncol + col, __float_as_uint(m));
-}
-
-// amax * f32(1/qmax), as the JAX package's compiled amax / qmax computes it
-// (XLA turns a division by a constant into a multiplication by its
-// correctly rounded reciprocal)
-__device__ __forceinline__ float scale_of(unsigned amax_bits, float qmax) {
-  const float am = __uint_as_float(amax_bits);
-  return am > 0.0f ? __fmul_rn(am, __frcp_rn(qmax)) : 1.0f;
-}
-
-__device__ __forceinline__ int code_of(float v, float scale, float qmax) {
-  return (int)fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -qmax), qmax);
-}
-
-__device__ __forceinline__ uint8_t nibble_pair(int lo, int hi) {
-  return (uint8_t)((lo & 15) | ((hi & 15) << 4));
 }
 
 // Codes: one thread per (segment, cell, output column), columns fastest.
@@ -285,13 +623,16 @@ unsigned blocks_for(long long total) {
 
 }  // namespace
 
-extern "C" int pack_build(void* out, int out_bf16, const float* ne,
-                          const float* te, const float* z, const float* B,
-                          long long sp, long long sa, long long sb,
-                          int comp_a, int comp_b, int comp_p, int n_seg,
-                          int K, int n_p, int na, int nb, float pref,
-                          float da, float db, float two_dp, float dp,
-                          float omega, float n_coef, float verdet,
+// mode: 0 f32, 1 bf16 tables; 2 int8, 3 int4 codes with scales, amax
+// (n_seg, K/S + 1, C) unsigned zeroed by the caller. Output plane k of
+// segment s is absolute plane s*K + k*S.
+extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
+                          const float* ne, const float* te, const float* z,
+                          const float* B, long long sp, long long sa,
+                          long long sb, int comp_a, int comp_b, int comp_p,
+                          int n_seg, int K, int S, int n_p, int na, int nb,
+                          float pref, float da, float db, float two_dp,
+                          float dp, float omega, float n_coef, float verdet,
                           int inv_brems, int phaseshift, int B_on,
                           void* stream) {
   Field F;
@@ -301,22 +642,25 @@ extern "C" int pack_build(void* out, int out_bf16, const float* ne,
   F.ba = {B ? B + comp_a : nullptr, 3 * sp, 3 * sa, 3 * sb};
   F.bb = {B ? B + comp_b : nullptr, 3 * sp, 3 * sa, 3 * sb};
   F.bp = {B ? B + comp_p : nullptr, 3 * sp, 3 * sa, 3 * sb};
-  F.n_seg = n_seg; F.K = K; F.n_p = n_p; F.na = na; F.nb = nb;
-  F.cells = na * nb;
+  F.n_seg = n_seg; F.K = K; F.S = S; F.Ko = K / S; F.n_p = n_p;
+  F.na = na; F.nb = nb; F.cells = na * nb;
+  F.vec_ok = sp == 1 && sa % 4 == 0 && sb % 4 == 0 &&
+             ((uintptr_t)ne & 15) == 0;
   F.pref = pref; F.da = da; F.db = db; F.two_dp = two_dp; F.dp = dp;
   F.omega = omega; F.n_coef = n_coef; F.verdet = verdet;
   cudaStream_t st = (cudaStream_t)stream;
+  int rc;
   switch (inv_brems | (phaseshift << 1) | (B_on << 2)) {
-    case 0: build_layout<Layout<0, 0, 0>>(F, out, out_bf16, st); break;
-    case 1: build_layout<Layout<1, 0, 0>>(F, out, out_bf16, st); break;
-    case 2: build_layout<Layout<0, 1, 0>>(F, out, out_bf16, st); break;
-    case 3: build_layout<Layout<1, 1, 0>>(F, out, out_bf16, st); break;
-    case 4: build_layout<Layout<0, 0, 1>>(F, out, out_bf16, st); break;
-    case 5: build_layout<Layout<1, 0, 1>>(F, out, out_bf16, st); break;
-    case 6: build_layout<Layout<0, 1, 1>>(F, out, out_bf16, st); break;
-    default: build_layout<Layout<1, 1, 1>>(F, out, out_bf16, st); break;
+    case 0: rc = build_probe<Layout<0, 0, 0>>(F, mode, out, amax, scales, st); break;
+    case 1: rc = build_probe<Layout<1, 0, 0>>(F, mode, out, amax, scales, st); break;
+    case 2: rc = build_probe<Layout<0, 1, 0>>(F, mode, out, amax, scales, st); break;
+    case 3: rc = build_probe<Layout<1, 1, 0>>(F, mode, out, amax, scales, st); break;
+    case 4: rc = build_probe<Layout<0, 0, 1>>(F, mode, out, amax, scales, st); break;
+    case 5: rc = build_probe<Layout<1, 0, 1>>(F, mode, out, amax, scales, st); break;
+    case 6: rc = build_probe<Layout<0, 1, 1>>(F, mode, out, amax, scales, st); break;
+    default: rc = build_probe<Layout<1, 1, 1>>(F, mode, out, amax, scales, st); break;
   }
-  return (int)cudaGetLastError();
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 // amax must be zeroed by the caller: (n_seg, K+1, C) unsigned.

@@ -27,6 +27,7 @@ KERNEL = Kernel("detector.cu", {
 }, flags=["--fmad=false"])
 
 _KINDS = {"matrix": 0, "aperture": 1, "stop": 2, "rect": 3, "knife": 4}
+MAX_OPS = 16  # stages the kernel takes as a parameter (detector.cu)
 
 
 def stage_table(stages: Sequence[Tuple]) -> np.ndarray:
@@ -93,14 +94,22 @@ def detect(uf: torch.Tensor, p_end: float, probing_depth: float,
             or not weights.is_contiguous()):
         raise ValueError("weights must be a contiguous (N,) float32 tensor "
                          "on the rays' device")
+    # the kernel reads states as 16-byte vectors: a fresh allocation is
+    # aligned
+    if uf.data_ptr() % 16:
+        uf = uf.clone()
     nx, ny = bins
     (xlo, xhi), (ylo, yhi) = range_
     bx, by = bin_params(xlo, xhi, nx), bin_params(ylo, yhi, ny)
-    ops = torch.from_numpy(stage_table(stages)).to(dev)
+    # the stage table goes to the kernel by value, from host memory
+    ops = stage_table(stages)
+    if ops.shape[0] > MAX_OPS:
+        raise ValueError(f"{ops.shape[0]} composed stages; the detector "
+                         f"kernel takes at most {MAX_OPS}")
     H = torch.zeros((ny, nx), dtype=torch.float32, device=dev)
     KERNEL.launch(
         "detect_image", dev, uf.data_ptr(),
         None if weights is None else weights.data_ptr(), H.data_ptr(),
         uf.shape[0], int(probing_direction == "y"), f32(p_end),
-        f32(probing_depth), ops.data_ptr(), ops.shape[0], nx, ny, *bx, *by)
+        f32(probing_depth), ops.ctypes.data, ops.shape[0], nx, ny, *bx, *by)
     return H

@@ -1,10 +1,15 @@
 """K2: segment-pack builder, quantiser and decimator.
 
-``build_tables``, ``quantize_tables`` and ``decimate_tables`` launch the
-CUDA kernels of ``csrc/pack.cu`` on CUDA tensors and run their plain
-PyTorch versions on CPU tensors. The plain versions repeat the JAX
+``build_tables`` (float tables), ``build_quantized_tables`` (int8 codes or
+int4 nibble pairs with their scales, straight from the volumes),
+``quantize_tables`` (of a carried float table) and ``decimate_tables``
+launch the CUDA kernels of ``csrc/pack.cu`` on CUDA tensors and run their
+plain PyTorch versions on CPU tensors. The plain versions repeat the JAX
 package's arithmetic (``synthpy_tpu/tracer/zscan.py`` seg_fn :1812,
 quantize_segment_pack.quant :493, decimate_segment_pack.dec :576/:597).
+Both builds take ``plane_stride`` S: output plane k of segment s is
+absolute plane s*K + k*S, the gradients still at full resolution, so the
+result is the decimation of the full build.
 
 Every divisor in the plain versions is a tensor on the data's device: on
 CUDA, PyTorch divides by a Python scalar as a multiplication by its
@@ -23,8 +28,8 @@ from synthpy_tpu_torch.fields.domain import ChannelLayout, gradient
 from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
 
 KERNEL = Kernel("pack.cu", {
-    "pack_build": [P, I, P, P, P, P, L, L, L, I, I, I, I, I, I, I, I,
-                   F, F, F, F, F, F, F, F, I, I, I, P],
+    "pack_build": [P, I, P, P, P, P, P, P, L, L, L, I, I, I, I, I, I, I,
+                   I, I, F, F, F, F, F, F, F, F, I, I, I, P],
     "pack_quantize": [P, I, P, P, P, I, I, I, I, I, P],
     "pack_decimate": [P, P, I, I, I, I, I, I, I, P],
 }, flags=["--fmad=false"])
@@ -58,12 +63,16 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes, device) -> None:
 
 # -- build -----------------------------------------------------------------
 
+_MODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def build_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
                        p_ax: int, layout: ChannelLayout, K: int, n_seg: int,
                        pref: float, da: float, db: float, dp: float,
-                       omega: float, verdet: float,
-                       dtype) -> torch.Tensor:
-    """Plain version of the float build: (n_seg, na*nb, (K+1)*C) tables."""
+                       omega: float, verdet: float, dtype,
+                       plane_stride: int = 1) -> torch.Tensor:
+    """Plain version of the float build: (n_seg, na*nb, (K/S+1)*C)
+    tables, the full build decimated."""
     ne = vols["ne"]
     pm = ne.movedim(p_ax, 0)                     # (n_p, na, nb)
     n_p, na, nb = pm.shape
@@ -95,24 +104,74 @@ def build_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
     idx = (torch.arange(n_seg)[:, None] * K
            + torch.arange(K + 1)[None, :]).to(ne.device)
     C = out.shape[-1]
-    return out[idx].permute(0, 2, 3, 1, 4).reshape(n_seg, na * nb,
-                                                   (K + 1) * C)
+    table = out[idx].permute(0, 2, 3, 1, 4).reshape(n_seg, na * nb,
+                                                    (K + 1) * C)
+    if plane_stride == 1:
+        return table
+    return decimate_tables_plain(table, K, C, plane_stride, False)
+
+
+def build_quantized_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
+                                 bits: int, plane_stride: int = 1,
+                                 **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the quantised build: the quantisation of the
+    (decimated) f32 build."""
+    table = build_tables_plain(vols, dtype=torch.float32,
+                               plane_stride=plane_stride, **kw)
+    C = kw["layout"].n_channels
+    return quantize_tables_plain(table, kw["K"] // plane_stride, C, bits)
 
 
 def build_tables(vols: Dict[str, Optional[torch.Tensor]], *, p_ax: int,
                  layout: ChannelLayout, K: int, n_seg: int, pref: float,
                  da: float, db: float, dp: float, omega: float,
-                 verdet: float, dtype) -> torch.Tensor:
+                 verdet: float, dtype,
+                 plane_stride: int = 1) -> torch.Tensor:
     """Float segment tables from the field volumes (ne, and Te, Z, B as the
-    layout switches them on), in f32 or bf16."""
-    ne = vols["ne"]
+    layout switches them on), in f32 or bf16: (n_seg, na*nb, (K/S+1)*C)."""
     kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg, pref=pref, da=da,
-              db=db, dp=dp, omega=omega, verdet=verdet, dtype=dtype)
-    if ne.device.type == "cpu":
-        return build_tables_plain(vols, **kw)
-    dev = ne.device
-    if dtype not in (torch.float32, torch.bfloat16):
+              db=db, dp=dp, omega=omega, verdet=verdet,
+              plane_stride=plane_stride)
+    if vols["ne"].device.type == "cpu":
+        return build_tables_plain(vols, dtype=dtype, **kw)
+    if dtype not in _MODES:
         raise ValueError(f"table dtype must be f32 or bf16, got {dtype}")
+    out, _ = _build(vols, mode=_MODES[dtype], **kw)
+    return out
+
+
+def build_quantized_tables(vols: Dict[str, Optional[torch.Tensor]], *,
+                           p_ax: int, layout: ChannelLayout, K: int,
+                           n_seg: int, pref: float, da: float, db: float,
+                           dp: float, omega: float, verdet: float,
+                           bits: int, plane_stride: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes (``bits=8``) or int4 nibble pairs (``bits=4``) and their
+    (n_seg, K/S+1, C) f32 scales, from the volumes in two passes over ne
+    (amax, then codes): no float table is held."""
+    kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg, pref=pref, da=da,
+              db=db, dp=dp, omega=omega, verdet=verdet,
+              plane_stride=plane_stride)
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if vols["ne"].device.type == "cpu":
+        return build_quantized_tables_plain(vols, bits=bits, **kw)
+    return _build(vols, mode=2 if bits == 8 else 3, **kw)
+
+
+def _build(vols, *, mode: int, p_ax: int, layout: ChannelLayout, K: int,
+           n_seg: int, pref: float, da: float, db: float, dp: float,
+           omega: float, verdet: float, plane_stride: int):
+    """Launch ``pack_build``: (table, None) for the float modes 0/1,
+    (codes, scales) for int8 (2) and int4 (3)."""
+    ne = vols["ne"]
+    dev = ne.device
+    S = plane_stride
+    if S < 1 or K % S:
+        raise ValueError(f"K={K} must divide by plane_stride={S}")
+    Ko = K // S
+    if mode == 3 and Ko % 2:
+        raise ValueError("int4 nibble packs need an even K / plane_stride")
     used = {"ne": ne}
     if layout.inv_brems:
         used.update(Te=vols["Te"], Z=vols["Z"])
@@ -127,21 +186,27 @@ def build_tables(vols: Dict[str, Optional[torch.Tensor]], *, p_ax: int,
     dims, st = ne.shape, ne.stride()
     na, nb = dims[a_ax], dims[b_ax]
     C = layout.n_channels
-    out = torch.empty((n_seg, na * nb, (K + 1) * C), dtype=dtype,
-                      device=dev)
+    n_blk = Ko // 2 + 1 if mode == 3 else Ko + 1
+    dtype = (torch.float32, torch.bfloat16, torch.int8, torch.int8)[mode]
+    out = torch.empty((n_seg, na * nb, n_blk * C), dtype=dtype, device=dev)
+    scales = amax = None
+    if mode >= 2:
+        scales = torch.empty((n_seg, Ko + 1, C), dtype=torch.float32,
+                             device=dev)
+        amax = torch.zeros((n_seg, Ko + 1, C), dtype=torch.int32,
+                           device=dev)
 
-    def ptr(name):
-        t = used.get(name)
+    def ptr(t):
         return None if t is None else t.data_ptr()
 
     KERNEL.launch(
-        "pack_build", dev, out.data_ptr(), int(dtype == torch.bfloat16),
-        ne.data_ptr(), ptr("Te"), ptr("Z"), ptr("B"),
-        st[p_ax], st[a_ax], st[b_ax], a_ax, b_ax, p_ax, n_seg, K,
-        dims[p_ax], na, nb, pref, da, db, 2.0 * dp, dp, omega,
+        "pack_build", dev, out.data_ptr(), mode, ptr(scales), ptr(amax),
+        ne.data_ptr(), ptr(used.get("Te")), ptr(used.get("Z")),
+        ptr(used.get("B")), st[p_ax], st[a_ax], st[b_ax], a_ax, b_ax, p_ax,
+        n_seg, K, S, dims[p_ax], na, nb, pref, da, db, 2.0 * dp, dp, omega,
         constants.OMEGA_PE_COEFF**2 * 1e-6 / omega**2, verdet,
         int(layout.inv_brems), int(layout.phaseshift), int(layout.B_on))
-    return out
+    return out, scales
 
 
 # -- quantise ----------------------------------------------------------------

@@ -177,9 +177,11 @@ def build_segment_pack_device(
     """SegmentPack built on the domain's device by kernel K2.
 
     ``dtype``: torch.float32, torch.bfloat16, torch.int8 or "int4".
-    Quantised tiers are the quantisation of the f32 build.
+    Quantised tiers are the quantisation of the f32 build, computed from
+    the volumes without a float table (the JAX package's fused quantiser).
     ``plane_stride`` keeps every stride-th plane, the gradients still
-    computed at full resolution (full build, then decimation).
+    computed at full resolution: the decimation of the full build, built
+    directly (the JAX package's fused strided route, at every size).
     ``free_ne`` drops the domain's field references once they are read.
     """
     if dither is not None:
@@ -203,20 +205,6 @@ def build_segment_pack_device(
     if quantized4 and Ko % 2:
         raise ValueError("int4 nibble packs require even K after "
                          "plane_stride (output planes pair per byte)")
-    if plane_stride > 1:
-        if quantized:
-            full = build_segment_pack_device(domain, lwl=lwl, K=K,
-                                             dtype=dtype, free_ne=free_ne)
-            return decimate_segment_pack(full, plane_stride)
-        full = build_segment_pack_device(domain, lwl=lwl, K=K,
-                                         dtype=torch.float32,
-                                         free_ne=free_ne)
-        sp = decimate_segment_pack(full, plane_stride)
-        del full
-        if dtype != torch.float32:
-            sp = sp._replace(seg_planes=sp.seg_planes.to(dtype))
-        return sp
-
     p_ax, _, _, ca, cb, cp = _geometry(domain)
     ca_h, cb_h, cp_h = ca.cpu(), cb.cpu(), cp.cpu()
     da = float(ca_h[1] - ca_h[0])
@@ -229,19 +217,23 @@ def build_segment_pack_device(
             "B": domain.B}
     if free_ne:
         domain.ne = domain.Te = domain.Z = domain.B = None
-    table = _pack.build_tables(
-        vols, p_ax=p_ax, layout=layout, K=K, n_seg=n_seg,
-        pref=-0.5 * _c.C**2 / nc, da=da, db=db, dp=dp, omega=omega,
-        verdet=_c.verdet_constant(lwl) if layout.B_on else 0.0,
-        dtype=torch.float32 if quantized else dtype)
+    kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg,
+              pref=-0.5 * _c.C**2 / nc, da=da, db=db, dp=dp, omega=omega,
+              verdet=_c.verdet_constant(lwl) if layout.B_on else 0.0,
+              plane_stride=plane_stride)
+    scales = None
+    if quantized:
+        table, scales = _pack.build_quantized_tables(
+            vols, bits=4 if quantized4 else 8, **kw)
+    else:
+        table = _pack.build_tables(vols, dtype=dtype, **kw)
     del vols
     origin_ab, inv_ab = _origin_inv(ca, cb)
-    spack = SegmentPack(table, origin_ab, inv_ab,
-                        (ca.shape[0], cb.shape[0]), K, cp.shape[0] - 1,
-                        float(cp_h[0]), dp, omega)
-    if quantized:
-        spack = quantize_segment_pack(spack, bits=4 if quantized4 else 8)
-    return spack
+    return SegmentPack(table, origin_ab, inv_ab,
+                       (ca.shape[0], cb.shape[0]), Ko,
+                       -(-(cp.shape[0] - 1) // plane_stride),
+                       float(cp_h[0]), dp * plane_stride, omega, scales,
+                       4 if quantized4 else None)
 
 
 def trace_zscan_segments(

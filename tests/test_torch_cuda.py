@@ -8,9 +8,11 @@ These need a CUDA device and nvcc, so they skip elsewhere. On the card:
 need not have.) They cover what ``chip_smoke.py`` does not: every channel
 layout (C = 3 to 8), x- and y-probing, all the incoherent benches, the
 decimator, the march in any ray order, on scattered warps and over many
-segments, and the pipeline against its CPU run. Float tables and the
-march are held to the plain version's last place or better (observed: bit
-equal); detector counts exactly.
+segments, the fused quantised and strided builds against the two-step
+and post-hoc routes (bit-equal), the detector in the caller's and the
+march's ray order, and the pipeline against its CPU run. Float tables and
+the march are held to the plain version's last place or better (observed:
+bit equal); detector counts exactly.
 """
 
 import numpy as np
@@ -103,6 +105,39 @@ def test_decimate_kernel_matches_plain(dev, tier):
     assert torch.equal(a.seg_planes.cpu(), b.seg_planes)
 
 
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_fused_quantised_build_is_two_step_route(dev, scene, bits, stride):
+    """Codes and scales straight from the volumes == quantize_tables of the
+    f32 kernel build (decimated), bit for bit."""
+    g, _ = _pair(dev, **SCENES[scene])
+    sp = zscan.build_segment_pack_device(
+        g, K=8, dtype=torch.int8 if bits == 8 else "int4",
+        plane_stride=stride)
+    full = zscan.build_segment_pack_device(g, K=8, dtype=torch.float32)
+    C = layout_of(g).n_channels
+    table = pack.decimate_tables(full.seg_planes, 8, C, stride)
+    codes, scales = pack.quantize_tables(table, 8 // stride, C, bits)
+    assert torch.equal(sp.seg_planes, codes)
+    assert torch.equal(sp.scales, scales)
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_strided_build_is_decimated_full_build(dev, scene, tier):
+    g, _ = _pair(dev, **SCENES[scene])
+    for stride in (2, 4):
+        sp = zscan.build_segment_pack_device(g, K=8, dtype=TIERS[tier],
+                                             plane_stride=stride)
+        full = zscan.build_segment_pack_device(g, K=8, dtype=TIERS[tier])
+        dec = zscan.decimate_segment_pack(full, stride)
+        assert torch.equal(sp.seg_planes, dec.seg_planes)
+        assert (sp.K, sp.n_slabs, sp.dp) == (dec.K, dec.n_slabs, dec.dp)
+        if dec.scales is not None:
+            assert torch.equal(sp.scales, dec.scales)
+
+
 # int4 packs run on the even-stride integrators only
 MARCHES = [(t, i) for t in ("f32", "int8", "int4")
            for i in ("rk4", "rk2", "rk2s2", "rk2s4")
@@ -192,12 +227,19 @@ def test_detector_kernel_matches_plain(dev, bench, probe):
         device=dev).manual_seed(2), device=dev)
     args = (EXT * 1.01, EXT, probe, st, (54, 40), ((-9.0, 9.0),
                                                   (-6.75, 6.75)))
-    H = detector.detect(uf, *args).cpu()
     Hp = detector.detect_plain(uf.cpu(), *args)
-    assert torch.equal(H, Hp) and float(H.sum()) > 0
-    Hw = detector.detect(uf, *args, weights=w).cpu()
     Hwp = detector.detect_plain(uf.cpu(), *args, weights=w.cpu())
-    torch.testing.assert_close(Hw, Hwp, rtol=1e-5, atol=1e-4)
+    # the caller's order, and the march's entry-cell order on a grid of
+    # the beam's size
+    na = 33
+    order = march.ray_order(uf, (na, na), (-EXT, -EXT),
+                            ((na - 1) / (2 * EXT),) * 2)
+    for o in (None, order):
+        u, wo = (uf, w) if o is None else (uf[o].contiguous(), w[o])
+        H = detector.detect(u, *args).cpu()
+        assert torch.equal(H, Hp) and float(H.sum()) > 0
+        Hw = detector.detect(u, *args, weights=wo).cpu()
+        torch.testing.assert_close(Hw, Hwp, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("tier,integrator", [("bf16", "rk2"),

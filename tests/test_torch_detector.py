@@ -185,6 +185,33 @@ def test_fused_detector_matches_jax_image(exit_rays, bench):
         assert np.abs(got - want).sum() <= 2
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("perm", ["shuffled", "sorted"])
+def test_detect_in_any_order_matches_caller_order(exit_rays, perm,
+                                                   weighted):
+    """The image does not depend on the order of the rays: counts are
+    equal, weighted sums equal to float rounding."""
+    uf = torch.from_numpy(np.ascontiguousarray(
+        exit_rays[[0, 1, 3, 4, 5, 6, 7, 8]].T))
+    n = uf.shape[0]
+    rng = np.random.default_rng(4)
+    order = torch.from_numpy(
+        rng.permutation(n) if perm == "shuffled"
+        else np.argsort(np.round(exit_rays[0] * 1e3), kind="stable"))
+    w = (torch.from_numpy(rng.random(n).astype(np.float32)) if weighted
+         else None)
+    args = (EXT * 1.02, EXT, "z", tcomp.shadowgraphy_two_lens(), (54, 40),
+            RANGE)
+    want = detector.detect(uf, *args, weights=w)
+    got = detector.detect(uf[order].contiguous(), *args,
+                          weights=None if w is None else w[order])
+    assert float(want.sum()) > 0
+    if weighted:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        assert torch.equal(got, want)
+
+
 def test_stage_table_layout():
     st = [("matrix", np.arange(16.0).reshape(4, 4)), ("aperture", 3.0),
           ("stop", 0.5), ("rect", 2.0, 4.0), ("knife", 0.25, "x", -1)]

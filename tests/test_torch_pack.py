@@ -6,7 +6,10 @@ divisions by constants into reciprocal multiplications, a last-place
 difference). Quantisation and decimation of one pack are data movement
 and IEEE division: bit-identical. Quantised builds compare codes within
 +-1 on at most 1e-4 of the values (a last-place channel difference can
-move a value across a rounding boundary).
+move a value across a rounding boundary). Quantised and strided builds are
+made straight from the volumes (``plane_stride`` output plane k is
+absolute plane s*K + k*S), and are held to the JAX builds the same way and
+to the decimation of the port's own full build exactly.
 """
 
 import jax.numpy as jnp
@@ -45,6 +48,7 @@ CASES = {
     "lens33_K32": (lambda: _lens(33), 32),
     "nondivisible": (lambda: _lens((17, 19, 23)), 8),
     "probe_y": (lambda: _lens((17, 21, 19), "y"), 8),
+    "probe_x": (lambda: _lens((19, 17, 21), "x"), 8),
     "full_physics": (_full_physics, 8),
 }
 
@@ -172,6 +176,61 @@ def test_plane_stride_build(f32_packs, tier):
                                             dtype=tz.PACK_DTYPES[tier])
         assert torch.equal(ts.seg_planes,
                            tz.decimate_segment_pack(full, 2).seg_planes)
+
+
+def _assert_codes_within_one(tq, jq):
+    """Per-plane codes within +-1 on at most 1e-4 of the values, scales to
+    rtol 1e-6 (test_quantised_build_codes_within_one's contract)."""
+    assert tq.seg_planes.shape == jq.seg_planes.shape
+    assert (tq.K, tq.n_slabs, tq.dp, tq.qbits) == (jq.K, jq.n_slabs, jq.dp,
+                                                   jq.qbits)
+    from synthpy_tpu_torch.kernels.pack import nibble_hi, nibble_lo
+    a = tq.seg_planes
+    b = convert.tensor(jq.seg_planes, "cpu")
+    if tq.qbits == 4:
+        a = torch.stack([nibble_lo(a), nibble_hi(a)])
+        b = torch.stack([nibble_lo(b), nibble_hi(b)])
+    diff = (a.to(torch.int16) - b.to(torch.int16)).abs().numpy()
+    assert diff.max() <= 1
+    assert (diff > 0).mean() <= 1e-4
+    np.testing.assert_allclose(tq.scales.numpy(), np.asarray(jq.scales),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_quantised_strided_build_matches_jax(f32_packs, case, tier,
+                                                   stride):
+    jdom, jpack, _ = f32_packs[case]
+    K = jpack.K
+    jq = jz.build_segment_pack_device(jdom, K=K, dtype=jz.PACK_DTYPES[tier],
+                                      plane_stride=stride)
+    tq = tz.build_segment_pack_device(convert.domain(jdom, "cpu"), K=K,
+                                      dtype=tz.PACK_DTYPES[tier],
+                                      plane_stride=stride)
+    _assert_codes_within_one(tq, jq)
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("case", ["lens33_K32", "probe_x", "probe_y",
+                                  "full_physics"])
+def test_strided_build_is_decimated_full_build(f32_packs, case, tier):
+    jdom, jpack, _ = f32_packs[case]
+    tdom = convert.domain(jdom, "cpu")
+    dt = tz.PACK_DTYPES[tier]
+    full = tz.build_segment_pack_device(tdom, K=jpack.K, dtype=dt)
+    ts = tz.build_segment_pack_device(tdom, K=jpack.K, dtype=dt,
+                                      plane_stride=2)
+    td = tz.decimate_segment_pack(full, 2)
+    assert ts.seg_planes.dtype == td.seg_planes.dtype
+    assert torch.equal(ts.seg_planes, td.seg_planes)
+    assert (ts.K, ts.n_slabs, ts.dp, ts.qbits) == (td.K, td.n_slabs, td.dp,
+                                                   td.qbits)
+    if tier in ("int8", "int4"):
+        assert torch.equal(ts.scales, td.scales)
+    else:
+        assert ts.scales is None
 
 
 def test_bf16_carries_across_bit_exact(f32_packs):
