@@ -2,8 +2,8 @@
 
 Functions here take what ``numpy.asarray`` makes of the JAX package's
 arrays (no JAX import is needed) and return port objects on ``device``:
-a ``SegmentPack``, a ``ScalarDomain`` with its fields, or a tensor (a
-JAX-drawn (9, N) ray bundle, for one).
+a ``TracePack``, ``ZScanPack`` or ``SegmentPack``, a ``ScalarDomain`` with
+its fields, or a tensor (a JAX-drawn (9, N) ray bundle, for one).
 bfloat16 arrives from ``np.asarray`` as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects; it is reinterpreted as 16-bit integers and
 viewed as ``torch.bfloat16``, bit for bit.
@@ -15,8 +15,8 @@ import numpy as np
 import torch
 
 from synthpy_tpu_torch import _device
-from synthpy_tpu_torch.fields.domain import ScalarDomain
-from synthpy_tpu_torch.tracer.zscan import SegmentPack
+from synthpy_tpu_torch.fields.domain import ScalarDomain, TracePack
+from synthpy_tpu_torch.tracer.zscan import SegmentPack, ZScanPack
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
@@ -28,6 +28,22 @@ def tensor(a, device="cuda") -> torch.Tensor:
         return torch.from_numpy(arr.view(np.int16)).view(
             torch.bfloat16).to(dev)
     return torch.from_numpy(arr).to(dev)
+
+
+def trace_pack(jpack, device="cuda") -> TracePack:
+    """A JAX ``TracePack`` as a port ``TracePack``: the channel grid on
+    ``device``, the geometry as host numpy arrays."""
+    return TracePack(tensor(jpack.channels, device),
+                     np.array(jpack.origin), np.array(jpack.inv_spacing),
+                     float(jpack.omega))
+
+
+def zscan_pack(jzpack, device="cuda") -> ZScanPack:
+    """A JAX ``ZScanPack`` as a port ``ZScanPack`` (same fields)."""
+    return ZScanPack(tensor(jzpack.planes, device),
+                     tensor(jzpack.origin_ab, device),
+                     tensor(jzpack.inv_spacing_ab, device),
+                     float(jzpack.p0), float(jzpack.dp), float(jzpack.omega))
 
 
 def segment_pack(jpack, device="cuda") -> SegmentPack:

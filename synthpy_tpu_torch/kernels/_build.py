@@ -43,14 +43,17 @@ def nvcc() -> str:
 
 
 def _target(source: str, flags: Sequence[str]) -> Path:
+    # the shared headers are part of every source's key
     text = (CSRC / source).read_bytes() + " ".join(flags).encode()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     key = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}_{key}.so"
 
 
 def _command(source: str, flags: Sequence[str], out: Path):
-    return [nvcc(), *ARCH, *BASE_FLAGS, *flags, "-o", str(out),
-            str(CSRC / source)]
+    return [nvcc(), *ARCH, *BASE_FLAGS, *flags, "-I", str(CSRC), "-o",
+            str(out), str(CSRC / source)]
 
 
 def build(specs: Dict[str, Sequence[str]]) -> Dict[str, Path]:

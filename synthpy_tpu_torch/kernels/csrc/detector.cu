@@ -6,6 +6,10 @@
 // (optics/rtm.py:18), apply_stages' folded 4x4 ABCD stages with aperture,
 // stop, rectangle and knife-edge NaN kills (optics/compose.py:78), and
 // histogram2d's numpy-rule binning and scatter-add (ops/histogram.py:26-66).
+// The exit states of the z-scan marches share one exit plane p_end; those of
+// the time tracer (pipeline.py:140 synth_image) each sit at their own
+// probing coordinate, which the kernel then reads per ray (p_ray) in place
+// of p_end, as ray_to_Jonesvector reads row p of the (9, N) state.
 //
 // What bounds it on the H100: by count, bytes. Each ray reads its 32-byte
 // (N, 8) exit state (and 4 bytes of weight) and does ~60 flops and 2
@@ -102,9 +106,11 @@ __device__ __forceinline__ int ray_bin(float4 lo, float vp, int swap,
   return vx && vy ? iy * nx + ix : -1;
 }
 
-// Thread i bins ray i.
-__global__ void detect_kernel(const float* uf, const float* weights, float* H,
-                              long long N, int swap, float p_end, float depth,
+// Thread i bins ray i. With p_ray, ray i sits at its own probing
+// coordinate p_ray[i] (the time tracer's exit states), else at p_end.
+__global__ void detect_kernel(const float* uf, const float* p_ray,
+                              const float* weights, float* H, long long N,
+                              int swap, float p_end, float depth,
                               const Ops ops, int n_ops, int nx, int ny,
                               float xlo, float xhi, float xs, float ylo,
                               float yhi, float ys) {
@@ -115,8 +121,9 @@ __global__ void detect_kernel(const float* uf, const float* weights, float* H,
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= N) return;
   const float4* u = reinterpret_cast<const float4*>(uf + i * 8);
-  const int key = ray_bin(u[0], u[1].x, swap, p_end, depth, sops, n_ops, nx,
-                          ny, xlo, xhi, xs, ylo, yhi, ys);
+  const int key = ray_bin(u[0], u[1].x, swap, p_ray ? p_ray[i] : p_end,
+                          depth, sops, n_ops, nx, ny, xlo, xhi, xs, ylo, yhi,
+                          ys);
   if (key >= 0) atomicAdd(H + key, weights ? weights[i] : 1.0f);
 }
 
@@ -124,20 +131,22 @@ __global__ void detect_kernel(const float* uf, const float* weights, float* H,
 
 // uf: (N, 8) f32 exit states, 16-byte aligned; weights: (N,) f32 or null;
 // H: (ny, nx) f32, zeroed; ops: (n_ops, 17) f32 stage table in host
-// memory, n_ops <= MAX_OPS. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue.
+// memory, n_ops <= MAX_OPS; p_ray: (N,) f32 probing coordinate of each
+// exit state, or null when every ray sits at p_end. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue.
 extern "C" int detect_image(const float* uf, const float* weights, float* H,
                             long long N, int swap, float p_end, float depth,
                             const float* ops, int n_ops, int nx, int ny,
                             float xlo, float xhi, float xs, float ylo,
-                            float yhi, float ys, void* stream) {
+                            float yhi, float ys, const float* p_ray,
+                            void* stream) {
   if (n_ops < 0 || n_ops > MAX_OPS) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   Ops table;
   for (int j = 0; j < n_ops * OP_WIDTH; ++j) table.v[j] = ops[j];
   const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
   detect_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      uf, weights, H, N, swap, p_end, depth, table, n_ops, nx, ny, xlo, xhi,
-      xs, ylo, yhi, ys);
+      uf, p_ray, weights, H, N, swap, p_end, depth, table, n_ops, nx, ny, xlo,
+      xhi, xs, ylo, yhi, ys);
   return (int)cudaGetLastError();
 }

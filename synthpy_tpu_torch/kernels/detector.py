@@ -23,7 +23,8 @@ from synthpy_tpu_torch.tracer.propagator import ray_to_Jonesvector
 from synthpy_tpu_torch.tracer.zscan import reassemble_state
 
 KERNEL = Kernel("detector.cu", {
-    "detect_image": [P, P, P, L, I, F, F, P, I, I, I, F, F, F, F, F, F, P],
+    "detect_image": [P, P, P, L, I, F, F, P, I, I, I, F, F, F, F, F, F, P,
+                     P],
 }, flags=["--fmad=false"])
 
 _KINDS = {"matrix": 0, "aperture": 1, "stop": 2, "rect": 3, "knife": 4}
@@ -55,13 +56,15 @@ def stage_table(stages: Sequence[Tuple]) -> np.ndarray:
     return rows
 
 
-def detect_plain(uf: torch.Tensor, p_end: float, probing_depth: float,
+def detect_plain(uf: torch.Tensor, p_end, probing_depth: float,
                  probing_direction: str, stages: Sequence[Tuple],
                  bins: Tuple[int, int],
                  range_: Tuple[Tuple[float, float], Tuple[float, float]],
                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of the detector: (ny, nx) image of (N, 8) exit states."""
-    sf = reassemble_state(uf, f32(p_end), probing_direction)
+    """Plain version of the detector: (ny, nx) image of (N, 8) exit states
+    at the probing coordinate ``p_end`` (a float, or an (N,) tensor)."""
+    sf = reassemble_state(uf, p_end if isinstance(p_end, torch.Tensor)
+                          else f32(p_end), probing_direction)
     rf, _ = ray_to_Jonesvector(sf, f32(probing_depth),
                                probing_direction=probing_direction)
     r = apply_stages(m_to_mm(rf), stages)
@@ -69,7 +72,7 @@ def detect_plain(uf: torch.Tensor, p_end: float, probing_depth: float,
     return H
 
 
-def detect(uf: torch.Tensor, p_end: float, probing_depth: float,
+def detect(uf: torch.Tensor, p_end, probing_depth: float,
            probing_direction: str, stages: Sequence[Tuple],
            bins: Tuple[int, int],
            range_: Tuple[Tuple[float, float], Tuple[float, float]],
@@ -77,9 +80,10 @@ def detect(uf: torch.Tensor, p_end: float, probing_depth: float,
     """(ny, nx) f32 image of (N, 8) permuted exit states.
 
     Rays are back-projected to ``probing_depth`` from the exit plane
-    ``p_end``, pushed through the composed ``stages`` (in mm) and binned
-    into ``bins = (nx, ny)`` over ``range_``; ``weights`` is an optional
-    (N,) per-ray weight.
+    ``p_end``, or from each ray's own probing coordinate when ``p_end`` is
+    an (N,) tensor (the time tracer's exit states), pushed through the
+    composed ``stages`` (in mm) and binned into ``bins = (nx, ny)`` over
+    ``range_``; ``weights`` is an optional (N,) per-ray weight.
     """
     if uf.device.type == "cpu":
         return detect_plain(uf, p_end, probing_depth, probing_direction,
@@ -94,6 +98,13 @@ def detect(uf: torch.Tensor, p_end: float, probing_depth: float,
             or not weights.is_contiguous()):
         raise ValueError("weights must be a contiguous (N,) float32 tensor "
                          "on the rays' device")
+    p_ray = p_end if isinstance(p_end, torch.Tensor) else None
+    if p_ray is not None and (
+            p_ray.device != dev or p_ray.dtype != torch.float32
+            or tuple(p_ray.shape) != (uf.shape[0],)
+            or not p_ray.is_contiguous()):
+        raise ValueError("a per-ray p_end must be a contiguous (N,) float32 "
+                         "tensor on the rays' device")
     # the kernel reads states as 16-byte vectors: a fresh allocation is
     # aligned
     if uf.data_ptr() % 16:
@@ -110,6 +121,8 @@ def detect(uf: torch.Tensor, p_end: float, probing_depth: float,
     KERNEL.launch(
         "detect_image", dev, uf.data_ptr(),
         None if weights is None else weights.data_ptr(), H.data_ptr(),
-        uf.shape[0], int(probing_direction == "y"), f32(p_end),
-        f32(probing_depth), ops.ctypes.data, ops.shape[0], nx, ny, *bx, *by)
+        uf.shape[0], int(probing_direction == "y"),
+        0.0 if p_ray is not None else f32(p_end), f32(probing_depth),
+        ops.ctypes.data, ops.shape[0], nx, ny, *bx, *by,
+        None if p_ray is None else p_ray.data_ptr())
     return H

@@ -41,29 +41,33 @@ def plane_blocks(K: int, qbits: Optional[int]) -> int:
     return K // 2 + 1 if qbits == 4 else K + 1
 
 
-def entry_cells(u: torch.Tensor, shape_ab: Tuple[int, int],
-                origin_ab: Sequence[float],
-                inv_ab: Sequence[float]) -> torch.Tensor:
-    """(N,) int32 frozen corner cell ia0 * nb + ib0 of each ray's first
-    segment, ia0 = clip(floor(ta), 0, na-2) as in the JAX march
-    (zscan.py:850-853); a NaN coordinate gives 0, as in the kernel."""
-    na, nb = shape_ab
-    idx = []
-    for col, o, inv, n in ((0, origin_ab[0], inv_ab[0], na),
-                           (1, origin_ab[1], inv_ab[1], nb)):
-        t = torch.floor((u[:, col] - float(np.float32(o)))
-                        * float(np.float32(inv)))
-        idx.append(t.nan_to_num(0.0).clamp(0, n - 2).to(torch.int32))
-    return idx[0] * nb + idx[1]
+def entry_cells(u: torch.Tensor, shape: Sequence[int],
+                origin: Sequence[float],
+                inv_spacing: Sequence[float]) -> torch.Tensor:
+    """(N,) flat cell of each ray's first ``len(shape)`` columns, row-major
+    over ``shape``, each index clip(floor(t), 0, n - 2) of t = (x - origin)
+    * inv_spacing (a NaN coordinate gives 0, as in the kernels). For K1's
+    (a, b) it is the JAX march's frozen corner cell ia0 * nb + ib0
+    (zscan.py:850-853); K4 takes the same (a, b) key, K5 and K6 the 3-D
+    cell (ix * ny + iy) * nz + iz. int32, or int64 for a grid of 2^31
+    cells or more."""
+    wide = int(np.prod(shape, dtype=np.int64)) >= 2**31
+    flat = None
+    for col, n in enumerate(shape):
+        t = torch.floor((u[:, col] - float(np.float32(origin[col])))
+                        * float(np.float32(inv_spacing[col])))
+        i = t.nan_to_num(0.0).clamp(0, n - 2).to(
+            torch.int64 if wide else torch.int32)
+        flat = i if flat is None else flat * n + i
+    return flat
 
 
-def ray_order(u: torch.Tensor, shape_ab: Tuple[int, int],
-              origin_ab: Sequence[float],
-              inv_ab: Sequence[float]) -> torch.Tensor:
+def ray_order(u: torch.Tensor, shape: Sequence[int], origin: Sequence[float],
+              inv_spacing: Sequence[float]) -> torch.Tensor:
     """(N,) int64 stable permutation of the rays by entry cell: the order
-    in which the kernel marches them, so that a block's rays share corner
+    in which a kernel marches them, so that a block's rays share corner
     rows."""
-    return torch.argsort(entry_cells(u, shape_ab, origin_ab, inv_ab),
+    return torch.argsort(entry_cells(u, shape, origin, inv_spacing),
                          stable=True)
 
 

@@ -91,8 +91,8 @@ def ptxas(source: Path, flags: Sequence[str]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _build.BUILD_DIR / (source.stem + "_ptxas.cubin")
     cmd = [_build.nvcc(), *_build.ARCH, "-std=c++17", "-O3",
-           "-split-compile=0", "-cubin", "-Xptxas", "-v", *flags, "-o",
-           str(out), str(source)]
+           "-split-compile=0", "-cubin", "-Xptxas", "-v", *flags, "-I",
+           str(_build.CSRC), "-o", str(out), str(source)]
     log = subprocess.run(cmd, capture_output=True, text=True, check=True)
     text = log.stdout + log.stderr
     kernels, name = {}, None

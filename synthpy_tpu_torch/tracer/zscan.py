@@ -1,16 +1,18 @@
-"""Segmented slab march with the probing axis as independent variable
-(PyTorch port of the main-path subset of ``synthpy_tpu.tracer.zscan``).
+"""Slab marches with the probing axis as independent variable (PyTorch
+port of the plain and segmented subsets of ``synthpy_tpu.tracer.zscan``).
 
 Every ray crosses the probing axis monotonically, so the ray ODE is
-reparameterised from t to the probing coordinate p; the field planes are
-grouped into segments of K slabs, stored as corner-column tables
-``[seg, cell, k*C + c]`` (``SegmentPack``). The pack is built by kernel K2
-(``kernels.pack``, which also holds the nibble helpers) and marched by
-kernel K1 (``kernels.march``).
+reparameterised from t to the probing coordinate p. The plain march
+(``trace_zscan``, kernel K4 in ``kernels.slab_march``) steps RK4 across the
+planes of a ``ZScanPack`` (the trace pack with the probing axis leading).
+The segmented march groups the planes into segments of K slabs, stored as
+corner-column tables ``[seg, cell, k*C + c]`` (``SegmentPack``); the pack
+is built by kernel K2 (``kernels.pack``, which also holds the nibble
+helpers) and marched by kernel K1 (``kernels.march``).
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-``dither=`` (A.4), ``mesh=`` (A.17), ``block=``, ``substeps > 1`` and
-``remat`` (A.4 / B8).
+``dither=`` (A.4), ``mesh=`` (A.17), and on the segmented march ``block=``,
+``substeps > 1`` and ``remat`` (A.4 / B8).
 """
 
 from __future__ import annotations
@@ -18,12 +20,18 @@ from __future__ import annotations
 import time
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from synthpy_tpu_torch import constants as _c
-from synthpy_tpu_torch.fields.domain import ScalarDomain, layout_of
+from synthpy_tpu_torch.fields.domain import (ChannelLayout, ScalarDomain,
+                                             TracePack, build_pack,
+                                             layout_of)
 from synthpy_tpu_torch.kernels import march as _march
 from synthpy_tpu_torch.kernels import pack as _pack
+from synthpy_tpu_torch.kernels import slab_march as _slab
+from synthpy_tpu_torch.kernels.slab_march import (  # noqa: F401
+    bilinear as _bilinear, deriv as _deriv)
 from synthpy_tpu_torch.tracer.propagator import (_AXIS_OF, TraceResult,
                                                  ray_to_Jonesvector)
 
@@ -46,17 +54,133 @@ def reassemble_state(uf: torch.Tensor, p_end,
                      probing_direction: str = "z") -> torch.Tensor:
     """(N, 8) permuted exit columns -> (9, N) canonical exit state; every
     ray sits at the exit-plane coordinate ``p_end`` along the probing
-    axis."""
+    axis, or at its own coordinate when ``p_end`` is an (N,) tensor."""
     p_ax = _AXIS_OF[probing_direction]
     a_ax, b_ax = [a for a in range(3) if a != p_ax]
     cols = [None] * 9
     cols[a_ax], cols[b_ax] = uf[:, 0], uf[:, 1]
-    cols[p_ax] = torch.full((uf.shape[0],), p_end, dtype=uf.dtype,
-                            device=uf.device)
+    cols[p_ax] = (p_end if isinstance(p_end, torch.Tensor) else torch.full(
+        (uf.shape[0],), p_end, dtype=uf.dtype, device=uf.device))
     cols[3 + a_ax], cols[3 + b_ax], cols[3 + p_ax] = (uf[:, 2], uf[:, 3],
                                                       uf[:, 4])
     cols[6], cols[7], cols[8] = uf[:, 5], uf[:, 6], uf[:, 7]
     return torch.stack(cols)
+
+
+class ZScanPack(NamedTuple):
+    """Trace pack permuted so the probing axis leads.
+
+    planes: (n_p, n_a, n_b, C) with the gradient channels (and the Faraday
+        channels) reordered to (a, b, p), the permuted state's order.
+    """
+
+    planes: torch.Tensor
+    origin_ab: torch.Tensor       # (2,) transverse origins
+    inv_spacing_ab: torch.Tensor  # (2,)
+    p0: float
+    dp: float
+    omega: float
+
+
+def make_zscan_pack(pack: TracePack, layout: ChannelLayout,
+                    probing_direction: str = "z",
+                    dtype=None) -> ZScanPack:
+    """Permute a TracePack into probing-axis-major plane layout;
+    ``dtype`` (e.g. torch.bfloat16) down-casts the stored planes, the
+    march's arithmetic staying float32."""
+    p_ax = _AXIS_OF[probing_direction]
+    a_ax, b_ax = [a for a in range(3) if a != p_ax]
+    perm = list(range(pack.channels.shape[-1]))
+    perm[0], perm[1], perm[2] = a_ax, b_ax, p_ax
+    if layout.B_on:
+        f = layout.faraday_index
+        perm[f + 0], perm[f + 1], perm[f + 2] = f + a_ax, f + b_ax, f + p_ax
+    planes = pack.channels.permute(p_ax, a_ax, b_ax, 3)[..., perm]
+    planes = planes.to(dtype or planes.dtype).contiguous()
+    o = np.asarray(pack.origin)
+    s = np.asarray(pack.inv_spacing)
+    dev = planes.device
+    return ZScanPack(planes,
+                     torch.as_tensor(np.stack([o[a_ax], o[b_ax]]),
+                                     device=dev),
+                     torch.as_tensor(np.stack([s[a_ax], s[b_ax]]),
+                                     device=dev),
+                     float(o[p_ax]), float(1.0 / s[p_ax]), pack.omega)
+
+
+def trace_zscan(u: torch.Tensor, planes: torch.Tensor, origin_ab, inv_ab,
+                dp, *, layout: ChannelLayout, n_slabs: int,
+                substeps: int = 1, atten_sign: float = -1.0,
+                ray_chunk: Optional[int] = None,
+                unroll: int = 1) -> torch.Tensor:
+    """March (N, 8) permuted rays across ``n_slabs`` grid intervals with
+    ``substeps`` RK4 steps each (kernel K4). ``ray_chunk`` and ``unroll``
+    are the JAX program's memory and scan knobs and have no effect here:
+    the kernel keeps no per-ray buffer."""
+    del ray_chunk, unroll
+    return _slab.march(u, planes, [float(v) for v in origin_ab.tolist()],
+                       [float(v) for v in inv_ab.tolist()], float(dp),
+                       layout=layout, n_slabs=n_slabs, substeps=substeps,
+                       atten_sign=atten_sign)
+
+
+def entry_sort(u: torch.Tensor, origin_ab, inv_ab, nb: int) -> torch.Tensor:
+    """``u`` reordered by entry cell with the JAX package's key
+    ``clip(int(ta), 0) * nb + clip(int(tb), 0)``."""
+    ta = (u[:, 0] - origin_ab[0]) * inv_ab[0]
+    tb = (u[:, 1] - origin_ab[1]) * inv_ab[1]
+    cell = (ta.to(torch.int32).clamp_min(0) * nb
+            + tb.to(torch.int32).clamp_min(0))
+    return u[torch.argsort(cell, stable=True)]
+
+
+def solve_zscan(
+    s0: torch.Tensor,
+    domain: ScalarDomain,
+    probing_depth: Optional[float] = None,
+    *,
+    lwl: float = 1064e-9,
+    return_E: bool = False,
+    substeps: int = 1,
+    atten_sign: float = -1.0,
+    pack: Optional[TracePack] = None,
+    zpack: Optional[ZScanPack] = None,
+    ray_chunk: Optional[int] = None,
+    sort_rays: bool = False,
+    unroll: int = 1,
+) -> TraceResult:
+    """Trace a (9, N) bundle from the entry face to the far face of the
+    grid with the plain slab march, then resolve the exit plane
+    ``probing_depth``. With ``sort_rays`` the output columns are in
+    entry-cell order."""
+    layout = layout_of(domain)
+    if probing_depth is None:
+        probing_depth = domain.extent
+    if zpack is None:
+        if pack is None:
+            pack = build_pack(domain, lwl)
+        zpack = make_zscan_pack(pack, layout, domain.probing_direction)
+    u = permute_state(s0, domain.probing_direction)
+    if sort_rays:
+        u = entry_sort(u, zpack.origin_ab, zpack.inv_spacing_ab,
+                       zpack.planes.shape[2])
+    n_slabs = zpack.planes.shape[0] - 1
+    if u.is_cuda:
+        torch.cuda.synchronize(u.device)
+    start = time.perf_counter()
+    uf = trace_zscan(u, zpack.planes, zpack.origin_ab, zpack.inv_spacing_ab,
+                     zpack.dp, layout=layout, n_slabs=n_slabs,
+                     substeps=substeps, atten_sign=atten_sign,
+                     ray_chunk=ray_chunk, unroll=unroll)
+    if uf.is_cuda:
+        torch.cuda.synchronize(uf.device)
+    duration = time.perf_counter() - start
+    sf = reassemble_state(uf, zpack.p0 + n_slabs * zpack.dp,
+                          domain.probing_direction)
+    rf, Jf = ray_to_Jonesvector(sf, probing_depth,
+                                probing_direction=domain.probing_direction,
+                                return_E=return_E)
+    return TraceResult(rf, Jf, sf, duration)
 
 
 class SegmentPack(NamedTuple):
@@ -101,6 +225,22 @@ def _origin_inv(ca: torch.Tensor, cb: torch.Tensor):
     origin_ab = torch.stack([ca[0], cb[0]])
     inv_ab = torch.stack([1.0 / (ca[1] - ca[0]), 1.0 / (cb[1] - cb[0])])
     return origin_ab, inv_ab
+
+
+def make_segment_pack(zpack: ZScanPack, K: int = 64) -> SegmentPack:
+    """Regroup a ZScanPack into K-slab segments with duplicated borders
+    (zero planes pad the last segment)."""
+    n_p, na, nb, C = zpack.planes.shape
+    n_slabs = n_p - 1
+    n_seg = -(-n_slabs // K)
+    planes = zpack.planes
+    if n_seg * K + 1 > n_p:
+        pad = planes.new_zeros((n_seg * K + 1 - n_p, na, nb, C))
+        planes = torch.cat([planes, pad])
+    segs = torch.stack([planes[s * K:s * K + K + 1] for s in range(n_seg)])
+    segs = segs.permute(0, 2, 3, 1, 4).reshape(n_seg, na * nb, (K + 1) * C)
+    return SegmentPack(segs, zpack.origin_ab, zpack.inv_spacing_ab,
+                       (na, nb), K, n_slabs, zpack.p0, zpack.dp, zpack.omega)
 
 
 def segment_pack_metadata(domain: ScalarDomain, lwl: float = 1064e-9,

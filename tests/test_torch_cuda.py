@@ -10,9 +10,12 @@ layout (C = 3 to 8), x- and y-probing, all the incoherent benches, the
 decimator, the march in any ray order, on scattered warps and over many
 segments, the fused quantised and strided builds against the two-step
 and post-hoc routes (bit-equal), the detector in the caller's and the
-march's ray order, and the pipeline against its CPU run. Float tables and
-the march are held to the plain version's last place or better (observed:
-bit equal); detector counts exactly.
+march's ray order and with per-ray exit coordinates, the plain z-scan,
+time-domain and adaptive kernels (K4, K5, K6) on every layout and probing
+axis, and the pipeline against its CPU run on all three solvers. Float
+tables and the marches are held to the plain version's last place or
+better (observed: bit equal); detector counts and K6's step counts
+exactly.
 """
 
 import numpy as np
@@ -21,10 +24,14 @@ import torch
 
 from synthpy_tpu_torch import pipeline
 from synthpy_tpu_torch.fields import ScalarDomain, layout_of
-from synthpy_tpu_torch.kernels import detector, march, pack
-from synthpy_tpu_torch.optics.compose import BENCHES
+from synthpy_tpu_torch.fields.domain import build_pack
+from synthpy_tpu_torch.kernels import (adaptive, detector, march, pack,
+                                       slab_march, time_march)
+from synthpy_tpu_torch.optics.compose import BENCHES, shadowgraphy_two_lens
 from synthpy_tpu_torch.tracer import init_beam
 from synthpy_tpu_torch.tracer import zscan
+from synthpy_tpu_torch.tracer.propagator import (default_n_steps, dt_of,
+                                                 t_end_of)
 
 pytestmark = pytest.mark.cuda
 
@@ -248,8 +255,188 @@ def test_detector_kernel_matches_plain(dev, bench, probe):
 def test_pipeline_on_card_matches_cpu(dev, tier, integrator):
     g, c = _pair(dev, dims=33, physics=True)
     names = ("shadowgraphy", "polarimetry", "schlieren_lf")
-    kw = dict(pack_dtype=tier, seg_K=32, integrator=integrator,
-              seg_weights="slab", bins=(54, 40), diagnostic=names)
+    kw = dict(solver="zscan_seg", pack_dtype=tier, seg_K=32,
+              integrator=integrator, seg_weights="slab", bins=(54, 40),
+              diagnostic=names)
+    s0 = init_beam(0, 8192, 2e-3, 0.0, g.extent, "circular", device=dev)
+    Hg = pipeline.run(g, s0, **kw)
+    Hc = pipeline.run(c, s0.cpu(), **kw)
+    for n in names:
+        a, b = Hg[n].cpu(), Hc[n]
+        np.testing.assert_allclose(a.sum(), b.sum(), rtol=1e-5)
+        assert float((a - b).abs().sum()) <= 2e-3 * float(b.sum()) + 1e-3
+
+
+# channel layouts (inv_brems, phaseshift, B_on): C = 3, 4, 5, 6, 8
+LAYOUTS = [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 1)]
+
+
+def _layout_pair(dev, layout, probe="z", dims=(17, 19, 21)):
+    """The lens along ``probe`` with the channels of ``layout`` switched
+    on, on the card and on the CPU."""
+    ib, ps, bon = layout
+    out = []
+    for device in (dev, "cpu"):
+        d = ScalarDomain(2 * EXT, dims, probing_direction=probe,
+                         inv_brems=bool(ib), phaseshift=bool(ps),
+                         device=device)
+        d.test_liner(ne_0=8e24, LR=1.8e-3) if probe == "y" else \
+            d.test_lens(ne_0=8e24, LR=1.8e-3)
+        g = torch.Generator().manual_seed(1)
+        if ib:
+            d.external_Te(50.0 + 10.0 * torch.rand(d.dims, generator=g))
+            d.external_Z(2.0 * torch.ones(d.dims))
+        if bon:
+            d.test_B(Bmax=10.0)
+        out.append(d)
+    return out
+
+
+def _rays(dev, probe, n=4096):
+    """A bundle a fifth of which enters outside the box, one NaN ray."""
+    s0 = init_beam(2, n, 2.5e-3, 1e-3, EXT, "circular",
+                   probing_direction=probe, device=dev)
+    a = [i for i in range(3) if i != "xyz".index(probe)][0]
+    s0[a, ::5] += 4e-3
+    s0[3 + "xyz".index(probe), 7] = float("nan")
+    return s0
+
+
+def _same(a, b):
+    """Bit-equal, NaN rows included."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def _close(a, b, tol=2e-6):
+    a, b = a.cpu(), b.cpu()
+    assert torch.equal(a.isnan(), b.isnan())
+    scale = b.abs().nan_to_num(0).amax(0).clamp_min(1e-30)
+    assert float(((a - b).abs().nan_to_num(0).amax(0) / scale).max()) <= tol
+
+
+CASES = [(lay, "z") for lay in LAYOUTS] + [((1, 1, 1), "x"),
+                                           ((1, 1, 1), "y")]
+
+
+@pytest.mark.parametrize("layout,probe", CASES)
+def test_time_march_kernel_matches_plain(dev, layout, probe):
+    g, c = _layout_pair(dev, layout, probe)
+    pk = build_pack(g)
+    rows = _rays(dev, probe).T.contiguous()
+    n = default_n_steps(c, c.extent)
+    kw = dict(layout=layout_of(c), n_steps=n)
+    a = time_march.march(rows, pk.channels, pk.origin, pk.inv_spacing,
+                         dt_of(n, c.extent), **kw)
+    # ray order moves no result
+    b = time_march.launch(time_march.KERNEL, rows, pk.channels, pk.origin,
+                          pk.inv_spacing, dt_of(n, c.extent),
+                          torch.arange(rows.shape[0], device=dev), **kw)
+    assert _same(a, b)
+    p = time_march.march_plain(rows.cpu(), pk.channels.cpu(), pk.origin,
+                               pk.inv_spacing, dt_of(n, c.extent), **kw)
+    _close(a, p)
+
+
+@pytest.mark.parametrize("substeps", [1, 4])
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("layout,probe", CASES)
+def test_slab_march_kernel_matches_plain(dev, layout, probe, tier,
+                                         substeps):
+    g, c = _layout_pair(dev, layout, probe)
+    zp = zscan.make_zscan_pack(build_pack(g), layout_of(c), probe,
+                               dtype=TIERS[tier])
+    u = zscan.permute_state(_rays(dev, probe), probe).contiguous()
+    args = (zp.planes, zp.origin_ab.tolist(), zp.inv_spacing_ab.tolist(),
+            zp.dp)
+    kw = dict(layout=layout_of(c), n_slabs=zp.planes.shape[0] - 1,
+              substeps=substeps)
+    a = slab_march.march(u, *args, **kw)
+    b = slab_march.launch(slab_march.KERNEL, u, *args,
+                          torch.arange(u.shape[0], device=dev), **kw)
+    assert _same(a, b)
+    p = slab_march.march_plain(u.cpu(), zp.planes.cpu(), *args[1:], **kw)
+    _close(a, p)
+
+
+@pytest.mark.parametrize("local_cap", [True, False])
+@pytest.mark.parametrize("layout,probe", CASES)
+def test_adaptive_kernel_matches_plain(dev, layout, probe, local_cap):
+    g, c = _layout_pair(dev, layout, probe)
+    pk = build_pack(g)
+    ax = "xyz".index(probe)
+    rows = _rays(dev, probe, 2048)[:, 8:].T.contiguous()   # no NaN ray
+    kw = dict(layout=layout_of(c), p_axis=ax if local_cap else None,
+              plane_amax=(adaptive.plane_amax_of(pk.channels, ax)
+                          if local_cap else None))
+    s, n_acc, n_rej = adaptive.trace_rk45(
+        rows, pk.channels, pk.origin, pk.inv_spacing, t_end_of(c.extent),
+        **kw)
+    kw["plane_amax"] = None if not local_cap else kw["plane_amax"].cpu()
+    sp, acc_p, rej_p = adaptive.trace_rk45_plain(
+        rows.cpu(), pk.channels.cpu(), pk.origin, pk.inv_spacing,
+        t_end_of(c.extent), **kw)
+    assert (n_acc, n_rej) == (acc_p, rej_p) and n_acc > 0
+    _close(s, sp)
+
+
+def test_adaptive_kernel_rejects_and_stops_like_plain(dev):
+    """A tight tolerance makes the controller reject steps; a step budget
+    stops both in the middle of a batch of launches."""
+    g, c = _layout_pair(dev, (0, 0, 0), dims=21)
+    pk = build_pack(g)
+    rows = init_beam(8, 2048, 1.5e-3, 0.0, EXT, "circular",
+                     device=dev).T.contiguous()
+    for kw in (dict(rtol=1e-9, atol=1e-8, max_steps=54),
+               dict(max_steps=adaptive.CHECK_EVERY + 3)):
+        a = adaptive.trace_rk45(rows, pk.channels, pk.origin, pk.inv_spacing,
+                                t_end_of(c.extent), layout=layout_of(c),
+                                **kw)
+        b = adaptive.trace_rk45_plain(rows.cpu(), pk.channels.cpu(),
+                                      pk.origin, pk.inv_spacing,
+                                      t_end_of(c.extent),
+                                      layout=layout_of(c), **kw)
+        assert a[1:] == b[1:]
+        _close(a[0], b[0])
+    assert b[1] + b[2] == adaptive.CHECK_EVERY + 3
+
+
+def test_adaptive_kernel_empty_bundle_like_plain(dev):
+    """No rays: every step rejected up to the budget, nothing launched."""
+    g, c = _layout_pair(dev, (0, 0, 0), dims=21)
+    pk = build_pack(g)
+    adaptive.KERNEL.launches = 0
+    kw = dict(layout=layout_of(c), max_steps=37)
+    s, n_acc, n_rej = adaptive.trace_rk45(
+        torch.empty((0, 9), device=dev), pk.channels, pk.origin,
+        pk.inv_spacing, t_end_of(c.extent), **kw)
+    sp, acc_p, rej_p = adaptive.trace_rk45_plain(
+        torch.empty((0, 9)), pk.channels.cpu(), pk.origin, pk.inv_spacing,
+        t_end_of(c.extent), **kw)
+    assert (n_acc, n_rej) == (acc_p, rej_p) == (0, 37)
+    assert s.shape == sp.shape == (0, 9) and s.is_cuda
+    assert adaptive.KERNEL.launches == 0
+
+
+@pytest.mark.parametrize("probe", ["x", "y", "z"])
+def test_detector_per_ray_exit_coordinate_matches_plain(dev, probe):
+    s0 = init_beam(3, 20000, 4e-3, 8e-3, EXT, "circular",
+                   probing_direction=probe, device=dev)
+    uf = zscan.permute_state(s0, probe).contiguous()
+    p = (EXT + 1e-3 * torch.rand(uf.shape[0], generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)).contiguous()
+    args = (EXT, probe, shadowgraphy_two_lens(), (54, 40),
+            ((-9.0, 9.0), (-6.75, 6.75)))
+    H = detector.detect(uf, p, *args).cpu()
+    assert torch.equal(H, detector.detect_plain(uf.cpu(), p.cpu(), *args))
+    assert float(H.sum()) > 0
+
+
+@pytest.mark.parametrize("solver", ["time", "zscan"])
+def test_solvers_on_card_match_cpu(dev, solver):
+    g, c = _pair(dev, dims=33, physics=True)
+    names = ("shadowgraphy", "polarimetry", "schlieren_lf")
+    kw = dict(solver=solver, bins=(54, 40), diagnostic=names)
     s0 = init_beam(0, 8192, 2e-3, 0.0, g.extent, "circular", device=dev)
     Hg = pipeline.run(g, s0, **kw)
     Hc = pipeline.run(c, s0.cpu(), **kw)

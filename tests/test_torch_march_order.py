@@ -173,9 +173,11 @@ def test_synth_image_zscan_sort_rays_matches_jax(bench, tier, integrator):
     kw = dict(layout=layout_of(jd), p0=tp.p0, dp_static=tp.dp,
               seg_scales=tp.scales, seg_qbits=tp.qbits, **common)
     args = (ts0, tp.seg_planes, tp.origin_ab, tp.inv_spacing_ab, EXT)
-    Ht = tpipe.synth_image_zscan(*args, sort_rays=True, **kw)
+    Ht = tpipe.synth_image_zscan(*args, n_slabs=tp.n_slabs, sort_rays=True,
+                                 segmented=True, **kw)
     _close_images(Ht, Hj)
-    assert torch.equal(Ht, tpipe.synth_image_zscan(*args, **kw))
+    assert torch.equal(Ht, tpipe.synth_image_zscan(
+        *args, n_slabs=tp.n_slabs, segmented=True, **kw))
 
 
 def test_run_sort_rays_matches_jax(bench):

@@ -60,7 +60,8 @@ def test_run_on_carried_pack_and_multi_diagnostic(bench):
     kw = dict(diagnostic=names, integrator="rk2s4", seg_weights="stage",
               bins=BINS)
     Hj = jpipe.run(jd, s0, solver="zscan_seg", spack=jpack, **kw)
-    Ht = tpipe.run(td, ts0, spack=convert.segment_pack(jpack, "cpu"), **kw)
+    Ht = tpipe.run(td, ts0, solver="zscan_seg",
+                   spack=convert.segment_pack(jpack, "cpu"), **kw)
     assert set(Ht) == set(names)
     for n in names[:3]:
         _close_images(Ht[n], Hj[n])
@@ -72,7 +73,7 @@ def test_run_on_carried_pack_and_multi_diagnostic(bench):
 def test_default_f32_pack_and_solve(bench):
     jd, td, s0, ts0 = bench
     Hj = jpipe.run(jd, s0, solver="zscan_seg", seg_K=8, bins=BINS)
-    Ht = tpipe.run(td, ts0, seg_K=8, bins=BINS)
+    Ht = tpipe.run(td, ts0, solver="zscan_seg", seg_K=8, bins=BINS)
     _close_images(Ht, Hj)
     rj = jz.solve_zscan_segments(s0, jd, K=8, return_E=True)
     rt = tz.solve_zscan_segments(ts0, td, K=8, return_E=True)
@@ -88,12 +89,15 @@ def test_default_f32_pack_and_solve(bench):
 
 def test_unported_paths_raise(bench):
     _, td, _, ts0 = bench
-    cases = [dict(solver="time"), dict(diagnostic="interferometry"),
+    cases = [dict(solver="analytic"), dict(diagnostic="interferometry"),
              dict(mesh=object()), dict(pack_dtype="auto"),
              dict(pack_dtype="int8", pack_dither=3)]
     for kw in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.run(td, ts0, seg_K=8, bins=BINS, **kw)
+            tpipe.run(td, ts0, **{"solver": "zscan_seg", "seg_K": 8,
+                                  "bins": BINS, **kw})
+    # an overcritical field falls back to the time tracer, as in JAX
     hot = convert.domain(JDomain(2 * EXT, 17).test_lens(ne_0=1e28), "cpu")
-    with pytest.raises(NotImplementedError, match="critical"):
-        tpipe.run(hot, ts0, seg_K=8, bins=BINS)
+    with pytest.warns(UserWarning, match="critical density"):
+        H = tpipe.run(hot, ts0, solver="zscan_seg", seg_K=8, bins=BINS)
+    assert torch.equal(H, tpipe.run(hot, ts0, solver="time", bins=BINS))
