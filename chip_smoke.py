@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-The port's six hand-written CUDA kernels are built from
+The port's seven hand-written CUDA kernels are built from
 ``synthpy_tpu_torch/kernels/csrc`` with nvcc, all sources at once: K1
-segment march, K2 pack builder/quantiser/decimator, K3 detector, K4 plain
-slab march, K5 time-domain RK4 march and K6 adaptive Dormand-Prince step.
-Each is held to its plain PyTorch version on the card. The zscan_seg
-bench configuration (512^3 bench lens, K = 512, 4,000,000 rays, rk2, slab
-weights, 431 x 321 bins) runs through the port's entry points at the
-bf16, int8/rk2s2 and int4/rk2s4 tiers. K2 builds every tier and
+segment march, K2 pack builder/quantiser/decimator, K3 detector (an
+incoherent and a coherent entry point), K4 plain slab march, K5
+time-domain RK4 march, K6 adaptive Dormand-Prince step and K7 analytic
+march. Each is held to its plain PyTorch version on the card. The
+zscan_seg bench configuration (512^3 bench lens, K = 512, 4,000,000 rays,
+rk2, slab weights, 431 x 321 bins) runs through the port's entry points at
+the bf16, int8/rk2s2 and int4/rk2s4 tiers. K2 builds every tier and
 ``plane_stride=2`` straight from the volume, held bit-equal to the
 two-step (float table, then quantiser) and post-hoc (full build, then
 decimation) routes, each build timed with its bound and peak memory; K3
@@ -22,15 +23,25 @@ the grid); then ``pipeline.run(solver="time")`` and
 ``pipeline.run(solver="zscan")`` run the same 512^3 / 4 M-ray bundle on a
 prebuilt pack, and ``solve_adaptive`` the first 1,000,000 of its rays.
 At those shapes K4 and K5 are held to their plain versions on every ray,
-and K6 on the adaptive path's first 16 steps.
+and K6 on the adaptive path's first 16 steps. K7 is held to its plain
+version on the 65,536-ray subset for every closed form and a C = 7 scene
+(phase and Faraday channels, rk4; a bundle partly outside), then
+``pipeline.run(solver="analytic")`` runs the bench lens (4 M rays, rk2
+over 64 steps as bench.py's analytic tier, then rk4 over 511), K7 held to
+plain on every ray of each call. K3's coherent form is held to its plain
+chain (exact ray counts, field sums to the order of the atomic adds) for
+interferometry and coherent refractometry on the zscan_seg and the time
+tracer's exit states, and both benches run through ``pipeline.run`` on
+the zscan_seg main path.
 Every path is driven with the launch counts set to 0 just before it and
 read just after. Each phase prints one JSON line; then a
 ``{"kernels": [...]}`` line with each kernel's launches on its path
 (calls of its C entry point: the int8 and int4 builds start two device
 kernels, an adaptive step a stage kernel and a one-block controller; a K2
 row per tier), its time (CUDA events around back-to-back calls, per call;
-for K6 around back-to-back steps, per step), its bound, its plain version's time and a library
-call's time (best single calls); then the card's name and power limit;
+for K6 around back-to-back steps, per step), its bound, its plain
+version's time and a library call's time (best single calls); then the
+card's name and power limit;
 and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the script exits nonzero and prints no "ok" line; it also exits nonzero
 without a CUDA device or without the ``synthpy_tpu_torch`` package beside
@@ -49,6 +60,14 @@ SUBSET = 65_536
 ADAPTIVE_RAYS = 1_000_000   # the validation integrator's cut (PERF.md)
 K6_STEPS = 16               # first steps of the adaptive path held to plain
 PHYS_DIM = 128              # grid of the C = 8 scene
+A_STEPS = 64                # the analytic tier's steps (bench.py:169-190)
+COHERENT = ("interferometry", "refractometry_coherent")
+# operations a closed form adds to a K7 stage, and a detector stage's,
+# counted from analytic.cu and detector.cu (see the bounds below)
+FORM_OPS = {"null": 0, "slab": 3, "linear_cos": 47, "exponential_cos": 65,
+            "lens": 20, "liner": 20}
+STAGE_OPS = {"matrix": 28, "aperture": 4, "stop": 4, "rect": 4, "knife": 2,
+             "phase": 55, "mark": 0}
 EXT = 5e-3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -79,15 +98,20 @@ def main():
     sys.path.insert(0, root)
     try:
         from synthpy_tpu_torch import constants, pipeline
-        from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+        from synthpy_tpu_torch.fields import (ChannelLayout, ScalarDomain,
+                                              layout_of)
         from synthpy_tpu_torch.fields.domain import build_pack
-        from synthpy_tpu_torch.kernels import (_build, adaptive, detector,
-                                               march, pack, slab_march,
-                                               time_march)
+        from synthpy_tpu_torch.fields.forms import ClosedForm
+        from synthpy_tpu_torch.kernels import (_build, adaptive, analytic,
+                                               detector, march, pack,
+                                               slab_march, time_march)
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
                                                          nvidia_smi)
-        from synthpy_tpu_torch.ops.histogram import _bin_index
-        from synthpy_tpu_torch.optics.compose import (apply_stages,
+        from synthpy_tpu_torch.ops.histogram import (_bin_index,
+                                                     _pixel_index,
+                                                     finalize_complex)
+        from synthpy_tpu_torch.optics.compose import (BENCHES, apply_stages,
+                                                      interfere_ref_beam,
                                                       shadowgraphy_two_lens)
         from synthpy_tpu_torch.optics.rtm import m_to_mm
         from synthpy_tpu_torch.tracer import init_beam, ray_to_Jonesvector
@@ -102,7 +126,9 @@ def main():
     dev = torch.device("cuda")
     kernels = {"march": march.KERNEL, "pack": pack.KERNEL,
                "detector": detector.KERNEL, "slab_march": slab_march.KERNEL,
-               "time_march": time_march.KERNEL, "adaptive": adaptive.KERNEL}
+               "time_march": time_march.KERNEL, "adaptive": adaptive.KERNEL,
+               "analytic": analytic.KERNEL,
+               "detector_field": detector.FIELD_KERNEL}
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
@@ -795,6 +821,168 @@ def main():
     emit({"phase": "adaptive_path", "dim": DIM, **paths["adaptive"]})
     del res_a, rf_t
 
+    # -- 6. the analytic tracer (K7) and the coherent detector (K3's field
+    # form), held to their plain versions, then through pipeline.run ------
+    lo = [float(c[0]) for c in (domain.x, domain.y, domain.z)]
+    hi = [float(c[-1]) for c in (domain.x, domain.y, domain.z)]
+    ext = domain.extent
+    forms = {   # the test_* closed forms (the lens is the bench field's)
+        "null": ClosedForm("null"),
+        "slab": ClosedForm("slab", ne_0=2e23, s=0.5, ext=ext),
+        "linear_cos": ClosedForm("linear_cos", ne_0=2e23, s1=0.1, ext=ext,
+                                 s2=0.1, Ly=2e-3),
+        "exponential_cos": ClosedForm("exponential_cos", ne_0=1e24,
+                                      s=4e-3, Ly=1e-3),
+        "lens": domain.analytic["ne"],
+        "liner": ClosedForm("liner", ne_0=5e24, LR=2e-3)}
+    bz = ClosedForm("bz_linear", Bmax=10.0, ext=ext)
+    lay7 = ChannelLayout(False, True, True)          # phase and Faraday
+
+    def k7_kw(lay, integrator, n):
+        return dict(layout=lay, axes=(0, 1, 2), bounds=(lo, hi),
+                    omega=omega, lwl=1064e-9, p0=lo[2],
+                    h=(hi[2] - lo[2]) / n, n_steps=n, integrator=integrator)
+
+    k7 = {}
+    for name, f in forms.items():
+        kw = k7_kw(layout, "rk2", A_STEPS)
+        a = analytic.march(u_sub, f, None, **kw)
+        torch.cuda.synchronize()
+        k7[f"{name}, rk2"] = close(
+            a, analytic.march_plain(u_sub, f, None, **kw), f"K7 {name}")
+    for name, u, integrator in (("C = 7 lens + Bz, rk4", u_sub, "rk4"),
+                                ("C = 7, partly outside, NaN rays, rk2",
+                                 u_off, "rk2")):
+        kw = k7_kw(lay7, integrator, A_STEPS)
+        a = analytic.march(u, forms["lens"], bz, **kw)
+        torch.cuda.synchronize()
+        k7[name] = close(a, analytic.march_plain(u, forms["lens"], bz, **kw),
+                         f"K7 {name}")
+    del a
+    emit({"phase": "K7_vs_plain", "rays": SUBSET, "n_steps": A_STEPS,
+          "tolerance": "atol 1e-5 * max|column|, same NaNs", **k7})
+
+    # the analytic tier of bench.py: pipeline.run(solver="analytic") on the
+    # bench lens, rk2, 64 steps (then rk4 over the 511 cells), K7 held to
+    # its plain version on every ray of each call
+    def run_analytic(integrator, n):
+        return pipeline.run(domain, s0, solver="analytic",
+                            integrator=integrator, n_steps=n,
+                            critical_guard=None, bins=BINS)
+
+    for integrator, n in (("rk2", A_STEPS), ("rk4", DIM - 1)):
+        tag = f"analytic_{integrator}"
+        reset()
+        Ha = run_analytic(integrator, n)
+        torch.cuda.synchronize()
+        launches[tag] = path_launches(("analytic", "detector"), tag)
+        check(launches[tag]["analytic"] == 1, f"{tag}: K7 launched "
+              f"{launches[tag]['analytic']} times")
+        akw = k7_kw(layout, integrator, n)
+        uf_a = analytic.march(u_all, forms["lens"], None, **akw)
+        uf_ap, a_plain_ms = timed(lambda: analytic.march_plain(
+            u_all, forms["lens"], None, **akw))
+        a_all = close(uf_a, uf_ap, f"K7 {integrator} at {RAYS} rays")
+        del uf_ap
+        Hp_a = detector.detect_plain(uf_a, hi[2], ext, "z", stages, BINS,
+                                     range_)
+        check(tuple(Ha.shape) == (BINS[1], BINS[0])
+              and bool(torch.isfinite(Ha).all()), f"{tag}: bad image")
+        check(torch.equal(Ha, Hp_a) and float(Ha.sum()) > 0,
+              f"{tag}: image (sum {float(Ha.sum())}) != the plain "
+              f"detector's on K7's exit states (sum {float(Hp_a.sum())})")
+        # grid-free against the 512^3 segment march (bf16, K = 512)
+        rel_grid = float((Ha - images["bf16"]).abs().sum()
+                         / images["bf16"].sum())
+        check(rel_grid <= 0.06, f"{tag}: {rel_grid} from the gridded image")
+        run_ms = best_ms(lambda: run_analytic(integrator, n), reps=3)
+        paths[tag] = {
+            "n_steps": n, "launches": launches[tag],
+            "image_sum": float(Ha.sum()), "run_ms": run_ms,
+            "rays_per_s": RAYS / (run_ms * 1e-3),
+            "k7_ms": batch_ms(lambda: analytic.march(
+                u_all, forms["lens"], None, **akw),
+                calls=10 if integrator == "rk2" else 3),
+            "k7_plain_ms": a_plain_ms, "k7_vs_plain_all_rays": a_all,
+            "rel_l1_vs_zscan_seg_bf16": rel_grid}
+        emit({"phase": "analytic_path", "dim": DIM, "rays": RAYS,
+              "integrator": integrator, **paths[tag]})
+    del uf_a, Ha, Hp_a
+
+    # the coherent detector on the zscan_seg main path's exit states and on
+    # the time tracer's (per-ray exit coordinate): field sums within the
+    # order of their atomic adds, ray counts (a unit field through the
+    # stages without their phase checkpoints) exactly
+    def unit_field(u):
+        u = u.clone()
+        u[:, 5], u[:, 6], u[:, 7] = 1.0, 0.0, 0.0
+        return u
+
+    coh, coh_err = {}, 0.0
+    for sname, ufx, px in (("zscan_seg", uf, p_end),
+                           ("time, per ray", uf_t, p_t)):
+        for bench in COHERENT:
+            st_c = BENCHES[bench][0]()
+            ref = (10.0, 20.0) if bench == "interferometry" else None
+            st_n = [x for x in st_c if x[0] not in ("phase", "mark")]
+            cargs = (unit_field(ufx), px, ext, "z", st_n, BINS, 18.0, 13.5,
+                     1064e-9)
+            counts_k = detector.detect_field(*cargs)[..., 1]
+            counts_p = detector.detect_field_plain(*cargs)[..., 1]
+            check(torch.equal(counts_k, counts_p), f"K3 field {bench} on "
+                  f"{sname} states: ray counts differ")
+            n_max = float(counts_p.max())
+            for conv in ("legacy", "intensity"):
+                args = (ufx, px, ext, "z", st_c, BINS, 18.0, 13.5, 1064e-9,
+                        conv)
+                Hk = detector.detect_field(*args, ref=ref)
+                torch.cuda.synchronize()
+                Hp = detector.detect_field_plain(*args, ref=ref)
+                err = float((Hk - Hp).abs().max())
+                check(err <= 1e-4 * n_max, f"K3 field {bench}/{conv} on "
+                      f"{sname} states: off by {err} ({n_max} rays a bin)")
+                coh_err = max(coh_err, err)
+                coh[f"{bench}/{conv} on {sname}"] = {
+                    "max_abs_err": err, "max_rays_per_pixel": n_max,
+                    "counts_equal": True, "rays_kept": float(
+                        counts_p.sum()),
+                    "bit_equal": bool(torch.equal(Hk, Hp))}
+    del Hk, Hp, counts_k, counts_p
+    emit({"phase": "K3_coherent_vs_plain", "rays": RAYS, "tolerance":
+          "ray counts equal; |field sums| within 1e-4 x the most rays a "
+          "pixel (atomic order)", **coh})
+
+    # the coherent benches through pipeline.run on the zscan_seg main path
+    for bench in COHERENT:
+        reset()
+        kw = dict(solver="zscan_seg", spack=sp, integrator="rk2",
+                  seg_weights="slab", bins=BINS, diagnostic=bench)
+        Hc = pipeline.run(domain, s0, **kw)
+        torch.cuda.synchronize()
+        launches[bench] = path_launches(("march", "detector_field"), bench)
+        check(launches[bench]["detector_field"] == 1
+              and kernels["detector"].launches == 0,
+              f"{bench}: launches {launches[bench]}, incoherent detector "
+              f"{kernels['detector'].launches}")
+        ref = (10.0, 20.0) if bench == "interferometry" else None
+        Hcp = finalize_complex(detector.detect_field_plain(
+            uf, p_end, ext, "z", BENCHES[bench][0](), BINS, 18.0, 13.5,
+            1064e-9, ref=ref))
+        check(tuple(Hc.shape) == (BINS[1], BINS[0])
+              and bool(torch.isfinite(Hc).all()), f"{bench}: bad image")
+        rel = float((Hc - Hcp).abs().sum() / Hcp.abs().sum())
+        check(rel <= 1e-4, f"{bench}: image {rel} from the plain detector's "
+              "on K1's exit states")
+        paths[bench] = {"launches": launches[bench],
+                        "run_ms": best_ms(lambda: pipeline.run(domain, s0,
+                                                               **kw),
+                                          reps=3),
+                        "rel_l1_vs_plain": rel,
+                        "image_sum": float(Hc.sum())}
+        emit({"phase": "coherent_path", "bench": bench, "solver":
+              "zscan_seg", "rays": RAYS, **paths[bench]})
+    del Hc, Hcp
+
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
     k1_call_ms = best_ms(lambda: march.march(u_all, sp.seg_planes,
                                              sp.scales, **mkw), reps=5)
@@ -985,6 +1173,89 @@ def main():
          "launches": launches["time"]["detector"], "max_abs_err": 0.0,
          "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_b[0],
          "bound_by": k3r_b[1], "library_ms": k3r_lib_ms}]
+    # K7 and K3's field form. Operations counted from the .cu (a fused
+    # multiply-add as two; expf 8, powf 20, sinf or cosf 15 each): a K7
+    # stage is the box test 6, the accelerations 3 and the right-hand side
+    # 6, plus the form (FORM_OPS), 9 for the phase and 12 for the Faraday
+    # channels; a stage state or update 16, rk4's weighted sum 40, the
+    # probing coordinate 3-4. K3's field form: back-projection and angles
+    # 46, the Jones vector 64, binning 10, one add a channel, the
+    # interferometer's reference 33, and each stage (STAGE_OPS; a phase
+    # checkpoint's path, sin/cos pair and complex products 55).
+    def k7_flops(form, lay, integrator, steps, n):
+        stage = 15 + FORM_OPS[form] + 9 * lay.phaseshift + 12 * lay.B_on
+        step = (2 * stage + 2 * 16 + 3 if integrator == "rk2"
+                else 4 * stage + 3 * 16 + 56 + 4)
+        return n * steps * step
+
+    def k3f_flops(bench, n_ch):
+        ops = 46 + 64 + 10 + n_ch + 33 * (bench == "interferometry")
+        return RAYS * (ops + sum(STAGE_OPS[st[0]]
+                                 for st in BENCHES[bench][0]()))
+
+    k7_b = bound(2 * RAYS * 32, k7_flops("lens", layout, "rk2", A_STEPS,
+                                         RAYS))
+    k7_b4 = bound(2 * RAYS * 32, k7_flops("lens", layout, "rk4", DIM - 1,
+                                          RAYS))
+    paths["analytic_rk4"].update(bound_ms=k7_b4[0], bound_by=k7_b4[1])
+    st_i = BENCHES["interferometry"][0]()
+    ref_i = (10.0, 20.0)
+    fargs = (uf, p_end, ext, "z", st_i, BINS, 18.0, 13.5, 1064e-9)
+    Hf = detector.detect_field(*fargs, ref=ref_i)
+    k3f_ms = batch_ms(lambda: detector.detect_field(*fargs, ref=ref_i),
+                      calls=50)
+    k3f_plain_ms = best_ms(lambda: detector.detect_field_plain(
+        *fargs, ref=ref_i), reps=3)
+    k3f_b = bound(RAYS * 32 + BINS[0] * BINS[1] * 2 * 4,
+                  k3f_flops("interferometry", 2))
+    # the library yardstick: index_put_(accumulate=True) of the two field
+    # channels on precomputed pixels (the port never calls it)
+    rf_i, J_i = ray_to_Jonesvector(
+        zscan.reassemble_state(uf, float(np.float32(p_end)), "z"),
+        float(np.float32(ext)), probing_direction="z", return_E=True)
+    r_i = m_to_mm(rf_i)
+    r_i, E_i = apply_stages(r_i, st_i, E=interfere_ref_beam(r_i, J_i,
+                                                            *ref_i),
+                            wavelength=1064e-9)
+    ixf, vxf = _pixel_index(r_i[0], 18.0, BINS[0])
+    iyf, vyf = _pixel_index(r_i[2], 13.5, BINS[1])
+    keep = torch.isfinite(r_i[0]) & torch.isfinite(r_i[2]) & vxf & vyf
+    flat_f = (iyf.nan_to_num(0.0).clamp(0, BINS[1] - 1) * BINS[0]
+              + ixf.nan_to_num(0.0).clamp(0, BINS[0] - 1)).long()
+    chans = torch.stack([E_i[0].real, E_i[1].real], 1)
+    chans = torch.where(keep[:, None], chans, torch.zeros_like(chans))
+    Hl2 = torch.zeros((BINS[0] * BINS[1], 2), device=dev)
+
+    def lib_f():
+        Hl2.zero_()
+        Hl2.index_put_((flat_f,), chans, accumulate=True)
+
+    k3f_lib_ms = best_ms(lib_f, reps=20)
+    n_main = coh["interferometry/legacy on zscan_seg"]["max_rays_per_pixel"]
+    check(float((Hl2.reshape(BINS[1], BINS[0], 2) - Hf).abs().max())
+          <= 1e-4 * n_main, "index_put_ yardstick disagrees with the field "
+          "detector")
+    del rf_i, J_i, r_i, E_i, chans, Hl2
+    rows_out += [
+        {"name": "analytic", "route": "cuda", "source": csrc + "analytic.cu",
+         "replaces": "synthpy_tpu/tracer/analytic.py:110",
+         "launches": launches["analytic_rk2"]["analytic"],
+         "max_abs_err": max(
+             [paths[t]["k7_vs_plain_all_rays"]["max_abs_err"]
+              for t in ("analytic_rk2", "analytic_rk4")]
+             + [v["max_abs_err"] for v in k7.values()]),
+         "ms": paths["analytic_rk2"]["k7_ms"],
+         "plain_ms": paths["analytic_rk2"]["k7_plain_ms"],
+         "bound_ms": k7_b[0], "bound_by": k7_b[1], "library_ms": None,
+         "rk4_511_steps": {k: paths["analytic_rk4"][k] for k in (
+             "k7_ms", "k7_plain_ms", "bound_ms", "bound_by")}},
+        {"name": "detector_field", "route": "cuda",
+         "source": csrc + "detector.cu",
+         "replaces": "synthpy_tpu/pipeline.py:115",
+         "launches": launches["interferometry"]["detector_field"],
+         "max_abs_err": coh_err, "ms": k3f_ms, "plain_ms": k3f_plain_ms,
+         "bound_ms": k3f_b[0], "bound_by": k3f_b[1],
+         "library_ms": k3f_lib_ms}]
     detail = {"k1_table_rows_touched": int(rows.numel()),
               "k1_order_ms": order_ms,
               "k1_flops": {i: k1_flops(i, q) for i, q in (
@@ -998,6 +1269,10 @@ def main():
               "flops": {"k5": k5_flops(RAYS, n_steps),
                         "k4": k4_flops(RAYS, DIM - 1, 1),
                         "k6_per_step": k6_flops(ADAPTIVE_RAYS)},
+              "flops_k7_lens_rk2_64": k7_flops("lens", layout, "rk2",
+                                               A_STEPS, RAYS),
+              "flops_k3_field_interferometry": k3f_flops("interferometry",
+                                                         2),
               "k5_caller_order_ms": k5_caller_ms,
               "k4_caller_order_ms": k4_caller_ms,
               "k2_decimate_bf16": k2_dec,
@@ -1006,7 +1281,8 @@ def main():
               "device_kernels_per_launch": {
                   "march": 1, "pack_bf16": 1, "pack_int8": 2,
                   "pack_int4": 2, "detector": 1, "slab_march": 1,
-                  "time_march": 1, "adaptive_step": 2},
+                  "time_march": 1, "adaptive_step": 2, "analytic": 1,
+                  "detector_field": 1},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit({"phase": "bounds", **detail})
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -1016,7 +1292,7 @@ def main():
                    "K2": k2, "K2_builds": k2_builds, "K2_plain_ms": k2_plain,
                    "main": main, "K4": k4, "K4_times": k4_t, "K5": k5,
                    "K5_times": k5_t, "K6": k6, "K6_times": k6_t,
-                   "paths": paths,
+                   "paths": paths, "K7": k7, "K3_coherent": coh,
                    "kernels": rows_out, **detail}, f, indent=1)
     emit({"kernels": rows_out})
     print(smi, flush=True)

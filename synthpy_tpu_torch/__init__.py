@@ -7,11 +7,12 @@ The port runs the image pipeline on four tracers:
     -> pipeline.run(solver="zscan", ...)       plain slab march (K4), default
        pipeline.run(solver="zscan_seg", ...)   segment pack (K2) + march (K1)
        pipeline.run(solver="time", ...)        time-domain RK4 (K5)
-    -> the detector (K3)
+       pipeline.run(solver="analytic", ...)    closed-form march (K7)
+    -> the detector (K3; coherent benches through its field form)
 
 and the adaptive validation tracer ``solve_adaptive`` (K6). ``solve``,
-``solve_zscan`` and ``solve_adaptive`` are exported here, as in
-``synthpy_tpu.tracer``.
+``solve_zscan``, ``solve_adaptive`` and ``solve_zscan_analytic`` are
+exported here, as in ``synthpy_tpu.tracer``.
 
 Every entry point takes ``device=`` (default ``"cuda"``) or follows the
 device of the tensors it is given. Without a card, pass ``device="cpu"``:
@@ -39,7 +40,7 @@ _SUBMODULES = (
 
 # tracer entry points exported at the top level: name -> module
 _EXPORTS = {"solve": "tracer", "solve_zscan": "tracer",
-            "solve_adaptive": "tracer"}
+            "solve_adaptive": "tracer", "solve_zscan_analytic": "tracer"}
 
 
 def __getattr__(name):

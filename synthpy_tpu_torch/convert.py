@@ -61,7 +61,12 @@ def segment_pack(jpack, device="cuda") -> SegmentPack:
 
 def domain(jdomain, device="cuda") -> ScalarDomain:
     """A JAX ``ScalarDomain`` (coordinates, ne, Te, Z, B and the physics
-    switches) as a port ``ScalarDomain``."""
+    switches) as a port ``ScalarDomain``.
+
+    The JAX closures of ``jdomain.analytic`` cannot be carried across: the
+    port's domain has ``analytic=None``. For the analytic solver, call the
+    same ``test_*`` constructor on it (its closed forms are the port's),
+    or set ``analytic`` to torch closures."""
     d = ScalarDomain(x=np.asarray(jdomain.x), y=np.asarray(jdomain.y),
                      z=np.asarray(jdomain.z), inv_brems=jdomain.inv_brems,
                      phaseshift=jdomain.phaseshift, B_on=jdomain.B_on,

@@ -4,6 +4,8 @@ Port of ``synthpy_tpu.fields.domain`` (main-path subset): ``ScalarDomain``
 with per-axis coordinates, the analytic test fields and external-field
 loading; ``ChannelLayout``, ``TracePack``, ``build_pack``, ``layout_of``
 and ``peak_ne_over_nc``. Fields live on the domain's device as tensors.
+The ``test_*`` fields also set ``domain.analytic``, the closed forms of the
+pack-free analytic march (``fields.forms``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from synthpy_tpu_torch import _device, constants
+from synthpy_tpu_torch.fields.forms import ClosedForm
 
 AXES = ("x", "y", "z")
 
@@ -109,6 +112,11 @@ class ScalarDomain:
         self.B: Optional[torch.Tensor] = None
         self.Te: Optional[torch.Tensor] = None
         self.Z: Optional[torch.Tensor] = None
+        # closed-form closures of the analytic march (tracer.analytic):
+        # {"ne": f(x, y, z), optional "B", "Te", "Z"}, torch closures. The
+        # test_* fields set ClosedForms, which the kernel K7 evaluates;
+        # external grids clear it.
+        self.analytic: Optional[dict] = None
 
         if ne_type is not None:
             generator = getattr(self, ne_type, None)
@@ -144,12 +152,15 @@ class ScalarDomain:
         """Empty cube: rays pass undeflected."""
         self.ne = torch.zeros(self.dims, dtype=self.dtype,
                               device=self.device)
+        self.analytic = {"ne": ClosedForm("null")}
         return self
 
     def test_slab(self, s: float = 1.0, ne_0: float = 2e23):
         """Linear x-gradient slab: deflects rays in x."""
         (X,) = self._mesh("x")
         self.ne = self._fill(ne_0 * (1.0 + s * X / self.extent))
+        self.analytic = {"ne": ClosedForm("slab", ne_0=ne_0, s=s,
+                                          ext=self.extent)}
         return self
 
     def test_linear_cos(self, s1: float = 0.1, s2: float = 0.1,
@@ -158,6 +169,8 @@ class ScalarDomain:
         X, Y = self._mesh("x", "y")
         self.ne = self._fill(ne_0 * (1.0 + s1 * X / self.extent) * (
             1.0 + s2 * torch.cos(2 * np.pi * Y / Ly)))
+        self.analytic = {"ne": ClosedForm("linear_cos", ne_0=ne_0, s1=s1,
+                                          ext=self.extent, s2=s2, Ly=Ly)}
         return self
 
     def test_exponential_cos(self, ne_0: float = 1e24, Ly: float = 1e-3,
@@ -166,18 +179,22 @@ class ScalarDomain:
         X, Y = self._mesh("x", "y")
         self.ne = self._fill(ne_0 * torch.pow(10.0, X / s)
                              * (1.0 + torch.cos(2 * np.pi * Y / Ly)))
+        self.analytic = {"ne": ClosedForm("exponential_cos", ne_0=ne_0, s=s,
+                                          Ly=Ly)}
         return self
 
     def test_lens(self, ne_0: float = 1e24, LR: float = 1e-3):
         """Gaussian column along z: a plasma lens."""
         X, Y = self._mesh("x", "y")
         self.ne = self._fill(ne_0 * torch.exp(-(X**2 + Y**2) / LR**2))
+        self.analytic = {"ne": ClosedForm("lens", ne_0=ne_0, LR=LR)}
         return self
 
     def test_liner(self, ne_0: float = 1e24, LR: float = 1e-3):
         """Gaussian column along y."""
         X, Z = self._mesh("x", "z")
         self.ne = self._fill(ne_0 * torch.exp(-(X**2 + Z**2) / LR**2))
+        self.analytic = {"ne": ClosedForm("liner", ne_0=ne_0, LR=LR)}
         return self
 
     def test_B(self, Bmax: float = 1.0):
@@ -188,6 +205,10 @@ class ScalarDomain:
         B[..., 2] = (Bmax * X / self.extent).expand(*self.dims)
         self.B = B
         self.B_on = True
+        if self.analytic is not None:
+            self.analytic = dict(self.analytic)
+            self.analytic["B"] = ClosedForm("bz_linear", Bmax=Bmax,
+                                            ext=self.extent)
         return self
 
     # -- external field loading (device tensors) -----------------------------
@@ -198,8 +219,10 @@ class ScalarDomain:
         return v.to(device=self.device, dtype=self.dtype)
 
     def external_ne(self, ne):
-        """Load an electron-density grid of shape ``dims``."""
+        """Load an electron-density grid of shape ``dims``; a gridded field
+        replaces any closed form (``analytic`` becomes None)."""
         self.ne = self._as_field(ne)
+        self.analytic = None
         if tuple(self.ne.shape) != tuple(self.dims):
             raise ValueError(
                 f"ne shape {tuple(self.ne.shape)} != grid dims {self.dims}")
@@ -208,14 +231,17 @@ class ScalarDomain:
     def external_B(self, B):
         self.B = self._as_field(B)
         self.B_on = True
+        self.analytic = None
         return self
 
     def external_Te(self, Te, Te_min: float = 1.0):
         self.Te = torch.clamp_min(self._as_field(Te), Te_min)
+        self.analytic = None
         return self
 
     def external_Z(self, Z):
         self.Z = self._as_field(Z)
+        self.analytic = None
         return self
 
     def build_pack(self, lwl: float = constants.DEFAULT_LWL) -> "TracePack":

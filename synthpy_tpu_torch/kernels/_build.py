@@ -111,6 +111,10 @@ class Kernel:
     def launch(self, name: str, device, *args) -> None:
         """Call C function ``name`` with ``args`` and, last, the current
         CUDA stream of ``device``; raise if it reports an error."""
+        if len(args) + 1 != len(self.functions[name]):
+            raise TypeError(f"{self.source}:{name} takes "
+                            f"{len(self.functions[name]) - 1} arguments "
+                            f"and the stream, not {len(args)}")
         fn = getattr(self.load(), name)
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:

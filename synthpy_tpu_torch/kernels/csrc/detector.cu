@@ -1,11 +1,23 @@
-// K3: the detector.
+// K3: the detector, in two forms that share the state read, the
+// back-projection and the stage loop.
 //
-// Replaces the JAX device program that turns the exit state into an image:
+// Replaces two JAX device programs. detect_image, the incoherent form,
+// replaces the one that turns the exit state into an image:
 // reassemble_state (synthpy_tpu/tracer/zscan.py:64), ray_to_Jonesvector's
-// back-projection and arctan angles (tracer/propagator.py:138-160), m_to_mm
-// (optics/rtm.py:18), apply_stages' folded 4x4 ABCD stages with aperture,
-// stop, rectangle and knife-edge NaN kills (optics/compose.py:78), and
-// histogram2d's numpy-rule binning and scatter-add (ops/histogram.py:26-66).
+// back-projection and arctan angles (tracer/propagator.py:138-160),
+// m_to_mm (optics/rtm.py:18), apply_stages' folded 4x4 ABCD stages with
+// aperture, stop, rectangle and knife-edge NaN kills (optics/compose.py
+// :78), and histogram2d's numpy-rule binning and scatter-add
+// (ops/histogram.py:26-66).
+// detect_field, the coherent form, replaces the coherent branch of
+// synthpy_tpu/pipeline.py:115-123: the Jones vector from amp, phase and pol
+// (propagator.py:161-167), the interferometer's tilted reference beam
+// (compose.py:123), the stage list with its ("phase",) and ("mark",)
+// checkpoints (compose.py:92-104: E times exp(i k |transverse path|)), and
+// complex_histogram's field sums (ops/histogram.py:69: x_edges_n - 1
+// pixels, digitize - 1, the right edge dropped) into an (ny, nx, C) f32
+// accumulator, C = 2 (legacy: Re Jx, Re Jy) or 4 (intensity: Re and Im of
+// both); finalize_complex stays in PyTorch.
 // The exit states of the z-scan marches share one exit plane p_end; those of
 // the time tracer (pipeline.py:140 synth_image) each sit at their own
 // probing coordinate, which the kernel then reads per ray (p_ray) in place
@@ -13,24 +25,27 @@
 //
 // What bounds it on the H100: by count, bytes. Each ray reads its 32-byte
 // (N, 8) exit state (and 4 bytes of weight) and does ~60 flops and 2
-// arctans, then adds into a (ny, nx) f32 image that fits in L2. Measured at
-// the main path's shapes (4 M rays of a beam that lands on ~7,600 bins) it
-// runs at about a quarter of the bytes bound, and the atomics hold it:
-// without them it takes two fifths of the time, as adds to a few thousand
-// hot addresses queue in L2 (PERF.md). The design fuses the whole chain into
-// one pass, one thread per ray in the caller's order, so no (9, N) or
-// (4, N) intermediate is written; the stage list comes in as a kernel
-// parameter (no copy to the device per call) and sits in shared memory, and
-// the state row comes in as two 16-byte loads. Each kept ray adds once. In
-// the caller's order a warp's rays land on ~32 distinct bins, so adding
-// once per (warp, bin) (__match_any_sync) saves nothing; it saves a third
-// of the time on states stored in the march's entry-cell order (~2 bins a
-// warp), but the march writes each ray back to its own row, and reading
-// the states through that order, or copying them into it, costs more than
-// the atomics it saves.
+// arctans (the coherent form adds 2-5 sin/cos pairs and a square root),
+// then adds into a (ny, nx) f32 image (or C of them) that fits in L2.
+// Measured at the main path's shapes (4 M rays of a beam that lands on
+// ~7,600 bins) the incoherent form runs at about a quarter of the bytes
+// bound, and the atomics hold it: without them it takes two fifths of the
+// time, as adds to a few thousand hot addresses queue in L2 (PERF.md). The
+// design fuses the whole chain into one pass, one thread per ray in the
+// caller's order, so no (9, N) or (4, N) intermediate is written; the stage
+// list comes in as a kernel parameter (no copy to the device per call) and
+// sits in shared memory, and the state row comes in as two 16-byte loads.
+// Each kept ray adds once (C times for the field). In the caller's order a
+// warp's rays land on ~32 distinct bins, so adding once per (warp, bin)
+// (__match_any_sync) saves nothing; it saves a third of the time on states
+// stored in the march's entry-cell order (~2 bins a warp), but the march
+// writes each ray back to its own row, and reading the states through that
+// order, or copying them into it, costs more than the atomics it saves.
 // Built with --fmad=false: every product and sum is rounded as the plain
-// PyTorch version rounds it, so a ray near a bin edge lands in the same bin
-// and counts match exactly.
+// PyTorch version rounds it (its complex products written out in real
+// arithmetic), so a ray near a bin edge lands in the same bin, counts match
+// exactly, and a ray's field is the plain version's; field sums then differ
+// only by the order of the atomic adds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,12 +60,10 @@ struct Ops {
   float v[MAX_OPS * OP_WIDTH];
 };
 
-enum Op { MATRIX = 0, APERTURE = 1, STOP = 2, RECT = 3, KNIFE = 4 };
-
-__device__ __forceinline__ void kill(float r[4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) r[q] = __int_as_float(0x7fc00000);
-}
+enum Op {
+  MATRIX = 0, APERTURE = 1, STOP = 2, RECT = 3, KNIFE = 4, PHASE = 5,
+  MARK = 6
+};
 
 // numpy-rule bin of v in [lo, hi]: v == hi goes to the last bin; false for
 // NaN and out-of-range values
@@ -61,22 +74,53 @@ __device__ __forceinline__ bool bin_of(float v, float lo, float hi,
   return isfinite(v) && v >= lo && v <= hi;
 }
 
-// Flat bin of one ray from its permuted exit state (lo = a, b, va, vb and
-// vp), or -1 when the optics or the detector drop it.
-__device__ __forceinline__ int ray_bin(float4 lo, float vp, int swap,
-                                       float p_end, float depth,
-                                       const float* sops, int n_ops, int nx,
-                                       int ny, float xlo, float xhi, float xs,
-                                       float ylo, float yhi, float ys) {
-  // rows 0/2 of the RTM ray are (a, b), or (b, a) when probing along y
+// complex_histogram's pixel of v: floor((v + L/2) / (L/n)) in [0, n), false
+// for NaN and out-of-range values
+__device__ __forceinline__ bool pixel_of(float v, float half, float d, int n,
+                                         int& idx) {
+  const float f = floorf((v + half) / d);
+  idx = (int)fminf(fmaxf(f, 0.0f), (float)(n - 1));
+  return isfinite(v) && f >= 0.0f && f < (float)n;
+}
+
+// The RTM ray [x, theta, y, phi] (mm, rad) of one permuted exit state (lo =
+// a, b, va, vb; vp) back-projected from p_end to the plane at depth; rows
+// 0/2 are (a, b), or (b, a) when probing along y.
+__device__ __forceinline__ void exit_ray(float4 lo, float vp, int swap,
+                                         float p_end, float depth,
+                                         float r[4]) {
   const float pa = swap ? lo.y : lo.x, va = swap ? lo.w : lo.z;
   const float pb = swap ? lo.x : lo.y, vb = swap ? lo.z : lo.w;
   const float t_bp = (p_end - depth) / vp;
-  float r[4];
   r[0] = (pa - va * t_bp) * 1000.0f;
   r[1] = atanf(va / vp);
   r[2] = (pb - vb * t_bp) * 1000.0f;
   r[3] = atanf(vb / vp);
+}
+
+// E (Jx, Jy as re, im pairs) times exp(i k |transverse path|) from the
+// checkpoint (m0, m2) to r (compose.advance_phase).
+__device__ __forceinline__ void advance_phase(float E[4], const float r[4],
+                                              float m0, float m2, float k) {
+  const float dx = (r[0] - m0) * 1e-3f, dy = (r[2] - m2) * 1e-3f;
+  const float d2 = dx * dx + dy * dy;
+  const float kp = k * (d2 > 0.0f ? sqrtf(d2) : 0.0f);
+  const float c = cosf(kp), s = sinf(kp);
+#pragma unroll
+  for (int j = 0; j < 4; j += 2) {
+    const float re = E[j], im = E[j + 1];
+    E[j] = re * c - im * s;
+    E[j + 1] = re * s + im * c;
+  }
+}
+
+// Run the stage list on r (and, for FIELD, on E with wavenumber k); false
+// when a filter stops the ray, which then reaches no bin.
+template <bool FIELD>
+__device__ __forceinline__ bool run_stages(float r[4], float E[4],
+                                           const float* sops, int n_ops,
+                                           float k) {
+  float m0 = r[0], m2 = r[2];
   for (int o = 0; o < n_ops; ++o) {
     const float* op = sops + o * OP_WIDTH;
     const int kind = (int)op[0];
@@ -90,20 +134,21 @@ __device__ __forceinline__ int ray_bin(float4 lo, float vp, int swap,
 #pragma unroll
       for (int q = 0; q < 4; ++q) r[q] = out[q];
     } else if (kind == APERTURE) {
-      if (r[0] * r[0] + r[2] * r[2] > p[0]) kill(r);
+      if (r[0] * r[0] + r[2] * r[2] > p[0]) return false;
     } else if (kind == STOP) {
-      if (r[0] * r[0] + r[2] * r[2] < p[0]) kill(r);
+      if (r[0] * r[0] + r[2] * r[2] < p[0]) return false;
     } else if (kind == RECT) {
-      if (r[0] * r[0] > p[0] && r[2] * r[2] > p[1]) kill(r);
-    } else {  // KNIFE: row p[0], direction p[1], offset p[2]
+      if (r[0] * r[0] > p[0] && r[2] * r[2] > p[1]) return false;
+    } else if (kind == KNIFE) {  // row p[0], direction p[1], offset p[2]
       const float v = r[(int)p[0]];
-      if (p[1] > 0.0f ? v > p[2] : v < p[2]) kill(r);
+      if (p[1] > 0.0f ? v > p[2] : v < p[2]) return false;
+    } else if constexpr (FIELD) {
+      if (kind == PHASE) advance_phase(E, r, m0, m2, k);
+      m0 = r[0];  // PHASE and MARK move the checkpoint
+      m2 = r[2];
     }
   }
-  int ix, iy;
-  const bool vx = bin_of(r[0], xlo, xhi, xs, nx, ix);
-  const bool vy = bin_of(r[2], ylo, yhi, ys, ny, iy);
-  return vx && vy ? iy * nx + ix : -1;
+  return true;
 }
 
 // Thread i bins ray i. With p_ray, ray i sits at its own probing
@@ -121,10 +166,53 @@ __global__ void detect_kernel(const float* uf, const float* p_ray,
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= N) return;
   const float4* u = reinterpret_cast<const float4*>(uf + i * 8);
-  const int key = ray_bin(u[0], u[1].x, swap, p_ray ? p_ray[i] : p_end,
-                          depth, sops, n_ops, nx, ny, xlo, xhi, xs, ylo, yhi,
-                          ys);
-  if (key >= 0) atomicAdd(H + key, weights ? weights[i] : 1.0f);
+  float r[4];
+  exit_ray(u[0], u[1].x, swap, p_ray ? p_ray[i] : p_end, depth, r);
+  if (!run_stages<false>(r, nullptr, sops, n_ops, 0.0f)) return;
+  int ix, iy;
+  if (bin_of(r[0], xlo, xhi, xs, nx, ix) && bin_of(r[2], ylo, yhi, ys, ny, iy))
+    atomicAdd(H + iy * nx + ix, weights ? weights[i] : 1.0f);
+}
+
+// The coherent form: thread i adds ray i's field to its pixel's n_ch sums.
+__global__ void field_kernel(const float* uf, const float* p_ray, float* H,
+                             long long N, int swap, float p_end, float depth,
+                             const Ops ops, int n_ops, float k, int npx,
+                             int npy, float xhalf, float dx, float yhalf,
+                             float dy, int n_ch, int ref, float fr, float cr,
+                             float sr) {
+  __shared__ float sops[MAX_OPS * OP_WIDTH];
+  for (int j = threadIdx.x; j < n_ops * OP_WIDTH; j += blockDim.x)
+    sops[j] = ops.v[j];
+  __syncthreads();
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const float4* u = reinterpret_cast<const float4*>(uf + i * 8);
+  const float4 hi = u[1];  // vp, amp, phase, pol
+  float r[4];
+  exit_ray(u[0], hi.x, swap, p_ray ? p_ray[i] : p_end, depth, r);
+  // amp e^(i phase) times the polarisation R(pol) y-hat = (-sin, cos)
+  const float er = hi.y * cosf(hi.z), ei = hi.y * sinf(hi.z);
+  const float sp = -sinf(hi.w), cp = cosf(hi.w);
+  float E[4] = {er * sp, ei * sp, er * cp, ei * cp};
+  if (ref) {
+    const float a = fr * (cr * r[0] + sr * r[2]);
+    E[2] = E[2] + cosf(a);
+    E[3] = E[3] + sinf(a);
+  }
+  if (!run_stages<true>(r, E, sops, n_ops, k)) return;
+  int ix, iy;
+  if (!pixel_of(r[0], xhalf, dx, npx, ix) ||
+      !pixel_of(r[2], yhalf, dy, npy, iy))
+    return;
+  float* cell = H + ((long long)iy * npx + ix) * n_ch;
+  if (n_ch == 2) {
+    atomicAdd(cell, E[0]);
+    atomicAdd(cell + 1, E[2]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) atomicAdd(cell + c, E[c]);
+  }
 }
 
 }  // namespace
@@ -148,5 +236,27 @@ extern "C" int detect_image(const float* uf, const float* weights, float* H,
   detect_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       uf, p_ray, weights, H, N, swap, p_end, depth, table, n_ops, nx, ny, xlo,
       xhi, xs, ylo, yhi, ys);
+  return (int)cudaGetLastError();
+}
+
+// The coherent form: H (npy, npx, n_ch) f32, zeroed; n_ch 2 (legacy) or 4
+// (intensity); k = 2 pi / wavelength in f32; (xhalf, dx) = (Lx / 2, Lx /
+// npx) in f32, likewise y; ref: add the reference beam fr (cr x + sr y).
+// Other arguments as detect_image's.
+extern "C" int detect_field(const float* uf, float* H, long long N, int swap,
+                            float p_end, float depth, const float* ops,
+                            int n_ops, float k, int npx, int npy, float xhalf,
+                            float dx, float yhalf, float dy, int n_ch,
+                            int ref, float fr, float cr, float sr,
+                            const float* p_ray, void* stream) {
+  if (n_ops < 0 || n_ops > MAX_OPS || (n_ch != 2 && n_ch != 4))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  Ops table;
+  for (int j = 0; j < n_ops * OP_WIDTH; ++j) table.v[j] = ops[j];
+  const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
+  field_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      uf, p_ray, H, N, swap, p_end, depth, table, n_ops, k, npx, npy, xhalf,
+      dx, yhalf, dy, n_ch, ref, fr, cr, sr);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,7 @@
 // n_slabs intervals of the (n_p, na, nb, C) plane stack (f32 or bf16), with
 // `substeps` RK4 steps per interval; each stage is a 4-corner bilinear
 // gather (_bilinear :135) from a plane and the 8-wide right-hand side
-// (_deriv :159).
+// (_deriv :159, its right-hand side shared with K7 in zscan_rhs.cuh).
 //
 // What bounds it on the H100: by count, operations. A ray and slab do four
 // stages of ~45 + 11C float32 operations (weights, the per-corner plane
@@ -32,7 +32,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-#include "layout.cuh"
+#include "zscan_rhs.cuh"
 
 namespace {
 
@@ -114,20 +114,7 @@ __device__ __forceinline__ void deriv(const Params& P, const void* w0,
 #pragma unroll
     for (int c = 0; c < C; ++c) v[c] = 0.0f;
   }
-  const float inv_vp = 1.0f / u[4];
-  d[0] = u[2] * inv_vp;
-  d[1] = u[3] * inv_vp;
-  d[2] = v[0] * inv_vp;
-  d[3] = v[1] * inv_vp;
-  d[4] = v[2] * inv_vp;
-  d[5] = 0.0f;
-  d[6] = 0.0f;
-  d[7] = 0.0f;
-  if constexpr (LY::inv_brems) d[5] = P.atten_sign * v[LY::KI] * u[5] * inv_vp;
-  if constexpr (LY::phaseshift) d[6] = v[LY::PI] * inv_vp;
-  if constexpr (LY::B_on)
-    d[7] = (v[LY::FI] * u[2] + v[LY::FI + 1] * u[3] + v[LY::FI + 2] * u[4]) *
-           inv_vp;
+  zscan_rhs::cols_rhs<LY>(v, u, P.atten_sign, d);
 }
 
 // One RK4 step between stage planes (m0, frac0), (mh, frach), (m1, frac1).

@@ -66,6 +66,14 @@ def deriv(u: torch.Tensor, plane: torch.Tensor, origin_ab, inv_ab,
     """du/dp of permuted (N, 8) states u = (a, b, va, vb, vp, amp, phase,
     pol) on one stage plane."""
     vals = bilinear(plane, u[:, 0], u[:, 1], origin_ab, inv_ab)
+    return cols_rhs(u, vals, layout, atten_sign)
+
+
+def cols_rhs(u: torch.Tensor, vals: torch.Tensor, layout: ChannelLayout,
+             atten_sign: float) -> torch.Tensor:
+    """du/dp of permuted (N, 8) states from their (N, C) channel values
+    (the JAX package's ``_cols_rhs``, ``zscan.py:636``; the plain version of
+    ``csrc/zscan_rhs.cuh``, which K4 and K7 share)."""
     va, vb, vp = u[:, 2:3], u[:, 3:4], u[:, 4:5]
     inv_vp = 1.0 / vp
     zeros = torch.zeros_like(vp)

@@ -1,7 +1,10 @@
 """Array operations (PyTorch port of ``synthpy_tpu.ops``: histograms and
 grid interpolation)."""
 
-from synthpy_tpu_torch.ops.histogram import histogram2d  # noqa: F401
+from synthpy_tpu_torch.ops.histogram import (  # noqa: F401
+    complex_histogram,
+    histogram2d,
+)
 from synthpy_tpu_torch.ops.interp import (  # noqa: F401
     regular_grid_interpolator,
     trilinear,

@@ -1,14 +1,18 @@
 """Precomposed optical trains (PyTorch port of ``synthpy_tpu.optics.compose``).
 
 Each run of lens/travel elements is folded on the host (numpy) into one
-4x4 ABCD matrix; filters stay separate stages. ``apply_stages`` runs the
-incoherent path; the coherent bookkeeping stages ("phase", "mark") belong
-to the coherent detectors, which are not ported yet (ROADMAP A.6).
+4x4 ABCD matrix; filters stay separate stages. Two coherent bookkeeping
+stages carry the Jones field ``E`` of the coherent benches: ("phase",)
+advances it by k |transverse path| since the last checkpoint (lenses and
+apertures do not move rays, so only the travels count) and ("mark",)
+moves the checkpoint without adding phase. ``apply_stages(..., E=)`` is
+the plain version of the coherent detector kernel's stage loop
+(``kernels.detector.detect_field``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,27 +53,86 @@ def compose(elements: Sequence[Tuple]) -> List[Tuple]:
     return stages
 
 
-def apply_stages(r: torch.Tensor, stages: Sequence[Tuple]) -> torch.Tensor:
+def apply_stages(r: torch.Tensor, stages: Sequence[Tuple],
+                 E: Optional[torch.Tensor] = None,
+                 wavelength: Optional[float] = None):
     """Apply a composed stage list to (4, N) rays [mm]; filters NaN the
-    rays they stop."""
+    rays they stop. With (2, N) complex Jones vectors ``E``, returns
+    (r, E): apertures NaN E too, and ("phase",) stages, which need
+    ``wavelength`` [m], advance it."""
+    r_mark = r
     for st in stages:
         kind = st[0]
         if kind == "matrix":
             r = rtm.matvec(st[1], r)
+        elif kind == "mark":
+            r_mark = r
+        elif kind == "phase":
+            if E is None or wavelength is None:
+                raise ValueError("a ('phase',) stage needs E and wavelength")
+            E = advance_phase(E, r, r_mark, wavelength)
+            r_mark = r
         elif kind == "aperture":
-            r = rtm.circular_aperture(r, st[1])
+            if E is not None:
+                r, E = rtm.circular_aperture(r, st[1], E=E)
+            else:
+                r = rtm.circular_aperture(r, st[1])
         elif kind == "stop":
             r = rtm.circular_stop(r, st[1])
         elif kind == "rect":
             r = rtm.rect_aperture(r, st[1], st[2])
         elif kind == "knife":
             r = rtm.knife_edge(r, st[1], st[2], st[3])
-        elif kind in ("phase", "mark"):
-            raise NotImplementedError(
-                "coherent stages are not ported yet (ROADMAP A.6)")
         else:
             raise ValueError(f"unknown stage {kind!r}")
+    if E is not None:
+        return r, E
     return r
+
+
+def advance_phase(E: torch.Tensor, r: torch.Tensor, r_mark: torch.Tensor,
+                  wavelength: float) -> torch.Tensor:
+    """E * exp(i k path), path the transverse distance [m] from the
+    checkpoint rays ``r_mark`` to ``r`` [mm], k = 2 pi / wavelength in r's
+    dtype. The product is written out in real arithmetic, so that CUDA
+    rounds it as the CPU does, and the norm is the JAX package's safe one
+    (0 for a ray that did not move)."""
+    k = 2.0 * np.pi / wavelength
+    if r.dtype == torch.float32:
+        k = float(np.float32(k))
+    dx = (r[0] - r_mark[0]) * 1e-3
+    dy = (r[2] - r_mark[2]) * 1e-3
+    d2 = dx * dx + dy * dy
+    pos = d2 > 0
+    path = torch.where(pos, torch.sqrt(torch.where(pos, d2,
+                                                   torch.ones_like(d2))),
+                       torch.zeros_like(d2))
+    kp = k * path
+    c, s = torch.cos(kp), torch.sin(kp)
+    re, im = E.real, E.imag
+    return torch.complex(re * c - im * s, re * s + im * c)
+
+
+def ref_beam(n_fringes: float, deg: float, dtype=np.float32):
+    """(2 n_fringes / 3, cos(rad), sin(rad)) of the tilted reference beam,
+    in ``dtype``, with the reference's deg >= 45 flip."""
+    if deg >= 45:
+        deg = -abs(deg - 90)
+    rad = dtype(deg * np.pi / 180.0)
+    return (float(dtype(2 * n_fringes / 3)), float(np.cos(rad)),
+            float(np.sin(rad)))
+
+
+def interfere_ref_beam(r_mm: torch.Tensor, Jf: torch.Tensor,
+                       n_fringes: float, deg: float) -> torch.Tensor:
+    """Add the reference exp(i (2 n_fringes / 3) (cos(rad) x + sin(rad)
+    y)) to the y polarisation (x, y in mm; ``ref_beam``)."""
+    fr, cr, sr = ref_beam(n_fringes, deg, np.float32
+                          if r_mm.dtype == torch.float32 else np.float64)
+    arg = fr * (cr * r_mm[0] + sr * r_mm[2])
+    out = Jf.clone()
+    out[1] = Jf[1] + torch.complex(torch.cos(arg), torch.sin(arg))
+    return out
 
 
 def analyser_weight(Jf: torch.Tensor, beta_deg: float) -> torch.Tensor:

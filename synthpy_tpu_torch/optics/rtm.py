@@ -63,9 +63,15 @@ def _kill(r, filt):
     return torch.where(filt[None, :], torch.full_like(r, float("nan")), r)
 
 
-def circular_aperture(r, R):
-    """Reject rays outside radius R."""
-    return _kill(r, r[0] ** 2 + r[2] ** 2 > R**2)
+def circular_aperture(r, R, E=None):
+    """Reject rays outside radius R; with Jones vectors ``E`` (2, N), also
+    turn theirs to NaN (NaN + 0j, as the JAX package) and return (r, E)."""
+    filt = r[0] ** 2 + r[2] ** 2 > R**2
+    if E is None:
+        return _kill(r, filt)
+    dead = torch.complex(torch.tensor(float("nan"), dtype=r.dtype),
+                         torch.tensor(0.0, dtype=r.dtype)).to(r.device)
+    return _kill(r, filt), torch.where(filt[None, :], dead, E)
 
 
 def circular_stop(r, R):

@@ -1,5 +1,5 @@
 """End-to-end pipeline: trace -> optics -> detector (PyTorch port of
-``synthpy_tpu.pipeline`` for the incoherent benches).
+``synthpy_tpu.pipeline``).
 
 Tracer back-ends (``run``'s ``solver``):
 
@@ -12,16 +12,20 @@ Tracer back-ends (``run``'s ``solver``):
   TracePack, the general tracer, which reflects at the critical surface.
   A z-scan solver on a field at ``critical_guard`` of the critical density
   falls back to it with a warning; ``run_split`` routes only the rays
-  whose column reaches it there.
+  whose column reaches it there;
+* ``"analytic"``: the pack-free march on the domain's closed forms
+  (``tracer.analytic``: K7, ``kernels.analytic``, for the ``test_*``
+  fields).
 
 The exit state goes through the composed optical bench into a detector
-image by kernel K3 (``kernels.detector``). Everything runs on the device
-of the domain and rays.
+image by kernel K3 (``kernels.detector``): ``detect`` for the incoherent
+benches, ``detect_field`` for the coherent ones (interferometry, coherent
+refractometry), whose (ny, nx, C) field sums ``finalize_coherent`` turns
+into images. Everything runs on the device of the domain and rays.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: the coherent benches (A.6), ``solver="analytic"`` (A.9, B6),
-``pack_dtype="auto"`` and host-resident packs (A.12), and the mesh modes
-(A.17).
+item: ``pack_dtype="auto"`` and host-resident packs (A.12), and the mesh
+modes (A.17).
 """
 
 from __future__ import annotations
@@ -36,9 +40,11 @@ from synthpy_tpu_torch import constants
 from synthpy_tpu_torch.fields.domain import (ScalarDomain, TracePack,
                                              build_pack, layout_of,
                                              peak_ne_over_nc)
-from synthpy_tpu_torch.kernels.detector import detect
+from synthpy_tpu_torch.kernels.detector import detect, detect_field
+from synthpy_tpu_torch.ops.histogram import finalize_complex
 from synthpy_tpu_torch.optics.compose import (BENCHES, NEEDS_JONES,
                                               analyser_weight)
+from synthpy_tpu_torch.tracer.analytic import trace_domain_analytic
 from synthpy_tpu_torch.tracer.propagator import (default_n_steps, dt_of,
                                                  ray_to_Jonesvector,
                                                  trace_rk4)
@@ -51,17 +57,14 @@ from synthpy_tpu_torch.tracer.zscan import (_AXIS_OF, PACK_DTYPES,
                                             trace_zscan_segments)
 
 
-def _check_incoherent(diagnostic) -> None:
-    names = (diagnostic,) if isinstance(diagnostic, str) else diagnostic
-    for name in names:
-        if BENCHES[name][1]:
-            raise _not_ported(f"the coherent bench {name!r}", "A.6")
-
-
 def _image_from_uf(uf: torch.Tensor, p_end, probing_depth: float, *,
                    diagnostic, probing_direction: str, bins,
-                   L: float, R: float, Lx: float, Ly: float,
-                   focal_plane: float, detL: float | None = None,
+                   L: float = 400.0, R: float = 25.0, Lx: float = 18.0,
+                   Ly: float = 13.5, focal_plane: float = 0.0,
+                   lwl: float = 1064e-9,
+                   coherent_convention: str = "legacy",
+                   detL: float | None = None, n_fringes: float = 10.0,
+                   deg: float = 20.0, coherent_raw: bool = False,
                    pol_beta_deg: float = 85.0):
     """(N, 8) permuted exit state -> optics -> detector, for one bench name
     or a tuple of names (then a tuple of images). Every ray sits at the
@@ -69,8 +72,8 @@ def _image_from_uf(uf: torch.Tensor, p_end, probing_depth: float, *,
     tensor.
 
     The counterpart of the JAX package's ``_image_from_sf``, with
-    ``reassemble_state`` fused into the detector kernel. The callers have
-    refused the coherent benches before tracing.
+    ``reassemble_state`` fused into the detector kernel. A coherent bench
+    gives its field sums (``coherent_raw=True``) or their image.
     """
     names = (diagnostic,) if isinstance(diagnostic, str) else diagnostic
     Jf = None
@@ -82,10 +85,18 @@ def _image_from_uf(uf: torch.Tensor, p_end, probing_depth: float, *,
     range_ = ((-Lx / 2, Lx / 2), (-Ly / 2, Ly / 2))
     images = []
     for name in names:
-        builder, _ = BENCHES[name]
+        builder, coherent = BENCHES[name]
         extra = ({"detL": detL} if detL is not None
                  and name == "shadowgraphy_exp" else {})
         stages = builder(L=L, R=R, focal_plane=focal_plane, **extra)
+        if coherent:
+            acc = detect_field(
+                uf, p_end, probing_depth, probing_direction, stages, bins,
+                Lx, Ly, lwl, coherent_convention,
+                ref=(n_fringes, deg) if name == "interferometry" else None)
+            images.append(acc if coherent_raw
+                          else finalize_complex(acc, coherent_convention))
+            continue
         w = (analyser_weight(Jf, pol_beta_deg).to(torch.float32)
              if name in NEEDS_JONES else None)
         images.append(detect(uf, p_end, probing_depth, probing_direction,
@@ -125,22 +136,28 @@ def synth_image(
     Lx: float = 18.0,
     Ly: float = 13.5,
     focal_plane: float = 0.0,
+    coherent_convention: str = "legacy",
     detL: float | None = None,
+    n_fringes: float = 10.0,
+    deg: float = 20.0,
+    coherent_raw: bool = False,
     pol_beta_deg: float = 85.0,
 ):
     """Time-tracer pipeline on (N, 9) ray rows: ``n_steps`` RK4 steps of
     ``dt`` (kernel K5), then the bench and detector (K3, each ray from its
     own exit coordinate). Returns the (ny, nx) image (a tuple for a tuple
-    of diagnostics). ``lwl`` and ``ray_chunk`` are accepted as in the JAX
-    package; the incoherent benches do not read ``lwl``."""
-    del lwl
-    _check_incoherent(diagnostic)
+    of diagnostics); ``coherent_raw=True`` returns the coherent benches'
+    raw field sums, to add across batches and finalize once
+    (``finalize_coherent``). ``ray_chunk`` is accepted as in the JAX
+    package."""
     sf_rows = trace_rk4(s_rows, channels, origin, inv_spacing, dt,
                         layout=layout, n_steps=n_steps, ray_chunk=ray_chunk)
     return _image_from_sf(
         sf_rows.T, probing_depth, probing_direction=probing_direction,
-        diagnostic=diagnostic, bins=bins, L=L, R=R, Lx=Lx, Ly=Ly,
-        focal_plane=focal_plane, detL=detL, pol_beta_deg=pol_beta_deg)
+        diagnostic=diagnostic, bins=bins, lwl=lwl, L=L, R=R, Lx=Lx, Ly=Ly,
+        focal_plane=focal_plane, coherent_convention=coherent_convention,
+        detL=detL, n_fringes=n_fringes, deg=deg, coherent_raw=coherent_raw,
+        pol_beta_deg=pol_beta_deg)
 
 
 def synth_image_zscan(
@@ -169,8 +186,12 @@ def synth_image_zscan(
     Lx: float = 18.0,
     Ly: float = 13.5,
     focal_plane: float = 0.0,
+    coherent_convention: str = "legacy",
     integrator: str = "rk4",
     detL: float | None = None,
+    n_fringes: float = 10.0,
+    deg: float = 20.0,
+    coherent_raw: bool = False,
     pol_beta_deg: float = 85.0,
     seg_weights: str = "stage",
     seg_scales: Optional[torch.Tensor] = None,
@@ -186,10 +207,8 @@ def synth_image_zscan(
     ``sort_rays`` reorders the rays by entry cell first, with the JAX
     package's key (the image does not depend on the order); the kernels
     order the rays they march by themselves, so on the card this only
-    costs time.
+    costs time. ``coherent_raw`` as in ``synth_image``.
     """
-    del lwl
-    _check_incoherent(diagnostic)
     if not segmented and integrator != "rk4":
         raise ValueError("integrator is only selectable on the segmented "
                          "(zscan_seg) path; the plain zscan tracer is rk4")
@@ -213,8 +232,10 @@ def synth_image_zscan(
     return _image_from_uf(
         uf, p_end, probing_depth,
         diagnostic=diagnostic, probing_direction=probing_direction,
-        bins=bins, L=L, R=R, Lx=Lx, Ly=Ly,
-        focal_plane=focal_plane, detL=detL, pol_beta_deg=pol_beta_deg)
+        bins=bins, lwl=lwl, L=L, R=R, Lx=Lx, Ly=Ly,
+        focal_plane=focal_plane, coherent_convention=coherent_convention,
+        detL=detL, n_fringes=n_fringes, deg=deg, coherent_raw=coherent_raw,
+        pol_beta_deg=pol_beta_deg)
 
 
 def _same_device(s0: torch.Tensor, table: torch.Tensor) -> None:
@@ -270,9 +291,9 @@ def run(
 ):
     """Trace ``s0`` (9, N) through ``domain`` and synthesise the image.
 
-    ``solver``: "zscan" (default), "zscan_seg" or "time" (see the module
-    docstring). Prebuilt packs amortise their build across calls: ``pack``
-    (``build_pack``) for "time" and "zscan", ``zpack``
+    ``solver``: "zscan" (default), "zscan_seg", "time" or "analytic" (see
+    the module docstring). Prebuilt packs amortise their build across
+    calls: ``pack`` (``build_pack``) for "time" and "zscan", ``zpack``
     (``make_zscan_pack``) for "zscan", ``spack``
     (``build_segment_pack_device``) for "zscan_seg"; there
     ``pack_dtype=`` ("f32", "bf16", "int8", "int4" or a torch dtype) builds
@@ -288,15 +309,20 @@ def run(
     skipped when ``domain.ne`` has been freed.
 
     ``diagnostic`` may be a list or tuple of names: the bundle is traced
-    once and a dict {name: image} is returned. ``ray_chunk`` is accepted
-    as in the JAX package and has no effect: the kernels keep no per-ray
-    buffer.
+    once and a dict {name: image} is returned. The coherent benches
+    ("interferometry", "refractometry_coherent") take ``lwl`` as the
+    wavelength of their phase stages, ``coherent_convention`` ("legacy" or
+    "intensity"), ``n_fringes`` and ``deg`` (the interferometer's
+    reference beam) and ``coherent_raw=True`` (return the raw field sums;
+    see ``finalize_coherent``). ``solver="analytic"`` marches
+    ``n_steps`` (default: the probing axis's cells) of ``integrator``
+    ("rk2" default, or "rk4"). ``ray_chunk`` is accepted as in the JAX
+    package and has no effect: the kernels keep no per-ray buffer.
     """
     multi = isinstance(diagnostic, (list, tuple))
     diagnostic = tuple(diagnostic) if multi else diagnostic
     if mesh is not None or grid_axis is not None or pp_axis is not None:
         raise _not_ported("mesh=, grid_axis= and pp_axis=", "A.17")
-    _check_incoherent(diagnostic)
     if (critical_guard is not None
             and solver in ("zscan", "zscan_seg", "analytic")
             and domain.ne is not None):
@@ -313,10 +339,7 @@ def run(
             solver = "time"
             for k in dropped:
                 bench_kwargs.pop(k)
-    if solver == "analytic":
-        raise _not_ported("solver='analytic' (the pack-free analytic "
-                          "tracer, B6)", "A.9")
-    if solver not in ("zscan", "zscan_seg", "time"):
+    if solver not in ("zscan", "zscan_seg", "time", "analytic"):
         raise ValueError(f"unknown solver {solver!r}")
     seg_K = bench_kwargs.pop("seg_K", 64)
     for knob in ("batch_pack_bytes", "batch_corner_bytes"):
@@ -328,7 +351,15 @@ def run(
     common = dict(diagnostic=diagnostic,
                   probing_direction=domain.probing_direction, bins=bins,
                   ray_chunk=ray_chunk, lwl=lwl)
-    if solver == "zscan_seg":
+    if solver == "analytic":
+        uf, p_end = trace_domain_analytic(
+            s0, domain, lwl=lwl, n_steps=n_steps,
+            integrator=bench_kwargs.pop("integrator", "rk2"))
+        res = _image_from_uf(
+            uf, p_end, probing_depth, diagnostic=diagnostic,
+            probing_direction=domain.probing_direction, bins=bins, lwl=lwl,
+            **bench_kwargs)
+    elif solver == "zscan_seg":
         if spack is None:
             spack = _segment_pack(domain, lwl, seg_K, pack, zpack,
                                   bench_kwargs)
@@ -381,11 +412,27 @@ def run_split(
     and the two images add. Returns what ``run`` returns. ``pad_to`` is
     accepted as in the JAX package, which pads each partition to reuse
     compiled program shapes; the kernels need no padding (pad rays land on
-    no detector bin, so the image is the same). Coherent diagnostics are
-    not ported (A.6).
+    no detector bin, so the image is the same).
+
+    Coherent diagnostics: the two partitions' raw field sums add and are
+    finalized once (``coherent_raw`` is forced on), so interference across
+    the partitions is kept; the two integrators' phases differ at the
+    ~1e-3 level over hundreds of radians, so run_split warns, as the JAX
+    package does, that such fringes are solver-sensitive.
     """
     del pad_to
-    _check_incoherent(kwargs.get("diagnostic", "shadowgraphy"))
+    diag = kwargs.get("diagnostic", "shadowgraphy")
+    names = (diag,) if isinstance(diag, str) else tuple(diag)
+    any_coh = any(BENCHES[n][1] for n in names)
+    user_raw = kwargs.get("coherent_raw", False)
+    if any_coh:
+        warnings.warn(
+            "run_split mixes z-scan and time-tracer phases in one "
+            "coherent sum; fringes involving both partitions are "
+            "solver-sensitive at the integrator-mismatch level. Use "
+            "solver='time' on the full bundle for quantitative coherent "
+            "work.", stacklevel=2)
+        kwargs["coherent_raw"] = True
     if domain.ne is None:
         raise RuntimeError("run_split needs the domain's ne grid")
     nc = float(constants.critical_density(constants.omega_from_lwl(lwl)))
@@ -415,4 +462,27 @@ def run_split(
             out = {k: out[k] + res[k] for k in out}
         else:
             out = out + res
+    if any_coh and not user_raw and out is not None:
+        conv = kwargs.get("coherent_convention", "legacy")
+        if isinstance(out, dict):
+            out = dict(zip(out, finalize_coherent(
+                tuple(out.values()), tuple(out), conv)))
+        else:
+            out = finalize_coherent(out, diag, conv)
     return out
+
+
+def finalize_coherent(images, diagnostic, convention: str = "legacy"):
+    """Finalize the raw field sums of ``coherent_raw=True`` runs.
+
+    ``images`` is one tensor or a tuple matching ``diagnostic`` (one name
+    or a tuple of names): coherent entries are (ny, nx, C) field sums and
+    become images, incoherent entries pass through. Sum the raw results
+    of ray batches first, then call this once.
+    """
+    if isinstance(diagnostic, str):
+        if BENCHES[diagnostic][1]:
+            return finalize_complex(images, convention)
+        return images
+    return tuple(finalize_complex(img, convention) if BENCHES[n][1] else img
+                 for n, img in zip(diagnostic, images))

@@ -1,6 +1,6 @@
 """Ray tracing (PyTorch port of ``synthpy_tpu.tracer``): beam set-up, the
-time-domain tracer, the plain and segmented z-scan marches and the
-adaptive tracer."""
+time-domain tracer, the plain and segmented z-scan marches, the pack-free
+analytic march and the adaptive tracer."""
 
 from synthpy_tpu_torch.tracer.beam import init_beam  # noqa: F401
 from synthpy_tpu_torch.tracer.propagator import (  # noqa: F401
@@ -20,3 +20,6 @@ from synthpy_tpu_torch.tracer.zscan import (  # noqa: F401
     solve_zscan_segments,
 )
 from synthpy_tpu_torch.tracer.adaptive import solve_adaptive  # noqa: F401
+from synthpy_tpu_torch.tracer.analytic import (  # noqa: F401
+    solve_zscan_analytic,
+)

@@ -12,24 +12,28 @@ segments, the fused quantised and strided builds against the two-step
 and post-hoc routes (bit-equal), the detector in the caller's and the
 march's ray order and with per-ray exit coordinates, the plain z-scan,
 time-domain and adaptive kernels (K4, K5, K6) on every layout and probing
-axis, and the pipeline against its CPU run on all three solvers. Float
+axis, the analytic march (K7) on every closed form, both integrators and
+C = 3, 4, 6, 7, the coherent detector on both coherent benches and
+conventions, and the pipeline against its CPU run on every solver. Float
 tables and the marches are held to the plain version's last place or
 better (observed: bit equal); detector counts and K6's step counts
-exactly.
+exactly; coherent field sums to the order of their atomic adds.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from synthpy_tpu_torch import pipeline
+from synthpy_tpu_torch import constants, pipeline
 from synthpy_tpu_torch.fields import ScalarDomain, layout_of
 from synthpy_tpu_torch.fields.domain import build_pack
-from synthpy_tpu_torch.kernels import (adaptive, detector, march, pack,
-                                       slab_march, time_march)
+from synthpy_tpu_torch.kernels import (adaptive, analytic, detector, march,
+                                       pack, slab_march, time_march)
 from synthpy_tpu_torch.optics.compose import BENCHES, shadowgraphy_two_lens
 from synthpy_tpu_torch.tracer import init_beam
 from synthpy_tpu_torch.tracer import zscan
+from synthpy_tpu_torch.tracer.analytic import (solve_zscan_analytic,
+                                               trace_zscan_analytic)
 from synthpy_tpu_torch.tracer.propagator import (default_n_steps, dt_of,
                                                  t_end_of)
 
@@ -444,3 +448,143 @@ def test_solvers_on_card_match_cpu(dev, solver):
         a, b = Hg[n].cpu(), Hc[n]
         np.testing.assert_allclose(a.sum(), b.sum(), rtol=1e-5)
         assert float((a - b).abs().sum()) <= 2e-3 * float(b.sum()) + 1e-3
+
+
+FORMS = {
+    "test_null": {},
+    "test_slab": {"s": 0.5, "ne_0": 2e23},
+    "test_linear_cos": {"Ly": 2e-3},
+    "test_exponential_cos": {"s": 4e-3},
+    "test_lens": {"ne_0": 8e24, "LR": 1.8e-3},
+    "test_liner": {"ne_0": 8e24, "LR": 1.8e-3},
+}
+# (phaseshift, B_on): C = 3, 4, 6, 7; each on its own probing axis
+PHYSICS = {(0, 0): "z", (1, 0): "x", (0, 1): "y", (1, 1): "z"}
+
+
+def _form_domain(dev, field, physics, probe):
+    ps, bon = physics
+    d = ScalarDomain(2 * EXT, (17, 19, 21), probing_direction=probe,
+                     phaseshift=bool(ps), device=dev)
+    getattr(d, field)(**FORMS[field])
+    if bon:
+        d.test_B(Bmax=10.0)
+    return d
+
+
+@pytest.mark.parametrize("physics", sorted(PHYSICS))
+@pytest.mark.parametrize("integrator", ["rk2", "rk4"])
+@pytest.mark.parametrize("field", sorted(FORMS))
+def test_analytic_kernel_matches_plain(dev, field, integrator, physics):
+    """K7 against its plain version on every closed form, a fifth of the
+    bundle entering outside the box and one NaN ray."""
+    probe = PHYSICS[physics]
+    d = _form_domain(dev, field, physics, probe)
+    u = zscan.permute_state(_rays(dev, probe), probe).contiguous()
+    p_ax = "xyz".index(probe)
+    axes = (*[a for a in range(3) if a != p_ax], p_ax)
+    lo = [float(c[0]) for c in (d.x, d.y, d.z)]
+    hi = [float(c[-1]) for c in (d.x, d.y, d.z)]
+    kw = dict(layout=layout_of(d), axes=axes, bounds=(lo, hi),
+              omega=constants.omega_from_lwl(1064e-9), lwl=1064e-9,
+              p0=lo[p_ax], h=(hi[p_ax] - lo[p_ax]) / 24, n_steps=24,
+              integrator=integrator)
+    B = d.analytic.get("B")
+    analytic.KERNEL.launches = 0
+    a = analytic.march(u, d.analytic["ne"], B, **kw)
+    assert analytic.KERNEL.launches == 1
+    # the plain version on the card: the same exp, pow, sin and cos
+    p = analytic.march_plain(u, d.analytic["ne"], B, **kw)
+    assert bool(a.isnan().any())
+    _close(a, p)
+
+
+def test_analytic_route_kernel_refuses_a_user_closure(dev):
+    d = ScalarDomain(2 * EXT, 17, device=dev)
+    d.analytic = {"ne": lambda x, y, z: 5e24 * torch.exp(-(x**2 + y**2)
+                                                           / 2e-6)}
+    s0 = init_beam(0, 2048, 2e-3, 0.0, EXT, "circular", device=dev)
+    with pytest.raises(ValueError, match="route='kernel'"):
+        solve_zscan_analytic(s0, d, route="kernel")
+    # the spec alone picks the route: the closure runs on autograd, K7
+    # does not launch; a test_* field runs K7
+    analytic.KERNEL.launches = 0
+    r = solve_zscan_analytic(s0, d, n_steps=16)
+    assert analytic.KERNEL.launches == 0 and r.sf.is_cuda
+    d.test_lens(ne_0=5e24, LR=1.5e-3)
+    solve_zscan_analytic(s0, d, n_steps=16)
+    assert analytic.KERNEL.launches == 1
+    with pytest.raises(ValueError, match="unknown route"):
+        trace_zscan_analytic(zscan.permute_state(s0, "z").contiguous(),
+                             d.analytic, layout_of(d), axes=(0, 1, 2),
+                             bounds=([-EXT] * 3, [EXT] * 3), omega=1.0,
+                             lwl=1.0, p0=-EXT, h=1e-4, n_steps=1,
+                             route="jit")
+
+
+def _unit_field(uf):
+    """The exit states with amp 1, phase 0 and pol 0: Re Jy = 1 a ray."""
+    u = uf.clone()
+    u[:, 5], u[:, 6], u[:, 7] = 1.0, 0.0, 0.0
+    return u
+
+
+@pytest.mark.parametrize("per_ray", [False, True])
+@pytest.mark.parametrize("convention", ["legacy", "intensity"])
+@pytest.mark.parametrize("bench", ["interferometry",
+                                   "refractometry_coherent"])
+def test_detector_field_kernel_matches_plain(dev, bench, convention,
+                                             per_ray):
+    s0 = init_beam(3, 20000, 4e-3, 8e-3, EXT, "circular", device=dev)
+    s0[6] = 0.5 + torch.rand(s0.shape[1], generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    s0[7] = 300.0 * torch.rand(s0.shape[1], generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    s0[8] = torch.linspace(-1, 1, s0.shape[1], device=dev)
+    uf = zscan.permute_state(s0, "z").contiguous()
+    p = ((EXT + 1e-3 * torch.rand(uf.shape[0], generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)).contiguous() if per_ray
+         else EXT * 1.01)
+    st = BENCHES[bench][0]()
+    ref = (10.0, 20.0) if bench == "interferometry" else None
+    args = (EXT, "z", st, (54, 40), 18.0, 13.5, 1064e-9, convention)
+    detector.FIELD_KERNEL.launches = 0
+    H = detector.detect_field(uf, p, *args, ref=ref).cpu()
+    assert detector.FIELD_KERNEL.launches == 1
+    # the plain chain on the card (the same sin, cos and atan: a ray's
+    # phase of ~1e4 rad moves by 0.01-0.1 rad with another math library)
+    Hp = detector.detect_field_plain(uf, p, *args, ref=ref).cpu()
+    # counts, exactly: a unit field through the stages without the phase
+    # checkpoints puts 1 a ray into Re Jy
+    plain_st = [x for x in st if x[0] not in ("phase", "mark")]
+    cargs = (EXT, "z", plain_st, (54, 40), 18.0, 13.5, 1064e-9, "legacy")
+    Hc = detector.detect_field(_unit_field(uf), p, *cargs).cpu()
+    Hcp = detector.detect_field_plain(_unit_field(uf), p, *cargs).cpu()
+    assert torch.equal(Hc[..., 1], Hcp[..., 1])
+    n = float(Hcp[..., 1].max())
+    assert n > 0
+    # field sums: the same per-ray fields added in two atomic orders
+    assert float((H - Hp).abs().max()) <= 1e-4 * n
+
+
+@pytest.mark.parametrize("solver", ["analytic", "zscan_seg", "time"])
+def test_coherent_pipeline_on_card_matches_cpu(dev, solver):
+    g, c = _pair(dev, dims=33)
+    for d in (g, c):
+        d.test_lens(ne_0=5e24, LR=2e-3)
+        d.phaseshift = True
+    names = ("interferometry", "refractometry_coherent", "shadowgraphy")
+    kw = dict(solver=solver, bins=(54, 40), diagnostic=names,
+              coherent_raw=True)
+    s0 = init_beam(0, 8192, 2e-3, 0.0, g.extent, "circular", device=dev)
+    Hg = pipeline.run(g, s0, **kw)
+    Hc = pipeline.run(c, s0.cpu(), **kw)
+    assert float((Hg["shadowgraphy"].cpu() - Hc["shadowgraphy"]).abs()
+                 .sum()) <= 2e-3 * float(Hc["shadowgraphy"].sum())
+    for n in names[:2]:
+        a, b = Hg[n].cpu(), Hc[n]
+        assert a.shape == b.shape == (40, 54, 2)
+        img_a = pipeline.finalize_coherent(a, n)
+        img_b = pipeline.finalize_coherent(b, n)
+        assert float((img_a - img_b).abs().sum()) <= 0.03 * float(
+            img_b.abs().sum())

@@ -126,9 +126,13 @@ def test_rtm_primitives_match_jax(exit_rays, case):
 
 
 def test_coherent_stages_raise():
+    """The ("phase",) checkpoints need a field and a wavelength, and the
+    incoherent detector refuses them."""
     r = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs E and wavelength"):
         tcomp.apply_stages(r, tcomp.interferometry_two_lens())
+    with pytest.raises(ValueError, match="detect_field"):
+        detector.stage_table(tcomp.refractometer_coherent())
 
 
 @pytest.mark.parametrize("direction", ["x", "y", "z"])

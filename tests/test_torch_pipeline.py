@@ -89,8 +89,7 @@ def test_default_f32_pack_and_solve(bench):
 
 def test_unported_paths_raise(bench):
     _, td, _, ts0 = bench
-    cases = [dict(solver="analytic"), dict(diagnostic="interferometry"),
-             dict(mesh=object()), dict(pack_dtype="auto"),
+    cases = [dict(mesh=object()), dict(pack_dtype="auto"),
              dict(pack_dtype="int8", pack_dither=3)]
     for kw in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -173,12 +173,17 @@ def test_run_split_one_sided_bundles_are_exact():
 
 
 def test_coherent_and_analytic_paths_raise(bench):
+    """What the coherent and analytic paths refuse, as the JAX package
+    does: a gridded field for the analytic solver, an unknown coherent
+    convention, an unknown solver."""
     _, td, _, ts0 = bench
     hot = convert.domain(overcritical(n=21), "cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tpipe.run_split(hot, ts0, bins=(16, 12), diagnostic="interferometry")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tpipe.run(td, ts0, solver="analytic")
+    with pytest.raises(ValueError, match="domain.analytic is not set"):
+        tpipe.run(hot, ts0, solver="analytic", critical_guard=None)
+    with pytest.warns(UserWarning, match="solver-sensitive"), \
+            pytest.raises(ValueError, match="convention"):
+        tpipe.run_split(hot, ts0, bins=(16, 12), diagnostic="interferometry",
+                        coherent_convention="amplitude")
     with pytest.raises(ValueError, match="unknown solver"):
         tpipe.run(td, ts0, solver="rk45")
 

@@ -51,13 +51,45 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_sources_carry_their_note_and_build_flags():
-    for src in ("march.cu", "pack.cu", "detector.cu"):
+    for src in ("march.cu", "pack.cu", "detector.cu", "analytic.cu"):
         text = (_build.CSRC / src).read_text()
         assert "Replaces" in text and "bounds it on the H100" in text, src
         assert "synthpy_tpu/" in text, src
     cmd = " ".join(_build.ARCH + _build.BASE_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "fast-math" not in cmd and "fast_math" not in cmd
+
+
+def test_kernel_argtypes_match_the_c_entry_points():
+    """Each wrapper's ctypes signature has as many arguments as its C entry
+    point, the stream last (a missing pointer type would pass the stream
+    as a 32-bit int)."""
+    import re
+
+    from synthpy_tpu_torch.kernels import (adaptive, analytic, detector,
+                                           march, pack, slab_march,
+                                           time_march)
+
+    kernels = [m.KERNEL for m in (adaptive, analytic, detector, march, pack,
+                                  slab_march, time_march)]
+    kernels.append(detector.FIELD_KERNEL)
+    seen = set()
+    for k in kernels:
+        text = (_build.CSRC / k.source).read_text()
+        macros = {m.group(1): m.group(2).replace("\\\n", " ")
+                  for m in re.finditer(r"#define (\w+)\s+((?:.*\\\n)*.*)",
+                                       text)}
+        for name, argtypes in k.functions.items():
+            m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+            assert m, (k.source, name)
+            params = [a for p in m.group(1).split(",")
+                      for a in macros.get(p.strip(), p).split(",")
+                      if a.strip()]
+            assert len(params) == len(argtypes), (name, len(params),
+                                                  len(argtypes))
+            assert params[-1].split()[-1] == "stream", name
+            seen.add(name)
+    assert {"analytic_march", "detect_field", "detect_image"} <= seen
 
 
 def test_entry_points_default_to_cuda():
@@ -79,7 +111,8 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is present: the wrappers would build and launch")
     from synthpy_tpu_torch.fields.domain import ChannelLayout
-    from synthpy_tpu_torch.kernels import detector, march, pack
+    from synthpy_tpu_torch.fields.forms import ClosedForm
+    from synthpy_tpu_torch.kernels import analytic, detector, march, pack
 
     meta = torch.device("meta")
     u = torch.empty((8, 8), device=meta)
@@ -93,11 +126,17 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                                 (4, 4), ((-1.0, 1.0), (-1.0, 1.0))),
         lambda: pack.quantize_tables(table, 8, 3, 8),
         lambda: pack.decimate_tables(table, 8, 3, 2),
+        lambda: analytic.march(u, ClosedForm("lens", ne_0=1e24, LR=1e-3),
+                               None, layout=lay, axes=(0, 1, 2),
+                               bounds=([-1.0] * 3, [1.0] * 3), omega=1e15,
+                               lwl=1e-6, p0=-1.0, h=0.5, n_steps=4),
+        lambda: detector.detect_field(u, 1.0, 1.0, "z", [("phase",)],
+                                      (4, 4), 2.0, 2.0, 1e-6),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
             call()
-    assert march.KERNEL.launches == 0
+    assert march.KERNEL.launches == analytic.KERNEL.launches == 0
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
