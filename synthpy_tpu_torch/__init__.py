@@ -14,6 +14,13 @@ and the adaptive validation tracer ``solve_adaptive`` (K6). ``solve``,
 ``solve_zscan``, ``solve_adaptive`` and ``solve_zscan_analytic`` are
 exported here, as in ``synthpy_tpu.tracer``.
 
+From the exit rays, the diagnostic classes (``optics.Shadowgraphy``,
+``Schlieren``, ``Refractometry``, ``Interferometry``, ``Polarimetry``, also
+exported here) bin through K3's bare-ray entry points, and the Fresnel
+hybrid deposits through K8 (``kernels.deposit``); ``ops.fresnel`` and
+``ops.multislice`` propagate fields on ``torch.fft``; ``analysis`` holds
+the fringe and Abel post-processing.
+
 Every entry point takes ``device=`` (default ``"cuda"``) or follows the
 device of the tensors it is given. Without a card, pass ``device="cpu"``:
 each kernel wrapper then runs its plain PyTorch version. The CUDA kernels
@@ -27,6 +34,7 @@ import importlib
 __version__ = "0.1.0"
 
 _SUBMODULES = (
+    "analysis",
     "constants",
     "convert",
     "fields",
@@ -38,9 +46,13 @@ _SUBMODULES = (
 )
 
 
-# tracer entry points exported at the top level: name -> module
+# tracer entry points and diagnostic classes exported at the top level:
+# name -> module
 _EXPORTS = {"solve": "tracer", "solve_zscan": "tracer",
-            "solve_adaptive": "tracer", "solve_zscan_analytic": "tracer"}
+            "solve_adaptive": "tracer", "solve_zscan_analytic": "tracer",
+            "Diagnostic": "optics", "Shadowgraphy": "optics",
+            "Schlieren": "optics", "Refractometry": "optics",
+            "Interferometry": "optics", "Polarimetry": "optics"}
 
 
 def __getattr__(name):

@@ -16,7 +16,15 @@ import torch
 
 from synthpy_tpu_torch import _device
 from synthpy_tpu_torch.fields.domain import ScalarDomain, TracePack
+from synthpy_tpu_torch.fields.forms import ClosedForm
 from synthpy_tpu_torch.tracer.zscan import SegmentPack, ZScanPack
+
+# the JAX ScalarDomain constructor whose closure an entry of
+# domain.analytic is -> the port's closed form of it
+_FORMS = {"test_null": "null", "test_slab": "slab",
+          "test_linear_cos": "linear_cos",
+          "test_exponential_cos": "exponential_cos", "test_lens": "lens",
+          "test_liner": "liner", "test_B": "bz_linear"}
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
@@ -59,14 +67,39 @@ def segment_pack(jpack, device="cuda") -> SegmentPack:
         getattr(jpack, "qbits", None))
 
 
+def closed_form(fn):
+    """The port's ``ClosedForm`` of a closure that a JAX ``ScalarDomain``
+    ``test_*`` constructor put in ``domain.analytic``, or None.
+
+    It reads only the closure's qualified name
+    (``ScalarDomain.test_lens.<locals>.<lambda>``) and the values of its
+    free variables (``ne_0``, ``LR``, ...), which are the constructor's
+    parameters; it runs nothing of JAX."""
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        return None
+    parts = code.co_qualname.split(".")
+    if (len(parts) != 4 or parts[0] != "ScalarDomain"
+            or parts[2:] != ["<locals>", "<lambda>"]
+            or parts[1] not in _FORMS):
+        return None
+    cells = fn.__closure__ or ()
+    params = {name: float(c.cell_contents)
+              for name, c in zip(code.co_freevars, cells)}
+    return ClosedForm(_FORMS[parts[1]], **params)
+
+
 def domain(jdomain, device="cuda") -> ScalarDomain:
     """A JAX ``ScalarDomain`` (coordinates, ne, Te, Z, B and the physics
     switches) as a port ``ScalarDomain``.
 
-    The JAX closures of ``jdomain.analytic`` cannot be carried across: the
-    port's domain has ``analytic=None``. For the analytic solver, call the
-    same ``test_*`` constructor on it (its closed forms are the port's),
-    or set ``analytic`` to torch closures."""
+    ``jdomain.analytic`` comes across as the port's closed forms when
+    every entry is a closure of a JAX ``test_*`` constructor
+    (``closed_form``: ``ne`` of test_null, test_slab, test_linear_cos,
+    test_exponential_cos, test_lens and test_liner, ``B`` of test_B), so
+    the analytic solver runs on the converted domain. Any other closure is
+    not guessed at: the port's domain then has ``analytic=None`` (set it
+    to torch closures for the analytic solver)."""
     d = ScalarDomain(x=np.asarray(jdomain.x), y=np.asarray(jdomain.y),
                      z=np.asarray(jdomain.z), inv_brems=jdomain.inv_brems,
                      phaseshift=jdomain.phaseshift, B_on=jdomain.B_on,
@@ -76,4 +109,9 @@ def domain(jdomain, device="cuda") -> ScalarDomain:
         v = getattr(jdomain, name)
         if v is not None:
             setattr(d, name, tensor(v, device).to(d.dtype))
+    janalytic = getattr(jdomain, "analytic", None)
+    if janalytic:
+        forms = {k: closed_form(f) for k, f in janalytic.items()}
+        if all(f is not None for f in forms.values()):
+            d.analytic = forms
     return d

@@ -293,7 +293,10 @@ def build_pack(domain: ScalarDomain,
         raise RuntimeError("domain has no electron density")
     omega = float(constants.omega_from_lwl(lwl))
     nc = float(constants.critical_density(omega))
-    ne_nc = domain.ne / nc
+    # divided by a tensor: PyTorch on CUDA divides by a Python scalar
+    # through its reciprocal, which moves half the values by an ulp
+    ne_nc = domain.ne / torch.tensor(nc, dtype=domain.ne.dtype,
+                                     device=domain.ne.device)
     if ne_max is not None:
         ne_nc = torch.clamp_max(ne_nc, ne_max)
     cs = [c.cpu().numpy() for c in (domain.x, domain.y, domain.z)]

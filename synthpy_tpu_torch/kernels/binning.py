@@ -1,0 +1,74 @@
+"""K3's bare-ray entry points: binning (N,) ray positions into an image.
+
+``bin_image`` (a weighted numpy-rule 2-D histogram) and ``bin_field``
+(per-pixel sums of the rays' Jones fields in ``complex_histogram``'s
+layout) launch ``bin_image`` / ``bin_field`` of ``csrc/detector.cu``, which
+share the detector's binning rules and atomics. They serve
+``ops.histogram.histogram2d`` and ``ops.histogram.complex_histogram`` for
+CUDA tensors, the diagnostic classes' detectors; the bodies of those two
+functions (``histogram2d_plain``, ``complex_histogram_plain``) are their
+plain versions, taken for CPU tensors only. Each entry point is its own
+``Kernel`` object, so its launches count apart.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
+
+BIN_KERNEL = Kernel("detector.cu", {
+    "bin_image": [P, P, P, P, L, I, I, F, F, F, F, F, F, P],
+}, flags=["--fmad=false"])
+BIN_FIELD_KERNEL = Kernel("detector.cu", {
+    "bin_field": [P, P, P, P, P, L, I, I, F, F, F, F, I, P],
+}, flags=["--fmad=false"])
+
+
+def _rays(*ts: torch.Tensor, dtype=torch.float32):
+    dev, n = ts[0].device, ts[0].shape
+    for t in ts:
+        if t.device != dev or t.dtype != dtype or t.shape != n or t.dim() != 1:
+            raise ValueError(f"the rays must be (N,) {dtype} tensors on one "
+                             "device")
+    return [t.contiguous() for t in ts]
+
+
+def bin_image(x: torch.Tensor, y: torch.Tensor,
+              weights: Optional[torch.Tensor], nx: int, ny: int,
+              bx: Tuple[float, float, float],
+              by: Tuple[float, float, float]) -> torch.Tensor:
+    """(ny, nx) f32 image of (N,) f32 positions on the card: ray i adds
+    ``weights[i]`` (or 1) to its bin; ``bx``/``by`` = (lo, hi, bins per
+    unit) in float32, as ``ops.histogram.bin_params`` gives them."""
+    if weights is None:
+        x, y = _rays(x, y)
+    else:
+        x, y, weights = _rays(x, y, weights)
+    H = torch.zeros((ny, nx), dtype=torch.float32, device=x.device)
+    BIN_KERNEL.launch("bin_image", x.device, x.data_ptr(), y.data_ptr(),
+                      None if weights is None else weights.data_ptr(),
+                      H.data_ptr(), x.shape[0], nx, ny, *bx, *by)
+    return H
+
+
+def bin_field(x: torch.Tensor, y: torch.Tensor, Ex: torch.Tensor,
+              Ey: torch.Tensor, npx: int, npy: int,
+              px: Tuple[float, float], py: Tuple[float, float],
+              n_ch: int) -> torch.Tensor:
+    """(npy, npx, n_ch) f32 field sums of (N,) f32 positions and complex64
+    fields on the card; ``px``/``py`` = (L / 2, L / n) in float32; n_ch 2
+    sums (Re Ex, Re Ey), 4 the real and imaginary parts of both."""
+    x, y = _rays(x, y)
+    Ex, Ey = _rays(Ex, Ey, dtype=torch.complex64)
+    if Ex.shape != x.shape or Ex.device != x.device:
+        raise ValueError("the fields must be (N,) like the rays, on their "
+                         "device")
+    H = torch.zeros((npy, npx, n_ch), dtype=torch.float32, device=x.device)
+    BIN_FIELD_KERNEL.launch("bin_field", x.device, x.data_ptr(),
+                            y.data_ptr(), Ex.data_ptr(), Ey.data_ptr(),
+                            H.data_ptr(), x.shape[0], npx, npy, *px, *py,
+                            n_ch)
+    return H

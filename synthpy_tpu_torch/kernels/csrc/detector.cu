@@ -41,6 +41,17 @@
 // stored in the march's entry-cell order (~2 bins a warp), but the march
 // writes each ray back to its own row, and reading the states through that
 // order, or copying them into it, costs more than the atomics it saves.
+// The stage table of up to MAX_OPS stages comes by value and sits in a
+// static shared array; a longer one (a user's stage list, which compose
+// cannot fold) comes as a device copy (dops), chosen by the wrapper by
+// length alone, and is read where it is: every thread reads the same stage
+// row, which L1 serves as a broadcast. One template instance of each kernel
+// for each, so that the by-value path compiles as it did before long tables
+// existed.
+// bin_image and bin_field bin bare (N,) rays, the diagnostic classes' and
+// ops.histogram's entry points (histogram.py:26-66 histogram2d with
+// optional weights, :69 complex_histogram's field sums): the same bin_of /
+// pixel_of rules and atomics, without the state read and the stages.
 // Built with --fmad=false: every product and sum is rounded as the plain
 // PyTorch version rounds it (its complex products written out in real
 // arithmetic), so a ray near a bin edge lands in the same bin, counts match
@@ -54,7 +65,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int OP_WIDTH = 17;  // kind, then 16 parameters
-constexpr int MAX_OPS = 16;
+constexpr int MAX_OPS = 16;   // stages passed by value
 
 struct Ops {
   float v[MAX_OPS * OP_WIDTH];
@@ -151,18 +162,46 @@ __device__ __forceinline__ bool run_stages(float r[4], float E[4],
   return true;
 }
 
+// A kept ray's field into its pixel: (Re Jx, Re Jy) for n_ch 2, all four
+// parts for n_ch 4.
+__device__ __forceinline__ void add_field(float* cell, const float E[4],
+                                          int n_ch) {
+  if (n_ch == 2) {
+    atomicAdd(cell, E[0]);
+    atomicAdd(cell + 1, E[2]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) atomicAdd(cell + c, E[c]);
+  }
+}
+
+// A block's stage table: with IN_PLACE the device table where it is, else
+// the by-value kernel parameter copied into a static shared array.
+template <bool IN_PLACE>
+__device__ __forceinline__ const float* stage_table(const Ops& ops,
+                                                    const float* dops,
+                                                    int n_ops) {
+  if constexpr (IN_PLACE) {
+    return dops;
+  } else {
+    __shared__ float sops[MAX_OPS * OP_WIDTH];
+    for (int j = threadIdx.x; j < n_ops * OP_WIDTH; j += blockDim.x)
+      sops[j] = ops.v[j];
+    __syncthreads();
+    return sops;
+  }
+}
+
 // Thread i bins ray i. With p_ray, ray i sits at its own probing
 // coordinate p_ray[i] (the time tracer's exit states), else at p_end.
+template <bool IN_PLACE>
 __global__ void detect_kernel(const float* uf, const float* p_ray,
                               const float* weights, float* H, long long N,
                               int swap, float p_end, float depth,
-                              const Ops ops, int n_ops, int nx, int ny,
-                              float xlo, float xhi, float xs, float ylo,
-                              float yhi, float ys) {
-  __shared__ float sops[MAX_OPS * OP_WIDTH];
-  for (int j = threadIdx.x; j < n_ops * OP_WIDTH; j += blockDim.x)
-    sops[j] = ops.v[j];
-  __syncthreads();
+                              const Ops ops, const float* dops, int n_ops,
+                              int nx, int ny, float xlo, float xhi, float xs,
+                              float ylo, float yhi, float ys) {
+  const float* sops = stage_table<IN_PLACE>(ops, dops, n_ops);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= N) return;
   const float4* u = reinterpret_cast<const float4*>(uf + i * 8);
@@ -175,16 +214,14 @@ __global__ void detect_kernel(const float* uf, const float* p_ray,
 }
 
 // The coherent form: thread i adds ray i's field to its pixel's n_ch sums.
+template <bool IN_PLACE>
 __global__ void field_kernel(const float* uf, const float* p_ray, float* H,
                              long long N, int swap, float p_end, float depth,
-                             const Ops ops, int n_ops, float k, int npx,
-                             int npy, float xhalf, float dx, float yhalf,
-                             float dy, int n_ch, int ref, float fr, float cr,
-                             float sr) {
-  __shared__ float sops[MAX_OPS * OP_WIDTH];
-  for (int j = threadIdx.x; j < n_ops * OP_WIDTH; j += blockDim.x)
-    sops[j] = ops.v[j];
-  __syncthreads();
+                             const Ops ops, const float* dops, int n_ops,
+                             float k, int npx, int npy, float xhalf, float dx,
+                             float yhalf, float dy, int n_ch, int ref,
+                             float fr, float cr, float sr) {
+  const float* sops = stage_table<IN_PLACE>(ops, dops, n_ops);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= N) return;
   const float4* u = reinterpret_cast<const float4*>(uf + i * 8);
@@ -205,37 +242,68 @@ __global__ void field_kernel(const float* uf, const float* p_ray, float* H,
   if (!pixel_of(r[0], xhalf, dx, npx, ix) ||
       !pixel_of(r[2], yhalf, dy, npy, iy))
     return;
-  float* cell = H + ((long long)iy * npx + ix) * n_ch;
-  if (n_ch == 2) {
-    atomicAdd(cell, E[0]);
-    atomicAdd(cell + 1, E[2]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) atomicAdd(cell + c, E[c]);
-  }
+  add_field(H + ((long long)iy * npx + ix) * n_ch, E, n_ch);
+}
+
+// Bare rays: thread i adds ray i (weight w[i], or 1) to its numpy-rule bin.
+__global__ void bin_image_kernel(const float* x, const float* y,
+                                 const float* w, float* H, long long N,
+                                 int nx, int ny, float xlo, float xhi,
+                                 float xs, float ylo, float yhi, float ys) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  int ix, iy;
+  if (bin_of(x[i], xlo, xhi, xs, nx, ix) && bin_of(y[i], ylo, yhi, ys, ny, iy))
+    atomicAdd(H + iy * nx + ix, w ? w[i] : 1.0f);
+}
+
+// Bare rays with their Jones vectors (Ex, Ey interleaved re, im): thread i
+// adds ray i's field to its pixel's n_ch sums, as field_kernel does.
+__global__ void bin_field_kernel(const float* x, const float* y,
+                                 const float2* Ex, const float2* Ey, float* H,
+                                 long long N, int npx, int npy, float xhalf,
+                                 float dx, float yhalf, float dy, int n_ch) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  int ix, iy;
+  if (!pixel_of(x[i], xhalf, dx, npx, ix) ||
+      !pixel_of(y[i], yhalf, dy, npy, iy))
+    return;
+  const float2 ex = Ex[i], ey = Ey[i];
+  const float E[4] = {ex.x, ex.y, ey.x, ey.y};
+  add_field(H + ((long long)iy * npx + ix) * n_ch, E, n_ch);
 }
 
 }  // namespace
 
 // uf: (N, 8) f32 exit states, 16-byte aligned; weights: (N,) f32 or null;
 // H: (ny, nx) f32, zeroed; ops: (n_ops, 17) f32 stage table in host
-// memory, n_ops <= MAX_OPS; p_ray: (N,) f32 probing coordinate of each
-// exit state, or null when every ray sits at p_end. Returns
+// memory, taken by value when dops is null (n_ops <= MAX_OPS); dops: the
+// same table in device memory, or null; p_ray: (N,) f32 probing coordinate of
+// each exit state, or null when every ray sits at p_end. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue.
 extern "C" int detect_image(const float* uf, const float* weights, float* H,
                             long long N, int swap, float p_end, float depth,
-                            const float* ops, int n_ops, int nx, int ny,
-                            float xlo, float xhi, float xs, float ylo,
-                            float yhi, float ys, const float* p_ray,
-                            void* stream) {
-  if (n_ops < 0 || n_ops > MAX_OPS) return (int)cudaErrorInvalidValue;
+                            const float* ops, const float* dops, int n_ops,
+                            int nx, int ny, float xlo, float xhi, float xs,
+                            float ylo, float yhi, float ys,
+                            const float* p_ray, void* stream) {
+  if (n_ops < 0 || (n_ops > MAX_OPS && !dops))
+    return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   Ops table;
-  for (int j = 0; j < n_ops * OP_WIDTH; ++j) table.v[j] = ops[j];
+  if (!dops)
+    for (int j = 0; j < n_ops * OP_WIDTH; ++j) table.v[j] = ops[j];
   const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
-  detect_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      uf, p_ray, weights, H, N, swap, p_end, depth, table, n_ops, nx, ny, xlo,
-      xhi, xs, ylo, yhi, ys);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dops)
+    detect_kernel<true><<<blocks, THREADS, 0, s>>>(
+        uf, p_ray, weights, H, N, swap, p_end, depth, table, dops, n_ops, nx,
+        ny, xlo, xhi, xs, ylo, yhi, ys);
+  else
+    detect_kernel<false><<<blocks, THREADS, 0, s>>>(
+        uf, p_ray, weights, H, N, swap, p_end, depth, table, dops, n_ops, nx,
+        ny, xlo, xhi, xs, ylo, yhi, ys);
   return (int)cudaGetLastError();
 }
 
@@ -245,18 +313,55 @@ extern "C" int detect_image(const float* uf, const float* weights, float* H,
 // Other arguments as detect_image's.
 extern "C" int detect_field(const float* uf, float* H, long long N, int swap,
                             float p_end, float depth, const float* ops,
-                            int n_ops, float k, int npx, int npy, float xhalf,
-                            float dx, float yhalf, float dy, int n_ch,
-                            int ref, float fr, float cr, float sr,
-                            const float* p_ray, void* stream) {
-  if (n_ops < 0 || n_ops > MAX_OPS || (n_ch != 2 && n_ch != 4))
+                            const float* dops, int n_ops, float k, int npx,
+                            int npy, float xhalf, float dx, float yhalf,
+                            float dy, int n_ch, int ref, float fr, float cr,
+                            float sr, const float* p_ray, void* stream) {
+  if (n_ops < 0 || (n_ops > MAX_OPS && !dops) || (n_ch != 2 && n_ch != 4))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   Ops table;
-  for (int j = 0; j < n_ops * OP_WIDTH; ++j) table.v[j] = ops[j];
+  if (!dops)
+    for (int j = 0; j < n_ops * OP_WIDTH; ++j) table.v[j] = ops[j];
   const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
-  field_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      uf, p_ray, H, N, swap, p_end, depth, table, n_ops, k, npx, npy, xhalf,
-      dx, yhalf, dy, n_ch, ref, fr, cr, sr);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dops)
+    field_kernel<true><<<blocks, THREADS, 0, s>>>(
+        uf, p_ray, H, N, swap, p_end, depth, table, dops, n_ops, k, npx, npy,
+        xhalf, dx, yhalf, dy, n_ch, ref, fr, cr, sr);
+  else
+    field_kernel<false><<<blocks, THREADS, 0, s>>>(
+        uf, p_ray, H, N, swap, p_end, depth, table, dops, n_ops, k, npx, npy,
+        xhalf, dx, yhalf, dy, n_ch, ref, fr, cr, sr);
+  return (int)cudaGetLastError();
+}
+
+// Bare rays: x, y (N,) f32; w (N,) f32 or null; H (ny, nx) f32, zeroed;
+// (lo, hi, bins per unit) of each axis as bin_params gives them.
+extern "C" int bin_image(const float* x, const float* y, const float* w,
+                         float* H, long long N, int nx, int ny, float xlo,
+                         float xhi, float xs, float ylo, float yhi, float ys,
+                         void* stream) {
+  if (N == 0) return 0;
+  const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
+  bin_image_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      x, y, w, H, N, nx, ny, xlo, xhi, xs, ylo, yhi, ys);
+  return (int)cudaGetLastError();
+}
+
+// Bare rays with their fields: x, y (N,) f32; Ex, Ey (N,) complex64 as
+// (re, im) pairs; H (npy, npx, n_ch) f32, zeroed; (xhalf, dx) as for
+// detect_field.
+extern "C" int bin_field(const float* x, const float* y, const float* Ex,
+                         const float* Ey, float* H, long long N, int npx,
+                         int npy, float xhalf, float dx, float yhalf, float dy,
+                         int n_ch, void* stream) {
+  if (n_ch != 2 && n_ch != 4) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
+  bin_field_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      x, y, reinterpret_cast<const float2*>(Ex),
+      reinterpret_cast<const float2*>(Ey), H, N, npx, npy, xhalf, dx, yhalf,
+      dy, n_ch);
   return (int)cudaGetLastError();
 }

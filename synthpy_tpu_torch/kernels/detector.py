@@ -5,10 +5,13 @@ launch the two entry points of ``csrc/detector.cu`` on CUDA tensors and run
 ``detect_plain`` / ``detect_field_plain`` on CPU tensors. The plain versions
 are the port's own chains of public functions, ``reassemble_state`` ->
 ``ray_to_Jonesvector`` -> ``m_to_mm`` -> ``apply_stages`` ->
-``histogram2d``, and for the field ``ray_to_Jonesvector(return_E=True)`` ->
-``m_to_mm`` -> ``interfere_ref_beam`` -> ``apply_stages(E=)`` ->
-``complex_histogram(return_acc=True)``, so each kernel is held to exactly
-what the pipeline would compute step by step.
+``histogram2d_plain``, and for the field
+``ray_to_Jonesvector(return_E=True)`` -> ``m_to_mm`` ->
+``interfere_ref_beam`` -> ``apply_stages(E=)`` ->
+``complex_histogram_plain(return_acc=True)``, so each kernel is held to
+exactly what the pipeline would compute step by step. A stage table of any
+length runs on the card: up to ``MAX_OPS`` stages go by value, a longer
+table as a device copy.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ import numpy as np
 import torch
 
 from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
-from synthpy_tpu_torch.ops.histogram import (bin_params, complex_histogram,
-                                             f32, histogram2d)
+from synthpy_tpu_torch.ops.histogram import (bin_params,
+                                             complex_histogram_plain, f32,
+                                             histogram2d_plain)
 from synthpy_tpu_torch.optics.compose import (apply_stages,
                                               interfere_ref_beam, ref_beam)
 from synthpy_tpu_torch.optics.rtm import m_to_mm
@@ -28,18 +32,21 @@ from synthpy_tpu_torch.tracer.propagator import ray_to_Jonesvector
 from synthpy_tpu_torch.tracer.zscan import reassemble_state
 
 KERNEL = Kernel("detector.cu", {
-    "detect_image": [P, P, P, L, I, F, F, P, I, I, I, F, F, F, F, F, F, P,
+    "detect_image": [P, P, P, L, I, F, F, P, P, I, I, I, F, F, F, F, F, F, P,
                      P],
 }, flags=["--fmad=false"])
 # the coherent entry point of the same source, with its own launch count
+# (the bare-ray entry points are in kernels.binning)
 FIELD_KERNEL = Kernel("detector.cu", {
-    "detect_field": [P, P, L, I, F, F, P, I, F, I, I, F, F, F, F, I, I, F, F,
-                     F, P, P],
+    "detect_field": [P, P, L, I, F, F, P, P, I, F, I, I, F, F, F, F, I, I, F,
+                     F, F, P, P],
 }, flags=["--fmad=false"])
 
 _KINDS = {"matrix": 0, "aperture": 1, "stop": 2, "rect": 3, "knife": 4,
           "phase": 5, "mark": 6}
-MAX_OPS = 16  # stages the kernel takes as a parameter (detector.cu)
+# stages the kernel takes by value (detector.cu); a longer table goes to
+# the card as a device copy
+MAX_OPS = 16
 CONVENTIONS = {"legacy": 2, "intensity": 4}   # accumulator channels
 
 
@@ -75,6 +82,12 @@ def stage_table(stages: Sequence[Tuple],
     return rows
 
 
+def _device_table(ops: np.ndarray, dev) -> Optional[torch.Tensor]:
+    """The device copy of a stage table longer than ``MAX_OPS`` (None for
+    a shorter one, which the kernel takes by value)."""
+    return torch.from_numpy(ops).to(dev) if ops.shape[0] > MAX_OPS else None
+
+
 def detect_plain(uf: torch.Tensor, p_end, probing_depth: float,
                  probing_direction: str, stages: Sequence[Tuple],
                  bins: Tuple[int, int],
@@ -87,7 +100,7 @@ def detect_plain(uf: torch.Tensor, p_end, probing_depth: float,
     rf, _ = ray_to_Jonesvector(sf, f32(probing_depth),
                                probing_direction=probing_direction)
     r = apply_stages(m_to_mm(rf), stages)
-    H, _, _ = histogram2d(r[0], r[2], bins, range_, weights=weights)
+    H, _, _ = histogram2d_plain(r[0], r[2], bins, range_, weights=weights)
     return H
 
 
@@ -131,18 +144,16 @@ def detect(uf: torch.Tensor, p_end, probing_depth: float,
     nx, ny = bins
     (xlo, xhi), (ylo, yhi) = range_
     bx, by = bin_params(xlo, xhi, nx), bin_params(ylo, yhi, ny)
-    # the stage table goes to the kernel by value, from host memory
     ops = stage_table(stages)
-    if ops.shape[0] > MAX_OPS:
-        raise ValueError(f"{ops.shape[0]} composed stages; the detector "
-                         f"kernel takes at most {MAX_OPS}")
+    dops = _device_table(ops, dev)
     H = torch.zeros((ny, nx), dtype=torch.float32, device=dev)
     KERNEL.launch(
         "detect_image", dev, uf.data_ptr(),
         None if weights is None else weights.data_ptr(), H.data_ptr(),
         uf.shape[0], int(probing_direction == "y"),
         0.0 if p_ray is not None else f32(p_end), f32(probing_depth),
-        ops.ctypes.data, ops.shape[0], nx, ny, *bx, *by,
+        ops.ctypes.data, None if dops is None else dops.data_ptr(),
+        ops.shape[0], nx, ny, *bx, *by,
         None if p_ray is None else p_ray.data_ptr())
     return H
 
@@ -164,9 +175,9 @@ def detect_field_plain(uf: torch.Tensor, p_end, probing_depth: float,
     if ref is not None:
         Jf = interfere_ref_beam(r, Jf, *ref)
     r, E = apply_stages(r, stages, E=Jf, wavelength=wavelength)
-    return complex_histogram(r[0], r[2], E[0], E[1], bins[0] + 1,
-                             bins[1] + 1, Lx, Ly, convention=convention,
-                             return_acc=True)
+    return complex_histogram_plain(r[0], r[2], E[0], E[1], bins[0] + 1,
+                                   bins[1] + 1, Lx, Ly,
+                                   convention=convention, return_acc=True)
 
 
 def detect_field(uf: torch.Tensor, p_end, probing_depth: float,
@@ -206,9 +217,7 @@ def detect_field(uf: torch.Tensor, p_end, probing_depth: float,
     if uf.data_ptr() % 16:
         uf = uf.clone()
     ops = stage_table(stages, coherent=True)
-    if ops.shape[0] > MAX_OPS:
-        raise ValueError(f"{ops.shape[0]} composed stages; the detector "
-                         f"kernel takes at most {MAX_OPS}")
+    dops = _device_table(ops, dev)
     nx, ny = bins
     n_ch = CONVENTIONS[convention]
     fr, cr, sr = ref_beam(*ref) if ref is not None else (0.0, 0.0, 0.0)
@@ -217,7 +226,8 @@ def detect_field(uf: torch.Tensor, p_end, probing_depth: float,
         "detect_field", dev, uf.data_ptr(), H.data_ptr(), uf.shape[0],
         int(probing_direction == "y"),
         0.0 if p_ray is not None else f32(p_end), f32(probing_depth),
-        ops.ctypes.data, ops.shape[0], f32(2.0 * np.pi / wavelength), nx, ny,
+        ops.ctypes.data, None if dops is None else dops.data_ptr(),
+        ops.shape[0], f32(2.0 * np.pi / wavelength), nx, ny,
         f32(Lx / 2.0), f32(Lx / nx), f32(Ly / 2.0), f32(Ly / ny), n_ch,
         int(ref is not None), fr, cr, sr,
         None if p_ray is None else p_ray.data_ptr())

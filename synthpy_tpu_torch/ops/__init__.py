@@ -1,8 +1,10 @@
 """Array operations (PyTorch port of ``synthpy_tpu.ops``: histograms and
-grid interpolation)."""
+deposits, grid interpolation, FFTs, Fresnel and multi-slice wave
+propagation)."""
 
 from synthpy_tpu_torch.ops.histogram import (  # noqa: F401
     complex_histogram,
+    deposit_cic,
     histogram2d,
 )
 from synthpy_tpu_torch.ops.interp import (  # noqa: F401

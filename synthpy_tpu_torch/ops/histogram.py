@@ -1,5 +1,6 @@
-"""Detector binning (PyTorch port of ``synthpy_tpu.ops.histogram``:
-``histogram2d``, ``complex_histogram`` and ``finalize_complex``).
+"""Detector binning and grid deposits (PyTorch port of
+``synthpy_tpu.ops.histogram``: ``histogram2d``, ``complex_histogram``,
+``finalize_complex`` and ``deposit_cic``).
 
 ``histogram2d`` follows numpy.histogram2d: a value on the rightmost edge
 falls in the last bin; NaN positions (rays killed by apertures) and values
@@ -8,6 +9,12 @@ arithmetic is the float32 arithmetic of the JAX package and of the
 detector kernel (``kernels.detector``). ``complex_histogram`` keeps the
 reference's coherent layout instead: ``x_edges_n - 1`` pixels, rays by
 ``digitize - 1``, the right edge dropped.
+
+On CUDA tensors ``histogram2d`` and ``complex_histogram`` launch K3's
+bare-ray entry points (``kernels.binning``) and ``deposit_cic`` launches
+K8 (``kernels.deposit``); ``histogram2d_plain``, ``complex_histogram_plain``
+and ``kernels.deposit.deposit_plain`` are their plain versions, taken for
+CPU tensors only.
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from synthpy_tpu_torch.kernels import binning
+from synthpy_tpu_torch.kernels.deposit import deposit
 
 
 def f32(v: float) -> float:
@@ -48,8 +58,27 @@ def histogram2d(
 ):
     """Weighted 2-D histogram, returned in image layout (ny, nx).
 
-    Returns (H, xedges, yedges), like the JAX package.
+    Returns (H, xedges, yedges), like the JAX package. On CUDA the rays
+    (and weights) must be float32; the image is float32.
     """
+    if x.device.type == "cpu":
+        return histogram2d_plain(x, y, bins, range_, weights)
+    (xlo, xhi), (ylo, yhi) = range_
+    nx, ny = bins
+    H = binning.bin_image(x, y, weights, nx, ny, bin_params(xlo, xhi, nx),
+                          bin_params(ylo, yhi, ny))
+    return (H, torch.linspace(xlo, xhi, nx + 1),
+            torch.linspace(ylo, yhi, ny + 1))
+
+
+def histogram2d_plain(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    bins: Tuple[int, int],
+    range_: Tuple[Tuple[float, float], Tuple[float, float]],
+    weights: torch.Tensor | None = None,
+):
+    """Plain version of ``histogram2d`` (one ``index_add_``)."""
     (xlo, xhi), (ylo, yhi) = range_
     nx, ny = bins
     ix, vx = _bin_index(x, xlo, xhi, nx)
@@ -96,8 +125,38 @@ def complex_histogram(
     sqrt(Re(sum Jx)^2 + Re(sum Jy)^2); "intensity" sums (Re, Im) of both
     and finalizes to |sum Jx|^2 + |sum Jy|^2. ``return_acc=True`` returns
     the (ny, nx, C) sums, which add exactly across ray batches; finalize
-    the total once with ``finalize_complex``.
+    the total once with ``finalize_complex``. On CUDA the positions must
+    be float32 and the fields complex64.
     """
+    if x.device.type == "cpu":
+        return complex_histogram_plain(x, y, Jx, Jy, x_edges_n, y_edges_n,
+                                       Lx, Ly, convention, return_acc)
+    if convention not in ("legacy", "intensity"):
+        raise ValueError(f"unknown convention {convention!r}; "
+                         "expected 'legacy' or 'intensity'")
+    npx, npy = x_edges_n - 1, y_edges_n - 1
+    acc = binning.bin_field(x, y, Jx, Jy, npx, npy,
+                            (f32(Lx / 2.0), f32(Lx / npx)),
+                            (f32(Ly / 2.0), f32(Ly / npy)),
+                            2 if convention == "legacy" else 4)
+    if return_acc:
+        return acc
+    return finalize_complex(acc, convention)
+
+
+def complex_histogram_plain(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    Jx: torch.Tensor,
+    Jy: torch.Tensor,
+    x_edges_n: int,
+    y_edges_n: int,
+    Lx: float,
+    Ly: float,
+    convention: str = "legacy",
+    return_acc: bool = False,
+) -> torch.Tensor:
+    """Plain version of ``complex_histogram`` (one ``index_add_``)."""
     npx, npy = x_edges_n - 1, y_edges_n - 1
     ix, vx = _pixel_index(x, Lx, npx)
     iy, vy = _pixel_index(y, Ly, npy)
@@ -132,3 +191,18 @@ def finalize_complex(acc: torch.Tensor, convention: str = "legacy"
                 + acc[..., 3] ** 2)
     raise ValueError(f"unknown convention {convention!r}; "
                      "expected 'legacy' or 'intensity'")
+
+
+def deposit_cic(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                x_coords: torch.Tensor, y_coords: torch.Tensor
+                ) -> torch.Tensor:
+    """Cloud-in-cell (bilinear) deposit of (N,) real or complex values
+    ``w`` at (N,) positions onto the (len(x_coords), len(y_coords)) grid of
+    uniform node coordinates, each node divided by its deposited weight
+    (max(weight, 1e-12)), so the grid approximates the local average of
+    ``w``. A ray is deposited when (pos - c[0]) / (c[1] - c[0]) is finite
+    and within the grid on both axes (kernel K8 on CUDA)."""
+    if torch.is_complex(w):
+        g = deposit(x, y, torch.view_as_real(w), x_coords, y_coords)
+        return torch.complex(g[..., 0], g[..., 1])
+    return deposit(x, y, w[:, None], x_coords, y_coords)[..., 0]

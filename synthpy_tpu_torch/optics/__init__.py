@@ -1,5 +1,13 @@
-"""Optical benches (PyTorch port of ``synthpy_tpu.optics``: the ray
-transfer primitives and the composed benches, coherent ones included; the
-``diagnostics`` classes are still to port)."""
+"""Optical benches (PyTorch port of ``synthpy_tpu.optics``): the ray
+transfer primitives, the composed benches (coherent ones included) and the
+diagnostic classes."""
 
+from synthpy_tpu_torch.optics.diagnostics import (  # noqa: F401
+    Diagnostic,
+    Interferometry,
+    Polarimetry,
+    Refractometry,
+    Schlieren,
+    Shadowgraphy,
+)
 from synthpy_tpu_torch.optics import compose, rtm  # noqa: F401

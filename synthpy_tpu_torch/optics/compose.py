@@ -137,8 +137,10 @@ def interfere_ref_beam(r_mm: torch.Tensor, Jf: torch.Tensor,
 
 def analyser_weight(Jf: torch.Tensor, beta_deg: float) -> torch.Tensor:
     """Per-ray intensity |Jx sin(beta) + Jy cos(beta)|^2 behind a linear
-    analyser at ``beta_deg``."""
-    beta = float(np.deg2rad(np.float32(beta_deg)))
+    analyser at ``beta_deg``, the angle in the real dtype of ``Jf`` (as
+    the JAX package takes it in its default float)."""
+    f = np.float64 if Jf.dtype == torch.complex128 else np.float32
+    beta = float(np.deg2rad(f(beta_deg)))
     t = Jf[0] * np.sin(beta) + Jf[1] * np.cos(beta)
     return t.real**2 + t.imag**2
 

@@ -53,6 +53,11 @@ def lens(r, f1, f2):
     return matvec(lens_matrix(f1, f2), r)
 
 
+def sym_lens(r, f):
+    """Axisymmetric thin lens."""
+    return lens(r, f, f)
+
+
 def travel(r, d):
     """Free-space propagation over distance d."""
     return matvec(travel_matrix(d), r)

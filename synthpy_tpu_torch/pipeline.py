@@ -44,6 +44,9 @@ from synthpy_tpu_torch.kernels.detector import detect, detect_field
 from synthpy_tpu_torch.ops.histogram import finalize_complex
 from synthpy_tpu_torch.optics.compose import (BENCHES, NEEDS_JONES,
                                               analyser_weight)
+from synthpy_tpu_torch.optics.diagnostics import (Interferometry,
+                                                  Polarimetry, Refractometry,
+                                                  Schlieren, Shadowgraphy)
 from synthpy_tpu_torch.tracer.analytic import trace_domain_analytic
 from synthpy_tpu_torch.tracer.propagator import (default_n_steps, dt_of,
                                                  ray_to_Jonesvector,
@@ -55,6 +58,21 @@ from synthpy_tpu_torch.tracer.zscan import (_AXIS_OF, PACK_DTYPES,
                                             make_zscan_pack, permute_state,
                                             reassemble_state, trace_zscan,
                                             trace_zscan_segments)
+
+# bench name -> (class, solve method, coherent): the class API over the
+# benches of optics.compose.BENCHES, as in the JAX package
+DIAGNOSTICS = {
+    "shadowgraphy": (Shadowgraphy, "two_lens_solve", False),
+    "shadowgraphy_single": (Shadowgraphy, "single_lens_solve", False),
+    "shadowgraphy_exp": (Shadowgraphy, "single_exp_solve", False),
+    "schlieren_df": (Schlieren, "DF_solve", False),
+    "schlieren_lf": (Schlieren, "LF_solve", False),
+    "refractometry": (Refractometry, "incoherent_solve", False),
+    "refractometry_coherent": (Refractometry, "coherent_solve", True),
+    "interferometry": (Interferometry, "two_lens_solve", True),
+    # an incoherent detector with a Jones-vector analyser weight
+    "polarimetry": (Polarimetry, "two_lens_solve", False),
+}
 
 
 def _image_from_uf(uf: torch.Tensor, p_end, probing_depth: float, *,

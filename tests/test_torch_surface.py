@@ -51,7 +51,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_sources_carry_their_note_and_build_flags():
-    for src in ("march.cu", "pack.cu", "detector.cu", "analytic.cu"):
+    for src in ("march.cu", "pack.cu", "detector.cu", "analytic.cu",
+                "deposit.cu"):
         text = (_build.CSRC / src).read_text()
         assert "Replaces" in text and "bounds it on the H100" in text, src
         assert "synthpy_tpu/" in text, src
@@ -66,13 +67,14 @@ def test_kernel_argtypes_match_the_c_entry_points():
     as a 32-bit int)."""
     import re
 
-    from synthpy_tpu_torch.kernels import (adaptive, analytic, detector,
-                                           march, pack, slab_march,
-                                           time_march)
+    from synthpy_tpu_torch.kernels import (adaptive, analytic, binning,
+                                           deposit, detector, march, pack,
+                                           slab_march, time_march)
 
-    kernels = [m.KERNEL for m in (adaptive, analytic, detector, march, pack,
-                                  slab_march, time_march)]
-    kernels.append(detector.FIELD_KERNEL)
+    kernels = [m.KERNEL for m in (adaptive, analytic, deposit, detector,
+                                  march, pack, slab_march, time_march)]
+    kernels += [detector.FIELD_KERNEL, binning.BIN_KERNEL,
+                binning.BIN_FIELD_KERNEL]
     seen = set()
     for k in kernels:
         text = (_build.CSRC / k.source).read_text()
@@ -89,7 +91,8 @@ def test_kernel_argtypes_match_the_c_entry_points():
                                                   len(argtypes))
             assert params[-1].split()[-1] == "stream", name
             seen.add(name)
-    assert {"analytic_march", "detect_field", "detect_image"} <= seen
+    assert {"analytic_march", "detect_field", "detect_image", "bin_image",
+            "bin_field", "deposit_cic"} <= seen
 
 
 def test_entry_points_default_to_cuda():
@@ -112,11 +115,16 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         pytest.skip("nvcc is present: the wrappers would build and launch")
     from synthpy_tpu_torch.fields.domain import ChannelLayout
     from synthpy_tpu_torch.fields.forms import ClosedForm
-    from synthpy_tpu_torch.kernels import analytic, detector, march, pack
+    from synthpy_tpu_torch.kernels import (analytic, binning, deposit,
+                                           detector, march, pack)
+    from synthpy_tpu_torch.ops import fresnel, histogram
 
     meta = torch.device("meta")
     u = torch.empty((8, 8), device=meta)
     table = torch.empty((1, 9, 9 * 3), device=meta)
+    x = torch.empty(8, device=meta)
+    e = torch.empty(8, dtype=torch.complex64, device=meta)
+    c = torch.empty(5, device=meta)
     lay = ChannelLayout(False, False, False)
     calls = [
         lambda: march.march(u, table, None, shape_ab=(3, 3),
@@ -132,11 +140,24 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                                lwl=1e-6, p0=-1.0, h=0.5, n_steps=4),
         lambda: detector.detect_field(u, 1.0, 1.0, "z", [("phase",)],
                                       (4, 4), 2.0, 2.0, 1e-6),
+        # a stage table longer than the kernel takes by value
+        lambda: detector.detect(u, 1.0, 1.0, "z", [("aperture", 1.0)] * 40,
+                                (4, 4), ((-1.0, 1.0), (-1.0, 1.0))),
+        lambda: histogram.histogram2d(x, x, (4, 4), ((-1.0, 1.0),
+                                                     (-1.0, 1.0))),
+        lambda: histogram.histogram2d(x, x, (4, 4), ((-1.0, 1.0),
+                                                     (-1.0, 1.0)), weights=x),
+        lambda: histogram.complex_histogram(x, x, e, e, 5, 5, 2.0, 2.0),
+        lambda: histogram.deposit_cic(x, x, x, c, c),
+        lambda: histogram.deposit_cic(x, x, e, c, c),
+        lambda: fresnel.propagate(1e-6, c, c, 1.0, 1.0, u[:4], x, x, 0.1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
             call()
     assert march.KERNEL.launches == analytic.KERNEL.launches == 0
+    assert (deposit.KERNEL.launches == binning.BIN_KERNEL.launches
+            == binning.BIN_FIELD_KERNEL.launches == 0)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
