@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-The port's eight hand-written CUDA kernels are built from
+The port's ten hand-written CUDA kernels are built from
 ``synthpy_tpu_torch/kernels/csrc`` with nvcc, all sources at once: K1
-segment march, K2 pack builder/quantiser/decimator, K3 detector (an
-incoherent and a coherent entry point on exit states, ``bin_image`` and
-``bin_field`` on bare rays), K4 plain slab march, K5 time-domain RK4
-march, K6 adaptive Dormand-Prince step, K7 analytic march and K8
-cloud-in-cell deposit. Each is held to its plain PyTorch version on the
-card. The
+segment march, K2 pack builder/quantiser/decimator (with JAX's dither),
+K3 detector (an incoherent and a coherent entry point on exit states,
+``bin_image`` and ``bin_field`` on bare rays), K4 plain slab march, K5
+time-domain RK4 march, K6 adaptive Dormand-Prince step, K7 analytic march,
+K8 cloud-in-cell deposit, K9 plane-batch pack fill and K10 threefry draws.
+Each is held to its plain PyTorch version on the card. The
 zscan_seg bench configuration (512^3 bench lens, K = 512, 4,000,000 rays,
 rk2, slab weights, 431 x 321 bins) runs through the port's entry points at
 the bf16, int8/rk2s2 and int4/rk2s4 tiers. K2 builds every tier and
@@ -54,7 +54,18 @@ tier, every bench, the deposit, Fresnel, multi-slice and class outputs)
 to the port on the card at the CPU suite's tolerances; and
 ``K3_long_table`` holds K3 to its plain chain on 25-, 1,201- and
 4,001-stage tables (the device copy, read in place) and a 36-stage
-coherent one.
+coherent one. Then the scale slice (``scale_slice``): K10 against its
+plain version at 2 x 512^3 draws (``random_vs_plain``), K2's dithered
+builds at 512^3 (``K2_dither_vs_plain``), K9 on upload and synth batches
+(``K9_vs_plain``), the upload route of 512^3 full-physics host volumes
+(~3 GB pinned) against K2's device build, bit for bit
+(``upload_vs_device``), the synth route against the upload route
+(``synth_vs_upload``), a 512^3 bf16 host pack (~2.2 GB pinned) marched
+segment by segment (``streamed_path``), the MAGPIE z-pinch of
+``examples/magpie_1024_full_physics.py`` at 1024^3 (synth int4 pack,
+16 M rays in four 4 M chunks through three benches, per-call batching;
+``scale_path``) and Kolmogorov turbulence at 256^3 with
+``pack_dtype="auto"`` (``turbulence_path``).
 Every path is driven with the launch counts set to 0 just before it and
 read just after. Each phase prints one JSON line; then a
 ``{"kernels": [...]}`` line with each kernel's launches on its path
@@ -75,6 +86,7 @@ import json
 import os
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -523,6 +535,747 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
     return rows_out, detail
 
 
+# the z-pinch scene of examples/magpie_1024_full_physics.py (BASELINE
+# configs[4]): its constants and closed forms, written here as torch closures
+R0, WOB, HELIX_L = 1.2e-3, 0.25e-3, 4e-3
+NE_PEAK, NE_BG, BG_R = 2e25, 1e24, 3e-3
+RB, B0, TE0, Z0 = 1.5e-3, 30.0, 50.0, 4.0
+SCALE_DIM, SCALE_K, SCALE_RAYS, SCALE_CHUNK = 1024, 256, 16_000_000, 4_000_000
+SCALE_BENCHES = ("shadowgraphy", "interferometry", "schlieren_df")
+MID_DIM = 512                      # the upload and streamed phases
+TURB_RES, TURB_RAYS = 128, 1_000_000
+
+
+def magpie_fields(torch):
+    """ne, Te, Z and B of the z-pinch over broadcastable (x, y, z)."""
+    def ne_fn(x, y, z):
+        xc = WOB * torch.cos(2 * torch.pi * z / HELIX_L)
+        yc = WOB * torch.sin(2 * torch.pi * z / HELIX_L)
+        rp2 = (x - xc) ** 2 + (y - yc) ** 2
+        return (NE_PEAK * torch.exp(-rp2 / R0**2)
+                + NE_BG * torch.exp(-(x**2 + y**2) / BG_R**2))
+
+    def b_fn(x, y, z):
+        r = torch.sqrt(x**2 + y**2) + 1e-12
+        bmag = B0 * (r / RB) / (1.0 + (r / RB) ** 2)
+        return (-y / r * bmag + 0.0 * z, x / r * bmag + 0.0 * z,
+                0.0 * (x + y + z))
+
+    def te_fn(x, y, z):
+        return TE0 + 0.0 * (x + y + z)
+
+    def z_fn(x, y, z):
+        return Z0 + 0.0 * (x + y + z)
+
+    return {"ne": ne_fn, "Te": te_fn, "Z": z_fn, "B": b_fn}
+
+
+def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
+    """The scale builders' and random streams' phases: K10, K2's dither and
+    K9 against their plain versions, the upload route against the device
+    build and the synth route against the upload route at 512^3, the
+    dithered device build through ``pipeline.run(pack_dither=)`` on the
+    z-pinch, the streamed march of a host pack, the MAGPIE path at 1024^3
+    (path a) and the Kolmogorov path at 256^3 (path b), each path's kernels
+    held to their plain versions at its own shapes. Returns (kernels-line
+    rows, detail)."""
+    from synthpy_tpu_torch import constants, pipeline
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.fields import ScalarDomain, grf, layout_of
+    from synthpy_tpu_torch.kernels import detector, fill, march, pack
+    from synthpy_tpu_torch.kernels import random as krand
+    from synthpy_tpu_torch.kernels.profiling import batch_ms, best_ms
+    from synthpy_tpu_torch.optics.compose import BENCHES
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+
+    detail, rows_out = {}, []
+    csrc = "synthpy_tpu_torch/kernels/csrc/"
+    lwl = 1064e-9
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def ulp32(a, b):
+        def ordinal(x):
+            i = x.view(torch.int32).to(torch.int64)
+            return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+        return int((ordinal(a) - ordinal(b)).abs().max())
+
+    def nibble_codes(t):
+        return torch.stack([pack.nibble_lo(t), pack.nibble_hi(t)])
+
+    def codes_diff(a, b, int4):
+        if int4:
+            a, b = nibble_codes(a), nibble_codes(b)
+        d = (a.to(torch.int16) - b.to(torch.int16)).abs()
+        return int(d.max()), float((d > 0).float().mean())
+
+    # a quantised kernel against its plain version: a channel value's last
+    # place may carry a code across a rounding boundary (within one step,
+    # on at most 1e-4 of the codes), scales to 1e-6; the dither moves
+    # 7-10% of the codes, so a kernel that drops it or draws another
+    # plane's key fails (the planted controls in K9_vs_plain must)
+    CODE_FRAC, SCALE_REL = 1e-4, 1e-6
+
+    def quant_agree(a, b, sa, sb, int4):
+        step, frac = codes_diff(a, b, int4)
+        srel = float(((sa - sb).abs() / sb.abs().clamp_min(1e-30)).max())
+        return {"max_code_diff": step, "frac_codes_differ": frac,
+                "scale_max_rel": srel,
+                "ok": step <= 1 and frac <= CODE_FRAC and srel <= SCALE_REL}
+
+    def quant_check(a, b, sa, sb, int4, what):
+        r = quant_agree(a, b, sa, sb, int4)
+        check(r.pop("ok"), f"{what}: {r}")
+        return r
+
+    def k2_args(d, K_):
+        """The volumes and K2 arguments ``build_segment_pack_device`` gives
+        the kernel for domain d at K_, for its plain version."""
+        geo = zscan._geometry_of(d, lwl)
+        kw = dict(p_ax=geo.p_ax, layout=layout_of(d), K=K_,
+                  n_seg=-(-(geo.n_p - 1) // K_), pref=geo.pref, da=geo.da,
+                  db=geo.db, dp=geo.dp, omega=geo.omega, verdet=geo.verdet)
+        return {"ne": d.ne, "Te": d.Te, "Z": d.Z, "B": d.B}, kw
+
+    def seg_march_kw(sp, lay_, integrator, weights):
+        return dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+                    inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+                    layout=lay_, K=sp.K, integrator=integrator,
+                    weights=weights, qbits=sp.qbits)
+
+    det_range = ((-9.0, 9.0), (-6.75, 6.75))
+
+    def detectors_vs_plain(uf, p_end, ext, benches, what):
+        """K3 on exit states against its plain chain, for the benches of a
+        path: incoherent counts equal; coherent ray counts (a unit field
+        through the stages without their checkpoints) equal and field sums
+        within 1e-4 x the most rays a pixel (the order of atomic adds)."""
+        out = {}
+        for bench in benches:
+            st, coherent = BENCHES[bench][0](), BENCHES[bench][1]
+            if not coherent:
+                args = (uf, p_end, ext, "z", st, BINS, det_range)
+                H, Hp = detector.detect(*args), detector.detect_plain(*args)
+                check(torch.equal(H, Hp) and float(Hp.sum()) > 0,
+                      f"{what}: K3 {bench} counts differ or are empty")
+                out[bench] = {"counts_equal": True,
+                              "image_sum": float(Hp.sum())}
+                continue
+            unit = uf.clone()
+            unit[:, 5], unit[:, 6], unit[:, 7] = 1.0, 0.0, 0.0
+            st_n = [x for x in st if x[0] not in ("phase", "mark")]
+            cargs = (unit, p_end, ext, "z", st_n, BINS, 18.0, 13.5, lwl)
+            ck = detector.detect_field(*cargs)[..., 1]
+            cp = detector.detect_field_plain(*cargs)[..., 1]
+            check(torch.equal(ck, cp), f"{what}: K3 {bench} ray counts")
+            ref = (10.0, 20.0) if bench == "interferometry" else None
+            args = (uf, p_end, ext, "z", st, BINS, 18.0, 13.5, lwl)
+            F_ = detector.detect_field(*args, ref=ref)
+            Fp = detector.detect_field_plain(*args, ref=ref)
+            n_max = float(cp.max())
+            err = float((F_ - Fp).abs().max())
+            check(err <= 1e-4 * n_max, f"{what}: K3 field {bench} off by "
+                  f"{err} ({n_max} rays a pixel)")
+            out[bench] = {"counts_equal": True, "max_abs_err": err,
+                          "max_rays_per_pixel": n_max}
+        return out
+
+    # -- K10 against its plain version at 2 x 512^3 draws ---------------------
+    key = jrandom.key_of(7)
+    n_big = 2 * MID_DIM**3
+    rnd = {}
+    for mode in ("bits", "uniform", "normal"):
+        lo, hi = (-0.5, 0.5) if mode == "uniform" else (0.0, 1.0)
+        a = krand.draw(key, n_big, mode, lo, hi, device=dev)
+        b, plain_s = sync_s(lambda: krand.draw_plain(key, n_big, mode, lo,
+                                                     hi, device=dev))
+        if mode == "normal":
+            err = ulp32(a, b)
+            check(err <= 4 and bool(torch.isfinite(a).all()),
+                  f"K10 normal {err} ulp from plain")
+            rnd[mode] = {"max_ulp": err,
+                         "bit_equal_share": float((a == b).float().mean())}
+        else:
+            same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+            check(same, f"K10 {mode} differs from its plain version")
+            rnd[mode] = {"bit_equal": True}
+        rnd[mode].update(ms=batch_ms(lambda: krand.draw(
+            key, n_big, mode, lo, hi, device=dev), calls=5),
+            plain_ms=plain_s * 1e3)
+        del a, b
+    # counters past 2^32 (a non-zero high word)
+    a = krand.draw(key, 1 << 21, "bits", device=dev, offset=2**32 - 2**20)
+    b = krand.draw_plain(key, 1 << 21, "bits", device=dev,
+                         offset=2**32 - 2**20)
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+          "K10 past 2^32 differs from its plain version")
+    rnd["randn_ms_context"] = best_ms(lambda: torch.randn(n_big, device=dev),
+                                      reps=3)
+    torch.cuda.empty_cache()
+    emit({"phase": "random_vs_plain", "draws": n_big, **rnd,
+          "past_2_32_bit_equal": True})
+    detail["random_vs_plain"] = rnd
+
+    # -- K2's dither: the 512^3 bench lens, K = 512 ---------------------------
+    lens = ScalarDomain(2 * EXT, MID_DIM, device=dev).test_lens(ne_0=5e24,
+                                                                LR=1.5e-3)
+    lay = layout_of(lens)
+    C = lay.n_channels
+    omega = constants.omega_from_lwl(lwl)
+    dz = float(lens.z.cpu()[1] - lens.z.cpu()[0])
+    dx = float(lens.x.cpu()[1] - lens.x.cpu()[0])
+    bkw = dict(p_ax=2, layout=lay, K=512, n_seg=1,
+               pref=-0.5 * constants.C**2 / constants.critical_density(
+                   omega), da=dx, db=dx, dp=dz, omega=omega, verdet=0.0)
+    vols = {"ne": lens.ne, "Te": None, "Z": None, "B": None}
+    f32 = pack.build_tables(vols, dtype=torch.float32, **bkw)
+    k2d = {}
+    for name, bits in (("int8", 8), ("int4", 4)):
+        codes, scales = pack.build_quantized_tables(vols, bits=bits,
+                                                    dither=key, **bkw)
+        tc, ts = pack.quantize_tables(f32, 512, C, bits, key)
+        check(torch.equal(codes, tc) and torch.equal(scales, ts),
+              f"K2 {name} dithered build != dithered two-step route")
+        pc, ps = pack.quantize_tables_plain(f32, 512, C, bits, key)
+        check(torch.equal(tc, pc) and torch.equal(ts, ps),
+              f"K2 {name} dithered quantiser != its plain version")
+        qc, qs = pack.build_quantized_tables_plain(vols, bits=bits,
+                                                   dither=key, **bkw)
+        agree = quant_check(codes, qc, scales, qs, bits == 4,
+                            f"K2 {name} dithered build vs plain")
+        und = pack.build_quantized_tables(vols, bits=bits, **bkw)[0]
+        nbytes = lens.ne.numel() * 4 + codes.numel() + scales.numel() * 4
+        b_ = bound(nbytes, 0)
+        k2d[name] = {
+            "dithered_equals_two_step": True,
+            "quantiser_equals_plain": True, "vs_plain": agree,
+            "codes_moved_by_dither": float((nibble_codes(codes) !=
+                                            nibble_codes(und)).float().mean()
+                                           if bits == 4 else
+                                           (codes != und).float().mean()),
+            "ms": batch_ms(lambda: pack.build_quantized_tables(
+                vols, bits=bits, dither=key, **bkw), calls=10),
+            "undithered_ms": batch_ms(lambda: pack.build_quantized_tables(
+                vols, bits=bits, **bkw), calls=10),
+            "plain_ms": best_ms(lambda: pack.build_quantized_tables_plain(
+                vols, bits=bits, dither=key, **bkw), reps=1),
+            "bound_ms": b_[0], "bound_by": b_[1], "bytes": nbytes}
+        del codes, scales, tc, ts, pc, ps, qc, qs, und
+    del f32, vols, lens
+    torch.cuda.empty_cache()
+    emit({"phase": "K2_dither_vs_plain", "dim": MID_DIM, "K": 512, **k2d})
+    detail["K2_dither"] = k2d
+
+    # -- the z-pinch at 512^3: host volumes, the device volumes --------------
+    fields = magpie_fields(torch)
+
+    def flag_domain(dim, device):
+        d = ScalarDomain(2 * EXT, dim, device=device)
+        d.inv_brems = d.phaseshift = d.B_on = True
+        return d
+
+    def volumes(d, device):
+        """The scene on d's grid, plane batch by plane batch, on device."""
+        x, y, z = (c.to(dev) for c in (d.x, d.y, d.z))
+        pin = device == "cpu" and dev.type == "cuda"
+        out = {n: torch.empty(d.dims, device=device, pin_memory=pin)
+               for n in ("ne", "Te", "Z")}
+        out["B"] = torch.empty((*d.dims, 3), device=device, pin_memory=pin)
+        for i0 in range(0, d.dims[0], 64):
+            X = x[i0:i0 + 64, None, None]
+            Y, Z_ = y[None, :, None], z[None, None, :]
+            shape = (X.shape[0], *d.dims[1:])
+            for n in ("ne", "Te", "Z"):
+                out[n][i0:i0 + 64].copy_(torch.broadcast_to(
+                    fields[n](X, Y, Z_), shape))
+            for c, v in enumerate(fields["B"](X, Y, Z_)):
+                out["B"][i0:i0 + 64, ..., c].copy_(torch.broadcast_to(
+                    v, shape))
+        return out
+
+    t0 = time.perf_counter()
+    dhost = flag_domain(MID_DIM, dev)
+    hv = volumes(dhost, "cpu")
+    dhost.external_ne(hv["ne"], host=True)
+    dhost.external_Te(hv["Te"], host=True)
+    dhost.external_Z(hv["Z"], host=True)
+    dhost.external_B(hv["B"], host=True)
+    del hv
+    check(dhost.ne.is_pinned() and dhost.Te.is_pinned(),
+          "host volumes are not pinned")
+    host_gb = sum(t.numel() * 4 for t in (dhost.ne, dhost.Te, dhost.Z,
+                                          dhost.B)) / 1e9
+    ddev = flag_domain(MID_DIM, dev)
+    for n in ("ne", "Te", "Z", "B"):
+        setattr(ddev, n, getattr(dhost, n).to(dev))
+    scene_s = time.perf_counter() - t0
+
+    # K9 against its plain version: a 32-plane batch of the upload route
+    # and of the synth route, int4 with dither (the planes of the grid's
+    # first segment), and the lone last plane
+    geo = zscan._geometry_of(dhost, lwl)
+    k9 = {}
+    fkw = zscan._fill_kw(geo, layout_of(ddev), 3, 7)
+    C8 = layout_of(ddev).n_channels
+    sched = [(0, 0, 32, False), (0, 224, 32, False), (0, 256, 1, True)]
+    synth_batches = list(zscan._closure_batches(
+        flag_domain(MID_DIM, dev), geo, fields, layout_of(ddev),
+        sched, 256))
+    upload_batches = list(zscan._volume_batches(ddev, geo, sched, 256, 256,
+                                                dev))
+
+    def fill_into(fn, batch, **over):
+        """The batch's codes and scales, written by fn into an empty pack."""
+        _, k0, pb, lone, slab, ex = batch
+        buf = torch.zeros((1, MID_DIM**2, 129 * C8), dtype=torch.int8,
+                          device=dev)
+        scl = torch.ones((1, 257, C8), device=dev)
+        fn(buf, scl, slab, ex, **{**dict(g0=k0, seg_i=0, col0=(k0 // 2) * C8,
+                                         k0=k0, pb=pb, lone=lone, **fkw),
+                                  **over})
+        c0 = (k0 // 2) * C8
+        return (buf[0, :, c0:c0 + ((pb + 1) // 2) * C8],
+                scl[0, k0:k0 + (1 if lone else pb)])
+
+    for route, batches in (("upload", upload_batches),
+                           ("synth", synth_batches)):
+        for batch in batches:
+            (a, sa), (b, sb) = (fill_into(fn, batch)
+                                for fn in (fill.fill, fill.fill_plain))
+            k9[f"{route}/{batch[1]}+{batch[2]}"] = quant_check(
+                a, b, sa, sb, True, f"K9 {route} batch {batch[1]}")
+    # planted controls on the upload batch of planes 224-255, which must
+    # fail the check: K9 without the dither, and K9 drawing the dither of
+    # the next plane's key (g0 one plane on; no boundary rule reaches it)
+    b224 = upload_batches[1]
+    pb_, sb_ = fill_into(fill.fill_plain, b224)
+    controls = {}
+    for cname, over in (("no_dither", {"dither": None}),
+                        ("next_plane_key", {"g0": b224[1] + 1})):
+        c, sc = fill_into(fill.fill, b224, **over)
+        r = quant_agree(c, pb_, sc, sb_, True)
+        check(not r.pop("ok"), f"K9 control {cname} passed the check: {r}")
+        controls[cname] = r
+    k9["planted_controls_fail"] = controls
+    # K9's time on one full 1024^3-wide batch is taken on path (a) below
+    del upload_batches, synth_batches, a, b, sa, sb, pb_, sb_, c, sc
+    torch.cuda.empty_cache()
+    emit({"phase": "K9_vs_plain", "dim": MID_DIM, "tier": "int4",
+          "dither": 7, "tolerance": f"codes within 1 step on <= {CODE_FRAC} "
+          f"of them, scales to {SCALE_REL}", **k9})
+    detail["K9_vs_plain"] = k9
+
+    # -- the upload route against K2's device build (512^3, dithered), and
+    # the dithered device build on a path: pipeline.run(pack_dither=7) on
+    # the device volumes at the example's int4 / int8 tiers, its image
+    # equal to the run on the upload route's pack --------------------------
+    upd, dpath = {}, {}
+    rays_m = init_beam(jrandom.PRNGKey(3), RAYS, 2.5e-3, 0.0, EXT,
+                       "circular", device=dev)
+    for name, dt, K, bits in (("int4", "int4", 256, 4),
+                              ("int8", torch.int8, 64, 8)):
+        reset()
+        up, up_s = sync_s(lambda: zscan.build_segment_pack_upload(
+            dhost, lwl, K=K, dtype=dt, plane_batch=32, dither=7))
+        launches = path_launches(("fill",), f"upload {name}")
+        ref, dev_s = sync_s(lambda: zscan.build_segment_pack_device(
+            ddev, lwl, K=K, dtype=dt, dither=7))
+        check(torch.equal(up.seg_planes, ref.seg_planes)
+              and torch.equal(up.scales, ref.scales),
+              f"upload {name} != the device build")
+        upd[name] = {"K": K, "bit_equal_device_build": True,
+                     "launches": launches, "upload_ms": up_s * 1e3,
+                     "device_build_ms": dev_s * 1e3,
+                     "pack_gb": up.seg_planes.numel() / 1e9,
+                     "host_volumes_gb": host_gb,
+                     "host_to_device_gb_s": host_gb / up_s}
+        del ref
+        torch.cuda.empty_cache()
+        rkw = dict(solver="zscan_seg", integrator="rk2s4",
+                   seg_weights="slab", diagnostic=SCALE_BENCHES, bins=BINS,
+                   critical_guard=None)
+        reset()
+        Hd = pipeline.run(ddev, rays_m, pack_dtype=name, pack_dither=7,
+                          seg_K=K, **rkw)
+        torch.cuda.synchronize()
+        d_launch = path_launches(("pack", "march", "detector",
+                                  "detector_field"), f"run pack_dither {name}")
+        Hu = pipeline.run(ddev, rays_m, spack=up, **rkw)
+        # counts equal; the interferogram's field sums to the order of
+        # their atomic adds
+        rel_i = float((Hd["interferometry"] - Hu["interferometry"]).abs()
+                      .sum() / Hu["interferometry"].abs().sum())
+        check(torch.equal(Hd["shadowgraphy"], Hu["shadowgraphy"])
+              and torch.equal(Hd["schlieren_df"], Hu["schlieren_df"])
+              and rel_i <= 1e-4,
+              f"run(pack_dither) {name} images != the upload pack's "
+              f"(interferogram rel L1 {rel_i})")
+        # K2's dithered build at this shape against its plain version
+        vols, k2kw = k2_args(ddev, K)
+        codes, scales = pack.build_quantized_tables(
+            vols, bits=bits, dither=jrandom.key_of(7), **k2kw)
+        (pc, ps), plain_s = sync_s(lambda: pack.build_quantized_tables_plain(
+            vols, bits=bits, dither=jrandom.key_of(7), **k2kw))
+        agree = quant_check(codes, pc, scales, ps, bits == 4,
+                            f"K2 {name} dithered build at {MID_DIM}^3 C = 8 "
+                            "vs plain")
+        nbytes = (sum(v.numel() for v in vols.values()) * 4 + codes.numel()
+                  + scales.numel() * 4)
+        b_ = bound(nbytes, 0)
+        dpath[name] = {
+            "K": K, "launches": d_launch, "counts_equal_upload_pack": True,
+            "interferogram_rel_l1_vs_upload_pack": rel_i,
+            "image_sums": {n: float(Hd[n].sum()) for n in SCALE_BENCHES},
+            "vs_plain": agree,
+            "ms": batch_ms(lambda: pack.build_quantized_tables(
+                vols, bits=bits, dither=jrandom.key_of(7), **k2kw),
+                calls=5),
+            "undithered_ms": batch_ms(lambda: pack.build_quantized_tables(
+                vols, bits=bits, **k2kw), calls=5),
+            "plain_ms": plain_s * 1e3, "bound_ms": b_[0], "bound_by": b_[1],
+            "bytes": nbytes}
+        del up, Hd, Hu, codes, scales, pc, ps, vols
+        torch.cuda.empty_cache()
+    emit({"phase": "upload_vs_device", "dim": MID_DIM, "dither": 7,
+          "scene_s": scene_s, **upd})
+    emit({"phase": "dither_path", "dim": MID_DIM, "rays": RAYS,
+          "channels": C8, **dpath})
+    detail["upload_vs_device"] = upd
+    detail["dither_path"] = dpath
+
+    # -- the synth route against the upload route (512^3, int4 K = 256) -------
+    reset()
+    syn, syn_s = sync_s(lambda: zscan.build_segment_pack_synth(
+        flag_domain(MID_DIM, dev), fields, lwl, K=256, dtype="int4",
+        plane_batch=32, dither=7))
+    syn_launch = path_launches(("fill",), "synth 512^3")
+    up = zscan.build_segment_pack_upload(dhost, lwl, K=256, dtype="int4",
+                                         plane_batch=32, dither=7)
+    step, frac = codes_diff(syn.seg_planes, up.seg_planes, True)
+    check(step <= 1 and frac < 0.01, f"synth vs upload: {frac} of codes "
+          f"differ, by up to {step}")
+    snr = {"launches": syn_launch, "synth_ms": syn_s * 1e3,
+           "max_code_diff": step, "frac_codes_differ": frac}
+    del syn, up, ddev
+    torch.cuda.empty_cache()
+    emit({"phase": "synth_vs_upload", "dim": MID_DIM, **snr})
+    detail["synth_vs_upload"] = snr
+
+    # -- the streamed march of a host pack (512^3, bf16, K = 64) -------------
+    reset()
+    hpack, st_s = sync_s(lambda: zscan.build_segment_pack_streaming(
+        dhost, lwl, K=64, dtype=torch.bfloat16, device=False))
+    check(hpack.host and hpack.seg_planes.is_pinned(),
+          "the streaming builder's host pack is not pinned host memory")
+    n_seg = hpack.seg_planes.shape[0]
+    seg_bytes = hpack.seg_planes[0].numel() * 2
+    cache = zscan.make_device_segment_cache(hpack, seg_bytes * (n_seg // 2),
+                                            device=dev)
+    rays = init_beam(jrandom.PRNGKey(3), RAYS, 2.5e-3, 0.0, EXT,
+                     "circular", device=dev)
+    reset()
+    streamed, sm_s = sync_s(lambda: zscan.solve_zscan_segments_streamed(
+        rays, dhost, hpack=hpack, integrator="rk2s2", weights="slab",
+        cache=cache))
+    sm_launch = path_launches(("march",), "streamed march")
+    check(sm_launch["march"] == n_seg, "not one K1 launch a segment")
+    dpack = hpack._replace(seg_planes=hpack.seg_planes.to(dev), host=False)
+    inmem = zscan.solve_zscan_segments(rays, dhost, spack=dpack,
+                                       integrator="rk2s2", weights="slab")
+    check(torch.equal(streamed.sf, inmem.sf), "streamed exits != the "
+          "in-memory march's")
+    # per segment: its copy up alone, K1 alone, and the streamed march
+    u = zscan.permute_state(rays, "z").contiguous()
+    seg_up = best_ms(lambda: hpack.seg_planes[n_seg - 1].to(
+        dev, non_blocking=True), reps=3)
+    mkw = dict(shape_ab=dpack.shape_ab, origin_ab=dpack.origin_ab.tolist(),
+               inv_ab=dpack.inv_spacing_ab.tolist(), dp=dpack.dp,
+               layout=layout_of(dhost), K=dpack.K, integrator="rk2s2",
+               weights="slab", qbits=None)
+    seg_k1 = batch_ms(lambda: march.march(u, dpack.seg_planes[:1], None,
+                                          **mkw), calls=5)
+    no_cache = best_ms(lambda: zscan.march_streamed(
+        u, hpack, layout=layout_of(dhost), integrator="rk2s2",
+        weights="slab"), reps=3)
+    strm = {"segments": n_seg, "resident": len(cache.resident),
+            "host_pack_gb": hpack.seg_planes.numel() * 2 / 1e9,
+            "streaming_build_s": st_s, "launches": sm_launch,
+            "bit_equal_in_memory": True, "march_ms_cached": sm_s * 1e3,
+            "march_ms_uncached": no_cache, "segment_h2d_ms": seg_up,
+            "segment_k1_ms": seg_k1,
+            "serial_sum_ms": n_seg * (seg_up + seg_k1),
+            "overlap_share": 1.0 - no_cache / (n_seg * (seg_up + seg_k1))}
+    del hpack, cache, dpack, streamed, inmem, u, dhost
+    torch.cuda.empty_cache()
+    emit({"phase": "streamed_path", "dim": MID_DIM, "rays": RAYS,
+          "tier": "bf16", "K": 64, **strm})
+    detail["streamed_path"] = strm
+
+    # -- path (a): the MAGPIE z-pinch at 1024^3, synth int4 K = 256 ----------
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dm = flag_domain(SCALE_DIM, dev)
+    spack, build_s = sync_s(lambda: zscan.build_segment_pack_synth(
+        dm, fields, lwl, K=SCALE_K, dtype="int4", plane_batch=32, dither=7))
+    build_launch = path_launches(("fill",), "1024^3 synth build")
+    pack_gb = spack.seg_planes.numel() / 1e9
+    check(spack.seg_planes.numel() > 4 << 30, "the 1024^3 pack is not "
+          "above the 4 GiB batching threshold")
+    keys = jrandom.split(jrandom.PRNGKey(7), SCALE_RAYS // SCALE_CHUNK)
+    acc, chunk_ms = None, []
+    reset()
+    for ck in keys:
+        s0 = init_beam(ck, SCALE_CHUNK, 2.5e-3, 0.0, EXT, "circular",
+                       device=dev)
+        imgs, t = sync_s(lambda: pipeline.run(
+            dm, s0, solver="zscan_seg", spack=spack, integrator="rk2s4",
+            seg_weights="slab", diagnostic=SCALE_BENCHES, bins=BINS,
+            critical_guard=None, coherent_raw=True))
+        chunk_ms.append(t * 1e3)
+        acc = imgs if acc is None else {k: acc[k] + imgs[k] for k in acc}
+    run_launch = path_launches(("march", "detector", "detector_field",
+                                "random"), "1024^3 run")
+    final = {n: pipeline.finalize_coherent(acc[n], n) for n in acc}
+    for n, im in final.items():
+        check(tuple(im.shape) == (BINS[1], BINS[0])
+              and bool(torch.isfinite(im).all()), f"path a: bad {n}")
+    n_shadow = float(final["shadowgraphy"].sum())
+    check(0 < n_shadow <= SCALE_RAYS, f"path a: {n_shadow} rays imaged")
+    # the last chunk batched (per-call) == the same chunk in one call
+    one = pipeline.run(dm, s0, solver="zscan_seg", spack=spack,
+                       integrator="rk2s4", seg_weights="slab",
+                       diagnostic="shadowgraphy", bins=BINS,
+                       critical_guard=None, batch_pack_bytes=1 << 40)
+    check(torch.equal(one, imgs["shadowgraphy"]), "path a: batched image "
+          "!= the one-call image of the chunk")
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # the path's kernels against their plain versions on its first per-call
+    # batch of the last chunk (the rays run hands one call): K1 int4 /
+    # rk2s4 / slab with C = 8 over the 4.33 GB pack, then K3's three benches
+    lay_m = layout_of(dm)
+    per_call = max(int((1 << 30) // (4 * spack.seg_planes.shape[-1]
+                                     * spack.seg_planes.element_size())),
+                   1024)
+    u_b = zscan.permute_state(s0[:, :per_call], "z").contiguous()
+    mkw_a = seg_march_kw(spack, lay_m, "rk2s4", "slab")
+    uf_b = march.march(u_b, spack.seg_planes, spack.scales, **mkw_a)
+    torch.cuda.synchronize()
+    k1_a = close(uf_b, march.march_plain(u_b, spack.seg_planes,
+                                         spack.scales, **mkw_a),
+                 "path a: K1 int4/rk2s4/slab C = 8")
+    p_end_a = spack.p0 + spack.seg_planes.shape[0] * spack.K * spack.dp
+    k3_a = detectors_vs_plain(uf_b, p_end_a, dm.extent, SCALE_BENCHES,
+                              "path a")
+    del u_b, uf_b
+    # K9 on one full batch at this width (segment 1's first 32 planes,
+    # int4, dither): the plain version's output against the pack K9 built
+    # on the path, then K9's time rewriting that batch in place
+    geo = zscan._geometry_of(dm, lwl)
+    (_, k0, pb, lone, slab, ex), = list(zscan._closure_batches(
+        dm, geo, fields, lay_m, [(1, 0, min(32, SCALE_K), False)],
+        SCALE_K))
+    fkw = zscan._fill_kw(geo, lay_m, 3, 7)
+    buf = spack.seg_planes
+    scl = spack.scales
+    cells = SCALE_DIM**2
+    width = (pb // 2) * C8
+    pbuf = torch.zeros((1, cells, width), dtype=torch.int8, device=dev)
+    pscl = torch.ones((1, pb, C8), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fill.fill_plain(pbuf, pscl, slab, ex, g0=SCALE_K + k0, seg_i=0, col0=0,
+                    k0=0, pb=pb, lone=lone, **fkw)
+    torch.cuda.synchronize()
+    k9_plain_ms = (time.perf_counter() - t) * 1e3
+    k9_a = quant_check(buf[1, :, :width], pbuf[0], scl[1, :pb], pscl[0],
+                       True, "path a: K9 batch vs plain")
+    del pbuf, pscl
+
+    def fill_once():
+        fill.fill(buf, scl, slab, ex, g0=SCALE_K + k0, seg_i=1,
+                  col0=(k0 // 2) * C8, k0=k0, pb=pb, lone=lone, **fkw)
+
+    k9_ms = batch_ms(fill_once, calls=10)
+    # bytes: the slab and the pointwise volumes read once, the batch's codes
+    # written once (a pass 1 re-read is the design's, not the bound's)
+    k9_bytes = (slab.numel() + ex.numel()) * 4 + cells * (pb // 2) * C8
+    k9_b = bound(k9_bytes, 0)
+    scale = {"dim": SCALE_DIM, "K": SCALE_K, "tier": "int4", "dither": 7,
+             "channels": C8, "pack_gb": pack_gb, "build_ms": build_s * 1e3,
+             "build_launches": build_launch, "peak_gb": peak_gb,
+             "rays": SCALE_RAYS, "chunk_rays": SCALE_CHUNK,
+             "run_ms_per_chunk": chunk_ms, "run_launches": run_launch,
+             "calls_per_chunk": -(-SCALE_CHUNK // max(int(
+                 (1 << 30) // (4 * spack.seg_planes.shape[-1])), 1024)),
+             "image_sums": {n: float(im.sum()) for n, im in final.items()},
+             "batched_equals_one_call": True, "per_call_rays": per_call,
+             "k1_vs_plain_one_call": k1_a, "k3_vs_plain_one_call": k3_a,
+             "k9_vs_plain_batch": k9_a,
+             "k9_batch_ms": k9_ms, "k9_plain_batch_ms": k9_plain_ms}
+    del spack, buf, scl, acc, final, imgs, one, slab, ex, s0
+    torch.cuda.empty_cache()
+    emit({"phase": "scale_path", **scale})
+    detail["scale_path"] = scale
+
+    # -- path (b): Kolmogorov turbulence at 256^3, pack_dtype="auto" ----------
+    reset()
+    ext = EXT
+    (coords, f), grf_s = sync_s(lambda: grf.grf_domain_fft(
+        jrandom.PRNGKey(0), grf.kolmogorov, 2 * ext, 4 * ext / TURB_RES,
+        ext, TURB_RES, device=dev))
+    grf_launch = path_launches(("random",), "grf_domain_fft")
+    # K10 on the path's own draws: the two normal fields of the key's split
+    n_turb = f.numel()
+    k10_keys = [jrandom.key_of(k) for k in jrandom.split(jrandom.PRNGKey(0))]
+    k10_ulp = []
+    for kk in k10_keys:
+        a = krand.draw(kk, n_turb, "normal", device=dev)
+        b = krand.draw_plain(kk, n_turb, "normal", device=dev)
+        k10_ulp.append(ulp32(a, b))
+        check(k10_ulp[-1] <= 4 and bool(torch.isfinite(a).all()),
+              f"path b: K10 normals {k10_ulp[-1]} ulp from plain")
+    del a, b
+    # turb_gen's scaling (synthpy_tpu/cli/turb_gen.py: --ne0 1e25,
+    # --amplitude 9e24), ne0 + amplitude f; the tier is whatever
+    # pack_dtype="auto" advises for it
+    ne0 = 1e25
+    turb = ScalarDomain(x=coords[0].cpu().numpy(), y=coords[1].cpu().numpy(),
+                        z=coords[2].cpu().numpy(), device=dev)
+    turb.external_ne(ne0 + 0.9 * ne0 * f)
+    s0 = init_beam(jrandom.PRNGKey(1), TURB_RAYS, 4e-3, 0.0, turb.extent,
+                   "circular", device=dev)
+    reset()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        H, run_s = sync_s(lambda: pipeline.run(
+            turb, s0, solver="zscan_seg", pack_dtype="auto",
+            diagnostic="schlieren_df", bins=BINS))
+    advice = [str(x.message) for x in w
+              if issubclass(x.category, zscan.PackTierAdvice)]
+    turb_launch = path_launches(("pack", "march", "detector"),
+                                "turbulence run")
+    check(len(advice) == 1, "pack_dtype='auto' gave no advice")
+    check(tuple(H.shape) == (BINS[1], BINS[0])
+          and bool(torch.isfinite(H).all())
+          and 0 < float(H.sum()) <= TURB_RAYS,
+          f"path b: bad or empty schlieren image (sum {float(H.sum())})")
+    # the path's K2, K1 and K3 against their plain versions: the pack run
+    # built (the advised tier and dither, run's K = 64), the march of
+    # every ray (run's rk4 / stage) and the dark-field image
+    adv = zscan.suggest_pack_dtype(turb, lwl)
+    if adv["name"] == "int4":   # run's rk4 takes int8 in its place
+        adv = dict(adv, dtype=torch.int8, name="int8")
+    chosen = adv["name"]
+    check(f"chose {chosen}" in advice[0],
+          f"path b: advice {advice[0]!r} is not {chosen}")
+    n_p = turb.z.shape[0]
+    K_b = min(64, n_p - 1)
+    sp_b = zscan.build_segment_pack_device(turb, lwl, K=K_b,
+                                           dtype=adv["dtype"],
+                                           dither=adv["dither"])
+    vols, k2kw = k2_args(turb, K_b)
+    if adv["dither"] is None:
+        plain_tab, k2_plain_s = sync_s(lambda: pack.build_tables_plain(
+            vols, dtype=adv["dtype"], **k2kw))
+        check(torch.equal(sp_b.seg_planes, plain_tab),
+              f"path b: K2 {chosen} table != its plain version")
+        k2_b = {"bit_equal": True}
+        k2_b_ms = batch_ms(lambda: pack.build_tables(
+            vols, dtype=adv["dtype"], **k2kw), calls=10)
+        del plain_tab
+    else:
+        bits = 4 if chosen == "int4" else 8
+        (pc, ps), k2_plain_s = sync_s(
+            lambda: pack.build_quantized_tables_plain(
+                vols, bits=bits, dither=jrandom.key_of(adv["dither"]),
+                **k2kw))
+        k2_b = quant_check(sp_b.seg_planes, pc, sp_b.scales, ps, bits == 4,
+                           f"path b: K2 {chosen} dithered vs plain")
+        k2_b_ms = batch_ms(lambda: pack.build_quantized_tables(
+            vols, bits=bits, dither=jrandom.key_of(adv["dither"]),
+            **k2kw), calls=10)
+        del pc, ps
+    u_t = zscan.permute_state(s0, "z").contiguous()
+    mkw_b = seg_march_kw(sp_b, layout_of(turb), "rk4", "stage")
+    uf_t = march.march(u_t, sp_b.seg_planes, sp_b.scales, **mkw_b)
+    torch.cuda.synchronize()
+    k1_b = close(uf_t, march.march_plain(u_t, sp_b.seg_planes, sp_b.scales,
+                                         **mkw_b), "path b: K1 rk4/stage")
+    p_end_b = sp_b.p0 + sp_b.seg_planes.shape[0] * sp_b.K * sp_b.dp
+    k3_b = detectors_vs_plain(uf_t, p_end_b, turb.extent, ("schlieren_df",),
+                              "path b")
+    check(torch.equal(H, detector.detect_plain(
+        uf_t, p_end_b, turb.extent, "z", BENCHES["schlieren_df"][0](),
+        BINS, det_range)), "path b: run's image != the plain detector's on "
+        "K1's exit states")
+    k10_ms = batch_ms(lambda: krand.draw(k10_keys[0], n_turb, "normal",
+                                         device=dev), calls=20)
+    k10_plain_ms = best_ms(lambda: krand.draw_plain(
+        k10_keys[0], n_turb, "normal", device=dev), reps=2)
+    pack_bytes_b = sp_b.seg_planes.numel() * sp_b.seg_planes.element_size()
+    turbd = {"grid": list(f.shape), "grf_ms": grf_s * 1e3,
+             "grf_launches": grf_launch, "k10_max_ulp": max(k10_ulp),
+             "advice": advice[0], "tier": chosen, "ne0": ne0,
+             "amplitude": 0.9 * ne0, "chi": adv["chi"],
+             "run_ms": run_s * 1e3, "launches": turb_launch,
+             "image_sum": float(H.sum()), "rays": TURB_RAYS,
+             "k2_vs_plain": k2_b, "k2_ms": k2_b_ms,
+             "k2_plain_ms": k2_plain_s * 1e3, "k2_bound": bound(
+                 n_turb * 4 + pack_bytes_b, 0), "pack_gb": pack_bytes_b / 1e9,
+             "k1_vs_plain": k1_b, "k3_vs_plain": k3_b,
+             "k10_normal_ms": k10_ms, "k10_normal_plain_ms": k10_plain_ms}
+    emit({"phase": "turbulence_path", **turbd})
+    detail["turbulence_path"] = turbd
+    del f, turb, s0, H, sp_b, vols, u_t, uf_t
+    torch.cuda.empty_cache()
+
+    # -- the kernels-line rows of this slice, each at its path's shapes -----
+    # a normal draw: the hash ~110 operations, log1pf ~20, the square root
+    # and the 9-term polynomial ~25; counted at the float32 peak (one of
+    # path b's two 256^3 draws)
+    k10_b = bound(n_turb * 4, n_turb * 155)
+    k9_checks = [v for k_, v in k9.items() if k_ != "planted_controls_fail"]
+    rows_out += [
+        {"name": "fill", "route": "cuda", "source": csrc + "fill.cu",
+         "replaces": "synthpy_tpu/tracer/zscan.py:2041",
+         "launches": build_launch["fill"],
+         "max_abs_err": max(v["max_code_diff"] for v in k9_checks + [k9_a]),
+         "ms": k9_ms, "plain_ms": k9_plain_ms, "bound_ms": k9_b[0],
+         "bound_by": k9_b[1], "library_ms": None,
+         "device_kernels_per_launch": 2},
+        {"name": "random_normal", "route": "cuda",
+         "source": csrc + "random.cu",
+         "replaces": "synthpy_tpu/fields/grf.py:151",
+         "launches": grf_launch["random"],
+         "max_abs_err": max(k10_ulp), "max_abs_err_unit": "ulp",
+         "ms": k10_ms, "plain_ms": k10_plain_ms, "bound_ms": k10_b[0],
+         "bound_by": k10_b[1], "library_ms": None,
+         "torch_randn_ms_context": rnd["randn_ms_context"],
+         "ms_2x512_3": rnd["normal"]["ms"]}]
+    # K2's dithered builds on the pack_dither path (512^3 z-pinch, C = 8,
+    # int4 K = 256 and int8 K = 64), the 512^3 lens's (K = 512) beside them
+    for name in ("int8", "int4"):
+        st = dpath[name]
+        rows_out.append({
+            "name": f"pack_{name}_dither", "route": "cuda",
+            "source": csrc + "pack.cu",
+            "replaces": "synthpy_tpu/tracer/zscan.py:1859",
+            "launches": st["launches"]["pack"],
+            "max_abs_err": st["vs_plain"]["max_code_diff"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "library_ms": None,
+            "undithered_ms": st["undithered_ms"],
+            "lens_512_K512": {x: k2d[name][x] for x in (
+                "ms", "undithered_ms", "plain_ms", "bound_ms")}})
+    return rows_out, detail
+
+
 def main():
     try:
         import torch
@@ -540,8 +1293,9 @@ def main():
         from synthpy_tpu_torch.fields.forms import ClosedForm
         from synthpy_tpu_torch.kernels import (_build, adaptive, analytic,
                                                binning, deposit, detector,
-                                               march, pack, slab_march,
+                                               fill, march, pack, slab_march,
                                                time_march)
+        from synthpy_tpu_torch.kernels import random as krandom
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
                                                          nvidia_smi)
         from synthpy_tpu_torch.ops.histogram import (_bin_index,
@@ -568,7 +1322,8 @@ def main():
                "analytic": analytic.KERNEL,
                "detector_field": detector.FIELD_KERNEL,
                "deposit": deposit.KERNEL, "bin_image": binning.BIN_KERNEL,
-               "bin_field": binning.BIN_FIELD_KERNEL}
+               "bin_field": binning.BIN_FIELD_KERNEL, "fill": fill.KERNEL,
+               "random": krandom.KERNEL}
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
@@ -1428,6 +2183,11 @@ def main():
     wo_rows, wo_detail = wave_optics(torch, dev, kernels, bound, reset,
                                      path_launches, uf, p_end, ext)
 
+    # -- 3c. the scale builders, the random streams, the MAGPIE and the
+    # turbulence paths
+    sc_rows, sc_detail = scale_slice(torch, dev, kernels, bound, reset,
+                                     path_launches, close)
+
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
     k1_call_ms = best_ms(lambda: march.march(u_all, sp.seg_planes,
                                              sp.scales, **mkw), reps=5)
@@ -1728,10 +2488,11 @@ def main():
                   "pack_int4": 2, "detector": 1, "slab_march": 1,
                   "time_march": 1, "adaptive_step": 2, "analytic": 1,
                   "detector_field": 1, "deposit": 2, "bin_image": 1,
-                  "bin_field": 1},
+                  "bin_field": 1, "fill": 2, "random_normal": 1,
+                  "pack_dither": 2},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "script_s": time.perf_counter() - t_start}
-    rows_out += wo_rows
+    rows_out += wo_rows + sc_rows
     emit({"phase": "bounds", **detail})
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
@@ -1741,7 +2502,8 @@ def main():
                    "main": main, "K4": k4, "K4_times": k4_t, "K5": k5,
                    "K5_times": k5_t, "K6": k6, "K6_times": k6_t,
                    "paths": paths, "K7": k7, "K3_coherent": coh,
-                   "kernels": rows_out, **wo_detail, **detail}, f, indent=1)
+                   "kernels": rows_out, **wo_detail, **sc_detail,
+                   **detail}, f, indent=1)
     emit({"kernels": rows_out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@
 Functions here take what ``numpy.asarray`` makes of the JAX package's
 arrays (no JAX import is needed) and return port objects on ``device``:
 a ``TracePack``, ``ZScanPack`` or ``SegmentPack``, a ``ScalarDomain`` with
-its fields, or a tensor (a JAX-drawn (9, N) ray bundle, for one).
+its fields, a key of ``synthpy_tpu_torch.random``, or a tensor (a
+JAX-drawn (9, N) ray bundle, for one).
 bfloat16 arrives from ``np.asarray`` as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects; it is reinterpreted as 16-bit integers and
 viewed as ``torch.bfloat16``, bit for bit.
@@ -55,16 +56,41 @@ def zscan_pack(jzpack, device="cuda") -> ZScanPack:
 
 
 def segment_pack(jpack, device="cuda") -> SegmentPack:
-    """A JAX ``SegmentPack`` as a port ``SegmentPack`` (same fields)."""
+    """A JAX ``SegmentPack`` as a port ``SegmentPack`` (same fields). The
+    JAX package's host form (a numpy ``seg_planes``, from
+    ``build_segment_pack_streaming(device=False)``) becomes a port host
+    pack: its table and scales stay in host memory, pinned when ``device``
+    is a card."""
+    dev = _device.resolve(device)
+    host = isinstance(jpack.seg_planes, np.ndarray)
+
+    def table(a):
+        if not host:
+            return tensor(a, dev)
+        t = tensor(a, "cpu")
+        return t.pin_memory() if dev.type == "cuda" else t
+
     scales = getattr(jpack, "scales", None)
     return SegmentPack(
-        None if jpack.seg_planes is None
-        else tensor(jpack.seg_planes, device),
-        tensor(jpack.origin_ab, device), tensor(jpack.inv_spacing_ab, device),
+        None if jpack.seg_planes is None else table(jpack.seg_planes),
+        tensor(jpack.origin_ab, dev), tensor(jpack.inv_spacing_ab, dev),
         tuple(int(v) for v in jpack.shape_ab), int(jpack.K),
         int(jpack.n_slabs), float(jpack.p0), float(jpack.dp),
-        float(jpack.omega), None if scales is None else tensor(scales, device),
-        getattr(jpack, "qbits", None))
+        float(jpack.omega), None if scales is None else table(scales),
+        getattr(jpack, "qbits", None), host=host)
+
+
+def key(jkey) -> torch.Tensor:
+    """A JAX PRNG key, raw ((2,) uint32) or typed (``jax.random.key``), as
+    the port's key (``synthpy_tpu_torch.random``): the same two words. A
+    typed key's words are its ``_base_array``, read without importing
+    JAX."""
+    raw = getattr(jkey, "_base_array", jkey)
+    words = np.array(raw).astype(np.int64).reshape(-1)
+    if words.shape != (2,):
+        raise ValueError("a threefry key has two uint32 words, got shape "
+                         f"{np.shape(raw)}")
+    return torch.from_numpy(words & 0xFFFFFFFF)
 
 
 def closed_form(fn):

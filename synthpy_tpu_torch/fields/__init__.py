@@ -1,4 +1,5 @@
-"""Scene state (PyTorch port of ``synthpy_tpu.fields``, main-path subset)."""
+"""Scene state and field generation (PyTorch port of
+``synthpy_tpu.fields``)."""
 
 from synthpy_tpu_torch.fields.domain import (  # noqa: F401
     ChannelLayout,
@@ -8,3 +9,4 @@ from synthpy_tpu_torch.fields.domain import (  # noqa: F401
     layout_of,
     peak_ne_over_nc,
 )
+from synthpy_tpu_torch.fields import grf, spectrum  # noqa: F401

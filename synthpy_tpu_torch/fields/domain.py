@@ -211,36 +211,50 @@ class ScalarDomain:
                                             ext=self.extent)
         return self
 
-    # -- external field loading (device tensors) -----------------------------
+    # -- external field loading ----------------------------------------------
 
-    def _as_field(self, v) -> torch.Tensor:
+    def _as_field(self, v, host: bool = False) -> torch.Tensor:
+        """``v`` as a tensor of the domain's dtype: on the domain's device,
+        or with ``host=True`` a CPU tensor, pinned when the domain is on a
+        card (fields larger than the card: the scale pack builders copy
+        them up plane batch by plane batch)."""
         if not isinstance(v, torch.Tensor):
             v = torch.from_numpy(np.array(v))
-        return v.to(device=self.device, dtype=self.dtype)
+        if not host or self.device.type == "cpu":
+            return v.to(device=self.device, dtype=self.dtype)
+        v = v.to(device="cpu", dtype=self.dtype)
+        return v if v.is_pinned() else v.pin_memory()
 
-    def external_ne(self, ne):
+    def external_ne(self, ne, host: bool = False):
         """Load an electron-density grid of shape ``dims``; a gridded field
-        replaces any closed form (``analytic`` becomes None)."""
-        self.ne = self._as_field(ne)
+        replaces any closed form (``analytic`` becomes None). ``host=True``
+        keeps it in (pinned) host memory: for fields larger than the card,
+        which ``tracer.zscan.build_segment_pack_upload`` and
+        ``build_segment_pack_streaming`` read batch by batch; the builders
+        that read the whole volume on the card refuse it."""
+        self.ne = self._as_field(ne, host)
         self.analytic = None
         if tuple(self.ne.shape) != tuple(self.dims):
             raise ValueError(
                 f"ne shape {tuple(self.ne.shape)} != grid dims {self.dims}")
         return self
 
-    def external_B(self, B):
-        self.B = self._as_field(B)
+    def external_B(self, B, host: bool = False):
+        self.B = self._as_field(B, host)
         self.B_on = True
         self.analytic = None
         return self
 
-    def external_Te(self, Te, Te_min: float = 1.0):
-        self.Te = torch.clamp_min(self._as_field(Te), Te_min)
+    def external_Te(self, Te, Te_min: float = 1.0, host: bool = False):
+        if not isinstance(Te, torch.Tensor):
+            Te = torch.from_numpy(np.array(Te))
+        self.Te = self._as_field(torch.clamp_min(Te.to(self.dtype), Te_min),
+                                 host)
         self.analytic = None
         return self
 
-    def external_Z(self, Z):
-        self.Z = self._as_field(Z)
+    def external_Z(self, Z, host: bool = False):
+        self.Z = self._as_field(Z, host)
         self.analytic = None
         return self
 
@@ -291,6 +305,11 @@ def build_pack(domain: ScalarDomain,
     differences inside, one-sided at the boundary, as numpy.gradient)."""
     if domain.ne is None:
         raise RuntimeError("domain has no electron density")
+    if host_resident(domain):
+        raise ValueError(
+            "build_pack needs the fields on the domain's device; ne is "
+            "host-resident (external_ne(host=True)): build a segment pack "
+            "with build_segment_pack_upload or build_segment_pack_streaming")
     omega = float(constants.omega_from_lwl(lwl))
     nc = float(constants.critical_density(omega))
     # divided by a tensor: PyTorch on CUDA divides by a Python scalar
@@ -321,6 +340,13 @@ def build_pack(domain: ScalarDomain,
     origin = np.stack([c[0] for c in cs]).astype(np_dt)
     inv_spacing = np.stack([1.0 / (c[1] - c[0]) for c in cs]).astype(np_dt)
     return TracePack(channels, origin, inv_spacing, omega)
+
+
+def host_resident(domain: ScalarDomain) -> bool:
+    """True when the domain's ne stays in host memory for a domain on a
+    card (``external_ne(host=True)``)."""
+    return (domain.ne.device.type == "cpu"
+            and domain.device.type != "cpu")
 
 
 def layout_of(domain: ScalarDomain) -> ChannelLayout:

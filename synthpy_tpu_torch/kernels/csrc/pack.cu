@@ -50,6 +50,10 @@
 //     writes codes, with each chunk's scales computed once. The values are
 //     the same f32 numbers by the same operations, so the codes and scales
 //     are those of quantize_tables of the f32 build, bit for bit.
+//   * Dither (zscan.py:498-503, :1859-1865): the quantised tiers may add
+//     JAX's uniform dither of fold_in(key, absolute plane) to value / scale
+//     before rounding (channels.cuh dithered_code); the dithered kernels are
+//     separate template instances, so the undithered ones are unchanged.
 // IEEE division (__fdiv_rn) and rintf keep the codes those of
 // jnp.round(v / scale). This file is built with --fmad=false so that no
 // multiply-add is contracted and the plain PyTorch version can match it.
@@ -59,22 +63,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "channels.cuh"
+
 namespace {
 
-constexpr float OMEGA_PE_COEFF = 5.64e4f;
-constexpr float V_THE_COEFF = 4.19e5f;
-constexpr float L_QUANTUM_COEFF = 2.760428269727312e-10f;
-constexpr float KAPPA_COEFF = 3.1e-5f;
-constexpr float E_CHARGE = 1.602176634e-19f;
-constexpr float C_LIGHT = 2.99792458e8f;
+using namespace channels;
 
 constexpr int THREADS = 256;
 constexpr int AMAX_CHUNK = 64;
 constexpr int CB_ROWS = 8;             // cells (whole rows) a block owns
 constexpr int TILE_BUDGET = 24 * 1024; // bytes of ne a block stages
 constexpr int DEFAULT_SMEM = 48 * 1024;
-
-enum Mode { F32 = 0, BF16 = 1, INT8 = 2, INT4 = 3 };
 
 struct Vol {
   const float* p;
@@ -90,34 +89,6 @@ struct Field {
   int vec_ok;  // ne rows start 16-byte aligned (z-probing)
   float pref, da, db, two_dp, dp, omega, n_coef, verdet;
 };
-
-template <int IB, int PS, int BON>
-struct Layout {
-  static constexpr int C = 3 + IB + PS + 3 * BON;
-  static constexpr int KI = 3;
-  static constexpr int PI = 3 + IB;
-  static constexpr int FI = 3 + IB + PS;
-  static constexpr bool inv_brems = IB, phaseshift = PS, B_on = BON;
-};
-
-// synthpy_tpu/constants.py kappa/coulomb_log in the same operation order
-__device__ float kappa_of(float ne, float Te, float Z, float omega) {
-  const float ne_cc = ne * 1e-6f;
-  const float o_max = fmaxf(OMEGA_PE_COEFF * sqrtf(ne_cc), omega);
-  const float L_classical = Z * E_CHARGE / Te;
-  const float L_quantum = L_QUANTUM_COEFF / sqrtf(Te);
-  const float L_max = fmaxf(L_classical, L_quantum);
-  const float CL = fmaxf(2.0f, logf(V_THE_COEFF * sqrtf(Te) / (o_max * L_max)));
-  const float r = ne_cc / omega;
-  return KAPPA_COEFF * Z * C_LIGHT * (r * r) * CL * powf(Te, -1.5f);
-}
-
-// jnp.gradient along one transverse axis at index i of n, spacing h, from
-// the values at the clamped neighbours i-1 and i+1
-__device__ __forceinline__ float grad1(float lo, float hi, int i, int n,
-                                       float h) {
-  return (i == 0 || i == n - 1) ? (hi - lo) / h : (hi - lo) * 0.5f / h;
-}
 
 // ---- the staged tile ------------------------------------------------------
 //
@@ -293,22 +264,6 @@ __device__ __forceinline__ void channel_values(const Field& F, const Tile& T,
   }
 }
 
-// amax * f32(1/qmax), as the JAX package's compiled amax / qmax computes it
-// (XLA turns a division by a constant into a multiplication by its
-// correctly rounded reciprocal)
-__device__ __forceinline__ float scale_of(unsigned amax_bits, float qmax) {
-  const float am = __uint_as_float(amax_bits);
-  return am > 0.0f ? __fmul_rn(am, __frcp_rn(qmax)) : 1.0f;
-}
-
-__device__ __forceinline__ int code_of(float v, float scale, float qmax) {
-  return (int)fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -qmax), qmax);
-}
-
-__device__ __forceinline__ uint8_t nibble_pair(int lo, int hi) {
-  return (uint8_t)((lo & 15) | ((hi & 15) << 4));
-}
-
 // output blocks a row holds: planes, or plane pairs for int4
 __host__ __device__ inline int out_blocks(int mode, int Ko) {
   return mode == INT4 ? Ko / 2 + 1 : Ko + 1;
@@ -373,11 +328,11 @@ __global__ void __launch_bounds__(THREADS)
 // nibble-pair bytes). Consecutive threads take consecutive items, so a
 // warp's stores cover one contiguous run of the row. The chunk's scales are
 // computed once into shared memory; the first block of each segment writes
-// them out.
-template <class LY, int PC, int MODE>
+// them out. DITHER adds the dither of key dkey (quantised modes).
+template <class LY, int PC, int MODE, bool DITHER>
 __global__ void __launch_bounds__(THREADS)
     rows_pass(Field F, void* out, const unsigned* amax, float* scales,
-              int KB, int CB, int pitch) {
+              int KB, int CB, int pitch, uint2 dkey) {
   constexpr int C = LY::C;
   constexpr int ES = MODE == F32 ? 4 : MODE == BF16 ? 2 : 1;
   constexpr float QMAX = MODE == INT4 ? 7.0f : 127.0f;
@@ -430,7 +385,36 @@ __global__ void __launch_bounds__(THREADS)
         const float* sc = ssc + (k - k0) * C;
         float v[C];
         channel_values<LY, PC>(F, T, i, s * F.K + k * F.S, v);
-        if constexpr (MODE == INT8) {
+        if constexpr (DITHER) {
+          // keyed by the absolute plane, drawn over (na, nb, C): index
+          // cell * C + c
+          const unsigned long long d0 = (unsigned long long)(c0 + i) * C;
+          const uint2 pk0 =
+              threefry::fold_in(dkey, (uint32_t)(s * F.K + k * F.S));
+          if constexpr (MODE == INT8) {
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              o[c] = (uint8_t)(int8_t)dithered_code(v[c], sc[c], QMAX, pk0,
+                                                    d0 + c);
+          } else {
+            const bool has_hi = k + 1 <= F.Ko;
+            float w[C];
+            uint2 pk1 = pk0;
+            if (has_hi) {
+              channel_values<LY, PC>(F, T, i, s * F.K + (k + 1) * F.S, w);
+              pk1 = threefry::fold_in(dkey,
+                                      (uint32_t)(s * F.K + (k + 1) * F.S));
+            }
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              const int lo = dithered_code(v[c], sc[c], QMAX, pk0, d0 + c);
+              const int hi = has_hi ? dithered_code(w[c], sc[C + c], QMAX,
+                                                    pk1, d0 + c)
+                                    : 0;
+              o[c] = nibble_pair(lo, hi);
+            }
+          }
+        } else if constexpr (MODE == INT8) {
 #pragma unroll
           for (int c = 0; c < C; ++c)
             o[c] = (uint8_t)(int8_t)code_of(v[c], sc[c], QMAX);
@@ -469,7 +453,7 @@ int allow_smem(KernelT kernel, size_t smem) {
 
 template <class LY, int PC>
 int build_layout(const Field& F, int mode, void* out, unsigned* amax,
-                 float* scales, cudaStream_t st) {
+                 float* scales, int dither, uint2 dkey, cudaStream_t st) {
   constexpr int C = LY::C;
   // CB_ROWS cells' rows a block; kept planes in chunks as long as a
   // TILE_BUDGET tile holds (all of them at the main path's shapes), even
@@ -495,21 +479,26 @@ int build_layout(const Field& F, int mode, void* out, unsigned* amax,
     k<<<grid, THREADS, smem, st>>>(F, amax, KB, CB, CR, pitch);
   }
   const dim3 grid((F.cells + CB - 1) / CB, F.n_seg);
-  void (*k)(Field, void*, const unsigned*, float*, int, int, int) =
-      mode == F32    ? rows_pass<LY, PC, F32>
-      : mode == BF16 ? rows_pass<LY, PC, BF16>
-      : mode == INT8 ? rows_pass<LY, PC, INT8>
-                     : rows_pass<LY, PC, INT4>;
+  void (*k)(Field, void*, const unsigned*, float*, int, int, int, uint2) =
+      mode == F32    ? rows_pass<LY, PC, F32, false>
+      : mode == BF16 ? rows_pass<LY, PC, BF16, false>
+      : mode == INT8 ? (dither ? rows_pass<LY, PC, INT8, true>
+                               : rows_pass<LY, PC, INT8, false>)
+                     : (dither ? rows_pass<LY, PC, INT4, true>
+                               : rows_pass<LY, PC, INT4, false>);
   if (const int e = allow_smem(k, smem)) return e;
-  k<<<grid, THREADS, smem, st>>>(F, out, amax, scales, KB, CB, pitch);
+  k<<<grid, THREADS, smem, st>>>(F, out, amax, scales, KB, CB, pitch, dkey);
   return 0;
 }
 
 template <class LY>
 int build_probe(const Field& F, int mode, void* out, unsigned* amax,
-                float* scales, cudaStream_t st) {
-  return F.ne.sp == 1 ? build_layout<LY, 1>(F, mode, out, amax, scales, st)
-                      : build_layout<LY, 0>(F, mode, out, amax, scales, st);
+                float* scales, int dither, uint2 dkey, cudaStream_t st) {
+  return F.ne.sp == 1
+             ? build_layout<LY, 1>(F, mode, out, amax, scales, dither, dkey,
+                                   st)
+             : build_layout<LY, 0>(F, mode, out, amax, scales, dither, dkey,
+                                   st);
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -541,10 +530,12 @@ __global__ void amax_kernel(const IN* tab, unsigned* amax, int n_seg,
 // Codes: one thread per (segment, cell, output column), columns fastest.
 // int8: column k*C + c. int4: column j*C + c holds planes 2j (low nibble)
 // and 2j + 1 (high nibble; zero past plane K). Cell-0 threads write scales.
-template <typename IN>
+// DITHER: plane k of segment s is dithered by fold_in(dkey, s*K + k) at
+// index cell * C + c (quantize_segment_pack, zscan.py:498-503).
+template <typename IN, bool DITHER>
 __global__ void quant_kernel(const IN* tab, const unsigned* amax,
                              uint8_t* codes, float* scales, int n_seg,
-                             int cells, int K, int C, int bits) {
+                             int cells, int K, int C, int bits, uint2 dkey) {
   const int ncol_in = (K + 1) * C;
   const int ncol_out = (bits == 4 ? K / 2 + 1 : K + 1) * C;
   const float qmax = bits == 4 ? 7.0f : 127.0f;
@@ -559,19 +550,39 @@ __global__ void quant_kernel(const IN* tab, const unsigned* amax,
   float* sc = scales + (long long)s * ncol_in;
   if (bits == 8) {
     const float scale = scale_of(am[ocol], qmax);
-    codes[t] = (uint8_t)(int8_t)code_of(to_float(in[ocol]), scale, qmax);
+    if constexpr (DITHER) {
+      const int k = ocol / C, c = ocol - k * C;
+      codes[t] = (uint8_t)(int8_t)dithered_code(
+          to_float(in[ocol]), scale, qmax,
+          threefry::fold_in(dkey, (uint32_t)(s * K + k)),
+          (unsigned long long)cell * C + c);
+    } else {
+      codes[t] = (uint8_t)(int8_t)code_of(to_float(in[ocol]), scale, qmax);
+    }
     if (cell == 0) sc[ocol] = scale;
     return;
   }
   const int j = ocol / C, c = ocol % C;
   const int col0 = 2 * j * C + c, col1 = (2 * j + 1) * C + c;
   const float s0 = scale_of(am[col0], qmax);
-  const int lo = code_of(to_float(in[col0]), s0, qmax);
-  int hi = 0;
+  int lo, hi = 0;
   float s1 = 1.0f;
-  if (2 * j + 1 <= K) {
-    s1 = scale_of(am[col1], qmax);
-    hi = code_of(to_float(in[col1]), s1, qmax);
+  if constexpr (DITHER) {
+    const unsigned long long d = (unsigned long long)cell * C + c;
+    lo = dithered_code(to_float(in[col0]), s0, qmax,
+                       threefry::fold_in(dkey, (uint32_t)(s * K + 2 * j)), d);
+    if (2 * j + 1 <= K) {
+      s1 = scale_of(am[col1], qmax);
+      hi = dithered_code(to_float(in[col1]), s1, qmax,
+                         threefry::fold_in(dkey, (uint32_t)(s * K + 2 * j + 1)),
+                         d);
+    }
+  } else {
+    lo = code_of(to_float(in[col0]), s0, qmax);
+    if (2 * j + 1 <= K) {
+      s1 = scale_of(am[col1], qmax);
+      hi = code_of(to_float(in[col1]), s1, qmax);
+    }
   }
   codes[t] = nibble_pair(lo, hi);
   if (cell == 0) {
@@ -634,6 +645,7 @@ extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
                           float pref, float da, float db, float two_dp,
                           float dp, float omega, float n_coef, float verdet,
                           int inv_brems, int phaseshift, int B_on,
+                          int dither, long long key0, long long key1,
                           void* stream) {
   Field F;
   F.ne = {ne, sp, sa, sb};
@@ -649,39 +661,54 @@ extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
   F.pref = pref; F.da = da; F.db = db; F.two_dp = two_dp; F.dp = dp;
   F.omega = omega; F.n_coef = n_coef; F.verdet = verdet;
   cudaStream_t st = (cudaStream_t)stream;
+  const uint2 dk = make_uint2((uint32_t)key0, (uint32_t)key1);
   int rc;
   switch (inv_brems | (phaseshift << 1) | (B_on << 2)) {
-    case 0: rc = build_probe<Layout<0, 0, 0>>(F, mode, out, amax, scales, st); break;
-    case 1: rc = build_probe<Layout<1, 0, 0>>(F, mode, out, amax, scales, st); break;
-    case 2: rc = build_probe<Layout<0, 1, 0>>(F, mode, out, amax, scales, st); break;
-    case 3: rc = build_probe<Layout<1, 1, 0>>(F, mode, out, amax, scales, st); break;
-    case 4: rc = build_probe<Layout<0, 0, 1>>(F, mode, out, amax, scales, st); break;
-    case 5: rc = build_probe<Layout<1, 0, 1>>(F, mode, out, amax, scales, st); break;
-    case 6: rc = build_probe<Layout<0, 1, 1>>(F, mode, out, amax, scales, st); break;
-    default: rc = build_probe<Layout<1, 1, 1>>(F, mode, out, amax, scales, st); break;
+    case 0: rc = build_probe<Layout<0, 0, 0>>(F, mode, out, amax, scales, dither, dk, st); break;
+    case 1: rc = build_probe<Layout<1, 0, 0>>(F, mode, out, amax, scales, dither, dk, st); break;
+    case 2: rc = build_probe<Layout<0, 1, 0>>(F, mode, out, amax, scales, dither, dk, st); break;
+    case 3: rc = build_probe<Layout<1, 1, 0>>(F, mode, out, amax, scales, dither, dk, st); break;
+    case 4: rc = build_probe<Layout<0, 0, 1>>(F, mode, out, amax, scales, dither, dk, st); break;
+    case 5: rc = build_probe<Layout<1, 0, 1>>(F, mode, out, amax, scales, dither, dk, st); break;
+    case 6: rc = build_probe<Layout<0, 1, 1>>(F, mode, out, amax, scales, dither, dk, st); break;
+    default: rc = build_probe<Layout<1, 1, 1>>(F, mode, out, amax, scales, dither, dk, st); break;
   }
   return rc ? rc : (int)cudaGetLastError();
 }
 
-// amax must be zeroed by the caller: (n_seg, K+1, C) unsigned.
+// amax must be zeroed by the caller: (n_seg, K+1, C) unsigned. dither:
+// add the dither of key (key0, key1).
+template <typename IN>
+void quantize(const IN* t, void* codes, float* scales, const unsigned* amax,
+              int n_seg, int cells, int K, int C, int bits, int dither,
+              uint2 dk, long long n_out, cudaStream_t st) {
+  if (dither)
+    quant_kernel<IN, true><<<blocks_for(n_out), THREADS, 0, st>>>(
+        t, amax, (uint8_t*)codes, scales, n_seg, cells, K, C, bits, dk);
+  else
+    quant_kernel<IN, false><<<blocks_for(n_out), THREADS, 0, st>>>(
+        t, amax, (uint8_t*)codes, scales, n_seg, cells, K, C, bits, dk);
+}
+
 extern "C" int pack_quantize(const void* table, int in_bf16, void* codes,
                              float* scales, unsigned* amax, int n_seg,
-                             int cells, int K, int C, int bits,
-                             void* stream) {
+                             int cells, int K, int C, int bits, int dither,
+                             long long key0, long long key1, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const uint2 dk = make_uint2((uint32_t)key0, (uint32_t)key1);
   const int ncol = (K + 1) * C;
   const long long n_amax = (long long)n_seg * ((cells + AMAX_CHUNK - 1) / AMAX_CHUNK) * ncol;
   const long long n_out = (long long)n_seg * cells * (bits == 4 ? K / 2 + 1 : K + 1) * C;
   if (in_bf16) {
     const __nv_bfloat16* t = (const __nv_bfloat16*)table;
     amax_kernel<<<blocks_for(n_amax), THREADS, 0, st>>>(t, amax, n_seg, cells, ncol);
-    quant_kernel<<<blocks_for(n_out), THREADS, 0, st>>>(
-        t, amax, (uint8_t*)codes, scales, n_seg, cells, K, C, bits);
+    quantize(t, codes, scales, amax, n_seg, cells, K, C, bits, dither, dk,
+             n_out, st);
   } else {
     const float* t = (const float*)table;
     amax_kernel<<<blocks_for(n_amax), THREADS, 0, st>>>(t, amax, n_seg, cells, ncol);
-    quant_kernel<<<blocks_for(n_out), THREADS, 0, st>>>(
-        t, amax, (uint8_t*)codes, scales, n_seg, cells, K, C, bits);
+    quantize(t, codes, scales, amax, n_seg, cells, K, C, bits, dither, dk,
+             n_out, st);
   }
   return (int)cudaGetLastError();
 }

@@ -25,14 +25,18 @@ import torch
 
 from synthpy_tpu_torch import constants
 from synthpy_tpu_torch.fields.domain import ChannelLayout, gradient
+from synthpy_tpu_torch.kernels import random as _random
 from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
 
 KERNEL = Kernel("pack.cu", {
     "pack_build": [P, I, P, P, P, P, P, P, L, L, L, I, I, I, I, I, I, I,
-                   I, I, F, F, F, F, F, F, F, F, I, I, I, P],
-    "pack_quantize": [P, I, P, P, P, I, I, I, I, I, P],
+                   I, I, F, F, F, F, F, F, F, F, I, I, I, I, L, L, P],
+    "pack_quantize": [P, I, P, P, P, I, I, I, I, I, I, L, L, P],
     "pack_decimate": [P, P, I, I, I, I, I, I, I, P],
 }, flags=["--fmad=false"])
+
+# a dither key: the two uint32 words of a JAX key (random.key_of), or None
+Dither = Optional[Tuple[int, int]]
 
 
 def nibble_lo(w: torch.Tensor) -> torch.Tensor:
@@ -66,6 +70,36 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes, device) -> None:
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def channels_plain(padded: torch.Tensor, extras, g: torch.Tensor, *,
+                   layout: ChannelLayout, n_p: int, pref: float, da: float,
+                   db: float, dp: float, omega: float,
+                   verdet: float) -> torch.Tensor:
+    """(P, na, nb, C) float32 channels of the body planes ``padded[1:-1]``
+    (absolute planes ``g``, (P,)), ``padded`` holding one stencil plane on
+    each side; ``extras`` the pointwise (P, na, nb) volumes Te, Z, then B
+    along a, b, p, as the layout needs them. The first absolute plane
+    doubles its probe-axis difference, the last real one takes 2 Gp + pref
+    ne / dp, and planes past n_p - 1 are zero (JAX zscan.py:1832-1838,
+    :2061-2075)."""
+    body = padded[1:-1]
+    Gp = pref * (padded[2:] - padded[:-2]) / _scalar(2.0 * dp, padded)
+    g = g.to(padded.device)[:, None, None]
+    Gp = torch.where(g == 0, 2.0 * Gp, Gp)
+    Gp = torch.where(g == n_p - 1, 2.0 * Gp + pref * body / _scalar(dp, body),
+                     Gp)
+    chans = [pref * gradient(body, da, 1), pref * gradient(body, db, 2), Gp]
+    if layout.inv_brems:
+        chans.append(constants.kappa(body, extras[0], extras[1], omega))
+    if layout.phaseshift:
+        chans.append(omega * (constants.n_refrac(body, omega) - 1.0))
+    if layout.B_on:
+        off = 2 if layout.inv_brems else 0
+        for i in range(3):
+            chans.append(verdet * body * extras[off + i])
+    out = torch.stack(chans, dim=-1)
+    return torch.where((g <= n_p - 1)[..., None], out, torch.zeros_like(out))
+
+
 def build_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
                        p_ax: int, layout: ChannelLayout, K: int, n_seg: int,
                        pref: float, da: float, db: float, dp: float,
@@ -78,29 +112,20 @@ def build_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
     n_p, na, nb = pm.shape
     G = n_seg * K + 1                            # absolute planes 0..n_seg*K
     padded = torch.cat([pm[:1], pm, pm.new_zeros((G + 1 - n_p, na, nb))])
-    body = padded[1:G + 1]
-    Gp = pref * (padded[2:G + 2] - padded[0:G]) / _scalar(2.0 * dp, ne)
-    g = torch.arange(G, device=ne.device)[:, None, None]
-    Gp = torch.where(g == 0, 2.0 * Gp, Gp)
-    Gp = torch.where(g == n_p - 1, 2.0 * Gp + pref * body / _scalar(dp, ne),
-                     Gp)
-    chans = [pref * gradient(body, da, 1), pref * gradient(body, db, 2), Gp]
 
     def extra(e):
         e = e.movedim(p_ax, 0)
         return torch.cat([e, e.new_zeros((G - n_p, na, nb))])
 
+    extras = []
     if layout.inv_brems:
-        chans.append(constants.kappa(body, extra(vols["Te"]),
-                                     extra(vols["Z"]), omega))
-    if layout.phaseshift:
-        chans.append(omega * (constants.n_refrac(body, omega) - 1.0))
+        extras += [extra(vols["Te"]), extra(vols["Z"])]
     if layout.B_on:
         a_ax, b_ax = [a for a in range(3) if a != p_ax]
-        for comp in (a_ax, b_ax, p_ax):
-            chans.append(verdet * body * extra(vols["B"][..., comp]))
-    out = torch.stack([c.to(dtype) for c in chans], dim=-1)
-    out = torch.where((g <= n_p - 1)[..., None], out, torch.zeros_like(out))
+        extras += [extra(vols["B"][..., comp]) for comp in (a_ax, b_ax, p_ax)]
+    out = channels_plain(padded, extras, torch.arange(G), layout=layout,
+                         n_p=n_p, pref=pref, da=da, db=db, dp=dp,
+                         omega=omega, verdet=verdet).to(dtype)
     idx = (torch.arange(n_seg)[:, None] * K
            + torch.arange(K + 1)[None, :]).to(ne.device)
     C = out.shape[-1]
@@ -113,13 +138,17 @@ def build_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
 
 def build_quantized_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
                                  bits: int, plane_stride: int = 1,
+                                 dither: Dither = None,
                                  **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the quantised build: the quantisation of the
-    (decimated) f32 build."""
+    (decimated) f32 build, dithered by absolute plane s*K + k*S."""
     table = build_tables_plain(vols, dtype=torch.float32,
                                plane_stride=plane_stride, **kw)
     C = kw["layout"].n_channels
-    return quantize_tables_plain(table, kw["K"] // plane_stride, C, bits)
+    K, Ko = kw["K"], kw["K"] // plane_stride
+    planes = (torch.arange(kw["n_seg"])[:, None] * K
+              + torch.arange(Ko + 1)[None, :] * plane_stride)
+    return quantize_tables_plain(table, Ko, C, bits, dither, planes)
 
 
 def build_tables(vols: Dict[str, Optional[torch.Tensor]], *, p_ax: int,
@@ -136,7 +165,7 @@ def build_tables(vols: Dict[str, Optional[torch.Tensor]], *, p_ax: int,
         return build_tables_plain(vols, dtype=dtype, **kw)
     if dtype not in _MODES:
         raise ValueError(f"table dtype must be f32 or bf16, got {dtype}")
-    out, _ = _build(vols, mode=_MODES[dtype], **kw)
+    out, _ = _build(vols, mode=_MODES[dtype], dither=None, **kw)
     return out
 
 
@@ -144,24 +173,28 @@ def build_quantized_tables(vols: Dict[str, Optional[torch.Tensor]], *,
                            p_ax: int, layout: ChannelLayout, K: int,
                            n_seg: int, pref: float, da: float, db: float,
                            dp: float, omega: float, verdet: float,
-                           bits: int, plane_stride: int = 1
+                           bits: int, plane_stride: int = 1,
+                           dither: Dither = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """int8 codes (``bits=8``) or int4 nibble pairs (``bits=4``) and their
     (n_seg, K/S+1, C) f32 scales, from the volumes in two passes over ne
-    (amax, then codes): no float table is held."""
+    (amax, then codes): no float table is held. ``dither`` (a key's two
+    words) adds JAX's dither of fold_in(key, absolute plane) over (na, nb,
+    C) before rounding, where the value is not zero."""
     kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg, pref=pref, da=da,
               db=db, dp=dp, omega=omega, verdet=verdet,
               plane_stride=plane_stride)
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     if vols["ne"].device.type == "cpu":
-        return build_quantized_tables_plain(vols, bits=bits, **kw)
-    return _build(vols, mode=2 if bits == 8 else 3, **kw)
+        return build_quantized_tables_plain(vols, bits=bits, dither=dither,
+                                            **kw)
+    return _build(vols, mode=2 if bits == 8 else 3, dither=dither, **kw)
 
 
 def _build(vols, *, mode: int, p_ax: int, layout: ChannelLayout, K: int,
            n_seg: int, pref: float, da: float, db: float, dp: float,
-           omega: float, verdet: float, plane_stride: int):
+           omega: float, verdet: float, plane_stride: int, dither: Dither):
     """Launch ``pack_build``: (table, None) for the float modes 0/1,
     (codes, scales) for int8 (2) and int4 (3)."""
     ne = vols["ne"]
@@ -205,26 +238,60 @@ def _build(vols, *, mode: int, p_ax: int, layout: ChannelLayout, K: int,
         ptr(used.get("B")), st[p_ax], st[a_ax], st[b_ax], a_ax, b_ax, p_ax,
         n_seg, K, S, dims[p_ax], na, nb, pref, da, db, 2.0 * dp, dp, omega,
         constants.OMEGA_PE_COEFF**2 * 1e-6 / omega**2, verdet,
-        int(layout.inv_brems), int(layout.phaseshift), int(layout.B_on))
+        int(layout.inv_brems), int(layout.phaseshift), int(layout.B_on),
+        *_dither_args(dither))
     return out, scales
+
+
+def _dither_args(dither: Dither):
+    """(on, word 0, word 1) of a dither key for the C entry points."""
+    return (0, 0, 0) if dither is None else (1, int(dither[0]),
+                                             int(dither[1]))
 
 
 # -- quantise ----------------------------------------------------------------
 
-def quantize_tables_plain(table: torch.Tensor, K: int, C: int,
-                          bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: (codes, scales) of a float table."""
+def quantize_codes_plain(v: torch.Tensor, scale: torch.Tensor, qmax: float,
+                         u: Optional[torch.Tensor]) -> torch.Tensor:
+    """int8 codes clip(round(v / scale + u), -qmax, qmax), the dither u
+    added where v is not zero (None: no dither); v, scale and u broadcast
+    together."""
+    x = v / scale
+    if u is not None:
+        x = x + torch.where(v != 0, u, torch.zeros_like(u))
+    return torch.clamp(torch.round(x), -qmax, qmax).to(torch.int8)
+
+
+def scales_plain(amax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """amax * f32(1/qmax), or 1 where amax is 0: the JAX package's compiled
+    amax / qmax (XLA turns a division by a constant into a multiplication
+    by its reciprocal)."""
+    return torch.where(amax > 0, amax * float(np.float32(1.0 / qmax)),
+                       torch.ones_like(amax))
+
+
+def quantize_tables_plain(table: torch.Tensor, K: int, C: int, bits: int,
+                          dither: Dither = None,
+                          planes: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: (codes, scales) of a float table. ``dither`` draws
+    plane k of segment s from fold_in(key, planes[s, k]) over (cells, C)
+    (default s*K + k, JAX's quantize_segment_pack)."""
     n_seg, cells, cols = table.shape
     v = table.reshape(n_seg, cells, K + 1, C).to(torch.float32)
-    amax = v.abs().amax(dim=1)                       # (n_seg, K+1, C)
     qmax = 127.0 if bits == 8 else 7.0
-    # amax * f32(1/qmax): the JAX package's compiled amax / qmax (XLA turns
-    # a division by a constant into a multiplication by its reciprocal)
-    scale = torch.where(amax > 0, amax * float(np.float32(1.0 / qmax)),
-                        torch.ones_like(amax))
-    q = torch.clamp(torch.round(v / scale[:, None]), -qmax, qmax)
+    scale = scales_plain(v.abs().amax(dim=1), qmax)   # (n_seg, K+1, C)
+    u = None
+    if dither is not None:
+        if planes is None:
+            planes = (torch.arange(n_seg)[:, None] * K
+                      + torch.arange(K + 1)[None, :])
+        u = _random.uniform_rows_plain(
+            dither, planes.reshape(-1).to(table.device), cells * C, -0.5,
+            0.5).reshape(n_seg, K + 1, cells, C).permute(0, 2, 1, 3)
+    q = quantize_codes_plain(v, scale[:, None], qmax, u)
     if bits == 8:
-        return q.to(torch.int8).reshape(n_seg, cells, cols), scale
+        return q.reshape(n_seg, cells, cols), scale
     n_blk = K // 2 + 1
     pad = 2 * n_blk - (K + 1)       # 1 for even K: the lone final plane
     q = torch.cat([q, q.new_zeros((n_seg, cells, pad, C))], dim=2)
@@ -232,12 +299,14 @@ def quantize_tables_plain(table: torch.Tensor, K: int, C: int,
     return packed.reshape(n_seg, cells, n_blk * C), scale
 
 
-def quantize_tables(table: torch.Tensor, K: int, C: int,
-                    bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_tables(table: torch.Tensor, K: int, C: int, bits: int,
+                    dither: Dither = None) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
     """Symmetric per-(segment, plane, channel) int8 (``bits=8``) or int4
-    nibble-pair (``bits=4``) codes and their f32 scales."""
+    nibble-pair (``bits=4``) codes and their f32 scales; ``dither`` (a
+    key's two words) as ``quantize_tables_plain``."""
     if table.device.type == "cpu":
-        return quantize_tables_plain(table, K, C, bits)
+        return quantize_tables_plain(table, K, C, bits, dither)
     dev = table.device
     _check_cuda("table", table, (torch.float32, torch.bfloat16), dev)
     n_seg, cells, cols = table.shape
@@ -251,7 +320,7 @@ def quantize_tables(table: torch.Tensor, K: int, C: int,
     KERNEL.launch("pack_quantize", dev, table.data_ptr(),
                   int(table.dtype == torch.bfloat16), codes.data_ptr(),
                   scales.data_ptr(), amax.data_ptr(), n_seg, cells, K, C,
-                  bits)
+                  bits, *_dither_args(dither))
     return codes, scales
 
 

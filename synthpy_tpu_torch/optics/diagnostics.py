@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from synthpy_tpu_torch import _device
+from synthpy_tpu_torch import random as jrandom
 from synthpy_tpu_torch.ops import fresnel as fresnel_ops
 from synthpy_tpu_torch.ops.histogram import complex_histogram, histogram2d
 from synthpy_tpu_torch.optics import compose
@@ -305,19 +306,25 @@ class Refractometry(Diagnostic):
     def refractogram(self, bin_scale: int = 1, pix_x: int = 3448,
                      pix_y: int = 2574, clear_mem: bool = False,
                      speckle_phase: float = 0.0,
-                     key: Optional[torch.Generator] = None,
+                     key=None,
                      convention: str = "legacy"):
         """Coherent refractogram. ``speckle_phase`` > 0 multiplies each
         ray's field by exp(i speckle_phase g), g standard normal drawn
-        from ``key`` (a ``torch.Generator`` on the rays' device; default
-        one seeded with 0). The draw is PyTorch's, not the JAX package's
-        threefry stream."""
+        from ``key``: a key of ``synthpy_tpu_torch.random`` draws the JAX
+        package's threefry stream (float32, as JAX draws it); a
+        ``torch.Generator`` on the rays' device (default: one seeded with
+        0) draws PyTorch's."""
         if speckle_phase > 0.0:
             if key is None:
                 key = torch.Generator(self.device).manual_seed(0)
-            g = torch.randn(self.Jf.shape[1:], generator=key,
-                            device=self.device,
-                            dtype=self.Jf.real.dtype)
+            if isinstance(key, torch.Generator):
+                g = torch.randn(self.Jf.shape[1:], generator=key,
+                                device=self.device,
+                                dtype=self.Jf.real.dtype)
+            else:
+                g = jrandom.normal(key, self.Jf.shape[1:],
+                                   device=self.device).to(
+                    self.Jf.real.dtype)
             theta = g * speckle_phase
             self.Jf = self.Jf * torch.complex(torch.cos(theta),
                                               torch.sin(theta))

@@ -23,9 +23,15 @@ benches, ``detect_field`` for the coherent ones (interferometry, coherent
 refractometry), whose (ny, nx, C) field sums ``finalize_coherent`` turns
 into images. Everything runs on the device of the domain and rays.
 
+``solver="zscan_seg"`` also takes a host pack (``spack.host``, from
+``build_segment_pack_streaming(device=False)`` or
+``load_segment_pack(device=False)``), marched segment by segment
+(``tracer.zscan.march_streamed``), and a pack larger than
+``batch_pack_bytes`` is traced in per-call ray batches whose images (raw
+field sums for the coherent benches) add up, as in the JAX package.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``pack_dtype="auto"`` and host-resident packs (A.12), and the mesh
-modes (A.17).
+item: the mesh modes (A.17).
 """
 
 from __future__ import annotations
@@ -52,11 +58,12 @@ from synthpy_tpu_torch.tracer.propagator import (default_n_steps, dt_of,
                                                  ray_to_Jonesvector,
                                                  trace_rk4)
 from synthpy_tpu_torch.tracer.zscan import (_AXIS_OF, PACK_DTYPES,
-                                            _not_ported,
+                                            PackTierAdvice, _not_ported,
                                             build_segment_pack_device,
                                             entry_sort, make_segment_pack,
-                                            make_zscan_pack, permute_state,
-                                            reassemble_state, trace_zscan,
+                                            make_zscan_pack, march_streamed,
+                                            permute_state, reassemble_state,
+                                            suggest_pack_dtype, trace_zscan,
                                             trace_zscan_segments)
 
 # bench name -> (class, solve method, coherent): the class API over the
@@ -273,16 +280,43 @@ def _segment_pack(domain, lwl, seg_K, pack, zpack, bench_kwargs):
                                       domain.probing_direction)
         return make_segment_pack(zp, K=min(seg_K, zp.planes.shape[0] - 1))
     pdt = bench_kwargs.pop("pack_dtype", torch.float32)
-    if bench_kwargs.pop("pack_dither", None) is not None:
-        raise _not_ported("pack_dither=", "A.4")
+    dith = bench_kwargs.pop("pack_dither", None)
     if isinstance(pdt, str) and pdt == "auto":
-        raise _not_ported("pack_dtype='auto'", "A.12")
-    if isinstance(pdt, str):
+        # the tier from the field's caustic-ness; int4 nibble packs need
+        # the even-stride integrators, int8 is safe at any
+        adv = suggest_pack_dtype(domain, lwl)
+        integ = bench_kwargs.get("integrator", "rk4")
+        if adv["name"] == "int4" and integ not in ("rk2s2", "rk2s4"):
+            adv = dict(adv, dtype=torch.int8, name="int8(int4 needs "
+                       f"rk2s2/rk2s4, integrator={integ})")
+        warnings.warn(
+            f"pack_dtype='auto': chose {adv['name']} tier (caustic metric "
+            f"chi={adv['chi']}, estimated raw image rel-L1 "
+            f"{adv['est_rel_err']}, dither={adv['dither']})",
+            PackTierAdvice, stacklevel=3)
+        pdt, dith = adv["dtype"], adv["dither"]
+    elif isinstance(pdt, str):
         pdt = PACK_DTYPES[pdt]
     K_eff = min(seg_K, n_p - 1)
     if pdt == "int4" and K_eff % 2:
         K_eff += 1  # nibble packs pair planes; pads one zero slab
-    return build_segment_pack_device(domain, lwl=lwl, K=K_eff, dtype=pdt)
+    return build_segment_pack_device(domain, lwl=lwl, K=K_eff, dtype=pdt,
+                                     dither=dith)
+
+
+def _pad_ray_cols(s0: torch.Tensor, multiple: int, a_ax: int,
+                  b_ax: int) -> torch.Tensor:
+    """A (9, N) bundle padded to a multiple of ``multiple`` rays with copies
+    of ray 0 moved 1e9 m off along both transverse axes: they fly outside
+    the grid and land on no detector bin, so the image is unchanged."""
+    N = s0.shape[1]
+    total = -(-N // multiple) * multiple
+    if total == N:
+        return s0
+    pad = s0[:, :1].repeat(1, total - N)
+    pad[a_ax] = 1e9
+    pad[b_ax] = 1e9
+    return torch.cat([s0, pad], dim=1)
 
 
 def run(
@@ -360,8 +394,8 @@ def run(
     if solver not in ("zscan", "zscan_seg", "time", "analytic"):
         raise ValueError(f"unknown solver {solver!r}")
     seg_K = bench_kwargs.pop("seg_K", 64)
-    for knob in ("batch_pack_bytes", "batch_corner_bytes"):
-        bench_kwargs.pop(knob, None)   # the JAX package's HBM batching
+    batch_pack_bytes = bench_kwargs.pop("batch_pack_bytes", 4 << 30)
+    batch_corner_bytes = bench_kwargs.pop("batch_corner_bytes", 1 << 30)
     if probing_depth is None:
         probing_depth = domain.extent
     layout = layout_of(domain)
@@ -369,6 +403,20 @@ def run(
     common = dict(diagnostic=diagnostic,
                   probing_direction=domain.probing_direction, bins=bins,
                   ray_chunk=ray_chunk, lwl=lwl)
+    if solver == "zscan_seg" and spack is not None and spack.host:
+        # a host pack: segments copied up one at a time, each marched by K1
+        _same_device(s0, spack.origin_ab)
+        uf = march_streamed(
+            permute_state(s0, domain.probing_direction), spack,
+            layout=layout, integrator=bench_kwargs.pop("integrator", "rk4"),
+            weights=bench_kwargs.pop("seg_weights", "stage"),
+            substeps=substeps, cache=bench_kwargs.pop("seg_cache", None))
+        p_end = spack.p0 + spack.seg_planes.shape[0] * spack.K * spack.dp
+        res = _image_from_uf(
+            uf, p_end, probing_depth, diagnostic=diagnostic,
+            probing_direction=domain.probing_direction, bins=bins, lwl=lwl,
+            **bench_kwargs)
+        return dict(zip(diagnostic, res)) if multi else res
     if solver == "analytic":
         uf, p_end = trace_domain_analytic(
             s0, domain, lwl=lwl, n_steps=n_steps,
@@ -382,14 +430,28 @@ def run(
             spack = _segment_pack(domain, lwl, seg_K, pack, zpack,
                                   bench_kwargs)
         _same_device(s0, spack.seg_planes)
-        res = synth_image_zscan(
-            s0, spack.seg_planes, spack.origin_ab, spack.inv_spacing_ab,
-            probing_depth, layout=layout,
-            n_slabs=spack.seg_planes.shape[0] * spack.K, p0=spack.p0,
-            dp_static=spack.dp, segmented=True, seg_K=spack.K,
-            shape_ab=spack.shape_ab, substeps=substeps,
-            seg_scales=spack.scales, seg_qbits=spack.qbits, **common,
-            **bench_kwargs)
+        table = spack.seg_planes
+
+        def call(rays):
+            return synth_image_zscan(
+                rays, table, spack.origin_ab, spack.inv_spacing_ab,
+                probing_depth, layout=layout,
+                n_slabs=table.shape[0] * spack.K, p0=spack.p0,
+                dp_static=spack.dp, segmented=True, seg_K=spack.K,
+                shape_ab=spack.shape_ab, substeps=substeps,
+                seg_scales=spack.scales, seg_qbits=spack.qbits, **common,
+                **bench_kwargs)
+
+        pack_bytes = table.numel() * table.element_size()
+        # corner bytes a ray: 4 rows of the table
+        max_rays = max(int(batch_corner_bytes // (4 * table.shape[-1]
+                                                  * table.element_size())),
+                       1024)
+        if pack_bytes > batch_pack_bytes and s0.shape[1] > max_rays:
+            res = _batched(call, s0, max_rays, domain.probing_direction,
+                           diagnostic, bench_kwargs)
+        else:
+            res = call(s0)
     elif solver == "zscan":
         zp = zpack or make_zscan_pack(pack or build_pack(domain, lwl),
                                       layout, domain.probing_direction)
@@ -409,6 +471,36 @@ def run(
             dt_of(n_steps, probing_depth), probing_depth, layout=layout,
             n_steps=n_steps, **common, **bench_kwargs)
     return dict(zip(diagnostic, res)) if multi else res
+
+
+def _batched(call, s0: torch.Tensor, max_rays: int, probing_direction: str,
+             diagnostic, bench_kwargs: dict):
+    """``call`` on ``max_rays``-ray batches of the bundle (padded with rays
+    that land nowhere), the images summed: the JAX package's per-call
+    batching of packs larger than ``batch_pack_bytes``. Coherent benches
+    are summed as raw field sums and finalized once, so interference
+    across batches is kept; counts equal the one-call image's."""
+    names = (diagnostic,) if isinstance(diagnostic, str) else diagnostic
+    user_raw = bench_kwargs.get("coherent_raw", False)
+    any_coh = any(BENCHES[n][1] for n in names)
+    if any_coh:
+        bench_kwargs["coherent_raw"] = True
+    p_ax = _AXIS_OF[probing_direction]
+    a_ax, b_ax = [a for a in range(3) if a != p_ax]
+    s_pad = _pad_ray_cols(s0, max_rays, a_ax, b_ax)
+    acc = None
+    for i0 in range(0, s_pad.shape[1], max_rays):
+        res = call(s_pad[:, i0:i0 + max_rays])
+        if acc is None:
+            acc = res
+        elif isinstance(res, tuple):
+            acc = tuple(a + b for a, b in zip(acc, res))
+        else:
+            acc = acc + res
+    if any_coh and not user_raw:
+        acc = finalize_coherent(acc, diagnostic, bench_kwargs.get(
+            "coherent_convention", "legacy"))
+    return acc
 
 
 def run_split(

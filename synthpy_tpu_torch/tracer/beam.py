@@ -1,10 +1,13 @@
 """Ray-bundle initialisation (PyTorch port of ``synthpy_tpu.tracer.beam``).
 
 Builds the (9, Np) initial ray state s0 = (x, y, z, vx, vy, vz, amp,
-phase, pol) for the 'circular', 'square', 'rectangular', 'linear' and
-'even' beams. Random draws come from an explicit ``torch.Generator``: the
-same seed gives other numbers than ``jax.random``, so parity tests hand a
-JAX-drawn ``s0`` to the port through ``synthpy_tpu_torch.convert``.
+phase, pol) for the 'circular', 'square', 'rectangular', 'linear', 'even'
+and 'rect_trackers' beams. Random draws come from a key
+(``synthpy_tpu_torch.random.PRNGKey``, or a JAX key through
+``convert.key``), which draws the JAX package's stream: the same key gives
+JAX's beam, to the last place of the trigonometric functions. A
+``torch.Generator``, or an integer seed for one, draws PyTorch's stream
+instead.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ import numpy as np
 import torch
 
 from synthpy_tpu_torch import _device
+from synthpy_tpu_torch import random as jrandom
 from synthpy_tpu_torch.constants import C
 
-BEAM_TYPES = ("circular", "square", "rectangular", "linear", "even")
+BEAM_TYPES = ("circular", "square", "rectangular", "linear", "even",
+              "rect_trackers")
 
 
 def _assemble(pos_a, pos_b, chi, phi, ne_extent: float,
@@ -43,8 +48,43 @@ def _assemble(pos_a, pos_b, chi, phi, ne_extent: float,
                         zero])
 
 
+class _Draws:
+    """Uniform and normal draws of the five streams of a beam: from a key,
+    ``split(key, 5)`` as in the JAX package (position 1, position 2, phi,
+    chi, trackers); from a torch.Generator, one shared stream."""
+
+    def __init__(self, source, dev):
+        self.dev = dev
+        if isinstance(source, torch.Generator):
+            self.gen, self.keys = source, None
+        else:
+            self.gen, self.keys = None, jrandom.split(source, 5)
+
+    def uniform(self, stream: int, n: int) -> torch.Tensor:
+        if self.keys is not None:
+            return jrandom.uniform(self.keys[stream], (n,), device=self.dev)
+        return torch.rand((n,), generator=self.gen,
+                          device=self.gen.device).to(self.dev)
+
+    def normal(self, stream: int, n: int) -> torch.Tensor:
+        if self.keys is not None:
+            return jrandom.normal(self.keys[stream], (n,), device=self.dev)
+        return torch.randn((n,), generator=self.gen,
+                           device=self.gen.device).to(self.dev)
+
+    def choice(self, n: int, k: int) -> torch.Tensor:
+        """k of range(n) without replacement."""
+        if self.keys is not None:
+            return jrandom.choice(self.keys[4], n, (k,), device="cpu")
+        return torch.randperm(n, generator=self.gen,
+                              device=self.gen.device)[:k].cpu()
+
+
+POS1, POS2, PHI, CHI = 0, 1, 2, 3
+
+
 def init_beam(
-    generator: Union[torch.Generator, int],
+    generator,
     Np: int,
     beam_size: Union[float, Tuple[float, float]],
     divergence: float,
@@ -53,18 +93,21 @@ def init_beam(
     probing_direction: str = "z",
     dtype=torch.float32,
     device="cuda",
-) -> torch.Tensor:
+    n_trackers: int = 0,
+    tracker_region: float = 1e-3,
+):
     """Initialise a (9, Np) ray bundle on ``device``.
 
-    ``generator`` is a ``torch.Generator`` or an integer seed (a new
-    generator on ``device`` is then made). ``beam_size`` is the radius or
-    half-width [m], an (a, b) pair for 'rectangular'; ``divergence`` the
-    1-sigma polar angle [rad]; rays start at ``-ne_extent`` on the probing
-    axis. 'even' lays out concentric rings and may change Np.
+    ``generator``: a key (JAX's stream), a ``torch.Generator``, or an
+    integer seed (a new generator on ``device`` is then made).
+    ``beam_size`` is the radius or half-width [m], an (a, b) pair for
+    'rectangular' and 'rect_trackers'; ``divergence`` the 1-sigma polar
+    angle [rad]; rays start at ``-ne_extent`` on the probing axis. 'even'
+    lays out concentric rings and may change Np. 'rect_trackers' marks
+    ``n_trackers`` rays inside the central +-``tracker_region`` square
+    (pol = 1), chosen without replacement, and returns (s0, their
+    indices).
     """
-    if beam_type == "rect_trackers":
-        raise NotImplementedError(
-            "beam_type='rect_trackers' is not ported yet (ROADMAP A.3)")
     if beam_type not in BEAM_TYPES:
         raise ValueError(
             f"beam_type {beam_type!r} unrecognised; use one of {BEAM_TYPES}")
@@ -73,30 +116,23 @@ def init_beam(
         seed = generator
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
-    g_dev = generator.device
-
-    def uniform(n):
-        return torch.rand((n,), generator=generator, device=g_dev).to(dev)
-
-    def normal(n):
-        return torch.randn((n,), generator=generator, device=g_dev).to(dev)
-
-    phi = 2 * math.pi * uniform(Np)
-    chi = divergence * normal(Np)
+    draws = _Draws(generator, dev)
+    phi = 2 * math.pi * draws.uniform(PHI, Np)
+    chi = divergence * draws.normal(CHI, Np)
     if beam_type == "circular":
-        t = 2 * math.pi * uniform(Np)
-        r = beam_size * torch.sqrt(uniform(Np))
+        t = 2 * math.pi * draws.uniform(POS1, Np)
+        r = beam_size * torch.sqrt(draws.uniform(POS2, Np))
         a, b = r * torch.cos(t), r * torch.sin(t)
     elif beam_type == "square":
-        a = beam_size * (2 * uniform(Np) - 1.0)
-        b = beam_size * (2 * uniform(Np) - 1.0)
-    elif beam_type == "rectangular":
+        a = beam_size * (2 * draws.uniform(POS1, Np) - 1.0)
+        b = beam_size * (2 * draws.uniform(POS2, Np) - 1.0)
+    elif beam_type in ("rectangular", "rect_trackers"):
         s1, s2 = beam_size
-        a = s1 * (2 * uniform(Np) - 1.0)
-        b = s2 * (2 * uniform(Np) - 1.0)
+        a = s1 * (2 * draws.uniform(POS1, Np) - 1.0)
+        b = s2 * (2 * draws.uniform(POS2, Np) - 1.0)
     elif beam_type == "linear":
         # along a line in the x-z plane, probing along z
-        a = beam_size * (2 * uniform(Np) - 1.0)
+        a = beam_size * (2 * draws.uniform(POS1, Np) - 1.0)
         b = torch.zeros((Np,), device=dev)
         phi = torch.zeros((Np,), device=dev)
         probing_direction = "z"
@@ -111,7 +147,19 @@ def init_beam(
         u = torch.tensor(u, dtype=torch.float32, device=dev)
         t = torch.tensor(t, dtype=torch.float32, device=dev)
         a, b = beam_size * u * torch.cos(t), beam_size * u * torch.sin(t)
-        phi = 2 * math.pi * uniform(Np)
-        chi = divergence * normal(Np)
-    return _assemble(a.to(dtype), b.to(dtype), chi, phi, ne_extent,
-                     probing_direction, dtype)
+        phi = 2 * math.pi * draws.uniform(PHI, Np)
+        chi = divergence * draws.normal(CHI, Np)
+    s0 = _assemble(a.to(dtype), b.to(dtype), chi, phi, ne_extent,
+                   probing_direction, dtype)
+    if beam_type != "rect_trackers":
+        return s0
+    in_region = ((a.abs() <= tracker_region)
+                 & (b.abs() <= tracker_region)).cpu()
+    region_idx = torch.nonzero(in_region).reshape(-1)
+    if region_idx.numel() < n_trackers:
+        raise ValueError("Not enough rays in the tracker region: "
+                         f"{region_idx.numel()} < {n_trackers}")
+    tracker_indices = region_idx[draws.choice(region_idx.numel(),
+                                              n_trackers)].to(dev)
+    s0[8, tracker_indices] = 1.0
+    return s0, tracker_indices

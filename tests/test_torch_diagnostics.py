@@ -210,6 +210,28 @@ def test_refractogram_speckle_feeds_the_ports_draw_to_jax():
                             key=torch.Generator().manual_seed(0), **BIN)))
 
 
+def test_refractogram_speckle_from_a_key_is_jaxs():
+    """A port key draws the speckle JAX draws from the same key (its
+    float32 normals, within a few ulp): the refractogram is JAX's on that
+    draw. The chain runs in float64, where JAX's default draw would be
+    float64, so JAX's float32 draw is applied by hand."""
+    from synthpy_tpu_torch import convert
+
+    rf, J = _rays(seed=5, dtype=np.float64)
+    sigma = 0.7
+    with jax.enable_x64(True):
+        j, t = _pair("Refractometry", rf, J)
+        j.coherent_solve()
+        t.coherent_solve()
+        g = jax.random.normal(jax.random.PRNGKey(9), J.shape[1:],
+                              dtype=jnp.float32).astype(jnp.float64)
+        j.Jf = j.Jf * jnp.exp(1.0j * (sigma * g))
+        Hj = _np(j.refractogram(**BIN))
+    Ht = _np(t.refractogram(speckle_phase=sigma,
+                            key=convert.key(jax.random.PRNGKey(9)), **BIN))
+    np.testing.assert_allclose(Ht, Hj, rtol=0, atol=1e-5 * Hj.max())
+
+
 def _fresnel_case(n=6000, seed=6):
     rng = np.random.default_rng(seed)
     rf = np.zeros((4, n), np.float32)

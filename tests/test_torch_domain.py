@@ -136,6 +136,42 @@ def test_even_beam_matches_jax_and_seed_reproducible():
     again = init_beam(0, 400, 2e-3, 1e-3, 5e-3, "circular", device="cpu")
     assert torch.equal(again, init_beam(0, 400, 2e-3, 1e-3, 5e-3,
                                         "circular", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_beam(0, 10, (1e-3, 1e-3), 0.0, 5e-3, "rect_trackers",
-                  device="cpu")
+    # rect_trackers is ported: from a port key, JAX's beam and JAX's
+    # tracker indices (jax.random.choice without replacement)
+    from synthpy_tpu_torch import random as trandom
+
+    want, want_idx = jinit(jax.random.PRNGKey(4), 3000, (2e-3, 2e-3), 0.0,
+                           5e-3, "rect_trackers", n_trackers=50)
+    got, idx = init_beam(trandom.PRNGKey(4), 3000, (2e-3, 2e-3), 0.0, 5e-3,
+                         "rect_trackers", device="cpu", n_trackers=50)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(got[8].numpy(), np.asarray(want)[8])
+    np.testing.assert_array_equal(got[:2].numpy(), np.asarray(want)[:2])
+    with pytest.raises(ValueError, match="tracker region"):
+        init_beam(trandom.PRNGKey(4), 10, (1e-3, 1e-3), 0.0, 5e-3,
+                  "rect_trackers", device="cpu", n_trackers=50,
+                  tracker_region=1e-5)
+
+
+@pytest.mark.parametrize("beam_type,size", [
+    ("circular", 2e-3), ("square", 2e-3), ("rectangular", (2e-3, 1e-3)),
+    ("linear", 2e-3), ("even", 2e-3)])
+def test_beam_from_a_key_draws_jax_stream(beam_type, size):
+    """A port key (or a JAX key through convert.key) draws JAX's stream:
+    positions to 1e-6 of the largest (the circle's cos / sin), velocities
+    to 1e-6 (normals within a few ulp), the rest exactly."""
+    from synthpy_tpu_torch import convert
+    from synthpy_tpu_torch import random as trandom
+
+    want = np.asarray(jinit(jax.random.PRNGKey(4), 500, size, 1e-3, 5e-3,
+                            beam_type))
+    for key in (trandom.PRNGKey(4), convert.key(jax.random.PRNGKey(4))):
+        got = init_beam(key, 500, size, 1e-3, 5e-3, beam_type,
+                        device="cpu").numpy()
+        assert got.shape == want.shape
+        scale = np.maximum(np.abs(want).max(axis=1, keepdims=True), 1e-30)
+        assert (np.abs(got - want) <= 1e-6 * scale).all()
+    # a torch.Generator still draws PyTorch's stream
+    g = torch.Generator().manual_seed(4)
+    other = init_beam(g, 500, size, 1e-3, 5e-3, beam_type, device="cpu")
+    assert other.shape == want.shape

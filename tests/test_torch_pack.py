@@ -10,6 +10,13 @@ move a value across a rounding boundary). Quantised and strided builds are
 made straight from the volumes (``plane_stride`` output plane k is
 absolute plane s*K + k*S), and are held to the JAX builds the same way and
 to the decimation of the port's own full build exactly.
+
+Dither draws JAX's threefry stream (``synthpy_tpu_torch.random``): the
+quantiser of a carried JAX pack is bit-equal to JAX's for the same key;
+dithered builds give JAX's codes bit for bit on every case here, and its
+scales bit for bit where the f32 channels are (z-probing lenses), else to
+their last place (x/y-probing and the full-physics channels differ from
+XLA's there; a scale is amax * f32(1/qmax)).
 """
 
 import jax.numpy as jnp
@@ -251,12 +258,83 @@ def test_metadata_and_unported_options(f32_packs):
     assert tm.seg_planes is None
     assert (tm.shape_ab, tm.K, tm.n_slabs, tm.p0, tm.dp, tm.omega) == (
         tuple(jm.shape_ab), jm.K, jm.n_slabs, jm.p0, jm.dp, jm.omega)
-    for kw in ({"dither": 0}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tz.build_segment_pack_device(tdom, K=8, dtype=torch.int8, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tz.quantize_segment_pack(tz.build_segment_pack_device(
-            tdom, K=8, dtype=torch.float32), dither=1)
+        tz.build_segment_pack_device(tdom, K=8, dtype=torch.int8,
+                                     mesh=object())
+    # dither is ported: the fused build equals the quantiser of the f32
+    # build for the same key, and float tiers refuse it as JAX does
+    dith = tz.build_segment_pack_device(tdom, K=8, dtype=torch.int8,
+                                        dither=0)
+    quant = tz.quantize_segment_pack(tz.build_segment_pack_device(
+        tdom, K=8, dtype=torch.float32), 8, dither=0)
+    assert torch.equal(dith.seg_planes, quant.seg_planes)
+    with pytest.raises(ValueError, match="quantised"):
+        tz.build_segment_pack_device(tdom, K=8, dtype=torch.float32,
+                                     dither=1)
     with pytest.raises(ValueError):
         tz.build_segment_pack_device(tdom, K=8, dtype="int4",
                                      plane_stride=8)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("case", ["lens33_K32", "full_physics"])
+def test_dithered_quantiser_bit_equal(f32_packs, case, bits):
+    """The JAX f32 pack carried across and quantised with dither: codes and
+    scales bit-equal to JAX's for the same key (int seed, raw or typed
+    JAX key)."""
+    import jax
+
+    _, jpack, _ = f32_packs[case]
+    jq = jz.quantize_segment_pack(jpack, bits, dither=7)
+    carried = convert.segment_pack(jpack, "cpu")
+    for key in (7, jax.random.PRNGKey(7), convert.key(jax.random.key(7))):
+        tq = tz.quantize_segment_pack(carried, bits, dither=key)
+        np.testing.assert_array_equal(tq.seg_planes.numpy(),
+                                      np.asarray(jq.seg_planes))
+        np.testing.assert_array_equal(tq.scales.numpy(),
+                                      np.asarray(jq.scales))
+    # another key dithers otherwise; exact zeros stay exact
+    other = tz.quantize_segment_pack(carried, bits, dither=8)
+    assert not torch.equal(other.seg_planes, tq.seg_planes)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+@pytest.mark.parametrize("case", ["lens33_K32", "probe_x", "full_physics"])
+def test_dithered_build_matches_jax(f32_packs, case, tier, stride):
+    """Dithered fused builds, keyed by the absolute plane: codes bit-equal
+    to JAX's; scales bit-equal on the z-probing lens, within 1e-6 (the
+    channels' last place) elsewhere; and bit-equal to the port's own
+    quantiser of its full f32 build, decimated."""
+    jd, _, tpack = f32_packs[case]
+    K = CASES[case][1]
+    if tier == "int4" and (K // stride) % 2:
+        pytest.skip("int4 needs an even K / plane_stride")
+    jdt = {"int8": jnp.int8, "int4": "int4"}[tier]
+    tdt = {"int8": torch.int8, "int4": "int4"}[tier]
+    jb = jz.build_segment_pack_device(jd, K=K, dtype=jdt,
+                                      plane_stride=stride, dither=7)
+    tb = tz.build_segment_pack_device(convert.domain(jd, "cpu"), K=K,
+                                      dtype=tdt, plane_stride=stride,
+                                      dither=7)
+    np.testing.assert_array_equal(tb.seg_planes.numpy(),
+                                  np.asarray(jb.seg_planes))
+    if case == "lens33_K32":
+        np.testing.assert_array_equal(tb.scales.numpy(),
+                                      np.asarray(jb.scales))
+    else:
+        np.testing.assert_allclose(tb.scales.numpy(), np.asarray(jb.scales),
+                                   rtol=1e-6, atol=0)
+    full = tz.quantize_segment_pack(tpack, 8 if tier == "int8" else 4,
+                                    dither=7)
+    dec = tz.decimate_segment_pack(full, stride)
+    assert torch.equal(tb.seg_planes, dec.seg_planes)
+    assert torch.equal(tb.scales, dec.scales)
+
+
+def test_dither_keeps_vacuum_exact():
+    from synthpy_tpu_torch.fields import ScalarDomain
+
+    dv = ScalarDomain(2 * EXT, 17, device="cpu").test_null()
+    spv = tz.build_segment_pack_device(dv, K=8, dtype=torch.int8, dither=7)
+    assert not spv.seg_planes.any()

@@ -88,13 +88,20 @@ def test_default_f32_pack_and_solve(bench):
 
 
 def test_unported_paths_raise(bench):
-    _, td, _, ts0 = bench
-    cases = [dict(mesh=object()), dict(pack_dtype="auto"),
-             dict(pack_dtype="int8", pack_dither=3)]
-    for kw in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.run(td, ts0, **{"solver": "zscan_seg", "seg_K": 8,
-                                  "bins": BINS, **kw})
+    jd, td, s0, ts0 = bench
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipe.run(td, ts0, solver="zscan_seg", seg_K=8, bins=BINS,
+                  mesh=object())
+    # pack_dtype="auto" and pack_dither= are ported: JAX's tier and pack
+    with pytest.warns(tz.PackTierAdvice, match="chose"):
+        Ha = tpipe.run(td, ts0, solver="zscan_seg", seg_K=8, bins=BINS,
+                       pack_dtype="auto")
+    Hd = tpipe.run(td, ts0, solver="zscan_seg", seg_K=8, bins=BINS,
+                   pack_dtype="int8", pack_dither=3)
+    Hj = jpipe.run(jd, s0, solver="zscan_seg", seg_K=8, bins=BINS,
+                   pack_dtype="int8", pack_dither=3)
+    _close_images(Hd, Hj)
+    assert float(Ha.sum()) == float(Hd.sum())
     # an overcritical field falls back to the time tracer, as in JAX
     hot = convert.domain(JDomain(2 * EXT, 17).test_lens(ne_0=1e28), "cpu")
     with pytest.warns(UserWarning, match="critical density"):

@@ -52,7 +52,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_sources_carry_their_note_and_build_flags():
     for src in ("march.cu", "pack.cu", "detector.cu", "analytic.cu",
-                "deposit.cu"):
+                "deposit.cu", "fill.cu", "random.cu"):
         text = (_build.CSRC / src).read_text()
         assert "Replaces" in text and "bounds it on the H100" in text, src
         assert "synthpy_tpu/" in text, src
@@ -68,11 +68,13 @@ def test_kernel_argtypes_match_the_c_entry_points():
     import re
 
     from synthpy_tpu_torch.kernels import (adaptive, analytic, binning,
-                                           deposit, detector, march, pack,
-                                           slab_march, time_march)
+                                           deposit, detector, fill, march,
+                                           pack, random, slab_march,
+                                           time_march)
 
     kernels = [m.KERNEL for m in (adaptive, analytic, deposit, detector,
-                                  march, pack, slab_march, time_march)]
+                                  fill, march, pack, random, slab_march,
+                                  time_march)]
     kernels += [detector.FIELD_KERNEL, binning.BIN_KERNEL,
                 binning.BIN_FIELD_KERNEL]
     seen = set()
@@ -92,7 +94,7 @@ def test_kernel_argtypes_match_the_c_entry_points():
             assert params[-1].split()[-1] == "stream", name
             seen.add(name)
     assert {"analytic_march", "detect_field", "detect_image", "bin_image",
-            "bin_field", "deposit_cic"} <= seen
+            "bin_field", "deposit_cic", "pack_fill", "random_draw"} <= seen
 
 
 def test_entry_points_default_to_cuda():
@@ -116,7 +118,8 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     from synthpy_tpu_torch.fields.domain import ChannelLayout
     from synthpy_tpu_torch.fields.forms import ClosedForm
     from synthpy_tpu_torch.kernels import (analytic, binning, deposit,
-                                           detector, march, pack)
+                                           detector, fill, march, pack)
+    from synthpy_tpu_torch.kernels import random as kernel_random
     from synthpy_tpu_torch.ops import fresnel, histogram
 
     meta = torch.device("meta")
@@ -151,13 +154,23 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         lambda: histogram.deposit_cic(x, x, x, c, c),
         lambda: histogram.deposit_cic(x, x, e, c, c),
         lambda: fresnel.propagate(1e-6, c, c, 1.0, 1.0, u[:4], x, x, 0.1),
+        lambda: pack.quantize_tables(table, 8, 3, 8, dither=(0, 7)),
+        lambda: kernel_random.draw((0, 7), 8, "normal", device=meta),
+        lambda: fill.fill(
+            torch.empty((1, 9, 9 * 3), dtype=torch.int8, device=meta),
+            torch.empty((1, 9, 3), device=meta),
+            torch.empty((4, 3, 3), device=meta),
+            torch.empty((2, 0, 3, 3), device=meta), g0=0, seg_i=0, col0=0,
+            k0=0, pb=2, lone=False, mode=2, layout=lay, n_p=9, pref=-1.0,
+            da=1.0, db=1.0, dp=1.0, omega=1e15, verdet=0.0, dither=(0, 7)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
             call()
     assert march.KERNEL.launches == analytic.KERNEL.launches == 0
     assert (deposit.KERNEL.launches == binning.BIN_KERNEL.launches
-            == binning.BIN_FIELD_KERNEL.launches == 0)
+            == binning.BIN_FIELD_KERNEL.launches == fill.KERNEL.launches
+            == kernel_random.KERNEL.launches == 0)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
