@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-The port's ten hand-written CUDA kernels are built from
+The port's twelve hand-written CUDA kernels are built from
 ``synthpy_tpu_torch/kernels/csrc`` with nvcc, all sources at once: K1
 segment march, K2 pack builder/quantiser/decimator (with JAX's dither),
 K3 detector (an incoherent and a coherent entry point on exit states,
 ``bin_image`` and ``bin_field`` on bare rays), K4 plain slab march, K5
 time-domain RK4 march, K6 adaptive Dormand-Prince step, K7 analytic march,
-K8 cloud-in-cell deposit, K9 plane-batch pack fill and K10 threefry draws.
+K8 cloud-in-cell deposit, K9 plane-batch pack fill, K10 threefry draws,
+K11 the segment march's adjoint and K12 the differentiable renderer's
+cloud-in-cell image and its adjoint (with the planted controls of
+``inverse_path``).
 Each is held to its plain PyTorch version on the card. The
 zscan_seg bench configuration (512^3 bench lens, K = 512, 4,000,000 rays,
 rk2, slab weights, 431 x 321 bins) runs through the port's entry points at
@@ -65,9 +68,18 @@ segment by segment (``streamed_path``), the MAGPIE z-pinch of
 ``examples/magpie_1024_full_physics.py`` at 1024^3 (synth int4 pack,
 16 M rays in four 4 M chunks through three benches, per-call batching;
 ``scale_path``) and Kolmogorov turbulence at 256^3 with
-``pack_dtype="auto"`` (``turbulence_path``).
+``pack_dtype="auto"`` (``turbulence_path``). Last the differentiable
+renderer (``inverse_path``): ``examples/inverse_volume_joint.py`` at 512^3
+(1 M rays, K = 64, 96 x 96 bins, bf16 pack) through
+``inverse.make_renderer``, the measurement on the truth and on zeros, the
+host's fringe analysis, then INV_STEPS Adam steps (optax's cosine decay)
+with per-step forward, backward, K11, K12 and pack-chain times and the
+peak device memory; K11 held to its plain version on 16,384 of the path's
+rays over the full bf16 table, K12 on all 1 M exit rays for V = 1, 2 and
+4, each with a planted fault that must fail the same check.
 Every path is driven with the launch counts set to 0 just before it and
-read just after. Each phase prints one JSON line; then a
+read just after. Each phase prints one JSON line, with the script's
+seconds so far (``t_s``); then a
 ``{"kernels": [...]}`` line with each kernel's launches on its path
 (calls of its C entry point: the int8 and int4 builds start two device
 kernels, an adaptive step a stage kernel and a one-block controller; a K2
@@ -94,6 +106,11 @@ DIM, K, RAYS, BINS = 512, 512, 4_000_000, (431, 321)
 SUBSET = 65_536
 ADAPTIVE_RAYS = 1_000_000   # the validation integrator's cut (PERF.md)
 K6_STEPS = 16               # first steps of the adaptive path held to plain
+# the 512^3 subsets of K4_vs_plain, K5_vs_plain and K6_vs_plain march the
+# first 1 / CHECK_DEPTH of the path's depth (the lens is a column along z,
+# so every stretch of the path crosses the same field); the full-width
+# paths march all of it
+CHECK_DEPTH = 4
 PHYS_DIM = 128              # grid of the C = 8 scene
 A_STEPS = 64                # the analytic tier's steps (bench.py:169-190)
 COHERENT = ("interferometry", "refractometry_coherent")
@@ -108,12 +125,19 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 
+T_START = time.perf_counter()
+
+
 def fail(msg):
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
 
 
 def emit(obj):
+    """Print one JSON line; a phase's line carries the script's seconds so
+    far (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1276,6 +1300,557 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
     return rows_out, detail
 
 
+# examples/inverse_volume_joint.py at its 512^3 configuration
+# (scratch/results_inverse_joint_r3.json): the field, beam, benches and
+# loss of the example, bf16 pack, K = max(512 // 8, 8) = 64. The peak lr
+# is the example's default: its note that 2e-2 oscillates at 512^3 is of
+# the 200-step run; these few steps exercise the chain, and the gradient
+# check, not the loss's course, holds the gradient's sign and scale
+INV = dict(dim=512, rays=1_000_000, K=64, bins=(96, 96), lxy=8.0,
+           ne_scale=5e23, beam_r=3.2e-3, n_fringes=16.0, tv_w=3e-3,
+           stop_r=0.12, lr=2e-2, iters=200)
+INV_STEPS = 4           # Adam steps of the example's 200-step schedule
+# the gradient check's steps in theta (4.5% and 9% of a cell's density
+# near theta = -1.5, 20-45x the rounding of a bf16 table entry) and its
+# tolerance (0.35% seen at 512^3 on an H100, 0.1% at 33^3 on the CPU; a
+# table cotangent at half its scale is off by 100%)
+FD_STEPS = (0.05, 0.1)
+FD_TOL = 0.05
+K11_RAYS = 16_384       # the path's rays K11 is held to its plain version on
+PLAIN_CHUNK = 262_144   # rays a plain adjoint call takes when timed
+# K12's planted control: K8's corner rule (node coordinates without the
+# half-pixel shift, the corner clipped to n - 2)
+CIC_CONTROL = [("  const float tx = (x + G.hx) * G.sx - 0.5f;\n"
+                "  const float ty = (y + G.hy) * G.sy - 0.5f;",
+                "  const float tx = (x + G.hx) * G.sx;\n"
+                "  const float ty = (y + G.hy) * G.sy;"),
+               ("  const float ax = floorf(tx), ay = floorf(ty);",
+                "  const float ax = fminf(fmaxf(floorf(tx), 0.0f), "
+                "(float)(G.nx - 2)),\n"
+                "              ay = fminf(fmaxf(floorf(ty), 0.0f), "
+                "(float)(G.ny - 2));")]
+# K11's planted control: the stage weights' derivative with respect to
+# position dropped. It is built for the one instance the control runs (a
+# bf16 table, the phase layout, C = 4): another refuses to launch, and the
+# build costs one template instance instead of the shipped sixteen
+K11_CONTROL = [("  ds[0] = dfa * clip01_grad(ra) * P.inva;\n"
+                "  ds[1] = dfb * clip01_grad(rb) * P.invb;\n", ""),
+               ("  if (dtype == F32)\n"
+                "    layouts::with_layout<Launch<F32>::With>(inv_brems, "
+                "phaseshift, B_on, P,\n"
+                "                                            st);\n"
+                "  else\n"
+                "    layouts::with_layout<Launch<BF16>::With>(inv_brems, "
+                "phaseshift, B_on, P,\n"
+                "                                             st);\n",
+                "  if (dtype != BF16 || inv_brems || !phaseshift || B_on)\n"
+                "    return (int)cudaErrorInvalidValue;\n"
+                "  Launch<BF16>::With<layouts::Layout<0, 1, 0>>::run(P, st);"
+                "\n")]
+
+
+def inverse_controls(torch):
+    """The planted controls' builds (variants of cic.cu and
+    march_adjoint.cu), made before the kernels are built so that nvcc
+    builds them with the rest: {name: Kernel}."""
+    from synthpy_tpu_torch.kernels import cic, march_adjoint
+    from synthpy_tpu_torch.kernels.profiling import variant
+
+    return {"cic_k8_rule": variant(cic.KERNEL, "k8_rule", CIC_CONTROL),
+            "cic_adjoint_k8_rule": variant(cic.BACKWARD_KERNEL, "k8_rule",
+                                           CIC_CONTROL),
+            "march_adjoint_no_position": variant(
+                march_adjoint.KERNEL, "no_position", K11_CONTROL)}
+
+
+def cosine_decay(lr, steps, t):
+    """optax.cosine_decay_schedule(lr, steps) at count t (alpha = 0)."""
+    import math
+    return lr * 0.5 * (1.0 + math.cos(math.pi * min(t, steps) / steps))
+
+
+def inverse_path(torch, dev, kernels, bound, reset, path_launches,
+                 controls):
+    """The differentiable renderer at full width (``inverse_path``):
+    examples/inverse_volume_joint.py at 512^3 through the port's entry
+    points (``inverse.make_renderer``, ``priors.tv``, torch.optim.Adam with
+    optax's cosine decay, the host's fringe analysis), INV_STEPS optimiser
+    steps, the gradient held to the loss's central differences, then K11
+    and K12 held to their plain versions at the path's
+    shapes, each with a planted control that must fail. Returns
+    (kernels-line rows, detail)."""
+    import copy
+    import math
+
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.analysis.fringes import (phase_difference,
+                                                    rectify_phase_offset,
+                                                    unwrap_2d)
+    from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+    from synthpy_tpu_torch.fields.domain import build_pack
+    from synthpy_tpu_torch.inverse import make_renderer
+    from synthpy_tpu_torch.kernels import cic, march, march_adjoint
+    from synthpy_tpu_torch.kernels.profiling import batch_ms, best_ms
+    from synthpy_tpu_torch.priors import tv
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+    from torch.utils.checkpoint import checkpoint
+
+    t_path = time.perf_counter()
+    D, N, K, bins, lxy = (INV[k] for k in ("dim", "rays", "K", "bins",
+                                            "lxy"))
+    csrc = "synthpy_tpu_torch/kernels/csrc/"
+    detail = {"config": INV, "steps": INV_STEPS}
+    torch.cuda.empty_cache()
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # the example's ground truth: two offset blobs on a pedestal, extruded
+    # through a known z-envelope (float64 on the host, as the example)
+    dom = ScalarDomain(2 * EXT, D, phaseshift=True, device=dev)
+    xh = dom.x.cpu().double().numpy()[:, None]
+    yh = dom.y.cpu().double().numpy()[None, :]
+    g_np = (0.8 * np.exp(-((xh - 0.8e-3) ** 2 + yh ** 2) / (1.2e-3) ** 2)
+            + 0.6 * np.exp(-((xh + 1.0e-3) ** 2 + (yh - 0.6e-3) ** 2)
+                           / (0.9e-3) ** 2)
+            + 0.15 * np.exp(-(xh ** 2 + yh ** 2) / (3.0e-3) ** 2))
+    g_true = torch.from_numpy(g_np.astype(np.float32)).to(dev)
+    z_env = torch.from_numpy(np.exp(-(dom.z.cpu().double().numpy() ** 2)
+                                    / (2.5e-3) ** 2).astype(np.float32)
+                             ).to(dev)
+
+    def volume(g):
+        return INV["ne_scale"] * g[:, :, None] * z_env
+
+    dom.external_ne(volume(g_true))
+    s0 = init_beam(jrandom.fold_in(jrandom.PRNGKey(0), 1), N, INV["beam_r"],
+                   0.0, EXT, "circular", device=dev)
+    kw = dict(bins=bins, K=K, Lx=lxy, Ly=lxy, pack_dtype=torch.bfloat16,
+              bench_kwargs={"schlieren_df": {"stop_R": INV["stop_r"]}})
+
+    # -- the synthetic measurements (shot and background), then the host's
+    # phase retrieval, as the example does
+    reset()
+    render_meas = make_renderer(
+        dom, s0, diagnostic=("shadowgraphy", "schlieren_df",
+                             "interferometry"),
+        n_fringes=INV["n_fringes"], **kw)
+    # K12's inputs and cotangents where the path makes them (cic.RECORD):
+    # the interferogram's deposit (V = 4) in the measurement, the
+    # shadowgram's (V = 1) and the phase map's (V = 2) with their
+    # cotangents in the first optimiser step
+    cic_inputs, adjoint_inputs = {}, {}
+    cic.RECORD = []
+    try:
+        with torch.no_grad():
+            (tgt_sh, tgt_sc, H_shot), meas_ms = sync_ms(
+                lambda: render_meas(volume(g_true)))
+            H_bkg = render_meas(volume(torch.zeros_like(g_true)))[2]
+        cic_inputs[4] = next(r[1:] for r in cic.RECORD
+                             if r[0] == "deposit" and r[3].shape[1] == 4)
+    finally:
+        cic.RECORD = None
+    for nm, t in (("shadowgraphy", tgt_sh), ("schlieren_df", tgt_sc),
+                  ("interferogram", H_shot)):
+        check(float(t.abs().max()) > 1e-3, f"inverse_path: degenerate {nm} "
+              "target (all ~zero)")
+    t0 = time.perf_counter()
+    ny, nx = H_shot.shape
+    pu = unwrap_2d(phase_difference(H_shot, H_bkg),
+                   anchor=(ny // 2, nx // 2))
+    yy = (np.arange(ny) - ny / 2 + 0.5) / ny * lxy
+    xx = (np.arange(nx) - nx / 2 + 0.5) / nx * lxy
+    rr = np.hypot(yy[:, None], xx[None, :])
+    beam_px = rr < INV["beam_r"] * 1e3 * 0.94
+    edge_px = ((rr > INV["beam_r"] * 1e3 * 0.81)
+               & (rr < INV["beam_r"] * 1e3 * 0.97))
+    pu = rectify_phase_offset(pu, edge_px)
+    if np.median(pu[beam_px]) > 0:
+        pu = -pu   # the sideband's sign; plasma phase is negative
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(np.isfinite(pu).all()), "inverse_path: the retrieved phase "
+          "map is not finite")
+    tgt_phase = torch.from_numpy(pu.astype(np.float32)).to(dev)
+    phase_mask = torch.from_numpy(beam_px).to(dev)
+
+    # -- the differentiable model and the example's loss
+    render = make_renderer(dom, s0, diagnostic=("shadowgraphy",
+                                                "schlieren_df", "phase_map"),
+                           **kw)
+    sc_sh = float(tgt_sh.abs().max()) + 1e-30
+    sc_sc = float(tgt_sc.abs().max()) + 1e-30
+    sc_ph = float(np.abs(pu[beam_px]).max()) + 1e-30
+
+    def data_terms(theta):
+        g = torch.nn.functional.softplus(theta)
+        im_sh, im_sc, im_ph = render(volume(g))
+        return (g, torch.mean(((im_sh - tgt_sh) / sc_sh) ** 2),
+                torch.mean(((im_sc - tgt_sc) / sc_sc) ** 2),
+                torch.sum(phase_mask * ((im_ph - tgt_phase) / sc_ph) ** 2)
+                / phase_mask.sum())
+
+    theta = torch.full((D, D), -1.5, device=dev)
+    with torch.no_grad():
+        _, l0_sh, l0_sc, l0_ph = data_terms(theta)
+    w_sh, w_sc, w_ph = (1.0 / (float(v) + 1e-12)
+                        for v in (l0_sh, l0_sc, l0_ph))
+
+    def loss(theta):
+        """The example's loss: each bench's misfit over its cold-start
+        value, and the TV prior: (g, total, (the four terms))."""
+        g, l_sh, l_sc, l_ph = data_terms(theta)
+        l_tv = INV["tv_w"] * tv(g)
+        return (g, (w_sh * l_sh + w_sc * l_sc + w_ph * l_ph) / 3.0 + l_tv,
+                (l_sh, l_sc, l_ph, l_tv))
+
+    theta.requires_grad_()
+    opt = torch.optim.Adam([theta], lr=INV["lr"])
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda t: cosine_decay(1.0, INV["iters"], t))
+    inside = torch.from_numpy(
+        (xh ** 2 + yh ** 2 < INV["beam_r"] ** 2)).to(dev)
+
+    def pack_chain(ne):
+        """The renderer's pack chain (build_pack -> make_zscan_pack ->
+        make_segment_pack), as make_renderer runs it."""
+        g2 = copy.copy(dom)
+        g2.ne = ne
+        zp = zscan.make_zscan_pack(build_pack(g2), layout_of(g2), "z",
+                                   dtype=torch.bfloat16)
+        return zscan.make_segment_pack(zp, K=K).seg_planes
+
+    timed = (march_adjoint.KERNEL, cic.KERNEL, cic.BACKWARD_KERNEL)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(INV_STEPS):
+        for k in timed:
+            k.events = []
+        opt.zero_grad(set_to_none=True)
+        lr = opt.param_groups[0]["lr"]
+        check(abs(lr - cosine_decay(INV["lr"], INV["iters"], i)) <= 1e-12,
+              "inverse_path: the schedule is not optax's cosine decay")
+        if i == 0:
+            cic.RECORD = []
+        try:
+            (g, total, terms), fwd_ms = sync_ms(lambda: loss(theta))
+            _, bwd_ms = sync_ms(total.backward)
+            for r in cic.RECORD or ():
+                if r[0] == "deposit" and r[3].shape[1] not in cic_inputs:
+                    cic_inputs[r[3].shape[1]] = r[1:]
+            for r in cic.RECORD or ():
+                V = r[3].shape[1]
+                if (r[0] == "adjoint" and V in (1, 2)
+                        and r[3].data_ptr() == cic_inputs[V][2].data_ptr()):
+                    adjoint_inputs[V] = r[4]
+        finally:
+            cic.RECORD = None
+        k_ms = [sum(a.elapsed_time(b) for a, b in k.events) for k in timed]
+        n_k11 = len(march_adjoint.KERNEL.events)
+        for k in timed:
+            k.events = None
+        grad = theta.grad
+        vals = [float(v.detach()) for v in (total, *terms)]
+        check(all(math.isfinite(v) for v in vals)
+              and bool(torch.isfinite(grad).all()),
+              f"inverse_path: step {i}: a loss or gradient is not finite")
+        check(float(grad[inside].abs().max()) > 0,
+              f"inverse_path: step {i}: zero gradient inside the beam")
+        # the pack chain's autograd (forward, recomputation and backward
+        # under the checkpoint, as in the step) at this step's volume
+        v = volume(g.detach()).requires_grad_()
+
+        def chain():
+            planes = checkpoint(pack_chain, v, use_reentrant=False)
+            return torch.autograd.grad(planes, v, torch.ones_like(planes))
+
+        _, chain_ms = sync_ms(chain)
+        del v
+        steps.append({"loss": vals[0], "shadow": vals[1],
+                      "schlieren": vals[2], "phase_map": vals[3],
+                      "tv": vals[4],
+                      "lr": lr, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                      "k11_ms": k_ms[0], "k11_launches": n_k11,
+                      "k12_forward_ms": k_ms[1], "k12_adjoint_ms": k_ms[2],
+                      "pack_chain_autograd_ms": chain_ms,
+                      "grad_inside_max": float(grad[inside].abs().max())})
+        opt.step()
+        sched.step()
+        emit({"phase": "inverse_step", "step": i, **steps[-1]})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = path_launches(("march", "march_adjoint", "cic",
+                              "cic_adjoint"), "inverse_path")
+
+    # -- the whole chain's gradient at full width: the loss's central
+    # differences along d = grad / max|grad| (a step of at most FD_STEPS
+    # in any theta) against grad . d. Adam's steps are blind to the
+    # gradient's scale, so this is what catches a wrong sign or scale
+    opt.zero_grad(set_to_none=True)
+    loss(theta)[1].backward()
+    grad = theta.grad.detach()
+    d = grad / grad.abs().max()
+    slope = float((grad.double() * d.double()).sum())
+    fd = {}
+    with torch.no_grad():
+        for h in FD_STEPS:
+            fd[h] = float(loss(theta + h * d)[1].double()
+                          - loss(theta - h * d)[1].double()) / (2 * h)
+    fd_err = max(abs(v / slope - 1.0) for v in fd.values())
+    grad_check = {"slope": slope, "central_differences": fd,
+                  "worst_rel_err": fd_err, "tolerance": FD_TOL}
+    emit({"phase": "inverse_grad_check", **grad_check})
+    check(fd_err <= FD_TOL, f"inverse_path: the gradient disagrees with "
+          f"the loss's central differences: {grad_check}")
+    theta.grad = None
+    detail["inverse_path"] = {
+        "measure_ms": meas_ms, "host_phase_ms": host_ms,
+        "steps": steps, "peak_mem_gb": peak_gb, "launches": launches,
+        "grad_check": grad_check,
+        "cold_start_misfits": [float(l0_sh), float(l0_sc), float(l0_ph)]}
+    emit({"phase": "inverse_path", "dim": D, "rays": N, "K": K,
+          "bins": list(bins), "pack": "bf16",
+          **{k: v for k, v in detail["inverse_path"].items()
+             if k != "steps"}})
+
+    # -- K11 against its plain version: 16,384 of the path's rays over the
+    # full 512^3 bf16 table, segment by segment; state cotangents within
+    # 1e-5 of each column's largest, the table's within 1e-5 relative L2
+    # (the kernel's sums run in another order than autograd's, and its
+    # atomic adds in an order that changes from run to run)
+    with torch.no_grad():
+        planes = pack_chain(volume(torch.nn.functional.softplus(theta)))
+    sp0 = zscan.segment_pack_metadata(dom, K=K)
+    n_seg = planes.shape[0]
+    mkw = dict(shape_ab=sp0.shape_ab, origin_ab=sp0.origin_ab.tolist(),
+               inv_ab=sp0.inv_spacing_ab.tolist(), dp=sp0.dp,
+               layout=layout_of(dom), K=K)
+    u_all = zscan.permute_state(s0, "z").contiguous()
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def k11_vs_plain(u, segs):
+        """Per segment: K11 against march_vjp_plain on (u, random du)."""
+        out = []
+        for s in segs:
+            du = torch.randn(u.shape, generator=gen, device=dev)
+            dseg = torch.zeros(planes[s].shape, device=dev)
+            got = march_adjoint.march_adjoint(u, planes[s], du, dseg=dseg,
+                                              **mkw)
+            want, wseg = march_adjoint.march_vjp_plain(u, planes[s], du,
+                                                       **mkw)
+            col = max(float((got[:, c] - want[:, c]).abs().max())
+                      / max(float(want[:, c].abs().max()), 1e-30)
+                      for c in range(8))
+            tab = float((dseg - wseg).double().norm()
+                        / wseg.double().norm().clamp_min(1e-300))
+            out.append({"segment": s, "state_err": col, "table_rel_l2": tab,
+                        "max_abs_err": float((got - want).abs().max()),
+                        "ok": col <= 1e-5 and tab <= 1e-5})
+            u = march.march(u, planes[s][None], None, **mkw)
+        return out
+
+    k11 = k11_vs_plain(u_all[:K11_RAYS], range(n_seg))
+    check(all(r["ok"] for r in k11), f"K11 differs from its plain version: "
+          f"{[r for r in k11 if not r['ok']]}")
+    shipped = march_adjoint.KERNEL
+    march_adjoint.KERNEL = controls["march_adjoint_no_position"]
+    try:
+        k11_control = k11_vs_plain(u_all[:K11_RAYS], [0])[0]
+    finally:
+        march_adjoint.KERNEL = shipped
+    check(not k11_control["ok"], f"K11's planted control passed: "
+          f"{k11_control}")
+    emit({"phase": "K11_vs_plain", "rays": K11_RAYS, "segments": n_seg,
+          "tolerance": {"state": 1e-5, "table_rel_l2": 1e-5},
+          "worst_state_err": max(r["state_err"] for r in k11),
+          "worst_table_rel_l2": max(r["table_rel_l2"] for r in k11),
+          "planted_control_fails": k11_control})
+
+    # -- K12 against its plain version on all 1 M exit rays of the path:
+    # V = 1 (shadowgraphy), 2 (the phase map) from the optimiser's first
+    # step with its cotangents, 4 (the interferogram) from the measurement
+    # with a seeded cotangent; sums within 1e-5 of the largest (the atomic
+    # adds' order, ~100 rays a pixel), the adjoint within 1e-5 of each
+    # output's largest
+    for V in (1, 2, 4):
+        check(V in cic_inputs and (V == 4 or V in adjoint_inputs),
+              f"inverse_path: no V = {V} deposit and adjoint seen")
+    adjoint_inputs[4] = torch.randn(bins + (4,), generator=gen, device=dev)
+
+    def k12_vs_plain(V):
+        x, y, vals, bins_, lx, ly = cic_inputs[V]
+        dacc = adjoint_inputs[V]
+        acc = cic.deposit(x, y, vals, bins_, lx, ly)
+        ref = cic.cic_plain(x, y, vals, bins_, lx, ly)
+        fwd = float((acc - ref).abs().max()) / float(ref.abs().max())
+        got = cic.adjoint(x, y, vals, dacc, bins_, lx, ly)
+        want = cic.cic_vjp_plain(x, y, vals, dacc, bins_, lx, ly)
+        bwd = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                  for a, b in zip(got, want))
+        return {"forward_err": fwd, "adjoint_err": bwd,
+                "max_abs_err": max(float((acc - ref).abs().max()),
+                                   *(float((a - b).abs().max())
+                                     for a, b in zip(got, want))),
+                "ok": fwd <= 1e-5 and bwd <= 1e-5}
+
+    k12 = {V: k12_vs_plain(V) for V in (1, 2, 4)}
+    check(all(r["ok"] for r in k12.values()),
+          f"K12 differs from its plain version: {k12}")
+    shipped = (cic.KERNEL, cic.BACKWARD_KERNEL)
+    cic.KERNEL = controls["cic_k8_rule"]
+    cic.BACKWARD_KERNEL = controls["cic_adjoint_k8_rule"]
+    try:
+        k12_control = k12_vs_plain(1)
+    finally:
+        cic.KERNEL, cic.BACKWARD_KERNEL = shipped
+    check(not k12_control["ok"], f"K12's planted control passed: "
+          f"{k12_control}")
+    emit({"phase": "K12_vs_plain", "rays": N, "tolerance": 1e-5,
+          **{f"V{V}": r for V, r in k12.items()},
+          "planted_control_fails": k12_control})
+
+    # -- times at the path's shapes, bounds, plain and library times
+    u_s, du_full = u_all, torch.randn(u_all.shape, generator=gen,
+                                      device=dev)
+    dseg = torch.zeros(planes[0].shape, device=dev)
+    k11_ms = batch_ms(lambda: march_adjoint.march_adjoint(
+        u_s, planes[0], du_full, dseg=dseg, **mkw), calls=3)
+
+    def plain_chunks():
+        for lo in range(0, N, PLAIN_CHUNK):
+            march_adjoint.march_vjp_plain(u_s[lo:lo + PLAIN_CHUNK],
+                                          planes[0],
+                                          du_full[lo:lo + PLAIN_CHUNK],
+                                          **mkw)
+
+    k11_plain_ms = best_ms(plain_chunks, reps=1, warmup=0)
+    C = mkw["layout"].n_channels
+    cells = march.entry_cells(u_s, sp0.shape_ab,
+                              mkw["origin_ab"], mkw["inv_ab"])
+    nb = sp0.shape_ab[1]
+    rows_touched = int(torch.unique(torch.cat(
+        [cells + o for o in (0, 1, nb, nb + 1)])).numel())
+    row = (K + 1) * C
+    # Operations a slab, counted from march_adjoint.cu (a fused
+    # multiply-add as two; each layout's extra channels left out, which
+    # keeps the bound below the work). What the VJP needs: the forward
+    # slab (the midpoint planes 8C, four stages of 26 + 7C, the three stage
+    # states and the update 104) and its reverse (four stage adjoints of
+    # 36 + 12C without the forward values they use, the corner sums into
+    # the planes each reads, 48C in all, and the update's and the stage
+    # states' reverse 104). What the design adds beside it: the re-run of
+    # three stages and their states (3 (26 + 7C) + 8C + 48) and the
+    # forward values each stage adjoint recomputes (4 (20 + 7C)). The
+    # bound counts only the first
+    stage = 26 + 7 * C
+    k11_ops = N * K * (8 * C + 4 * stage + 104 + 4 * (36 + 12 * C)
+                       + 48 * C + 104)
+    k11_rerun_ops = N * K * (3 * stage + 8 * C + 48 + 4 * (20 + 7 * C))
+    k11_b = bound(N * 3 * 32 + rows_touched * row * (2 + 4), k11_ops)
+
+    def k12_times(V):
+        x, y, vals, bins_, lx, ly = cic_inputs[V]
+        dacc = adjoint_inputs[V]
+        nxy = bins_[0] * bins_[1]
+        fwd_ms = batch_ms(lambda: cic.deposit(x, y, vals, bins_, lx, ly),
+                          calls=20)
+        bwd_ms = batch_ms(lambda: cic.adjoint(x, y, vals, dacc, bins_, lx,
+                                              ly), calls=20)
+        fwd_plain = best_ms(lambda: cic.cic_plain(x, y, vals, bins_, lx,
+                                                  ly), reps=3)
+        bwd_plain = best_ms(lambda: cic.cic_vjp_plain(x, y, vals, dacc,
+                                                      bins_, lx, ly), reps=3)
+        # the library yardstick: one index_put_(accumulate=True) of the
+        # four corners' precomputed rows and values (the port never calls
+        # it)
+        hx, sx, hy, sy = cic._scales(bins_, lx, ly)
+        tx, ty = (x + hx) * sx - 0.5, (y + hy) * sy - 0.5
+        fin = torch.isfinite(tx) & torch.isfinite(ty)
+        ax, ay = torch.floor(tx), torch.floor(ty)
+        fx, fy = tx - ax, ty - ay
+        idx, val = [], []
+        for a, gx in ((0, 1 - fx), (1, fx)):
+            for b, gy in ((0, 1 - fy), (1, fy)):
+                ok = (fin & (ax + a >= 0) & (ax + a <= bins_[0] - 1)
+                      & (ay + b >= 0) & (ay + b <= bins_[1] - 1))
+                idx.append(((ax + a).clamp(0, bins_[0] - 1) * bins_[1]
+                            + (ay + b).clamp(0, bins_[1] - 1)).long()[ok])
+                val.append((vals * (gx * gy)[:, None])[ok])
+        idx, val = torch.cat(idx), torch.cat(val)
+        acc = torch.zeros((nxy, V), device=dev)
+
+        def lib():
+            acc.zero_()
+            acc.index_put_((idx,), val, accumulate=True)
+
+        lib_ms = best_ms(lib, reps=10)
+        ref = cic.deposit(x, y, vals, bins_, lx, ly).reshape(nxy, V)
+        check(float((acc - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max()), "index_put_ yardstick disagrees with K12")
+        # operations from cic.cu: coordinates and fractions ~12, weights 6,
+        # a corner's V products and adds (the atomic counted as the add);
+        # the adjoint's corners 4 V gathers of two products and adds each
+        fwd_b = bound(N * (8 + 4 * V) + nxy * V * 4, N * (18 + 8 * V))
+        bwd_b = bound(2 * N * (8 + 4 * V) + nxy * V * 4, N * (34 + 16 * V))
+        return {"forward_ms": fwd_ms, "adjoint_ms": bwd_ms,
+                "forward_plain_ms": fwd_plain, "adjoint_plain_ms": bwd_plain,
+                "library_ms": lib_ms, "forward_bound": fwd_b,
+                "adjoint_bound": bwd_b}
+
+    k12_t = {V: k12_times(V) for V in (1, 2, 4)}
+    detail.update({"K11_vs_plain": k11, "K11_control": k11_control,
+                   "K12_vs_plain": k12, "K12_control": k12_control,
+                   "K12_times": k12_t, "k11_rows_touched": rows_touched,
+                   "k11_ops_per_launch": k11_ops,
+                   "k11_design_extra_ops": k11_rerun_ops})
+    t1 = k12_t[1]
+    rows_out = [
+        {"name": "march_adjoint", "route": "cuda",
+         "source": csrc + "march_adjoint.cu",
+         "replaces": "synthpy_tpu/tracer/zscan.py:1079",
+         "launches": launches["march_adjoint"],
+         "max_abs_err": max(r["max_abs_err"] for r in k11),
+         "ms": k11_ms, "plain_ms": k11_plain_ms, "bound_ms": k11_b[0],
+         "bound_by": k11_b[1], "library_ms": None,
+         "per": f"one segment, {N} rays, K = {K}, C = {C}, bf16",
+         "bound_with_design_rerun_ms": (k11_ops + k11_rerun_ops)
+         / F32_FLOPS_PER_S * 1e3},
+        {"name": "cic", "route": "cuda", "source": csrc + "cic.cu",
+         "replaces": "synthpy_tpu/inverse.py:139",
+         "launches": launches["cic"],
+         "max_abs_err": max(r["max_abs_err"] for r in k12.values()),
+         "ms": t1["forward_ms"], "plain_ms": t1["forward_plain_ms"],
+         "bound_ms": t1["forward_bound"][0],
+         "bound_by": t1["forward_bound"][1], "library_ms": t1["library_ms"],
+         "per": f"V = 1, {N} rays, {bins[0]} x {bins[1]}",
+         "V2": {k: k12_t[2][k] for k in ("forward_ms", "forward_plain_ms",
+                                         "library_ms")},
+         "V4": {k: k12_t[4][k] for k in ("forward_ms", "forward_plain_ms",
+                                         "library_ms")}},
+        {"name": "cic_adjoint", "route": "cuda", "source": csrc + "cic.cu",
+         "replaces": "synthpy_tpu/inverse.py:139",
+         "launches": launches["cic_adjoint"],
+         "max_abs_err": max(r["max_abs_err"] for r in k12.values()),
+         "ms": t1["adjoint_ms"], "plain_ms": t1["adjoint_plain_ms"],
+         "bound_ms": t1["adjoint_bound"][0],
+         "bound_by": t1["adjoint_bound"][1], "library_ms": None,
+         "per": f"V = 1, {N} rays, {bins[0]} x {bins[1]}",
+         "V2": {k: k12_t[2][k] for k in ("adjoint_ms", "adjoint_plain_ms")},
+         "V4": {k: k12_t[4][k] for k in ("adjoint_ms", "adjoint_plain_ms")}}]
+    detail["inverse_path_s"] = time.perf_counter() - t_path
+    emit({"phase": "inverse_times", "k11_ms": k11_ms,
+          "k11_plain_ms": k11_plain_ms, "k11_bound": k11_b,
+          "k11_ops": k11_ops, "k11_design_extra_ops": k11_rerun_ops,
+          "k12": {str(V): t for V, t in k12_t.items()},
+          "path_s": detail["inverse_path_s"]})
+    del planes, u_all, dseg
+    torch.cuda.empty_cache()
+    return rows_out, detail
+
+
 def main():
     try:
         import torch
@@ -1292,9 +1867,10 @@ def main():
         from synthpy_tpu_torch.fields.domain import build_pack
         from synthpy_tpu_torch.fields.forms import ClosedForm
         from synthpy_tpu_torch.kernels import (_build, adaptive, analytic,
-                                               binning, deposit, detector,
-                                               fill, march, pack, slab_march,
-                                               time_march)
+                                               binning, cic, deposit,
+                                               detector, fill, march,
+                                               march_adjoint, pack,
+                                               slab_march, time_march)
         from synthpy_tpu_torch.kernels import random as krandom
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
                                                          nvidia_smi)
@@ -1323,13 +1899,17 @@ def main():
                "detector_field": detector.FIELD_KERNEL,
                "deposit": deposit.KERNEL, "bin_image": binning.BIN_KERNEL,
                "bin_field": binning.BIN_FIELD_KERNEL, "fill": fill.KERNEL,
-               "random": krandom.KERNEL}
+               "random": krandom.KERNEL,
+               "march_adjoint": march_adjoint.KERNEL, "cic": cic.KERNEL,
+               "cic_adjoint": cic.BACKWARD_KERNEL}
+    controls = inverse_controls(torch)
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    _build.build({k.source: k.flags for k in kernels.values()})
-    for k in kernels.values():
+    _build.build({k.source: k.flags
+                  for k in [*kernels.values(), *controls.values()]})
+    for k in [*kernels.values(), *controls.values()]:
         k.load()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -1784,9 +2364,10 @@ def main():
 
     k5, k5_t = {}, {}
     for name, r, pk, lay, n, d in (
-            ("bench lens 512^3", rows_sub, tpack, layout, n_steps, dt),
-            ("partly outside, NaN rays", rows_nan, tpack, layout, n_steps,
-             dt),
+            ("bench lens 512^3", rows_sub, tpack, layout,
+             n_steps // CHECK_DEPTH, dt),
+            ("partly outside, NaN rays", rows_nan, tpack, layout,
+             n_steps // CHECK_DEPTH, dt),
             ("C = 8 at 128^3", rows_sub, ppack, play, p_steps,
              dt_of(p_steps, phys.extent))):
         kw = dict(layout=lay, n_steps=n)
@@ -1797,7 +2378,8 @@ def main():
         k5[name] = close(a, b, f"K5 {name}")
         k5_t[name] = {"ms": ms, "plain_ms": pms}
     del a, b
-    emit({"phase": "K5_vs_plain", "rays": SUBSET, "n_steps": n_steps,
+    emit({"phase": "K5_vs_plain", "rays": SUBSET,
+          "n_steps": n_steps // CHECK_DEPTH, "n_steps_C8": p_steps,
           "tolerance": "atol 1e-5 * max|column|, same NaNs", **k5,
           "times": k5_t})
 
@@ -1819,28 +2401,33 @@ def main():
             ("f32, substeps 1, partly outside, NaN rays", zpack, layout,
              u_off, 1),
             ("C = 8 at 128^3, f32, substeps 1", zphys, play, u_sub, 1)):
-        kw = dict(layout=lay, n_slabs=zp.planes.shape[0] - 1, substeps=sub)
+        n_slabs = zp.planes.shape[0] - 1
+        if zp is not zphys:
+            n_slabs //= CHECK_DEPTH
+        kw = dict(layout=lay, n_slabs=n_slabs, substeps=sub)
         a, ms = timed(lambda: slab_march.march(u, *zargs(zp), **kw))
         b, pms = timed(lambda: slab_march.march_plain(u, *zargs(zp), **kw))
         k4[name] = close(a, b, f"K4 {name}")
         k4_t[name] = {"ms": ms, "plain_ms": pms}
     del a, b
-    emit({"phase": "K4_vs_plain", "rays": SUBSET, "n_slabs": DIM - 1,
+    emit({"phase": "K4_vs_plain", "rays": SUBSET,
+          "n_slabs": (DIM - 1) // CHECK_DEPTH, "n_slabs_C8": PHYS_DIM - 1,
           "tolerance": "atol 1e-5 * max|column|, same NaNs", **k4,
           "times": k4_t})
 
     pamax = adaptive.plane_amax_of(tpack.channels, 2)
     k6, k6_t = {}, {}
-    for name, r, pk, lay, ext, pa in (
-            ("bench lens 512^3", rows_sub, tpack, layout, domain.extent,
-             pamax),
+    for name, r, pk, lay, t_stop, pa in (
+            ("bench lens 512^3", rows_sub, tpack, layout,
+             t_end / CHECK_DEPTH, pamax),
             ("C = 8 at 128^3, partly outside", rows_off, ppack, play,
-             phys.extent, adaptive.plane_amax_of(ppack.channels, 2))):
+             t_end_of(phys.extent), adaptive.plane_amax_of(ppack.channels,
+                                                           2))):
         kw = dict(layout=lay, plane_amax=pa, p_axis=2)
         (sa, acc, rej), ms = timed(lambda: adaptive.trace_rk45(
-            r, pk.channels, pk.origin, pk.inv_spacing, t_end_of(ext), **kw))
+            r, pk.channels, pk.origin, pk.inv_spacing, t_stop, **kw))
         (sb, acc_p, rej_p), pms = timed(lambda: adaptive.trace_rk45_plain(
-            r, pk.channels, pk.origin, pk.inv_spacing, t_end_of(ext), **kw))
+            r, pk.channels, pk.origin, pk.inv_spacing, t_stop, **kw))
         check((acc, rej) == (acc_p, rej_p), f"K6 {name}: steps {(acc, rej)}"
               f" != plain {(acc_p, rej_p)}")
         k6[name] = {**close(sa, sb, f"K6 {name}"), "accepted": acc,
@@ -2188,6 +2775,11 @@ def main():
     sc_rows, sc_detail = scale_slice(torch, dev, kernels, bound, reset,
                                      path_launches, close)
 
+    # -- 3d. the differentiable renderer: the 512^3 joint inversion, K11 and
+    # K12 held to their plain versions at its shapes
+    inv_rows, inv_detail = inverse_path(torch, dev, kernels, bound, reset,
+                                        path_launches, controls)
+
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
     k1_call_ms = best_ms(lambda: march.march(u_all, sp.seg_planes,
                                              sp.scales, **mkw), reps=5)
@@ -2489,10 +3081,11 @@ def main():
                   "time_march": 1, "adaptive_step": 2, "analytic": 1,
                   "detector_field": 1, "deposit": 2, "bin_image": 1,
                   "bin_field": 1, "fill": 2, "random_normal": 1,
-                  "pack_dither": 2},
+                  "pack_dither": 2, "march_adjoint": 1, "cic": 1,
+                  "cic_adjoint": 1},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "script_s": time.perf_counter() - t_start}
-    rows_out += wo_rows + sc_rows
+    rows_out += wo_rows + sc_rows + inv_rows
     emit({"phase": "bounds", **detail})
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
@@ -2503,7 +3096,7 @@ def main():
                    "K5_times": k5_t, "K6": k6, "K6_times": k6_t,
                    "paths": paths, "K7": k7, "K3_coherent": coh,
                    "kernels": rows_out, **wo_detail, **sc_detail,
-                   **detail}, f, indent=1)
+                   **inv_detail, **detail}, f, indent=1)
     emit({"kernels": rows_out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,10 @@ and the adaptive validation tracer ``solve_adaptive`` (K6). ``solve``,
 ``solve_zscan``, ``solve_adaptive`` and ``solve_zscan_analytic`` are
 exported here, as in ``synthpy_tpu.tracer``.
 
+``inverse.make_renderer`` builds the differentiable forward model, ne ->
+image(s), for ``torch.autograd`` (the segment march's adjoint K11 and the
+cloud-in-cell detector K12), with the priors of ``priors``.
+
 From the exit rays, the diagnostic classes (``optics.Shadowgraphy``,
 ``Schlieren``, ``Refractometry``, ``Interferometry``, ``Polarimetry``, also
 exported here) bin through K3's bare-ray entry points, and the Fresnel
@@ -38,10 +42,12 @@ _SUBMODULES = (
     "constants",
     "convert",
     "fields",
+    "inverse",
     "kernels",
     "ops",
     "optics",
     "pipeline",
+    "priors",
     "tracer",
 )
 

@@ -4,8 +4,12 @@ quantiser, decimator), K3 ``detector`` (incoherent image and coherent
 field sums of exit states) and ``binning`` (its entry points for bare
 rays), K4 ``slab_march`` (plain z-scan march), K5 ``time_march``
 (time-domain RK4), K6 ``adaptive`` (one Dormand-Prince 5(4) step and its
-controller), K7 ``analytic`` (the pack-free march on closed-form fields)
-and K8 ``deposit`` (cloud-in-cell deposit). The sources are in ``csrc/``
-(K5 and K6 share ``time_rhs.cuh``, K4 and K7 ``zscan_rhs.cuh``) and are
-built with ``nvcc`` for ``sm_90a`` at first launch (``_build``).
+controller), K7 ``analytic`` (the pack-free march on closed-form fields),
+K8 ``deposit`` (cloud-in-cell deposit), K9 ``fill`` (plane-batch pack
+fill), K10 ``random`` (threefry draws), K11 ``march_adjoint`` (the segment
+march's adjoint) and K12 ``cic`` (the differentiable renderer's
+cloud-in-cell image and its adjoint). The sources are in ``csrc/`` (K5 and
+K6 share ``time_rhs.cuh``, K4, K7 and K11 ``zscan_rhs.cuh``, K2 and K9
+``channels.cuh``, K8 and K12 ``deposit.cuh``) and are built with ``nvcc``
+for ``sm_90a`` at first launch (``_build``).
 """

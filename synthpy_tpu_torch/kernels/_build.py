@@ -87,6 +87,9 @@ class Kernel:
 
     ``functions`` maps each exported C function to its argument types; each
     returns the ``cudaError_t`` of its launches (0 when all launched).
+    ``events``: None, or a list to which each launch appends its (start,
+    end) CUDA events, recorded on its stream, for timing a launch where a
+    caller makes it (off by default).
     """
 
     def __init__(self, source: str, functions: Dict[str, Sequence],
@@ -95,6 +98,7 @@ class Kernel:
         self.functions = functions
         self.flags = list(flags)
         self.launches = 0
+        self.events = None
         self._lib = None
 
     def load(self):
@@ -116,8 +120,15 @@ class Kernel:
                             f"{len(self.functions[name]) - 1} arguments "
                             f"and the stream, not {len(args)}")
         fn = getattr(self.load(), name)
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device)
+        if self.events is not None:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record(stream)
+        rc = fn(*args, stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.source}:{name} failed to launch "
                                f"(cudaError {rc})")
+        if self.events is not None:
+            ev[1].record(stream)
+            self.events.append(tuple(ev))
         self.launches += 1

@@ -29,6 +29,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "deposit.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -73,8 +75,7 @@ __global__ void deposit_kernel(const float* x, const float* y,
       const float w = gx[a] * gy[b];
       float* node = acc + ((long long)(ix + a) * ny + iy + b) * (V + 1);
       if (inside) {
-#pragma unroll
-        for (int c = 0; c < V; ++c) atomicAdd(node + c, v[c] * w);
+        deposit::add_weighted<V>(node, v, w);
         atomicAdd(node + V, w);
       } else if (isnan(w)) {
 #pragma unroll

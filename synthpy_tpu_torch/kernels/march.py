@@ -113,12 +113,19 @@ def march_plain(u: torch.Tensor, seg_planes: torch.Tensor,
                 vals[:, 1] * inv_vp, vals[:, 2] * inv_vp, d_amp, d_phase,
                 d_pol)
 
+    zero, one = (torch.tensor(v, dtype=dt, device=u.device)
+                 for v in (0.0, 1.0))
+
+    def clip01(r):
+        # jnp.clip's min(max(r, 0), 1): the same values as torch.clamp,
+        # and under autograd the same derivative as jax.grad, 1/2 at a tie
+        return torch.minimum(torch.maximum(r, zero), one)
+
     def fractions(cc, ia0f, ib0f):
         ta = (cc[0] - oa) * ia_
         tb = (cc[1] - ob) * ib_
         inside = (ta >= 0) & (ta <= na - 1) & (tb >= 0) & (tb <= nb - 1)
-        return (torch.clamp(ta - ia0f, 0.0, 1.0),
-                torch.clamp(tb - ib0f, 0.0, 1.0), inside)
+        return clip01(ta - ia0f), clip01(tb - ib0f), inside
 
     def blend(w4, wv):
         w00, w01, w10, w11 = (w[:, None] for w in w4)

@@ -22,9 +22,15 @@ each segment copied up on a side stream while K1 marches the one before
 int8/int4 packs draw JAX's threefry stream (``kernels.random``), so they
 equal the JAX package's for the same key.
 
+Under autograd the segmented march is ``_SegmentMarch``: K1 forward one
+segment at a time, keeping the segment-start states, and kernel K11
+(``kernels.march_adjoint``) backward segment by segment, for rk4 with
+stage weights on float32 or bf16 tables (what ``inverse.make_renderer``
+runs); other configurations raise under autograd, naming ROADMAP B8.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-``mesh=`` (A.17), and on the segmented march ``block=``, ``substeps > 1``
-and ``remat`` (A.4 / B8).
+``mesh=`` (A.17), and on the segmented march ``block=`` and
+``substeps > 1`` (A.4).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from synthpy_tpu_torch.fields.domain import (ChannelLayout, ScalarDomain,
                                              host_resident, layout_of)
 from synthpy_tpu_torch.kernels import fill as _fill
 from synthpy_tpu_torch.kernels import march as _march
+from synthpy_tpu_torch.kernels import march_adjoint as _adjoint
 from synthpy_tpu_torch.kernels import pack as _pack
 from synthpy_tpu_torch.kernels import slab_march as _slab
 from synthpy_tpu_torch.kernels.slab_march import (  # noqa: F401
@@ -432,13 +439,23 @@ def trace_zscan_segments(
     """March (N, 8) permuted rays through ``n_seg`` segments of K slabs
     (kernel K1). ``integrator``: "rk4", "rk2" (midpoint), "rk2s2" (2-slab
     midpoint) or "rk2s4" (4-slab midpoint); ``weights``: "stage" (corner
-    weights at every stage) or "slab" (once per slab)."""
+    weights at every stage) or "slab" (once per slab).
+
+    Differentiable in ``u`` and ``seg_planes`` for rk4 with stage weights on
+    a float32 or bf16 table: the forward keeps each segment's start state
+    and the backward runs the adjoint (kernel K11) segment by segment, so
+    memory grows with n_seg, not with the slab count, whatever ``remat``
+    says. ``remat=True`` and ``remat=False`` give the same gradient, as in
+    JAX (where ``remat`` places ``jax.checkpoint``s); the flag is kept so
+    that JAX callers run unchanged. A bf16 table's cotangent is summed in
+    float32 and rounded to bf16 once, where JAX's transposed ``astype``
+    sums it in bf16: the two differ by bf16 rounding (2^-8 relative). Any
+    other configuration raises ``NotImplementedError`` (ROADMAP B8) when a
+    gradient is asked of it."""
     if substeps != 1:
         raise _not_ported("substeps > 1", "A.4")
     if block is not None:
         raise _not_ported("block=", "A.4")
-    if remat:
-        raise _not_ported("remat", "B8")
     if integrator not in _march.INTEGRATORS:
         raise ValueError(f"unknown integrator {integrator!r}")
     if weights not in ("stage", "slab"):
@@ -460,12 +477,56 @@ def trace_zscan_segments(
     if seg_planes.shape[0] != n_seg:
         raise ValueError(f"table has {seg_planes.shape[0]} segments, "
                          f"n_seg={n_seg}")
-    return _march.march(
-        u, seg_planes, seg_scales, shape_ab=shape_ab,
-        origin_ab=[float(v) for v in origin_ab.tolist()],
-        inv_ab=[float(v) for v in inv_ab.tolist()], dp=float(dp),
-        layout=layout, K=K, integrator=integrator, weights=weights,
-        qbits=qbits, atten_sign=atten_sign)
+    kw = dict(shape_ab=shape_ab,
+              origin_ab=[float(v) for v in origin_ab.tolist()],
+              inv_ab=[float(v) for v in inv_ab.tolist()], dp=float(dp),
+              layout=layout, K=K, atten_sign=atten_sign)
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (u, seg_planes, seg_scales))
+    if not grad:
+        return _march.march(u, seg_planes, seg_scales, integrator=integrator,
+                            weights=weights, qbits=qbits, **kw)
+    if not _adjoint.covers(integrator, weights, seg_planes.dtype, qbits):
+        raise _not_ported(
+            f"the gradient of the segmented march with integrator="
+            f"{integrator!r}, weights={weights!r} on a {seg_planes.dtype} "
+            "table (covered: rk4, stage weights, float32 or bf16)", "B8")
+    return _SegmentMarch.apply(u, seg_planes, kw)
+
+
+class _SegmentMarch(torch.autograd.Function):
+    """The rk4 / stage-weights segmented march under autograd: K1 one
+    segment at a time forward (on one-segment views of the table, as
+    ``march_streamed``), keeping the n_seg start states; K11
+    (``kernels.march_adjoint``) backward, last segment first. On CPU
+    tensors the same bookkeeping runs the plain versions."""
+
+    @staticmethod
+    def forward(ctx, u, seg_planes, kw):
+        starts = []
+        for s in range(seg_planes.shape[0]):
+            starts.append(u)
+            u = _march.march(u, seg_planes[s:s + 1], None, **kw)
+        ctx.save_for_backward(seg_planes, *starts)
+        ctx.kw = kw
+        return u
+
+    @staticmethod
+    def backward(ctx, du):
+        seg_planes, *starts = ctx.saved_tensors
+        dseg = (torch.zeros(seg_planes.shape,
+                            dtype=_adjoint.grad_dtype(seg_planes.dtype),
+                            device=seg_planes.device)
+                if ctx.needs_input_grad[1] else None)
+        du = du.contiguous()
+        for s in reversed(range(len(starts))):
+            du = _adjoint.march_adjoint(
+                starts[s], seg_planes[s], du,
+                dseg=None if dseg is None else dseg[s], **ctx.kw)
+        if dseg is not None:
+            dseg = dseg.to(seg_planes.dtype)
+        return du, dseg, None
 
 
 def solve_zscan_segments(

@@ -1040,3 +1040,138 @@ def test_synth_route_and_grf_on_card(dev):
     _, fc = grf.grf_domain_fft(trandom.PRNGKey(3), grf.kolmogorov, 2e-3,
                                4e-4, 5e-3, 16, device="cpu")
     assert float((fg.cpu() - fc).abs().max()) <= 1e-5
+
+
+# -- the differentiable renderer: K11 (march adjoint) and K12 (CIC) ---------
+
+def _adjoint_scene(device, C):
+    d = ScalarDomain(2 * EXT, 17, device=device)
+    d.test_lens(ne_0=5e24, LR=1.5e-3)
+    d.phaseshift = C >= 4
+    if C == 8:
+        d.inv_brems = True
+        g = torch.Generator().manual_seed(4)
+        d.external_Te((50.0 + 10.0 * torch.rand(d.dims, generator=g)).to(
+            device))
+        d.external_Z(2.0 * torch.ones(d.dims, device=device))
+        d.test_B(Bmax=10.0)
+    return d
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [3, 4, 8])
+def test_march_adjoint_kernel_matches_plain(dev, C, tier):
+    """K11 on every segment of a 17^3 pack (K = 6, the last padded), 3,000
+    rays partly outside the grid, against march_vjp_plain on the card:
+    state cotangents within 1e-5 of each column's largest, the table's
+    within 1e-5 relative L2 (the order of its atomic adds and of the
+    adjoint's sums)."""
+    from synthpy_tpu_torch.kernels import march_adjoint
+
+    d = _adjoint_scene(dev, C)
+    lay = layout_of(d)
+    sp = zscan.build_segment_pack_device(
+        d, K=6, dtype=torch.float32 if tier == "f32" else torch.bfloat16)
+    s0 = init_beam(2, 3000, 2.2e-3, 2e-3, EXT, "circular", device=dev)
+    u = zscan.permute_state(s0, "z").contiguous()
+    kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+              inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp, layout=lay,
+              K=sp.K)
+    g = torch.Generator(device=dev).manual_seed(C)
+    for s in range(sp.seg_planes.shape[0]):
+        seg = sp.seg_planes[s]
+        du = torch.randn(u.shape, generator=g, device=dev)
+        dseg = torch.zeros(seg.shape, device=dev)
+        n0 = march_adjoint.KERNEL.launches
+        got = march_adjoint.march_adjoint(u, seg, du, dseg=dseg, **kw)
+        assert march_adjoint.KERNEL.launches == n0 + 1
+        want, wseg = march_adjoint.march_vjp_plain(u, seg, du, **kw)
+        for c in range(8):
+            scale = float(want[:, c].abs().max())
+            assert float((got[:, c] - want[:, c]).abs().max()) <= \
+                1e-5 * max(scale, 1e-30), (s, c)
+        assert float((dseg - wseg).double().norm()
+                     / wseg.double().norm()) <= 1e-5, s
+        u = march.march(u, seg[None], None, **kw)
+
+
+@pytest.mark.parametrize("V", [1, 2, 4])
+def test_cic_kernels_match_plain(dev, V):
+    """K12 forward and adjoint against cic_plain / cic_vjp_plain on
+    200,000 rays with edge, off-detector, diverged and NaN rays: sums
+    within 1e-5 of the largest (atomic order), the adjoint's per-ray
+    values within 1e-5 of each output's largest; parked rays exactly 0."""
+    from synthpy_tpu_torch.kernels import cic
+
+    g = torch.Generator(device=dev).manual_seed(V)
+    n = 200_000
+    x = (torch.rand(n, generator=g, device=dev) - 0.5) * 22.0
+    y = (torch.rand(n, generator=g, device=dev) - 0.5) * 17.0
+    x[:4] = torch.tensor([-9.0, 9.0, 1e12, float("nan")], device=dev)
+    y[:4] = torch.tensor([0.0, 6.75, 0.0, 1.0], device=dev)
+    vals = torch.randn((n, V), generator=g, device=dev)
+    bins = (96, 72)
+    acc = cic.deposit(x, y, vals, bins, 18.0, 13.5)
+    ref = cic.cic_plain(x, y, vals, bins, 18.0, 13.5)
+    assert float((acc - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    dacc = torch.randn(acc.shape, generator=g, device=dev)
+    got = cic.adjoint(x, y, vals, dacc, bins, 18.0, 13.5)
+    want = cic.cic_vjp_plain(x, y, vals, dacc, bins, 18.0, 13.5)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for a in got:
+        assert float(a[2:4].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("probe", ["z", "x"])
+def test_renderer_gradient_on_card_matches_cpu(dev, probe, tier):
+    """inverse.make_renderer on the card (K1, K11, K12 launched) against
+    the CPU port: images within 1e-5 of the largest, the gradient of a
+    weighted loss with respect to ne within 1e-4 relative L2 (f32; bf16
+    1e-3: the table's cotangent, summed in float32 on both, is rounded to
+    bf16 and a sum that differs by the atomics' order may round to the
+    next step)."""
+    from synthpy_tpu_torch import inverse
+    from synthpy_tpu_torch.kernels import cic, march_adjoint
+
+    out = {}
+    for device in (dev, "cpu"):
+        d = ScalarDomain(2 * EXT, 21, probing_direction=probe,
+                         phaseshift=True, device=device)
+        d.test_lens(ne_0=5e24, LR=1.5e-3)
+        s0 = init_beam(5, 2000, 2e-3, 0.0, EXT, "circular",
+                       probing_direction=probe, device="cpu").to(device)
+        render = inverse.make_renderer(
+            d, s0, diagnostic=("shadowgraphy", "schlieren_df", "phase_map"),
+            bins=(48, 36), K=4, bench_kwargs={"schlieren_df": {"stop_R":
+                                                               0.05}},
+            pack_dtype=torch.bfloat16 if tier == "bf16" else None)
+        ne = (0.8 * d.ne).requires_grad_()
+        n11, n12 = march_adjoint.KERNEL.launches, cic.BACKWARD_KERNEL.launches
+        ims = render(ne)
+        W = [torch.randn(i.shape, generator=torch.Generator().manual_seed(
+            k)).to(device) for k, i in enumerate(ims)]
+        grad, = torch.autograd.grad(sum((w * i).sum() for w, i in zip(
+            W, ims)), ne)
+        if device != "cpu":
+            assert march_adjoint.KERNEL.launches > n11
+            assert cic.BACKWARD_KERNEL.launches == n12 + 3
+        out[str(device)] = ([i.detach().cpu() for i in ims], grad.cpu())
+    (ia, ga), (ib, gb) = out[str(dev)], out["cpu"]
+    for a, b in zip(ia, ib):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    tol = 1e-3 if tier == "bf16" else 1e-4
+    assert float((ga - gb).double().norm() / gb.double().norm()) <= tol
+
+
+def test_gradient_outside_the_covered_march_raises_on_card(dev):
+    d = ScalarDomain(2 * EXT, 17, device=dev).test_lens()
+    sp = zscan.build_segment_pack_device(d, K=8, dtype=torch.float32)
+    u = zscan.permute_state(init_beam(1, 64, 2e-3, 0.0, EXT, "circular",
+                                      device=dev), "z").requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+        zscan.trace_zscan_segments(
+            u, sp.seg_planes, sp.origin_ab, sp.inv_spacing_ab, sp.dp,
+            shape_ab=sp.shape_ab, layout=layout_of(d), K=sp.K,
+            n_seg=sp.seg_planes.shape[0], integrator="rk2")

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from synthpy_tpu import inverse as jinv
 from synthpy_tpu import pipeline as jpipe
 from synthpy_tpu.fields import ScalarDomain as JDomain
 from synthpy_tpu.fields import grf as jgrf
@@ -95,6 +96,15 @@ def build_reference():
         group, what = case.split("/")
         if group == "class":
             out[f"out/{case}"] = R.class_image(jdg, what, rf, Jf)
+    render = jinv.make_renderer(jd, s0, **R.RENDER)
+    ne = R.RENDER_AT * np.asarray(jd.ne)
+    images = jnp.stack(render(jnp.asarray(ne)))
+    w = np.random.default_rng(8).standard_normal(images.shape).astype(
+        np.float32)
+    out["in/render_w"] = w
+    out["out/render/images"] = images
+    out["out/render/grad"] = jax.grad(lambda n: jnp.sum(
+        w * jnp.stack(render(n))))(jnp.asarray(ne))
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -129,7 +139,7 @@ def test_port_matches_the_reference_on_the_cpu(ref, case):
 def test_compare_catches_a_wrong_output(ref):
     """The comparison fails a perturbed output of each metric."""
     for case in ("exit/zscan", "image/shadowgraphy", "fresnel/U",
-                 "image/interferometry"):
+                 "image/interferometry", "render/grad"):
         metric, tol, _ = R.CASES[case]
         want = ref[f"out/{case}"]
         bad = want.copy()

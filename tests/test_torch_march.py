@@ -119,7 +119,7 @@ def test_unported_and_invalid_options_raise(lens):
     kw = dict(shape_ab=tp.shape_ab, layout=layout_of(jd), K=tp.K,
               n_seg=tp.seg_planes.shape[0])
     args = (uu, tp.seg_planes, tp.origin_ab, tp.inv_spacing_ab, tp.dp)
-    for bad in ({"substeps": 2}, {"block": 4}, {"remat": True}):
+    for bad in ({"substeps": 2}, {"block": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tz.trace_zscan_segments(*args, **kw, **bad)
     with pytest.raises(ValueError):

@@ -52,7 +52,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_sources_carry_their_note_and_build_flags():
     for src in ("march.cu", "pack.cu", "detector.cu", "analytic.cu",
-                "deposit.cu", "fill.cu", "random.cu"):
+                "deposit.cu", "fill.cu", "random.cu", "march_adjoint.cu",
+                "cic.cu"):
         text = (_build.CSRC / src).read_text()
         assert "Replaces" in text and "bounds it on the H100" in text, src
         assert "synthpy_tpu/" in text, src
@@ -68,15 +69,15 @@ def test_kernel_argtypes_match_the_c_entry_points():
     import re
 
     from synthpy_tpu_torch.kernels import (adaptive, analytic, binning,
-                                           deposit, detector, fill, march,
-                                           pack, random, slab_march,
-                                           time_march)
+                                           cic, deposit, detector, fill,
+                                           march, march_adjoint, pack,
+                                           random, slab_march, time_march)
 
-    kernels = [m.KERNEL for m in (adaptive, analytic, deposit, detector,
-                                  fill, march, pack, random, slab_march,
-                                  time_march)]
+    kernels = [m.KERNEL for m in (adaptive, analytic, cic, deposit, detector,
+                                  fill, march, march_adjoint, pack, random,
+                                  slab_march, time_march)]
     kernels += [detector.FIELD_KERNEL, binning.BIN_KERNEL,
-                binning.BIN_FIELD_KERNEL]
+                binning.BIN_FIELD_KERNEL, cic.BACKWARD_KERNEL]
     seen = set()
     for k in kernels:
         text = (_build.CSRC / k.source).read_text()
@@ -94,7 +95,8 @@ def test_kernel_argtypes_match_the_c_entry_points():
             assert params[-1].split()[-1] == "stream", name
             seen.add(name)
     assert {"analytic_march", "detect_field", "detect_image", "bin_image",
-            "bin_field", "deposit_cic", "pack_fill", "random_draw"} <= seen
+            "bin_field", "deposit_cic", "pack_fill", "random_draw",
+            "march_adjoint", "cic_deposit", "cic_adjoint"} <= seen
 
 
 def test_entry_points_default_to_cuda():
@@ -117,8 +119,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         pytest.skip("nvcc is present: the wrappers would build and launch")
     from synthpy_tpu_torch.fields.domain import ChannelLayout
     from synthpy_tpu_torch.fields.forms import ClosedForm
-    from synthpy_tpu_torch.kernels import (analytic, binning, deposit,
-                                           detector, fill, march, pack)
+    from synthpy_tpu_torch.kernels import (analytic, binning, cic, deposit,
+                                           detector, fill, march,
+                                           march_adjoint, pack)
     from synthpy_tpu_torch.kernels import random as kernel_random
     from synthpy_tpu_torch.ops import fresnel, histogram
 
@@ -163,6 +166,14 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
             torch.empty((2, 0, 3, 3), device=meta), g0=0, seg_i=0, col0=0,
             k0=0, pb=2, lone=False, mode=2, layout=lay, n_p=9, pref=-1.0,
             da=1.0, db=1.0, dp=1.0, omega=1e15, verdet=0.0, dither=(0, 7)),
+        lambda: march_adjoint.march_adjoint(
+            u, table[0], u, shape_ab=(3, 3), origin_ab=(0.0, 0.0),
+            inv_ab=(1.0, 1.0), dp=1.0, layout=lay, K=8,
+            dseg=torch.empty((9, 9 * 3), device=meta)),
+        lambda: cic.deposit(x, x, x[:, None], (4, 4), 2.0, 2.0),
+        lambda: cic.adjoint(x, x, x[:, None], torch.empty((4, 4, 1),
+                                                          device=meta),
+                            (4, 4), 2.0, 2.0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -171,6 +182,8 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     assert (deposit.KERNEL.launches == binning.BIN_KERNEL.launches
             == binning.BIN_FIELD_KERNEL.launches == fill.KERNEL.launches
             == kernel_random.KERNEL.launches == 0)
+    assert (march_adjoint.KERNEL.launches == cic.KERNEL.launches
+            == cic.BACKWARD_KERNEL.launches == 0)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
