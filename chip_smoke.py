@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-The port's twelve hand-written CUDA kernels are built from
+The port's sixteen hand-written CUDA kernels are built from
 ``synthpy_tpu_torch/kernels/csrc`` with nvcc, all sources at once: K1
 segment march, K2 pack builder/quantiser/decimator (with JAX's dither),
 K3 detector (an incoherent and a coherent entry point on exit states,
 ``bin_image`` and ``bin_field`` on bare rays), K4 plain slab march, K5
 time-domain RK4 march, K6 adaptive Dormand-Prince step, K7 analytic march,
 K8 cloud-in-cell deposit, K9 plane-batch pack fill, K10 threefry draws,
-K11 the segment march's adjoint and K12 the differentiable renderer's
+K11 the segment march's adjoint, K12 the differentiable renderer's
 cloud-in-cell image and its adjoint (with the planted controls of
-``inverse_path``).
+``inverse_path``), K13 the proton Boris push, K14 the B-table batch
+write, K15 the X-ray opacity lookup and plane fold and K16 the
+point-projection plane crossings and chord sampler.
 Each is held to its plain PyTorch version on the card. The
 zscan_seg bench configuration (512^3 bench lens, K = 512, 4,000,000 rays,
 rk2, slab weights, 431 x 321 bins) runs through the port's entry points at
@@ -76,7 +78,22 @@ host's fringe analysis, then INV_STEPS Adam steps (optax's cosine decay)
 with per-step forward, backward, K11, K12 and pack-chain times and the
 peak device memory; K11 held to its plain version on 16,384 of the path's
 rays over the full bf16 table, K12 on all 1 M exit rays for V = 1, 2 and
-4, each with a planted fault that must fail the same check.
+4, each with a planted fault that must fail the same check. Then the
+radiography slice (``radiography``): ``proton_path`` runs
+``examples/proton_radiography.py`` at res 512 (a 1024^3 solenoidal GRF B
+grid, synthesised at 256^3 and upsampled x4 into one pinned host tensor,
+12 GiB; ``build_B_table`` at bf16, dithered int8 and f32, one table at a
+time; 2 M protons at 14.7 and 3 MeV traced over 4,092 steps and binned),
+the bf16 and int8 tiers held to the f32 trace (RMS transverse exit
+velocity, |v|), K13 held to its plain version on 65,536 of the path's
+protons over all steps at each tier and K14 on one 32-plane batch per
+mode with a planted control (the next plane's dither key) that must
+fail; ``xray_path`` runs ``examples/xray_radiography.py``'s scene at
+1024^3 through ``xray_survey_streamed`` (host volumes, 4 GiB each, 32
+plane batches) and at 256^3 through the dense images, the survey held
+bit for bit to the two single streams, K15 and K16 held to their plain
+versions on one 1024^3 batch and on the dense route; the plain versions
+are counted on both paths and none may run.
 Every path is driven with the launch counts set to 0 just before it and
 read just after. Each phase prints one JSON line, with the script's
 seconds so far (``t_s``); then a
@@ -1851,6 +1868,605 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     return rows_out, detail
 
 
+# -- proton and X-ray radiography (examples/proton_radiography.py at res 512,
+# examples/xray_radiography.py at res 1024 streamed and 256 dense)
+PROTON = dict(res=512, synth_res=128, protons=2_000_000, chunk=262_144,
+              energies=(14.7, 3.0), bins=(431, 321), Lx=100.0, Ly=75.0,
+              batch=32, dither=5)
+K13_SUBSET = 65_536          # protons held to the plain pusher, all steps
+# RMS transverse exit-velocity error of a tier against the f32 trace, over
+# the signal (tests/test_particles.py:158-169)
+TIER_TOL = {"bf16": 0.006, "int8": 0.02}
+XRAY = dict(res=1024, dense=256, plane_batch=32, n_steps=160, half=2.5e-3)
+# operations of a K13 step (boris.cu, a fused multiply-add as two): the
+# two half drifts 6 + 10, t 6, fractions 3 + 3, weights 12, three corner
+# sums of 16, the rotation factor 3 + 5 + 2, two cross products of 9 with
+# their 3 + 6 adds; a step outside the grid skips the gather (63)
+K13_OPS_IN, K13_OPS_OUT = 125, 62
+
+
+def meminfo():
+    """MemTotal and MemAvailable of /proc/meminfo, as printed there."""
+    with open("/proc/meminfo") as f:
+        rows = dict(line.split(":", 1) for line in f if ":" in line)
+    return {k: rows[k].strip() for k in ("MemTotal", "MemAvailable")}
+
+
+def radiography(torch, dev, kernels, bound, reset, path_launches):
+    """The particle and X-ray slice: ``proton_path`` (a 1024^3 turbulent B
+    grid built in one pinned host tensor, the bf16, dithered int8 and f32
+    tables built by build_B_table, 2 M protons at 14.7 and 3 MeV traced
+    through each and binned; the tiers' accuracy against f32; K13 and K14
+    held to their plain versions, with K14's planted control) and
+    ``xray_path`` (the 1024^3 streamed survey and the 256^3 dense images;
+    K15 and K16 held to their plain versions). Each path resets the launch
+    counts, checks its kernels ran and that no plain version did. Returns
+    (kernels-line rows, detail)."""
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.fields import ScalarDomain, grf
+    from synthpy_tpu_torch.kernels import boris, btable
+    from synthpy_tpu_torch.kernels import xray as kx
+    from synthpy_tpu_torch.kernels.profiling import batch_ms, best_ms
+    from synthpy_tpu_torch.optics import xray
+    from synthpy_tpu_torch.tracer import particles
+
+    detail, rows_out = {}, []
+    csrc = "synthpy_tpu_torch/kernels/csrc/"
+    f32 = torch.float32
+    torch.cuda.empty_cache()
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # the plain versions, counted while a path runs (none may run there)
+    plain_calls = {}
+    originals = []
+    for mod, name in ((boris, "push_plain"), (btable, "write_plain"),
+                      (kx, "fold_plain"), (kx, "pp_fold_plain"),
+                      (kx, "pp_chords_plain")):
+        fn = getattr(mod, name)
+        originals.append((mod, name, fn))
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            plain_calls[_name] = plain_calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+
+        setattr(mod, name, counted)
+
+    def path_start():
+        reset()
+        plain_calls.clear()
+
+    def path_end(names, path):
+        counts = path_launches(names, path)
+        check(not plain_calls, f"{path}: a plain version ran: {plain_calls}")
+        return counts
+
+    def rel_err(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30))
+
+    # -- proton_path ---------------------------------------------------------
+    ext = 5e-3
+    res, N = PROTON["res"], PROTON["protons"]
+    dim = 2 * res
+    mem = meminfo()
+    t_path = time.perf_counter()
+    _, Bs = grf.grf_vector_solenoidal(
+        jrandom.PRNGKey(7), grf.power_law(3.667), l_max=3e-3, l_min=0.4e-3,
+        extent=ext, res=PROTON["synth_res"], rms=10.0, device=dev)
+    up = dim // Bs.shape[0]
+    # the host grid, built straight into one pinned tensor: the synthesis
+    # grid upsampled x up (np.repeat on three axes) on the card, a few
+    # source planes at a time, each block copied down into place
+    Bh, pin_s = sync_s(lambda: torch.empty((dim, dim, dim, 3), dtype=f32,
+                                           pin_memory=True))
+
+    def upsample():
+        step = max(1, Bs.shape[0] // 16)
+        for i in range(0, Bs.shape[0], step):
+            blk = Bs[i:i + step].repeat_interleave(up, 0).repeat_interleave(
+                up, 1).repeat_interleave(up, 2)
+            Bh[i * up:(i + step) * up].copy_(blk)
+
+    _, up_s = sync_s(upsample)
+    check(torch.equal(Bh[dim - 1, 0, dim - 1].to(dev), Bs[-1, 0, -1])
+          and torch.equal(Bh[0, up, 0].to(dev), Bs[0, 1, 0]),
+          "proton_path: the upsampled host grid is not np.repeat's")
+    domain = ScalarDomain(2 * ext, dim, device=dev)
+    domain.external_B(Bh, host=True)
+    check(domain.B.data_ptr() == Bh.data_ptr(),
+          "external_B(host=True) copied the pinned grid")
+    setup = {"meminfo_before": mem, "host_B_gib": Bh.numel() * 4 / 2**30,
+             "pin_s": pin_s, "upsample_s": up_s, "upsample": up,
+             "meminfo_after": meminfo()}
+    emit({"phase": "proton_setup", **setup})
+    detail["proton_setup"] = setup
+    del Bs
+
+    energies = PROTON["energies"]
+    pkw = dict(detector_distance=100e-3, extent=ext, bins=PROTON["bins"],
+               Lx=PROTON["Lx"], Ly=PROTON["Ly"])
+    tiers, vel, k13 = {}, {}, {}
+    for tier, dt in (("bf16", torch.bfloat16), ("int8", torch.int8),
+                     ("f32", f32)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        path_start()
+        dither = PROTON["dither"] if tier == "int8" else None
+        # the beams (K10), the same draws at every tier
+        s0 = {E: particles.init_proton_beam(
+            jrandom.PRNGKey(11), N, E, source_distance=10e-3, extent=ext,
+            cone_radius=0.6 * ext, device=dev) for E in energies}
+        tab, build_s = sync_s(lambda: particles.build_B_table(
+            domain, dtype=dt, plane_batch=PROTON["batch"], dither=dither,
+            host_quantize=False))
+        rec = {"build_ms": build_s * 1e3,
+               "h2d_GBps": Bh.numel() * 4 / build_s / 1e9,
+               "table_gib": tab.grid.numel() * tab.grid.element_size()
+               / 2**30, "btable_launches": kernels["btable"].launches}
+        vel[tier] = {}
+        for E in energies:
+            kernels["boris"].events = []
+            sf, trace_s = sync_s(lambda: particles.trace_protons(
+                s0[E], domain, E, ray_chunk=PROTON["chunk"], B_table=tab))
+            ev = kernels["boris"].events
+            kernels["boris"].events = None
+            k13_ms = sum(a.elapsed_time(b) for a, b in ev)
+            H = particles.proton_radiograph(sf, **pkw)
+            n_steps = particles.boris_inputs(s0[E][:1], domain, E,
+                                             B_table=tab)[3]["n_steps"]
+            v0, vf = s0[E][:, 3:].double(), sf[:, 3:].double()
+            cosang = ((v0 * vf).sum(1) / (v0.norm(dim=1) * vf.norm(dim=1)
+                                          + 1e-30)).clamp(-1, 1)
+            ang = torch.arccos(cosang) * 1e3
+            vel[tier][E] = sf[:, 3:].clone()
+            rec[f"{E}MeV"] = {
+                "on_detector": float(H.sum()),
+                "fluence_contrast_rms": float(H.std() / H.mean().clamp_min(
+                    1e-30)),
+                "deflection_mrad_rms": float((ang**2).mean().sqrt()),
+                "deflection_mrad_p99": float(torch.quantile(
+                    ang.float(), 0.99)),
+                "n_steps": n_steps, "trace_ms": trace_s * 1e3,
+                "k13_ms": k13_ms,
+                "proton_steps_per_s": N * n_steps / (k13_ms / 1e3)}
+            check(np.isfinite(rec[f"{E}MeV"]["deflection_mrad_rms"])
+                  and rec[f"{E}MeV"]["on_detector"] > 0.5 * N,
+                  f"proton_path {tier} {E} MeV: {rec[f'{E}MeV']}")
+            del sf, H, v0, vf, cosang, ang
+        names = ["boris", "bin_image", "random"]
+        if tier != "f32":
+            names.append("btable")
+        rec["launches"] = path_end(names, f"proton_path {tier}")
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["path_s"] = time.perf_counter() - t_path
+        emit({"phase": "proton_path", "tier": tier, "dim": dim,
+              "protons": N, **rec})
+        tiers[tier] = rec
+
+        # K13 against its plain version on K13_SUBSET of the path's protons
+        # (the 14.7 MeV beam) over all the steps, in entry-cell order and
+        # in the caller's order
+        rows, grid, scale, kw, _ = particles.boris_inputs(
+            s0[energies[0]][:K13_SUBSET], domain, energies[0], B_table=tab)
+        got = boris.push(rows, grid, scale, **kw)
+        caller = rows.clone()
+        boris.launch(boris.KERNEL, caller, grid, scale, **kw, order=None)
+        want, plain_s = sync_s(lambda: boris.push_plain(rows, grid, scale,
+                                                        **kw))
+        col = want.abs().amax(dim=0)
+        err = ((got - want).abs() / col).amax(dim=0)
+        k13[tier] = {"max_abs_err": float((got - want).abs().max()),
+                     "max_rel_per_column": err.tolist(),
+                     "bit_equal_frac": float((got == want).float().mean()),
+                     "caller_order_equal": torch.equal(caller, got),
+                     "plain_ms": plain_s * 1e3,
+                     "ms": best_ms(lambda: boris.push(rows, grid, scale,
+                                                      **kw), reps=3),
+                     "caller_order_ms": best_ms(lambda: boris.launch(
+                         boris.KERNEL, rows.clone(), grid, scale, **kw,
+                         order=None), reps=3)}
+        check(bool((err <= 1e-6).all()) and k13[tier]["caller_order_equal"],
+              f"K13 {tier} off its plain version: {k13[tier]}")
+        rows, grid, scale, kw, _ = particles.boris_inputs(
+            s0[energies[0]], domain, energies[0], B_table=tab)
+        if tier == "bf16":
+            # the caller's order at full width, beside the entry-cell order
+            k13[tier]["full_caller_order_ms"] = best_ms(
+                lambda: boris.launch(boris.KERNEL, rows.clone(), grid, scale,
+                                     **kw, order=None), reps=1, warmup=0)
+        k13[tier]["n_in_grid_steps"] = int(torch.clamp(
+            torch.ceil(2 * ext / (rows[:, 5].double() * 2 * kw["h"])), 0,
+            kw["n_steps"]).sum())
+        k13[tier]["n_steps"] = kw["n_steps"]
+        k13[tier]["table_bytes"] = tab.grid.numel() * tab.grid.element_size()
+        del rows, grid, scale, got, caller, want
+        if tier != "f32":
+            k14 = k14_vs_plain(torch, dev, btable, jrandom, Bh, tab, tier,
+                               batch_ms, best_ms)
+            detail[f"K14_{tier}"] = k14
+            emit({"phase": "K14_vs_plain", "tier": tier, **{
+                k: v for k, v in k14.items() if k != "row"}})
+        del tab
+    emit({"phase": "K13_vs_plain", "protons": K13_SUBSET,
+          "tolerance": "1e-6 of a column", **k13})
+
+    # the tiers against the f32 trace (tests/test_particles.py:158-169)
+    acc = {}
+    for tier in ("bf16", "int8"):
+        for E in energies:
+            ref, got = vel["f32"][E].double(), vel[tier][E].double()
+            sig = float((ref[:, 0]**2 + ref[:, 1]**2).mean().sqrt())
+            e = float(((got[:, 0] - ref[:, 0])**2
+                       + (got[:, 1] - ref[:, 1])**2).mean().sqrt())
+            v, _ = particles.proton_speed(E)
+            dv = (got.norm(dim=1) - v).abs() / v
+            acc[f"{tier}/{E}MeV"] = {"rms_err_over_signal": e / sig,
+                                     "tolerance": TIER_TOL[tier],
+                                     "speed_rel_max": float(dv.max()),
+                                     "speed_rel_rms": float((dv**2).mean()
+                                                            .sqrt())}
+            check(e / sig < TIER_TOL[tier],
+                  f"proton {tier} {E} MeV off the f32 trace: {acc}")
+    for E in energies:
+        v, _ = particles.proton_speed(E)
+        dv = (vel["f32"][E].double().norm(dim=1) - v).abs() / v
+        acc[f"f32/{E}MeV"] = {"speed_rel_max": float(dv.max()),
+                              "speed_rel_rms": float((dv**2).mean().sqrt())}
+    # |v| after ~2,000 rotations in the field: float32 rounding walks it by
+    # ~1e-6 (PERF.md, PR 9), so the check is 1e-5 on every proton
+    for k, a in acc.items():
+        check(a["speed_rel_max"] <= 1e-5, f"|v| not kept ({k}): {a}")
+    emit({"phase": "proton_accuracy", "dim": dim, "protons": N, **acc})
+    detail.update(proton_path=tiers, proton_accuracy=acc, K13=k13)
+    del vel, s0, domain, Bh
+    torch.cuda.empty_cache()
+
+    b = tiers["bf16"]
+    ops = (k13["bf16"]["n_in_grid_steps"] * K13_OPS_IN
+           + (N * k13["bf16"]["n_steps"] - k13["bf16"]["n_in_grid_steps"])
+           * K13_OPS_OUT)
+    k13_b = bound(k13["bf16"]["table_bytes"] + 2 * N * 24, ops)
+    rows_out.append({
+        "name": "boris", "route": "cuda", "source": csrc + "boris.cu",
+        "replaces": "synthpy_tpu/tracer/particles.py:218",
+        "launches": b["launches"]["boris"],
+        "max_abs_err": max(v["max_abs_err"] for v in k13.values()),
+        "ms": b[f"{energies[0]}MeV"]["k13_ms"],
+        "plain_ms": k13["bf16"]["plain_ms"],
+        "bound_ms": k13_b[0], "bound_by": k13_b[1], "library_ms": None,
+        "per": f"bf16 table, {N} protons, {k13['bf16']['n_steps']} steps; "
+               f"plain_ms on {K13_SUBSET} protons",
+        "tiers": {t: {f"{E}MeV": tiers[t][f"{E}MeV"]["k13_ms"]
+                      for E in energies} for t in tiers},
+        "caller_order_ms": k13["bf16"]["full_caller_order_ms"]})
+    for tier in ("bf16", "int8"):
+        rows_out.append(detail[f"K14_{tier}"].pop("row"))
+        rows_out[-1]["launches"] = tiers[tier]["launches"]["btable"]
+
+    # -- xray_path ------------------------------------------------------------
+    t_x = time.perf_counter()
+    T_grid = np.logspace(0, 3, 30)
+    rho_grid = np.logspace(-5, 1, 40)
+    kfn = xray.make_opacity_lookup(T_grid, rho_grid, 5e3 * np.outer(
+        T_grid**-1.5, rho_grid**0.5), device=dev)
+    half = XRAY["half"]
+    pp_kw = dict(source_distance=8e-3, detector_distance=80e-3,
+                 bins=(431, 321), Lx=90.0, Ly=67.0, probing_direction="y")
+    M = (8e-3 + 2 * half + 80e-3) / (8e-3 + half)
+
+    def scene(res):
+        """examples/xray_radiography.py's (x, z) maps at res: the GRF
+        ripple (res 128 -> 256^3, nearest-resampled), the shell and core."""
+        ax = np.linspace(-half, half, res).astype(np.float32)
+        _, ripple3 = grf.grf_domain_fft(
+            jrandom.PRNGKey(7), grf.power_law(-11.0 / 3.0), l_max=2e-3,
+            l_min=3e-4, extent=half, res=min(res, 256) // 2, device=dev)
+        rxz = ripple3[:, 0, :].cpu().numpy()
+        if rxz.shape[0] != res:
+            idx = np.clip((np.arange(res) * rxz.shape[0]) // res, 0,
+                          rxz.shape[0] - 1)
+            rxz = rxz[np.ix_(idx, idx)]
+        X2, Z2 = np.meshgrid(ax, ax, indexing="ij")
+        r_cyl2 = np.sqrt(X2**2 + Z2**2)
+        r0_2 = 1.4e-3 * (1.0 + 0.12 * rxz)
+        shell2 = np.exp(-((r_cyl2 - r0_2) / 2.5e-4) ** 2)
+        core2 = np.exp(-(r_cyl2 / 8e-4) ** 2)
+        return (ax, (0.5 * shell2 + 1e-2 * core2).astype(np.float32),
+                (15.0 + 485.0 * core2).astype(np.float32))
+
+    def volumes(rho2, te2, res):
+        """The maps broadcast along y into (res, res, res) host tensors."""
+        out = []
+        for m in (rho2, te2):
+            v = torch.empty((res, res, res), dtype=f32)
+            v.copy_(torch.from_numpy(m)[:, None, :].expand(res, res, res))
+            out.append(v)
+        return out
+
+    def row_of(trans, em, pp):
+        return {"min_transmission_parallel": float(trans.min()),
+                "min_transmission_pp": float(pp.min()),
+                "emission_peak_over_median": float(em.max()
+                                                   / em.median()),
+                "magnification": round(M, 2)}
+
+    res_x = XRAY["res"]
+    ax, rho2, te2 = scene(res_x)
+    (rho_h, te_h), vol_s = sync_s(lambda: volumes(rho2, te2, res_x))
+    jfn = xray.grey_emissivity(kfn)
+    path_start()
+    kx.FOLD_KERNEL.events, kx.PP_FOLD_KERNEL.events = [], []
+    imgs, survey_s = sync_s(lambda: xray.xray_survey_streamed(
+        rho_h, te_h, kfn, [ax] * 3, emiss_fn=jfn,
+        plane_batch=XRAY["plane_batch"], device=dev, **pp_kw))
+    k15_ev = [a.elapsed_time(b) for a, b in kx.FOLD_KERNEL.events]
+    k16_ev = [a.elapsed_time(b) for a, b in kx.PP_FOLD_KERNEL.events]
+    kx.FOLD_KERNEL.events = kx.PP_FOLD_KERNEL.events = None
+    launches = path_end(["xray_fold", "pp_fold"], "xray_path survey")
+    n_b = -(-res_x // XRAY["plane_batch"])
+    check(launches["xray_fold"] == n_b and launches["pp_fold"] == n_b,
+          f"xray_path: {launches} launches for {n_b} batches")
+    trans, em, pp = (imgs[k] for k in ("transmission", "emission",
+                                       "point_projection"))
+    check(all(bool(torch.isfinite(t).all()) for t in (trans, em, pp))
+          and tuple(pp.shape) == (431, 321)
+          and tuple(trans.shape) == (res_x, res_x),
+          "xray_path: images not finite or of the wrong shape")
+    # one batch's upload (the staging gather and the copy up) alone
+    planes = [xray._Planes(v, 1, dev, XRAY["plane_batch"])
+              for v in (rho_h, te_h)]
+    up_t = []
+    for k in range(4):
+        i0 = k * XRAY["plane_batch"]
+        _, s_ = sync_s(lambda: [p.get(k, i0, i0 + XRAY["plane_batch"])
+                                for p in planes])
+        up_t.append(s_ * 1e3)
+    batch_bytes = 2 * XRAY["plane_batch"] * res_x * res_x * 4
+    survey = {"res": res_x, "survey_s": survey_s, "volumes_s": vol_s,
+              "host_volumes_gib": 2 * rho_h.numel() * 4 / 2**30,
+              "batches": n_b, "k15_ms_per_batch": k15_ev,
+              "k16_pp_fold_ms_per_batch": k16_ev,
+              "upload_ms_per_batch": up_t,
+              "upload_GBps": batch_bytes / (min(up_t) / 1e3) / 1e9,
+              "launches": launches, **row_of(trans, em, pp)}
+    emit({"phase": "xray_path", "route": "streamed survey", **{
+        k: v for k, v in survey.items() if not k.endswith("per_batch")},
+          "k15_ms_median": float(np.median(k15_ev)),
+          "k16_ms_median": float(np.median(k16_ev)),
+          "upload_ms_median": float(np.median(up_t))})
+    del planes
+
+    # K15 and K16 against their plain versions on one 1024^3 batch
+    # (planes 480-511, the middle of the liner), with the survey's geometry
+    i0 = res_x // 2 - XRAY["plane_batch"]
+    i1 = i0 + XRAY["plane_batch"]
+    rb = rho_h.movedim(1, 0)[i0:i1].to(dev).contiguous()
+    tb = te_h.movedim(1, 0)[i0:i1].to(dev).contiguous()
+    tab = kfn.table(dev)
+    outs = {}
+    for name, fn in (("kernel", kx.fold), ("plain", kx.fold_plain)):
+        o = [torch.zeros(rb.shape[1:], device=dev) for _ in range(2)]
+        w = torch.empty(rb.shape, device=dev)
+        fn(rb, tb, mode=0, table=tab, w0=False, wlast=False, tau=o[0],
+           em=o[1], wout=w)
+        outs[name] = (*o, w)
+    k15_err = {k: rel_err(a, b) for k, a, b in zip(
+        ("tau", "em", "w"), outs["kernel"], outs["plain"])}
+    frame = xray._pp_frame([ax] * 3, 1, 0, 2, 8e-3, 80e-3, (431, 321), 90.0,
+                           67.0)
+    da, db = (torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+              for v in frame[:2])
+    fr = torch.from_numpy(frame[3][i0:i1].astype(np.float32)).to(dev)
+    wt = torch.from_numpy(frame[4][i0:i1]).to(dev)
+    pargs = (da, db, fr, wt, float(frame[5]), float(frame[6]),
+             float(np.float32(frame[7])), float(np.float32(frame[8])))
+    w_b = outs["kernel"][2]
+    t_k, t_p = (torch.zeros(da.shape[0], device=dev) for _ in range(2))
+    kx.pp_fold(w_b, *pargs, t_k)
+    kx.pp_fold_plain(w_b, *pargs, t_p)
+    k16_err = rel_err(t_k, t_p)
+    check(max(k15_err.values()) <= 1e-6 and k16_err <= 1e-6,
+          f"K15 / K16 off their plain versions: {k15_err}, {k16_err}")
+    tau_s = torch.zeros(rb.shape[1:], device=dev)
+    em_s = torch.zeros_like(tau_s)
+    k15_ms = batch_ms(lambda: kx.fold(rb, tb, mode=0, table=tab, w0=False,
+                                      wlast=False, tau=tau_s, em=em_s,
+                                      wout=w_b), calls=10)
+    k15_plain_ms = best_ms(lambda: kx.fold_plain(
+        rb, tb, mode=0, table=tab, w0=False, wlast=False, tau=tau_s,
+        em=em_s, wout=w_b), reps=1)
+    k16_ms = batch_ms(lambda: kx.pp_fold(w_b, *pargs, t_k), calls=20)
+    k16_plain_ms = best_ms(lambda: kx.pp_fold_plain(w_b, *pargs, t_k),
+                           reps=1)
+    n_vox = rb.numel()
+    k15_b = bound(2 * n_vox * 4 + n_vox * 4 + 2 * 2 * rb[0].numel() * 4,
+                  n_vox * 110)
+    # the w nodes this batch's crossings read (4 a crossing inside the
+    # planes), each counted once
+    pb_, na_, nb_ = w_b.shape
+    qa = (da[None] * fr[:, None] + pargs[4]) * pargs[6]
+    qb = (db[None] * fr[:, None] + pargs[5]) * pargs[7]
+    ins = (qa >= 0) & (qa <= na_ - 1) & (qb >= 0) & (qb <= nb_ - 1)
+    ia = qa.floor().clamp(0, na_ - 2).long()
+    ib = qb.floor().clamp(0, nb_ - 2).long()
+    base = (torch.arange(pb_, device=dev)[:, None] * (na_ * nb_)
+            + ia * nb_ + ib)[ins]
+    nodes = int(torch.unique(torch.cat([base, base + 1, base + nb_,
+                                        base + nb_ + 1])).numel())
+    del qa, qb, ins, ia, ib, base
+    k16_b = bound(nodes * 4 + 4 * da.numel() * 4,
+                  da.numel() * XRAY["plane_batch"] * 32)
+    del rb, tb, outs, w_b, rho_h, te_h, imgs
+
+    # the dense route at 256^3 on the card, and the survey against the two
+    # single streams (bit for bit, tests/test_xray.py:263)
+    res_d = XRAY["dense"]
+    ax_d, rho2_d, te2_d = scene(res_d)
+    rho_hd, te_hd = volumes(rho2_d, te2_d, res_d)
+    rho_d, te_d = rho_hd.to(dev), te_hd.to(dev)
+    sp = float(ax_d[1] - ax_d[0])
+    path_start()
+    (trans_d, em_d, pp_d), dense_s = sync_s(lambda: (
+        xray.attenuation_image(rho_d, te_d, kfn, sp, "y"),
+        xray.self_emission_image(rho_d, te_d, jfn, sp, "y"),
+        xray.point_projection_radiograph(rho_d, te_d, kfn, [ax_d] * 3,
+                                         n_steps=XRAY["n_steps"], **pp_kw)))
+    dense_launches = path_end(["xray_fold", "pp_chords"], "xray_path dense")
+    dense = {"res": res_d, "dense_s": dense_s, "launches": dense_launches,
+             **row_of(trans_d, em_d, pp_d)}
+    kw_s = dict(plane_batch=XRAY["plane_batch"], device=dev)
+    one = xray.xray_survey_streamed(rho_hd, te_hd, kfn, [ax_d] * 3,
+                                    emiss_fn=jfn, **kw_s, **pp_kw)
+    st_t, st_e = xray.radiography_streamed(rho_hd, te_hd, kfn, sp, "y",
+                                           emiss_fn=jfn, **kw_s)
+    st_pp = xray.point_projection_radiograph_streamed(
+        rho_hd, te_hd, kfn, [ax_d] * 3, **kw_s, **pp_kw)
+    same = (torch.equal(one["transmission"], st_t)
+            and torch.equal(one["emission"], st_e)
+            and torch.equal(one["point_projection"], st_pp))
+    check(same, "xray survey differs from the single streams")
+    dense["survey_equals_single_streams"] = same
+    dense["streamed_vs_dense_rel"] = {
+        "transmission": rel_err(st_t, trans_d),
+        "emission": rel_err(st_e, em_d)}
+    check(max(dense["streamed_vs_dense_rel"].values()) <= 2e-5,
+          f"xray streamed vs dense: {dense['streamed_vs_dense_rel']}")
+    # K15 over the whole dense volume and K16's chords against plain
+    r_y, t_y = rho_d.movedim(1, 0), te_d.movedim(1, 0)
+    tk, tp_ = (torch.zeros(r_y.shape[1:], device=dev) for _ in range(2))
+    kx.fold(r_y, t_y, mode=0, table=tab, w0=True, wlast=True, tau=tk,
+            em=None)
+    kx.fold_plain(r_y, t_y, mode=0, table=tab, w0=True, wlast=True,
+                  tau=tp_, em=None)
+    g = xray.chord_geometry([ax_d] * 3, 8e-3, 80e-3, (431, 321), 90.0, 67.0,
+                            "y")
+    ck = kx.pp_chords(rho_d, te_d, g, XRAY["n_steps"], 0, tab)
+    cp, chords_plain_s = sync_s(lambda: kx.pp_chords_plain(
+        rho_d, te_d, g, XRAY["n_steps"], 0, tab))
+    dense["k15_vs_plain_rel"] = rel_err(tk, tp_)
+    dense["k16_chords_vs_plain_rel"] = rel_err(ck, cp)
+    check(dense["k15_vs_plain_rel"] <= 1e-6
+          and dense["k16_chords_vs_plain_rel"] <= 1e-6,
+          f"K15 / K16 off their plain versions (dense): {dense}")
+    chords_ms = batch_ms(lambda: kx.pp_chords(rho_d, te_d, g,
+                                              XRAY["n_steps"], 0, tab),
+                         calls=10)
+    P = 431 * 321
+    chords_b = bound(2 * rho_d.numel() * 4 + P * 4,
+                     P * XRAY["n_steps"] * (54 + 110 + 8))
+    detail["xray_path"] = {"survey": survey, "dense": dense,
+                           "K15_vs_plain_1024_batch": k15_err,
+                           "K16_pp_fold_vs_plain": k16_err,
+                           "path_s": time.perf_counter() - t_x}
+    emit({"phase": "xray_path", "route": "dense", **dense})
+    emit({"phase": "K15_K16_vs_plain", "batch": [i0, i1],
+          "tolerance": "1e-6 relative", "k15": k15_err,
+          "k16_pp_fold": k16_err, "k15_dense": dense["k15_vs_plain_rel"],
+          "k16_chords": dense["k16_chords_vs_plain_rel"]})
+    rows_out += [
+        {"name": "xray_fold", "route": "cuda", "source": csrc + "xray.cu",
+         "replaces": "synthpy_tpu/optics/xray.py:434",
+         "launches": launches["xray_fold"],
+         "max_abs_err": max(k15_err.values()),
+         "ms": k15_ms, "plain_ms": k15_plain_ms, "bound_ms": k15_b[0],
+         "bound_by": k15_b[1], "library_ms": None,
+         "per": f"one batch of {XRAY['plane_batch']} planes at "
+                f"{res_x}^3 (tau, em and the w scratch); max_abs_err is "
+                "relative to the largest value"},
+        {"name": "pp_fold", "route": "cuda", "source": csrc + "xray.cu",
+         "replaces": "synthpy_tpu/optics/xray.py:452",
+         "launches": launches["pp_fold"], "max_abs_err": k16_err,
+         "ms": k16_ms, "plain_ms": k16_plain_ms, "bound_ms": k16_b[0],
+         "bound_by": k16_b[1], "library_ms": None,
+         "per": f"one batch, {P} pixels; bound: the {nodes} w nodes its "
+                "crossings read"},
+        {"name": "pp_chords", "route": "cuda", "source": csrc + "xray.cu",
+         "replaces": "synthpy_tpu/optics/xray.py:185",
+         "launches": dense_launches["pp_chords"],
+         "max_abs_err": dense["k16_chords_vs_plain_rel"],
+         "ms": chords_ms, "plain_ms": chords_plain_s * 1e3,
+         "bound_ms": chords_b[0], "bound_by": chords_b[1],
+         "library_ms": None,
+         "per": f"{res_d}^3, {P} chords of {XRAY['n_steps']} samples"}]
+    for mod, name, fn in originals:
+        setattr(mod, name, fn)
+    del rho_d, te_d, rho_hd, te_hd
+    torch.cuda.empty_cache()
+    return rows_out, detail
+
+
+def k14_vs_plain(torch, dev, btable, jrandom, Bh, tab, tier, batch_ms,
+                 best_ms):
+    """K14 against its plain version on the host grid's second batch of
+    planes (i0 = 32): the same codes as the path's table there; bf16 bit
+    for bit; int8 within one step on at most 1e-4 of the codes; a dither
+    under the next plane's key (the planted control) must fail the same
+    check. Returns the phase's record with its kernels-line row."""
+    pb = PROTON["batch"]
+    i0 = pb
+    batch = Bh[i0:i0 + pb].to(dev)
+    dt = tab.grid.dtype
+    key = None
+    if tier == "int8":
+        key = jrandom.key_data(jrandom.fold_in(
+            jrandom.PRNGKey(PROTON["dither"]), i0))
+    got = torch.empty((pb, *Bh.shape[1:]), dtype=dt, device=dev)
+    want = torch.empty_like(got)
+    btable.write(got, batch, 0, tab.scale, key)
+    btable.write_plain(want, batch, 0, tab.scale, key)
+    rec = {"equals_path_table": torch.equal(got, tab.grid[i0:i0 + pb])}
+
+    def codes(a, b):
+        d = (a.to(torch.int16) - b.to(torch.int16)).abs()
+        return int(d.max()), float((d > 0).float().mean())
+
+    if tier == "bf16":
+        rec["bit_equal"] = torch.equal(got, want)
+        rec["max_abs_err"] = float((got.float() - want.float()).abs().max())
+        check(rec["bit_equal"], "K14 bf16 differs from its plain version")
+    else:
+        step, frac = codes(got, want)
+        rec.update(max_code_diff=step, frac_codes_differ=frac,
+                   max_abs_err=step)
+        check(step <= 1 and frac <= 1e-4, f"K14 int8 off plain: {rec}")
+        bad = torch.empty_like(got)
+        btable.write(bad, batch, 0, tab.scale, jrandom.key_data(
+            jrandom.fold_in(jrandom.PRNGKey(PROTON["dither"]), i0 + 1)))
+        c_step, c_frac = codes(bad, want)
+        rec["control_next_plane_key"] = {"max_code_diff": c_step,
+                                         "frac_codes_differ": c_frac}
+        check(not (c_step <= 1 and c_frac <= 1e-4),
+              f"K14 planted control passed the check: {rec}")
+    check(rec["equals_path_table"], f"K14 {tier}: the path's table differs "
+          "from the batch written alone")
+    ms = batch_ms(lambda: btable.write(got, batch, 0, tab.scale, key),
+                  calls=20)
+    plain_ms = best_ms(lambda: btable.write_plain(want, batch, 0, tab.scale,
+                                                  key), reps=1)
+    lib = None
+    if tier == "bf16":
+        lib = batch_ms(lambda: got.copy_(batch), calls=20)
+    nbytes = batch.numel() * (4 + got.element_size())
+    b = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b[0])
+    rec["row"] = {
+        "name": f"btable_{tier}", "route": "cuda",
+        "source": "synthpy_tpu_torch/kernels/csrc/btable.cu",
+        "replaces": "synthpy_tpu/tracer/particles.py:135",
+        "launches": None, "max_abs_err": rec["max_abs_err"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+        "library_ms": lib,
+        "per": f"one batch of {pb} planes of {Bh.shape[1]}^2 x 3"
+               + ("; library: tab[i0:i1].copy_(batch)" if lib else "")}
+    return rec
+
+
 def main():
     try:
         import torch
@@ -1867,11 +2483,12 @@ def main():
         from synthpy_tpu_torch.fields.domain import build_pack
         from synthpy_tpu_torch.fields.forms import ClosedForm
         from synthpy_tpu_torch.kernels import (_build, adaptive, analytic,
-                                               binning, cic, deposit,
-                                               detector, fill, march,
-                                               march_adjoint, pack,
+                                               binning, boris, btable, cic,
+                                               deposit, detector, fill,
+                                               march, march_adjoint, pack,
                                                slab_march, time_march)
         from synthpy_tpu_torch.kernels import random as krandom
+        from synthpy_tpu_torch.kernels import xray as kxray
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
                                                          nvidia_smi)
         from synthpy_tpu_torch.ops.histogram import (_bin_index,
@@ -1901,7 +2518,10 @@ def main():
                "bin_field": binning.BIN_FIELD_KERNEL, "fill": fill.KERNEL,
                "random": krandom.KERNEL,
                "march_adjoint": march_adjoint.KERNEL, "cic": cic.KERNEL,
-               "cic_adjoint": cic.BACKWARD_KERNEL}
+               "cic_adjoint": cic.BACKWARD_KERNEL, "boris": boris.KERNEL,
+               "btable": btable.KERNEL, "xray_fold": kxray.FOLD_KERNEL,
+               "pp_fold": kxray.PP_FOLD_KERNEL,
+               "pp_chords": kxray.PP_CHORDS_KERNEL}
     controls = inverse_controls(torch)
 
     # -- 1. device and kernel build ------------------------------------------
@@ -2780,6 +3400,11 @@ def main():
     inv_rows, inv_detail = inverse_path(torch, dev, kernels, bound, reset,
                                         path_launches, controls)
 
+    # -- 3e. proton radiography at 1024^3 (K13, K14) and X-ray radiography,
+    # the 1024^3 streamed survey and the 256^3 dense images (K15, K16)
+    rad_rows, rad_detail = radiography(torch, dev, kernels, bound, reset,
+                                       path_launches)
+
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
     k1_call_ms = best_ms(lambda: march.march(u_all, sp.seg_planes,
                                              sp.scales, **mkw), reps=5)
@@ -3082,10 +3707,12 @@ def main():
                   "detector_field": 1, "deposit": 2, "bin_image": 1,
                   "bin_field": 1, "fill": 2, "random_normal": 1,
                   "pack_dither": 2, "march_adjoint": 1, "cic": 1,
-                  "cic_adjoint": 1},
+                  "cic_adjoint": 1, "boris": 1, "btable_bf16": 1,
+                  "btable_int8": 1, "xray_fold": 1, "pp_fold": 1,
+                  "pp_chords": 1},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "script_s": time.perf_counter() - t_start}
-    rows_out += wo_rows + sc_rows + inv_rows
+    rows_out += wo_rows + sc_rows + inv_rows + rad_rows
     emit({"phase": "bounds", **detail})
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
@@ -3096,7 +3723,7 @@ def main():
                    "K5_times": k5_t, "K6": k6, "K6_times": k6_t,
                    "paths": paths, "K7": k7, "K3_coherent": coh,
                    "kernels": rows_out, **wo_detail, **sc_detail,
-                   **inv_detail, **detail}, f, indent=1)
+                   **inv_detail, **rad_detail, **detail}, f, indent=1)
     emit({"kernels": rows_out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

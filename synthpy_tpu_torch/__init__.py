@@ -43,6 +43,7 @@ _SUBMODULES = (
     "convert",
     "fields",
     "inverse",
+    "io",
     "kernels",
     "ops",
     "optics",

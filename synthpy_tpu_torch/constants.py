@@ -34,6 +34,11 @@ VERDET_COEFF = 2.62e-13
 # Default probe wavelength [m] used across the reference examples.
 DEFAULT_LWL = 1064e-9
 
+# Proton rest mass [kg] and rest energy [MeV] (CODATA 2018): the charged-
+# particle radiography of tracer.particles.
+M_PROTON = 1.67262192369e-27
+PROTON_REST_MEV = 938.27208816
+
 
 def omega_from_lwl(lwl: float) -> float:
     """Angular laser frequency [rad/s] from vacuum wavelength [m]."""

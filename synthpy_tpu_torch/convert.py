@@ -3,8 +3,8 @@
 Functions here take what ``numpy.asarray`` makes of the JAX package's
 arrays (no JAX import is needed) and return port objects on ``device``:
 a ``TracePack``, ``ZScanPack`` or ``SegmentPack``, a ``ScalarDomain`` with
-its fields, a key of ``synthpy_tpu_torch.random``, or a tensor (a
-JAX-drawn (9, N) ray bundle, for one).
+its fields, a key of ``synthpy_tpu_torch.random``, a proton ``BTable``, an
+``OpacityLookup``, or a tensor (a JAX-drawn (9, N) ray bundle, for one).
 bfloat16 arrives from ``np.asarray`` as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects; it is reinterpreted as 16-bit integers and
 viewed as ``torch.bfloat16``, bit for bit.
@@ -141,3 +141,40 @@ def domain(jdomain, device="cuda") -> ScalarDomain:
         if all(f is not None for f in forms.values()):
             d.analytic = forms
     return d
+
+
+def b_table(jtab, device="cuda"):
+    """A JAX ``BTable`` (``tracer.particles.build_B_table``) as the port's:
+    the grid bit for bit (float32, bfloat16 or int8) and the int8 scales
+    as float32, on ``device``."""
+    from synthpy_tpu_torch.tracer.particles import BTable
+
+    scale = None if jtab.scale is None else tensor(
+        np.asarray(jtab.scale, np.float32), device)
+    return BTable(tensor(jtab.grid, device), scale)
+
+
+def opacity_lookup(jfn, device="cuda"):
+    """The port's ``OpacityLookup`` of a lookup closure made by the JAX
+    package's ``optics.xray.make_opacity_lookup``: it reads the closure's
+    free variables (``T_grid``, ``rho_grid``, ``lt``, ``lr``, ``vals``,
+    ``log_space``), as ``closed_form`` reads the ``test_*`` closures, and
+    runs nothing of JAX. Raises ``ValueError`` for any other callable."""
+    from synthpy_tpu_torch.optics.xray import OpacityLookup
+
+    code = getattr(jfn, "__code__", None)
+    if code is None or code.co_qualname != \
+            "make_opacity_lookup.<locals>.lookup":
+        raise ValueError("not a lookup made by the JAX package's "
+                         "make_opacity_lookup")
+    cells = dict(zip(code.co_freevars, jfn.__closure__ or ()))
+    v = {k: c.cell_contents for k, c in cells.items()}
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    return OpacityLookup(f32(v["lt"]), f32(v["lr"]), f32(v["vals"]),
+                         bool(v["log_space"]),
+                         float(np.asarray(v["T_grid"])[0]),
+                         float(np.asarray(v["rho_grid"])[0]),
+                         _device.resolve(device))

@@ -132,3 +132,20 @@ class Kernel:
             ev[1].record(stream)
             self.events.append(tuple(ev))
         self.launches += 1
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when autograd is on and a tensor not on
+    the CPU requires grad. A ctypes launch records no ``grad_fn``, so the
+    kernel's result would be cut from the graph without a word; on the CPU
+    the plain versions run and autograd flows through them, so CPU tensors
+    pass. ``None`` entries are skipped."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if (isinstance(t, torch.Tensor) and t.requires_grad
+                and t.device.type != "cpu"):
+            raise NotImplementedError(
+                f"{what} has no backward on the card: a tensor that "
+                "requires grad would be cut from the graph (ROADMAP "
+                "Residuals (no backward))")

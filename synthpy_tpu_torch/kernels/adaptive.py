@@ -24,7 +24,7 @@ import torch
 from synthpy_tpu_torch.constants import C
 from synthpy_tpu_torch.fields.domain import ChannelLayout
 from synthpy_tpu_torch.kernels import time_march
-from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
+from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel, refuse_grad
 from synthpy_tpu_torch.kernels.march import ray_order
 from synthpy_tpu_torch.ops.interp import fma
 
@@ -191,6 +191,7 @@ def trace_rk45(s_rows: torch.Tensor, channels: torch.Tensor, origin,
     if s_rows.device.type == "cpu":
         return trace_rk45_plain(s_rows, channels, origin, inv_spacing,
                                 t_end, **kw)
+    refuse_grad("adaptive.trace_rk45 (K6)", s_rows, channels, plane_amax)
     time_march.check_grid(s_rows, channels, layout)
     if plane_amax is not None and (
             plane_amax.device != s_rows.device

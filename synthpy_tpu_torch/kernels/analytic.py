@@ -24,7 +24,7 @@ import torch
 from synthpy_tpu_torch import constants
 from synthpy_tpu_torch.fields.domain import ChannelLayout
 from synthpy_tpu_torch.fields.forms import N_PARAMS, ClosedForm, f32
-from synthpy_tpu_torch.kernels._build import I, L, P, Kernel
+from synthpy_tpu_torch.kernels._build import I, L, P, Kernel, refuse_grad
 from synthpy_tpu_torch.kernels.slab_march import cols_rhs
 from synthpy_tpu_torch.ops.interp import fma
 
@@ -182,6 +182,7 @@ def march(u: torch.Tensor, ne: ClosedForm, B: Optional[ClosedForm], *,
               atten_sign=atten_sign)
     if u.device.type == "cpu":
         return march_plain(u, ne, B, **kw)
+    refuse_grad("analytic.march (K7)", u)
     check_forms(ne, B, layout)
     if (u.dtype != torch.float32 or u.dim() != 2 or u.shape[1] != 8
             or not u.is_contiguous()):

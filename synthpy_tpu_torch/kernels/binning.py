@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
+from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel, refuse_grad
 
 BIN_KERNEL = Kernel("detector.cu", {
     "bin_image": [P, P, P, P, L, I, I, F, F, F, F, F, F, P],
@@ -43,6 +43,7 @@ def bin_image(x: torch.Tensor, y: torch.Tensor,
     """(ny, nx) f32 image of (N,) f32 positions on the card: ray i adds
     ``weights[i]`` (or 1) to its bin; ``bx``/``by`` = (lo, hi, bins per
     unit) in float32, as ``ops.histogram.bin_params`` gives them."""
+    refuse_grad("binning.bin_image (K3)", x, y, weights)
     if weights is None:
         x, y = _rays(x, y)
     else:
@@ -61,6 +62,7 @@ def bin_field(x: torch.Tensor, y: torch.Tensor, Ex: torch.Tensor,
     """(npy, npx, n_ch) f32 field sums of (N,) f32 positions and complex64
     fields on the card; ``px``/``py`` = (L / 2, L / n) in float32; n_ch 2
     sums (Re Ex, Re Ey), 4 the real and imaginary parts of both."""
+    refuse_grad("binning.bin_field (K3)", x, y, Ex, Ey)
     x, y = _rays(x, y)
     Ex, Ey = _rays(Ex, Ey, dtype=torch.complex64)
     if Ex.shape != x.shape or Ex.device != x.device:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from synthpy_tpu_torch.kernels._build import I, L, P, Kernel
+from synthpy_tpu_torch.kernels._build import I, L, P, Kernel, refuse_grad
 
 KERNEL = Kernel("deposit.cu", {
     "deposit_cic": [P, P, P, I, P, P, I, I, P, P, L, P],
@@ -75,6 +75,7 @@ def deposit(x: torch.Tensor, y: torch.Tensor, vals: torch.Tensor,
                          "least 2 nodes an axis")
     if x.device.type == "cpu":
         return deposit_plain(x, y, vals, x_coords, y_coords, return_acc)
+    refuse_grad("deposit.deposit (K8)", x, y, vals, x_coords, y_coords)
     dev = x.device
     n = x.shape[0]
     for name, t, shape in (("x", x, (n,)), ("y", y, (n,)),

@@ -21,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
+from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel, refuse_grad
 from synthpy_tpu_torch.ops.histogram import (bin_params,
                                              complex_histogram_plain, f32,
                                              histogram2d_plain)
@@ -120,6 +120,7 @@ def detect(uf: torch.Tensor, p_end, probing_depth: float,
     if uf.device.type == "cpu":
         return detect_plain(uf, p_end, probing_depth, probing_direction,
                             stages, bins, range_, weights)
+    refuse_grad("detector.detect (K3)", uf, p_end, weights)
     dev = uf.device
     if (uf.dtype != torch.float32 or uf.dim() != 2 or uf.shape[1] != 8
             or not uf.is_contiguous()):
@@ -203,6 +204,7 @@ def detect_field(uf: torch.Tensor, p_end, probing_depth: float,
         return detect_field_plain(uf, p_end, probing_depth,
                                   probing_direction, stages, bins, Lx, Ly,
                                   wavelength, convention, ref)
+    refuse_grad("detector.detect_field (K3)", uf, p_end)
     dev = uf.device
     if (uf.dtype != torch.float32 or uf.dim() != 2 or uf.shape[1] != 8
             or not uf.is_contiguous()):

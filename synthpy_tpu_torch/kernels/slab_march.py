@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from synthpy_tpu_torch.fields.domain import ChannelLayout
-from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
+from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel, refuse_grad
 from synthpy_tpu_torch.kernels.march import ray_order
 
 KERNEL = Kernel("slab_march.cu", {
@@ -162,6 +162,7 @@ def march(u: torch.Tensor, planes: torch.Tensor, origin_ab, inv_ab, dp, *,
         return march_plain(u, planes, oab, iab, dp, layout=layout,
                            n_slabs=n_slabs, substeps=substeps,
                            atten_sign=atten_sign)
+    refuse_grad("slab_march.march (K4)", u, planes)
     check(u, planes, layout, n_slabs)
     # the kernel reads states as 16-byte vectors: a fresh allocation is
     # aligned

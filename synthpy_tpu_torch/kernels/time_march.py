@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from synthpy_tpu_torch.fields.domain import ChannelLayout
-from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
+from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel, refuse_grad
 from synthpy_tpu_torch.kernels.march import ray_order
 from synthpy_tpu_torch.ops.interp import fma, trilinear
 
@@ -125,6 +125,7 @@ def march(s_rows: torch.Tensor, channels: torch.Tensor, origin, inv_spacing,
         return march_plain(s_rows, channels, origin, inv_spacing, dt,
                            layout=layout, n_steps=n_steps,
                            atten_sign=atten_sign)
+    refuse_grad("time_march.march (K5)", s_rows, channels)
     check_grid(s_rows, channels, layout)
     order = ray_order(s_rows, channels.shape[:3], origin, inv_spacing)
     return launch(KERNEL, s_rows, channels, origin, inv_spacing, dt, order,

@@ -1,6 +1,6 @@
 """Optical benches (PyTorch port of ``synthpy_tpu.optics``): the ray
-transfer primitives, the composed benches (coherent ones included) and the
-diagnostic classes."""
+transfer primitives, the composed benches (coherent ones included), the
+diagnostic classes and X-ray radiography (``xray``)."""
 
 from synthpy_tpu_torch.optics.diagnostics import (  # noqa: F401
     Diagnostic,
@@ -10,4 +10,4 @@ from synthpy_tpu_torch.optics.diagnostics import (  # noqa: F401
     Schlieren,
     Shadowgraphy,
 )
-from synthpy_tpu_torch.optics import compose, rtm  # noqa: F401
+from synthpy_tpu_torch.optics import compose, rtm, xray  # noqa: F401

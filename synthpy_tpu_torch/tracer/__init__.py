@@ -1,7 +1,7 @@
 """Ray tracing (PyTorch port of ``synthpy_tpu.tracer``): beam set-up, the
 time-domain tracer, the plain and segmented z-scan marches, the pack-free
 analytic march and the adaptive tracer; the segment-streamed march of
-host packs."""
+host packs; proton radiography (``particles``)."""
 
 from synthpy_tpu_torch.tracer.beam import init_beam  # noqa: F401
 from synthpy_tpu_torch.tracer.propagator import (  # noqa: F401
@@ -27,3 +27,4 @@ from synthpy_tpu_torch.tracer.adaptive import solve_adaptive  # noqa: F401
 from synthpy_tpu_torch.tracer.analytic import (  # noqa: F401
     solve_zscan_analytic,
 )
+from synthpy_tpu_torch.tracer import particles  # noqa: F401

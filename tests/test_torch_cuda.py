@@ -1175,3 +1175,304 @@ def test_gradient_outside_the_covered_march_raises_on_card(dev):
             u, sp.seg_planes, sp.origin_ab, sp.inv_spacing_ab, sp.dp,
             shape_ab=sp.shape_ab, layout=layout_of(d), K=sp.K,
             n_seg=sp.seg_planes.shape[0], integrator="rk2")
+
+
+# -- proton and X-ray radiography: K13-K16 ---------------------------------
+
+def _b_field(n=32, seed=3):
+    """(n, n, n, 3) float32 random B [T] and a 4,096-proton bundle at the
+    entry face of a 1 cm box, from numpy seeds."""
+    rng = np.random.default_rng(seed)
+    B = (5.0 * rng.standard_normal((n, n, n, 3))).astype(np.float32)
+    th = rng.uniform(0, 2 * np.pi, 4096)
+    r = 2.5e-3 * np.sqrt(rng.uniform(0, 1, 4096))
+    d = np.stack([r * np.cos(th), r * np.sin(th), np.full(4096, 1e-2)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rows = np.zeros((4096, 6), np.float32)
+    rows[:, :2] = r[:, None] * np.stack([np.cos(th), np.sin(th)], 1) * 0.5
+    rows[:, 2] = -EXT
+    rows[:, 3:] = 5.2e7 * d
+    return B, rows
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_boris_kernel_matches_plain(dev, dtype):
+    """K13 on every table dtype against its plain version on the card, in
+    entry-cell order (``push``) and in the caller's order (``launch``):
+    within 1e-6 of a column (the plain version's fused multiply-adds are
+    float64 emulations, so a double rounding can differ in the last
+    place; observed bit-equal)."""
+    from synthpy_tpu_torch.kernels import boris
+
+    B, rows = _b_field()
+    grid = torch.from_numpy(B).to(dev)
+    scale = None
+    if dtype == "bf16":
+        grid = grid.to(torch.bfloat16)
+    elif dtype == "int8":
+        scale = grid.abs().amax(dim=(0, 1, 2)) / 127.0
+        grid = torch.clamp(torch.round(grid / scale), -127,
+                           127).to(torch.int8)
+    o = [-EXT] * 3
+    inv = [float(np.float32(31 / (2 * EXT)))] * 3
+    u = torch.from_numpy(rows).to(dev)
+    args = (grid.contiguous(), scale, o, inv, 1e-12, 1e-4, 80)
+    n = boris.KERNEL.launches
+    got = boris.push(u, *args)
+    assert boris.KERNEL.launches == n + 1
+    want = boris.push_plain(u, *args)
+    caller = u.clone()
+    boris.launch(boris.KERNEL, caller, *args, None)
+    assert torch.equal(caller, got)
+    scale_col = want.abs().amax(dim=0)
+    assert bool(((got - want).abs() <= 1e-6 * scale_col).all())
+    assert not torch.equal(got[:, 3:5], u[:, 3:5])    # the field deflects
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_dither"])
+def test_btable_kernel_matches_plain(dev, mode):
+    """K14's batch write against its plain version: bf16 bit-equal; int8
+    codes within one step on at most 1e-4 of them (a true division may
+    cross a rounding tie), dithered too; a dither under the next plane's
+    key (the planted control) moves more than 1e-4 of them."""
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.kernels import btable
+
+    B, _ = _b_field(n=40)
+    batch = torch.from_numpy(B[8:24]).to(dev).contiguous()
+    dt = torch.bfloat16 if mode == "bf16" else torch.int8
+    scale = (batch.abs().amax(dim=(0, 1, 2)) / 127.0).contiguous()
+    key = None
+    if mode == "int8_dither":
+        key = jrandom.key_data(jrandom.fold_in(jrandom.PRNGKey(5), 8))
+    got = torch.zeros((40, 40, 40, 3), dtype=dt, device=dev)
+    want = torch.zeros_like(got)
+    btable.write(got, batch, 8, scale, key)
+    btable.write_plain(want, batch, 8, scale, key)
+    if mode == "bf16":
+        assert torch.equal(got, want)
+        return
+    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-4
+    if key is not None:
+        bad = torch.zeros_like(got)
+        btable.write(bad, batch, 8, scale, jrandom.key_data(
+            jrandom.fold_in(jrandom.PRNGKey(5), 9)))
+        assert float((bad != want).float().mean()) > 1e-4
+
+
+def _xray_scene(dev, n=24, probe_stride=False):
+    from synthpy_tpu_torch.optics import xray
+
+    rng = np.random.default_rng(4)
+    rho = (1e-3 * (1 + 0.5 * rng.random((n, n + 1, n + 2)))).astype(
+        np.float32)
+    Te = (50 * (1 + rng.random((n, n + 1, n + 2)))).astype(np.float32)
+    T = np.logspace(0, 3, 30)
+    rg = np.logspace(-5, 1, 40)
+    kfn = xray.make_opacity_lookup(T, rg, 5e3 * np.outer(T**-1.5, rg**0.5),
+                                   device=dev)
+    return (torch.from_numpy(rho).to(dev), torch.from_numpy(Te).to(dev),
+            kfn)
+
+
+@pytest.mark.parametrize("probe", [0, 1, 2])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_xray_fold_kernel_matches_plain(dev, mode, probe):
+    """K15 on strided plane batches of every probing axis against its
+    plain version: tau, em and the w scratch within 1e-6 relative (CUDA's
+    logf / expf against PyTorch's)."""
+    from synthpy_tpu_torch.kernels import xray as kx
+
+    rho, Te, kfn = _xray_scene(dev)
+    r, t = rho.movedim(probe, 0)[3:11], Te.movedim(probe, 0)[3:11]
+    if mode == 1:
+        r, t = kfn(t, r) * r, t**4
+    out = {}
+    for fn in (kx.fold, kx.fold_plain):
+        tau = torch.ones(r.shape[1:], device=dev)
+        em = torch.ones_like(tau)
+        w = torch.zeros(r.shape, device=dev)
+        fn(r, t, mode=mode, table=kfn.table(dev), w0=True, wlast=False,
+           tau=tau, em=em, wout=w)
+        out[fn.__name__] = (tau, em, w)
+    for a, b in zip(out["fold"], out["fold_plain"]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+def test_pp_kernels_match_plain(dev):
+    """K16: ``pp_fold`` on a batch of w planes and ``pp_chords`` (both
+    modes, y-probing through strided volumes) against their plain
+    versions, within 1e-6 relative."""
+    from synthpy_tpu_torch.kernels import xray as kx
+
+    rho, Te, kfn = _xray_scene(dev)
+    w = (kfn(Te, rho) * rho)[:9].contiguous()
+    P = 41 * 31
+    g = torch.Generator().manual_seed(2)
+    da = (4e-3 * (torch.rand(P, generator=g) - 0.5)).to(dev)
+    db = (4e-3 * (torch.rand(P, generator=g) - 0.5)).to(dev)
+    fr = torch.linspace(0.2, 0.3, 9, device=dev)
+    wts = torch.ones(9, device=dev)
+    got = torch.zeros(P, device=dev)
+    want = torch.zeros(P, device=dev)
+    args = (da, db, fr, wts, 2e-3, 2e-3, 1.0 / 1.7e-4, 1.0 / 1.6e-4)
+    kx.pp_fold(w, *args[:4], *args[4:], got)
+    kx.pp_fold_plain(w, *args[:4], *args[4:], want)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert float(want.abs().max()) > 0
+    n = rho.shape[0]
+    geo = kx.ChordGeometry(
+        [-2e-3] * 3, [1 / 1.7e-4] * 3, [-2e-3] * 3,
+        [-2e-3 + 1.7e-4 * (n - 1), -2e-3 + 1.7e-4 * n,
+         -2e-3 + 1.7e-4 * (n + 1)], [0.0, -0.1, 0.0], 0.0, 0.0, 0.3,
+        (torch.arange(41) / 41.0 - 0.5) * 6e-3,
+        (torch.arange(31) / 31.0 - 0.5) * 4.5e-3, (1, 0, 2))
+    # the same volumes through other strides
+    r = rho.transpose(0, 2).contiguous().transpose(0, 2)
+    t = Te.transpose(0, 2).contiguous().transpose(0, 2)
+    a = kx.pp_chords(r, t, geo, 40, 0, kfn.table(dev))
+    b = kx.pp_chords_plain(r, t, geo, 40, 0, kfn.table(dev))
+    assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert float(b.abs().max()) > 0
+    for a, b in zip(kx.pp_chords(r, t, geo, 40, 1),
+                    kx.pp_chords_plain(r, t, geo, 40, 1, None)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+def test_xray_explicit_device_and_mixed_routes_on_card(dev):
+    """CPU volumes with ``device="cuda"`` reach K15 and K16 on the card,
+    and a kappa and an emissivity of different types are each routed by
+    their own (no plain PyTorch lookup on the card): the images agree with
+    the CPU run within 1e-6 relative (CUDA's logf / expf against
+    PyTorch's)."""
+    from synthpy_tpu_torch.kernels import xray as kx
+    from synthpy_tpu_torch.optics import xray
+
+    R, T, _ = _xray_scene("cpu")
+    _, _, other = _xray_scene(dev)
+    ax = np.linspace(-2e-3, 2e-3, 24, dtype=np.float32)
+    sp = float(ax[1] - ax[0])
+    pp = dict(source_distance=0.1, detector_distance=0.3, bins=(41, 31),
+              Lx=8.0, Ly=6.0)
+
+    def emiss(t, r):
+        return r * t**4
+
+    def close(a, b):
+        assert a.device.type == "cuda" and b.device.type == "cpu"
+        a = a.cpu()
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+    n15, n16 = kx.FOLD_KERNEL.launches, kx.PP_CHORDS_KERNEL.launches
+    for d in (dev, "cpu"):
+        kfn_d = _xray_scene(d)[2]
+        out = [xray.attenuation_image(R, T, kfn_d, sp, device=d),
+               xray.point_projection_radiograph(R, T, kfn_d, [ax] * 3,
+                                                n_steps=40, device=d, **pp)]
+        for e in (emiss, xray.grey_emissivity(other)):
+            out += xray.radiography_streamed(R, T, kfn_d, sp, "y",
+                                             emiss_fn=e, plane_batch=7,
+                                             device=d)
+        if d == dev:
+            got = out
+            # 1 + 2 streams x (4 batches x 2 passes)
+            assert kx.FOLD_KERNEL.launches == n15 + 17
+            assert kx.PP_CHORDS_KERNEL.launches == n16 + 1
+    for a, b in zip(got, out):
+        close(a, b)
+
+
+def test_trace_protons_host_B_goes_to_the_card(dev):
+    """Without a ``B_table``, a card domain's host-resident B (pinned by
+    ``external_B(host=True)``) goes to the card and K13 marches there:
+    within 1e-6 of a column of the CPU trace."""
+    from synthpy_tpu_torch.fields import ScalarDomain
+    from synthpy_tpu_torch.kernels import boris
+    from synthpy_tpu_torch.tracer import particles
+
+    B, rows = _b_field()
+    out = {}
+    for d in (dev, "cpu"):
+        dom = ScalarDomain(2 * EXT, 32, device=d).external_B(B, host=True)
+        n = boris.KERNEL.launches
+        out[d] = particles.trace_protons(rows, dom, 14.7)
+        assert boris.KERNEL.launches == n + (d == dev)
+    got, want = out[dev], out["cpu"]
+    assert got.device.type == "cuda"
+    scale_col = want.abs().amax(dim=0)
+    assert bool(((got.cpu() - want).abs() <= 1e-6 * scale_col).all())
+
+
+def _grad_calls(dev):
+    """Each wrapper without a backward, called on the card with a tensor
+    that requires grad."""
+    from synthpy_tpu_torch.fields.domain import ChannelLayout
+    from synthpy_tpu_torch.fields.forms import ClosedForm
+    from synthpy_tpu_torch.kernels import (binning, boris, btable, deposit,
+                                           xray)
+
+    g = dict(device=dev, requires_grad=True)
+    u = torch.zeros((8, 8), **g)
+    s = torch.zeros((8, 9), **g)
+    x = torch.zeros(8, **g)
+    c = torch.linspace(-1, 1, 5, device=dev)
+    lay = ChannelLayout(False, False, False)
+    ch = torch.zeros((4, 4, 4, 3), device=dev)
+    vol = torch.zeros((4, 4, 4), **g)
+    return {
+        "detect": lambda: detector.detect(u, 1.0, 1.0, "z", [("aperture",
+                                                              1.0)], (4, 4),
+                                          ((-1.0, 1.0), (-1.0, 1.0))),
+        "detect_field": lambda: detector.detect_field(
+            u, 1.0, 1.0, "z", [("phase",)], (4, 4), 2.0, 2.0, 1e-6),
+        "bin_image": lambda: binning.bin_image(x, x, None, 4, 4,
+                                               (-1.0, 1.0, 2.0),
+                                               (-1.0, 1.0, 2.0)),
+        "bin_field": lambda: binning.bin_field(
+            x, x, x.to(torch.complex64), x.to(torch.complex64), 4, 4,
+            (1.0, 0.5), (1.0, 0.5), 2),
+        "deposit": lambda: deposit.deposit(x, x, x[:, None], c, c),
+        "slab_march": lambda: slab_march.march(
+            u, torch.zeros((5, 4, 4, 3), device=dev), (0.0, 0.0),
+            (1.0, 1.0), 1.0, layout=lay, n_slabs=4),
+        "time_march": lambda: time_march.march(
+            s, ch, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0), 1e-12, layout=lay,
+            n_steps=2),
+        "adaptive": lambda: adaptive.trace_rk45(
+            s, ch, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0), 1e-12, layout=lay),
+        "analytic": lambda: analytic.march(
+            u, ClosedForm("lens", ne_0=1e24, LR=1e-3), None, layout=lay,
+            axes=(0, 1, 2), bounds=([-1.0] * 3, [1.0] * 3), omega=1e15,
+            lwl=1e-6, p0=-1.0, h=0.5, n_steps=4),
+        "boris": lambda: boris.push(torch.zeros((8, 6), **g), ch, None,
+                                    [0.0] * 3, [1.0] * 3, 1e-12, 1e-4, 2),
+        "btable": lambda: btable.write(
+            torch.zeros((4, 4, 4, 3), dtype=torch.bfloat16, device=dev),
+            torch.zeros((2, 4, 4, 3), **g), 0),
+        "xray_fold": lambda: xray.fold(vol, None, mode=1, table=None,
+                                       w0=True, wlast=True,
+                                       tau=torch.zeros((4, 4), device=dev),
+                                       em=None),
+        "pp_fold": lambda: xray.pp_fold(vol, x, x, x[:4], x[:4], 0.0, 0.0,
+                                        1.0, 1.0, torch.zeros(8,
+                                                              device=dev)),
+        "pp_chords": lambda: xray.pp_chords(
+            vol, vol, xray.ChordGeometry(
+                [0.0] * 3, [1.0] * 3, [0.0] * 3, [3.0] * 3, [1.5, 1.5, -1.0],
+                1.5, 1.5, 4.0, torch.zeros(2), torch.zeros(2), (2, 0, 1)),
+            4, 1),
+    }
+
+
+@pytest.mark.parametrize("wrapper", [
+    "adaptive", "analytic", "bin_field", "bin_image", "boris", "btable",
+    "deposit", "detect", "detect_field", "pp_chords", "pp_fold",
+    "slab_march", "time_march", "xray_fold"])
+def test_wrappers_without_backward_refuse_grad_on_card(dev, wrapper):
+    """A tensor that requires grad is refused on the card by every wrapper
+    without a backward (K3-K8, K13-K16), never cut from the graph."""
+    call = _grad_calls(dev)[wrapper]
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP Residuals \(no backward\)"):
+        call()

@@ -30,6 +30,8 @@ from synthpy_tpu.fields import grf as jgrf
 from synthpy_tpu.ops.histogram import deposit_cic as jdeposit
 from synthpy_tpu.ops.multislice import multislice_propagate as jmultislice
 from synthpy_tpu.optics import diagnostics as jdg
+from synthpy_tpu.optics import xray as jxray
+from synthpy_tpu.tracer import particles as jparticles
 from synthpy_tpu.tracer import init_beam
 from synthpy_tpu.tracer import zscan as jz
 from synthpy_tpu.tracer.adaptive import solve_adaptive as jadaptive
@@ -105,7 +107,72 @@ def build_reference():
     out["out/render/images"] = images
     out["out/render/grad"] = jax.grad(lambda n: jnp.sum(
         w * jnp.stack(render(n))))(jnp.asarray(ne))
+    out.update(proton_reference())
+    out.update(xray_reference())
     return {k: np.asarray(v) for k, v in out.items()}
+
+
+def proton_reference():
+    """The "proton/" cases: JAX's exits (as (6, N) rows) and radiograph."""
+    P = R.PROTON
+    s0 = jparticles.init_proton_beam(jax.random.PRNGKey(1), P["n"],
+                                     P["energy"], source_distance=10e-3,
+                                     extent=R.EXT, cone_radius=0.5 * R.EXT)
+    _, B = jgrf.grf_vector_solenoidal(jax.random.PRNGKey(5),
+                                      jgrf.power_law(3.667), l_max=2e-3,
+                                      l_min=0.5e-3, extent=R.EXT, res=16,
+                                      rms=5.0)
+    B = np.array(B, np.float32)
+    out = {"in/proton_s0": s0, "in/proton_B": B}
+    for field in ("test_B", "grf"):
+        if field == "test_B":
+            d = JDomain(2 * R.EXT, 33).test_B(Bmax=P["Bmax"])
+        else:
+            d = JDomain(2 * R.EXT, 32)
+            d.external_B(B)
+        for tier, dt in (("f32", None), ("bf16", jnp.bfloat16),
+                         ("int8", jnp.int8)):
+            tab = None if dt is None else jparticles.build_B_table(
+                d, dtype=dt, plane_batch=P["batch"],
+                dither=R.PROTON_DITHER if tier == "int8" else None,
+                host_quantize=False)
+            out[f"out/proton/{field}_{tier}"] = np.asarray(
+                jparticles.trace_protons(s0, d, P["energy"],
+                                         B_table=tab)).T
+    out["out/proton/radiograph"] = jparticles.proton_radiograph(
+        out["out/proton/grf_f32"].T, 100e-3, R.EXT, bins=R.PROTON_BINS,
+        Lx=70.0, Ly=70.0)
+    return out
+
+
+def xray_reference():
+    """The "xray/" cases: JAX's dense and streamed images of stored
+    volumes."""
+    X = R.XRAY
+    rng = np.random.default_rng(11)
+    n = X["n"]
+    rho = (1e-3 * (1.0 + 0.5 * rng.random((n, n, n)))).astype(np.float32)
+    Te = (50.0 * (1.0 + rng.random((n, n, n)))).astype(np.float32)
+    kfn = jxray.make_opacity_lookup(*R.xray_table())
+    jfn = jxray.grey_emissivity(kfn)
+    ax = np.linspace(-X["half"], X["half"], n, dtype=np.float32)
+    sp = float(ax[1] - ax[0])
+    pd = X["probe"]
+    jr, jT = jnp.asarray(rho), jnp.asarray(Te)
+    out = {"in/xray_rho": rho, "in/xray_Te": Te,
+           "out/xray/attenuation": jxray.attenuation_image(jr, jT, kfn, sp,
+                                                           pd),
+           "out/xray/emission": jxray.self_emission_image(jr, jT, jfn, sp,
+                                                          pd),
+           "out/xray/point_projection": jxray.point_projection_radiograph(
+               jr, jT, kfn, [jnp.asarray(ax)] * 3, n_steps=X["n_steps"],
+               probing_direction=pd, **X["pp"])}
+    survey = jxray.xray_survey_streamed(
+        rho, Te, kfn, (ax,) * 3, probing_direction=pd, emiss_fn=jfn,
+        plane_batch=X["plane_batch"], **X["pp"])
+    for k, v in survey.items():
+        out[f"out/xray/survey_{k}"] = v
+    return out
 
 
 @pytest.fixture(scope="module")

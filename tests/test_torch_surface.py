@@ -53,7 +53,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_sources_carry_their_note_and_build_flags():
     for src in ("march.cu", "pack.cu", "detector.cu", "analytic.cu",
                 "deposit.cu", "fill.cu", "random.cu", "march_adjoint.cu",
-                "cic.cu"):
+                "cic.cu", "boris.cu", "btable.cu", "xray.cu"):
         text = (_build.CSRC / src).read_text()
         assert "Replaces" in text and "bounds it on the H100" in text, src
         assert "synthpy_tpu/" in text, src
@@ -69,15 +69,19 @@ def test_kernel_argtypes_match_the_c_entry_points():
     import re
 
     from synthpy_tpu_torch.kernels import (adaptive, analytic, binning,
-                                           cic, deposit, detector, fill,
-                                           march, march_adjoint, pack,
-                                           random, slab_march, time_march)
+                                           boris, btable, cic, deposit,
+                                           detector, fill, march,
+                                           march_adjoint, pack, random,
+                                           slab_march, time_march, xray)
 
-    kernels = [m.KERNEL for m in (adaptive, analytic, cic, deposit, detector,
-                                  fill, march, march_adjoint, pack, random,
-                                  slab_march, time_march)]
+    kernels = [m.KERNEL for m in (adaptive, analytic, boris, btable, cic,
+                                  deposit, detector, fill, march,
+                                  march_adjoint, pack, random, slab_march,
+                                  time_march)]
     kernels += [detector.FIELD_KERNEL, binning.BIN_KERNEL,
-                binning.BIN_FIELD_KERNEL, cic.BACKWARD_KERNEL]
+                binning.BIN_FIELD_KERNEL, cic.BACKWARD_KERNEL,
+                xray.FOLD_KERNEL, xray.PP_FOLD_KERNEL,
+                xray.PP_CHORDS_KERNEL]
     seen = set()
     for k in kernels:
         text = (_build.CSRC / k.source).read_text()
@@ -96,7 +100,8 @@ def test_kernel_argtypes_match_the_c_entry_points():
             seen.add(name)
     assert {"analytic_march", "detect_field", "detect_image", "bin_image",
             "bin_field", "deposit_cic", "pack_fill", "random_draw",
-            "march_adjoint", "cic_deposit", "cic_adjoint"} <= seen
+            "march_adjoint", "cic_deposit", "cic_adjoint", "boris_push",
+            "btable_write", "xray_fold", "pp_fold", "pp_chords"} <= seen
 
 
 def test_entry_points_default_to_cuda():
@@ -119,9 +124,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         pytest.skip("nvcc is present: the wrappers would build and launch")
     from synthpy_tpu_torch.fields.domain import ChannelLayout
     from synthpy_tpu_torch.fields.forms import ClosedForm
-    from synthpy_tpu_torch.kernels import (analytic, binning, cic, deposit,
-                                           detector, fill, march,
-                                           march_adjoint, pack)
+    from synthpy_tpu_torch.kernels import (analytic, binning, boris, btable,
+                                           cic, deposit, detector, fill,
+                                           march, march_adjoint, pack, xray)
     from synthpy_tpu_torch.kernels import random as kernel_random
     from synthpy_tpu_torch.ops import fresnel, histogram
 
@@ -174,6 +179,24 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         lambda: cic.adjoint(x, x, x[:, None], torch.empty((4, 4, 1),
                                                           device=meta),
                             (4, 4), 2.0, 2.0),
+        lambda: boris.push(torch.empty((8, 6), device=meta),
+                           torch.empty((4, 4, 4, 3), device=meta), None,
+                           [0.0] * 3, [1.0] * 3, 1e-12, 1e-4, 2),
+        lambda: btable.write(
+            torch.empty((4, 4, 4, 3), dtype=torch.int8, device=meta),
+            torch.empty((2, 4, 4, 3), device=meta), 0,
+            torch.empty(3, device=meta), (0, 5)),
+        lambda: xray.fold(u[:4, :2, None], None, mode=1, table=None,
+                          w0=True, wlast=True,
+                          tau=torch.empty((2, 1), device=meta), em=None),
+        lambda: xray.pp_fold(u[:2, :2, None].contiguous(), x, x, x[:2],
+                             x[:2], 0.0, 0.0, 1.0, 1.0, x),
+        lambda: xray.pp_chords(
+            torch.empty((4, 4, 4), device=meta),
+            torch.empty((4, 4, 4), device=meta), xray.ChordGeometry(
+                [0.0] * 3, [1.0] * 3, [0.0] * 3, [3.0] * 3,
+                [1.5, 1.5, -1.0], 1.5, 1.5, 4.0, torch.zeros(2),
+                torch.zeros(2), (2, 0, 1)), 4, 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -184,6 +207,24 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
             == kernel_random.KERNEL.launches == 0)
     assert (march_adjoint.KERNEL.launches == cic.KERNEL.launches
             == cic.BACKWARD_KERNEL.launches == 0)
+    assert (boris.KERNEL.launches == btable.KERNEL.launches
+            == xray.FOLD_KERNEL.launches == xray.PP_FOLD_KERNEL.launches
+            == xray.PP_CHORDS_KERNEL.launches == 0)
+
+
+def test_refuse_grad_names_the_residual_off_the_cpu():
+    """The shared guard of the wrappers without a backward: a tensor off
+    the CPU (here on the meta device) that requires grad raises under
+    autograd; CPU tensors, tensors without grad, None and autograd off
+    pass."""
+    meta = torch.empty(3, device="meta", requires_grad=True)
+    with pytest.raises(NotImplementedError,
+                       match=r"K13.*ROADMAP Residuals \(no backward\)"):
+        _build.refuse_grad("boris.push (K13)", None, meta)
+    _build.refuse_grad("x", torch.zeros(3, requires_grad=True),
+                       torch.empty(3, device="meta"), None, 1.0)
+    with torch.no_grad():
+        _build.refuse_grad("x", meta)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
