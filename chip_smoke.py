@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-The port's sixteen hand-written CUDA kernels are built from
+The port's eighteen hand-written CUDA kernels are built from
 ``synthpy_tpu_torch/kernels/csrc`` with nvcc, all sources at once: K1
 segment march, K2 pack builder/quantiser/decimator (with JAX's dither),
 K3 detector (an incoherent and a coherent entry point on exit states,
@@ -13,8 +13,9 @@ K8 cloud-in-cell deposit, K9 plane-batch pack fill, K10 threefry draws,
 K11 the segment march's adjoint, K12 the differentiable renderer's
 cloud-in-cell image and its adjoint (with the planted controls of
 ``inverse_path``), K13 the proton Boris push, K14 the B-table batch
-write, K15 the X-ray opacity lookup and plane fold and K16 the
-point-projection plane crossings and chord sampler.
+write, K15 the X-ray opacity lookup and plane fold, K16 the
+point-projection plane crossings and chord sampler, K17 a shard's segment
+of the grid-sharded march and K18 a stage of the grid-sharded time tracer.
 Each is held to its plain PyTorch version on the card. The
 zscan_seg bench configuration (512^3 bench lens, K = 512, 4,000,000 rays,
 rk2, slab weights, 431 x 321 bins) runs through the port's entry points at
@@ -93,7 +94,21 @@ fail; ``xray_path`` runs ``examples/xray_radiography.py``'s scene at
 plane batches) and at 256^3 through the dense images, the survey held
 bit for bit to the two single streams, K15 and K16 held to their plain
 versions on one 1024^3 batch and on the dense route; the plain versions
-are counted on both paths and none may run.
+are counted on both paths and none may run. Last the multi-device modes
+(``mesh_path``) on a mesh of four shards, on four cards where there are
+as many and on the one card repeated otherwise (the placement is
+printed): ``pipeline.run(mesh=)`` on the bench field (512^3, 4 M rays,
+K = 64) with a 4-way grid axis (K17) at the f32 default and bf16, the
+same on a 2 x 2 grid x rays mesh, a 4-way depth pipeline (rk2s2, 8
+chunks) and a 4-way rays axis (zscan_seg bf16, the time tracer,
+interferometry), each image equal to the single-device run on the same
+pack (coherent field sums within 1e-4 of their largest), and
+``sharded_histogram``; K17 bit-equal to its plain version on a
+65,536-ray subset and beside K1 a segment, K1 on a pipeline device's
+segment range bit-equal to plain, the grid-sharded time tracer (K18) on
+1 M rays over the first quarter of the depth held to its plain version
+and within 1e-4 of a column of K5, and a one-rank nccl group
+(``parallel.multihost``: all_gather, and a rays axis all-reduced).
 Every path is driven with the launch counts set to 0 just before it and
 read just after. Each phase prints one JSON line, with the script's
 seconds so far (``t_s``); then a
@@ -2467,6 +2482,410 @@ def k14_vs_plain(torch, dev, btable, jrandom, Bh, tab, tier, batch_ms,
     return rec
 
 
+# the mesh modes (A.17): a 4-way grid, a 2 x 2 grid x rays mesh, a 4-way
+# depth pipeline and a 4-way rays axis on the bench field; on one card the
+# four shards repeat it
+MESH = dict(dim=512, rays=4_000_000, K=64, shards=4, subset=65_536,
+            k18_rays=1_000_000, pp_chunks=8, reps=3)
+
+
+def mesh_placement(torch, n):
+    """n shards on distinct cards where there are as many, else all on
+    cuda:0 (the repeated-device mesh, the counterpart of the JAX
+    package's fake-device mesh)."""
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
+    """The multi-device modes of ``pipeline.run(mesh=)`` on the bench field
+    (512^3, 4 M rays, two-lens shadowgraphy): (a) a 4-way grid axis at the
+    f32 default and bf16 (kernel K17), (b) the same on a 2 x 2 grid x rays
+    mesh, (c) a 4-way depth pipeline (K1 a device, rk2s2, 8 chunks), (d) a
+    4-way rays axis for zscan_seg bf16, the time tracer and
+    interferometry, and ``sharded_histogram``; each image equal to the
+    single-device run on the same pack (coherent field sums within 1e-4 of
+    their largest), each mode's kernels launched. K17 bit-equal to its
+    plain version on a 65,536-ray subset of each tier's table and beside
+    K1 a segment at every ray; K1 on a PP segment range bit-equal to plain;
+    the grid-sharded time tracer (K18) on 1 M rays over the first quarter
+    of the depth, held to its plain version; a one-rank nccl group
+    (``multihost``: all_gather, all_reduce). Returns (kernels-line rows,
+    detail)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from synthpy_tpu_torch import pipeline
+    from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+    from synthpy_tpu_torch.fields.domain import build_pack
+    from synthpy_tpu_torch.kernels import march, march_sharded, sharded_rhs
+    from synthpy_tpu_torch.kernels import time_march
+    from synthpy_tpu_torch.kernels.profiling import best_ms
+    from synthpy_tpu_torch.ops.histogram import histogram2d
+    from synthpy_tpu_torch.parallel import (Mesh, make_gridsharded_tracer,
+                                            multihost, ppermute, psum,
+                                            sharded_histogram)
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+    from synthpy_tpu_torch.tracer.propagator import default_n_steps, dt_of
+
+    D, N, K, G = MESH["dim"], MESH["rays"], MESH["K"], MESH["shards"]
+    SUB, reps = MESH["subset"], MESH["reps"]
+    csrc = "synthpy_tpu_torch/kernels/csrc/"
+    detail, modes = {}, {}
+    torch.cuda.empty_cache()
+    place = mesh_placement(torch, G)
+    devs = sorted(set(place))
+    meshes = {"grid": Mesh((G,), ("grid",), devices=place),
+              "grid_rays": Mesh((2, 2), ("grid", "rays"), devices=place),
+              "seg": Mesh((G,), ("seg",), devices=place),
+              "rays": Mesh((G,), ("rays",), devices=place)}
+    dom = ScalarDomain(2 * EXT, D, device=dev).test_lens(ne_0=5e24,
+                                                         LR=1.5e-3)
+    lay = layout_of(dom)
+    C = lay.n_channels
+    rays = init_beam(0, N, 2e-3, 0.0, EXT, "circular", device=dev)
+    u_all = zscan.permute_state(rays, "z").contiguous()
+    u_sub = u_all[:SUB].contiguous()
+    seg_kw = dict(solver="zscan_seg", seg_K=K, integrator="rk2",
+                  seg_weights="slab", bins=BINS)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def run_peak(fn):
+        """fn() and the peak device memory of each shard device [GB]."""
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, round(time.perf_counter() - t, 3), {
+            d: torch.cuda.max_memory_allocated(d) / 1e9 for d in devs}
+
+    def wall_ms(fn, calls=5):
+        """Host time of one fn() call [ms] over ``calls`` calls, every
+        shard's card synchronised before and after: a launch on another
+        card is not on the first card's stream, which CUDA events time."""
+        fn()
+        for d in devs:
+            torch.cuda.synchronize(d)
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        for d in devs:
+            torch.cuda.synchronize(d)
+        return (time.perf_counter() - t) * 1e3 / calls
+
+    def mkw(sp, integrator, weights):
+        return dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+                    inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+                    layout=lay, K=sp.K, integrator=integrator,
+                    weights=weights, qbits=sp.qbits)
+
+    # -- (a), (b): the grid-sharded march, f32 default and bf16 -------------
+    k17 = {}
+    single = {}
+    for tier in ("f32", "bf16"):
+        sp1 = zscan.build_segment_pack_device(dom, K=K, dtype=dtypes[tier])
+        single[tier] = sp1
+        H1 = pipeline.run(dom, rays, spack=sp1, **seg_kw)
+        single_ms = best_ms(lambda: pipeline.run(dom, rays, spack=sp1,
+                                                 **seg_kw), reps=reps)
+        for name in ("grid", "grid_rays"):
+            m = meshes[name]
+            kw = dict(seg_kw, mesh=m, grid_axis="grid")
+            if tier == "bf16":
+                kw["pack_dtype"] = "bf16"
+            reset()
+            H, run_s, peak = run_peak(lambda: pipeline.run(dom, rays, **kw))
+            launches = path_launches(("march_owned", "pack", "detector"),
+                                     f"mesh {name}/{tier}")
+            check(torch.equal(H, H1) and float(H.sum()) > 0,
+                  f"mesh {name}/{tier}: image (sum {float(H.sum())}) != the "
+                  f"single-device image (sum {float(H1.sum())})")
+            sps = zscan.build_segment_pack_device(
+                dom, K=K, dtype=dtypes[tier], mesh=m, mesh_axis="grid")
+            kw.pop("pack_dtype", None)
+            ms = best_ms(lambda: pipeline.run(dom, rays, spack=sps, **kw),
+                         reps=reps)
+            modes[f"{name}/{tier}"] = {
+                "mesh": m.shape, "launches": launches, "first_run_s": run_s,
+                "ms": ms, "single_device_ms": single_ms,
+                "peak_gb": peak, "image_sum": float(H.sum()),
+                "image_equal": True}
+            if name == "grid":
+                grid_pack = sps
+            del sps
+        # K17 at the path's shapes: each shard's launch on one segment
+        # against its plain version (a 65,536-ray subset), the owned rays
+        # against K1 on the whole table; then a segment's G launches at
+        # every ray beside K1's one segment
+        na, nb = sp1.shape_ab
+        naloc = na // G
+        # each shard's rows, the halo and the rays on the shard's device
+        tabs = [t.reshape(t.shape[0], naloc, nb, -1)
+                for t in grid_pack.seg_planes.shards]
+        sdev = [t.device for t in tabs]
+        halos = [tabs[(g + 1) % G][:, 0].to(sdev[g]) for g in range(G)]
+        kwm = mkw(sp1, "rk2", "slab")
+        full = march.march(u_sub, sp1.seg_planes[:1], None, **kwm)
+        err = 0.0
+        for g in range(G):
+            args = (u_sub.to(sdev[g]), tabs[g][0], halos[g][0], None)
+            a = march_sharded.march_owned(*args, lo=g * naloc, naloc=naloc,
+                                          **kwm).to(dev)
+            torch.cuda.synchronize()
+            b = march_sharded.march_owned_plain(*args, lo=g * naloc,
+                                                naloc=naloc, **kwm).to(dev)
+            check(torch.equal(a, b), f"K17 {tier} shard {g} != plain")
+            own = march_sharded.owned(u_sub, g * naloc, naloc, na,
+                                      kwm["origin_ab"][0], kwm["inv_ab"][0])
+            check(torch.equal(a[own], full[own]),
+                  f"K17 {tier} shard {g}: owned rays != K1")
+            err = max(err, float((a - b).abs().max()))
+        geo = (sp1.shape_ab, kwm["origin_ab"], kwm["inv_ab"])
+        order = march.ray_order(u_all, *geo)
+        on = [(u_all.to(d), order.to(d)) for d in sdev]
+
+        def k17_segment(plain=False):
+            fn = (march_sharded.march_owned_plain if plain
+                  else march_sharded.march_owned)
+            return [fn(on[g][0], tabs[g][0], halos[g][0], None,
+                       lo=g * naloc, naloc=naloc, **kwm,
+                       **({} if plain else {"order": on[g][1]}))
+                    for g in range(G)]
+
+        outs = k17_segment()
+        cell = march.entry_cells(u_all, *geo).long()
+        rows = int(torch.unique(torch.cat([cell, cell + 1, cell + nb,
+                                           cell + nb + 1])).numel())
+        stage = 7 * C + 6
+        flops = N * K * (8 * C + 24 + 2 * stage + 32)
+        nbytes = (N * 32 + G * N * 32
+                  + rows * sp1.seg_planes.shape[-1]
+                  * sp1.seg_planes.element_size())
+        b = bound(nbytes, flops)
+        k17[tier] = {
+            "subset_bit_equal_plain": True, "owned_equal_K1": True,
+            "max_abs_err": err,
+            "ms": wall_ms(k17_segment),
+            "k1_segment_ms": wall_ms(lambda: march.march(
+                u_all, sp1.seg_planes[:1], None, **kwm)),
+            "plain_ms": best_ms(lambda: k17_segment(True), reps=1,
+                                warmup=0),
+            "bound_ms": b[0], "bound_by": b[1], "bytes": nbytes,
+            "flops": flops, "table_rows_touched": rows,
+            "psum_ms": wall_ms(lambda: psum(outs, meshes["grid"], "grid")),
+            "ppermute_ms": wall_ms(lambda: ppermute(
+                [t[:, 0] for t in tabs], meshes["grid"], "grid",
+                [(i, (i - 1) % G) for i in range(G)]))}
+        del grid_pack, tabs, halos, outs, full, cell, on
+        torch.cuda.empty_cache()
+    emit({"phase": "K17_vs_plain", "rays": SUB, "placement": place, **k17})
+
+    # -- (c): the depth pipeline, K1 over each device's segment range -------
+    sp1 = single["f32"]
+    pp_kw = dict(solver="zscan_seg", seg_K=K, integrator="rk2s2", bins=BINS)
+    H1 = pipeline.run(dom, rays, spack=sp1, **pp_kw)
+    reset()
+    H, run_s, peak = run_peak(lambda: pipeline.run(
+        dom, rays, mesh=meshes["seg"], pp_axis="seg",
+        pp_chunks=MESH["pp_chunks"], **pp_kw))
+    launches = path_launches(("march", "pack", "detector"), "mesh seg")
+    check(torch.equal(H, H1), "mesh seg: image != the single-device image")
+    L = sp1.seg_planes.shape[0] // G
+    kwp = mkw(sp1, "rk2s2", "stage")
+    a = march.march(u_sub, sp1.seg_planes[L:2 * L], None, **kwp)
+    torch.cuda.synchronize()
+    check(torch.equal(a, march.march_plain(u_sub, sp1.seg_planes[L:2 * L],
+                                           None, **kwp)),
+          "K1 on a PP segment range != plain")
+    modes["seg/f32"] = {
+        "mesh": meshes["seg"].shape, "launches": launches,
+        "first_run_s": run_s, "pp_chunks": MESH["pp_chunks"],
+        "ms": best_ms(lambda: pipeline.run(
+            dom, rays, spack=sp1, mesh=meshes["seg"], pp_axis="seg",
+            pp_chunks=MESH["pp_chunks"], **pp_kw), reps=reps),
+        "single_device_ms": best_ms(lambda: pipeline.run(
+            dom, rays, spack=sp1, **pp_kw), reps=reps),
+        "peak_gb": peak, "image_equal": True,
+        "k1_segment_range_bit_equal_plain": True}
+    del single
+
+    # -- (d): the rays axis; sharded_histogram ------------------------------
+    m = meshes["rays"]
+    for name, kw, names in (
+            ("zscan_seg/bf16", dict(seg_kw, pack_dtype="bf16"),
+             ("march", "pack", "detector")),
+            ("time", dict(solver="time", bins=BINS),
+             ("time_march", "detector")),
+            ("interferometry", dict(seg_kw, pack_dtype="bf16",
+                                    diagnostic="interferometry",
+                                    coherent_raw=True),
+             ("march", "pack", "detector_field"))):
+        H1 = pipeline.run(dom, rays, **kw)
+        reset()
+        H, run_s, peak = run_peak(lambda: pipeline.run(dom, rays, mesh=m,
+                                                       **kw))
+        launches = path_launches(names, f"mesh rays {name}")
+        if name == "interferometry":
+            # field sums: summation order only (C.7)
+            diff = float((H - H1).abs().max())
+            check(diff <= 1e-4 * float(H1.abs().max()),
+                  f"mesh rays interferometry: field sums off by {diff}")
+        else:
+            diff = 0.0
+            check(torch.equal(H, H1), f"mesh rays {name}: image differs")
+        modes[f"rays/{name}"] = {
+            "mesh": m.shape, "launches": launches, "first_run_s": run_s,
+            "ms": best_ms(lambda: pipeline.run(dom, rays, mesh=m, **kw),
+                          reps=2),
+            "single_device_ms": best_ms(lambda: pipeline.run(dom, rays,
+                                                             **kw), reps=2),
+            "peak_gb": peak, "max_abs_diff": diff}
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand(N, device=dev, generator=g) * 20 - 10
+    y = torch.rand(N, device=dev, generator=g) * 15 - 7.5
+    w = torch.ones_like(x)
+    rng_ = ((-9.0, 9.0), (-6.75, 6.75))
+    reset()
+    Hh = sharded_histogram(m, BINS, rng_)(x, y, w)
+    launches = path_launches(("bin_image",), "sharded_histogram")
+    check(torch.equal(Hh, histogram2d(x, y, BINS, rng_, weights=w)[0]),
+          "sharded_histogram counts differ")
+    modes["rays/sharded_histogram"] = {"launches": launches,
+                                       "image_sum": float(Hh.sum())}
+    emit({"phase": "mesh_path", "dim": D, "rays": N, "K": K,
+          "placement": place, "modes": modes})
+
+    # -- the grid-sharded time tracer (K18), 1 M rays, first quarter --------
+    M = MESH["k18_rays"]
+    tp = build_pack(dom)
+    n_full = default_n_steps(dom, dom.extent, 1.0)
+    n = n_full // CHECK_DEPTH
+    dt = dt_of(n_full, dom.extent)
+    rows18 = rays[:, :M].T.contiguous()
+    tr = make_gridsharded_tracer(meshes["grid"], lay, n, nx_global=D)
+    targs = (tp.channels, tp.origin, tp.inv_spacing, dt)
+    reset()
+    out, run_s, peak = run_peak(lambda: tr(rows18, *targs))
+    launches = path_launches(("sharded_rhs",), "grid-sharded time tracer")
+    shipped = (sharded_rhs.gather_owned, sharded_rhs.rk4_stage)
+
+    def gather_plain(t, values, halo, *, layout, **kw):
+        return sharded_rhs.gather_owned_plain(t, values, halo, **kw)
+
+    sharded_rhs.gather_owned = gather_plain
+    sharded_rhs.rk4_stage = sharded_rhs.rk4_stage_plain
+    try:
+        plain, plain_s, _ = run_peak(lambda: tr(rows18, *targs))
+    finally:
+        sharded_rhs.gather_owned, sharded_rhs.rk4_stage = shipped
+    k18 = close(out, plain, "K18 tracer vs its plain versions")
+    # the unsharded tracer (K5) on the same rays: the shards' moved origins
+    # change the values by rounding only (JAX's bound, 1e-4 of a column)
+    ref = time_march.march(rows18, *targs, layout=lay, n_steps=n)
+    scale = ref.abs().amax(0).clamp_min(1e-30)
+    vs_k5 = ((out - ref).abs().amax(0) / scale).tolist()
+    check(max(vs_k5) <= 1e-4, f"K18 tracer vs K5 off by {vs_k5}")
+    # one stage's kernels: the G shards' gathers and the stage update, on
+    # the rays in entry-cell order (as the tracer marches them)
+    o = [float(v) for v in tp.origin]
+    iv = [float(v) for v in tp.inv_spacing]
+    srt = rows18[march.ray_order(rows18, (D, D, D), o, iv)].contiguous()
+    nloc = D // G
+    sdev = [torch.device(d) for d in place]
+    chs = [tp.channels[g * nloc:(g + 1) * nloc].to(sdev[g])
+           for g in range(G)]
+    hal = [tp.channels[((g + 1) % G) * nloc].to(sdev[g]) for g in range(G)]
+    ts = [srt.to(d) for d in sdev]
+    st = (srt.clone(), srt.clone(), torch.empty_like(srt))
+    steps = time_march.Steps.of(dt)
+
+    def k18_stage(plain=False):
+        gfn = (gather_plain if plain else sharded_rhs.gather_owned)
+        sfn = (sharded_rhs.rk4_stage_plain if plain
+               else sharded_rhs.rk4_stage)
+        vals = [gfn(ts[g], chs[g], hal[g], origin=o, inv_spacing=iv,
+                    lo=g * nloc, nx_global=D, last=g == G - 1, layout=lay)
+                for g in range(G)]
+        sfn(*st, vals[0].to(dev), 0, steps, lay, -1.0)
+
+    k18_ms = wall_ms(k18_stage, calls=10)
+    k18_plain_ms = best_ms(lambda: k18_stage(True), reps=1, warmup=0)
+    # bytes: the positions read once, each shard's values written, the
+    # grid nodes this run's queries touch, the stage's state, stage state
+    # and sum read and written and the summed values read
+    t3 = ((srt[:, :3] - torch.tensor(o, device=dev))
+          * torch.tensor(iv, device=dev)).floor().nan_to_num(0).clamp(
+              0, D - 2).long()
+    base = (t3[:, 0] * D + t3[:, 1]) * D + t3[:, 2]
+    nodes = int(torch.unique(torch.cat([
+        base + (dx * D + dy) * D + dz for dx in (0, 1) for dy in (0, 1)
+        for dz in (0, 1)])).numel())
+    k18_bytes = M * (12 + 5 * 36 + 4 * C) + G * M * 4 * C + nodes * C * 4
+    k18_flops = M * ((28 + 15 * C) + 6 + 9 * 3 + 9 * 2)
+    b18 = bound(k18_bytes, k18_flops)
+    k18_detail = {"rays": M, "steps": n, "of_steps": n_full,
+                  "launches": launches, "trace_s": run_s,
+                  "plain_trace_s": plain_s, "peak_gb": peak,
+                  "vs_plain": k18, "vs_k5_max_rel_per_column": vs_k5,
+                  "stage_ms": k18_ms, "stage_plain_ms": k18_plain_ms,
+                  "bound_ms": b18[0], "bound_by": b18[1],
+                  "bytes": k18_bytes, "flops": k18_flops,
+                  "grid_nodes_touched": nodes}
+    emit({"phase": "K18_vs_plain", **k18_detail})
+    del tp, out, plain, ref, srt, st, chs, hal, ts
+    torch.cuda.empty_cache()
+
+    # -- multihost on a one-rank nccl group ---------------------------------
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", num_processes=1, process_id=0)
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"the group's backend is {backend}")
+        rows_g = multihost.global_ray_array(u_sub)
+        check(torch.equal(rows_g, u_sub), "all_gather of one rank differs")
+        pm = Mesh((G,), ("rays",), devices=place, process_axis="rays")
+        kw = dict(seg_kw, pack_dtype="bf16")
+        Hp = pipeline.run(dom, rays, mesh=pm, **kw)
+        check(torch.equal(Hp, pipeline.run(dom, rays, **kw)),
+              "a rays axis all-reduced over nccl differs")
+        mh = {"backend": backend, "world": dist.get_world_size(),
+              "all_gather_equal": True, "all_reduce_image_equal": True}
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "multihost_nccl", **mh})
+
+    rows_out = [
+        {"name": "march_owned", "route": "cuda",
+         "source": csrc + "march_sharded.cu",
+         "replaces": "synthpy_tpu/parallel/mesh.py:277",
+         "launches": modes["grid/f32"]["launches"]["march_owned"],
+         "max_abs_err": max(k17[t]["max_abs_err"] for t in k17),
+         "ms": k17["f32"]["ms"], "plain_ms": k17["f32"]["plain_ms"],
+         "bound_ms": k17["f32"]["bound_ms"],
+         "bound_by": k17["f32"]["bound_by"], "library_ms": None,
+         "per": f"one segment of {K} slabs, {G} shards, {N} rays, f32, "
+                "rk2, slab weights",
+         "k1_segment_ms": k17["f32"]["k1_segment_ms"],
+         "bf16": {k: k17["bf16"][k] for k in (
+             "ms", "k1_segment_ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "sharded_rhs", "route": "cuda",
+         "source": csrc + "sharded_rhs.cu",
+         "replaces": "synthpy_tpu/parallel/mesh.py:178",
+         "launches": k18_detail["launches"]["sharded_rhs"],
+         "max_abs_err": k18["max_abs_err"], "ms": k18_ms,
+         "plain_ms": k18_plain_ms, "bound_ms": b18[0], "bound_by": b18[1],
+         "library_ms": None,
+         "per": f"one RK4 stage: {G} gathers and the update, {M} rays"}]
+    detail["mesh_path"] = {"placement": place, "modes": modes, "K17": k17,
+                           "K18": k18_detail, "multihost": mh}
+    return rows_out, detail
+
+
 def main():
     try:
         import torch
@@ -2485,8 +2904,10 @@ def main():
         from synthpy_tpu_torch.kernels import (_build, adaptive, analytic,
                                                binning, boris, btable, cic,
                                                deposit, detector, fill,
-                                               march, march_adjoint, pack,
-                                               slab_march, time_march)
+                                               march, march_adjoint,
+                                               march_sharded, pack,
+                                               sharded_rhs, slab_march,
+                                               time_march)
         from synthpy_tpu_torch.kernels import random as krandom
         from synthpy_tpu_torch.kernels import xray as kxray
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
@@ -2521,7 +2942,9 @@ def main():
                "cic_adjoint": cic.BACKWARD_KERNEL, "boris": boris.KERNEL,
                "btable": btable.KERNEL, "xray_fold": kxray.FOLD_KERNEL,
                "pp_fold": kxray.PP_FOLD_KERNEL,
-               "pp_chords": kxray.PP_CHORDS_KERNEL}
+               "pp_chords": kxray.PP_CHORDS_KERNEL,
+               "march_owned": march_sharded.KERNEL,
+               "sharded_rhs": sharded_rhs.KERNEL}
     controls = inverse_controls(torch)
 
     # -- 1. device and kernel build ------------------------------------------
@@ -3405,6 +3828,12 @@ def main():
     rad_rows, rad_detail = radiography(torch, dev, kernels, bound, reset,
                                        path_launches)
 
+    # -- 3f. the multi-device modes on a mesh of the card(s): the grid-
+    # sharded march (K17), the depth pipeline, the rays axis, the
+    # grid-sharded time tracer (K18), a one-rank nccl group
+    mesh_rows, mesh_detail = mesh_path(torch, dev, kernels, bound, reset,
+                                       path_launches, close)
+
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
     k1_call_ms = best_ms(lambda: march.march(u_all, sp.seg_planes,
                                              sp.scales, **mkw), reps=5)
@@ -3709,10 +4138,10 @@ def main():
                   "pack_dither": 2, "march_adjoint": 1, "cic": 1,
                   "cic_adjoint": 1, "boris": 1, "btable_bf16": 1,
                   "btable_int8": 1, "xray_fold": 1, "pp_fold": 1,
-                  "pp_chords": 1},
+                  "pp_chords": 1, "march_owned": 1, "sharded_rhs": 1},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "script_s": time.perf_counter() - t_start}
-    rows_out += wo_rows + sc_rows + inv_rows + rad_rows
+    rows_out += wo_rows + sc_rows + inv_rows + rad_rows + mesh_rows
     emit({"phase": "bounds", **detail})
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
@@ -3723,7 +4152,8 @@ def main():
                    "K5_times": k5_t, "K6": k6, "K6_times": k6_t,
                    "paths": paths, "K7": k7, "K3_coherent": coh,
                    "kernels": rows_out, **wo_detail, **sc_detail,
-                   **inv_detail, **rad_detail, **detail}, f, indent=1)
+                   **inv_detail, **rad_detail, **mesh_detail, **detail},
+                  f, indent=1)
     emit({"kernels": rows_out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,11 @@ and the adaptive validation tracer ``solve_adaptive`` (K6). ``solve``,
 ``solve_zscan``, ``solve_adaptive`` and ``solve_zscan_analytic`` are
 exported here, as in ``synthpy_tpu.tracer``.
 
+``parallel`` runs ``pipeline.run(mesh=)``'s multi-device modes on a mesh
+of torch devices (which may repeat one card): ray-parallel, grid-sharded
+(K17) and depth-pipelined, the grid-sharded time tracer (K18) and the
+multi-process helpers on ``torch.distributed``.
+
 ``inverse.make_renderer`` builds the differentiable forward model, ne ->
 image(s), for ``torch.autograd`` (the segment march's adjoint K11 and the
 cloud-in-cell detector K12), with the priors of ``priors``.
@@ -47,6 +52,7 @@ _SUBMODULES = (
     "kernels",
     "ops",
     "optics",
+    "parallel",
     "pipeline",
     "priors",
     "tracer",

@@ -114,7 +114,9 @@ class Kernel:
 
     def launch(self, name: str, device, *args) -> None:
         """Call C function ``name`` with ``args`` and, last, the current
-        CUDA stream of ``device``; raise if it reports an error."""
+        CUDA stream of ``device``, with ``device`` the current device (a
+        launch on another card's stream fails); raise if it reports an
+        error."""
         if len(args) + 1 != len(self.functions[name]):
             raise TypeError(f"{self.source}:{name} takes "
                             f"{len(self.functions[name]) - 1} arguments "
@@ -124,7 +126,8 @@ class Kernel:
         if self.events is not None:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record(stream)
-        rc = fn(*args, stream.cuda_stream)
+        with torch.cuda.device(device):
+            rc = fn(*args, stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.source}:{name} failed to launch "
                                f"(cudaError {rc})")

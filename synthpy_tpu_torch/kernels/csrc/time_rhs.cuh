@@ -1,7 +1,9 @@
-// Device code shared by K5 (time_march.cu) and K6 (adaptive.cu): the
-// trilinear gather of a channels-last (nx, ny, nz, C) f32 grid
-// (synthpy_tpu/ops/interp.py:33 trilinear) and the time-domain right-hand
-// side of the (9,) ray state (synthpy_tpu/tracer/propagator.py:56 _rhs).
+// Device code shared by K5 (time_march.cu), K6 (adaptive.cu) and K18
+// (sharded_rhs.cu): the trilinear gather of a channels-last (nx, ny, nz, C)
+// f32 grid (synthpy_tpu/ops/interp.py:33 trilinear) and the time-domain
+// right-hand side of the (9,) ray state (synthpy_tpu/tracer/
+// propagator.py:56 _rhs), whose reassembly from the channel values
+// (derivative) K18 also runs on its own.
 //
 // Arithmetic follows the JAX expressions operation for operation: the
 // fractional index t = (pos - origin) * inv_spacing, the inside mask
@@ -76,12 +78,12 @@ __device__ __forceinline__ void trilinear(const Grid& G, const float pos[3],
   }
 }
 
-// ds/dt of the state s = (x, y, z, vx, vy, vz, amp, phase, pol).
+// ds/dt of the state s = (x, y, z, vx, vy, vz, amp, phase, pol) from the
+// channel values v at its position (_rhs's reassembly).
 template <class LY>
-__device__ __forceinline__ void rhs(const Grid& G, const float s[9],
-                                    float atten_sign, float d[9]) {
-  float v[LY::C];
-  trilinear<LY::C>(G, s, v);
+__device__ __forceinline__ void derivative(const float s[9],
+                                           const float v[LY::C],
+                                           float atten_sign, float d[9]) {
   d[0] = s[3];
   d[1] = s[4];
   d[2] = s[5];
@@ -95,6 +97,15 @@ __device__ __forceinline__ void rhs(const Grid& G, const float s[9],
   if constexpr (LY::phaseshift) d[7] = v[LY::PI];
   if constexpr (LY::B_on)
     d[8] = v[LY::FI] * s[3] + v[LY::FI + 1] * s[4] + v[LY::FI + 2] * s[5];
+}
+
+// ds/dt of the state s, gathering its channel values from the grid.
+template <class LY>
+__device__ __forceinline__ void rhs(const Grid& G, const float s[9],
+                                    float atten_sign, float d[9]) {
+  float v[LY::C];
+  trilinear<LY::C>(G, s, v);
+  derivative<LY>(s, v, atten_sign, d);
 }
 
 }  // namespace time_rhs

@@ -76,9 +76,12 @@ def march_plain(u: torch.Tensor, seg_planes: torch.Tensor,
                 shape_ab: Tuple[int, int], origin_ab: Sequence[float],
                 inv_ab: Sequence[float], dp: float, layout: ChannelLayout,
                 K: int, integrator: str = "rk4", weights: str = "stage",
-                qbits: Optional[int] = None,
-                atten_sign: float = -1.0) -> torch.Tensor:
-    """Plain version of the march: (N, 8) permuted states in and out."""
+                qbits: Optional[int] = None, atten_sign: float = -1.0,
+                a_offset: int = 0) -> torch.Tensor:
+    """Plain version of the march: (N, 8) permuted states in and out.
+    ``a_offset``: the first a-row the table holds (a shard's rows, as in
+    the JAX package's ``march_segment(a_offset=)``); the rays' corner
+    cells must lie in it."""
     na, nb = shape_ab
     n_seg, cells, row = seg_planes.shape
     C = row // plane_blocks(K, qbits)
@@ -139,7 +142,7 @@ def march_plain(u: torch.Tensor, seg_planes: torch.Tensor,
         tb = (cols[1] - ob) * ib_
         ia0f = torch.clamp(torch.floor(ta), 0, na - 2)
         ib0f = torch.clamp(torch.floor(tb), 0, nb - 2)
-        base = s * cells + (ia0f * nb + ib0f).to(torch.int64)
+        base = s * cells + ((ia0f - a_offset) * nb + ib0f).to(torch.int64)
         rows = [(base + off) * row for off in (0, 1, nb, nb + 1)]
         sc = None if seg_scales is None else seg_scales[s].to(dt)
 

@@ -113,6 +113,21 @@ def ptxas(source: Path, flags: Sequence[str]
     return kernels, text, out
 
 
+def _inline_headers(text: str, seen: set) -> str:
+    """``text`` with each ``#include "x.cuh"`` of ``csrc/`` replaced by the
+    header's text, once per header (``#pragma once``)."""
+    def sub(m):
+        name = m.group(1)
+        if name in seen:
+            return ""
+        seen.add(name)
+        body = (_build.CSRC / name).read_text().replace("#pragma once", "")
+        return _inline_headers(body, seen)
+
+    return re.sub(r'^#include "([^"]+\.cuh)"[ \t]*$', sub, text,
+                  flags=re.M)
+
+
 def variant(kernel: _build.Kernel, name: str,
             subs: Sequence[Tuple[str, str]],
             flags: Optional[Sequence[str]] = None) -> _build.Kernel:
@@ -120,6 +135,9 @@ def variant(kernel: _build.Kernel, name: str,
     (each must match) and ``flags`` (default: the kernel's own)."""
     text = (_build.CSRC / kernel.source).read_text()
     for a, b in subs:
+        if a not in text:
+            # the text may be in a header the source shares (march_core.cuh)
+            text = _inline_headers(text, set())
         if a not in text:
             raise RuntimeError(f"variant {name}: {a!r} not in the source")
         text = text.replace(a, b)

@@ -52,6 +52,12 @@ def rhs(s: torch.Tensor, channels: torch.Tensor, origin, inv_spacing,
     corner sum contracted, as in the compiled JAX step)."""
     vals = trilinear(channels, s[:, 0:3], origin, inv_spacing,
                      contract=True)
+    return rhs_of(s, vals, layout, atten_sign)
+
+
+def rhs_of(s: torch.Tensor, vals: torch.Tensor, layout: ChannelLayout,
+           atten_sign: float) -> torch.Tensor:
+    """ds/dt of (N, 9) rays from their (N, C) channel values."""
     v = s[:, 3:6]
     zeros = torch.zeros_like(s[:, 0:1])
     d_amp = (atten_sign * vals[:, layout.kappa_index:layout.kappa_index + 1]

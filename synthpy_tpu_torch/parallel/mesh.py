@@ -1,0 +1,595 @@
+"""Device meshes: ray data-parallelism, grid sharding and the collectives
+between shards (PyTorch port of ``synthpy_tpu.parallel.mesh``).
+
+A ``Mesh`` is single-controller, as a ``jax.sharding.Mesh`` is: one
+process holds every device of the mesh and drives each shard's work in
+turn, on the current stream of the shard's device, with the collectives as
+plain functions over the per-shard tensors between the phases of that
+work (``psum``: each shard receives the sum over an axis, added in shard
+order 0..G-1, computed once per distinct device; ``ppermute``: a copy to
+the target shard's device). With one card the shards run in turn; on
+distinct cards their launches overlap.
+
+A device may repeat. ``Mesh((4,), ("grid",), devices=["cuda:0"] * 4)``
+runs a 4-way grid on one H100, as the JAX package's tests run every mesh
+mode on 8 fake CPU devices (``tests/conftest.py``); the repeated-device
+mesh is the port's counterpart of that fake-device mesh, not a mode of its
+own, and the CPU tests use ``["cpu"] * 8``. The constructors place shards
+on distinct cards where ``torch.cuda.device_count()`` allows, or on the
+devices they are given.
+
+Values split over a mesh are ``Sharded``: the per-shard tensors and a spec
+naming the mesh axis each dimension is split over (JAX's ``PartitionSpec``);
+``gather()`` gives the whole tensor back. ``shard_rays`` and ``replicate``
+make them, and the tracers below, ``sharded_histogram`` and
+``pipeline.run(mesh=)`` take them or plain tensors.
+
+The mesh modes:
+
+* rays split over a ``rays`` axis (``pipeline.run(mesh=)``: each shard runs
+  the single-device path and the images are psummed; ``sharded_histogram``:
+  K3's ``bin_image`` a shard, then a psum);
+* the field split along a transverse axis over a ``grid`` axis, with a
+  one-row halo from the right neighbour: ``make_gridsharded_segment_tracer``
+  (kernel K17, ``kernels.march_sharded``, one launch a shard and segment,
+  a psum of the (N, 8) state a segment) and ``make_gridsharded_tracer``
+  (the time tracer; kernel K18, ``kernels.sharded_rhs``, a gather a shard
+  and stage, a psum of the channel values, the stage's update);
+* the segments split by probing depth over a ``seg`` axis
+  (``parallel.pipeline_pp``).
+
+Across processes (``parallel.multihost``) a mesh holds this process's
+devices; its ``process_axis`` (a rays axis) is the one that spans the
+processes, and a psum over it also all-reduces over the default process
+group. A grid or seg axis cannot span processes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from synthpy_tpu_torch.fields.domain import ChannelLayout
+from synthpy_tpu_torch.kernels import march as _march
+from synthpy_tpu_torch.kernels import march_sharded as _owned
+from synthpy_tpu_torch.kernels import sharded_rhs as _rhs
+from synthpy_tpu_torch.kernels.time_march import Steps
+from synthpy_tpu_torch.parallel import multihost
+
+
+def _visible_devices() -> List[torch.device]:
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError(
+            "no CUDA device is available; pass devices=['cpu'] * n to run "
+            "a mesh of the plain PyTorch versions on the host")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+class Mesh:
+    """A mesh of torch devices: ``axis_names``, ``shape`` (name -> size,
+    as JAX's ``mesh.shape``) and ``devices``, an object array of
+    ``torch.device`` of that shape. ``devices`` (default: the visible
+    CUDA devices) may repeat a device. ``process_axis``: the axis that
+    spans the processes of the default process group, or None."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 devices=None, process_axis: Optional[str] = None):
+        shape = tuple(int(s) for s in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(
+                axis_names) or min(shape, default=0) < 1:
+            raise ValueError(f"bad mesh shape {shape} / axes {axis_names}")
+        n = math.prod(shape)
+        devs = (_visible_devices() if devices is None
+                else [torch.device(d) for d in devices])
+        if n > len(devs):
+            raise ValueError(f"mesh {dict(zip(axis_names, shape))} wants {n} "
+                             f"devices; torch sees {len(devs)}")
+        if process_axis is not None and process_axis not in axis_names:
+            raise ValueError(f"process axis {process_axis!r} not in "
+                             f"{axis_names}")
+        self.axis_names = axis_names
+        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
+        arr = np.empty(n, dtype=object)
+        for i, d in enumerate(devs[:n]):
+            arr[i] = d
+        self.devices = arr.reshape(shape)
+        self.process_axis = process_axis
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    @property
+    def flat_devices(self) -> List[torch.device]:
+        return list(self.devices.reshape(-1))
+
+    def index(self, pos: int, axis: str) -> int:
+        """Coordinate of flat position ``pos`` along ``axis``."""
+        coords = np.unravel_index(pos, self.devices.shape)
+        return int(coords[self.axis_names.index(axis)])
+
+    def groups(self, axis: str) -> List[List[int]]:
+        """The flat positions of each line of the mesh along ``axis``, in
+        axis order."""
+        ax = self.axis_names.index(axis)
+        pos = np.arange(self.size).reshape(self.devices.shape)
+        lines = np.moveaxis(pos, ax, -1).reshape(-1, self.shape[axis])
+        return [[int(p) for p in line] for line in lines]
+
+    def placement(self) -> List[str]:
+        """Each shard's device, in flat order (what a run prints)."""
+        return [str(d) for d in self.flat_devices]
+
+    def __repr__(self):
+        return (f"Mesh({self.shape}, devices={self.placement()}"
+                + (f", process_axis={self.process_axis!r})"
+                   if self.process_axis else ")"))
+
+
+def ray_mesh(n_devices: Optional[int] = None, axis: str = "rays",
+             devices=None) -> Mesh:
+    """1-D mesh over (up to ``n_devices`` of) the visible CUDA devices or
+    ``devices``. Inside a multi-process job (``multihost.initialize``) the
+    axis spans the processes."""
+    devs = (_visible_devices() if devices is None
+            else [torch.device(d) for d in devices])
+    if n_devices is not None:
+        devs = devs[:n_devices]
+    return Mesh((len(devs),), (axis,), devices=devs,
+                process_axis=axis if multihost.process_count() > 1 else None)
+
+
+def mesh_from_spec(spec: str, grid_axis: Optional[str] = None,
+                   pp_axis: Optional[str] = None, devices=None):
+    """Parse an ``'axis=N[,axis=N]'`` mesh spec (the CLI surface) into a
+    Mesh plus the resolved grid axis name, as the JAX package does:
+    ``'rays=8'``, ``'grid=4,rays=2'``, ``'seg=8'`` with ``pp_axis='seg'``;
+    the grid axis defaults to ``'grid'`` when the spec names one. Raises
+    ValueError on malformed specs, unknown grid/pp axes, a missing
+    rays/grid/pp axis, or too few devices."""
+    try:
+        parsed = {}
+        for part in spec.split(","):
+            name, _, size = part.partition("=")
+            parsed[name.strip()] = int(size)
+    except ValueError:
+        raise ValueError(f"bad mesh spec {spec!r}; expected "
+                         "'axis=N[,axis=N]' e.g. 'grid=4,rays=2'")
+    grid_axis = grid_axis or ("grid" if "grid" in parsed else None)
+    if grid_axis is not None and grid_axis not in parsed:
+        raise ValueError(f"grid axis {grid_axis!r} not in mesh spec "
+                         f"{spec!r}")
+    if pp_axis is not None and pp_axis not in parsed:
+        raise ValueError(f"pp axis {pp_axis!r} not in mesh spec {spec!r}")
+    if "rays" not in parsed and grid_axis is None and pp_axis is None:
+        raise ValueError("mesh spec needs a 'rays' axis and/or a grid "
+                         "axis / pp axis")
+    devs = (_visible_devices() if devices is None
+            else [torch.device(d) for d in devices])
+    n_want = math.prod(parsed.values())
+    if n_want > len(devs):
+        raise ValueError(f"mesh spec {spec!r} wants {n_want} devices; "
+                         f"torch sees {len(devs)}")
+    return Mesh(tuple(parsed.values()), tuple(parsed.keys()),
+                devices=devs), grid_axis
+
+
+def grid_ray_mesh(n_grid: int, n_rays: Optional[int] = None,
+                  devices=None) -> Mesh:
+    """2-D mesh: a ``grid`` axis shards the field, a ``rays`` axis the
+    bundle."""
+    devs = (_visible_devices() if devices is None
+            else [torch.device(d) for d in devices])
+    if n_rays is None:
+        n_rays = len(devs) // n_grid
+    return Mesh((n_grid, n_rays), ("grid", "rays"),
+                devices=devs[:n_grid * n_rays])
+
+
+def local_axis(mesh: Mesh, axis: str, what: str) -> None:
+    """Raise unless ``axis`` is a mesh axis this process holds whole."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh {mesh.shape} has no {axis!r} axis")
+    if axis == mesh.process_axis:
+        raise NotImplementedError(
+            f"{what} over the {axis!r} axis that spans processes: only a "
+            "rays axis may span processes (ROADMAP A.17)")
+
+
+# ---------------------------------------------------------------------------
+# Values split over a mesh
+# ---------------------------------------------------------------------------
+
+class Sharded:
+    """A tensor split over a mesh: ``shards[p]`` is the block held by flat
+    position ``p`` of ``mesh``, on its device; ``spec[d]`` names the mesh
+    axis dimension d is split over, or None (every shard holds all of it);
+    ``shape`` is the whole tensor's. At most one dimension is split."""
+
+    def __init__(self, mesh: Mesh, spec: Sequence[Optional[str]],
+                 shards: Sequence[torch.Tensor], shape: Sequence[int]):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+        self.shards = list(shards)
+        self.shape = tuple(shape)
+        if len(self.shards) != mesh.size:
+            raise ValueError("one shard per mesh position")
+        if sum(a is not None for a in self.spec) > 1:
+            raise ValueError("at most one dimension may be split")
+
+    def split_dim(self) -> Optional[int]:
+        for d, a in enumerate(self.spec):
+            if a is not None:
+                return d
+        return None
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor, on ``device`` (default: the first shard's)."""
+        dev = self.shards[0].device if device is None else torch.device(
+            device)
+        dim = self.split_dim()
+        if dim is None:
+            return self.shards[0].to(dev)
+        axis = self.spec[dim]
+        # the first line along the split axis holds one block of each
+        line = self.mesh.groups(axis)[0]
+        return torch.cat([self.shards[p].to(dev) for p in line], dim=dim)
+
+    def __repr__(self):
+        return f"Sharded(shape={self.shape}, spec={self.spec}, {self.mesh})"
+
+
+def shard(x: torch.Tensor, mesh: Mesh, spec) -> Sharded:
+    """``x`` split over ``mesh`` by ``spec`` (JAX's ``device_put`` with a
+    ``NamedSharding``): one copy per (block, device), none where the block
+    already lies on the shard's device (then it is a view of ``x``)."""
+    spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+    dim = next((d for d, a in enumerate(spec) if a is not None), None)
+    cache = {}
+    shards = []
+    for p, dev in enumerate(mesh.flat_devices):
+        if dim is None:
+            b = 0
+            block = x
+        else:
+            n = mesh.shape[spec[dim]]
+            if x.shape[dim] % n:
+                raise ValueError(f"dimension {dim} of {tuple(x.shape)} does "
+                                 f"not divide over the {n}-way "
+                                 f"{spec[dim]!r} axis")
+            per = x.shape[dim] // n
+            b = mesh.index(p, spec[dim])
+            block = x.narrow(dim, b * per, per)
+        key = (b, dev)
+        if key not in cache:
+            cache[key] = block.to(dev)
+        shards.append(cache[key])
+    return Sharded(mesh, spec, shards, x.shape)
+
+
+def as_sharded(x, mesh: Mesh, spec) -> Sharded:
+    """``x`` (a tensor or a ``Sharded`` of this mesh and spec) as a
+    ``Sharded``."""
+    if isinstance(x, Sharded):
+        spec = tuple(spec) + (None,) * (len(x.shape) - len(spec))
+        if x.mesh is not mesh or x.spec != spec:
+            raise ValueError(f"a value sharded as {x.spec} on {x.mesh} is "
+                             f"not sharded as {spec} on {mesh}")
+        return x
+    return shard(x, mesh, spec)
+
+
+def shard_rays(s_rows: torch.Tensor, mesh: Mesh,
+               axis: str = "rays") -> Sharded:
+    """(N, ...) ray rows split by rows over ``axis``; N is truncated to a
+    multiple of the axis size, like the JAX package (and the reference's
+    CPU sharding path)."""
+    n = mesh.shape[axis]
+    N = (s_rows.shape[0] // n) * n
+    if N == 0:
+        raise ValueError(f"not enough rays to shard over {n} devices")
+    return shard(s_rows[:N], mesh, (axis,))
+
+
+def replicate(x: torch.Tensor, mesh: Mesh) -> Sharded:
+    """``x`` on every device of the mesh (one copy per distinct device)."""
+    return shard(x, mesh, ())
+
+
+# ---------------------------------------------------------------------------
+# Collectives over per-shard lists (one entry per flat mesh position)
+# ---------------------------------------------------------------------------
+
+def line_sum(xs: Sequence[torch.Tensor], devs: Sequence[torch.device],
+             across: bool) -> Dict[torch.device, torch.Tensor]:
+    """The sum of one line's values, added in shard order, on each distinct
+    device of the line (all-reduced over the processes of the default
+    group when ``across``)."""
+    across = across and multihost.is_initialized()
+    done = {}
+    for dev in devs:
+        if dev not in done:
+            acc = xs[0].to(dev)
+            for x in xs[1:]:
+                acc = acc + x.to(dev)
+            done[dev] = multihost.all_reduce(acc) if across else acc
+    return done
+
+
+def psum(xs: Sequence[torch.Tensor], mesh: Mesh,
+         axis: str) -> List[torch.Tensor]:
+    """Each shard receives the sum of ``xs`` over its line along ``axis``,
+    added in shard order 0..G-1, once per distinct device of the line;
+    shards on one device share the result. Over the process axis the sum
+    is then all-reduced across the processes."""
+    out = list(xs)
+    across = axis == mesh.process_axis
+    devs = mesh.flat_devices
+    for line in mesh.groups(axis):
+        sums = line_sum([xs[p] for p in line], [devs[p] for p in line],
+                         across)
+        for p in line:
+            out[p] = sums[devs[p]]
+    return out
+
+
+def ppermute(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """Along each line of ``axis``, shard ``dst`` receives shard ``src``'s
+    value for every (src, dst) of ``perm``, copied to its device; a shard
+    that receives nothing gets zeros (``jax.lax.ppermute``)."""
+    out = [None] * len(xs)
+    for line in mesh.groups(axis):
+        for src, dst in perm:
+            p = line[dst]
+            out[p] = xs[line[src]].to(mesh.flat_devices[p])
+        for p in line:
+            if out[p] is None:
+                out[p] = torch.zeros_like(xs[p])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Grid-sharded time tracer (K18)
+# ---------------------------------------------------------------------------
+
+def _ray_axis(mesh: Mesh, ray_axis: Optional[str]) -> Optional[str]:
+    return ray_axis if ray_axis is not None and ray_axis in mesh.shape \
+        else None
+
+
+def _blocks(mesh: Mesh, ray_axis: Optional[str]):
+    """Per flat position, the key (ray block, device) of the state it
+    shares with the positions of other grid indices."""
+    return [((mesh.index(p, ray_axis) if ray_axis else 0), dev)
+            for p, dev in enumerate(mesh.flat_devices)]
+
+
+def _result(u_sh: Sharded, states: dict, keys, was_sharded: bool):
+    """The per-block results laid out as the input was."""
+    res = Sharded(u_sh.mesh, u_sh.spec, [states[k] for k in keys],
+                  u_sh.shape)
+    return res if was_sharded else res.gather()
+
+
+def make_gridsharded_tracer(mesh: Mesh, layout: ChannelLayout, n_steps: int,
+                            nx_global: int, atten_sign: float = -1.0,
+                            grid_axis: str = "grid",
+                            ray_axis: Optional[str] = "rays"):
+    """The time tracer (fixed-step RK4) with the field split along x over
+    ``grid_axis`` and the rays over ``ray_axis`` (when the mesh has it).
+
+    Returns ``f(s_rows, channels, origin, inv_spacing, dt) -> s_rows_final``
+    with ``s_rows`` (N, 9) (a tensor or ``Sharded`` over ``ray_axis``) and
+    ``channels`` the (nx, ny, nz, C) grid (a tensor, split here, or a
+    ``Sharded`` over ``grid_axis``). Shard g holds x-rows [g nloc, (g+1)
+    nloc) and the first row of shard g+1 (cyclic), ppermuted once; at every
+    stage K18 gathers the values of the queries it owns, a psum adds them
+    over the grid axis, and K18's ``rk4_stage`` makes the derivative and
+    the update. The JAX program rounds the same way (held bit for bit on
+    the CPU); it differs from the unsharded tracer by the shards' moved
+    origins, within 1e-4 of each column's scale."""
+    local_axis(mesh, grid_axis, "the grid-sharded tracer")
+    G = mesh.shape[grid_axis]
+    r_ax = _ray_axis(mesh, ray_axis)
+    if nx_global % G:
+        raise ValueError(f"nx {nx_global} must divide over the {G}-way "
+                         f"{grid_axis!r} axis")
+    nloc = nx_global // G
+
+    def tracer(s_rows, channels, origin, inv_spacing, dt):
+        was = isinstance(s_rows, Sharded)
+        s_sh = as_sharded(s_rows, mesh, (r_ax, None))
+        ch_sh = as_sharded(channels, mesh, (grid_axis, None, None, None))
+        if ch_sh.shape[0] != nx_global:
+            raise ValueError(f"channels have {ch_sh.shape[0]} x-rows, "
+                             f"nx_global={nx_global}")
+        o = [float(v) for v in torch.as_tensor(origin).tolist()]
+        iv = [float(v) for v in torch.as_tensor(inv_spacing).tolist()]
+        steps = Steps.of(float(dt))
+        # the halo: the first x-row of the right neighbour
+        halo = ppermute([c[0].contiguous() for c in ch_sh.shards], mesh,
+                        grid_axis, [(i, (i - 1) % G) for i in range(G)])
+        keys = _blocks(mesh, r_ax)
+        states = {}
+        for p, k in enumerate(keys):
+            if k in states:
+                continue
+            s = s_sh.shards[p].to(torch.float32).contiguous()
+            # march in entry-cell order: a warp's gathers share grid rows
+            order = _march.ray_order(s, ch_sh.shape[:3], o, iv)
+            s = s[order].contiguous()
+            states[k] = (s, s.clone(), torch.empty_like(s), order)
+        for _ in range(n_steps):
+            for stage in range(4):
+                vals = [_rhs.gather_owned(
+                    states[keys[p]][1], ch_sh.shards[p], halo[p], origin=o,
+                    inv_spacing=iv, lo=mesh.index(p, grid_axis) * nloc,
+                    nx_global=nx_global,
+                    last=mesh.index(p, grid_axis) == G - 1, layout=layout)
+                    for p in range(mesh.size)]
+                vals = psum(vals, mesh, grid_axis)
+                seen = set()
+                for p, k in enumerate(keys):
+                    if k in seen:
+                        continue
+                    seen.add(k)
+                    s, t, acc, _ = states[k]
+                    _rhs.rk4_stage(s, t, acc, vals[p], stage, steps, layout,
+                                   atten_sign)
+        out = {}
+        for k, (s, _, _, order) in states.items():
+            res = torch.empty_like(s)
+            res[order] = s
+            out[k] = res
+        return _result(s_sh, out, keys, was)
+
+    return tracer
+
+
+# ---------------------------------------------------------------------------
+# Grid-sharded segmented march (K17)
+# ---------------------------------------------------------------------------
+
+def make_gridsharded_segment_tracer(mesh: Mesh, layout: ChannelLayout,
+                                    spack, *, grid_axis: str = "grid",
+                                    ray_axis: Optional[str] = None,
+                                    substeps: int = 1,
+                                    atten_sign: float = -1.0,
+                                    integrator: str = "rk4",
+                                    unroll: int = 2,
+                                    weights: str = "stage",
+                                    table_na: Optional[int] = None):
+    """The segmented march with the FIELD split along the transverse a-axis
+    over ``grid_axis`` (the fast path for fields above one device).
+
+    Shard g holds a-rows [g naloc, (g+1) naloc) of every segment's corner
+    table, naloc = table_na / G, plus the first a-row of its right
+    neighbour (one ppermute a call). For each segment, K17
+    (``kernels.march_sharded``) marches the rays whose corner cell,
+    frozen at the segment's start, lies in the shard's rows, with the
+    global indices, fractions and inside-mask of K1 and the corner rows
+    read from the local table, and writes zeros for the rest; a psum of
+    the (N, 8) state over the grid axis gives every ray its owner's
+    result. Owned rays are bit-identical to the single-device march.
+    ``table_na``: the tables' a-rows (default the pack's na); a pack whose
+    na does not divide over the axis is padded with zero a-rows to it by
+    the caller (``pipeline.run``), which no ray ever owns. ``ray_axis``
+    splits the rays as well on a 2-D mesh. ``unroll`` is accepted as in
+    the JAX package.
+
+    Returns ``f(u, seg_tables, origin_ab, inv_ab, dp) -> uf`` with ``u``
+    the (N, 8) permuted state (a tensor, or ``Sharded`` over
+    ``ray_axis``) and ``seg_tables`` the (n_seg, table_na, nb, row) tables
+    (a tensor, or ``Sharded`` over ``grid_axis`` on dimension 1); the
+    result is laid out as ``u`` is.
+    """
+    from synthpy_tpu_torch.tracer.zscan import check_march
+
+    del unroll
+    local_axis(mesh, grid_axis, "the grid-sharded segment march")
+    scales = spack.scales
+    qbits = spack.qbits
+    check_march(integrator, weights, spack.K, qbits, scales, substeps)
+    G = mesh.shape[grid_axis]
+    na, nb = spack.shape_ab
+    if table_na is None:
+        table_na = na
+    if table_na % G:
+        raise ValueError(
+            f"transverse a-dim {table_na} must divide over the {G}-way "
+            f"{grid_axis!r} axis (pad the segment tables with zero a-rows "
+            "to a multiple; pipeline.run(grid_axis=) does this)")
+    if table_na < na:
+        raise ValueError(f"table_na {table_na} < shape_ab a-dim {na}")
+    naloc = table_na // G
+    K = spack.K
+    r_ax = _ray_axis(mesh, ray_axis)
+
+    def tracer(u, seg_tables, origin_ab, inv_ab, dp):
+        was = isinstance(u, Sharded)
+        u_sh = as_sharded(u, mesh, (r_ax, None))
+        if isinstance(seg_tables, Sharded):
+            t_sh = seg_tables
+            if t_sh.mesh is not mesh or t_sh.spec[:2] != (None, grid_axis):
+                raise ValueError("seg_tables must be split over the grid "
+                                 "axis on dimension 1")
+            tabs = [t.reshape(t.shape[0], naloc, nb, -1)
+                    for t in t_sh.shards]
+        else:
+            if seg_tables.dim() == 3:
+                seg_tables = seg_tables.reshape(seg_tables.shape[0],
+                                                table_na, nb, -1)
+            if tuple(seg_tables.shape[1:3]) != (table_na, nb):
+                raise ValueError(f"seg_tables {tuple(seg_tables.shape)} are "
+                                 f"not (n_seg, {table_na}, {nb}, row)")
+            tabs = shard(seg_tables, mesh, (None, grid_axis)).shards
+        n_seg = tabs[0].shape[0]
+        if scales is not None and scales.shape[0] != n_seg:
+            raise ValueError(f"{scales.shape[0]} scale rows for {n_seg} "
+                             "segments")
+        halo = ppermute([t[:, 0] for t in tabs], mesh, grid_axis,
+                        [(i, (i - 1) % G) for i in range(G)])
+        sc = (None if scales is None
+              else replicate(scales, mesh).shards)
+        kw = dict(shape_ab=(na, nb),
+                  origin_ab=[float(v) for v in torch.as_tensor(
+                      origin_ab).tolist()],
+                  inv_ab=[float(v) for v in torch.as_tensor(inv_ab).tolist()],
+                  dp=float(dp), layout=layout, K=K, integrator=integrator,
+                  weights=weights, qbits=qbits, atten_sign=atten_sign,
+                  naloc=naloc)
+        keys = _blocks(mesh, r_ax)
+        cur, orders = {}, {}
+        for p, k in enumerate(keys):
+            if k not in cur:
+                x = u_sh.shards[p].contiguous()
+                if x.data_ptr() % 16:
+                    x = x.clone()
+                cur[k] = x
+                orders[k] = (None if x.device.type == "cpu" else
+                             _march.ray_order(x, (na, nb), kw["origin_ab"],
+                                              kw["inv_ab"]))
+        for s in range(n_seg):
+            outs = [_owned.march_owned(
+                cur[keys[p]], tabs[p][s], halo[p][s],
+                None if sc is None else sc[p][s],
+                lo=mesh.index(p, grid_axis) * naloc, order=orders[keys[p]],
+                **kw) for p in range(mesh.size)]
+            outs = psum(outs, mesh, grid_axis)
+            for p, k in enumerate(keys):
+                cur[k] = outs[p]
+        return _result(u_sh, cur, keys, was)
+
+    return tracer
+
+
+# ---------------------------------------------------------------------------
+# Sharded detector reduction
+# ---------------------------------------------------------------------------
+
+def sharded_histogram(mesh: Mesh, bins, range_, ray_axis: str = "rays"):
+    """``f(x, y, w) -> (ny, nx)`` over rays split over ``ray_axis``: K3's
+    ``bin_image`` (``ops.histogram.histogram2d``) on each shard's rays,
+    then a psum (the reference's MPI ``comm.reduce(H, SUM)``). ``x``, ``y``
+    and ``w`` are (N,) tensors (split here, N a multiple of the axis) or
+    ``Sharded`` over ``ray_axis``."""
+    from synthpy_tpu_torch.ops.histogram import histogram2d
+
+    def hist(x, y, w):
+        xs, ys, ws = (as_sharded(v, mesh, (ray_axis,)).shards
+                      for v in (x, y, w))
+        # one line along the ray axis holds every ray block once
+        line = mesh.groups(ray_axis)[0]
+        devs = [mesh.flat_devices[p] for p in line]
+        parts = [histogram2d(xs[p], ys[p], bins, range_, weights=ws[p])[0]
+                 for p in line]
+        return line_sum(parts, devs,
+                        ray_axis == mesh.process_axis)[devs[0]]
+
+    return hist

@@ -30,8 +30,12 @@ into images. Everything runs on the device of the domain and rays.
 ``batch_pack_bytes`` is traced in per-call ray batches whose images (raw
 field sums for the coherent benches) add up, as in the JAX package.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: the mesh modes (A.17).
+``run(mesh=)`` takes a ``parallel.Mesh`` and runs the JAX package's three
+mesh modes: ray-parallel (each shard of a ``rays`` axis runs the
+single-device path on its rays, the images psummed), grid-sharded
+(``grid_axis``: the segment tables split along the transverse a-axis,
+kernel K17) and depth-pipelined (``pp_axis``: segments split by depth, ray
+chunks streamed through the devices, K1).
 """
 
 from __future__ import annotations
@@ -53,12 +57,17 @@ from synthpy_tpu_torch.optics.compose import (BENCHES, NEEDS_JONES,
 from synthpy_tpu_torch.optics.diagnostics import (Interferometry,
                                                   Polarimetry, Refractometry,
                                                   Schlieren, Shadowgraphy)
+from synthpy_tpu_torch.parallel.mesh import (Mesh, Sharded, line_sum,
+                                             make_gridsharded_segment_tracer,
+                                             shard)
+from synthpy_tpu_torch.parallel.pipeline_pp import (
+    make_pipelined_segment_tracer)
 from synthpy_tpu_torch.tracer.analytic import trace_domain_analytic
 from synthpy_tpu_torch.tracer.propagator import (default_n_steps, dt_of,
                                                  ray_to_Jonesvector,
                                                  trace_rk4)
 from synthpy_tpu_torch.tracer.zscan import (_AXIS_OF, PACK_DTYPES,
-                                            PackTierAdvice, _not_ported,
+                                            PackTierAdvice,
                                             build_segment_pack_device,
                                             entry_sort, make_segment_pack,
                                             make_zscan_pack, march_streamed,
@@ -341,7 +350,8 @@ def run(
     pp_axis: Optional[str] = None,
     **bench_kwargs,
 ):
-    """Trace ``s0`` (9, N) through ``domain`` and synthesise the image.
+    """Trace ``s0`` (9, N) (a tensor or a ``parallel.Sharded``) through
+    ``domain`` and synthesise the image.
 
     ``solver``: "zscan" (default), "zscan_seg", "time" or "analytic" (see
     the module docstring). Prebuilt packs amortise their build across
@@ -370,11 +380,20 @@ def run(
     ``n_steps`` (default: the probing axis's cells) of ``integrator``
     ("rk2" default, or "rk4"). ``ray_chunk`` is accepted as in the JAX
     package and has no effect: the kernels keep no per-ray buffer.
+
+    ``mesh`` (a ``parallel.Mesh``) runs JAX's mesh modes: ray-parallel over
+    ``ray_axis``, grid-sharded over ``grid_axis`` or depth-pipelined over
+    ``pp_axis`` (``pp_chunks``, default the axis size), each on a
+    ``zscan_seg`` pack at ``pack_dtype`` (default float32) for the last
+    two; see ``parallel``.
     """
     multi = isinstance(diagnostic, (list, tuple))
     diagnostic = tuple(diagnostic) if multi else diagnostic
-    if mesh is not None or grid_axis is not None or pp_axis is not None:
-        raise _not_ported("mesh=, grid_axis= and pp_axis=", "A.17")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh, not "
+                        f"{type(mesh).__name__}")
+    if isinstance(s0, Sharded):
+        s0 = s0.gather()
     if (critical_guard is not None
             and solver in ("zscan", "zscan_seg", "analytic")
             and domain.ne is not None):
@@ -393,11 +412,34 @@ def run(
                 bench_kwargs.pop(k)
     if solver not in ("zscan", "zscan_seg", "time", "analytic"):
         raise ValueError(f"unknown solver {solver!r}")
+    grid_mode = mesh is not None and grid_axis is not None
+    pp_mode = mesh is not None and pp_axis is not None
+    if grid_mode and solver != "zscan_seg":
+        raise ValueError("grid_axis requires solver='zscan_seg' (the "
+                         "grid-sharded march is the segmented fast path)")
+    if pp_mode and (grid_mode or solver != "zscan_seg"):
+        raise ValueError("pp_axis requires solver='zscan_seg' and is "
+                         "mutually exclusive with grid_axis (the PP "
+                         "tracer shards segments by probing depth)")
+    if probing_depth is None:
+        probing_depth = domain.extent
+    if mesh is not None:
+        kw = dict(solver=solver, lwl=lwl, n_steps=n_steps,
+                  steps_per_cell=steps_per_cell, probing_depth=probing_depth,
+                  pack=pack, zpack=zpack, spack=spack, bins=bins,
+                  ray_chunk=ray_chunk, diagnostic=diagnostic)
+        if grid_mode or pp_mode:
+            res = _run_sharded_field(domain, s0, mesh, ray_axis, grid_axis,
+                                     pp_axis, kw, bench_kwargs)
+        else:
+            res = _run_ray_parallel(domain, s0, mesh, ray_axis, kw,
+                                    bench_kwargs)
+        return dict(zip(diagnostic, res)) if multi else res
+    if spack is not None and isinstance(spack.seg_planes, Sharded):
+        spack = spack._replace(seg_planes=spack.seg_planes.gather())
     seg_K = bench_kwargs.pop("seg_K", 64)
     batch_pack_bytes = bench_kwargs.pop("batch_pack_bytes", 4 << 30)
     batch_corner_bytes = bench_kwargs.pop("batch_corner_bytes", 1 << 30)
-    if probing_depth is None:
-        probing_depth = domain.extent
     layout = layout_of(domain)
     substeps = max(int(round(steps_per_cell)), 1)
     common = dict(diagnostic=diagnostic,
@@ -471,6 +513,178 @@ def run(
             dt_of(n_steps, probing_depth), probing_depth, layout=layout,
             n_steps=n_steps, **common, **bench_kwargs)
     return dict(zip(diagnostic, res)) if multi else res
+
+
+def _to(x, dev: torch.device):
+    """A pack (or None) with its tensors on ``dev``."""
+    if x is None:
+        return None
+    return type(x)(*(v.to(dev) if isinstance(v, torch.Tensor) else v
+                     for v in x))
+
+
+def _run_ray_parallel(domain, s0: torch.Tensor, mesh, ray_axis: str, kw,
+                      bench_kwargs: dict):
+    """``run(mesh=)`` over a ``rays`` axis: the bundle padded with rays
+    that land nowhere to a multiple of the axis and split over it, the
+    field's pack built once and copied to each distinct device, each shard
+    traced by the single-device path, the images (raw field sums for the
+    coherent benches, finalized once) psummed over the axis."""
+    if ray_axis not in mesh.shape:
+        raise ValueError(f"mesh has no '{ray_axis}' axis; pass "
+                         f"grid_axis= for field-sharded tracing or "
+                         f"pp_axis= for depth-pipelined tracing")
+    solver = kw["solver"]
+    diagnostic = kw["diagnostic"]
+    names = (diagnostic,) if isinstance(diagnostic, str) else diagnostic
+    layout = layout_of(domain)
+    if solver == "zscan_seg":
+        spack = kw["spack"]
+        if spack is None:
+            spack = _segment_pack(domain, kw["lwl"],
+                                  bench_kwargs.pop("seg_K", 64), kw["pack"],
+                                  kw["zpack"], bench_kwargs)
+        elif spack.host:
+            raise ValueError("streamed host packs are single-device; "
+                             "pass a device spack for mesh mode")
+        if isinstance(spack.seg_planes, Sharded):
+            spack = spack._replace(seg_planes=spack.seg_planes.gather())
+        kw.update(spack=spack, pack=None, zpack=None)
+    elif solver == "zscan":
+        kw.update(zpack=kw["zpack"] or make_zscan_pack(
+            kw["pack"] or build_pack(domain, kw["lwl"]), layout,
+            domain.probing_direction), pack=None)
+    elif solver == "time":
+        kw.update(pack=kw["pack"] or build_pack(domain, kw["lwl"]))
+    user_raw = bench_kwargs.get("coherent_raw", False)
+    any_coh = any(BENCHES[n][1] for n in names)
+    p_ax = _AXIS_OF[domain.probing_direction]
+    a_ax, b_ax = [a for a in range(3) if a != p_ax]
+    s_sh = shard(_pad_ray_cols(s0, mesh.shape[ray_axis], a_ax, b_ax), mesh,
+                 (None, ray_axis))
+    line = mesh.groups(ray_axis)[0]
+    packs = {}
+    parts, devs = [], []
+    for p in line:
+        dev = mesh.flat_devices[p]
+        if dev not in packs:
+            packs[dev] = {k: _to(kw[k], dev)
+                          for k in ("pack", "zpack", "spack")}
+        res = run(domain, s_sh.shards[p].contiguous(),
+                  **{**kw, **packs[dev]}, critical_guard=None,
+                  **{**bench_kwargs, "coherent_raw": any_coh or user_raw})
+        parts.append(tuple(res.values()) if isinstance(res, dict) else res)
+        devs.append(dev)
+    # the psum over the axis (and over the processes it spans)
+    across = ray_axis == mesh.process_axis
+    if isinstance(parts[0], tuple):
+        total = tuple(line_sum([x[i] for x in parts], devs, across)[devs[0]]
+                      for i in range(len(names)))
+    else:
+        total = line_sum(parts, devs, across)[devs[0]]
+    if any_coh and not user_raw:
+        total = finalize_coherent(total, diagnostic, bench_kwargs.get(
+            "coherent_convention", "legacy"))
+    return total
+
+
+def _pack_dtype(bench_kwargs: dict):
+    """The tier of a mesh mode's pack: ``pack_dtype`` (default float32,
+    the single-device accuracy class), as a dtype or "int4"."""
+    pdt = bench_kwargs.pop("pack_dtype", torch.float32)
+    return PACK_DTYPES[pdt] if isinstance(pdt, str) else pdt
+
+
+def _run_sharded_field(domain, s0: torch.Tensor, mesh, ray_axis: str,
+                       grid_axis, pp_axis, kw, bench_kwargs: dict):
+    """``run(mesh=, grid_axis=)`` and ``run(mesh=, pp_axis=)``: the segment
+    pack (built at ``pack_dtype``, float32 by default, unless ``spack`` is
+    given) marched with its tables split over the grid axis (the
+    grid-sharded march, K17) or its segments over the pp axis (the
+    depth-pipelined march, K1 a device), then the bench and detector on
+    the exit states."""
+    seg_K = bench_kwargs.pop("seg_K", 64)
+    spack = kw["spack"]
+    if spack is not None and spack.host:
+        raise ValueError("streamed host packs are single-device; pass a "
+                         "device spack for mesh mode")
+    layout = layout_of(domain)
+    substeps = max(int(round(kw["steps_per_cell"])), 1)
+    integrator = bench_kwargs.pop("integrator", "rk4")
+    weights = bench_kwargs.pop("seg_weights", "stage")
+    p_ax = _AXIS_OF[domain.probing_direction]
+    a_ax, b_ax = [a for a in range(3) if a != p_ax]
+    if grid_axis is not None:
+        G = mesh.shape[grid_axis]
+        if spack is None:
+            na = (domain.x, domain.y, domain.z)[a_ax].shape[0]
+            # the build splits over the axis when na divides; otherwise
+            # the single-device pack is padded below
+            spack = build_segment_pack_device(
+                domain, lwl=kw["lwl"], K=seg_K, dtype=_pack_dtype(
+                    bench_kwargs), mesh=mesh if na % G == 0 else None,
+                mesh_axis=grid_axis)
+        r_ax = ray_axis if ray_axis in mesh.shape else None
+        if r_ax is not None:
+            s0 = _pad_ray_cols(s0, mesh.shape[r_ax], a_ax, b_ax)
+        n_seg = spack.seg_planes.shape[0]
+        na, nb = spack.shape_ab
+        na_pad = -(-na // G) * G
+        tracer = make_gridsharded_segment_tracer(
+            mesh, layout, spack, grid_axis=grid_axis, ray_axis=r_ax,
+            substeps=substeps, integrator=integrator, weights=weights,
+            table_na=na_pad)
+        tables = spack.seg_planes
+        if not isinstance(tables, Sharded):
+            tables = tables.reshape(n_seg, na, nb, tables.shape[-1])
+            if na_pad != na:
+                # zero a-rows that no ray owns or reads: the march's mask
+                # and corner clip stay bounded by the real na
+                tables = F.pad(tables, (0, 0, 0, 0, 0, na_pad - na))
+        uf = tracer(permute_state(s0, domain.probing_direction), tables,
+                    spack.origin_ab, spack.inv_spacing_ab, spack.dp)
+    else:
+        if spack is None:
+            spack = build_segment_pack_device(
+                domain, lwl=kw["lwl"], K=seg_K,
+                dtype=_pack_dtype(bench_kwargs))
+        seg_planes, scales = spack.seg_planes, spack.scales
+        if isinstance(seg_planes, Sharded):
+            seg_planes = seg_planes.gather()
+        D = mesh.shape[pp_axis]
+        n_seg = seg_planes.shape[0]
+        n_pad = -(-n_seg // D) * D - n_seg
+        if n_pad:
+            # zero segments the tracer skips (n_seg_real)
+            seg_planes = F.pad(seg_planes, (0, 0, 0, 0, 0, n_pad))
+            if scales is not None:
+                scales = F.pad(scales, (0, 0, 0, 0, 0, n_pad), value=1.0)
+        u = permute_state(s0, domain.probing_direction)
+        N = u.shape[0]
+        n_chunks = int(bench_kwargs.pop("pp_chunks", D))
+        if n_chunks % D:
+            raise ValueError(f"pp_chunks {n_chunks} must be a multiple of "
+                             f"the {D}-way '{pp_axis}' axis")
+        chunk_rays = -(-N // n_chunks)
+        total = n_chunks * chunk_rays
+        if total != N:
+            # pad rows are sliced off again before the detector
+            u = torch.cat([u, u[:1].expand(total - N, 8)])
+        tracer = make_pipelined_segment_tracer(
+            mesh, layout, spack._replace(seg_planes=seg_planes,
+                                         scales=scales),
+            n_chunks=n_chunks, axis=pp_axis, substeps=substeps,
+            integrator=integrator, weights=weights, n_seg_real=n_seg)
+        args = (seg_planes,) + ((scales,) if scales is not None else ())
+        uf = tracer(u.reshape(n_chunks, chunk_rays, 8), *args,
+                    spack.origin_ab, spack.inv_spacing_ab,
+                    spack.dp).reshape(total, 8)[:N]
+    # the march ends at the real segment count's exit plane
+    p_end = spack.p0 + n_seg * spack.K * spack.dp
+    return _image_from_uf(
+        uf, p_end, kw["probing_depth"], diagnostic=kw["diagnostic"],
+        probing_direction=domain.probing_direction, bins=kw["bins"],
+        lwl=kw["lwl"], **bench_kwargs)
 
 
 def _batched(call, s0: torch.Tensor, max_rays: int, probing_direction: str,

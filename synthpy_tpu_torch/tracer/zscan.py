@@ -28,9 +28,12 @@ segment at a time, keeping the segment-start states, and kernel K11
 stage weights on float32 or bf16 tables (what ``inverse.make_renderer``
 runs); other configurations raise under autograd, naming ROADMAP B8.
 
+``build_segment_pack_device(mesh=)`` splits the pack into a-row blocks
+over a grid axis of a ``parallel.Mesh``, for the grid-sharded march
+(``parallel.make_gridsharded_segment_tracer``).
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-``mesh=`` (A.17), and on the segmented march ``block=`` and
-``substeps > 1`` (A.4).
+on the segmented march ``block=`` and ``substeps > 1`` (A.4).
 """
 
 from __future__ import annotations
@@ -347,6 +350,7 @@ def build_segment_pack_device(
     plane_stride: int = 1,
     dither=None,
     mesh=None,
+    mesh_axis: str = "grid",
 ) -> SegmentPack:
     """SegmentPack built on the domain's device by kernel K2.
 
@@ -360,9 +364,29 @@ def build_segment_pack_device(
     ``dither`` (int8 / int4 only): a key or an int seed, keyed by the
     absolute plane index over (na, nb, C), so that every build route and
     ``quantize_segment_pack`` of the full build dither alike.
+
+    ``mesh`` (a ``parallel.Mesh``): the pack split along the transverse
+    a-axis over ``mesh_axis``, its ``seg_planes`` a ``parallel.Sharded``
+    of a-row blocks on the shards' devices (the scales whole), bit-equal
+    to the single-device build; na must divide over the axis, as in JAX.
+    The pack is built on the domain's device and then split (ROADMAP
+    A.17 residual: a build of each shard's rows on its own device).
     """
     if mesh is not None:
-        raise _not_ported("mesh=", "A.17")
+        from synthpy_tpu_torch.parallel.mesh import Mesh, shard
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, not "
+                            f"{type(mesh).__name__}")
+        G = mesh.shape[mesh_axis]
+        na = _geometry(domain)[3].shape[0]
+        if na % G:
+            raise ValueError(f"transverse a-dim {na} must divide over the "
+                             f"{G}-way '{mesh_axis}' axis")
+        sp = build_segment_pack_device(domain, lwl, K, dtype, free_ne,
+                                       plane_stride, dither)
+        return sp._replace(seg_planes=shard(sp.seg_planes, mesh,
+                                            (None, mesh_axis)))
     layout = layout_of(domain)
     if domain.ne is None:
         raise RuntimeError("domain has no electron density")
@@ -416,6 +440,34 @@ def build_segment_pack_device(
                        4 if quantized4 else None)
 
 
+def check_march(integrator: str, weights: str, K: int,
+                qbits: Optional[int], seg_scales, substeps: int = 1) -> None:
+    """Raise unless the segmented march (K1, and K17 on a shard) runs this
+    configuration: a known integrator and weights mode, one substep, and
+    int4 tables only on the even-stride integrators with a scales
+    table."""
+    if substeps != 1:
+        raise _not_ported("substeps > 1", "A.4")
+    if integrator not in _march.INTEGRATORS:
+        raise ValueError(f"unknown integrator {integrator!r}")
+    if weights not in ("stage", "slab"):
+        raise ValueError(f"unknown weights mode {weights!r}")
+    if qbits == 4:
+        if seg_scales is None:
+            raise ValueError("int4 packs carry a scales table")
+        if integrator not in ("rk2s2", "rk2s4"):
+            raise ValueError(
+                "int4 nibble packs run on the even-stride integrators "
+                "(rk2s2, rk2s4) whose stage planes align to whole byte "
+                "blocks; got integrator=" + repr(integrator))
+        if (integrator == "rk2s2" and K % 2) or (
+                integrator == "rk2s4" and K % 4):
+            raise ValueError("int4 packs need K divisible by the stride "
+                             "(no single-slab remainder steps)")
+    elif qbits is not None:
+        raise ValueError(f"unknown qbits {qbits!r} (None or 4)")
+
+
 def trace_zscan_segments(
     u: torch.Tensor,
     seg_planes: torch.Tensor,
@@ -452,28 +504,9 @@ def trace_zscan_segments(
     sums it in bf16: the two differ by bf16 rounding (2^-8 relative). Any
     other configuration raises ``NotImplementedError`` (ROADMAP B8) when a
     gradient is asked of it."""
-    if substeps != 1:
-        raise _not_ported("substeps > 1", "A.4")
     if block is not None:
         raise _not_ported("block=", "A.4")
-    if integrator not in _march.INTEGRATORS:
-        raise ValueError(f"unknown integrator {integrator!r}")
-    if weights not in ("stage", "slab"):
-        raise ValueError(f"unknown weights mode {weights!r}")
-    if qbits == 4:
-        if seg_scales is None:
-            raise ValueError("int4 packs carry a scales table")
-        if integrator not in ("rk2s2", "rk2s4"):
-            raise ValueError(
-                "int4 nibble packs run on the even-stride integrators "
-                "(rk2s2, rk2s4) whose stage planes align to whole byte "
-                "blocks; got integrator=" + repr(integrator))
-        if (integrator == "rk2s2" and K % 2) or (
-                integrator == "rk2s4" and K % 4):
-            raise ValueError("int4 packs need K divisible by the stride "
-                             "(no single-slab remainder steps)")
-    elif qbits is not None:
-        raise ValueError(f"unknown qbits {qbits!r} (None or 4)")
+    check_march(integrator, weights, K, qbits, seg_scales, substeps)
     if seg_planes.shape[0] != n_seg:
         raise ValueError(f"table has {seg_planes.shape[0]} segments, "
                          f"n_seg={n_seg}")

@@ -258,7 +258,9 @@ def test_metadata_and_unported_options(f32_packs):
     assert tm.seg_planes is None
     assert (tm.shape_ab, tm.K, tm.n_slabs, tm.p0, tm.dp, tm.omega) == (
         tuple(jm.shape_ab), jm.K, jm.n_slabs, jm.p0, jm.dp, jm.omega)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= is ported (tests/test_torch_parallel.py): a mesh that is not a
+    # parallel.Mesh is refused
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tz.build_segment_pack_device(tdom, K=8, dtype=torch.int8,
                                      mesh=object())
     # dither is ported: the fused build equals the quantiser of the f32

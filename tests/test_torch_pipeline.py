@@ -89,7 +89,9 @@ def test_default_f32_pack_and_solve(bench):
 
 def test_unported_paths_raise(bench):
     jd, td, s0, ts0 = bench
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the mesh modes are ported (tests/test_torch_parallel.py): a mesh that
+    # is not a parallel.Mesh is refused
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tpipe.run(td, ts0, solver="zscan_seg", seg_K=8, bins=BINS,
                   mesh=object())
     # pack_dtype="auto" and pack_dither= are ported: JAX's tier and pack

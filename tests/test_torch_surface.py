@@ -53,7 +53,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_sources_carry_their_note_and_build_flags():
     for src in ("march.cu", "pack.cu", "detector.cu", "analytic.cu",
                 "deposit.cu", "fill.cu", "random.cu", "march_adjoint.cu",
-                "cic.cu", "boris.cu", "btable.cu", "xray.cu"):
+                "cic.cu", "boris.cu", "btable.cu", "xray.cu",
+                "march_sharded.cu", "sharded_rhs.cu"):
         text = (_build.CSRC / src).read_text()
         assert "Replaces" in text and "bounds it on the H100" in text, src
         assert "synthpy_tpu/" in text, src
@@ -71,12 +72,14 @@ def test_kernel_argtypes_match_the_c_entry_points():
     from synthpy_tpu_torch.kernels import (adaptive, analytic, binning,
                                            boris, btable, cic, deposit,
                                            detector, fill, march,
-                                           march_adjoint, pack, random,
+                                           march_adjoint, march_sharded,
+                                           pack, random, sharded_rhs,
                                            slab_march, time_march, xray)
 
     kernels = [m.KERNEL for m in (adaptive, analytic, boris, btable, cic,
                                   deposit, detector, fill, march,
-                                  march_adjoint, pack, random, slab_march,
+                                  march_adjoint, march_sharded, pack,
+                                  random, sharded_rhs, slab_march,
                                   time_march)]
     kernels += [detector.FIELD_KERNEL, binning.BIN_KERNEL,
                 binning.BIN_FIELD_KERNEL, cic.BACKWARD_KERNEL,
@@ -101,7 +104,8 @@ def test_kernel_argtypes_match_the_c_entry_points():
     assert {"analytic_march", "detect_field", "detect_image", "bin_image",
             "bin_field", "deposit_cic", "pack_fill", "random_draw",
             "march_adjoint", "cic_deposit", "cic_adjoint", "boris_push",
-            "btable_write", "xray_fold", "pp_fold", "pp_chords"} <= seen
+            "btable_write", "xray_fold", "pp_fold", "pp_chords",
+            "march_owned", "gather_owned", "rk4_stage"} <= seen
 
 
 def test_entry_points_default_to_cuda():
@@ -126,8 +130,11 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     from synthpy_tpu_torch.fields.forms import ClosedForm
     from synthpy_tpu_torch.kernels import (analytic, binning, boris, btable,
                                            cic, deposit, detector, fill,
-                                           march, march_adjoint, pack, xray)
+                                           march, march_adjoint,
+                                           march_sharded, pack, sharded_rhs,
+                                           xray)
     from synthpy_tpu_torch.kernels import random as kernel_random
+    from synthpy_tpu_torch.kernels.time_march import Steps
     from synthpy_tpu_torch.ops import fresnel, histogram
 
     meta = torch.device("meta")
@@ -197,6 +204,19 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                 [0.0] * 3, [1.0] * 3, [0.0] * 3, [3.0] * 3,
                 [1.5, 1.5, -1.0], 1.5, 1.5, 4.0, torch.zeros(2),
                 torch.zeros(2), (2, 0, 1)), 4, 1),
+        lambda: march_sharded.march_owned(
+            u, table[0, :6], table[0, 6:], None, lo=0, naloc=2,
+            shape_ab=(3, 3), origin_ab=(0.0, 0.0), inv_ab=(1.0, 1.0),
+            dp=1.0, layout=lay, K=8),
+        lambda: sharded_rhs.gather_owned(
+            torch.empty((8, 9), device=meta),
+            torch.empty((2, 4, 4, 3), device=meta),
+            torch.empty((4, 4, 3), device=meta), origin=[0.0] * 3,
+            inv_spacing=[1.0] * 3, lo=0, nx_global=4, last=False,
+            layout=lay),
+        lambda: sharded_rhs.rk4_stage(
+            *(torch.empty((8, 9), device=meta) for _ in range(3)),
+            torch.empty((8, 3), device=meta), 0, Steps.of(1e-12), lay),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -210,6 +230,7 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     assert (boris.KERNEL.launches == btable.KERNEL.launches
             == xray.FOLD_KERNEL.launches == xray.PP_FOLD_KERNEL.launches
             == xray.PP_CHORDS_KERNEL.launches == 0)
+    assert march_sharded.KERNEL.launches == sharded_rhs.KERNEL.launches == 0
 
 
 def test_refuse_grad_names_the_residual_off_the_cpu():
