@@ -76,10 +76,16 @@ renderer (``inverse_path``): ``examples/inverse_volume_joint.py`` at 512^3
 (1 M rays, K = 64, 96 x 96 bins, bf16 pack) through
 ``inverse.make_renderer``, the measurement on the truth and on zeros, the
 host's fringe analysis, then INV_STEPS Adam steps (optax's cosine decay)
-with per-step forward, backward, K11, K12 and pack-chain times and the
-peak device memory; K11 held to its plain version on 16,384 of the path's
-rays over the full bf16 table, K12 on all 1 M exit rays for V = 1, 2 and
-4, each with a planted fault that must fail the same check. Then the
+with per-step forward, backward, K11, K12, K19 (the pack chain's forward
+and adjoint) and plain pack-chain times and the peak device memory; a
+step through K19 beside one through the plain chain under
+``torch.utils.checkpoint`` (the route before K19: ms and peak memory);
+K11 held to its plain version on 16,384 of the path's rays over the full
+bf16 table, K12 on all 1 M exit rays for V = 1, 2 and 4, K19 on the
+path's 512^3 volume (forward bit for bit, adjoint to the plain adjoint
+and to autograd through the plain chain) and at 128^3 probing along x
+and y in the full-physics layout (C = 8), each with a planted fault that
+must fail the same check. Then the
 radiography slice (``radiography``): ``proton_path`` runs
 ``examples/proton_radiography.py`` at res 512 (a 1024^3 solenoidal GRF B
 grid, synthesised at 256^3 and upsampled x4 into one pinned host tensor,
@@ -1381,18 +1387,39 @@ K11_CONTROL = [("  ds[0] = dfa * clip01_grad(ra) * P.inva;\n"
                 "\n")]
 
 
+# K19's planted controls: the forward with the inner stencil at the two
+# ends of every axis (the edges' difference halved), the adjoint without
+# the second copy of each border plane
+K19_FORWARD_CONTROL = [("(lo_edge || hi_edge) ? __fdiv_rn(d, h)",
+                        "false ? __fdiv_rn(d, h)")]
+K19_ADJOINT_CONTROL = [("  if (k == 0 && s >= 1)\n    v = __fadd_rn(",
+                        "  if (false)\n    v = __fadd_rn(")]
+# K19's tolerance against its plain adjoint (the same operations in the
+# same order) and against autograd through the plain chain: the same for a
+# float32 table, and for a bf16 table, whose two copies of a border plane
+# autograd sums in bf16, one bf16 rounding (2^-8) of those sums
+K19_ADJ_TOL, K19_AUTOGRAD_TOL = 1e-6, 2.0 ** -8
+K19_CHECK_DIM = 128     # the x / y probing and full-physics checks
+K19_AB_STEPS = 2        # steps of each route in the K19 / plain chain A/B
+
+
 def inverse_controls(torch):
-    """The planted controls' builds (variants of cic.cu and
-    march_adjoint.cu), made before the kernels are built so that nvcc
+    """The planted controls' builds (variants of cic.cu, march_adjoint.cu
+    and pack_chain.cu), made before the kernels are built so that nvcc
     builds them with the rest: {name: Kernel}."""
-    from synthpy_tpu_torch.kernels import cic, march_adjoint
+    from synthpy_tpu_torch.kernels import cic, march_adjoint, pack_chain
     from synthpy_tpu_torch.kernels.profiling import variant
 
     return {"cic_k8_rule": variant(cic.KERNEL, "k8_rule", CIC_CONTROL),
             "cic_adjoint_k8_rule": variant(cic.BACKWARD_KERNEL, "k8_rule",
                                            CIC_CONTROL),
             "march_adjoint_no_position": variant(
-                march_adjoint.KERNEL, "no_position", K11_CONTROL)}
+                march_adjoint.KERNEL, "no_position", K11_CONTROL),
+            "pack_chain_inner_edges": variant(
+                pack_chain.KERNEL, "inner_edges", K19_FORWARD_CONTROL),
+            "pack_chain_adjoint_no_border": variant(
+                pack_chain.BACKWARD_KERNEL, "no_border",
+                K19_ADJOINT_CONTROL)}
 
 
 def cosine_decay(lr, steps, t):
@@ -1411,17 +1438,17 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     and K12 held to their plain versions at the path's
     shapes, each with a planted control that must fail. Returns
     (kernels-line rows, detail)."""
-    import copy
     import math
 
+    from synthpy_tpu_torch import constants
     from synthpy_tpu_torch import random as jrandom
     from synthpy_tpu_torch.analysis.fringes import (phase_difference,
                                                     rectify_phase_offset,
                                                     unwrap_2d)
     from synthpy_tpu_torch.fields import ScalarDomain, layout_of
-    from synthpy_tpu_torch.fields.domain import build_pack
     from synthpy_tpu_torch.inverse import make_renderer
     from synthpy_tpu_torch.kernels import cic, march, march_adjoint
+    from synthpy_tpu_torch.kernels import pack_chain as kpc
     from synthpy_tpu_torch.kernels.profiling import batch_ms, best_ms
     from synthpy_tpu_torch.priors import tv
     from synthpy_tpu_torch.tracer import init_beam, zscan
@@ -1546,16 +1573,18 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     inside = torch.from_numpy(
         (xh ** 2 + yh ** 2 < INV["beam_r"] ** 2)).to(dev)
 
-    def pack_chain(ne):
-        """The renderer's pack chain (build_pack -> make_zscan_pack ->
-        make_segment_pack), as make_renderer runs it."""
-        g2 = copy.copy(dom)
-        g2.ne = ne
-        zp = zscan.make_zscan_pack(build_pack(g2), layout_of(g2), "z",
-                                   dtype=torch.bfloat16)
-        return zscan.make_segment_pack(zp, K=K).seg_planes
+    # the renderer's pack chain: K19 in the renderer, and in plain
+    # PyTorch (build_pack -> make_zscan_pack -> make_segment_pack) under
+    # torch.utils.checkpoint as the renderer ran it before K19 (the plain
+    # time and the A/B's other route)
+    path_spec = kpc.chain_spec(dom, K=K, pack_dtype=torch.bfloat16)
 
-    timed = (march_adjoint.KERNEL, cic.KERNEL, cic.BACKWARD_KERNEL)
+    def plain_route(ne, spec):
+        return checkpoint(kpc.seg_planes_plain, ne, spec,
+                          use_reentrant=False)
+
+    timed = (march_adjoint.KERNEL, cic.KERNEL, cic.BACKWARD_KERNEL,
+             kpc.KERNEL, kpc.BACKWARD_KERNEL)
     steps = []
     torch.cuda.reset_peak_memory_stats()
     for i in range(INV_STEPS):
@@ -1568,8 +1597,11 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
         if i == 0:
             cic.RECORD = []
         try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             (g, total, terms), fwd_ms = sync_ms(lambda: loss(theta))
             _, bwd_ms = sync_ms(total.backward)
+            step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
             for r in cic.RECORD or ():
                 if r[0] == "deposit" and r[3].shape[1] not in cic_inputs:
                     cic_inputs[r[3].shape[1]] = r[1:]
@@ -1582,6 +1614,7 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
             cic.RECORD = None
         k_ms = [sum(a.elapsed_time(b) for a, b in k.events) for k in timed]
         n_k11 = len(march_adjoint.KERNEL.events)
+        n_k19 = [len(kpc.KERNEL.events), len(kpc.BACKWARD_KERNEL.events)]
         for k in timed:
             k.events = None
         grad = theta.grad
@@ -1591,12 +1624,13 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
               f"inverse_path: step {i}: a loss or gradient is not finite")
         check(float(grad[inside].abs().max()) > 0,
               f"inverse_path: step {i}: zero gradient inside the beam")
-        # the pack chain's autograd (forward, recomputation and backward
-        # under the checkpoint, as in the step) at this step's volume
+        # the plain pack chain's autograd (forward, recomputation and
+        # backward under the checkpoint, as the step ran it before K19) at
+        # this step's volume
         v = volume(g.detach()).requires_grad_()
 
         def chain():
-            planes = checkpoint(pack_chain, v, use_reentrant=False)
+            planes = plain_route(v, path_spec)
             return torch.autograd.grad(planes, v, torch.ones_like(planes))
 
         _, chain_ms = sync_ms(chain)
@@ -1607,6 +1641,8 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
                       "lr": lr, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
                       "k11_ms": k_ms[0], "k11_launches": n_k11,
                       "k12_forward_ms": k_ms[1], "k12_adjoint_ms": k_ms[2],
+                      "k19_forward_ms": k_ms[3], "k19_adjoint_ms": k_ms[4],
+                      "k19_launches": n_k19, "peak_gb": step_peak_gb,
                       "pack_chain_autograd_ms": chain_ms,
                       "grad_inside_max": float(grad[inside].abs().max())})
         opt.step()
@@ -1614,7 +1650,8 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
         emit({"phase": "inverse_step", "step": i, **steps[-1]})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = path_launches(("march", "march_adjoint", "cic",
-                              "cic_adjoint"), "inverse_path")
+                              "cic_adjoint", "pack_chain",
+                              "pack_chain_adjoint"), "inverse_path")
 
     # -- the whole chain's gradient at full width: the loss's central
     # differences along d = grad / max|grad| (a step of at most FD_STEPS
@@ -1637,6 +1674,39 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     check(fd_err <= FD_TOL, f"inverse_path: the gradient disagrees with "
           f"the loss's central differences: {grad_check}")
     theta.grad = None
+
+    # -- the step through K19 beside the step through the plain chain under
+    # torch.utils.checkpoint (the renderer's route before K19), alternated
+    # in this call at the same theta: forward and backward ms, the step's
+    # peak device memory, and the two gradients' agreement (the plain
+    # route sums a border plane's two bf16 cotangents in bf16)
+    shipped_chain = kpc.seg_planes
+    ab = {"k19": [], "plain_chain": []}
+    ab_grads = {}
+    for _ in range(K19_AB_STEPS):
+        for route in ab:
+            kpc.seg_planes = shipped_chain if route == "k19" else plain_route
+            try:
+                opt.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                (_, total, _), f_ms = sync_ms(lambda: loss(theta))
+                _, b_ms = sync_ms(total.backward)
+                ab[route].append({
+                    "forward_ms": f_ms, "backward_ms": b_ms,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+                ab_grads[route] = theta.grad.detach().clone()
+            finally:
+                kpc.seg_planes = shipped_chain
+            del total
+    ab_rel = float((ab_grads["k19"] - ab_grads["plain_chain"]).double()
+                   .norm() / ab_grads["plain_chain"].double().norm())
+    del ab_grads
+    theta.grad = None
+    emit({"phase": "inverse_chain_ab", **ab, "grad_rel_l2": ab_rel})
+    check(ab_rel <= K19_AUTOGRAD_TOL, f"inverse_path: the gradient through "
+          f"K19 is {ab_rel} (relative L2) from the plain chain's")
+    detail["inverse_chain_ab"] = {**ab, "grad_rel_l2": ab_rel}
     detail["inverse_path"] = {
         "measure_ms": meas_ms, "host_phase_ms": host_ms,
         "steps": steps, "peak_mem_gb": peak_gb, "launches": launches,
@@ -1653,7 +1723,8 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     # (the kernel's sums run in another order than autograd's, and its
     # atomic adds in an order that changes from run to run)
     with torch.no_grad():
-        planes = pack_chain(volume(torch.nn.functional.softplus(theta)))
+        planes = kpc.forward(volume(torch.nn.functional.softplus(theta)),
+                             path_spec)
     sp0 = zscan.segment_pack_metadata(dom, K=K)
     n_seg = planes.shape[0]
     mkw = dict(shape_ab=sp0.shape_ab, origin_ab=sp0.origin_ab.tolist(),
@@ -1744,6 +1815,124 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
           **{f"V{V}": r for V, r in k12.items()},
           "planted_control_fails": k12_control})
 
+    # -- K19 against its plain versions: the path's 512^3 volume and spec
+    # (z probing, K = 64, the phase layout, bf16), then 128^3 probing along
+    # x and y (and z) in the full-physics layout with vacuum and overdense
+    # cells; each with the two planted controls
+    def rel_l2(a, b, keep=None):
+        a, b = a.double(), b.double()
+        if keep is not None:
+            a, b = a[keep], b[keep]
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+    def k19_vs_plain(ne, spec, controls_too):
+        """K19's forward bit for bit against seg_planes_plain; its adjoint
+        (a seeded cotangent in the table's type) against
+        seg_planes_vjp_plain and autograd through seg_planes_plain, where
+        the latter is finite (its kappa gradient is NaN at ne = 0)."""
+        got = kpc.forward(ne, spec)
+        want = kpc.seg_planes_plain(ne, spec)
+        fwd = {"bit_equal": torch.equal(got, want),
+               "max_abs_err": float((got.float() - want.float()).abs()
+                                    .max())}
+        dseg = torch.randn(got.shape, generator=gen, device=dev).to(
+            got.dtype)
+        dne = kpc.adjoint(ne, dseg, spec)
+        ref = kpc.seg_planes_vjp_plain(ne, dseg, spec)
+        with torch.enable_grad():
+            v = ne.detach().requires_grad_()
+            auto, = torch.autograd.grad(kpc.seg_planes_plain(v, spec), v,
+                                        dseg)
+            del v
+        fin = torch.isfinite(auto)
+        out = {"forward": fwd, "adjoint_rel_l2": rel_l2(dne, ref),
+               "adjoint_max_abs_err": float((dne - ref).abs().max()),
+               "adjoint_finite": bool(torch.isfinite(dne).all()),
+               "autograd_rel_l2": rel_l2(dne, auto, fin),
+               "autograd_nonfinite_off_vacuum": int(
+                   (~fin & (ne != 0)).sum())}
+        # autograd sums a bf16 table's border copies in bf16; a float32
+        # table's as the adjoint does
+        tol_auto = (K19_AUTOGRAD_TOL if spec.pack_dtype == torch.bfloat16
+                    else K19_ADJ_TOL)
+        out["ok"] = (fwd["bit_equal"] and out["adjoint_finite"]
+                     and out["adjoint_rel_l2"] <= K19_ADJ_TOL
+                     and out["autograd_rel_l2"] <= tol_auto
+                     and out["autograd_nonfinite_off_vacuum"] == 0)
+        if controls_too:
+            shipped = (kpc.KERNEL, kpc.BACKWARD_KERNEL)
+            kpc.KERNEL = controls["pack_chain_inner_edges"]
+            kpc.BACKWARD_KERNEL = controls["pack_chain_adjoint_no_border"]
+            try:
+                bad_fwd = torch.equal(kpc.forward(ne, spec), want)
+                bad_rel = rel_l2(kpc.adjoint(ne, dseg, spec), ref)
+            finally:
+                kpc.KERNEL, kpc.BACKWARD_KERNEL = shipped
+            out["control"] = {"inner_edges_bit_equal": bad_fwd,
+                              "no_border_adjoint_rel_l2": bad_rel,
+                              "fail": (not bad_fwd)
+                              and bad_rel > K19_ADJ_TOL}
+        return out, (got, dseg, dne)
+
+    ne_path = volume(torch.nn.functional.softplus(theta.detach()))
+    k19, (table, dseg_path, _) = k19_vs_plain(ne_path, path_spec, True)
+    check(k19["ok"], f"K19 differs from its plain versions at 512^3: {k19}")
+    check(k19["control"]["fail"], f"K19's planted controls passed: "
+          f"{k19['control']}")
+    k19_small = {}
+    D19 = K19_CHECK_DIM
+    for probe, K19_, dt in (("x", 12, torch.float32),
+                            ("y", 64, torch.bfloat16),
+                            ("z", 32, torch.bfloat16)):
+        d19 = ScalarDomain(2 * EXT, D19, inv_brems=True, phaseshift=True,
+                           B_on=True, probing_direction=probe, device=dev)
+        nc = float(constants.critical_density(
+            constants.omega_from_lwl(1064e-9)))
+        shape = (D19,) * 3
+        ne19 = nc * 1.6 * torch.rand(shape, generator=gen, device=dev)
+        ne19[:4, :4, :4] = 0.0                      # vacuum
+        ne19[-4:, -4:, -4:] = 3.0 * nc              # overdense
+        d19.ne = ne19
+        d19.Te = 20.0 + 40.0 * torch.rand(shape, generator=gen, device=dev)
+        d19.Z = 1.0 + 3.0 * torch.rand(shape, generator=gen, device=dev)
+        d19.B = 5.0 * torch.randn(shape + (3,), generator=gen, device=dev)
+        spec19 = kpc.chain_spec(d19, K=K19_, pack_dtype=dt)
+        r, _ = k19_vs_plain(ne19, spec19, probe == "x")
+        k19_small[f"{probe}_C8_K{K19_}_{str(dt)[6:]}"] = r
+        check(r["ok"], f"K19 differs from its plain versions at {D19}^3, "
+              f"probing along {probe}: {r}")
+        if "control" in r:
+            check(r["control"]["fail"], f"K19's planted controls passed at "
+                  f"{D19}^3: {r['control']}")
+        del d19, ne19, spec19
+    emit({"phase": "K19_vs_plain", "dim": D, "K": K, "pack": "bf16",
+          "tolerance": {"forward": "bit-equal",
+                        "adjoint_rel_l2": K19_ADJ_TOL,
+                        "autograd_rel_l2": K19_AUTOGRAD_TOL},
+          "path": k19, f"checks_{D19}": k19_small})
+
+    # K19's times at the path's shapes, its bounds (bytes: ne read and the
+    # table written; the cotangent and ne read and d ne written.
+    # Operations counted from pack_chain.cu, a division as one: a table
+    # slot's three gradients (two divisions by nc, a difference, the 0.5,
+    # the division by h and pref: 6 each) and the phase channel (5); an ne
+    # cell's three transposed stencils (two weights, two adds, the
+    # multiply by pref / h and the sum: 6 each), the division by nc and
+    # the phase derivative (7))
+    k19_fwd_ms = batch_ms(lambda: kpc.forward(ne_path, path_spec), calls=10)
+    k19_adj_ms = batch_ms(lambda: kpc.adjoint(ne_path, dseg_path, path_spec),
+                          calls=10)
+    k19_fwd_plain = best_ms(lambda: kpc.seg_planes_plain(ne_path, path_spec),
+                            reps=2)
+    k19_adj_plain = best_ms(lambda: kpc.seg_planes_vjp_plain(
+        ne_path, dseg_path, path_spec), reps=2)
+    slots = table.shape[0] * table.shape[1] * (K + 1)
+    k19_fwd_b = bound(ne_path.numel() * 4 + table.numel() * 2, slots * 23)
+    k19_adj_b = bound(table.numel() * 2 + ne_path.numel() * 8,
+                      ne_path.numel() * 26)
+    del table, dseg_path
+    torch.cuda.empty_cache()
+
     # -- times at the path's shapes, bounds, plain and library times
     u_s, du_full = u_all, torch.randn(u_all.shape, generator=gen,
                                       device=dev)
@@ -1833,6 +2022,12 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
                 "adjoint_bound": bwd_b}
 
     k12_t = {V: k12_times(V) for V in (1, 2, 4)}
+    k19_t = {"forward_ms": k19_fwd_ms, "adjoint_ms": k19_adj_ms,
+             "forward_plain_ms": k19_fwd_plain,
+             "adjoint_plain_ms": k19_adj_plain, "forward_bound": k19_fwd_b,
+             "adjoint_bound": k19_adj_b}
+    detail.update({"K19_vs_plain": k19, f"K19_checks_{D19}": k19_small,
+                   "K19_times": k19_t})
     detail.update({"K11_vs_plain": k11, "K11_control": k11_control,
                    "K12_vs_plain": k12, "K12_control": k12_control,
                    "K12_times": k12_t, "k11_rows_touched": rows_touched,
@@ -1871,12 +2066,30 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
          "bound_by": t1["adjoint_bound"][1], "library_ms": None,
          "per": f"V = 1, {N} rays, {bins[0]} x {bins[1]}",
          "V2": {k: k12_t[2][k] for k in ("adjoint_ms", "adjoint_plain_ms")},
-         "V4": {k: k12_t[4][k] for k in ("adjoint_ms", "adjoint_plain_ms")}}]
+         "V4": {k: k12_t[4][k] for k in ("adjoint_ms", "adjoint_plain_ms")}},
+        {"name": "pack_chain", "route": "cuda",
+         "source": csrc + "pack_chain.cu",
+         "replaces": "synthpy_tpu/inverse.py:288",
+         "launches": launches["pack_chain"],
+         "max_abs_err": k19["forward"]["max_abs_err"],
+         "ms": k19_fwd_ms, "plain_ms": k19_fwd_plain,
+         "bound_ms": k19_fwd_b[0], "bound_by": k19_fwd_b[1],
+         "library_ms": None,
+         "per": f"{D}^3, K = {K}, C = 4, bf16 (the forward)"},
+        {"name": "pack_chain_adjoint", "route": "cuda",
+         "source": csrc + "pack_chain.cu",
+         "replaces": "synthpy_tpu/inverse.py:288",
+         "launches": launches["pack_chain_adjoint"],
+         "max_abs_err": k19["adjoint_max_abs_err"],
+         "ms": k19_adj_ms, "plain_ms": k19_adj_plain,
+         "bound_ms": k19_adj_b[0], "bound_by": k19_adj_b[1],
+         "library_ms": None,
+         "per": f"{D}^3, K = {K}, C = 4, a bf16 cotangent (the VJP)"}]
     detail["inverse_path_s"] = time.perf_counter() - t_path
     emit({"phase": "inverse_times", "k11_ms": k11_ms,
           "k11_plain_ms": k11_plain_ms, "k11_bound": k11_b,
           "k11_ops": k11_ops, "k11_design_extra_ops": k11_rerun_ops,
-          "k12": {str(V): t for V, t in k12_t.items()},
+          "k12": {str(V): t for V, t in k12_t.items()}, "k19": k19_t,
           "path_s": detail["inverse_path_s"]})
     del planes, u_all, dseg
     torch.cuda.empty_cache()
@@ -2906,8 +3119,8 @@ def main():
                                                deposit, detector, fill,
                                                march, march_adjoint,
                                                march_sharded, pack,
-                                               sharded_rhs, slab_march,
-                                               time_march)
+                                               pack_chain, sharded_rhs,
+                                               slab_march, time_march)
         from synthpy_tpu_torch.kernels import random as krandom
         from synthpy_tpu_torch.kernels import xray as kxray
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
@@ -2944,7 +3157,9 @@ def main():
                "pp_fold": kxray.PP_FOLD_KERNEL,
                "pp_chords": kxray.PP_CHORDS_KERNEL,
                "march_owned": march_sharded.KERNEL,
-               "sharded_rhs": sharded_rhs.KERNEL}
+               "sharded_rhs": sharded_rhs.KERNEL,
+               "pack_chain": pack_chain.KERNEL,
+               "pack_chain_adjoint": pack_chain.BACKWARD_KERNEL}
     controls = inverse_controls(torch)
 
     # -- 1. device and kernel build ------------------------------------------
@@ -3046,11 +3261,20 @@ def main():
                 check(dec_same, "K2 decimator differs from its plain "
                       "version")
                 dec_bytes = (full.numel() + dec.numel()) * 2
+                # the library yardstick: one strided copy of the kept
+                # planes (the port never calls it for a carried pack)
+                full4 = full.reshape(full.shape[0], full.shape[1], K + 1, C)
+                lib_dec = full4[:, :, ::2].contiguous()
+                check(torch.equal(lib_dec.reshape(dec.shape), dec),
+                      "the strided copy disagrees with the decimator")
+                del lib_dec
                 k2_dec = {
                     "ms": batch_ms(lambda: pack.decimate_tables(full, K, C,
                                                                 2)),
                     "plain_ms": best_ms(lambda: pack.decimate_tables_plain(
                         full, K, C, 2, False), reps=2),
+                    "library_ms": batch_ms(
+                        lambda: full4[:, :, ::2].contiguous()),
                     "bytes": dec_bytes,
                     "bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
                     "bound_by": "bytes", "bit_equal_plain": dec_same}
@@ -4138,7 +4362,8 @@ def main():
                   "pack_dither": 2, "march_adjoint": 1, "cic": 1,
                   "cic_adjoint": 1, "boris": 1, "btable_bf16": 1,
                   "btable_int8": 1, "xray_fold": 1, "pp_fold": 1,
-                  "pp_chords": 1, "march_owned": 1, "sharded_rhs": 1},
+                  "pp_chords": 1, "march_owned": 1, "sharded_rhs": 1,
+                  "pack_chain": 1, "pack_chain_adjoint": 1},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "script_s": time.perf_counter() - t_start}
     rows_out += wo_rows + sc_rows + inv_rows + rad_rows + mesh_rows

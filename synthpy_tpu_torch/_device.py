@@ -18,3 +18,21 @@ def resolve(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
     return dev
+
+
+def torch_dtype(value) -> torch.dtype:
+    """A dtype argument as a ``torch.dtype``: a torch dtype, a numpy dtype
+    or scalar type (JAX's ``jnp.float32`` and ``jnp.bfloat16`` among
+    them), or a name such as ``"bfloat16"``."""
+    if isinstance(value, torch.dtype):
+        return value
+    if isinstance(value, str):
+        name = value
+    else:
+        import numpy as np
+
+        name = np.dtype(value).name
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"{value!r} is not a dtype torch knows")
+    return dt

@@ -7,9 +7,10 @@ end, so an experimental image can be inverted for the density with
 gradient descent:
 
 - the pack chain (``build_pack`` -> ``make_zscan_pack`` ->
-  ``make_segment_pack``) is plain PyTorch, differentiated by autograd and
-  recomputed in the backward pass (``torch.utils.checkpoint``, where the
-  JAX package has ``jax.checkpoint``);
+  ``make_segment_pack``) is kernel K19's autograd Function
+  (``kernels.pack_chain.SegPlanes``), which saves only ``ne``: the forward
+  and its adjoint each one launch, where the JAX package recomputes the
+  chain under ``jax.checkpoint`` in the backward pass;
 - the march is ``trace_zscan_segments``' autograd Function: kernel K1
   forward, kernel K11 (``kernels.march_adjoint``) backward;
 - ``apply_stages_weighted``: apertures and stops multiply a per-ray
@@ -32,10 +33,9 @@ import copy
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
-from synthpy_tpu_torch.fields.domain import (ScalarDomain, build_pack,
-                                             layout_of)
+from synthpy_tpu_torch.fields.domain import ScalarDomain, layout_of
+from synthpy_tpu_torch.kernels import pack_chain
 from synthpy_tpu_torch.kernels.cic import cic
 from synthpy_tpu_torch.optics import rtm
 from synthpy_tpu_torch.optics.compose import (BENCHES, NEEDS_JONES,
@@ -43,9 +43,7 @@ from synthpy_tpu_torch.optics.compose import (BENCHES, NEEDS_JONES,
                                               interfere_ref_beam)
 from synthpy_tpu_torch.optics.rtm import m_to_mm
 from synthpy_tpu_torch.tracer.propagator import _AXIS_OF, ray_to_Jonesvector
-from synthpy_tpu_torch.tracer.zscan import (make_segment_pack,
-                                            make_zscan_pack,
-                                            reassemble_state,
+from synthpy_tpu_torch.tracer.zscan import (reassemble_state,
                                             segment_pack_metadata,
                                             trace_zscan_segments)
 
@@ -148,10 +146,11 @@ def make_renderer(
 
     ``domain`` gives the static geometry (grid coordinates, probing
     direction, physics switches); ``s0`` is the (9, N) ray bundle on the
-    domain's device. Every call rebuilds the segment pack from its ``ne``
-    (recomputed in the backward pass, not stored) and marches it with K =
-    ``K`` slabs a segment; ``pack_dtype`` (e.g. ``torch.bfloat16``)
-    down-casts the traced tables, the arithmetic staying float32.
+    domain's device. Every call builds the segment pack from its ``ne``
+    (kernel K19 forward; its adjoint in the backward pass, which keeps
+    only ``ne``) and marches it with K = ``K`` slabs a segment;
+    ``pack_dtype`` (e.g. ``torch.bfloat16``) down-casts the traced tables,
+    the arithmetic staying float32.
 
     Incoherent benches deposit transmission weights (``cic_image``);
     coherent ones (interferometry, refractometry_coherent) need
@@ -195,16 +194,11 @@ def make_renderer(
     n_seg0 = -(-sp0.n_slabs // K)
     p_end = sp0.p0 + n_seg0 * sp0.K * sp0.dp
 
-    def seg_planes(ne):
-        g2 = copy.copy(geom)
-        g2.ne = ne
-        pack = build_pack(g2, lwl)
-        zp = make_zscan_pack(pack, layout, pd, dtype=pack_dtype)
-        return make_segment_pack(zp, K=K).seg_planes
+    spec = pack_chain.chain_spec(geom, lwl, K=K, pack_dtype=pack_dtype)
 
     def render(ne: torch.Tensor):
         """Differentiable forward model: ne volume -> detector image(s)."""
-        planes = checkpoint(seg_planes, ne, use_reentrant=False)
+        planes = pack_chain.seg_planes(ne, spec)
         uf = trace_zscan_segments(
             u0, planes, sp0.origin_ab, sp0.inv_spacing_ab, sp0.dp,
             shape_ab=sp0.shape_ab, layout=layout, K=sp0.K, n_seg=n_seg0,

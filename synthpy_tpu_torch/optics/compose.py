@@ -17,6 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from synthpy_tpu_torch import _device
 from synthpy_tpu_torch.optics import rtm
 
 MATRIX_ELEMENTS = ("lens", "sym_lens", "travel")
@@ -135,13 +136,26 @@ def interfere_ref_beam(r_mm: torch.Tensor, Jf: torch.Tensor,
     return out
 
 
-def analyser_weight(Jf: torch.Tensor, beta_deg: float) -> torch.Tensor:
+def analyser_weight(Jf: torch.Tensor, beta_deg: float,
+                    dtype=None) -> torch.Tensor:
     """Per-ray intensity |Jx sin(beta) + Jy cos(beta)|^2 behind a linear
-    analyser at ``beta_deg``, the angle in the real dtype of ``Jf`` (as
-    the JAX package takes it in its default float)."""
-    f = np.float64 if Jf.dtype == torch.complex128 else np.float32
-    beta = float(np.deg2rad(f(beta_deg)))
-    t = Jf[0] * np.sin(beta) + Jf[1] * np.cos(beta)
+    analyser at ``beta_deg``. The angle is held in ``dtype`` (float32 or
+    float64), by default in the real dtype of ``Jf`` (as the JAX package
+    takes it in its default float); a float64 angle with float32 Jones
+    vectors gives a float64 weight, as JAX's type promotion does."""
+    if dtype is None:
+        f = np.float64 if Jf.dtype == torch.complex128 else np.float32
+    else:
+        dt = _device.torch_dtype(dtype)
+        if dt not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype={dtype!r}: the analyser angle is "
+                             "float32 or float64 (ROADMAP C.10)")
+        f = np.float64 if dt == torch.float64 else np.float32
+        if f is np.float64:
+            Jf = Jf.to(torch.complex128)
+    beta = f(np.deg2rad(f(beta_deg)))
+    # sin and cos in the angle's type, as JAX computes them
+    t = Jf[0] * float(f(np.sin(beta))) + Jf[1] * float(f(np.cos(beta)))
     return t.real**2 + t.imag**2
 
 

@@ -101,6 +101,7 @@ def trace_zscan_analytic(
     integrator: str = "rk2",
     atten_sign: float = -1.0,
     ray_chunk: Optional[int] = None,
+    unroll: int = 2,
     route: str = "auto",
 ) -> torch.Tensor:
     """March (N, 8) permuted rays through a closed-form field.
@@ -108,10 +109,11 @@ def trace_zscan_analytic(
     ``axes`` = (a_ax, b_ax, p_ax); ``bounds`` = (lo, hi) of the domain box
     (channels are 0 outside, as the gridded fill 0). ``integrator`` is
     "rk2" (midpoint) or "rk4". ``route`` is "auto" (the spec decides),
-    "kernel" or "autograd" (see the module docstring). ``ray_chunk`` is the
-    JAX program's memory knob and has no effect.
+    "kernel" or "autograd" (see the module docstring). ``ray_chunk`` and
+    ``unroll`` are the JAX program's memory and scan knobs and have no
+    effect.
     """
-    del ray_chunk
+    del ray_chunk, unroll
     if integrator not in ("rk2", "rk4"):
         raise ValueError(f"unknown integrator {integrator!r} "
                          "(analytic march: rk2 | rk4)")

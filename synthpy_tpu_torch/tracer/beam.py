@@ -84,22 +84,23 @@ POS1, POS2, PHI, CHI = 0, 1, 2, 3
 
 
 def init_beam(
-    generator,
+    key,
     Np: int,
     beam_size: Union[float, Tuple[float, float]],
     divergence: float,
     ne_extent: float,
     beam_type: str = "circular",
     probing_direction: str = "z",
-    dtype=torch.float32,
-    device="cuda",
     n_trackers: int = 0,
     tracker_region: float = 1e-3,
+    dtype=torch.float32,
+    device="cuda",
 ):
     """Initialise a (9, Np) ray bundle on ``device``.
 
-    ``generator``: a key (JAX's stream), a ``torch.Generator``, or an
-    integer seed (a new generator on ``device`` is then made).
+    ``key``: a key (JAX's stream, the JAX package's first argument), a
+    ``torch.Generator``, or an integer seed (a new generator on ``device``
+    is then made).
     ``beam_size`` is the radius or half-width [m], an (a, b) pair for
     'rectangular' and 'rect_trackers'; ``divergence`` the 1-sigma polar
     angle [rad]; rays start at ``-ne_extent`` on the probing axis. 'even'
@@ -112,10 +113,10 @@ def init_beam(
         raise ValueError(
             f"beam_type {beam_type!r} unrecognised; use one of {BEAM_TYPES}")
     dev = _device.resolve(device)
-    if isinstance(generator, int):
-        seed = generator
+    generator = key
+    if isinstance(key, int):
         generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+        generator.manual_seed(key)
     draws = _Draws(generator, dev)
     phi = 2 * math.pi * draws.uniform(PHI, Np)
     chi = divergence * draws.normal(CHI, Np)

@@ -348,11 +348,16 @@ def build_segment_pack_device(
     dtype=torch.bfloat16,
     free_ne: bool = False,
     plane_stride: int = 1,
+    fuse_threshold_bytes: int = 4 << 30,
     dither=None,
     mesh=None,
     mesh_axis: str = "grid",
 ) -> SegmentPack:
     """SegmentPack built on the domain's device by kernel K2.
+
+    ``fuse_threshold_bytes`` picks between the JAX package's fused and
+    two-step XLA programs, which give the same pack; K2 is one route for
+    every size, so it has no effect here.
 
     ``dtype``: torch.float32, torch.bfloat16, torch.int8 or "int4".
     Quantised tiers are the quantisation of the f32 build, computed from
@@ -384,7 +389,7 @@ def build_segment_pack_device(
             raise ValueError(f"transverse a-dim {na} must divide over the "
                              f"{G}-way '{mesh_axis}' axis")
         sp = build_segment_pack_device(domain, lwl, K, dtype, free_ne,
-                                       plane_stride, dither)
+                                       plane_stride, dither=dither)
         return sp._replace(seg_planes=shard(sp.seg_planes, mesh,
                                             (None, mesh_axis)))
     layout = layout_of(domain)
@@ -487,11 +492,15 @@ def trace_zscan_segments(
     weights: str = "stage",
     seg_scales: Optional[torch.Tensor] = None,
     qbits: Optional[int] = None,
+    ray_chunk: Optional[int] = None,
+    unroll: int = 2,
 ) -> torch.Tensor:
     """March (N, 8) permuted rays through ``n_seg`` segments of K slabs
     (kernel K1). ``integrator``: "rk4", "rk2" (midpoint), "rk2s2" (2-slab
     midpoint) or "rk2s4" (4-slab midpoint); ``weights``: "stage" (corner
-    weights at every stage) or "slab" (once per slab).
+    weights at every stage) or "slab" (once per slab). ``ray_chunk`` and
+    ``unroll`` are the JAX program's memory and scan knobs and have no
+    effect here.
 
     Differentiable in ``u`` and ``seg_planes`` for rk4 with stage weights on
     a float32 or bf16 table: the forward keeps each segment's start state
@@ -504,6 +513,7 @@ def trace_zscan_segments(
     sums it in bf16: the two differ by bf16 rounding (2^-8 relative). Any
     other configuration raises ``NotImplementedError`` (ROADMAP B8) when a
     gradient is asked of it."""
+    del ray_chunk, unroll
     if block is not None:
         raise _not_ported("block=", "A.4")
     check_march(integrator, weights, K, qbits, seg_scales, substeps)
@@ -572,17 +582,27 @@ def solve_zscan_segments(
     substeps: int = 1,
     K: int = 64,
     atten_sign: float = -1.0,
+    pack: Optional[TracePack] = None,
     spack: Optional[SegmentPack] = None,
+    ray_chunk: Optional[int] = None,
+    unroll: int = 2,
     integrator: str = "rk4",
     weights: str = "stage",
 ) -> TraceResult:
     """Trace a (9, N) bundle through the segmented march and resolve the
-    exit plane. Without ``spack``, an f32 pack of K-slab segments is built
-    from the domain."""
+    exit plane. Without ``spack``, an f32 pack of K-slab segments is made:
+    regrouped from ``pack`` (a ``TracePack``, as the JAX package's
+    ``ScalarDomain.solve`` passes it) when one is given, else built from
+    the domain by kernel K2. ``ray_chunk`` and ``unroll`` tune the JAX
+    program only and have no effect here."""
+    del ray_chunk, unroll
     layout = layout_of(domain)
     if probing_depth is None:
         probing_depth = domain.extent
-    if spack is None:
+    if spack is None and pack is not None:
+        spack = make_segment_pack(
+            make_zscan_pack(pack, layout, domain.probing_direction), K=K)
+    elif spack is None:
         spack = build_segment_pack_device(domain, lwl=lwl, K=K,
                                           dtype=torch.float32)
     u = permute_state(s0, domain.probing_direction)
@@ -726,9 +746,12 @@ def solve_zscan_segments_streamed(
     probing_depth: Optional[float] = None,
     *,
     hpack: SegmentPack,
+    lwl: float = 1064e-9,
     return_E: bool = False,
     substeps: int = 1,
     atten_sign: float = -1.0,
+    ray_chunk: Optional[int] = None,
+    unroll: int = 2,
     integrator: str = "rk4",
     weights: str = "stage",
     cache: Optional[DeviceSegmentCache] = None,
@@ -737,7 +760,13 @@ def solve_zscan_segments_streamed(
     larger than the card): each segment is copied up on a side stream while
     K1 marches the one before, and marched with the in-memory tracer's
     arithmetic, so the result is ``solve_zscan_segments``'s bit for bit.
-    Device memory holds two segment tables and the rays."""
+    Device memory holds two segment tables and the rays.
+
+    ``lwl`` is read by neither package here: the pack's channels were
+    computed for the wavelength it was built with (the JAX package takes
+    the argument and leaves it unused too). ``ray_chunk`` and ``unroll``
+    tune the JAX program only."""
+    del lwl, ray_chunk, unroll
     layout = layout_of(domain)
     if probing_depth is None:
         probing_depth = domain.extent
@@ -972,6 +1001,7 @@ def build_segment_pack_upload(
     dtype="int4",
     plane_batch: int = 32,
     dither=None,
+    extras_dtype=torch.float32,
     verbose: bool = False,
 ) -> SegmentPack:
     """Stream host-resident volumes up to a SegmentPack on the card.
@@ -986,10 +1016,20 @@ def build_segment_pack_upload(
     the card are cut batch by batch where they are, with no padded copy.
 
     ``plane_batch`` must divide K (and be even for int4); ``dither`` as
-    ``build_segment_pack_device``. Te, Z and B go up as float32 (the JAX
-    package's ``extras_dtype=bfloat16`` option, which trades bit parity for
-    upload bytes, is not taken).
+    ``build_segment_pack_device``. ``extras_dtype``: the floating type the
+    JAX package uploads Te, Z and B in (float32 by default, which keeps the
+    pack bit-equal to the device build). Another float type (bfloat16
+    halves those uploads in JAX, at ~0.4% input error on the kappa and
+    Faraday channels) gives JAX's pack: each batch's Te, Z and B are
+    rounded to it on the card before the fill. They still go up as
+    float32, so the upload's bytes do not fall.
     """
+    ex_dt = _device.torch_dtype(extras_dtype)
+    if not ex_dt.is_floating_point or ex_dt == torch.float64:
+        raise ValueError(
+            f"extras_dtype={extras_dtype!r}: the volumes are read as "
+            "float32 and may be rounded to a narrower float type only "
+            "(ROADMAP C.10)")
     layout = layout_of(domain)
     mode, quantized, int4 = _tier(dtype)
     if dither is not None and not quantized:
@@ -1009,6 +1049,8 @@ def build_segment_pack_upload(
                            int4, dev)
     kw = _fill_kw(geo, layout, mode, dither)
     for s_i, k0, pb, lone, slab, ex in batches:
+        if ex_dt != torch.float32:
+            ex = ex.to(ex_dt).to(torch.float32)
         _fill.fill(buf, scl, slab, ex, g0=s_i * K + k0, seg_i=s_i,
                    col0=_col0(k0, C, int4), k0=k0, pb=pb, lone=lone, **kw)
         if verbose and not lone and pb == PB:

@@ -1168,6 +1168,93 @@ def test_renderer_gradient_on_card_matches_cpu(dev, probe, tier):
     assert float((ga - gb).double().norm() / gb.double().norm()) <= tol
 
 
+def _chain_scene(dev, dims, probe, C, seed):
+    """A domain on ``dev`` of layout C (3, 4 or 8) with seeded ne between 0
+    and 1.6 nc (a vacuum corner, an overdense one), Te, Z and B."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ib, ps, bon = {3: (False, False, False), 4: (False, True, False),
+                   8: (True, True, True)}[C]
+    d = ScalarDomain(2 * EXT, dims, inv_brems=ib, phaseshift=ps, B_on=bon,
+                     probing_direction=probe, device=dev)
+    nc = float(constants.critical_density(constants.omega_from_lwl(
+        1064e-9)))
+    ne = nc * 1.6 * torch.rand(dims, generator=g, device=dev)
+    ne[:2, :2, :2] = 0.0
+    ne[-2:, -2:, -2:] = 3.0 * nc
+    d.ne = ne
+    d.Te = 20.0 + 40.0 * torch.rand(dims, generator=g, device=dev)
+    d.Z = 1.0 + 3.0 * torch.rand(dims, generator=g, device=dev)
+    d.B = 5.0 * torch.randn(tuple(dims) + (3,), generator=g, device=dev)
+    return d, g
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [3, 4, 8])
+@pytest.mark.parametrize("probe,K", [("z", 8), ("z", 7), ("x", 5),
+                                     ("y", 16)])
+def test_pack_chain_kernel_matches_plain(dev, probe, K, C, tier):
+    """K19 on a (33, 20, 27) grid (K dividing the slabs or padding the last
+    segment) against its plain versions on the card: the table bit for
+    bit, d ne within 1e-6 relative L2 of seg_planes_vjp_plain (the same
+    operations in the same order) and finite everywhere, vacuum and
+    overdense cells included; one launch each."""
+    from synthpy_tpu_torch.kernels import pack_chain as kpc
+
+    d, g = _chain_scene(dev, (33, 20, 27), probe, C, seed=C + K)
+    spec = kpc.chain_spec(d, K=K, pack_dtype=torch.bfloat16
+                          if tier == "bf16" else None)
+    n0, n1 = kpc.KERNEL.launches, kpc.BACKWARD_KERNEL.launches
+    table = kpc.forward(d.ne, spec)
+    assert kpc.KERNEL.launches == n0 + 1
+    assert torch.equal(table, kpc.seg_planes_plain(d.ne, spec))
+    dseg = torch.randn(table.shape, generator=g, device=dev).to(table.dtype)
+    dne = kpc.adjoint(d.ne, dseg, spec)
+    assert kpc.BACKWARD_KERNEL.launches == n1 + 1
+    ref = kpc.seg_planes_vjp_plain(d.ne, dseg, spec)
+    assert bool(torch.isfinite(dne).all())
+    err = float((dne - ref).double().norm() / ref.double().norm())
+    assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("probe", ["z", "x"])
+def test_renderer_launches_the_pack_chain_kernel(dev, probe, monkeypatch):
+    """make_renderer on the card builds its tables with K19 and takes their
+    gradient with K19's adjoint, never the plain chain; the images and the
+    gradient agree with the CPU port's (the test above's tolerances)."""
+    from synthpy_tpu_torch import inverse
+    from synthpy_tpu_torch.kernels import pack_chain as kpc
+
+    out = {}
+    for device in (dev, "cpu"):
+        d = ScalarDomain(2 * EXT, 21, probing_direction=probe,
+                         phaseshift=True, device=device)
+        d.test_lens(ne_0=5e24, LR=1.5e-3)
+        s0 = init_beam(5, 2000, 2e-3, 0.0, EXT, "circular",
+                       probing_direction=probe, device="cpu").to(device)
+        render = inverse.make_renderer(d, s0, bins=(48, 36), K=4,
+                                       pack_dtype=torch.bfloat16)
+        ne = (0.8 * d.ne).requires_grad_()
+        n0, n1 = kpc.KERNEL.launches, kpc.BACKWARD_KERNEL.launches
+        if device != "cpu":
+            def plain(*a, **k):
+                raise AssertionError("the plain chain ran on the card")
+
+            monkeypatch.setattr(kpc, "seg_planes_plain", plain)
+            monkeypatch.setattr(kpc, "seg_planes_vjp_plain", plain)
+        im = render(ne)
+        W = torch.randn(im.shape, generator=torch.Generator().manual_seed(
+            3)).to(device)
+        grad, = torch.autograd.grad((W * im).sum(), ne)
+        monkeypatch.undo()
+        if device != "cpu":
+            assert kpc.KERNEL.launches == n0 + 1
+            assert kpc.BACKWARD_KERNEL.launches == n1 + 1
+        out[str(device)] = (im.detach().cpu(), grad.cpu())
+    (ia, ga), (ib, gb) = out[str(dev)], out["cpu"]
+    assert float((ia - ib).abs().max()) <= 1e-5 * float(ib.abs().max())
+    assert float((ga - gb).double().norm() / gb.double().norm()) <= 1e-3
+
+
 def test_gradient_outside_the_covered_march_raises_on_card(dev):
     d = ScalarDomain(2 * EXT, 17, device=dev).test_lens()
     sp = zscan.build_segment_pack_device(d, K=8, dtype=torch.float32)
