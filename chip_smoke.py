@@ -114,7 +114,19 @@ pack (coherent field sums within 1e-4 of their largest), and
 segment range bit-equal to plain, the grid-sharded time tracer (K18) on
 1 M rays over the first quarter of the depth held to its plain version
 and within 1e-4 of a column of K5, and a one-rank nccl group
-(``parallel.multihost``: all_gather, and a rays axis all-reduced).
+(``parallel.multihost``: all_gather, and a rays axis all-reduced). Then
+the sharded field path (``sharded_field_path``) on the same four shards:
+path (b)'s turbulence recipe at res 512, a 1024^3 field synthesised
+sharded (``grf_domain_fft(mesh=)``, within 1e-5 of the single-device
+synthesis) and kept sharded in the domain, ``pipeline.run(mesh=,
+grid_axis="grid")`` on 4 M rays building its f32 pack shard by shard (K2
+on a row window, then K17, K3: the path's launches), then per tier (f32,
+bf16, dithered int8 and int4 at K = 64) the sharded build with every
+shard's rows bit-equal to the single-device build's, the windowed K2
+bit-equal to its windowed plain version on one shard, each shard's
+launch timed, the halo exchange and amax reduction timed, each shard
+device's peak memory, and the image of the tier's pack equal to the
+single-device run's on the gathered pack.
 Every path is driven with the launch counts set to 0 just before it and
 read just after. Each phase prints one JSON line, with the script's
 seconds so far (``t_s``); then a
@@ -2811,20 +2823,22 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
                 kw["pack_dtype"] = "bf16"
             reset()
             H, run_s, peak = run_peak(lambda: pipeline.run(dom, rays, **kw))
-            launches = path_launches(("march_owned", "pack", "detector"),
-                                     f"mesh {name}/{tier}")
+            launches = path_launches(("march_owned", "pack_window",
+                                      "detector"), f"mesh {name}/{tier}")
             check(torch.equal(H, H1) and float(H.sum()) > 0,
                   f"mesh {name}/{tier}: image (sum {float(H.sum())}) != the "
                   f"single-device image (sum {float(H1.sum())})")
-            sps = zscan.build_segment_pack_device(
-                dom, K=K, dtype=dtypes[tier], mesh=m, mesh_axis="grid")
+            sps, build_s, build_peak = run_peak(
+                lambda: zscan.build_segment_pack_device(
+                    dom, K=K, dtype=dtypes[tier], mesh=m, mesh_axis="grid"))
             kw.pop("pack_dtype", None)
             ms = best_ms(lambda: pipeline.run(dom, rays, spack=sps, **kw),
                          reps=reps)
             modes[f"{name}/{tier}"] = {
                 "mesh": m.shape, "launches": launches, "first_run_s": run_s,
                 "ms": ms, "single_device_ms": single_ms,
-                "peak_gb": peak, "image_sum": float(H.sum()),
+                "peak_gb": peak, "build_s": build_s,
+                "build_peak_gb": build_peak, "image_sum": float(H.sum()),
                 "image_equal": True}
             if name == "grid":
                 grid_pack = sps
@@ -3099,6 +3113,279 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     return rows_out, detail
 
 
+# the sharded field path: path (b)'s turbulence recipe at res 512, a 1024^3
+# field synthesised over four shards, each shard building its own pack
+# rows, into the grid-sharded march; on one card the four shards repeat it
+SHARDED = dict(res=512, rays=4_000_000, K=64, shards=4, dither=7)
+
+
+def sharded_field_path(torch, dev, kernels, bound, reset, path_launches):
+    """``grf_domain_fft(mesh=)`` -> ``external_ne(Sharded)`` ->
+    ``build_segment_pack_device(mesh=)`` -> ``pipeline.run(mesh=,
+    grid_axis="grid")`` at 1024^3 (the kolmogorov spectrum, l_max =
+    2 ext, l_min = 4 ext / res, ne = 1e25 + 9e24 f) on four shards. Holds
+    the sharded field within 1e-5 of the single-device synthesis; every
+    shard's table rows bit-equal to the same rows of the single-device K2
+    build and the scales equal, for f32, bf16 and dithered int8 and int4
+    (K = 64); the windowed K2 bit-equal to its windowed plain version on
+    one shard of each tier; the image of each tier's sharded pack equal to
+    the single-device run's on the gathered pack (4 M rays of path (b)'s
+    beam, schlieren_df, rk2 / slab; int4 on rk2s2). The main path is
+    ``pipeline.run(mesh=, grid_axis=)`` with no pack given: its f32 pack
+    built shard by shard (the windowed K2), K17, K3. Prints the synthesis
+    and build times, each windowed launch's time and bound, the halo and
+    amax-reduce times and each shard device's peak memory. Returns
+    (kernels-line rows, detail)."""
+    from synthpy_tpu_torch import pipeline
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.fields import ScalarDomain, grf, layout_of
+    from synthpy_tpu_torch.kernels import pack
+    from synthpy_tpu_torch.kernels.profiling import batch_ms
+    from synthpy_tpu_torch.parallel import Mesh, pmax
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+
+    res, N, K, G = (SHARDED[k] for k in ("res", "rays", "K", "shards"))
+    csrc = "synthpy_tpu_torch/kernels/csrc/"
+    torch.cuda.empty_cache()
+    place = mesh_placement(torch, G)
+    devs = sorted(set(place))
+    mesh = Mesh((G,), ("grid",), devices=place)
+    sdev = [torch.device(d) for d in place]
+    distinct = len(devs) == G
+
+    def sync():
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    def peaked(fn):
+        """fn(), its host ms with every card synchronised, and each shard
+        device's peak memory above what it held before [GB]."""
+        sync()
+        base = {}
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+            base[d] = torch.cuda.memory_allocated(d)
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        return out, ms, {d: (torch.cuda.max_memory_allocated(d) - base[d])
+                         / 1e9 for d in devs}
+
+    def wall_ms(fn, calls=5):
+        fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        sync()
+        return (time.perf_counter() - t) * 1e3 / calls
+
+    # -- the synthesis, sharded, then the single-device reference ----------
+    ext = EXT
+    gargs = (jrandom.PRNGKey(0), grf.kolmogorov, 2 * ext, 4 * ext / res,
+             ext, res)
+    reset()
+    (coords, fs), syn_ms, syn_peak = peaked(
+        lambda: grf.grf_domain_fft(*gargs, mesh=mesh, device=dev))
+    syn_launches = path_launches(("random",), "sharded synthesis")
+    n = fs.shape[0] // G
+    check(all(tuple(b.shape) == (n, *fs.shape[1:]) and b.device == sdev[g]
+              for g, b in enumerate(fs.shards)),
+          "sharded synthesis: blocks of the wrong shape or device")
+    (_, f1), syn1_ms, syn1_peak = peaked(
+        lambda: grf.grf_domain_fft(*gargs, device=dev))
+    syn_err = max(float((fs.shards[g] - f1[g * n:(g + 1) * n].to(sdev[g])
+                         ).abs().max()) for g in range(G))
+    check(syn_err <= 1e-5 and all(bool(torch.isfinite(b).all())
+                                  for b in fs.shards),
+          f"sharded synthesis off the single-device field by {syn_err}")
+    del f1
+    torch.cuda.empty_cache()
+    ne0 = 1e25
+    ne = ne0 + 0.9 * ne0 * fs
+    del fs
+    xyz = {a: c.cpu().numpy() for a, c in zip("xyz", coords)}
+    dom = ScalarDomain(**xyz, device=dev).external_ne(ne)
+    check(isinstance(dom.ne_stored, type(ne)), "the domain gathered ne")
+    ref = ScalarDomain(**xyz, device=dev).external_ne(ne.gather(dev))
+    lay = layout_of(dom)
+    C = lay.n_channels
+    geo = zscan._geometry_of(dom, 1064e-9)
+    kw = dict(p_ax=geo.p_ax, layout=lay, K=K,
+              n_seg=-(-(geo.n_p - 1) // K), pref=geo.pref, da=geo.da,
+              db=geo.db, dp=geo.dp, omega=geo.omega, verdet=geo.verdet)
+    rays = init_beam(jrandom.PRNGKey(1), N, 4e-3, 0.0, dom.extent,
+                     "circular", device=dev)
+    run_kw = dict(solver="zscan_seg", seg_K=K, integrator="rk2",
+                  seg_weights="slab", diagnostic="schlieren_df", bins=BINS)
+
+    # -- the main path: run(mesh=, grid_axis=), its pack built per shard ---
+    reset()
+    H_main, main_ms, main_peak = peaked(lambda: pipeline.run(
+        dom, rays, mesh=mesh, grid_axis="grid", **run_kw))
+    main_launches = path_launches(("pack_window", "march_owned",
+                                   "detector"), "sharded field run")
+    check(tuple(H_main.shape) == (BINS[1], BINS[0])
+          and bool(torch.isfinite(H_main).all()) and float(H_main.sum()) > 0,
+          "sharded field run: bad image")
+
+    # -- each tier: the sharded build against the single-device build ------
+    tiers = (("f32", torch.float32, None), ("bf16", torch.bfloat16, None),
+             ("int8", torch.int8, SHARDED["dither"]),
+             ("int4", "int4", SHARDED["dither"]))
+    builds = {}
+    ne_bytes = geo.na * geo.nb * geo.n_p * 4
+    for name, dt, dither in tiers:
+        torch.cuda.empty_cache()
+        reset()
+        sps, b_ms, b_peak = peaked(lambda: zscan.build_segment_pack_device(
+            dom, K=K, dtype=dt, dither=dither, mesh=mesh))
+        launches = path_launches(("pack_window",), f"sharded build {name}")
+        sp1, b1_ms, b1_peak = peaked(lambda: zscan.build_segment_pack_device(
+            ref, K=K, dtype=dt, dither=dither))
+        cells = sp1.seg_planes.shape[1] // G
+        for g, blk in enumerate(sps.seg_planes.shards):
+            check(blk.device == sdev[g] and blk.shape[1] == cells
+                  and torch.equal(blk, sp1.seg_planes[
+                      :, g * cells:(g + 1) * cells].to(sdev[g])),
+                  f"sharded build {name}: shard {g}'s rows != the "
+                  "single-device rows")
+        check(sp1.scales is None or torch.equal(sps.scales, sp1.scales),
+              f"sharded build {name}: scales differ")
+        # the image of this tier's pack, sharded and gathered
+        rk = dict(run_kw, integrator="rk2s2" if name == "int4" else "rk2")
+        reset()
+        H = pipeline.run(dom, rays, mesh=mesh, grid_axis="grid", spack=sps,
+                         **rk)
+        run_launches = path_launches(("march_owned", "detector"),
+                                     f"sharded field run, {name} pack")
+        H1 = pipeline.run(ref, rays, spack=sp1, **rk)
+        check(torch.equal(H, H1) and float(H.sum()) > 0,
+              f"sharded field run {name}: image (sum {float(H.sum())}) != "
+              f"the single-device image (sum {float(H1.sum())})")
+        if name == "f32":
+            check(torch.equal(H_main, H), "the main path's image != the "
+                  "f32 pack's")
+        table_bytes = sp1.seg_planes.numel() * sp1.seg_planes.element_size()
+        del sp1, H1
+        torch.cuda.empty_cache()
+        # each shard's windowed launch(es), timed on the build's inputs
+        vols, wins = zscan.shard_windows(dom, mesh, "grid", geo.p_ax)
+        by_g = {k[0]: v for k, v in wins.items()}
+        halo_ms = wall_ms(lambda: zscan.halo_rows(vols, mesh, "grid",
+                                                  geo.a_ax))
+        bits = {"int8": 8, "int4": 4}.get(name)
+        key = None if dither is None else jrandom.key_of(dither)
+        amax = amax_ms = None
+        if bits:
+            amax = [pack.build_amax(vols[p], window=w, **kw)
+                    for p, w in (by_g[g] for g in range(G))]
+            amax_ms = wall_ms(lambda: pmax(amax, mesh, "grid"))
+            red = pmax(amax, mesh, "grid")
+
+        def launch(g, plain=False):
+            p, w = by_g[g]
+            if bits is None:
+                fn = pack.build_tables_plain if plain else pack.build_tables
+                return fn(vols[p], dtype=dt, window=w, **kw)
+            fn = (pack.build_quantized_tables_plain if plain
+                  else pack.build_quantized_tables)
+            return fn(vols[p], bits=bits, dither=key, window=w,
+                      amax=red[p], **kw)
+
+        shard_ms = []
+        for g in range(G):
+            with torch.cuda.device(sdev[g]):
+                t_codes = batch_ms(lambda: launch(g), calls=5)
+                t_amax = (batch_ms(lambda: pack.build_amax(
+                    vols[by_g[g][0]], window=by_g[g][1], **kw), calls=5)
+                    if bits else 0.0)
+            shard_ms.append(t_codes + t_amax)
+        # one shard (with both halo rows) against its windowed plain version
+        g1 = 1 if G > 2 else 0
+        with torch.cuda.device(sdev[g1]):
+            got = launch(g1)
+            torch.cuda.synchronize(sdev[g1])
+            t = time.perf_counter()
+            plain = launch(g1, plain=True)
+            torch.cuda.synchronize(sdev[g1])
+            plain_ms = (time.perf_counter() - t) * 1e3
+        got_t = got[0] if bits else got
+        plain_t = plain[0] if bits else plain
+        same = torch.equal(got_t, plain_t) and (
+            not bits or torch.equal(got[1], plain[1]))
+        check(same, f"windowed K2 {name}: shard {g1} != its windowed plain "
+              "version")
+        err = (float((got_t.float() - plain_t.float()).abs().max())
+               if not bits else 0.0)
+        del got, plain, got_t, plain_t, vols, wins, by_g, amax
+        # bytes of one shard's launch: its ne rows and two halo rows read
+        # once, its table rows (and scales) written once
+        shard_bytes = ((ne_bytes + 2 * geo.nb * geo.n_p * 4) // G
+                       + table_bytes // G
+                       + (0 if not bits else sps.scales.numel() * 4))
+        b = bound(shard_bytes, 0)
+        builds[name] = {
+            "launches": launches, "run_launches": run_launches,
+            "build_ms": b_ms, "single_device_build_ms": b1_ms,
+            "build_peak_gb": b_peak, "single_device_build_peak_gb": b1_peak,
+            "shard_launch_ms": shard_ms, "bound_ms": b[0],
+            "bound_by": b[1], "bytes_per_shard": shard_bytes,
+            "plain_ms": plain_ms, "halo_ms": halo_ms,
+            "amax_reduce_ms": amax_ms, "rows_bit_equal": True,
+            "windowed_bit_equal_plain": True, "max_abs_err": err,
+            "image_equal": True, "image_sum": float(H.sum())}
+        # a shard's build adds its table rows and the halo and amax
+        # buffers (four ne rows: the two it sends and the two it receives;
+        # amax, its reduction and the scales), each allocation rounded up
+        # to the allocator's 2 MB blocks: on distinct cards no card holds
+        # more than a quarter of the single-device build's table
+        extra = (4 * geo.nb * geo.n_p * 4 + 3 * kw["n_seg"] * (K + 1) * C * 4
+                 + 16 * 2**21) / 1e9
+        one = b1_peak[devs[0]]
+        if distinct:
+            check(all(v <= one / G + extra for v in b_peak.values()),
+                  f"sharded build {name}: a card's peak {b_peak} above a "
+                  f"quarter of the single-device build's {one} GB")
+        else:
+            check(b_peak[devs[0]] <= one + G * extra,
+                  f"sharded build {name}: peak {b_peak} above the "
+                  f"single-device build's {one} GB")
+        emit({"phase": "sharded_field_build", "tier": name, "K": K,
+              "placement": place, **builds[name]})
+        del sps, H
+        torch.cuda.empty_cache()
+    detail = {"res": res, "dims": list(dom.dims), "rays": N, "K": K,
+              "placement": place, "synthesis_ms": syn_ms,
+              "single_device_synthesis_ms": syn1_ms,
+              "synthesis_peak_gb": syn_peak,
+              "single_device_synthesis_peak_gb": syn1_peak,
+              "synthesis_launches": syn_launches,
+              "synthesis_max_abs_err": syn_err,
+              "main_path_ms": main_ms, "main_path_peak_gb": main_peak,
+              "main_path_launches": main_launches, "builds": builds}
+    emit({"phase": "sharded_field_path", **{k: v for k, v in detail.items()
+                                            if k != "builds"}})
+    del dom, ref, ne, rays, H_main
+    torch.cuda.empty_cache()
+    f32 = builds["f32"]
+    rows_out = [
+        {"name": "pack_window", "route": "cuda", "source": csrc + "pack.cu",
+         "replaces": "synthpy_tpu/tracer/zscan.py:1799",
+         "launches": main_launches["pack_window"],
+         "max_abs_err": max(v["max_abs_err"] for v in builds.values()),
+         "ms": max(f32["shard_launch_ms"]), "plain_ms": f32["plain_ms"],
+         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+         "library_ms": None,
+         "per": f"one shard's f32 rows of a {res * 2}^3 field, K = {K}, "
+                f"{G} shards (the slowest shard)",
+         **{t: {k: builds[t][k] for k in (
+             "shard_launch_ms", "plain_ms", "bound_ms", "bound_by",
+             "launches")} for t in ("bf16", "int8", "int4")}}]
+    return rows_out, {"sharded_field_path": detail}
+
+
 def main():
     try:
         import torch
@@ -3158,6 +3445,7 @@ def main():
                "pp_chords": kxray.PP_CHORDS_KERNEL,
                "march_owned": march_sharded.KERNEL,
                "sharded_rhs": sharded_rhs.KERNEL,
+               "pack_window": pack.WINDOW_KERNEL,
                "pack_chain": pack_chain.KERNEL,
                "pack_chain_adjoint": pack_chain.BACKWARD_KERNEL}
     controls = inverse_controls(torch)
@@ -4058,6 +4346,12 @@ def main():
     mesh_rows, mesh_detail = mesh_path(torch, dev, kernels, bound, reset,
                                        path_launches, close)
 
+    # -- 3g. the sharded field path: a 1024^3 GRF synthesised over four
+    # shards, each shard's pack rows built on its device (K2 on a row
+    # window), the grid-sharded march
+    shf_rows, shf_detail = sharded_field_path(torch, dev, kernels, bound,
+                                              reset, path_launches)
+
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
     k1_call_ms = best_ms(lambda: march.march(u_all, sp.seg_planes,
                                              sp.scales, **mkw), reps=5)
@@ -4363,10 +4657,14 @@ def main():
                   "cic_adjoint": 1, "boris": 1, "btable_bf16": 1,
                   "btable_int8": 1, "xray_fold": 1, "pp_fold": 1,
                   "pp_chords": 1, "march_owned": 1, "sharded_rhs": 1,
-                  "pack_chain": 1, "pack_chain_adjoint": 1},
+                  "pack_chain": 1, "pack_chain_adjoint": 1,
+                  # a windowed f32 / bf16 build runs rows_pass; int8 and
+                  # int4 call it twice: amax_pass, then rows_pass
+                  "pack_window": 1},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "script_s": time.perf_counter() - t_start}
-    rows_out += wo_rows + sc_rows + inv_rows + rad_rows + mesh_rows
+    rows_out += (wo_rows + sc_rows + inv_rows + rad_rows + mesh_rows
+                 + shf_rows)
     emit({"phase": "bounds", **detail})
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"),
@@ -4377,7 +4675,8 @@ def main():
                    "K5_times": k5_t, "K6": k6, "K6_times": k6_t,
                    "paths": paths, "K7": k7, "K3_coherent": coh,
                    "kernels": rows_out, **wo_detail, **sc_detail,
-                   **inv_detail, **rad_detail, **mesh_detail, **detail},
+                   **inv_detail, **rad_detail, **mesh_detail,
+                   **shf_detail, **detail},
                   f, indent=1)
     emit({"kernels": rows_out})
     print(smi, flush=True)

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's multi-device phase (``mesh_path``) alone.
+"""Run chip_smoke.py's multi-device phases (``mesh_path``, then
+``sharded_field_path``) alone.
 
     python3 mesh_timing.py        # from the repository root
 
 On a host with four or more cards the mesh's four shards go on cuda:0-3,
 otherwise all on cuda:0, as in chip_smoke.py. Builds the kernels the
-phase runs, then prints its JSON lines (``K17_vs_plain``, ``mesh_path``,
-``K18_vs_plain``, ``multihost_nccl``), its kernel rows and the card's name
-and power limit. Every check of the phase holds; a failed one exits
-nonzero.
+phases run, then prints their JSON lines (``K17_vs_plain``,
+``mesh_path``, ``K18_vs_plain``, ``multihost_nccl``, then
+``sharded_field_build`` per tier and ``sharded_field_path``: each shard
+card's peak memory of the 1024^3 sharded synthesis and build), their
+kernel rows and the card's name and power limit. Every check of the
+phases holds; a failed one exits nonzero.
 """
 
 import json
@@ -28,6 +31,7 @@ def main():
     from synthpy_tpu_torch.kernels import (_build, binning, detector, march,
                                            march_sharded, pack,
                                            sharded_rhs, time_march)
+    from synthpy_tpu_torch.kernels import random as krandom
     from synthpy_tpu_torch.kernels.profiling import nvidia_smi
 
     kernels = {"march": march.KERNEL, "pack": pack.KERNEL,
@@ -36,7 +40,9 @@ def main():
                "time_march": time_march.KERNEL,
                "bin_image": binning.BIN_KERNEL,
                "march_owned": march_sharded.KERNEL,
-               "sharded_rhs": sharded_rhs.KERNEL}
+               "sharded_rhs": sharded_rhs.KERNEL,
+               "pack_window": pack.WINDOW_KERNEL,
+               "random": krandom.KERNEL}
     _build.build({k.source: k.flags for k in kernels.values()})
 
     def reset():
@@ -67,6 +73,9 @@ def main():
     t = time.perf_counter()
     rows, _ = cs.mesh_path(torch, torch.device("cuda"), kernels, bound,
                            reset, path_launches, close)
+    more, _ = cs.sharded_field_path(torch, torch.device("cuda"), kernels,
+                                    bound, reset, path_launches)
+    rows += more
     print(json.dumps({"kernels": rows,
                       "script_s": time.perf_counter() - t}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -3,7 +3,10 @@
 Port of ``synthpy_tpu.fields.domain`` (main-path subset): ``ScalarDomain``
 with per-axis coordinates, the analytic test fields and external-field
 loading; ``ChannelLayout``, ``TracePack``, ``build_pack``, ``layout_of``
-and ``peak_ne_over_nc``. Fields live on the domain's device as tensors.
+and ``peak_ne_over_nc``. Fields live on the domain's device as tensors;
+ne may also be a ``parallel.Sharded`` split over a mesh (``external_ne``),
+which the sharded pack build reads shard by shard and which ``ne`` gathers
+for everything else.
 The ``test_*`` fields also set ``domain.analytic``, the closed forms of the
 pack-free analytic march (``fields.forms``).
 """
@@ -108,7 +111,7 @@ class ScalarDomain:
         self.B_on = B_on
         self.probing_direction = probing_direction
 
-        self.ne: Optional[torch.Tensor] = None
+        self.ne = None          # a tensor or a parallel.Sharded
         self.B: Optional[torch.Tensor] = None
         self.Te: Optional[torch.Tensor] = None
         self.Z: Optional[torch.Tensor] = None
@@ -123,6 +126,33 @@ class ScalarDomain:
             if generator is None:
                 raise ValueError(f"unknown ne_type {ne_type!r}")
             generator()
+
+    # -- the density -------------------------------------------------------
+
+    @property
+    def ne(self) -> Optional[torch.Tensor]:
+        """The electron density, a tensor on the domain's device, or None.
+        A sharded ne (``external_ne`` of a ``parallel.Sharded``) is kept
+        sharded in ``ne_stored``, and reading ``ne`` gathers it whole onto
+        the domain's device, afresh at every read, as XLA moves a sharded
+        array into a single-device program. This is the one place where a
+        single-device builder or solver meets a sharded ne; the sharded
+        routes (``build_segment_pack_device(mesh=)``, ``pipeline.run(mesh=,
+        grid_axis=)``) and ``peak_ne_over_nc`` read ``ne_stored`` and never
+        gather it."""
+        v = self._ne
+        return v if v is None or isinstance(v, torch.Tensor) else v.gather(
+            self.device)
+
+    @ne.setter
+    def ne(self, v) -> None:
+        self._ne = v
+
+    @property
+    def ne_stored(self):
+        """ne as it is held: a tensor, a ``parallel.Sharded`` or None (read
+        without moving data)."""
+        return self._ne
 
     # -- geometry ----------------------------------------------------------
 
@@ -231,12 +261,23 @@ class ScalarDomain:
         keeps it in (pinned) host memory: for fields larger than the card,
         which ``tracer.zscan.build_segment_pack_upload`` and
         ``build_segment_pack_streaming`` read batch by batch; the builders
-        that read the whole volume on the card refuse it."""
-        self.ne = self._as_field(ne, host)
+        that read the whole volume on the card refuse it. A
+        ``parallel.Sharded`` ne (``grf_domain_fft(mesh=)``) stays sharded,
+        each block on its shard's device, in the domain's dtype (see
+        ``ne``)."""
+        from synthpy_tpu_torch.parallel.mesh import Sharded
+
+        if isinstance(ne, Sharded):
+            if host:
+                raise ValueError("a sharded ne stays on its shards' "
+                                 "devices; host=True does not apply")
+            self.ne = ne.map(lambda s: s.to(self.dtype))
+        else:
+            self.ne = self._as_field(ne, host)
         self.analytic = None
-        if tuple(self.ne.shape) != tuple(self.dims):
+        if tuple(self._ne.shape) != tuple(self.dims):
             raise ValueError(
-                f"ne shape {tuple(self.ne.shape)} != grid dims {self.dims}")
+                f"ne shape {tuple(self._ne.shape)} != grid dims {self.dims}")
         return self
 
     def external_B(self, B, host: bool = False):
@@ -345,7 +386,8 @@ def build_pack(domain: ScalarDomain,
 def host_resident(domain: ScalarDomain) -> bool:
     """True when the domain's ne stays in host memory for a domain on a
     card (``external_ne(host=True)``)."""
-    return (domain.ne.device.type == "cpu"
+    ne = domain.ne_stored
+    return (isinstance(ne, torch.Tensor) and ne.device.type == "cpu"
             and domain.device.type != "cpu")
 
 
@@ -360,16 +402,19 @@ def peak_ne_over_nc(domain: ScalarDomain,
     The critical-density guard of ``pipeline.run`` reads it: the z-scan
     march divides by v_p, which is ill-conditioned near turning points.
     Memoised per (ne tensor, lwl), so repeated runs on one field read the
-    device once.
+    device once. A sharded ne is reduced shard by shard, never gathered.
     """
-    if domain.ne is None:
+    ne = domain.ne_stored
+    if ne is None:
         return 0.0
     cached = getattr(domain, "_peak_cache", None)
     if cached is not None:
         ref, clwl, val = cached
-        if ref() is domain.ne and clwl == float(lwl):
+        if ref() is ne and clwl == float(lwl):
             return val
     nc = float(constants.critical_density(constants.omega_from_lwl(lwl)))
-    frac = float(domain.ne.max()) / nc
-    domain._peak_cache = (weakref.ref(domain.ne), float(lwl), frac)
+    peak = (float(ne.max()) if isinstance(ne, torch.Tensor)
+            else max(float(s.max()) for s in ne.shards))
+    frac = peak / nc
+    domain._peak_cache = (weakref.ref(ne), float(lwl), frac)
     return frac

@@ -17,6 +17,8 @@ The noise is drawn from the caller's key with JAX's threefry stream
 gives the JAX package's field, to the order of the FFT and contraction
 sums and the normals' last few places. FFTs run on ``torch.fft`` (cuFFT on
 the card). Generators take ``device=`` (default ``"cuda"``).
+``grf_domain_fft(mesh=)`` synthesises the field split over a mesh axis,
+never whole on one device (a pencil FFT with the mesh's all-to-alls).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from synthpy_tpu_torch import _device
 from synthpy_tpu_torch import random as jrandom
+from synthpy_tpu_torch.kernels import random as _krandom
 from synthpy_tpu_torch.ops import dft
 
 
@@ -74,6 +77,19 @@ def grf_fft(key, N: int, k_func: Callable, ndim: int = 3, d: float = 1.0,
     return dft.ifftn(F).real
 
 
+def _band_amplitude(k_func: Callable, ks, k_min: float,
+                    k_max: float) -> torch.Tensor:
+    """sqrt of the band-limited spectrum on the grid of the 1-D wave
+    vectors ``ks`` (|k| by broadcasting, never ndim full meshgrids)."""
+    ndim = len(ks)
+    k2 = sum(kv.reshape((1,) * i + (-1,) + (1,) * (ndim - 1 - i)) ** 2
+             for i, kv in enumerate(ks))
+    k = torch.sqrt(k2).to(torch.float32)
+    S = torch.where((k >= k_min) & (k <= k_max), _safe_spectrum(k_func, k),
+                    torch.zeros_like(k))
+    return torch.sqrt(S)
+
+
 def grf_domain_fft(key, k_func: Callable, l_max: float, l_min: float,
                    extent: float, res: int, factor: float = 1.0,
                    ndim: int = 3, mesh=None, mesh_axis: str = "grid",
@@ -81,12 +97,20 @@ def grf_domain_fft(key, k_func: Callable, l_max: float, l_min: float,
     """Band-limited GRF over [-extent, extent)^ndim: the spectrum is
     k_func(k) for k in [2 pi / l_max, 2 pi / l_min] and zero outside; the
     field is normalised to max |f| = 1. For ndim == 3 the last axis is
-    stretched by ``factor``. Returns (coords, field). ``mesh=`` (a sharded
-    synthesis) is not ported (ROADMAP A.17)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "grf_domain_fft(mesh=) is not ported yet (ROADMAP A.17)")
-    del mesh_axis
+    stretched by ``factor``. Returns (coords, field), the coordinates on
+    ``device``.
+
+    ``mesh`` (a ``parallel.Mesh``): the field is a ``parallel.Sharded`` of
+    axis-0 row blocks over ``mesh_axis``, each on its shard's device (the
+    JAX package's sharded jit), equal to the single-device field to the
+    order of the FFT sums. Each shard draws its rows of the two normal
+    fields (K10 at the rows' flat offset: the bits of an index do not
+    depend on the split) and transforms them along axes 1.. with
+    ``torch.fft``; an all-to-all splits the blocks along axis 1 for the
+    transform along axis 0, and a second brings the real part back to
+    axis-0 blocks, divided by the max |f| over the axis. No device holds
+    the whole field. Needs ndim >= 2 and axes 0 and 1 dividing over the
+    axis."""
     dev = _device.resolve(device)
     dx = extent / res
     n = 2 * res
@@ -103,17 +127,67 @@ def grf_domain_fft(key, k_func: Callable, l_max: float, l_min: float,
     k_min = 2 * math.pi / l_max
     k_max = 2 * math.pi / l_min
     kr, ki = jrandom.split(key)
+    if mesh is not None:
+        return tuple(coords), _domain_fft_sharded(
+            kr, ki, k_func, ks, k_min, k_max, mesh, mesh_axis)
     shape = tuple(kv.shape[0] for kv in ks)
-    k2 = sum(kv.reshape((1,) * i + (-1,) + (1,) * (ndim - 1 - i)) ** 2
-             for i, kv in enumerate(ks))
-    k = torch.sqrt(k2).to(torch.float32)
-    S = torch.where((k >= k_min) & (k <= k_max), _safe_spectrum(k_func, k),
-                    torch.zeros_like(k))
-    amp = torch.sqrt(S)
+    amp = _band_amplitude(k_func, ks, k_min, k_max)
     noise = torch.complex(jrandom.normal(kr, shape, device=dev),
                           jrandom.normal(ki, shape, device=dev))
     field = dft.ifftn(noise * amp).real
     return tuple(coords), field / torch.max(torch.abs(field))
+
+
+def _domain_fft_sharded(kr, ki, k_func, ks, k_min, k_max, mesh, axis):
+    """``grf_domain_fft``'s field as axis-0 blocks over ``axis`` of
+    ``mesh``: computed on the first line of the axis, each block copied to
+    the positions of other lines (a 2-D mesh) that hold it."""
+    from synthpy_tpu_torch.parallel.mesh import (Mesh, Sharded, all_to_all,
+                                                 local_axis, pmax)
+
+    local_axis(mesh, axis, "the sharded GRF synthesis")
+    ndim = len(ks)
+    shape = tuple(kv.shape[0] for kv in ks)
+    G = mesh.shape[axis]
+    if ndim < 2:
+        raise ValueError("a sharded synthesis needs ndim >= 2: axis 1 "
+                         "carries the split while axis 0 is transformed")
+    if shape[0] % G or shape[1] % G:
+        raise ValueError(f"axes 0 and 1 of {shape} must divide over the "
+                         f"{G}-way {axis!r} axis")
+    m = shape[0] // G
+    per = m * math.prod(shape[1:])
+    devs = [mesh.flat_devices[p] for p in mesh.groups(axis)[0]]
+    line = Mesh((G,), (axis,), devices=devs)
+    keys = [jrandom.key_data(kr), jrandom.key_data(ki)]
+    blocks = []
+    for g, dev in enumerate(devs):
+        kg = [kv.to(dev) for kv in ks]
+        kg[0] = kg[0][g * m:(g + 1) * m]
+        amp = _band_amplitude(k_func, kg, k_min, k_max)
+        re_, im_ = (_krandom.draw(k, per, "normal", device=dev,
+                                  offset=g * per).reshape(m, *shape[1:])
+                    for k in keys)
+        spec = torch.complex(re_, im_) * amp
+        del re_, im_, amp
+        blocks.append(torch.fft.ifftn(spec, dim=tuple(range(1, ndim))))
+        del spec
+    cols = all_to_all(blocks, line, axis, split_dim=1, concat_dim=0)
+    del blocks
+    for g in range(G):
+        cols[g] = torch.fft.ifft(cols[g], dim=0).real.contiguous()
+    rows = all_to_all(cols, line, axis, split_dim=0, concat_dim=1)
+    del cols
+    peak = pmax([r.abs().amax() for r in rows], line, axis)
+    rows = [r / pk for r, pk in zip(rows, peak)]
+    placed = {}
+    shards = []
+    for p, dev in enumerate(mesh.flat_devices):
+        g = mesh.index(p, axis)
+        if (g, dev) not in placed:
+            placed[(g, dev)] = rows[g].to(dev)
+        shards.append(placed[(g, dev)])
+    return Sharded(mesh, (axis,) + (None,) * (ndim - 1), shards, shape)
 
 
 def _cos_modes(key, k_func, wn1, wnn, nmodes, ndim, dev):

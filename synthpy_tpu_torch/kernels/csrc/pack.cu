@@ -58,6 +58,19 @@
 // jnp.round(v / scale). This file is built with --fmad=false so that no
 // multiply-add is contracted and the plain PyTorch version can match it.
 // Te, Z and B (full-physics layouts) are read straight from device memory.
+//
+// The row window (build_segment_pack_device(mesh=), zscan.py:1780-1797, the
+// pack of a field split along the transverse a-axis over a grid axis): a
+// shard's volumes hold the field's a-rows [a0, a0 + na), and two halo rows,
+// a0 - 1 and a0 + na, come from its neighbours (absent at the field's
+// edges). The a-gradient stays jnp.gradient of the whole field: one-sided
+// only at the field's rows 0 and na_total - 1, central at a window edge,
+// where it reads the halo row; the dither is indexed by the field's cell
+// (a0 + a) * nb + b. The quantised tiers split at their two passes
+// (phase 1: pass A only; phase 2: pass B with an amax given), so that the
+// caller can max-reduce the amax over the shards between them; phase 0
+// runs both, the single-device build, which is the window a0 = 0,
+// na = na_total with no halo.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,7 +98,10 @@ struct Vol {
 
 struct Field {
   Vol ne, te, z, ba, bb, bp;
-  int n_seg, K, S, Ko, n_p, na, nb, cells;
+  Vol hlo, hhi;  // halo rows a0 - 1 and a0 + na (p and b strides only)
+  int n_seg, K, S, Ko, n_p, na, nb, cells;  // na, cells: the window's
+  int a0, na_total;                         // the window in the field
+  long long cell0;                          // the field's cell a0 * nb
   int vec_ok;  // ne rows start 16-byte aligned (z-probing)
   float pref, da, db, two_dp, dp, omega, n_coef, verdet;
 };
@@ -96,7 +112,8 @@ struct Field {
 //   0 .. CB+1         cells c0-1 .. c0+CB (the b-1 / b+1 neighbours)
 //   CB+2 .. 2CB+1     the a-1 neighbour of cell c0+i (clamped at a = 0)
 //   2CB+2 .. 3CB+1    the a+1 neighbour (clamped at a = na-1)
-// Column j holds absolute plane P0 + j. Cells past the grid are clamped.
+// Column j holds absolute plane P0 + j. Cells past the grid are clamped;
+// an a-1 / a+1 neighbour past the window is the halo row.
 // z-probing stages only the first CB+2 rows: a warp reads the a-1 / a+1
 // neighbours of consecutive planes straight from device memory (L2 holds
 // them: they are other blocks' own rows), so the tile can hold whole rows.
@@ -117,16 +134,18 @@ __host__ __device__ inline int tile_bytes(int CB, int pitch, int pc) {
   return (tile_rows(CB, pc) * pitch * 4 + 15) / 16 * 16;
 }
 
-// bytes after the tile: each row's 64-bit offset in ne, each cell's (a, b)
+// bytes after the tile: each row's pointer to its plane 0, each cell's
+// (a, b) in the field, each row's plane stride (x-, y-probing)
 __host__ __device__ inline int meta_bytes(int CB) {
-  return (offset_rows(CB) * 8 + CB * 8 + 15) / 16 * 16;
+  return (offset_rows(CB) * 12 + CB * 8 + 15) / 16 * 16;
 }
 
 struct Tile {
   float* sm;
   int pitch, P0, CB;
-  long long* rowoff;
+  const float** rowptr;
   int2* ab;
+  int* rowsp;
   __device__ __forceinline__ float at(int r, int g) const {
     return sm[r * pitch + (g - P0)];
   }
@@ -140,25 +159,39 @@ __device__ __forceinline__ Tile tile_at(uint8_t* p, int CB, int pitch) {
   T.pitch = pitch;
   T.P0 = 0;
   T.CB = CB;
-  T.rowoff = reinterpret_cast<long long*>(p + tile_bytes(CB, pitch, PC));
-  T.ab = reinterpret_cast<int2*>(T.rowoff + offset_rows(CB));
+  T.rowptr = reinterpret_cast<const float**>(p + tile_bytes(CB, pitch, PC));
+  T.ab = reinterpret_cast<int2*>(T.rowptr + offset_rows(CB));
+  T.rowsp = reinterpret_cast<int*>(T.ab + CB);
   return T;
 }
 
-__device__ __forceinline__ long long row_offset(const Field& F, int c0,
-                                                int CB, int r) {
+// Tile row r's ne row (plane 0) and its plane stride: a cell of the window,
+// or for the a-1 / a+1 rows the neighbour, which is the cell itself at the
+// field's edge rows (jnp.gradient's one-sided difference) and a halo row
+// past a window edge.
+__device__ __forceinline__ const float* row_ptr(const Field& F, int c0,
+                                                int CB, int r, int& sp) {
+  sp = (int)F.ne.sp;
   int c;
   if (r < CB + 2) {
     c = min(max(c0 - 1 + r, 0), F.cells - 1);
     const int a = c / F.nb;
-    return a * F.ne.sa + (c - a * F.nb) * F.ne.sb;
+    return F.ne.p + a * F.ne.sa + (c - a * F.nb) * F.ne.sb;
   }
   const bool hi = r >= 2 * CB + 2;
   c = min(c0 + (r - CB - 2) % CB, F.cells - 1);
   int a = c / F.nb;
   const int b = c - a * F.nb;
-  a = hi ? (a == F.na - 1 ? a : a + 1) : (a == 0 ? 0 : a - 1);
-  return a * F.ne.sa + b * F.ne.sb;
+  const int ag = F.a0 + a;
+  if (hi ? ag != F.na_total - 1 : ag != 0) {
+    if (hi ? a == F.na - 1 : a == 0) {
+      // both halo rows have the same strides
+      sp = (int)F.hlo.sp;
+      return (hi ? F.hhi.p : F.hlo.p) + b * F.hlo.sb;
+    }
+    a += hi ? 1 : -1;
+  }
+  return F.ne.p + a * F.ne.sa + b * F.ne.sb;
 }
 
 // Stage planes [P0, P1] of every tile row for the cells c0 .. c0+CB-1.
@@ -166,12 +199,17 @@ __device__ __forceinline__ long long row_offset(const Field& F, int c0,
 template <int PC>
 __device__ void stage(const Field& F, Tile& T, int c0, int glo, int ghi) {
   const int R = tile_rows(T.CB, PC);
-  long long* rowoff = T.rowoff;
-  for (int r = threadIdx.x; r < offset_rows(T.CB); r += THREADS)
-    rowoff[r] = row_offset(F, c0, T.CB, r);
+  const float** rowptr = T.rowptr;
+  for (int r = threadIdx.x; r < offset_rows(T.CB); r += THREADS) {
+    int sp;
+    rowptr[r] = row_ptr(F, c0, T.CB, r, sp);
+    // z-probing reads planes at stride 1 on every row (and storing the
+    // strides anyway measured 3% on the bf16 build)
+    if constexpr (!PC) T.rowsp[r] = sp;
+  }
   for (int i = threadIdx.x; i < T.CB; i += THREADS) {
     const int cell = min(c0 + i, F.cells - 1), a = cell / F.nb;
-    T.ab[i] = make_int2(a, cell - a * F.nb);
+    T.ab[i] = make_int2(F.a0 + a, cell - a * F.nb);
   }
   int P0 = max(glo - 1, 0);
   const int P1 = min(ghi + 1, F.n_p - 1);
@@ -191,7 +229,7 @@ __device__ void stage(const Field& F, Tile& T, int c0, int glo, int ghi) {
         if (r >= R) break;
       }
       const int p = P0 + 4 * v;
-      const float* src = F.ne.p + rowoff[r] + p;
+      const float* src = rowptr[r] + p;
       float4 x;
       if (F.vec_ok && p + 3 <= F.n_p - 1) {
         x = __ldg(reinterpret_cast<const float4*>(src));
@@ -215,14 +253,15 @@ __device__ void stage(const Field& F, Tile& T, int c0, int glo, int ghi) {
         if (j >= NP) break;
       }
       T.sm[r * T.pitch + j] =
-          __ldg(F.ne.p + rowoff[r] + (long long)(P0 + j) * F.ne.sp);
+          __ldg(rowptr[r] + (long long)(P0 + j) * T.rowsp[r]);
     }
   }
   __syncthreads();
 }
 
-// Channel values of absolute plane g at cell i of the tile (grid cell
-// (a, b)); exactly zero on the pad planes g > n_p - 1.
+// Channel values of absolute plane g at cell i of the tile (the field's
+// cell (a, b), the window's row a - a0); exactly zero on the pad planes
+// g > n_p - 1.
 template <class LY, int PC>
 __device__ __forceinline__ void channel_values(const Field& F, const Tile& T,
                                                int i, int g, float v[LY::C]) {
@@ -235,13 +274,13 @@ __device__ __forceinline__ void channel_values(const Field& F, const Tile& T,
   const int2 ab = T.ab[i];
   const int a = ab.x, b = ab.y;
   const float body = T.at(1 + i, g);
-  // one-sided at the edges, central inside (jnp.gradient); the a rows hold
-  // the clamped neighbours already
-  const float alo = PC ? __ldg(F.ne.p + T.rowoff[CB + 2 + i] + g)
+  // one-sided at the field's edges, central inside (jnp.gradient); the a
+  // rows hold the clamped neighbours or the halo rows already
+  const float alo = PC ? __ldg(T.rowptr[CB + 2 + i] + g)
                        : T.at(CB + 2 + i, g);
-  const float ahi = PC ? __ldg(F.ne.p + T.rowoff[2 * CB + 2 + i] + g)
+  const float ahi = PC ? __ldg(T.rowptr[2 * CB + 2 + i] + g)
                        : T.at(2 * CB + 2 + i, g);
-  v[0] = F.pref * grad1(alo, ahi, a, F.na, F.da);
+  v[0] = F.pref * grad1(alo, ahi, a, F.na_total, F.da);
   const int rb0 = b == 0 ? 1 + i : i, rb1 = b == F.nb - 1 ? 1 + i : 2 + i;
   v[1] = F.pref * grad1(T.at(rb0, g), T.at(rb1, g), b, F.nb, F.db);
   // padded volume: a duplicate of plane 0 in front, zeros behind
@@ -252,15 +291,16 @@ __device__ __forceinline__ void channel_values(const Field& F, const Tile& T,
   if (g == F.n_p - 1) gp = 2.0f * gp + F.pref * body / F.dp;
   v[2] = gp;
   if constexpr (LY::inv_brems)
-    v[LY::KI] = kappa_of(body, F.te.at(g, a, b), F.z.at(g, a, b), F.omega);
+    v[LY::KI] = kappa_of(body, F.te.at(g, a - F.a0, b),
+                         F.z.at(g, a - F.a0, b), F.omega);
   if constexpr (LY::phaseshift) {
     const float arg = 1.0f - F.n_coef * body;
     v[LY::PI] = F.omega * ((arg > 0.0f ? sqrtf(arg) : 0.0f) - 1.0f);
   }
   if constexpr (LY::B_on) {
-    v[LY::FI + 0] = F.verdet * body * F.ba.at(g, a, b);
-    v[LY::FI + 1] = F.verdet * body * F.bb.at(g, a, b);
-    v[LY::FI + 2] = F.verdet * body * F.bp.at(g, a, b);
+    v[LY::FI + 0] = F.verdet * body * F.ba.at(g, a - F.a0, b);
+    v[LY::FI + 1] = F.verdet * body * F.bb.at(g, a - F.a0, b);
+    v[LY::FI + 2] = F.verdet * body * F.bp.at(g, a - F.a0, b);
   }
 }
 
@@ -386,9 +426,10 @@ __global__ void __launch_bounds__(THREADS)
         float v[C];
         channel_values<LY, PC>(F, T, i, s * F.K + k * F.S, v);
         if constexpr (DITHER) {
-          // keyed by the absolute plane, drawn over (na, nb, C): index
-          // cell * C + c
-          const unsigned long long d0 = (unsigned long long)(c0 + i) * C;
+          // keyed by the absolute plane, drawn over the field's (na, nb,
+          // C): index cell * C + c
+          const unsigned long long d0 =
+              (unsigned long long)(F.cell0 + c0 + i) * C;
           const uint2 pk0 =
               threefry::fold_in(dkey, (uint32_t)(s * F.K + k * F.S));
           if constexpr (MODE == INT8) {
@@ -452,8 +493,9 @@ int allow_smem(KernelT kernel, size_t smem) {
 }
 
 template <class LY, int PC>
-int build_layout(const Field& F, int mode, void* out, unsigned* amax,
-                 float* scales, int dither, uint2 dkey, cudaStream_t st) {
+int build_layout(const Field& F, int mode, int phase, void* out,
+                 unsigned* amax, float* scales, int dither, uint2 dkey,
+                 cudaStream_t st) {
   constexpr int C = LY::C;
   // CB_ROWS cells' rows a block; kept planes in chunks as long as a
   // TILE_BUDGET tile holds (all of them at the main path's shapes), even
@@ -466,7 +508,7 @@ int build_layout(const Field& F, int mode, void* out, unsigned* amax,
   if (KB > AMAX_COLS * THREADS) KB = AMAX_COLS * THREADS;
   const int pitch = tile_pitch(KB, F.S, PC);
   const size_t smem = rows_smem(CB, pitch, PC, KB, C);
-  if (mode == INT8 || mode == INT4) {
+  if ((mode == INT8 || mode == INT4) && phase != 2) {
     // pass A: cells in runs of CR, ~2 waves of 8 blocks an SM
     const int n_chunk = (F.Ko + KB) / KB;
     const long long want = 132LL * 8 * 2 / ((long long)n_chunk * F.n_seg);
@@ -478,6 +520,7 @@ int build_layout(const Field& F, int mode, void* out, unsigned* amax,
     if (const int e = allow_smem(k, smem)) return e;
     k<<<grid, THREADS, smem, st>>>(F, amax, KB, CB, CR, pitch);
   }
+  if (phase == 1) return 0;
   const dim3 grid((F.cells + CB - 1) / CB, F.n_seg);
   void (*k)(Field, void*, const unsigned*, float*, int, int, int, uint2) =
       mode == F32    ? rows_pass<LY, PC, F32, false>
@@ -492,13 +535,14 @@ int build_layout(const Field& F, int mode, void* out, unsigned* amax,
 }
 
 template <class LY>
-int build_probe(const Field& F, int mode, void* out, unsigned* amax,
-                float* scales, int dither, uint2 dkey, cudaStream_t st) {
+int build_probe(const Field& F, int mode, int phase, void* out,
+                unsigned* amax, float* scales, int dither, uint2 dkey,
+                cudaStream_t st) {
   return F.ne.sp == 1
-             ? build_layout<LY, 1>(F, mode, out, amax, scales, dither, dkey,
-                                   st)
-             : build_layout<LY, 0>(F, mode, out, amax, scales, dither, dkey,
-                                   st);
+             ? build_layout<LY, 1>(F, mode, phase, out, amax, scales, dither,
+                                   dkey, st)
+             : build_layout<LY, 0>(F, mode, phase, out, amax, scales, dither,
+                                   dkey, st);
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -635,8 +679,12 @@ unsigned blocks_for(long long total) {
 }  // namespace
 
 // mode: 0 f32, 1 bf16 tables; 2 int8, 3 int4 codes with scales, amax
-// (n_seg, K/S + 1, C) unsigned zeroed by the caller. Output plane k of
-// segment s is absolute plane s*K + k*S.
+// (n_seg, K/S + 1, C) unsigned zeroed by the caller (phase 0, 1) or the
+// field's amax (phase 2). Output plane k of segment s is absolute plane
+// s*K + k*S. The volumes hold a-rows [a0, a0 + na) of na_total; halo_lo /
+// halo_hi (row a0 - 1 / a0 + na, plane stride hsp, b stride hsb) are read
+// only where a0 > 0 / a0 + na < na_total. phase: 0 the whole build, 1 the
+// amax pass alone (out unused), 2 the codes from the given amax.
 extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
                           const float* ne, const float* te, const float* z,
                           const float* B, long long sp, long long sa,
@@ -646,9 +694,13 @@ extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
                           float dp, float omega, float n_coef, float verdet,
                           int inv_brems, int phaseshift, int B_on,
                           int dither, long long key0, long long key1,
-                          void* stream) {
+                          int a0, int na_total, const float* halo_lo,
+                          const float* halo_hi, long long hsp, long long hsb,
+                          int phase, void* stream) {
   Field F;
   F.ne = {ne, sp, sa, sb};
+  F.hlo = {halo_lo, hsp, 0, hsb};
+  F.hhi = {halo_hi, hsp, 0, hsb};
   F.te = {te, sp, sa, sb};
   F.z = {z, sp, sa, sb};
   F.ba = {B ? B + comp_a : nullptr, 3 * sp, 3 * sa, 3 * sb};
@@ -656,6 +708,7 @@ extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
   F.bp = {B ? B + comp_p : nullptr, 3 * sp, 3 * sa, 3 * sb};
   F.n_seg = n_seg; F.K = K; F.S = S; F.Ko = K / S; F.n_p = n_p;
   F.na = na; F.nb = nb; F.cells = na * nb;
+  F.a0 = a0; F.na_total = na_total; F.cell0 = (long long)a0 * nb;
   F.vec_ok = sp == 1 && sa % 4 == 0 && sb % 4 == 0 &&
              ((uintptr_t)ne & 15) == 0;
   F.pref = pref; F.da = da; F.db = db; F.two_dp = two_dp; F.dp = dp;
@@ -664,14 +717,14 @@ extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
   const uint2 dk = make_uint2((uint32_t)key0, (uint32_t)key1);
   int rc;
   switch (inv_brems | (phaseshift << 1) | (B_on << 2)) {
-    case 0: rc = build_probe<Layout<0, 0, 0>>(F, mode, out, amax, scales, dither, dk, st); break;
-    case 1: rc = build_probe<Layout<1, 0, 0>>(F, mode, out, amax, scales, dither, dk, st); break;
-    case 2: rc = build_probe<Layout<0, 1, 0>>(F, mode, out, amax, scales, dither, dk, st); break;
-    case 3: rc = build_probe<Layout<1, 1, 0>>(F, mode, out, amax, scales, dither, dk, st); break;
-    case 4: rc = build_probe<Layout<0, 0, 1>>(F, mode, out, amax, scales, dither, dk, st); break;
-    case 5: rc = build_probe<Layout<1, 0, 1>>(F, mode, out, amax, scales, dither, dk, st); break;
-    case 6: rc = build_probe<Layout<0, 1, 1>>(F, mode, out, amax, scales, dither, dk, st); break;
-    default: rc = build_probe<Layout<1, 1, 1>>(F, mode, out, amax, scales, dither, dk, st); break;
+    case 0: rc = build_probe<Layout<0, 0, 0>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 1: rc = build_probe<Layout<1, 0, 0>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 2: rc = build_probe<Layout<0, 1, 0>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 3: rc = build_probe<Layout<1, 1, 0>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 4: rc = build_probe<Layout<0, 0, 1>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 5: rc = build_probe<Layout<1, 0, 1>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 6: rc = build_probe<Layout<0, 1, 1>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
+    default: rc = build_probe<Layout<1, 1, 1>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
   }
   return rc ? rc : (int)cudaGetLastError();
 }

@@ -11,6 +11,18 @@ Both builds take ``plane_stride`` S: output plane k of segment s is
 absolute plane s*K + k*S, the gradients still at full resolution, so the
 result is the decimation of the full build.
 
+A ``Window`` builds the rows of one shard of a field split along the
+transverse a-axis (``build_segment_pack_device(mesh=)``, JAX's sharded
+``build`` :1780-1797): the volumes hold a-rows [a0, a0 + na_loc) of the
+field's na, the window carries the neighbours' rows a0 - 1 and
+a0 + na_loc, and the a-gradient, the edge rules and the dither are those of
+the whole field, so the shards' rows are the whole build's rows bit for
+bit. The quantised tiers take the field's amax: ``build_amax`` runs the
+amax pass over a shard's rows, the caller max-reduces the shards' amaxes,
+and ``build_quantized_tables(amax=)`` writes the codes. Window builds
+count their launches on ``WINDOW_KERNEL``, the same entry point as
+``KERNEL``'s builds.
+
 Every divisor in the plain versions is a tensor on the data's device: on
 CUDA, PyTorch divides by a Python scalar as a multiplication by its
 reciprocal, which is not the IEEE quotient the kernels and JAX compute.
@@ -18,7 +30,7 @@ reciprocal, which is not the IEEE quotient the kernels and JAX compute.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,15 +40,44 @@ from synthpy_tpu_torch.fields.domain import ChannelLayout, gradient
 from synthpy_tpu_torch.kernels import random as _random
 from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
 
-KERNEL = Kernel("pack.cu", {
+_FUNCTIONS = {
     "pack_build": [P, I, P, P, P, P, P, P, L, L, L, I, I, I, I, I, I, I,
-                   I, I, F, F, F, F, F, F, F, F, I, I, I, I, L, L, P],
+                   I, I, F, F, F, F, F, F, F, F, I, I, I, I, L, L,
+                   I, I, P, P, L, L, I, P],
     "pack_quantize": [P, I, P, P, P, I, I, I, I, I, I, L, L, P],
     "pack_decimate": [P, P, I, I, I, I, I, I, I, P],
-}, flags=["--fmad=false"])
+}
+KERNEL = Kernel("pack.cu", _FUNCTIONS, flags=["--fmad=false"])
+# the same builder on a shard's row window (build_segment_pack_device(mesh=))
+WINDOW_KERNEL = Kernel("pack.cu", _FUNCTIONS, flags=["--fmad=false"])
 
 # a dither key: the two uint32 words of a JAX key (random.key_of), or None
 Dither = Optional[Tuple[int, int]]
+
+
+class Window(NamedTuple):
+    """The volumes' a-rows are the field's rows [a0, a0 + na_loc) of
+    ``na``. ``lo`` / ``hi``: the field's ne rows a0 - 1 / a0 + na_loc, each
+    the ne volume with its a-dimension cut to that one row (size 1 kept),
+    None where the window touches the field's edge."""
+    a0: int
+    na: int
+    lo: Optional[torch.Tensor] = None
+    hi: Optional[torch.Tensor] = None
+
+
+def _window_rows(window: Optional[Window], na_loc: int):
+    """(a0, na, lo, hi) of a window (the whole field for None), checked."""
+    if window is None:
+        return 0, na_loc, None, None
+    a0, na, lo, hi = window
+    if a0 < 0 or a0 + na_loc > na:
+        raise ValueError(f"window rows [{a0}, {a0 + na_loc}) outside the "
+                         f"field's {na}")
+    if (lo is None) != (a0 == 0) or (hi is None) != (a0 + na_loc == na):
+        raise ValueError("a window needs its halo rows exactly where it "
+                         "does not touch the field's edge")
+    return a0, na, lo, hi
 
 
 def nibble_lo(w: torch.Tensor) -> torch.Tensor:
@@ -104,17 +145,30 @@ def build_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
                        p_ax: int, layout: ChannelLayout, K: int, n_seg: int,
                        pref: float, da: float, db: float, dp: float,
                        omega: float, verdet: float, dtype,
-                       plane_stride: int = 1) -> torch.Tensor:
+                       plane_stride: int = 1,
+                       window: Optional[Window] = None) -> torch.Tensor:
     """Plain version of the float build: (n_seg, na*nb, (K/S+1)*C)
-    tables, the full build decimated."""
-    ne = vols["ne"]
-    pm = ne.movedim(p_ax, 0)                     # (n_p, na, nb)
+    tables, the full build decimated; with a ``window``, the rows of its
+    cells: the channels of the window and its halo rows, cut to the
+    window."""
+    pm = vols["ne"].movedim(p_ax, 0)             # (n_p, na, nb)
+    a0, na_all, lo, hi = _window_rows(window, pm.shape[1])
+    h0 = 0 if lo is None else 1
+    halo = [pm] if lo is None else [lo.movedim(p_ax, 0), pm]
+    if hi is not None:
+        halo.append(hi.movedim(p_ax, 0))
+    pm = torch.cat(halo, dim=1) if len(halo) > 1 else pm
     n_p, na, nb = pm.shape
+    na_loc = na - h0 - (hi is not None)
     G = n_seg * K + 1                            # absolute planes 0..n_seg*K
     padded = torch.cat([pm[:1], pm, pm.new_zeros((G + 1 - n_p, na, nb))])
 
     def extra(e):
+        # pointwise channels: zero rows stand in for the halo's
         e = e.movedim(p_ax, 0)
+        e = torch.cat([e.new_zeros((e.shape[0], h0, nb)), e,
+                       e.new_zeros((e.shape[0], na - h0 - na_loc, nb))],
+                      dim=1)
         return torch.cat([e, e.new_zeros((G - n_p, na, nb))])
 
     extras = []
@@ -126,41 +180,61 @@ def build_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
     out = channels_plain(padded, extras, torch.arange(G), layout=layout,
                          n_p=n_p, pref=pref, da=da, db=db, dp=dp,
                          omega=omega, verdet=verdet).to(dtype)
+    out = out[:, h0:h0 + na_loc]
     idx = (torch.arange(n_seg)[:, None] * K
-           + torch.arange(K + 1)[None, :]).to(ne.device)
+           + torch.arange(K + 1)[None, :]).to(pm.device)
     C = out.shape[-1]
-    table = out[idx].permute(0, 2, 3, 1, 4).reshape(n_seg, na * nb,
+    table = out[idx].permute(0, 2, 3, 1, 4).reshape(n_seg, na_loc * nb,
                                                     (K + 1) * C)
     if plane_stride == 1:
         return table
     return decimate_tables_plain(table, K, C, plane_stride, False)
 
 
+def build_amax_plain(vols: Dict[str, Optional[torch.Tensor]], *,
+                     plane_stride: int = 1, **kw) -> torch.Tensor:
+    """Plain version of ``build_amax``."""
+    table = build_tables_plain(vols, dtype=torch.float32,
+                               plane_stride=plane_stride, **kw)
+    n_seg, cells, _ = table.shape
+    C = kw["layout"].n_channels
+    v = table.reshape(n_seg, cells, kw["K"] // plane_stride + 1, C)
+    return v.abs().amax(dim=1).view(torch.int32)
+
+
 def build_quantized_tables_plain(vols: Dict[str, Optional[torch.Tensor]], *,
                                  bits: int, plane_stride: int = 1,
                                  dither: Dither = None,
+                                 amax: Optional[torch.Tensor] = None,
                                  **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the quantised build: the quantisation of the
-    (decimated) f32 build, dithered by absolute plane s*K + k*S."""
+    (decimated) f32 build, dithered by absolute plane s*K + k*S at the
+    field's cell index, scaled by ``amax`` where it is given."""
     table = build_tables_plain(vols, dtype=torch.float32,
                                plane_stride=plane_stride, **kw)
     C = kw["layout"].n_channels
     K, Ko = kw["K"], kw["K"] // plane_stride
     planes = (torch.arange(kw["n_seg"])[:, None] * K
               + torch.arange(Ko + 1)[None, :] * plane_stride)
-    return quantize_tables_plain(table, Ko, C, bits, dither, planes)
+    window = kw.get("window")
+    nb = vols["ne"].shape[[a for a in range(3) if a != kw["p_ax"]][1]]
+    offset = 0 if window is None else window.a0 * nb * C
+    return quantize_tables_plain(
+        table, Ko, C, bits, dither, planes, offset=offset,
+        amax=None if amax is None else amax.view(torch.float32))
 
 
 def build_tables(vols: Dict[str, Optional[torch.Tensor]], *, p_ax: int,
                  layout: ChannelLayout, K: int, n_seg: int, pref: float,
                  da: float, db: float, dp: float, omega: float,
-                 verdet: float, dtype,
-                 plane_stride: int = 1) -> torch.Tensor:
+                 verdet: float, dtype, plane_stride: int = 1,
+                 window: Optional[Window] = None) -> torch.Tensor:
     """Float segment tables from the field volumes (ne, and Te, Z, B as the
-    layout switches them on), in f32 or bf16: (n_seg, na*nb, (K/S+1)*C)."""
+    layout switches them on), in f32 or bf16: (n_seg, na*nb, (K/S+1)*C);
+    with a ``window``, the rows of its cells."""
     kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg, pref=pref, da=da,
               db=db, dp=dp, omega=omega, verdet=verdet,
-              plane_stride=plane_stride)
+              plane_stride=plane_stride, window=window)
     if vols["ne"].device.type == "cpu":
         return build_tables_plain(vols, dtype=dtype, **kw)
     if dtype not in _MODES:
@@ -174,29 +248,54 @@ def build_quantized_tables(vols: Dict[str, Optional[torch.Tensor]], *,
                            n_seg: int, pref: float, da: float, db: float,
                            dp: float, omega: float, verdet: float,
                            bits: int, plane_stride: int = 1,
-                           dither: Dither = None
+                           dither: Dither = None,
+                           window: Optional[Window] = None,
+                           amax: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """int8 codes (``bits=8``) or int4 nibble pairs (``bits=4``) and their
     (n_seg, K/S+1, C) f32 scales, from the volumes in two passes over ne
     (amax, then codes): no float table is held. ``dither`` (a key's two
     words) adds JAX's dither of fold_in(key, absolute plane) over (na, nb,
-    C) before rounding, where the value is not zero."""
+    C) before rounding, where the value is not zero. ``amax`` (the int32
+    bits of the field's (n_seg, K/S+1, C) amax, ``build_amax`` reduced over
+    the shards) skips the amax pass and scales by it; ``window`` as
+    ``build_tables``."""
     kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg, pref=pref, da=da,
               db=db, dp=dp, omega=omega, verdet=verdet,
-              plane_stride=plane_stride)
+              plane_stride=plane_stride, window=window)
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     if vols["ne"].device.type == "cpu":
         return build_quantized_tables_plain(vols, bits=bits, dither=dither,
-                                            **kw)
-    return _build(vols, mode=2 if bits == 8 else 3, dither=dither, **kw)
+                                            amax=amax, **kw)
+    return _build(vols, mode=2 if bits == 8 else 3, dither=dither,
+                  phase=0 if amax is None else 2, amax=amax, **kw)
+
+
+def build_amax(vols: Dict[str, Optional[torch.Tensor]], *, p_ax: int,
+               layout: ChannelLayout, K: int, n_seg: int, pref: float,
+               da: float, db: float, dp: float, omega: float, verdet: float,
+               plane_stride: int = 1,
+               window: Optional[Window] = None) -> torch.Tensor:
+    """The quantised build's first pass alone: the int32 bits of the
+    (n_seg, K/S+1, C) max |value| over the (window's) cells. The bits of
+    non-negative floats order as the floats do, so ``torch.maximum`` of
+    the shards' results is the field's amax."""
+    kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg, pref=pref, da=da,
+              db=db, dp=dp, omega=omega, verdet=verdet,
+              plane_stride=plane_stride, window=window)
+    if vols["ne"].device.type == "cpu":
+        return build_amax_plain(vols, **kw)
+    return _build(vols, mode=2, dither=None, phase=1, **kw)[1]
 
 
 def _build(vols, *, mode: int, p_ax: int, layout: ChannelLayout, K: int,
            n_seg: int, pref: float, da: float, db: float, dp: float,
-           omega: float, verdet: float, plane_stride: int, dither: Dither):
+           omega: float, verdet: float, plane_stride: int, dither: Dither,
+           window: Optional[Window] = None, phase: int = 0,
+           amax: Optional[torch.Tensor] = None):
     """Launch ``pack_build``: (table, None) for the float modes 0/1,
-    (codes, scales) for int8 (2) and int4 (3)."""
+    (codes, scales) for int8 (2) and int4 (3); phase 1: (None, amax)."""
     ne = vols["ne"]
     dev = ne.device
     S = plane_stride
@@ -218,29 +317,51 @@ def _build(vols, *, mode: int, p_ax: int, layout: ChannelLayout, K: int,
     a_ax, b_ax = [a for a in range(3) if a != p_ax]
     dims, st = ne.shape, ne.stride()
     na, nb = dims[a_ax], dims[b_ax]
+    a0, na_all, lo, hi = _window_rows(window, na)
+    row = tuple(1 if d == a_ax else n for d, n in enumerate(dims))
+    for name, t in (("halo lo", lo), ("halo hi", hi)):
+        if t is not None:
+            _check_cuda(name, t, (torch.float32,), dev)
+            if tuple(t.shape) != row:
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != {row}")
+    halo = lo if lo is not None else hi
+    hst = (0, 0) if halo is None else (halo.stride(p_ax), halo.stride(b_ax))
+    if lo is not None and hi is not None and lo.stride() != hi.stride():
+        raise ValueError("the two halo rows need the same strides")
+    if st[p_ax] == 1 and hst[0] not in (0, 1):
+        raise ValueError("halo rows need contiguous planes, as ne has")
     C = layout.n_channels
     n_blk = Ko // 2 + 1 if mode == 3 else Ko + 1
     dtype = (torch.float32, torch.bfloat16, torch.int8, torch.int8)[mode]
-    out = torch.empty((n_seg, na * nb, n_blk * C), dtype=dtype, device=dev)
-    scales = amax = None
+    out = scales = None
+    if phase != 1:
+        out = torch.empty((n_seg, na * nb, n_blk * C), dtype=dtype,
+                          device=dev)
     if mode >= 2:
         scales = torch.empty((n_seg, Ko + 1, C), dtype=torch.float32,
                              device=dev)
-        amax = torch.zeros((n_seg, Ko + 1, C), dtype=torch.int32,
-                           device=dev)
+        if phase == 2:
+            _check_cuda("amax", amax, (torch.int32,), dev)
+            if tuple(amax.shape) != (n_seg, Ko + 1, C):
+                raise ValueError(f"amax: shape {tuple(amax.shape)} != "
+                                 f"{(n_seg, Ko + 1, C)}")
+        else:
+            amax = torch.zeros((n_seg, Ko + 1, C), dtype=torch.int32,
+                               device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    KERNEL.launch(
-        "pack_build", dev, out.data_ptr(), mode, ptr(scales), ptr(amax),
+    kernel = KERNEL if window is None else WINDOW_KERNEL
+    kernel.launch(
+        "pack_build", dev, ptr(out), mode, ptr(scales), ptr(amax),
         ne.data_ptr(), ptr(used.get("Te")), ptr(used.get("Z")),
         ptr(used.get("B")), st[p_ax], st[a_ax], st[b_ax], a_ax, b_ax, p_ax,
         n_seg, K, S, dims[p_ax], na, nb, pref, da, db, 2.0 * dp, dp, omega,
         constants.OMEGA_PE_COEFF**2 * 1e-6 / omega**2, verdet,
         int(layout.inv_brems), int(layout.phaseshift), int(layout.B_on),
-        *_dither_args(dither))
-    return out, scales
+        *_dither_args(dither), a0, na_all, ptr(lo), ptr(hi), *hst, phase)
+    return (None, amax) if phase == 1 else (out, scales)
 
 
 def _dither_args(dither: Dither):
@@ -272,15 +393,20 @@ def scales_plain(amax: torch.Tensor, qmax: float) -> torch.Tensor:
 
 def quantize_tables_plain(table: torch.Tensor, K: int, C: int, bits: int,
                           dither: Dither = None,
-                          planes: Optional[torch.Tensor] = None
+                          planes: Optional[torch.Tensor] = None,
+                          offset: int = 0,
+                          amax: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (codes, scales) of a float table. ``dither`` draws
     plane k of segment s from fold_in(key, planes[s, k]) over (cells, C)
-    (default s*K + k, JAX's quantize_segment_pack)."""
+    (default s*K + k, JAX's quantize_segment_pack) from flat index
+    ``offset`` on; ``amax`` (n_seg, K+1, C) replaces the table's own."""
     n_seg, cells, cols = table.shape
     v = table.reshape(n_seg, cells, K + 1, C).to(torch.float32)
     qmax = 127.0 if bits == 8 else 7.0
-    scale = scales_plain(v.abs().amax(dim=1), qmax)   # (n_seg, K+1, C)
+    if amax is None:
+        amax = v.abs().amax(dim=1)
+    scale = scales_plain(amax, qmax)                   # (n_seg, K+1, C)
     u = None
     if dither is not None:
         if planes is None:
@@ -288,7 +414,7 @@ def quantize_tables_plain(table: torch.Tensor, K: int, C: int, bits: int,
                       + torch.arange(K + 1)[None, :])
         u = _random.uniform_rows_plain(
             dither, planes.reshape(-1).to(table.device), cells * C, -0.5,
-            0.5).reshape(n_seg, K + 1, cells, C).permute(0, 2, 1, 3)
+            0.5, offset).reshape(n_seg, K + 1, cells, C).permute(0, 2, 1, 3)
     q = quantize_codes_plain(v, scale[:, None], qmax, u)
     if bits == 8:
         return q.reshape(n_seg, cells, cols), scale

@@ -144,16 +144,19 @@ def draw(key: Tuple[int, int], n: int, mode: str, lo: float = 0.0,
 
 
 def uniform_rows_plain(key: Tuple[int, int], planes: torch.Tensor, n: int,
-                       lo: float, hi: float) -> torch.Tensor:
-    """(P, n) float32 uniforms: row p is ``uniform(fold_in(key,
-    planes[p]), (n,), lo, hi)``, on ``planes``' device. The dither of the
-    plain K2 and K9 versions (JAX: a vmap of uniform over fold_in keys)."""
+                       lo: float, hi: float,
+                       offset: int = 0) -> torch.Tensor:
+    """(P, n) float32 uniforms: row p is flat indices offset .. offset+n-1
+    of ``uniform(fold_in(key, planes[p]), ..., lo, hi)``, on ``planes``'
+    device. The dither of the plain K2 and K9 versions (JAX: a vmap of
+    uniform over fold_in keys)."""
     g = planes.to(torch.int64) & MASK
     k0, k1 = hash_plain(int(key[0]), int(key[1]), torch.zeros_like(g), g)
     out = torch.empty((planes.numel(), n), dtype=torch.float32,
                       device=planes.device)
     rows = max(1, CHUNK // max(n, 1))
-    i = torch.arange(n, dtype=torch.int64, device=planes.device)
+    i = torch.arange(offset, offset + n, dtype=torch.int64,
+                     device=planes.device)
     for p0 in range(0, planes.numel(), rows):
         b = _bits_of(k0[p0:p0 + rows, None], k1[p0:p0 + rows, None],
                      i[None, :])

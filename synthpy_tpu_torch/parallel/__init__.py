@@ -4,10 +4,12 @@
 from synthpy_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     Sharded,
+    all_to_all,
     grid_ray_mesh,
     make_gridsharded_segment_tracer,
     make_gridsharded_tracer,
     mesh_from_spec,
+    pmax,
     ppermute,
     psum,
     ray_mesh,

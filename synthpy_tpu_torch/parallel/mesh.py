@@ -20,9 +20,13 @@ devices they are given.
 
 Values split over a mesh are ``Sharded``: the per-shard tensors and a spec
 naming the mesh axis each dimension is split over (JAX's ``PartitionSpec``);
-``gather()`` gives the whole tensor back. ``shard_rays`` and ``replicate``
-make them, and the tracers below, ``sharded_histogram`` and
-``pipeline.run(mesh=)`` take them or plain tensors.
+``gather()`` gives the whole tensor back, ``map`` (and adding or
+multiplying by a Python number) works shard by shard. ``shard_rays`` and
+``replicate`` make them, as do ``fields.grf.grf_domain_fft(mesh=)`` and
+``tracer.zscan.build_segment_pack_device(mesh=)``; the tracers below,
+``sharded_histogram`` and ``pipeline.run(mesh=)`` take them or plain
+tensors. ``all_to_all`` moves a split from one dimension to another (the
+sharded FFT's transposes) and ``pmax`` reduces over an axis.
 
 The mesh modes:
 
@@ -240,6 +244,37 @@ class Sharded:
         line = self.mesh.groups(axis)[0]
         return torch.cat([self.shards[p].to(dev) for p in line], dim=dim)
 
+    def map(self, fn) -> "Sharded":
+        """``fn`` of each shard, computed once per distinct block tensor;
+        ``fn`` keeps a block's shape (an elementwise function)."""
+        done = {}
+        for s in self.shards:
+            if id(s) not in done:
+                out = fn(s)
+                if tuple(out.shape) != tuple(s.shape):
+                    raise ValueError("Sharded.map needs a function that "
+                                     "keeps each block's shape")
+                done[id(s)] = out
+        return Sharded(self.mesh, self.spec,
+                       [done[id(s)] for s in self.shards], self.shape)
+
+    def _scalar(self, v, fn) -> "Sharded":
+        if not isinstance(v, (int, float)):
+            return NotImplemented
+        return self.map(lambda s: fn(s, v))
+
+    def __add__(self, v):
+        return self._scalar(v, lambda s, v: s + v)
+
+    def __radd__(self, v):
+        return self._scalar(v, lambda s, v: v + s)
+
+    def __mul__(self, v):
+        return self._scalar(v, lambda s, v: s * v)
+
+    def __rmul__(self, v):
+        return self._scalar(v, lambda s, v: v * s)
+
     def __repr__(self):
         return f"Sharded(shape={self.shape}, spec={self.spec}, {self.mesh})"
 
@@ -351,6 +386,43 @@ def ppermute(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
         for p in line:
             if out[p] is None:
                 out[p] = torch.zeros_like(xs[p])
+    return out
+
+
+def all_to_all(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+               split_dim: int, concat_dim: int) -> List[torch.Tensor]:
+    """Along each line of ``axis`` (G shards), shard h receives block h of
+    every shard's value split G ways along ``split_dim``, concatenated in
+    shard order along ``concat_dim`` (``jax.lax.all_to_all``): a value
+    split over the axis along ``concat_dim`` comes out split along
+    ``split_dim``. One copy of each block to its receiver's device."""
+    G = mesh.shape[axis]
+    out = [None] * len(xs)
+    for line in mesh.groups(axis):
+        n = xs[line[0]].shape[split_dim]
+        if n % G:
+            raise ValueError(f"dimension {split_dim} ({n}) does not divide "
+                             f"over the {G}-way {axis!r} axis")
+        for h, p in enumerate(line):
+            dev = mesh.flat_devices[p]
+            out[p] = torch.cat([xs[q].narrow(split_dim, h * (n // G),
+                                             n // G).to(dev)
+                                for q in line], dim=concat_dim)
+    return out
+
+
+def pmax(xs: Sequence[torch.Tensor], mesh: Mesh,
+         axis: str) -> List[torch.Tensor]:
+    """Each shard receives the elementwise maximum of ``xs`` over its line
+    along ``axis``, on its device (exact in any order)."""
+    out = list(xs)
+    devs = mesh.flat_devices
+    for line in mesh.groups(axis):
+        m = xs[line[0]]
+        for p in line[1:]:
+            m = torch.maximum(m, xs[p].to(m.device))
+        for p in line:
+            out[p] = m.to(devs[p])
     return out
 
 

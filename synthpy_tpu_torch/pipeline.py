@@ -34,8 +34,10 @@ field sums for the coherent benches) add up, as in the JAX package.
 mesh modes: ray-parallel (each shard of a ``rays`` axis runs the
 single-device path on its rays, the images psummed), grid-sharded
 (``grid_axis``: the segment tables split along the transverse a-axis,
-kernel K17) and depth-pipelined (``pp_axis``: segments split by depth, ray
-chunks streamed through the devices, K1).
+each shard's rows built on its device by K2 on a row window unless a pack
+is given, then kernel K17; a domain whose ne is a ``parallel.Sharded``
+runs it without gathering the ne) and depth-pipelined (``pp_axis``:
+segments split by depth, ray chunks streamed through the devices, K1).
 """
 
 from __future__ import annotations
@@ -396,7 +398,7 @@ def run(
         s0 = s0.gather()
     if (critical_guard is not None
             and solver in ("zscan", "zscan_seg", "analytic")
-            and domain.ne is not None):
+            and domain.ne_stored is not None):
         frac = peak_ne_over_nc(domain, lwl)
         if frac >= critical_guard:
             dropped = [k for k in ("integrator", "seg_weights", "seg_cache",
@@ -599,10 +601,10 @@ def _run_sharded_field(domain, s0: torch.Tensor, mesh, ray_axis: str,
                        grid_axis, pp_axis, kw, bench_kwargs: dict):
     """``run(mesh=, grid_axis=)`` and ``run(mesh=, pp_axis=)``: the segment
     pack (built at ``pack_dtype``, float32 by default, unless ``spack`` is
-    given) marched with its tables split over the grid axis (the
-    grid-sharded march, K17) or its segments over the pp axis (the
-    depth-pipelined march, K1 a device), then the bench and detector on
-    the exit states."""
+    given; over the grid axis each shard builds its own rows) marched
+    with its tables split over the grid axis (the grid-sharded march, K17)
+    or its segments over the pp axis (the depth-pipelined march, K1 a
+    device), then the bench and detector on the exit states."""
     seg_K = bench_kwargs.pop("seg_K", 64)
     spack = kw["spack"]
     if spack is not None and spack.host:

@@ -28,8 +28,10 @@ segment at a time, keeping the segment-start states, and kernel K11
 stage weights on float32 or bf16 tables (what ``inverse.make_renderer``
 runs); other configurations raise under autograd, naming ROADMAP B8.
 
-``build_segment_pack_device(mesh=)`` splits the pack into a-row blocks
-over a grid axis of a ``parallel.Mesh``, for the grid-sharded march
+``build_segment_pack_device(mesh=)`` builds the pack split into a-row
+blocks over a grid axis of a ``parallel.Mesh``, each shard its own rows on
+its own device (K2 on a row window, with a one-row halo from each
+neighbour), for the grid-sharded march
 (``parallel.make_gridsharded_segment_tracer``).
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
@@ -372,13 +374,18 @@ def build_segment_pack_device(
 
     ``mesh`` (a ``parallel.Mesh``): the pack split along the transverse
     a-axis over ``mesh_axis``, its ``seg_planes`` a ``parallel.Sharded``
-    of a-row blocks on the shards' devices (the scales whole), bit-equal
-    to the single-device build; na must divide over the axis, as in JAX.
-    The pack is built on the domain's device and then split (ROADMAP
-    A.17 residual: a build of each shard's rows on its own device).
+    of a-row blocks on the shards' devices (the scales whole, on the
+    domain's device), bit-equal to the single-device build; na must
+    divide over the axis, as in JAX. Each shard builds its own rows on its
+    device (K2 on a row window, ``kernels.pack.Window``): its ne rows (a
+    sharded ne as it is stored, moved by an all-to-all where it is split
+    along another axis; a tensor ne split), one halo row from each
+    neighbour (a ``ppermute``), and for int8 / int4 the field's amax, the
+    shards' amax passes max-reduced over the axis before the codes are
+    written. The whole ne is never gathered.
     """
     if mesh is not None:
-        from synthpy_tpu_torch.parallel.mesh import Mesh, shard
+        from synthpy_tpu_torch.parallel.mesh import Mesh
 
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.Mesh, not "
@@ -388,12 +395,8 @@ def build_segment_pack_device(
         if na % G:
             raise ValueError(f"transverse a-dim {na} must divide over the "
                              f"{G}-way '{mesh_axis}' axis")
-        sp = build_segment_pack_device(domain, lwl, K, dtype, free_ne,
-                                       plane_stride, dither=dither)
-        return sp._replace(seg_planes=shard(sp.seg_planes, mesh,
-                                            (None, mesh_axis)))
     layout = layout_of(domain)
-    if domain.ne is None:
+    if domain.ne_stored is None:
         raise RuntimeError("domain has no electron density")
     if layout.inv_brems and (domain.Te is None or domain.Z is None):
         raise RuntimeError("inv_brems requires Te and Z grids")
@@ -421,28 +424,130 @@ def build_segment_pack_device(
     omega = float(_c.omega_from_lwl(lwl))
     nc = float(_c.critical_density(omega))
     n_seg = -(-(cp.shape[0] - 1) // K)
-    vols = {"ne": domain.ne, "Te": domain.Te, "Z": domain.Z,
-            "B": domain.B}
-    if free_ne:
-        domain.ne = domain.Te = domain.Z = domain.B = None
     kw = dict(p_ax=p_ax, layout=layout, K=K, n_seg=n_seg,
               pref=-0.5 * _c.C**2 / nc, da=da, db=db, dp=dp, omega=omega,
               verdet=_c.verdet_constant(lwl) if layout.B_on else 0.0,
               plane_stride=plane_stride)
-    scales = None
-    if quantized:
-        table, scales = _pack.build_quantized_tables(
-            vols, bits=4 if quantized4 else 8,
-            dither=None if dither is None else _rand.key_of(dither), **kw)
+    bits = (4 if quantized4 else 8) if quantized else None
+    dkey = None if dither is None else _rand.key_of(dither)
+    if mesh is not None:
+        table, scales = _build_sharded(domain, mesh, mesh_axis, bits, dtype,
+                                       dkey, free_ne, kw)
     else:
-        table = _pack.build_tables(vols, dtype=dtype, **kw)
-    del vols
+        vols = {"ne": domain.ne, "Te": domain.Te, "Z": domain.Z,
+                "B": domain.B}
+        if free_ne:
+            domain.ne = domain.Te = domain.Z = domain.B = None
+        scales = None
+        if quantized:
+            table, scales = _pack.build_quantized_tables(
+                vols, bits=bits, dither=dkey, **kw)
+        else:
+            table = _pack.build_tables(vols, dtype=dtype, **kw)
+        del vols
     origin_ab, inv_ab = _origin_inv(ca, cb)
     return SegmentPack(table, origin_ab, inv_ab,
                        (ca.shape[0], cb.shape[0]), Ko,
                        -(-(cp.shape[0] - 1) // plane_stride),
                        float(cp_h[0]), dp * plane_stride, omega, scales,
                        4 if quantized4 else None)
+
+
+def _split_volumes(domain: ScalarDomain, mesh, axis: str, a_ax: int):
+    """Per flat mesh position, the domain's volumes cut to the shard's
+    a-rows on its device, contiguous: ne as it is stored (a ``Sharded``
+    split along another dimension moved by an all-to-all, a tensor split),
+    Te, Z and B split from the domain's device."""
+    from synthpy_tpu_torch.parallel.mesh import Sharded, all_to_all, shard
+
+    spec = tuple(axis if d == a_ax else None for d in range(3))
+    ne = domain.ne_stored
+    if isinstance(ne, Sharded):
+        d = ne.split_dim()
+        if ne.mesh is not mesh or d is None or ne.spec[d] != axis:
+            raise ValueError(f"ne is sharded as {ne.spec} on {ne.mesh}, "
+                             f"not split over the {axis!r} axis of {mesh}")
+        blocks = (ne.shards if d == a_ax else
+                  all_to_all(ne.shards, mesh, axis, split_dim=a_ax,
+                             concat_dim=d))
+    else:
+        blocks = shard(ne, mesh, spec).shards
+    out = [{"ne": b.contiguous()} for b in blocks]
+    for name in ("Te", "Z", "B"):
+        v = getattr(domain, name)
+        parts = ([None] * mesh.size if v is None
+                 else shard(v, mesh, spec).shards)
+        for o, t in zip(out, parts):
+            o[name] = None if t is None else t.contiguous()
+    return out
+
+
+def halo_rows(vols, mesh, axis: str, a_ax: int):
+    """(lo, hi) per flat position: the ne a-row before and after each
+    shard's rows, ppermuted from its neighbours (zeros at the edges)."""
+    from synthpy_tpu_torch.parallel.mesh import ppermute
+
+    G = mesh.shape[axis]
+    n = vols[0]["ne"].shape[a_ax]
+    # shard g + 1 receives shard g's last a-row, shard g its right
+    # neighbour's first
+    lo = ppermute([v["ne"].narrow(a_ax, n - 1, 1).contiguous()
+                   for v in vols], mesh, axis,
+                  [(i, i + 1) for i in range(G - 1)])
+    hi = ppermute([v["ne"].narrow(a_ax, 0, 1).contiguous() for v in vols],
+                  mesh, axis, [(i + 1, i) for i in range(G - 1)])
+    return lo, hi
+
+
+def shard_windows(domain: ScalarDomain, mesh, axis: str, p_ax: int):
+    """The inputs of the sharded build's K2 launches: (vols per flat
+    position, {(grid index, device): (flat position, ``kernels.pack.
+    Window``)} once per distinct block and device)."""
+    G = mesh.shape[axis]
+    a_ax = [a for a in range(3) if a != p_ax][0]
+    vols = _split_volumes(domain, mesh, axis, a_ax)
+    na_loc = vols[0]["ne"].shape[a_ax]
+    lo, hi = halo_rows(vols, mesh, axis, a_ax)
+    windows = {}
+    for p, dev in enumerate(mesh.flat_devices):
+        g = mesh.index(p, axis)
+        if (g, dev) not in windows:
+            windows[(g, dev)] = (p, _pack.Window(
+                g * na_loc, na_loc * G, lo[p] if g > 0 else None,
+                hi[p] if g < G - 1 else None))
+    return vols, windows
+
+
+def _build_sharded(domain: ScalarDomain, mesh, axis: str,
+                   bits: Optional[int], dtype, dkey, free_ne: bool, kw):
+    """``build_segment_pack_device(mesh=)``'s tables: each shard's rows by
+    K2 on its row window, once per distinct (block, device); returns
+    (the ``Sharded`` tables, the scales or None)."""
+    from synthpy_tpu_torch.parallel.mesh import Sharded, local_axis, pmax
+
+    local_axis(mesh, axis, "the sharded pack build")
+    vols, windows = shard_windows(domain, mesh, axis, kw["p_ax"])
+    if free_ne:
+        domain.ne = domain.Te = domain.Z = domain.B = None
+    keys = [(mesh.index(p, axis), dev)
+            for p, dev in enumerate(mesh.flat_devices)]
+    scales = None
+    if bits is None:
+        tabs = {k: _pack.build_tables(vols[p], dtype=dtype, window=w, **kw)
+                for k, (p, w) in windows.items()}
+    else:
+        amax = {k: _pack.build_amax(vols[p], window=w, **kw)
+                for k, (p, w) in windows.items()}
+        amax = pmax([amax[k] for k in keys], mesh, axis)
+        codes = {k: _pack.build_quantized_tables(
+            vols[p], bits=bits, dither=dkey, window=w, amax=amax[p], **kw)
+            for k, (p, w) in windows.items()}
+        tabs = {k: c for k, (c, _) in codes.items()}
+        scales = codes[keys[0]][1].to(domain.device)
+    t0 = tabs[keys[0]]
+    rows = t0.shape[1] * mesh.shape[axis]
+    return Sharded(mesh, (None, axis, None), [tabs[k] for k in keys],
+                   (t0.shape[0], rows, t0.shape[2])), scales
 
 
 def check_march(integrator: str, weights: str, K: int,
@@ -634,7 +739,7 @@ def solve_zscan_segments(
 def _host_refused(domain: ScalarDomain, what: str) -> None:
     """Refuse host-resident volumes (``external_*(host=True)``) where a
     builder would read the whole volume on the card."""
-    if domain.ne is not None and host_resident(domain):
+    if domain.ne_stored is not None and host_resident(domain):
         raise ValueError(
             f"{what} needs the fields on {domain.device}; the domain's ne "
             "is host-resident (external_ne(host=True)): use "

@@ -3,8 +3,9 @@
 
 The noise is the same threefry draw on both sides (normals to a few ulp),
 so fields agree to the order of the FFT and contraction sums: held within
-1e-5 of max|f| (observed <= 3.2e-7). Coordinates within 1e-6. The classes
-advance their key as JAX's do. Spectra: integer and linear shells to
+1e-5 of max|f| (observed <= 3.2e-7); so does ``grf_domain_fft(mesh=)``'s
+sharded field, against the single-device field and JAX's sharded one.
+Coordinates within 1e-6. The classes advance their key as JAX's do. Spectra: integer and linear shells to
 1e-5 (counts exact); log shells' edges are float32 powers whose last place
 may move a mode across an edge, so they are held by the slope they give.
 """
@@ -14,12 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import AxisType
 
 from synthpy_tpu.fields import grf as jg
 from synthpy_tpu.fields import spectrum as js
 from synthpy_tpu_torch import random as tr
 from synthpy_tpu_torch.fields import grf as tg
 from synthpy_tpu_torch.fields import spectrum as ts
+from synthpy_tpu_torch.parallel import Mesh, Sharded
 
 # one intra-op thread: the suite runs one worker process per core
 torch.set_num_threads(1)
@@ -60,9 +63,28 @@ def test_grf_domain_fft_matches_jax(ndim, res, factor):
     for a, b in zip(jc, tc):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
                                    atol=1e-6 * float(np.abs(a).max()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.17"):
-        tg.grf_domain_fft(tr.PRNGKey(5), tg.kolmogorov, 2e-3, 4e-4, 5e-3,
-                          4, mesh=object(), device="cpu")
+    # mesh=: the field split over 8 shards, within 1e-5 of the
+    # single-device field and of JAX's sharded field, the coords equal
+    tmesh = Mesh((8,), ("grid",), devices=["cpu"] * 8)
+    if ndim == 1:
+        with pytest.raises(ValueError, match="ndim >= 2"):
+            tg.grf_domain_fft(tr.PRNGKey(5), tg.kolmogorov, 2e-3, 4e-4,
+                              5e-3, res, ndim=1, mesh=tmesh, device="cpu")
+        return
+    jmesh = jax.make_mesh((8,), ("grid",), axis_types=(AxisType.Auto,))
+    _, jfs = jg.grf_domain_fft(jax.random.PRNGKey(5), jg.kolmogorov, 2e-3,
+                               4e-4, 5e-3, res, factor=factor, ndim=ndim,
+                               mesh=jmesh)
+    sc, sf = tg.grf_domain_fft(tr.PRNGKey(5), tg.kolmogorov, 2e-3, 4e-4,
+                               5e-3, res, factor=factor, ndim=ndim,
+                               mesh=tmesh, device="cpu")
+    assert isinstance(sf, Sharded) and sf.spec[0] == "grid"
+    assert [b.shape[0] for b in sf.shards] == [tf.shape[0] // 8] * 8
+    whole = sf.gather()
+    _close(tf, whole)
+    _close(jfs, whole)
+    for a, b in zip(tc, sc):
+        assert torch.equal(a, b)
 
 
 def test_grf_cos_match_jax():
