@@ -22,7 +22,10 @@ rk2, slab weights, 431 x 321 bins) runs through the port's entry points at
 the bf16, int8/rk2s2 and int4/rk2s4 tiers. K2 builds every tier and
 ``plane_stride=2`` straight from the volume, held bit-equal to the
 two-step (float table, then quantiser) and post-hoc (full build, then
-decimation) routes, each build timed with its bound and peak memory; K3
+decimation) routes, each build timed with its bound and peak memory; K2's
+decimator is held bit-equal to its plain version on every form's 512^3
+table (f32, bf16, int8, int4; stride 2) and timed beside the strided
+copy, and ``decimate_segment_pack`` of each tier's pack is its path; K3
 is held to the plain detector on the rays in the caller's order and in
 K1's entry-cell order, and in its per-ray form on the time tracer's exit
 states. K4, K5 and K6 are held to their plain versions on a 65,536-ray
@@ -173,6 +176,24 @@ STAGE_OPS = {"matrix": 28, "aperture": 4, "stop": 4, "rect": 4, "knife": 2,
 EXT = 5e-3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# H100 SXM 32-bit integer operations: 64 INT32 units an SM (NVIDIA's Hopper
+# architecture white paper) x 132 SMs x 1.98 GHz (the clock at which the
+# data sheet's 128 float32 lanes an SM give its 67 TFLOP/s)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# integer operations a value of K14's dithered int8 write needs, counted
+# from threefry.cuh, work that is the same for every value of a launch of
+# fewer than 2^32 left out (the key schedule, hi32(e) + ks0, and each
+# injection's ks + g + 1): x1's key add (1), 20 rounds of an add, a rotate
+# and a xor (60), five injections of two adds (10), the bits' xor (1), the
+# uniform's shift and or (2)
+K14_DITHER_INT_OPS = 1 + 20 * 3 + 5 * 2 + 1 + 2
+# of them the rotates, xors, shift and or, which only the INT32 units
+# take; an add may also issue as a multiply-add (IMAD) on the FMA pipe, at
+# 64 a clock an SM (the CUDA C++ programming guide's 32-bit integer
+# multiply-add rate for compute capability 9.0), as nvcc issues the
+# rounds' adds. The least time is then max(ALU ops, all ops / 2) at the
+# INT32 units' rate; with every add on the INT32 units, all ops at it.
+K14_DITHER_ALU_OPS = 20 * 2 + 1 + 2
 
 
 T_START = time.perf_counter()
@@ -2693,8 +2714,17 @@ def k14_vs_plain(torch, dev, btable, jrandom, Bh, tab, tier, batch_ms,
     if tier == "bf16":
         lib = batch_ms(lambda: got.copy_(batch), calls=20)
     nbytes = batch.numel() * (4 + got.element_size())
-    b = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
-    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b[0])
+    ops = batch.numel() * K14_DITHER_INT_OPS if key is not None else 0
+    alu = batch.numel() * K14_DITHER_ALU_OPS if key is not None else 0
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    # the least time with the adds on the FMA pipe, and with every
+    # operation on the INT32 units
+    to = max(alu, ops / 2) / INT32_OPS_PER_S * 1e3
+    to_int32 = ops / INT32_OPS_PER_S * 1e3
+    b = (tb, "bytes") if tb >= to else (to, "operations")
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b[0],
+               bound_by=b[1], bytes_bound_ms=tb, int_ops=ops, alu_ops=alu,
+               int_ops_bound_ms=to, int_ops_on_int32_units_bound_ms=to_int32)
     rec["row"] = {
         "name": f"btable_{tier}", "route": "cuda",
         "source": "synthpy_tpu_torch/kernels/csrc/btable.cu",
@@ -3530,8 +3560,42 @@ def main():
                     "frac_codes_differ": float((diff > 0).float().mean()),
                     "scale_max_rel": srel}
         del codes, scales, qc, qs, a, b, diff
+    # K2's decimator at 512^3 (K = 512, stride 2) on every form's full
+    # table: bit-equal to its plain version; its time, its bound (the table
+    # read once, the kept planes written once), its plain version's time
+    # and, for the float and int8 tables, one strided copy of the kept
+    # planes (the library yardstick; the port never calls it)
+    def dec_stats(name, full, nib):
+        dec = pack.decimate_tables(full, K, C, 2, nibbles=nib)
+        plain = pack.decimate_tables_plain(full, K, C, 2, nib)
+        as_int = {4: torch.int32, 2: torch.int16, 1: torch.int8}[
+            full.element_size()]
+        same = torch.equal(dec.view(as_int), plain.view(as_int))
+        check(same, f"K2 decimator ({name}) differs from its plain version")
+        nbytes = (full.numel() + dec.numel()) * full.element_size()
+        lib = None
+        if not nib:
+            full4 = full.reshape(full.shape[0], full.shape[1], K + 1, C)
+            check(torch.equal(full4[:, :, ::2].contiguous().reshape(
+                dec.shape).view(as_int), dec.view(as_int)),
+                f"the strided copy disagrees with the decimator ({name})")
+            lib = batch_ms(lambda: full4[:, :, ::2].contiguous())
+        del plain
+        return {"ms": batch_ms(lambda: pack.decimate_tables(
+                    full, K, C, 2, nibbles=nib)),
+                "plain_ms": best_ms(lambda: pack.decimate_tables_plain(
+                    full, K, C, 2, nib), reps=2),
+                "library_ms": lib, "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bit_equal_plain": same,
+                "max_abs_err": 0.0,     # bit-equal, checked above
+                "plan": pack.decimate_plan(
+                    full.element_size(), nib, full.shape[0], full.shape[1],
+                    K, C, 2)._asdict()}
+
     # plane_stride = 2 built directly == the decimated full build, every
     # tier, bit for bit (the full f32 build is f32_kernel)
+    k2_dec = {}
     for name in ("f32", "bf16", "int8", "int4"):
         if name in ("f32", "bf16"):
             dt = torch.float32 if name == "f32" else torch.bfloat16
@@ -3539,34 +3603,9 @@ def main():
                     pack.build_tables(vols, dtype=dt, **build_kw))
             strided = pack.build_tables(vols, dtype=dt, plane_stride=2,
                                         **build_kw)
-            dec = pack.decimate_tables(full, K, C, 2)
-            same = torch.equal(strided, dec)
-            if name == "bf16":
-                # the decimator's own time at 512^3 (a full bf16 table in,
-                # the stride-2 table out), its bound and its plain version
-                dec_same = torch.equal(
-                    dec, pack.decimate_tables_plain(full, K, C, 2, False))
-                check(dec_same, "K2 decimator differs from its plain "
-                      "version")
-                dec_bytes = (full.numel() + dec.numel()) * 2
-                # the library yardstick: one strided copy of the kept
-                # planes (the port never calls it for a carried pack)
-                full4 = full.reshape(full.shape[0], full.shape[1], K + 1, C)
-                lib_dec = full4[:, :, ::2].contiguous()
-                check(torch.equal(lib_dec.reshape(dec.shape), dec),
-                      "the strided copy disagrees with the decimator")
-                del lib_dec
-                k2_dec = {
-                    "ms": batch_ms(lambda: pack.decimate_tables(full, K, C,
-                                                                2)),
-                    "plain_ms": best_ms(lambda: pack.decimate_tables_plain(
-                        full, K, C, 2, False), reps=2),
-                    "library_ms": batch_ms(
-                        lambda: full4[:, :, ::2].contiguous()),
-                    "bytes": dec_bytes,
-                    "bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
-                    "bound_by": "bytes", "bit_equal_plain": dec_same}
-            del dec
+            same = torch.equal(strided, pack.decimate_tables(full, K, C, 2))
+            k2_dec[name] = dec_stats(name, full, False)
+            del strided
         else:
             bits = 8 if name == "int8" else 4
             codes, scales = pack.build_quantized_tables(vols, bits=bits,
@@ -3576,13 +3615,14 @@ def main():
             same = (torch.equal(sc, pack.decimate_tables(codes, K, C, 2,
                                                          nibbles=bits == 4))
                     and torch.equal(ss, scales[:, ::2]))
+            k2_dec[name] = dec_stats(name, codes, bits == 4)
             del codes, scales, sc, ss
         check(same, f"K2 {name} plane_stride=2 != decimated full build")
         k2[name]["stride2_equals_decimated"] = same
-    del f32_kernel, bf16_kernel, full, strided
+    del f32_kernel, bf16_kernel, full
     torch.cuda.empty_cache()
     emit({"phase": "K2_vs_plain", "shape": [1, DIM * DIM, (K + 1) * C],
-          **k2, "decimate_bf16_stride2": k2_dec})
+          **k2, "decimate_stride2": k2_dec})
 
     # each build's time, bound and peak device memory (above what was
     # allocated before it), and the routes it replaces in the same call
@@ -3697,7 +3737,25 @@ def main():
         b = march.march_plain(u_sub, sp.seg_planes, sp.scales, **kw)
         k1[f"{tier}/{integrator}/{weights}"] = close(
             a, b, f"K1 {tier}/{integrator}/{weights}")
-    half = zscan.decimate_segment_pack(packs["int4"], 2)
+    # the decimator's path: tracer.decimate_segment_pack of each tier's
+    # 512^3 pack (K = 512, stride 2), every count set to 0 just before the
+    # call and read just after
+    dec_launches = {}
+    for tier in ("f32", "bf16", "int8", "int4"):
+        for k in kernels.values():
+            k.launches = 0
+        half = zscan.decimate_segment_pack(packs[tier], 2)
+        torch.cuda.synchronize()
+        dec_launches[tier] = kernels["pack"].launches
+        check(dec_launches[tier] > 0, f"decimate_segment_pack ({tier}) did "
+              "not launch K2's decimator")
+        plain = pack.decimate_tables_plain(packs[tier].seg_planes, K, C, 2,
+                                           tier == "int4")
+        check(torch.equal(half.seg_planes, plain),
+              f"decimate_segment_pack ({tier}) differs from plain")
+        del plain
+        if tier != "int4":
+            del half
     a = march.march(u_sub, half.seg_planes, half.scales,
                     **march_kw(half, "rk2s2", "slab"))
     b = march.march(u_sub, packs["int4"].seg_planes, packs["int4"].scales,
@@ -4431,6 +4489,21 @@ def main():
             "ms": st["ms"], "plain_ms": k2_plain[tier],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": None})
+    # K2's decimator, every form (launches: decimate_segment_pack of each
+    # tier's pack; max_abs_err 0: bit-equal to the plain version)
+    for form, st in k2_dec.items():
+        rows_out.append({
+            "name": f"pack_decimate_{form}", "route": "cuda",
+            "source": csrc + "pack.cu",
+            "replaces": "synthpy_tpu/tracer/zscan.py:"
+                        + ("576" if form == "int4" else "597"),
+            "launches": dec_launches[form], "max_abs_err": st["max_abs_err"],
+            "ms": st["ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "library_ms": st["library_ms"],
+            "per": "a 512^3 table, K = 512, C = 3, stride 2"
+                   + ("" if st["library_ms"] is None else
+                      "; library: table[:, :, ::2].contiguous()")})
     rows_out.append(
         {"name": "detector", "route": "cuda", "source": csrc + "detector.cu",
          "replaces": "synthpy_tpu/pipeline.py:76",
@@ -4644,7 +4717,7 @@ def main():
                                                          2),
               "k5_caller_order_ms": k5_caller_ms,
               "k4_caller_order_ms": k4_caller_ms,
-              "k2_decimate_bf16": k2_dec,
+              "k2_decimate": k2_dec,
               # device kernels one counted launch starts: the int8 and
               # int4 builds run amax_pass, then rows_pass
               "device_kernels_per_launch": {
@@ -4658,6 +4731,8 @@ def main():
                   "btable_int8": 1, "xray_fold": 1, "pp_fold": 1,
                   "pp_chords": 1, "march_owned": 1, "sharded_rhs": 1,
                   "pack_chain": 1, "pack_chain_adjoint": 1,
+                  # one decimate_kernel: the tiles, then the tail rows
+                  "pack_decimate": 1,
                   # a windowed f32 / bf16 build runs rows_pass; int8 and
                   # int4 call it twice: amax_pass, then rows_pass
                   "pack_window": 1},

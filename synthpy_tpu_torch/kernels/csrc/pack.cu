@@ -11,7 +11,7 @@
 //     channel) amax over cells, scale = amax/qmax, round half to even, int8
 //     codes or int4 nibble pairs (plane 2j low, 2j+1 high);
 //   * decimate_segment_pack.dec (zscan.py:576, :597): keep every stride-th
-//     plane, repacking nibble pairs.
+//     plane, repacking nibble pairs (its design is at decimate_kernel).
 //
 // What bounds it on the H100: bytes by count (each output value costs a few
 // flops against 1-4 bytes written and 4 bytes of ne read), but in practice
@@ -635,18 +635,26 @@ __global__ void quant_kernel(const IN* tab, const unsigned* amax,
   }
 }
 
-template <typename T>
-__global__ void decimate_kernel(const T* in, T* out, int n_seg, int cells,
-                                int K, int C, int stride) {
-  const int Kd = K / stride;
-  const int ncol_in = (K + 1) * C, ncol_out = (Kd + 1) * C;
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= (long long)n_seg * cells * ncol_out) return;
-  const int ocol = (int)(t % ncol_out);
-  const long long row = t / ncol_out;
-  const int kd = ocol / C, c = ocol % C;
-  out[t] = in[row * ncol_in + (long long)kd * stride * C + c];
-}
+// ---- the decimator ---------------------------------------------------------
+//
+// decimate_segment_pack.dec keeps every S-th plane of each table row: pure
+// data movement, bound by bytes (the whole table read once, the kept planes
+// written once). A row is (K+1)*C values, 3,078 bytes at bf16, C = 3, so
+// the kept planes of a row are short runs at odd offsets. The kernel moves
+// whole rows instead: a tile is R rows whose byte lengths in and out are
+// multiples of 16 (the host plan, pack.decimate_plan, picks R and the rest),
+// so every tile is one 1-D bulk copy each way. Persistent blocks walk the
+// tiles: one thread keeps a ring of `stages` tiles loading
+// (cp.async.bulk ... mbarrier::complete_tx), all threads copy the kept
+// planes of the tile that has arrived into an output tile in shared memory,
+// walking (row, kept plane, channel) by additions, and the thread sends it
+// back by a bulk store (bulk_group; two output tiles, so a store overlaps
+// the next tile's copy). Rows past the last whole tile (and every row of a
+// table whose start is not 16-byte aligned) go through a plain row loop in
+// the same launch. Nibble rows decode the sign-extended codes of the kept
+// planes and pack pairs, as the plain version does.
+
+constexpr int DEC_BARS = 128;   // bytes of mbarriers before the stages
 
 // sign-extended code of full-pack plane p, channel c, from a nibble row
 __device__ __forceinline__ int nibble_code(const uint8_t* row, int p, int C,
@@ -656,20 +664,180 @@ __device__ __forceinline__ int nibble_code(const uint8_t* row, int p, int C,
   return (int)(n ^ 8u) - 8;
 }
 
-__global__ void decimate_nibble_kernel(const uint8_t* in, uint8_t* out,
-                                       int n_seg, int cells, int K, int C,
-                                       int stride) {
-  const int Kd = K / stride;
-  const int ncol_in = (K / 2 + 1) * C, ncol_out = (Kd / 2 + 1) * C;
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= (long long)n_seg * cells * ncol_out) return;
-  const int ocol = (int)(t % ncol_out);
-  const long long row = t / ncol_out;
-  const int j = ocol / C, c = ocol % C;
-  const uint8_t* r = in + row * ncol_in;
-  const int lo = nibble_code(r, 2 * j * stride, C, c);
-  const int hi = 2 * j + 1 <= Kd ? nibble_code(r, (2 * j + 1) * stride, C, c) : 0;
-  out[t] = nibble_pair(lo, hi);
+// output column (kd, c) of a row from its input row: plane kd*S of a plain
+// table; the pair of kept planes 2kd, 2kd + 1 of a nibble row (high nibble
+// 0 past Kd)
+template <typename T, bool NIB>
+struct Keep {
+  int C, SC, S, Kd;
+  __device__ __forceinline__ T operator()(const T* row, int kd, int c) const {
+    if constexpr (NIB) {
+      const int lo = nibble_code(row, 2 * kd * S, C, c);
+      const int hi =
+          2 * kd + 1 <= Kd ? nibble_code(row, (2 * kd + 1) * S, C, c) : 0;
+      return nibble_pair(lo, hi);
+    } else {
+      return row[kd * SC + c];
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// arm `bar` for `bytes` and copy them from global `src` to shared `dst`
+__device__ __forceinline__ void bulk_load(uint64_t* bar, void* dst,
+                                          const void* src, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+template <typename T, bool NIB>
+__global__ void __launch_bounds__(THREADS)
+    decimate_kernel(const T* __restrict__ in, T* __restrict__ out,
+                    long long rows, int ncol_in, int ncol_out,
+                    Keep<T, NIB> keep, int R, int stages, long long tiles) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  const int C = keep.C, nkd = ncol_out / C;
+  const int tin = R * ncol_in, tout = R * ncol_out;  // values a tile
+  const unsigned bin = tin * sizeof(T), bout = tout * sizeof(T);
+  const long long mine =
+      tiles > blockIdx.x ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  if (mine > 0) {
+    uint64_t* full = reinterpret_cast<uint64_t*>(dsm);
+    T* ring = reinterpret_cast<T*>(dsm + DEC_BARS);
+    T* obuf = reinterpret_cast<T*>(dsm + DEC_BARS + (size_t)stages * bin);
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < stages; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     :: "r"(smem_u32(&full[s])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      for (int s = 0; s < stages && s < mine; ++s)
+        bulk_load(&full[s], ring + s * tin,
+                  in + (blockIdx.x + (long long)s * gridDim.x) * tin, bin);
+    }
+    __syncthreads();
+    // value e = threadIdx.x + n * THREADS of a tile is (row r, kept
+    // column kd, channel c), advanced by (dr, dkd, dc) with carries
+    const int r0 = threadIdx.x / ncol_out;
+    const int kd0 = (threadIdx.x - r0 * ncol_out) / C;
+    const int c0 = threadIdx.x - r0 * ncol_out - kd0 * C;
+    const int dr = THREADS / ncol_out;
+    const int dkd = (THREADS - dr * ncol_out) / C;
+    const int dc = THREADS - dr * ncol_out - dkd * C;
+    int s = 0;
+    unsigned phase = 0;
+    for (long long i = 0; i < mine; ++i) {
+      const long long t = blockIdx.x + i * gridDim.x;
+      const T* src = ring + s * tin;
+      T* dst = obuf + (i & 1) * tout;
+      bar_wait(&full[s], phase);
+      // the store that last read this output tile (tile i - 2) is done
+      if (threadIdx.x == 0)
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      __syncthreads();
+      int r = r0, kd = kd0, c = c0;
+      for (int e = threadIdx.x; e < tout; e += THREADS) {
+        dst[e] = keep(src + r * ncol_in, kd, c);
+        c += dc;
+        kd += dkd;
+        r += dr;
+        if (c >= C) { c -= C; ++kd; }
+        if (kd >= nkd) { kd -= nkd; ++r; }
+      }
+      // the output tile is read by the bulk store (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        asm volatile(
+            "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+            :: "l"(out + t * tout), "r"(smem_u32(dst)), "r"(bout)
+            : "memory");
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        // every thread is past this stage: refill it
+        if (i + stages < mine)
+          bulk_load(&full[s], ring + s * tin,
+                    in + (t + (long long)stages * gridDim.x) * tin, bin);
+      }
+      if (++s == stages) { s = 0; phase ^= 1; }
+    }
+    if (threadIdx.x == 0)
+      asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+  // the tail: rows past the last whole tile, a row a block
+  const int kdt = threadIdx.x / C, ct = threadIdx.x - kdt * C;
+  const int dkt = THREADS / C, dct = THREADS - dkt * C;
+  for (long long r = tiles * R + blockIdx.x; r < rows; r += gridDim.x) {
+    const T* src = in + r * ncol_in;
+    T* dst = out + r * ncol_out;
+    int kd = kdt, c = ct;
+    for (int j = threadIdx.x; j < ncol_out; j += THREADS) {
+      dst[j] = keep(src, kd, c);
+      c += dct;
+      kd += dkt;
+      if (c >= C) { c -= C; ++kd; }
+    }
+  }
+}
+
+// the largest dynamic shared memory a block may ask for on the current
+// device, lifted once per kernel and device to the card's opt-in limit
+template <typename KERN>
+int dec_smem_limit(KERN kernel, int* limit) {
+  static int optin[64] = {};
+  int dev = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev < 64 && optin[dev]) {
+    *limit = optin[dev];
+    return 0;
+  }
+  int v = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!e)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, v);
+  if (e) return (int)e;
+  if (dev < 64) optin[dev] = v;
+  *limit = v;
+  return 0;
+}
+
+template <typename T, bool NIB>
+int decimate(const void* in, void* out, long long rows, int ncol_in,
+             int ncol_out, int C, int S, int Kd, int R, int stages,
+             long long tiles, int blocks, int smem, cudaStream_t st) {
+  // the plan's shared memory is this kernel's layout, within the limit
+  const long long need =
+      tiles ? DEC_BARS + (long long)stages * R * ncol_in * sizeof(T)
+                  + 2LL * R * ncol_out * sizeof(T)
+            : 0;
+  auto k = decimate_kernel<T, NIB>;
+  int limit = 0;
+  if (const int e = dec_smem_limit(k, &limit)) return e;
+  if (smem != need || smem > limit || (tiles && (stages < 1 || stages > 8)))
+    return (int)cudaErrorInvalidValue;
+  const Keep<T, NIB> keep{C, S * C, S, Kd};
+  k<<<blocks, THREADS, smem, st>>>((const T*)in, (T*)out, rows, ncol_in,
+                                   ncol_out, keep, R, stages, tiles);
+  return 0;
 }
 
 unsigned blocks_for(long long total) {
@@ -766,24 +934,31 @@ extern "C" int pack_quantize(const void* table, int in_bf16, void* codes,
   return (int)cudaGetLastError();
 }
 
+// A (rows, ncol_in) table to its (rows, ncol_out) decimation, every
+// stride-th plane kept (nibbles: int4 pair rows), by the plan of
+// pack.decimate_plan: `tiles` tiles of R rows through `stages` staged
+// copies in `blocks` persistent blocks of `smem` bytes, then the tail rows.
 extern "C" int pack_decimate(const void* in, void* out, int elem_bytes,
-                             int nibbles, int n_seg, int cells, int K, int C,
-                             int stride, void* stream) {
+                             int nibbles, long long rows, int ncol_in,
+                             int ncol_out, int C, int stride, int Kd, int R,
+                             int stages, long long tiles, int blocks,
+                             int smem, void* stream) {
+  if (rows <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int Kd = K / stride;
-  const long long n_out = (long long)n_seg * cells * (nibbles ? Kd / 2 + 1 : Kd + 1) * C;
-  const unsigned b = blocks_for(n_out);
+  int rc;
   if (nibbles)
-    decimate_nibble_kernel<<<b, THREADS, 0, st>>>(
-        (const uint8_t*)in, (uint8_t*)out, n_seg, cells, K, C, stride);
+    rc = decimate<uint8_t, true>(in, out, rows, ncol_in, ncol_out, C, stride,
+                                 Kd, R, stages, tiles, blocks, smem, st);
   else if (elem_bytes == 4)
-    decimate_kernel<<<b, THREADS, 0, st>>>(
-        (const float*)in, (float*)out, n_seg, cells, K, C, stride);
+    rc = decimate<float, false>(in, out, rows, ncol_in, ncol_out, C, stride,
+                                Kd, R, stages, tiles, blocks, smem, st);
   else if (elem_bytes == 2)
-    decimate_kernel<<<b, THREADS, 0, st>>>(
-        (const uint16_t*)in, (uint16_t*)out, n_seg, cells, K, C, stride);
+    rc = decimate<uint16_t, false>(in, out, rows, ncol_in, ncol_out, C,
+                                   stride, Kd, R, stages, tiles, blocks,
+                                   smem, st);
   else
-    decimate_kernel<<<b, THREADS, 0, st>>>(
-        (const uint8_t*)in, (uint8_t*)out, n_seg, cells, K, C, stride);
-  return (int)cudaGetLastError();
+    rc = decimate<uint8_t, false>(in, out, rows, ncol_in, ncol_out, C,
+                                  stride, Kd, R, stages, tiles, blocks, smem,
+                                  st);
+  return rc ? rc : (int)cudaGetLastError();
 }

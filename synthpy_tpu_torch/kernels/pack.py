@@ -30,6 +30,7 @@ reciprocal, which is not the IEEE quotient the kernels and JAX compute.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -45,7 +46,7 @@ _FUNCTIONS = {
                    I, I, F, F, F, F, F, F, F, F, I, I, I, I, L, L,
                    I, I, P, P, L, L, I, P],
     "pack_quantize": [P, I, P, P, P, I, I, I, I, I, I, L, L, P],
-    "pack_decimate": [P, P, I, I, I, I, I, I, I, P],
+    "pack_decimate": [P, P, I, I, L, I, I, I, I, I, I, I, L, I, I, P],
 }
 KERNEL = Kernel("pack.cu", _FUNCTIONS, flags=["--fmad=false"])
 # the same builder on a shard's row window (build_segment_pack_device(mesh=))
@@ -471,6 +472,105 @@ def decimate_tables_plain(table: torch.Tensor, K: int, C: int, stride: int,
         n_seg, cells, n_blk_d * C)
 
 
+# the decimator's tiles (csrc/pack.cu decimate_kernel): about this many
+# bytes of input rows a tile, a ring of this many staged tiles, at most this
+# many persistent blocks an SM (chosen by variant runs at 512^3, K = 512,
+# C = 3 on an H100 80GB HBM3 at 700 W, PERF.md §6: the bf16, f32 and int8
+# tiles are their 16-byte minimum of ~24 KB anyway; int4 ran faster in
+# ~12 KB tiles, four blocks an SM, and every form with two stages than
+# with three); the mbarriers before the stages; the
+# H100's SMs and shared memory (opt-in per block, per SM) where PyTorch
+# does not report them
+DEC_TILE_BYTES = 12 * 1024
+DEC_STAGES = 2
+DEC_BLOCKS_PER_SM = 4
+DEC_BARS = 128
+H100_SMS = 132
+H100_SMEM_OPTIN = 232_448
+H100_SMEM_PER_SM = 233_472
+
+
+class DecimatePlan(NamedTuple):
+    """How ``pack_decimate`` walks a (rows, ncol_in) table: ``tiles``
+    tiles of ``R`` whole rows, each one bulk copy in (``R * ncol_in *
+    elem_bytes`` bytes) and one out, through a ring of ``stages``
+    shared-memory tiles, then the ``tail_rows`` last rows by a plain row
+    loop, in ``blocks`` persistent blocks of ``smem`` bytes of dynamic
+    shared memory (0 without tiles)."""
+    rows: int
+    ncol_in: int
+    ncol_out: int
+    elem_bytes: int
+    Kd: int
+    R: int
+    stages: int
+    tiles: int
+    tail_rows: int
+    smem: int
+    blocks: int
+
+
+def decimate_plan(elem_bytes: int, nibbles: bool, n_seg: int, cells: int,
+                  K: int, C: int, stride: int, aligned: bool = True,
+                  n_sm: int = H100_SMS, smem_optin: int = H100_SMEM_OPTIN,
+                  smem_per_sm: int = H100_SMEM_PER_SM) -> DecimatePlan:
+    """The decimator's tile plan. R is a multiple of 16 / gcd(row bytes,
+    16) for the rows in and out, so that every tile starts and ends on a
+    16-byte boundary of a 16-byte aligned table, as near ``DEC_TILE_BYTES``
+    in as such an R comes; the ring is as deep as ``smem_optin`` allows,
+    and a tile that does not fit one stage raises ValueError. A table
+    whose start is not 16-byte aligned (``aligned`` False) goes through
+    the row loop alone."""
+    if stride < 1 or K % stride:
+        raise ValueError(f"K={K} must divide by stride={stride}")
+    Kd = K // stride
+    if nibbles:
+        elem_bytes = 1
+        ncol_in, ncol_out = (K // 2 + 1) * C, (Kd // 2 + 1) * C
+    else:
+        ncol_in, ncol_out = (K + 1) * C, (Kd + 1) * C
+    rows = n_seg * cells
+    row_in, row_out = ncol_in * elem_bytes, ncol_out * elem_bytes
+    unit = math.lcm(16 // math.gcd(row_in, 16), 16 // math.gcd(row_out, 16))
+    R = unit * max(1, (2 * DEC_TILE_BYTES + unit * row_in)
+                   // (2 * unit * row_in))
+
+    def smem_of(stages):
+        return DEC_BARS + stages * R * row_in + 2 * R * row_out
+
+    stages = DEC_STAGES
+    while stages > 1 and smem_of(stages) > smem_optin:
+        stages -= 1
+    if smem_of(stages) > smem_optin:
+        form = "nibble pairs" if nibbles else f"{elem_bytes}-byte values"
+        raise ValueError(
+            f"decimate: a tile of {R} rows of {row_in} bytes (K = {K}, "
+            f"C = {C}, stride {stride}, {form}) needs {smem_of(1)} bytes of "
+            f"shared memory, above the card's {smem_optin}")
+    tiles = rows // R if aligned else 0
+    if tiles:
+        smem = smem_of(stages)
+        per_sm = max(1, min(DEC_BLOCKS_PER_SM, smem_per_sm // (smem + 1024)))
+        blocks = min(max(tiles, rows - tiles * R), n_sm * per_sm)
+    else:
+        stages = smem = 0
+        blocks = max(1, min(rows, n_sm * 8))
+    return DecimatePlan(rows, ncol_in, ncol_out, elem_bytes, Kd, R, stages,
+                        tiles, rows - tiles * R, smem, blocks)
+
+
+def _card_limits(dev: torch.device) -> dict:
+    """The card's SM count and shared memory for ``decimate_plan``."""
+    if dev.type != "cuda":
+        return {}
+    p = torch.cuda.get_device_properties(dev)
+    return dict(n_sm=p.multi_processor_count,
+                smem_optin=getattr(p, "shared_memory_per_block_optin",
+                                   H100_SMEM_OPTIN),
+                smem_per_sm=getattr(p, "shared_memory_per_multiprocessor",
+                                    H100_SMEM_PER_SM))
+
+
 def decimate_tables(table: torch.Tensor, K: int, C: int, stride: int,
                     nibbles: bool = False) -> torch.Tensor:
     """Rows of a (n_seg, cells, blocks*C) table with every ``stride``-th
@@ -480,12 +580,18 @@ def decimate_tables(table: torch.Tensor, K: int, C: int, stride: int,
     dev = table.device
     _check_cuda("table", table,
                 (torch.float32, torch.bfloat16, torch.int8), dev)
-    n_seg, cells, _ = table.shape
-    Kd = K // stride
-    n_blk_d = Kd // 2 + 1 if nibbles else Kd + 1
+    n_seg, cells, cols = table.shape
+    n_blk_d = (K // stride) // 2 + 1 if nibbles else K // stride + 1
     out = torch.empty((n_seg, cells, n_blk_d * C), dtype=table.dtype,
                       device=dev)
+    plan = decimate_plan(table.element_size(), nibbles, n_seg, cells, K, C,
+                         stride, aligned=table.data_ptr() % 16 == 0
+                         and out.data_ptr() % 16 == 0, **_card_limits(dev))
+    if cols != plan.ncol_in:
+        raise ValueError(f"table rows hold {cols} values, not "
+                         f"{plan.ncol_in} (K = {K}, C = {C})")
     KERNEL.launch("pack_decimate", dev, table.data_ptr(), out.data_ptr(),
-                  table.element_size(), int(nibbles), n_seg, cells, K, C,
-                  stride)
+                  plan.elem_bytes, int(nibbles), plan.rows, plan.ncol_in,
+                  plan.ncol_out, C, stride, plan.Kd, plan.R, plan.stages,
+                  plan.tiles, plan.blocks, plan.smem)
     return out

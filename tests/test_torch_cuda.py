@@ -116,15 +116,61 @@ def test_pack_kernel_matches_plain(dev, scene, tier):
         assert float(((x - y).abs().amax(0) / scale).max()) <= 1e-6
 
 
-@pytest.mark.parametrize("tier", ["int8", "int4", "bf16"])
-def test_decimate_kernel_matches_plain(dev, tier):
-    g, _ = _pair(dev)
-    sp = zscan.build_segment_pack_device(g, K=8, dtype=TIERS[tier])
-    a = zscan.decimate_segment_pack(sp, 2)
-    cpu = sp._replace(seg_planes=sp.seg_planes.cpu(),
-                      scales=None if sp.scales is None else sp.scales.cpu())
-    b = zscan.decimate_segment_pack(cpu, 2)
-    assert torch.equal(a.seg_planes.cpu(), b.seg_planes)
+# (n_seg, cells, K, C) of the decimator's tables: C = 3 rows whose byte
+# lengths are not multiples of 16, with a partial tail tile; rows that are
+# (C = 16 / element bytes); a table smaller than one tile; and the tail
+# table starting 1 element past a 16-byte boundary (no tiles: the row loop)
+DEC_CASES = {
+    "rows_odd_tail": (3, 1000, 64, 3),
+    "rows_16": (2, 517, 24, None),
+    "smaller_than_a_tile": (1, 5, 16, 3),
+    "unaligned_start": (3, 1000, 64, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEC_CASES))
+@pytest.mark.parametrize("stride", [2, 4, 8])
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_decimate_kernel_matches_plain(dev, tier, stride, case):
+    """K2's decimator on random table bits, every form, against its plain
+    version on the CPU, bit for bit; on a built pack through
+    ``decimate_segment_pack`` as well."""
+    n_seg, cells, K, C = DEC_CASES[case]
+    nib = tier == "int4"
+    dt = torch.int8 if tier in ("int8", "int4") else TIERS[tier]
+    eb = torch.empty(0, dtype=dt).element_size()
+    C = C or 16 // eb
+    cols = (K // 2 + 1) * C if nib else (K + 1) * C
+    n = n_seg * cells * cols
+    g = torch.Generator().manual_seed(stride)
+    bits = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int64,
+                         generator=g).to(torch.int32)
+    table = bits.view(torch.uint8)[:n * eb].view(dt).reshape(
+        n_seg, cells, cols)
+    store = torch.empty(n + 1, dtype=dt, device=dev)
+    off = 1 if case == "unaligned_start" else 0
+    on_card = store[off:off + n].view(n_seg, cells, cols)
+    on_card.copy_(table)
+    plan = pack.decimate_plan(eb, nib, n_seg, cells, K, C, stride,
+                              aligned=on_card.data_ptr() % 16 == 0)
+    assert (plan.tiles > 0) == (case in ("rows_odd_tail", "rows_16"))
+    if case == "rows_odd_tail":
+        assert plan.tail_rows > 0
+    n0 = pack.KERNEL.launches
+    got = pack.decimate_tables(on_card, K, C, stride, nibbles=nib)
+    assert pack.KERNEL.launches == n0 + 1
+    want = pack.decimate_tables_plain(table, K, C, stride, nib)
+    as_int = torch.int32 if eb == 4 else torch.int16 if eb == 2 else dt
+    assert torch.equal(got.cpu().view(as_int), want.view(as_int))
+    if case == "rows_odd_tail" and stride == 2:
+        g_dom, _ = _pair(dev)
+        sp = zscan.build_segment_pack_device(g_dom, K=8, dtype=TIERS[tier])
+        a = zscan.decimate_segment_pack(sp, 2)
+        cpu = sp._replace(seg_planes=sp.seg_planes.cpu(),
+                          scales=None if sp.scales is None
+                          else sp.scales.cpu())
+        b = zscan.decimate_segment_pack(cpu, 2)
+        assert torch.equal(a.seg_planes.cpu(), b.seg_planes)
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -1321,36 +1367,61 @@ def test_boris_kernel_matches_plain(dev, dtype):
     assert not torch.equal(got[:, 3:5], u[:, 3:5])    # the field deflects
 
 
+# bfloat16 corner cases: +-inf, subnormals (also below bf16's smallest),
+# exact halfway points between two bf16 values (ties to even, both ways),
+# the largest finite float32 (rounds to inf) and signed zeros
+BF16_SPECIALS = np.array([
+    0x7F800000, 0xFF800000, 0x00000001, 0x80000001, 0x00400000, 0x807FFFFF,
+    0x00008000, 0x00018000, 0x3F808000, 0x3F818000, 0xBF808000, 0xBF818000,
+    0x3F80FFFF, 0x7F7FFFFF, 0x00000000, 0x80000000], np.uint32)
+
+
+@pytest.mark.parametrize("n", [3, 5, 40])
 @pytest.mark.parametrize("mode", ["bf16", "int8", "int8_dither"])
-def test_btable_kernel_matches_plain(dev, mode):
-    """K14's batch write against its plain version: bf16 bit-equal; int8
-    codes within one step on at most 1e-4 of them (a true division may
-    cross a rounding tie), dithered too; a dither under the next plane's
-    key (the planted control) moves more than 1e-4 of them."""
+def test_btable_kernel_matches_plain(dev, mode, n):
+    """K14's batch write against its plain version: bf16 bit-equal, with
+    plane sizes that leave ``tab[i0]`` off a 16-byte boundary (n = 3, 5 at
+    i0 = 1 and 4; on one at i0 = 8 and n = 40), batches of 5 planes
+    (n * n * 15 values: not a multiple of 8 for odd n) and the bf16 corner
+    cases planted through the batch;
+    int8 codes within one step on at most 1e-4 of them (a true division may
+    cross a rounding tie), dithered too; a dither under the next plane's key
+    (the planted control) moves more than 1e-4 of them."""
     from synthpy_tpu_torch import random as jrandom
     from synthpy_tpu_torch.kernels import btable
 
-    B, _ = _b_field(n=40)
-    batch = torch.from_numpy(B[8:24]).to(dev).contiguous()
+    if n == 40:
+        B, _ = _b_field(n=40)
+        nx, pb, starts = 40, 16, (8,)
+    else:
+        B = (5.0 * np.random.default_rng(n).standard_normal(
+            (16, n, n, 3))).astype(np.float32)
+        nx, pb, starts = 16, 5, (1, 4, 8)
     dt = torch.bfloat16 if mode == "bf16" else torch.int8
-    scale = (batch.abs().amax(dim=(0, 1, 2)) / 127.0).contiguous()
-    key = None
-    if mode == "int8_dither":
-        key = jrandom.key_data(jrandom.fold_in(jrandom.PRNGKey(5), 8))
-    got = torch.zeros((40, 40, 40, 3), dtype=dt, device=dev)
-    want = torch.zeros_like(got)
-    btable.write(got, batch, 8, scale, key)
-    btable.write_plain(want, batch, 8, scale, key)
-    if mode == "bf16":
-        assert torch.equal(got, want)
-        return
-    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
-    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-4
-    if key is not None:
-        bad = torch.zeros_like(got)
-        btable.write(bad, batch, 8, scale, jrandom.key_data(
-            jrandom.fold_in(jrandom.PRNGKey(5), 9)))
-        assert float((bad != want).float().mean()) > 1e-4
+    for i0 in starts:
+        host = np.ascontiguousarray(B[i0:i0 + pb])
+        if mode == "bf16":
+            flat = host.reshape(-1).view(np.uint32)
+            flat[::7][:len(BF16_SPECIALS)] = BF16_SPECIALS[:len(flat[::7])]
+        batch = torch.from_numpy(host).to(dev).contiguous()
+        scale = (batch.abs().amax(dim=(0, 1, 2)) / 127.0).contiguous()
+        key = None
+        if mode == "int8_dither":
+            key = jrandom.key_data(jrandom.fold_in(jrandom.PRNGKey(5), i0))
+        got = torch.zeros((nx, n, n, 3), dtype=dt, device=dev)
+        want = torch.zeros_like(got)
+        btable.write(got, batch, i0, scale, key)
+        btable.write_plain(want, batch, i0, scale, key)
+        if mode == "bf16":
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+            continue
+        d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-4
+        if key is not None:
+            bad = torch.zeros_like(got)
+            btable.write(bad, batch, i0, scale, jrandom.key_data(
+                jrandom.fold_in(jrandom.PRNGKey(5), i0 + 1)))
+            assert float((bad != want).float().mean()) > 1e-4
 
 
 def _xray_scene(dev, n=24, probe_stride=False):
