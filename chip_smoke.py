@@ -88,7 +88,10 @@ bf16 table, K12 on all 1 M exit rays for V = 1, 2 and 4, K19 on the
 path's 512^3 volume (forward bit for bit, adjoint to the plain adjoint
 and to autograd through the plain chain) and at 128^3 probing along x
 and y in the full-physics layout (C = 8), each with a planted fault that
-must fail the same check. Then the
+must fail the same check; K11's row gives the rays' order and the kernel
+alone beside the call, its vector adds a launch (at most
+K11_MAX_ATOMICS), its scratch bytes and its registers and spills a thread
+(``nvcc -Xptxas -v``, compiled beside the kernels' build). Then the
 radiography slice (``radiography``): ``proton_path`` runs
 ``examples/proton_radiography.py`` at res 512 (a 1024^3 solenoidal GRF B
 grid, synthesised at 256^3 and upsampled x4 into one pinned host tensor,
@@ -1388,6 +1391,8 @@ INV_STEPS = 4           # Adam steps of the example's 200-step schedule
 FD_STEPS = (0.05, 0.1)
 FD_TOL = 0.05
 K11_RAYS = 16_384       # the path's rays K11 is held to its plain version on
+K11_MAX_ATOMICS = 130_000_000   # most vector adds a K11 launch of the path
+                                # may make (the uncombined design: 1.04 G)
 PLAIN_CHUNK = 262_144   # rays a plain adjoint call takes when timed
 # K12's planted control: K8's corner rule (node coordinates without the
 # half-pixel shift, the corner clipped to n - 2)
@@ -1455,6 +1460,36 @@ def inverse_controls(torch):
                 K19_ADJOINT_CONTROL)}
 
 
+def k11_registers():
+    """Start ``nvcc -Xptxas -v`` of march_adjoint.cu in a thread beside the
+    kernels' build; returns a function that waits for it and gives the
+    path's instance's (bf16, the phase layout, C = 4) registers, shared
+    bytes and spills a thread."""
+    import threading
+
+    from synthpy_tpu_torch.kernels import _build, march_adjoint
+    from synthpy_tpu_torch.kernels.profiling import ptxas
+
+    out = {}
+
+    def run():
+        report, _, _ = ptxas(_build.CSRC / march_adjoint.KERNEL.source,
+                             march_adjoint.KERNEL.flags)
+        out.update(next(v for n, v in report.items()
+                        if "adjoint_kernelILi1E" in n
+                        and "LayoutILi0ELi1ELi0E" in n))
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def result():
+        thread.join()
+        check("regs" in out, "no ptxas report of K11's bf16 C = 4 instance")
+        return out
+
+    return result
+
+
 def cosine_decay(lr, steps, t):
     """optax.cosine_decay_schedule(lr, steps) at count t (alpha = 0)."""
     import math
@@ -1462,7 +1497,7 @@ def cosine_decay(lr, steps, t):
 
 
 def inverse_path(torch, dev, kernels, bound, reset, path_launches,
-                 controls):
+                 controls, k11_regs):
     """The differentiable renderer at full width (``inverse_path``):
     examples/inverse_volume_joint.py at 512^3 through the port's entry
     points (``inverse.make_renderer``, ``priors.tv``, torch.optim.Adam with
@@ -1972,6 +2007,13 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     dseg = torch.zeros(planes[0].shape, device=dev)
     k11_ms = batch_ms(lambda: march_adjoint.march_adjoint(
         u_s, planes[0], du_full, dseg=dseg, **mkw), calls=3)
+    # the call's two parts: the rays' order, and the kernel alone on it
+    geo11 = (sp0.shape_ab, mkw["origin_ab"], mkw["inv_ab"])
+    k11_order_ms = batch_ms(lambda: march.ray_order(u_s, *geo11), calls=10)
+    order11 = march.ray_order(u_s, *geo11)
+    k11_launch_ms = batch_ms(lambda: march_adjoint.launch(
+        march_adjoint.KERNEL, u_s, planes[0], du_full, order11, dseg=dseg,
+        **mkw), calls=3)
 
     def plain_chunks():
         for lo in range(0, N, PLAIN_CHUNK):
@@ -1987,6 +2029,16 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     nb = sp0.shape_ab[1]
     rows_touched = int(torch.unique(torch.cat(
         [cells + o for o in (0, 1, nb, nb + 1)])).numel())
+    regs = k11_regs()
+    k11_design = {
+        "order_ms": k11_order_ms, "launch_ms": k11_launch_ms,
+        "atomics_per_launch": march_adjoint.atomics_per_launch(
+            cells[order11], K=K, C=C),
+        "scratch_bytes": march_adjoint.scratch_bytes(N, K),
+        "registers": regs["regs"], "spill_bytes": regs.get("spill")}
+    check(k11_design["atomics_per_launch"] <= K11_MAX_ATOMICS,
+          f"K11's design makes {k11_design['atomics_per_launch']} vector "
+          f"adds a launch, above {K11_MAX_ATOMICS}")
     row = (K + 1) * C
     # Operations a slab, counted from march_adjoint.cu (a fused
     # multiply-add as two; each layout's extra channels left out, which
@@ -2077,7 +2129,7 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
          "bound_by": k11_b[1], "library_ms": None,
          "per": f"one segment, {N} rays, K = {K}, C = {C}, bf16",
          "bound_with_design_rerun_ms": (k11_ops + k11_rerun_ops)
-         / F32_FLOPS_PER_S * 1e3},
+         / F32_FLOPS_PER_S * 1e3, **k11_design},
         {"name": "cic", "route": "cuda", "source": csrc + "cic.cu",
          "replaces": "synthpy_tpu/inverse.py:139",
          "launches": launches["cic"],
@@ -2121,6 +2173,7 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     detail["inverse_path_s"] = time.perf_counter() - t_path
     emit({"phase": "inverse_times", "k11_ms": k11_ms,
           "k11_plain_ms": k11_plain_ms, "k11_bound": k11_b,
+          **{"k11_" + k: v for k, v in k11_design.items()},
           "k11_ops": k11_ops, "k11_design_extra_ops": k11_rerun_ops,
           "k12": {str(V): t for V, t in k12_t.items()}, "k19": k19_t,
           "path_s": detail["inverse_path_s"]})
@@ -3479,6 +3532,7 @@ def main():
                "pack_chain": pack_chain.KERNEL,
                "pack_chain_adjoint": pack_chain.BACKWARD_KERNEL}
     controls = inverse_controls(torch)
+    k11_regs = k11_registers()
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
@@ -4391,7 +4445,7 @@ def main():
     # -- 3d. the differentiable renderer: the 512^3 joint inversion, K11 and
     # K12 held to their plain versions at its shapes
     inv_rows, inv_detail = inverse_path(torch, dev, kernels, bound, reset,
-                                        path_launches, controls)
+                                        path_launches, controls, k11_regs)
 
     # -- 3e. proton radiography at 1024^3 (K13, K14) and X-ray radiography,
     # the 1024^3 streamed survey and the 256^3 dense images (K15, K16)

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Profile kernel K1 (the segment march) at the main path's shapes on a card.
+"""Profile kernel K1 (the segment march) at the main path's shapes on a
+card, or time kernel K11 (its adjoint) on the inversion path's inputs.
 
     python3 march_profile.py        # from the repository root, one GPU
+    python3 march_profile.py adjoint [--root DIR] [--reps N] [--save F]
+                                     [--against F]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -24,11 +27,37 @@ What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 
 It prints one JSON line per part and writes everything to
 ``chiprun_out/march_profile.json``. Nothing here imports JAX.
+
+``adjoint`` imports ``synthpy_tpu_torch`` from ``DIR`` (default: beside
+this script), so that two checkouts can be compared in turns on one card
+(parent, change, change, parent). On the inversion path's inputs
+(``chip_smoke.py``'s ``inverse_path``: the 512^3 two-blob volume at theta =
+-1.5 through K19 into a bf16 K = 64 table, C = 4, the 1 M-ray beam) it
+prints one JSON line with:
+
+- ``ptxas``: registers, spills and theoretical occupancy of the f32 and
+  bf16 instances at C = 3, 4 and 8;
+- ``order_ms`` (``march.ray_order`` alone), ``call_ms`` (one
+  ``march_adjoint`` call, the order included) and ``kernel_ms`` (the
+  call less the order), each by CUDA events around back-to-back calls on
+  segment 0, best of ``--reps``;
+- a renderer step (the path's three benches, a sum-of-squares loss):
+  forward and backward ms, K11's ms in the backward from its launch
+  events, peak device memory;
+- the cotangents of all eight segments (each segment's start states from
+  K1, a seeded cotangent): a SHA-256 of each ``du_in``, and with
+  ``--save F`` the table cotangents of segments 0, 3 and 7 on their
+  touched rows written to F; with ``--against F`` (another tree's file)
+  whether every ``du_in`` is bit-equal to that tree's and the table
+  cotangents' relative L2 distance from its.
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -73,7 +102,176 @@ def occupancy(regs: int, threads: int, smem: int = 0) -> dict:
             "occupancy": blocks * warps / 64}
 
 
+# the inversion path (chip_smoke.py INV): 512^3, 1 M rays, K = 64, bf16
+INV_DIM, INV_RAYS, INV_K, INV_BINS = 512, 1_000_000, 64, (96, 96)
+INV_LXY = 8.0
+INV_SCALE, INV_BEAM_R, INV_STOP_R = 5e23, 3.2e-3, 0.12
+AB_SEGMENTS = (0, 3, 7)   # segments whose table cotangents are compared
+
+
+def inversion_inputs(dev):
+    """The inversion path's domain, beam, theta, volume(g), bf16 table
+    (segments, cells, (K+1) C) at theta and K11's keywords."""
+    import numpy as np
+    import torch
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+    from synthpy_tpu_torch.kernels import pack_chain as kpc
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+
+    dom = ScalarDomain(2 * EXT, INV_DIM, phaseshift=True, device=dev)
+    xh = dom.x.cpu().double().numpy()[:, None]
+    yh = dom.y.cpu().double().numpy()[None, :]
+    g_np = (0.8 * np.exp(-((xh - 0.8e-3) ** 2 + yh ** 2) / (1.2e-3) ** 2)
+            + 0.6 * np.exp(-((xh + 1.0e-3) ** 2 + (yh - 0.6e-3) ** 2)
+                           / (0.9e-3) ** 2)
+            + 0.15 * np.exp(-(xh ** 2 + yh ** 2) / (3.0e-3) ** 2))
+    z_env = torch.from_numpy(np.exp(-(dom.z.cpu().double().numpy() ** 2)
+                                    / (2.5e-3) ** 2).astype(np.float32)
+                             ).to(dev)
+
+    def volume(g):
+        return INV_SCALE * g[:, :, None] * z_env
+
+    dom.external_ne(volume(torch.from_numpy(g_np.astype(np.float32)).to(
+        dev)))
+    s0 = init_beam(jrandom.fold_in(jrandom.PRNGKey(0), 1), INV_RAYS,
+                   INV_BEAM_R, 0.0, EXT, "circular", device=dev)
+    theta = torch.full((INV_DIM, INV_DIM), -1.5, device=dev)
+    spec = kpc.chain_spec(dom, K=INV_K, pack_dtype=torch.bfloat16)
+    with torch.no_grad():
+        planes = kpc.forward(volume(torch.nn.functional.softplus(theta)),
+                             spec)
+    sp0 = zscan.segment_pack_metadata(dom, K=INV_K)
+    mkw = dict(shape_ab=sp0.shape_ab, origin_ab=sp0.origin_ab.tolist(),
+               inv_ab=sp0.inv_spacing_ab.tolist(), dp=sp0.dp,
+               layout=layout_of(dom), K=INV_K)
+    return dom, s0, theta, volume, planes, mkw
+
+
+def adjoint(args):
+    """The ``adjoint`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch.inverse import make_renderer
+    from synthpy_tpu_torch.kernels import _build, march, march_adjoint
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, nvidia_smi,
+                                                     ptxas)
+    from synthpy_tpu_torch.tracer import zscan
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi()}
+    src = _build.CSRC / march_adjoint.KERNEL.source
+    kern, _, _ = ptxas(src, march_adjoint.KERNEL.flags)
+    # the instances by mangled name: the dtype code, then the layout's
+    # switches (inv_brems, phaseshift, B_on) of C = 3, 4 (the phase
+    # layout) and 8
+    report = {}
+    for n, v in kern.items():
+        for dt, tier in enumerate(("f32", "bf16")):
+            for C, lay in ((3, "0ELi0ELi0E"), (4, "0ELi1ELi0E"),
+                           (8, "1ELi1ELi1E")):
+                if (f"adjoint_kernelILi{dt}E" in n
+                        and f"LayoutILi{lay}" in n):
+                    report[f"{tier}_C{C}"] = {
+                        **v, **occupancy(v["regs"], 128, v.get("smem", 0))}
+    out["ptxas"] = report
+
+    dom, s0, theta, volume, planes, mkw = inversion_inputs(dev)
+    geo = (mkw["shape_ab"], mkw["origin_ab"], mkw["inv_ab"])
+    u0 = zscan.permute_state(s0, "z").contiguous()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    du = torch.randn(u0.shape, generator=gen, device=dev)
+
+    # K11's time on segment 0, the order apart
+    dseg = torch.zeros(planes[0].shape, device=dev)
+
+    def best(fn):
+        return min(batch_ms(fn, calls=3) for _ in range(args.reps))
+
+    out["order_ms"] = best(lambda: march.ray_order(u0, *geo))
+    out["call_ms"] = best(lambda: march_adjoint.march_adjoint(
+        u0, planes[0], du, dseg=dseg, **mkw))
+    out["kernel_ms"] = out["call_ms"] - out["order_ms"]
+
+    # a renderer step: the path's benches, a sum of squares
+    render = make_renderer(
+        dom, s0, diagnostic=("shadowgraphy", "schlieren_df", "phase_map"),
+        bins=INV_BINS, K=INV_K, Lx=INV_LXY, Ly=INV_LXY,
+        pack_dtype=torch.bfloat16,
+        bench_kwargs={"schlieren_df": {"stop_R": INV_STOP_R}})
+    steps = []
+    for _ in range(args.reps):
+        th = theta.clone().requires_grad_()
+        march_adjoint.KERNEL.events = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss = sum((im ** 2).mean() for im in render(volume(
+            torch.nn.functional.softplus(th))))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        steps.append({"forward_ms": (t1 - t) * 1e3,
+                      "backward_ms": (t2 - t1) * 1e3,
+                      "k11_ms": sum(a.elapsed_time(b) for a, b in
+                                    march_adjoint.KERNEL.events),
+                      "k11_launches": len(march_adjoint.KERNEL.events),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        march_adjoint.KERNEL.events = None
+    out["steps"] = steps
+    del render, th, loss
+    torch.cuda.empty_cache()
+
+    # every segment's cotangents: du_in's hash, the table's on its rows
+    u, gen = u0, torch.Generator(device=dev).manual_seed(15)
+    hashes, tables = [], {}
+    for s in range(planes.shape[0]):
+        dus = torch.randn(u.shape, generator=gen, device=dev)
+        dseg.zero_()
+        got = march_adjoint.march_adjoint(u, planes[s], dus, dseg=dseg,
+                                          **mkw)
+        hashes.append(hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest())
+        if s in AB_SEGMENTS:
+            cells = march.entry_cells(u, *geo).long()
+            nb = mkw["shape_ab"][1]
+            rows = torch.unique(torch.cat([cells + o for o in
+                                           (0, 1, nb, nb + 1)]))
+            tables[s] = (rows.cpu(), dseg[rows].cpu())
+        u = march.march(u, planes[s][None], None, **mkw)
+    out["du_in_sha256"] = hashes
+    if args.save:
+        torch.save({"du_in_sha256": hashes, "tables": tables}, args.save)
+    if args.against:
+        ref = torch.load(args.against)
+        rel = {}
+        for s, (rows, t) in tables.items():
+            r_rows, r_t = ref["tables"][s]
+            same = torch.equal(rows, r_rows)
+            rel[s] = float((t - r_t).double().norm()
+                           / r_t.double().norm()) if same else None
+        out["against"] = {"file": args.against,
+                          "du_in_bit_equal": hashes == ref["du_in_sha256"],
+                          "table_rel_l2": rel}
+    print(json.dumps({"part": "adjoint", **out}), flush=True)
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("part", nargs="?", choices=["march", "adjoint"],
+                    default="march")
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
+        __file__)))
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--save")
+    ap.add_argument("--against")
+    args = ap.parse_args()
+    if args.part == "adjoint":
+        return adjoint(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

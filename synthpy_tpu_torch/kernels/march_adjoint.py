@@ -10,6 +10,13 @@ CPU tensors it runs ``march_vjp_plain``, ``torch.autograd.grad`` through
 differentiable renderer runs: rk4, ``weights="stage"``, one substep, float32
 or bf16 tables (``covers``). The table's cotangent is summed in float32
 for either table.
+
+The host fixes what the kernel's plan needs and raises where it cannot
+hold (there is no other route on a card): the width of its vector adds
+into the table's cotangent by C (``vector_width``), which the cotangent
+buffer's alignment must allow. ``scratch_bytes`` and
+``atomics_per_launch`` (from the rays' cells in launch order) count what a
+launch moves.
 """
 
 from __future__ import annotations
@@ -28,6 +35,57 @@ KERNEL = Kernel("march_adjoint.cu", {
 }, flags=["--fmad=false"])
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+WARP = 32
+MAX_STEPS = 2   # march_adjoint.cu's: shuffle steps of a plane's flush
+
+
+def vector_width(C: int) -> int:
+    """Floats in one vector add into the table's cotangent: a corner's C
+    values of a plane are contiguous in rows of (K+1) C floats, so 4 when C
+    is a multiple of 4, 2 when C is even, else 1 (the kernel's
+    ``vec_width``)."""
+    if not 3 <= C <= 8:
+        raise ValueError(f"C = {C}: the layouts have 3-8 channels")
+    return 4 if C % 4 == 0 else 2 if C % 2 == 0 else 1
+
+
+def scratch_bytes(N: int, K: int) -> int:
+    """Bytes of a launch's scratch: the (K, N, 8) float32 slab-start
+    states, written once and read once."""
+    return K * N * 8 * 4
+
+
+def atomics_per_launch(cells: torch.Tensor, *, K: int, C: int,
+                       max_steps: int = None) -> int:
+    """The vector adds into the table's cotangent a launch makes at most,
+    from ``cells`` (N,), the rays' corner cells in launch order
+    (``entry_cells`` of the rays in ``ray_order``). A warp's runs of equal
+    cell are summed in blocks of 2^S lanes, S the shuffle steps its
+    longest run needs but at most ``max_steps`` (``MAX_STEPS``); each
+    block adds 4 corners x C / ``vector_width`` vectors for each of the K
+    + 1 planes (all-zero vectors, as outside the grid, are skipped, so
+    fewer may reach memory)."""
+    S = MAX_STEPS if max_steps is None else max_steps
+    n = cells.numel()
+    if n == 0:
+        return 0
+    # the tail lanes of the last warp form a run of their own, adding none
+    pad = -n % WARP
+    key = torch.cat([cells.long(), cells.new_full((pad,), -1).long()])
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    first[::WARP] = True
+    starts = torch.nonzero(first).flatten()
+    length = torch.diff(starts, append=starts.new_tensor([key.numel()]))
+    warp = starts // WARP
+    longest = torch.zeros(key.numel() // WARP, dtype=length.dtype,
+                          device=key.device).scatter_reduce(
+        0, warp, length, "amax")
+    steps = torch.ceil(torch.log2(longest.double())).long().clamp(max=S)
+    block = 2 ** steps[warp]
+    adders = (length + block - 1) // block
+    adders = adders[key[starts] >= 0]
+    return int(adders.sum()) * 4 * (C // vector_width(C)) * (K + 1)
 
 
 def covers(integrator: str, weights: str, dtype, qbits=None) -> bool:
@@ -99,13 +157,32 @@ def march_adjoint(u: torch.Tensor, seg: torch.Tensor, du: torch.Tensor, *,
                              or not dseg.is_contiguous()):
         raise ValueError("dseg must be a contiguous float32 tensor of the "
                          "table's shape on the rays' device")
+    if dseg is not None and dseg.data_ptr() % (4 * vector_width(C)):
+        raise ValueError(f"dseg must be {4 * vector_width(C)}-byte aligned "
+                         f"at C = {C}: the kernel adds "
+                         f"{vector_width(C)}-float vectors into it")
     # states are read and written as 16-byte vectors
     u, du = (t.contiguous() for t in (u, du))
     u, du = (t.clone() if t.data_ptr() % 16 else t for t in (u, du))
     order = _march.ray_order(u, shape_ab, origin_ab, inv_ab)
+    return launch(KERNEL, u, seg, du, order, dseg=dseg, **kw)
+
+
+def launch(kernel: Kernel, u: torch.Tensor, seg: torch.Tensor,
+           du: torch.Tensor, order: torch.Tensor, *,
+           shape_ab: Tuple[int, int], origin_ab: Sequence[float],
+           inv_ab: Sequence[float], dp: float, layout: ChannelLayout,
+           K: int, dseg: Optional[torch.Tensor] = None,
+           atten_sign: float = -1.0) -> torch.Tensor:
+    """Launch ``kernel`` (a build of ``csrc/march_adjoint.cu``) on inputs
+    that ``march_adjoint`` has checked, ray ``order[i]`` i-th."""
+    dev = u.device
+    N = u.shape[0]
+    na, nb = shape_ab
+    C = layout.n_channels
     du_in = torch.empty_like(u)
     scratch = torch.empty((K, N, 8), dtype=torch.float32, device=dev)
-    KERNEL.launch(
+    kernel.launch(
         "march_adjoint", dev, u.data_ptr(), du.data_ptr(), du_in.data_ptr(),
         order.data_ptr(), seg.data_ptr(),
         None if dseg is None else dseg.data_ptr(), scratch.data_ptr(), N,

@@ -103,8 +103,10 @@ def ptxas(source: Path, flags: Sequence[str]
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
-            kernels[name] = {"regs": int(m.group(1)),
-                             "smem": int(smem.group(1)) if smem else 0}
+            # the spill line comes first: keep it
+            kernels.setdefault(name, {}).update(
+                regs=int(m.group(1)),
+                smem=int(smem.group(1)) if smem else 0)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:

@@ -1146,6 +1146,116 @@ def test_march_adjoint_kernel_matches_plain(dev, C, tier):
         u = march.march(u, seg[None], None, **kw)
 
 
+def _rays_in_cells(u, cells, kw, g):
+    """``u`` with ray j's (a, b) moved to a seeded point inside corner cell
+    ``cells[j]`` (flat ia * nb + ib)."""
+    na, nb = kw["shape_ab"]
+    u = u.clone()
+    for col, idx in ((0, cells // nb), (1, cells % nb)):
+        f = 0.1 + 0.8 * torch.rand(len(cells), generator=g,
+                                   device=u.device)
+        u[:, col] = (kw["origin_ab"][col]
+                     + (idx.to(u.device).float() + f) / kw["inv_ab"][col])
+    return u
+
+
+# the K11 redesign's cases: how the warp runs of equal corner cell fall
+ADJOINT_CASES = ["one_cell", "own_cell", "straddle", "tail", "outside_nan",
+                 "no_dseg", "k64_padded"]
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [3, 4, 8])
+@pytest.mark.parametrize("case", ADJOINT_CASES)
+def test_march_adjoint_kernel_runs(dev, case, C, tier):
+    """K11 against march_vjp_plain where its warps' runs of equal corner
+    cell are extreme: every ray in one cell (runs spanning warps and
+    blocks), every ray in its own cell, runs of 20 straddling warp
+    boundaries, N not a multiple of the block, rays outside the grid and
+    NaN rays (the plain version on the finite rays; the table's cotangent
+    finite), no table cotangent, and K = 64 with a padded last segment.
+    State cotangents within 1e-5 of each column's largest, the table's
+    within 1e-5 relative L2, as in test_march_adjoint_kernel_matches_plain."""
+    from synthpy_tpu_torch.kernels import march_adjoint
+
+    d = _adjoint_scene(dev, C) if case != "k64_padded" else None
+    if d is None:
+        d = ScalarDomain(2 * EXT, 81, device=dev)
+        d.test_lens(ne_0=5e24, LR=1.5e-3)
+        d.phaseshift = C >= 4
+        if C == 8:
+            d.inv_brems = True
+            d.external_Te(torch.full(d.dims, 55.0, device=dev))
+            d.external_Z(2.0 * torch.ones(d.dims, device=dev))
+            d.test_B(Bmax=10.0)
+    lay = layout_of(d)
+    K = 64 if case == "k64_padded" else 6
+    sp = zscan.build_segment_pack_device(
+        d, K=K, dtype=torch.float32 if tier == "f32" else torch.bfloat16)
+    kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+              inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp, layout=lay,
+              K=sp.K)
+    na, nb = sp.shape_ab
+    g = torch.Generator(device=dev).manual_seed(100 + C)
+    n = {"own_cell": (na - 1) * (nb - 1), "straddle": 20 * 45,
+         "tail": 128 * 7 + 37}.get(case, 3000)
+    s0 = init_beam(3, n, 2.2e-3, 2e-3 if case == "outside_nan" else 0.0,
+                   EXT, "circular", device=dev)
+    u = zscan.permute_state(s0, "z").contiguous()
+    inner = torch.tensor([(ia * nb + ib) for ia in range(na - 1)
+                          for ib in range(nb - 1)], device=dev)
+    if case == "one_cell":
+        u = _rays_in_cells(u, torch.full((n,), int(inner[len(inner) // 2]),
+                                         device=dev), kw, g)
+    elif case == "own_cell":
+        u = _rays_in_cells(u, inner, kw, g)
+    elif case == "straddle":
+        u = _rays_in_cells(u, inner[100:145].repeat_interleave(20), kw, g)
+    elif case == "outside_nan":
+        u[::97] = float("nan")
+    assert sp.seg_planes.shape[0] >= 2
+    for s in range(sp.seg_planes.shape[0]):
+        seg = sp.seg_planes[s]
+        du = torch.randn(u.shape, generator=g, device=dev)
+        dseg = (None if case == "no_dseg"
+                else torch.zeros(seg.shape, device=dev))
+        got = march_adjoint.march_adjoint(u, seg, du, dseg=dseg, **kw)
+        fin = torch.isfinite(u).all(1)
+        want, wseg = march_adjoint.march_vjp_plain(u[fin], seg, du[fin],
+                                                   **kw)
+        for c in range(8):
+            scale = float(want[:, c].abs().max())
+            assert float((got[fin, c] - want[:, c]).abs().max()) <= \
+                1e-5 * max(scale, 1e-30), (s, c)
+        if dseg is not None:
+            assert bool(torch.isfinite(dseg).all())
+            assert float((dseg - wseg).double().norm()
+                         / wseg.double().norm()) <= 1e-5, s
+        u = u.clone()
+        u[fin] = march.march(u[fin], seg[None], None, **kw)
+
+
+def test_march_adjoint_refuses_a_misaligned_cotangent(dev):
+    """The kernel adds 4-float vectors into dseg at C = 4: a dseg off a
+    16-byte boundary raises before any launch."""
+    from synthpy_tpu_torch.kernels import march_adjoint
+
+    d = _adjoint_scene(dev, 4)
+    sp = zscan.build_segment_pack_device(d, K=6, dtype=torch.float32)
+    seg = sp.seg_planes[0]
+    u = zscan.permute_state(init_beam(2, 300, 2e-3, 0.0, EXT, "circular",
+                                      device=dev), "z").contiguous()
+    flat = torch.zeros(seg.numel() + 1, device=dev)
+    n0 = march_adjoint.KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        march_adjoint.march_adjoint(
+            u, seg, torch.ones_like(u), dseg=flat[1:].view(seg.shape),
+            shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+            inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+            layout=layout_of(d), K=sp.K)
+    assert march_adjoint.KERNEL.launches == n0
+
+
 @pytest.mark.parametrize("V", [1, 2, 4])
 def test_cic_kernels_match_plain(dev, V):
     """K12 forward and adjoint against cic_plain / cic_vjp_plain on
