@@ -94,19 +94,23 @@ K11_MAX_ATOMICS), its scratch bytes and its registers and spills a thread
 (``nvcc -Xptxas -v``, compiled beside the kernels' build). Then the
 radiography slice (``radiography``): ``proton_path`` runs
 ``examples/proton_radiography.py`` at res 512 (a 1024^3 solenoidal GRF B
-grid, synthesised at 256^3 and upsampled x4 into one pinned host tensor,
+grid, synthesised at 128^3 and upsampled x8 into one pinned host tensor,
 12 GiB; ``build_B_table`` at bf16, dithered int8 and f32, one table at a
-time; 2 M protons at 14.7 and 3 MeV traced over 4,092 steps and binned),
-the bf16 and int8 tiers held to the f32 trace (RMS transverse exit
-velocity, |v|), K13 held to its plain version on 65,536 of the path's
-protons over all steps at each tier and K14 on one 32-plane batch per
-mode with a planted control (the next plane's dither key) that must
-fail; ``xray_path`` runs ``examples/xray_radiography.py``'s scene at
-1024^3 through ``xray_survey_streamed`` (host volumes, 4 GiB each, 32
-plane batches) and at 256^3 through the dense images, the survey held
-bit for bit to the two single streams, K15 and K16 held to their plain
-versions on one 1024^3 batch and on the dense route; the plain versions
-are counted on both paths and none may run. Last the multi-device modes
+time; 2 M protons at 14.7 and 3 MeV traced over 4,092 steps and
+binned), the bf16 and int8 tiers held to the f32 trace (RMS transverse
+exit velocity, |v|), K13 held to its plain version on 65,536 of the
+path's protons over all steps at each tier with a planted control
+(carried corners not read anew when (i, j) changes) that must fail,
+K13's row with its order's time, registers, spills and SASS loads by
+table dtype and ``profiling.walk_model``'s loads and sectors in both
+orders, and K14 on one 32-plane batch per mode with a planted control
+(the next plane's dither key) that must fail; ``xray_path`` runs
+``examples/xray_radiography.py``'s scene at 1024^3 through
+``xray_survey_streamed`` (host volumes, 4 GiB each, 32 plane batches)
+and at 256^3 through the dense images, the survey held bit for bit to
+the two single streams, K15 and K16 held to their plain versions on one
+1024^3 batch and on the dense route; the plain versions are counted on
+both paths and none may run. Last the multi-device modes
 (``mesh_path``) on a mesh of four shards, on four cards where there are
 as many and on the one card repeated otherwise (the placement is
 printed): ``pipeline.run(mesh=)`` on the bench field (512^3, 4 M rays,
@@ -1460,34 +1464,86 @@ def inverse_controls(torch):
                 K19_ADJOINT_CONTROL)}
 
 
-def k11_registers():
-    """Start ``nvcc -Xptxas -v`` of march_adjoint.cu in a thread beside the
-    kernels' build; returns a function that waits for it and gives the
-    path's instance's (bf16, the phase layout, C = 4) registers, shared
-    bytes and spills a thread."""
+def ptxas_in_thread(kernel, pick):
+    """Start ``nvcc -Xptxas -v`` of ``kernel``'s source in a thread beside
+    the kernels' build; returns a function that waits for it and gives
+    ``pick(report, cubin)`` (report: {mangled name: registers, shared
+    bytes, spills}; ``pick`` raises or fails a check on a missing one)."""
     import threading
 
-    from synthpy_tpu_torch.kernels import _build, march_adjoint
+    from synthpy_tpu_torch.kernels import _build
     from synthpy_tpu_torch.kernels.profiling import ptxas
 
     out = {}
 
     def run():
-        report, _, _ = ptxas(_build.CSRC / march_adjoint.KERNEL.source,
-                             march_adjoint.KERNEL.flags)
-        out.update(next(v for n, v in report.items()
-                        if "adjoint_kernelILi1E" in n
-                        and "LayoutILi0ELi1ELi0E" in n))
+        report, _, cubin = ptxas(_build.CSRC / kernel.source, kernel.flags)
+        out["picked"] = pick(report, cubin)
 
     thread = threading.Thread(target=run)
     thread.start()
 
     def result():
         thread.join()
-        check("regs" in out, "no ptxas report of K11's bf16 C = 4 instance")
-        return out
+        check("picked" in out, f"no ptxas report of {kernel.source}")
+        return out["picked"]
 
     return result
+
+
+def k11_registers():
+    """K11's path instance (bf16, the phase layout, C = 4): registers,
+    shared bytes and spills a thread, by ``ptxas_in_thread``."""
+    from synthpy_tpu_torch.kernels import march_adjoint
+
+    def pick(report, cubin):
+        return next(v for n, v in report.items()
+                    if "adjoint_kernelILi1E" in n
+                    and "LayoutILi0ELi1ELi0E" in n)
+
+    return ptxas_in_thread(march_adjoint.KERNEL, pick)
+
+
+# K13's planted control: the carried corners shifted to a new cell but not
+# read anew when (i, j) changes (only a move of k reads its new nodes)
+K13_CONTROL = [("      if (j != cj) need |= shift<2>(c, j - cj);\n"
+                "      if (i != ci) need |= shift<4>(c, i - ci);\n",
+                "      if (j != cj) shift<2>(c, j - cj);\n"
+                "      if (i != ci) shift<4>(c, i - ci);\n")]
+
+
+def radiography_controls(torch):
+    """K13's planted control (a variant of boris.cu), made before the
+    kernels are built so that nvcc builds it with the rest."""
+    from synthpy_tpu_torch.kernels import boris
+    from synthpy_tpu_torch.kernels.profiling import variant
+
+    return {"boris_no_ij_reload": variant(boris.KERNEL, "no_ij_reload",
+                                          K13_CONTROL)}
+
+
+def k13_registers():
+    """K13's instance for each table dtype: registers, shared bytes,
+    spills and load instructions (LDG in its SASS), by
+    ``ptxas_in_thread``."""
+    import re
+
+    from synthpy_tpu_torch.kernels import boris
+    from synthpy_tpu_torch.kernels.profiling import load_mix
+
+    tiers = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+
+    def pick(report, cubin):
+        out = {}
+        for n, v in report.items():
+            m = re.search(r"borisI(f|13__nv_bfloat16|a)E", n)
+            if m:
+                out[tiers[m.group(1)]] = {
+                    **v, "ldg": load_mix(cubin, re.escape(n)).get("LDG", 0)}
+        check(len(out) == 3, f"no ptxas report of K13's instances: {out}")
+        return out
+
+    return ptxas_in_thread(boris.KERNEL, pick)
 
 
 def cosine_decay(lr, steps, t):
@@ -2195,8 +2251,12 @@ XRAY = dict(res=1024, dense=256, plane_batch=32, n_steps=160, half=2.5e-3)
 # operations of a K13 step (boris.cu, a fused multiply-add as two): the
 # two half drifts 6 + 10, t 6, fractions 3 + 3, weights 12, three corner
 # sums of 16, the rotation factor 3 + 5 + 2, two cross products of 9 with
-# their 3 + 6 adds; a step outside the grid skips the gather (63)
-K13_OPS_IN, K13_OPS_OUT = 125, 62
+# their 3 + 6 adds; the full step outside the grid is all but the gather
+# (62). The bound counts what such a step needs: its two drifts alone (the
+# half drift 6, t 6 for the inside test, the second drift 10)
+K13_OPS_IN, K13_OPS_OUT, K13_OPS_DRIFT = 125, 62, 22
+# the middle protons of the bundle whose warps the load model walks
+K13_MODEL_PROTONS = 65_536
 
 
 def meminfo():
@@ -2206,21 +2266,24 @@ def meminfo():
     return {k: rows[k].strip() for k in ("MemTotal", "MemAvailable")}
 
 
-def radiography(torch, dev, kernels, bound, reset, path_launches):
+def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
+                k13_regs):
     """The particle and X-ray slice: ``proton_path`` (a 1024^3 turbulent B
     grid built in one pinned host tensor, the bf16, dithered int8 and f32
     tables built by build_B_table, 2 M protons at 14.7 and 3 MeV traced
     through each and binned; the tiers' accuracy against f32; K13 and K14
-    held to their plain versions, with K14's planted control) and
+    held to their plain versions, with their planted controls; K13's
+    registers and a model of its loads) and
     ``xray_path`` (the 1024^3 streamed survey and the 256^3 dense images;
     K15 and K16 held to their plain versions). Each path resets the launch
     counts, checks its kernels ran and that no plain version did. Returns
     (kernels-line rows, detail)."""
     from synthpy_tpu_torch import random as jrandom
     from synthpy_tpu_torch.fields import ScalarDomain, grf
-    from synthpy_tpu_torch.kernels import boris, btable
+    from synthpy_tpu_torch.kernels import boris, btable, march
     from synthpy_tpu_torch.kernels import xray as kx
-    from synthpy_tpu_torch.kernels.profiling import batch_ms, best_ms
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     walk_model)
     from synthpy_tpu_torch.optics import xray
     from synthpy_tpu_torch.tracer import particles
 
@@ -2387,19 +2450,46 @@ def radiography(torch, dev, kernels, bound, reset, path_launches):
                          order=None), reps=3)}
         check(bool((err <= 1e-6).all()) and k13[tier]["caller_order_equal"],
               f"K13 {tier} off its plain version: {k13[tier]}")
+        # the planted control, which keeps stale corners when (i, j)
+        # changes, must fail the same check
+        bad = rows.clone()
+        boris.launch(controls["boris_no_ij_reload"], bad, grid, scale, **kw,
+                     order=march.ray_order(bad, tuple(grid.shape[:3]),
+                                           kw["origin"], kw["inv_spacing"]))
+        k13[tier]["control_max_rel"] = float(
+            ((bad - want).abs() / col).nan_to_num(float("inf")).max())
+        check(k13[tier]["control_max_rel"] > 1e-6,
+              f"K13's planted control passed ({tier}): {k13[tier]}")
         rows, grid, scale, kw, _ = particles.boris_inputs(
             s0[energies[0]], domain, energies[0], B_table=tab)
+        geo = (tuple(grid.shape[:3]), kw["origin"], kw["inv_spacing"])
+        # the entry-cell order of the path's 2 M protons, alone
+        k13[tier]["order_ms"] = best_ms(lambda: march.ray_order(rows, *geo),
+                                        reps=3)
         if tier == "bf16":
             # the caller's order at full width, beside the entry-cell order
             k13[tier]["full_caller_order_ms"] = best_ms(
                 lambda: boris.launch(boris.KERNEL, rows.clone(), grid, scale,
                                      **kw, order=None), reps=1, warmup=0)
+            # the load model of K13_MODEL_PROTONS protons from the middle
+            # of the bundle, in entry-cell order and in the caller's
+            mid = (N - K13_MODEL_PROTONS) // 2
+            order = march.ray_order(rows, *geo)
+            k13[tier]["load_model"] = {
+                name: walk_model(rows, *geo, kw["h"], kw["n_steps"],
+                                 grid.element_size(), order=o)
+                for name, o in (
+                    ("entry_cell_order",
+                     order[mid:mid + K13_MODEL_PROTONS]),
+                    ("caller_order", torch.arange(
+                        mid, mid + K13_MODEL_PROTONS, device=dev)))}
+            del order
         k13[tier]["n_in_grid_steps"] = int(torch.clamp(
             torch.ceil(2 * ext / (rows[:, 5].double() * 2 * kw["h"])), 0,
             kw["n_steps"]).sum())
         k13[tier]["n_steps"] = kw["n_steps"]
         k13[tier]["table_bytes"] = tab.grid.numel() * tab.grid.element_size()
-        del rows, grid, scale, got, caller, want
+        del rows, grid, scale, got, caller, want, bad
         if tier != "f32":
             k14 = k14_vs_plain(torch, dev, btable, jrandom, Bh, tab, tier,
                                batch_ms, best_ms)
@@ -2407,8 +2497,9 @@ def radiography(torch, dev, kernels, bound, reset, path_launches):
             emit({"phase": "K14_vs_plain", "tier": tier, **{
                 k: v for k, v in k14.items() if k != "row"}})
         del tab
+    k13_inst = k13_regs()
     emit({"phase": "K13_vs_plain", "protons": K13_SUBSET,
-          "tolerance": "1e-6 of a column", **k13})
+          "tolerance": "1e-6 of a column", "instances": k13_inst, **k13})
 
     # the tiers against the f32 trace (tests/test_particles.py:158-169)
     acc = {}
@@ -2442,10 +2533,14 @@ def radiography(torch, dev, kernels, bound, reset, path_launches):
     torch.cuda.empty_cache()
 
     b = tiers["bf16"]
-    ops = (k13["bf16"]["n_in_grid_steps"] * K13_OPS_IN
-           + (N * k13["bf16"]["n_steps"] - k13["bf16"]["n_in_grid_steps"])
-           * K13_OPS_OUT)
-    k13_b = bound(k13["bf16"]["table_bytes"] + 2 * N * 24, ops)
+    in_ops = k13["bf16"]["n_in_grid_steps"] * K13_OPS_IN
+    n_out = N * k13["bf16"]["n_steps"] - k13["bf16"]["n_in_grid_steps"]
+    k13_bytes = k13["bf16"]["table_bytes"] + 2 * N * 24
+    # the bound counts a step outside the grid as its drifts alone (what
+    # the function needs), beside the count with its full step
+    k13_b = bound(k13_bytes, in_ops + n_out * K13_OPS_DRIFT)
+    k13_full = bound(k13_bytes, in_ops + n_out * K13_OPS_OUT)
+    model = k13["bf16"]["load_model"]
     rows_out.append({
         "name": "boris", "route": "cuda", "source": csrc + "boris.cu",
         "replaces": "synthpy_tpu/tracer/particles.py:218",
@@ -2458,7 +2553,23 @@ def radiography(torch, dev, kernels, bound, reset, path_launches):
                f"plain_ms on {K13_SUBSET} protons",
         "tiers": {t: {f"{E}MeV": tiers[t][f"{E}MeV"]["k13_ms"]
                       for E in energies} for t in tiers},
-        "caller_order_ms": k13["bf16"]["full_caller_order_ms"]})
+        "caller_order_ms": k13["bf16"]["full_caller_order_ms"],
+        "order_ms": k13["bf16"]["order_ms"],
+        "bound_ms_full_step_outside": k13_full[0],
+        "tier_launches": {t: tiers[t]["launches"]["boris"] for t in tiers},
+        "registers": {k: v["regs"] for k, v in k13_inst.items()},
+        "spill_bytes": {k: v.get("spill", [0, 0]) for k, v in
+                        k13_inst.items()},
+        "ldg_in_sass": {k: v["ldg"] for k, v in k13_inst.items()},
+        # a model, not a count of the kernel's loads: load instructions
+        # an in-grid step and sectors a warp load touches, this design
+        # beside the first
+        "load_model": {
+            "of": f"straight lines, bf16 table, {K13_MODEL_PROTONS} protons",
+            "loads_per_in_grid_step": model["entry_cell_order"][
+                "loads_per_in_grid_step"],
+            "sectors": {o: {k: v for k, v in m.items() if "sectors" in k}
+                        for o, m in model.items()}}})
     for tier in ("bf16", "int8"):
         rows_out.append(detail[f"K14_{tier}"].pop("row"))
         rows_out[-1]["launches"] = tiers[tier]["launches"]["btable"]
@@ -3531,8 +3642,9 @@ def main():
                "pack_window": pack.WINDOW_KERNEL,
                "pack_chain": pack_chain.KERNEL,
                "pack_chain_adjoint": pack_chain.BACKWARD_KERNEL}
-    controls = inverse_controls(torch)
+    controls = {**inverse_controls(torch), **radiography_controls(torch)}
     k11_regs = k11_registers()
+    k13_regs = k13_registers()
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
@@ -4450,7 +4562,7 @@ def main():
     # -- 3e. proton radiography at 1024^3 (K13, K14) and X-ray radiography,
     # the 1024^3 streamed survey and the 256^3 dense images (K15, K16)
     rad_rows, rad_detail = radiography(torch, dev, kernels, bound, reset,
-                                       path_launches)
+                                       path_launches, controls, k13_regs)
 
     # -- 3f. the multi-device modes on a mesh of the card(s): the grid-
     # sharded march (K17), the depth pipeline, the rays axis, the

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Profile kernel K1 (the segment march) at the main path's shapes on a
-card, or time kernel K11 (its adjoint) on the inversion path's inputs.
+card, time kernel K11 (its adjoint) on the inversion path's inputs, or
+time kernel K13 (the Boris push) on the proton path's.
 
     python3 march_profile.py        # from the repository root, one GPU
     python3 march_profile.py adjoint [--root DIR] [--reps N] [--save F]
                                      [--against F]
+    python3 march_profile.py boris [--root DIR] [--reps N] [--save F]
+                                   [--against F]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -50,6 +53,28 @@ prints one JSON line with:
   touched rows written to F; with ``--against F`` (another tree's file)
   whether every ``du_in`` is bit-equal to that tree's and the table
   cotangents' relative L2 distance from its.
+
+``boris`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``adjoint`` does.
+On the proton path's inputs (``chip_smoke.py``'s ``proton_path``: the
+128^3 solenoidal GRF upsampled x8 to a 1024^3 x 3 B grid, here on the
+card; the bf16, dithered int8 and f32 tables of ``build_B_table``; 2 M
+protons at 14.7 and 3 MeV, 4,092 steps) it prints one JSON line with:
+
+- ``ptxas``: registers, spills and theoretical occupancy (at the tree's
+  ``THREADS`` a block) of each K13 instance, and the load instructions
+  (LDG) in each one's SASS;
+- for each tier and energy: ``order_ms`` (``march.ray_order`` alone),
+  ``kernel_ms`` (one launch in that order; best of ``--reps``) and
+  ``call_ms`` (``boris.push``, the order included), and a SHA-256 of the
+  rows;
+- ``model`` (where the tree has ``profiling.walk_model``): the node
+  reads, the load instructions an in-grid step and the 32-byte sectors a
+  warp load touches, this design beside the first, on 65,536 protons
+  from the middle of the bundle, in entry-cell order and in the caller's
+  order (bf16, straight lines);
+- with ``--save F`` the rows of every tier and energy written to F; with
+  ``--against F`` (another tree's file) whether each is ``torch.equal`` to
+  that tree's (IEEE comparison: -0 equals +0) and whether it is bit-equal.
 """
 
 from __future__ import annotations
@@ -59,7 +84,6 @@ import hashlib
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -70,24 +94,6 @@ EXT = 5e-3
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def load_mix(cubin: Path, pattern: str) -> dict:
-    """Counts of load opcodes (LDG global, LDS shared, LD generic) in the
-    SASS of the kernels whose name matches ``pattern``."""
-    from synthpy_tpu_torch.kernels import _build
-    tool = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(cubin)],
-                          capture_output=True, text=True, check=True).stdout
-    counts, on = {}, False
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            on = re.search(pattern, m.group(1)) is not None
-        if on:
-            for op in re.findall(r"\b(LDG|LDS|LD|LDGSTS)\b", line):
-                counts[op] = counts.get(op, 0) + 1
-    return counts
 
 
 def occupancy(regs: int, threads: int, smem: int = 0) -> dict:
@@ -260,9 +266,113 @@ def adjoint(args):
     print(json.dumps({"part": "adjoint", **out}), flush=True)
 
 
+# the proton path (chip_smoke.py PROTON): 1024^3, 2 M protons, two energies
+PROTON_EXT, PROTON_DIM, PROTON_SYNTH, PROTON_N = 5e-3, 1024, 128, 2_000_000
+PROTON_ENERGIES, PROTON_DITHER, MODEL_PROTONS = (14.7, 3.0), 5, 65_536
+
+
+def boris_part(args):
+    """The ``boris`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.fields import ScalarDomain, grf
+    from synthpy_tpu_torch.kernels import _build, boris, march, profiling
+    from synthpy_tpu_torch.kernels.profiling import (best_ms, nvidia_smi,
+                                                     ptxas)
+    from synthpy_tpu_torch.tracer import particles
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi()}
+    src = _build.CSRC / boris.KERNEL.source
+    kern, _, cubin = ptxas(src, boris.KERNEL.flags)
+    threads = int(re.search(r"constexpr int THREADS = (\d+);",
+                            src.read_text()).group(1))
+    # an older tree at --root has no load_mix (its LDG counts stay None)
+    # and no walk_model (no model)
+    load_mix = getattr(profiling, "load_mix", None)
+    walk_model = getattr(profiling, "walk_model", None)
+    report = {}
+    for n, v in kern.items():
+        m = re.search(r"borisI(f|13__nv_bfloat16|a)E", n)
+        if m:
+            tier = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}[
+                m.group(1)]
+            report[tier] = {
+                **v, **occupancy(v["regs"], threads, v.get("smem", 0)),
+                "ldg": load_mix(cubin, re.escape(n)).get("LDG", 0)
+                if load_mix else None}
+    out["ptxas"] = report
+
+    _, Bs = grf.grf_vector_solenoidal(
+        jrandom.PRNGKey(7), grf.power_law(3.667), l_max=3e-3, l_min=0.4e-3,
+        extent=PROTON_EXT, res=PROTON_SYNTH, rms=10.0, device=dev)
+    up = PROTON_DIM // Bs.shape[0]
+    B = Bs.repeat_interleave(up, 0).repeat_interleave(up, 1)
+    B = B.repeat_interleave(up, 2)
+    del Bs
+    domain = ScalarDomain(2 * PROTON_EXT, PROTON_DIM, device=dev)
+    domain.external_B(B)
+    s0 = {E: particles.init_proton_beam(
+        jrandom.PRNGKey(11), PROTON_N, E, source_distance=10e-3,
+        extent=PROTON_EXT, cone_radius=0.6 * PROTON_EXT, device=dev)
+        for E in PROTON_ENERGIES}
+    rows_out, tiers = {}, {}
+    for tier, dt in (("bf16", torch.bfloat16), ("int8", torch.int8),
+                     ("f32", torch.float32)):
+        tab = particles.build_B_table(
+            domain, dtype=dt, plane_batch=32, host_quantize=False,
+            dither=PROTON_DITHER if tier == "int8" else None)
+        for E in PROTON_ENERGIES:
+            rows, grid, scale, kw, _ = particles.boris_inputs(
+                s0[E], domain, E, B_table=tab)
+            geo = (tuple(grid.shape[:3]), kw["origin"], kw["inv_spacing"])
+            order = march.ray_order(rows, *geo)
+
+            def best(fn):
+                return best_ms(fn, reps=args.reps)
+
+            rec = {"n_steps": kw["n_steps"],
+                   "order_ms": best(lambda: march.ray_order(rows, *geo))}
+            rec["kernel_ms"] = best(lambda: boris.launch(
+                boris.KERNEL, rows.clone(), grid, scale, **kw, order=order))
+            rec["call_ms"] = best(lambda: boris.push(rows, grid, scale,
+                                                     **kw))
+            got = boris.push(rows, grid, scale, **kw)
+            rec["sha256"] = hashlib.sha256(
+                got.cpu().numpy().tobytes()).hexdigest()
+            rows_out[f"{tier}/{E}"] = got.cpu()
+            if tier == "bf16" and E == PROTON_ENERGIES[0] and walk_model:
+                mid = (PROTON_N - MODEL_PROTONS) // 2
+                pick = {"entry_cell_order": order[mid:mid + MODEL_PROTONS],
+                        "caller_order": torch.arange(
+                            mid, mid + MODEL_PROTONS, device=dev)}
+                out["model"] = {k: walk_model(
+                    rows, *geo, kw["h"], kw["n_steps"],
+                    grid.element_size(), order=o)
+                    for k, o in pick.items()}
+            tiers[f"{tier}/{E}MeV"] = rec
+            del rows, got, order
+        del tab
+        torch.cuda.empty_cache()
+    out["tiers"] = tiers
+    if args.save:
+        torch.save(rows_out, args.save)
+    if args.against:
+        ref = torch.load(args.against)
+        out["against"] = {"file": args.against, **{
+            k: {"equal": torch.equal(v, ref[k]),
+                "bit_equal": torch.equal(v.view(torch.int32),
+                                         ref[k].view(torch.int32))}
+            for k, v in rows_out.items()}}
+    print(json.dumps({"part": "boris", **out}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("part", nargs="?", choices=["march", "adjoint"],
+    ap.add_argument("part", nargs="?", choices=["march", "adjoint", "boris"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -272,6 +382,8 @@ def main():
     args = ap.parse_args()
     if args.part == "adjoint":
         return adjoint(args)
+    if args.part == "boris":
+        return boris_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")
@@ -280,8 +392,9 @@ def main():
     from synthpy_tpu_torch import pipeline
     from synthpy_tpu_torch.fields import ScalarDomain, layout_of
     from synthpy_tpu_torch.kernels import _build, march
-    from synthpy_tpu_torch.kernels.profiling import (best_ms, nvidia_smi,
-                                                     ptxas, variant)
+    from synthpy_tpu_torch.kernels.profiling import (best_ms, load_mix,
+                                                     nvidia_smi, ptxas,
+                                                     variant)
     from synthpy_tpu_torch.tracer import init_beam, zscan
 
     dev = torch.device("cuda")

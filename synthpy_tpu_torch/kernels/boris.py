@@ -13,6 +13,13 @@ operation by operation. On CUDA tensors the protons are marched in
 entry-cell order (``march.ray_order`` of their positions) and each result
 is written back to its own row; ``launch`` runs the kernel in a given
 order.
+
+The kernel carries each proton's 8 x 3 corner values across steps,
+shifts them to a new cell and reads only the nodes outside the old one,
+each node from the cell's first node at a 32-bit offset, and takes a step
+whose midpoint lies outside the grid (with finite velocities) as its two
+drifts alone. ``profiling.walk_model`` models those reads along straight
+lines.
 """
 
 from __future__ import annotations
@@ -73,6 +80,16 @@ def push_plain(rows: torch.Tensor, grid: torch.Tensor,
     return torch.cat([x, v], 1)
 
 
+def _check_offsets(shape: Sequence[int]) -> None:
+    """Raise ValueError when the kernel's 32-bit corner offsets (up to 3
+    ny nz + 3 nz + 3 elements from a cell's first node) do not fit an
+    (nx, ny, nz, 3) table."""
+    ny, nz = int(shape[1]), int(shape[2])
+    if 3 * ny * nz + 3 * nz + 3 >= 2**31:
+        raise ValueError(f"boris: a ({ny}, {nz}) plane of nodes is too "
+                         "large for the kernel's 32-bit node offsets")
+
+
 def _check(rows: torch.Tensor, grid: torch.Tensor,
            scale: Optional[torch.Tensor]) -> None:
     dev = rows.device
@@ -118,8 +135,10 @@ def launch(kernel: Kernel, out: torch.Tensor, grid: torch.Tensor,
            order: Optional[torch.Tensor]) -> None:
     """Launch ``kernel``'s ``boris_push`` on the contiguous rows ``out`` in
     place, the protons in ``order`` (None: the rows' own), without the
-    checks of ``push``."""
+    checks of ``push``; raises before the launch for a table too wide for
+    the kernel's 32-bit node offsets."""
     nx, ny, nz = grid.shape[:3]
+    _check_offsets(grid.shape)
     kernel.launch(
         "boris_push", out.device, out.data_ptr(),
         None if order is None else order.data_ptr(), out.shape[0],

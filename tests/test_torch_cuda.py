@@ -1477,6 +1477,112 @@ def test_boris_kernel_matches_plain(dev, dtype):
     assert not torch.equal(got[:, 3:5], u[:, 3:5])    # the field deflects
 
 
+def _bundle(rng, n, slope, z0=-EXT, spread=2.5e-3):
+    """(n, 6) float32 protons at z0 within ``spread`` of the axis, with
+    transverse slopes up to ``slope`` on each of x and y."""
+    th = rng.uniform(0, 2 * np.pi, n)
+    r = spread * np.sqrt(rng.uniform(0, 1, n))
+    d = np.stack([slope * rng.uniform(-1, 1, n),
+                  slope * rng.uniform(-1, 1, n), np.ones(n)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rows = np.zeros((n, 6), np.float32)
+    rows[:, 0], rows[:, 1], rows[:, 2] = r * np.cos(th), r * np.sin(th), z0
+    rows[:, 3:] = 5.2e7 * d
+    return rows
+
+
+def _boris_case(case):
+    """(B field, rows, h, wdt, n_steps, table at an odd element offset) of
+    a K13 card case, from numpy seeds."""
+    rng = np.random.default_rng(15)
+    B = (5.0 * rng.standard_normal((32, 32, 32, 3))).astype(np.float32)
+    h, wdt, steps, odd = 1.5e-12, 1e-4, 80, False
+    if case == "wide_cone":
+        # slopes up to 2: (i, j) changes on most steps, in x, y and both
+        rows = _bundle(rng, 4096, 2.0)
+    elif case == "side_faces":
+        rows = _bundle(rng, 2048, 0.6, spread=4.5e-3)
+        steps = 120
+    elif case == "enter_later":
+        # from 2 mm before the entry face; a third from beside the grid
+        rows = _bundle(rng, 1536, 0.3, z0=-EXT - 2e-3)
+        rows[:512, 0], rows[:512, 3] = -EXT - 1e-3, 3e7
+        steps = 100
+    elif case == "non_finite":
+        rows = _bundle(rng, 700, 0.4)
+        rows[0] = np.nan
+        rows[1, 0] = np.nan
+        rows[2, 4] = np.nan
+        rows[3, 3] = np.inf
+        rows[4, 5] = -np.inf
+        rows[5, 3:5] = -0.0
+        rows[6, 3:5] = 0.0
+    elif case == "negative_charge":
+        rows, wdt = _bundle(rng, 1024, 1.0), -1e-4
+    elif case == "two_nodes":
+        B = (5.0 * rng.standard_normal((2, 2, 2, 3))).astype(np.float32)
+        rows, h, steps = _bundle(rng, 333, 0.5), 5e-11, 20
+    elif case == "ragged":
+        rows, steps = _bundle(rng, 4096 + 37, 0.7), 50
+    else:
+        assert case == "odd_offset"
+        rows, odd = _bundle(rng, 1024, 1.0), True
+    return B, rows, h, wdt, steps, odd
+
+
+BORIS_CASES = ("wide_cone", "side_faces", "enter_later", "non_finite",
+               "negative_charge", "two_nodes", "ragged", "odd_offset")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", BORIS_CASES)
+def test_boris_kernel_cases(dev, case, dtype):
+    """K13 on the cases its carried corners, node reads and drift steps
+    must survive (steep slopes, side exits, late entries, NaN and inf
+    rows, a negative charge, two nodes an axis, a ragged last block, a
+    table view at an odd element offset), each against its plain version
+    within 1e-6 of a column with NaN where it has NaN, and in the caller's
+    order equal to entry order."""
+    from synthpy_tpu_torch.kernels import boris
+
+    B, rows, h, wdt, steps, odd = _boris_case(case)
+    n_nodes = B.shape[0]
+    grid = torch.from_numpy(B).to(dev)
+    scale = None
+    if dtype == "bf16":
+        grid = grid.to(torch.bfloat16)
+    elif dtype == "int8":
+        scale = grid.abs().amax(dim=(0, 1, 2)) / 127.0
+        grid = torch.clamp(torch.round(grid / scale), -127,
+                           127).to(torch.int8)
+    if odd:
+        flat = torch.zeros(grid.numel() + 1, dtype=grid.dtype, device=dev)
+        flat[1:] = grid.reshape(-1)
+        grid = flat[1:].view(grid.shape)
+    o = [-EXT] * 3
+    inv = [float(np.float32((n_nodes - 1) / (2 * EXT)))] * 3
+    u = torch.from_numpy(rows).to(dev)
+    args = (grid, scale, o, inv, h, wdt, steps)
+    n = boris.KERNEL.launches
+    got = boris.push(u, *args)
+    assert boris.KERNEL.launches == n + 1
+    want = boris.push_plain(u, *args)
+    caller = u.clone()
+    boris.launch(boris.KERNEL, caller, *args, None)
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(caller.isnan(), nan)
+    assert torch.equal(caller.nan_to_num(), got.nan_to_num())
+    col = want.nan_to_num(0, 0, 0).abs().amax(dim=0)
+    err = (got - want).abs()
+    assert bool((err[~nan] <= (1e-6 * col).expand_as(err)[~nan]).all())
+    if case == "side_faces":
+        # some protons leave through the x or y faces
+        assert bool((got[:, :2].abs() > EXT).any())
+    if case == "non_finite":
+        assert bool(nan[:5].any(dim=1).all()) and not bool(nan[5:].any())
+
+
 # bfloat16 corner cases: +-inf, subnormals (also below bf16's smallest),
 # exact halfway points between two bf16 values (ties to even, both ways),
 # the largest finite float32 (rounds to inf) and signed zeros
