@@ -142,9 +142,10 @@ read just after. Each phase prints one JSON line, with the script's
 seconds so far (``t_s``); then a
 ``{"kernels": [...]}`` line with each kernel's launches on its path
 (calls of its C entry point: the int8 and int4 builds start two device
-kernels, an adaptive step a stage kernel and a one-block controller; a K2
+kernels, an adaptive step two, the step and its one-block controller; a K2
 row per tier), its time (CUDA events around back-to-back calls, per call;
-for K6 around back-to-back steps, per step), its bound, its plain
+for K6 around back-to-back steps, per step), its bound (a dithered row's
+counts the dither's integer operations, ``dithered_bound``), its plain
 version's time and a library call's time (best single calls); then the
 card's name and power limit;
 and last ``{"ok": true, "device": {...}}``. The ``bounds`` line carries
@@ -187,20 +188,20 @@ F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # architecture white paper) x 132 SMs x 1.98 GHz (the clock at which the
 # data sheet's 128 float32 lanes an SM give its 67 TFLOP/s)
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# integer operations a value of K14's dithered int8 write needs, counted
-# from threefry.cuh, work that is the same for every value of a launch of
-# fewer than 2^32 left out (the key schedule, hi32(e) + ks0, and each
-# injection's ks + g + 1): x1's key add (1), 20 rounds of an add, a rotate
-# and a xor (60), five injections of two adds (10), the bits' xor (1), the
-# uniform's shift and or (2)
-K14_DITHER_INT_OPS = 1 + 20 * 3 + 5 * 2 + 1 + 2
+# integer operations a dithered value needs (K2's and K9's dithered codes,
+# K14's dithered int8 write), counted from threefry.cuh, work that is the
+# same for every value of a launch of fewer than 2^32 left out (the key
+# schedule, hi32(e) + ks0, and each injection's ks + g + 1): x1's key add
+# (1), 20 rounds of an add, a rotate and a xor (60), five injections of two
+# adds (10), the bits' xor (1), the uniform's shift and or (2)
+DITHER_INT_OPS = 1 + 20 * 3 + 5 * 2 + 1 + 2
 # of them the rotates, xors, shift and or, which only the INT32 units
 # take; an add may also issue as a multiply-add (IMAD) on the FMA pipe, at
 # 64 a clock an SM (the CUDA C++ programming guide's 32-bit integer
 # multiply-add rate for compute capability 9.0), as nvcc issues the
 # rounds' adds. The least time is then max(ALU ops, all ops / 2) at the
 # INT32 units' rate; with every add on the INT32 units, all ops at it.
-K14_DITHER_ALU_OPS = 20 * 2 + 1 + 2
+DITHER_ALU_OPS = 20 * 2 + 1 + 2
 
 
 T_START = time.perf_counter()
@@ -222,6 +223,30 @@ def emit(obj):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def dithered_bound(nbytes, hashed):
+    """The least time of a dithered write that moves ``nbytes`` and hashes
+    ``hashed`` values (each ``DITHER_INT_OPS`` integer operations; K2 and
+    K9 hash only the values that are not 0, K14 every value): the larger
+    of the bytes' time and the operations' with the adds on the FMA pipe,
+    beside the bytes' time and the operations' with every add on the INT32
+    units."""
+    ops, alu = hashed * DITHER_INT_OPS, hashed * DITHER_ALU_OPS
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(alu, ops / 2) / INT32_OPS_PER_S * 1e3
+    b = (tb, "bytes") if tb >= to else (to, "operations")
+    return {"bound_ms": b[0], "bound_by": b[1], "bytes_bound_ms": tb,
+            "int_ops": ops, "alu_ops": alu, "int_ops_bound_ms": to,
+            "int_ops_on_int32_units_bound_ms": ops / INT32_OPS_PER_S * 1e3,
+            "hashed_values": hashed}
+
+
+# the keys of dithered_bound that a dithered kernel's row carries beside
+# its bound_ms
+DITHER_BOUND_KEYS = ("bytes_bound_ms", "int_ops", "alu_ops",
+                     "int_ops_bound_ms", "int_ops_on_int32_units_bound_ms",
+                     "hashed_values")
 
 
 def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
@@ -852,7 +877,8 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
                             f"K2 {name} dithered build vs plain")
         und = pack.build_quantized_tables(vols, bits=bits, **bkw)[0]
         nbytes = lens.ne.numel() * 4 + codes.numel() + scales.numel() * 4
-        b_ = bound(nbytes, 0)
+        # the dither hashes each value of the table that is not 0
+        db = dithered_bound(nbytes, int((f32 != 0).sum()))
         k2d[name] = {
             "dithered_equals_two_step": True,
             "quantiser_equals_plain": True, "vs_plain": agree,
@@ -866,7 +892,7 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
                 vols, bits=bits, **bkw), calls=10),
             "plain_ms": best_ms(lambda: pack.build_quantized_tables_plain(
                 vols, bits=bits, dither=key, **bkw), reps=1),
-            "bound_ms": b_[0], "bound_by": b_[1], "bytes": nbytes}
+            **db, "bytes": nbytes}
         del codes, scales, tc, ts, pc, ps, qc, qs, und
     del f32, vols, lens
     torch.cuda.empty_cache()
@@ -1028,7 +1054,11 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
                             "vs plain")
         nbytes = (sum(v.numel() for v in vols.values()) * 4 + codes.numel()
                   + scales.numel() * 4)
-        b_ = bound(nbytes, 0)
+        # the dither hashes each value of the table that is not 0: count
+        # them in the float table of the same K
+        f32d = pack.build_tables(vols, dtype=torch.float32, **k2kw)
+        db = dithered_bound(nbytes, int((f32d != 0).sum()))
+        del f32d
         dpath[name] = {
             "K": K, "launches": d_launch, "counts_equal_upload_pack": True,
             "interferogram_rel_l1_vs_upload_pack": rel_i,
@@ -1039,8 +1069,7 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
                 calls=5),
             "undithered_ms": batch_ms(lambda: pack.build_quantized_tables(
                 vols, bits=bits, **k2kw), calls=5),
-            "plain_ms": plain_s * 1e3, "bound_ms": b_[0], "bound_by": b_[1],
-            "bytes": nbytes}
+            "plain_ms": plain_s * 1e3, **db, "bytes": nbytes}
         del up, Hd, Hu, codes, scales, pc, ps, vols
         torch.cuda.empty_cache()
     emit({"phase": "upload_vs_device", "dim": MID_DIM, "dither": 7,
@@ -1205,9 +1234,16 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
 
     k9_ms = batch_ms(fill_once, calls=10)
     # bytes: the slab and the pointwise volumes read once, the batch's codes
-    # written once (a pass 1 re-read is the design's, not the bound's)
+    # written once (a pass 1 re-read is the design's, not the bound's); the
+    # dither hashes each channel value that is not 0, counted in the plain
+    # version's float32 write of the batch
     k9_bytes = (slab.numel() + ex.numel()) * 4 + cells * (pb // 2) * C8
-    k9_b = bound(k9_bytes, 0)
+    vbuf = torch.zeros((1, cells, pb * C8), device=dev)
+    fill.fill_plain(vbuf, None, slab, ex, g0=SCALE_K + k0, seg_i=0, col0=0,
+                    k0=0, pb=pb, lone=lone,
+                    **{**fkw, "mode": 0, "dither": None})
+    k9_db = dithered_bound(k9_bytes, int((vbuf != 0).sum()))
+    del vbuf
     scale = {"dim": SCALE_DIM, "K": SCALE_K, "tier": "int4", "dither": 7,
              "channels": C8, "pack_gb": pack_gb, "build_ms": build_s * 1e3,
              "build_launches": build_launch, "peak_gb": peak_gb,
@@ -1219,7 +1255,8 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
              "batched_equals_one_call": True, "per_call_rays": per_call,
              "k1_vs_plain_one_call": k1_a, "k3_vs_plain_one_call": k3_a,
              "k9_vs_plain_batch": k9_a,
-             "k9_batch_ms": k9_ms, "k9_plain_batch_ms": k9_plain_ms}
+             "k9_batch_ms": k9_ms, "k9_plain_batch_ms": k9_plain_ms,
+             "k9_bound": k9_db}
     del spack, buf, scl, acc, final, imgs, one, slab, ex, s0
     torch.cuda.empty_cache()
     emit({"phase": "scale_path", **scale})
@@ -1348,9 +1385,10 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
          "replaces": "synthpy_tpu/tracer/zscan.py:2041",
          "launches": build_launch["fill"],
          "max_abs_err": max(v["max_code_diff"] for v in k9_checks + [k9_a]),
-         "ms": k9_ms, "plain_ms": k9_plain_ms, "bound_ms": k9_b[0],
-         "bound_by": k9_b[1], "library_ms": None,
-         "device_kernels_per_launch": 2},
+         "ms": k9_ms, "plain_ms": k9_plain_ms,
+         "bound_ms": k9_db["bound_ms"], "bound_by": k9_db["bound_by"],
+         "library_ms": None, "device_kernels_per_launch": 2,
+         **{k: k9_db[k] for k in DITHER_BOUND_KEYS}},
         {"name": "random_normal", "route": "cuda",
          "source": csrc + "random.cu",
          "replaces": "synthpy_tpu/fields/grf.py:151",
@@ -1372,9 +1410,11 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
             "max_abs_err": st["vs_plain"]["max_code_diff"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
+            **{k: st[k] for k in DITHER_BOUND_KEYS},
             "undithered_ms": st["undithered_ms"],
             "lens_512_K512": {x: k2d[name][x] for x in (
-                "ms", "undithered_ms", "plain_ms", "bound_ms")}})
+                "ms", "undithered_ms", "plain_ms", "bound_ms", "bound_by",
+                "bytes_bound_ms")}})
     return rows_out, detail
 
 
@@ -1502,6 +1542,22 @@ def k11_registers():
                     and "LayoutILi0ELi1ELi0E" in n)
 
     return ptxas_in_thread(march_adjoint.KERNEL, pick)
+
+
+def k6_registers():
+    """K6's step kernel at C = 3 (the adaptive path's lens) and at the C = 8
+    full-physics layout: registers, shared bytes and spills a thread, by
+    ``ptxas_in_thread``."""
+    from synthpy_tpu_torch.kernels import adaptive
+
+    def pick(report, cubin):
+        out = {f"C{C}": v for n, v in report.items()
+               for C, lay in ((3, "0ELi0ELi0E"), (8, "1ELi1ELi1E"))
+               if "step_kernel" in n and f"LayoutILi{lay}" in n}
+        check(len(out) == 2, f"no ptxas report of K6's step: {out}")
+        return out
+
+    return ptxas_in_thread(adaptive.KERNEL, pick)
 
 
 # K13's planted control: the carried corners shifted to a new cell but not
@@ -2878,24 +2934,17 @@ def k14_vs_plain(torch, dev, btable, jrandom, Bh, tab, tier, batch_ms,
     if tier == "bf16":
         lib = batch_ms(lambda: got.copy_(batch), calls=20)
     nbytes = batch.numel() * (4 + got.element_size())
-    ops = batch.numel() * K14_DITHER_INT_OPS if key is not None else 0
-    alu = batch.numel() * K14_DITHER_ALU_OPS if key is not None else 0
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    # the least time with the adds on the FMA pipe, and with every
-    # operation on the INT32 units
-    to = max(alu, ops / 2) / INT32_OPS_PER_S * 1e3
-    to_int32 = ops / INT32_OPS_PER_S * 1e3
-    b = (tb, "bytes") if tb >= to else (to, "operations")
-    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b[0],
-               bound_by=b[1], bytes_bound_ms=tb, int_ops=ops, alu_ops=alu,
-               int_ops_bound_ms=to, int_ops_on_int32_units_bound_ms=to_int32)
+    # K14 hashes every value of a dithered batch
+    db = dithered_bound(nbytes, batch.numel() if key is not None else 0)
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib, **db)
     rec["row"] = {
         "name": f"btable_{tier}", "route": "cuda",
         "source": "synthpy_tpu_torch/kernels/csrc/btable.cu",
         "replaces": "synthpy_tpu/tracer/particles.py:135",
         "launches": None, "max_abs_err": rec["max_abs_err"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-        "library_ms": lib,
+        "plain_ms": plain_ms, "bound_ms": db["bound_ms"],
+        "bound_by": db["bound_by"], "library_ms": lib,
+        **{k: db[k] for k in DITHER_BOUND_KEYS},
         "per": f"one batch of {pb} planes of {Bh.shape[1]}^2 x 3"
                + ("; library: tab[i0:i1].copy_(batch)" if lib else "")}
     return rec
@@ -3605,6 +3654,7 @@ def main():
         from synthpy_tpu_torch.kernels import random as krandom
         from synthpy_tpu_torch.kernels import xray as kxray
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                         device_kernels,
                                                          nvidia_smi)
         from synthpy_tpu_torch.ops.histogram import (_bin_index,
                                                      _pixel_index,
@@ -3645,6 +3695,7 @@ def main():
     controls = {**inverse_controls(torch), **radiography_controls(torch)}
     k11_regs = k11_registers()
     k13_regs = k13_registers()
+    k6_regs = k6_registers()
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
@@ -4338,8 +4389,10 @@ def main():
     # adaptive: solve_adaptive on the first 1,000,000 rays (K6)
     s_a = s0[:, :ADAPTIVE_RAYS]
     reset()
+    torch.cuda.reset_peak_memory_stats()
     (res_a, (n_acc, n_rej)), a_ms = timed(lambda: solve_adaptive(
         s_a, domain, pack=tpack, return_steps=True))
+    a_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches["adaptive"] = path_launches(("adaptive",), "adaptive")
     check(bool(torch.isfinite(res_a.sf).all()), "adaptive: non-finite exit")
     th_at = float((res_a.rf[1] - rf_t[1][:ADAPTIVE_RAYS]).abs().max())
@@ -4367,13 +4420,23 @@ def main():
                         march.ray_order(rows_a, DIM3, *tgrid[1:]), **k6kw)
     k6_ms = batch_ms(lambda: adaptive.KERNEL.launch("rk45_step", dev,
                                                     *tr.args), calls=64)
+    # the device kernels a step starts, from a profiler trace of 4 steps
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        k6_dev = device_kernels(lambda: adaptive.KERNEL.launch(
+            "rk45_step", dev, *tr.args))
+    k6_dev_per_step = sum(k6_dev.values())
+    check(k6_dev_per_step >= 1 and all(float(v).is_integer()
+                                       for v in k6_dev.values()),
+          f"K6: no whole count of device kernels a step: {k6_dev}")
     check(not int(tr.ctrl[9]), "K6: the timed steps reached t_end")
     del tr
     paths["adaptive"] = {"rays": ADAPTIVE_RAYS, "accepted": n_acc,
                          "rejected": n_rej, "launches": launches["adaptive"],
-                         "run_ms": a_ms,
+                         "run_ms": a_ms, "peak_gb": a_peak_gb,
                          "trace_ms_per_step": a_ms / (n_acc + n_rej),
                          "k6_step_ms": k6_ms,
+                         "k6_device_kernels_per_step": k6_dev,
                          "k6_plain_ms_per_step": k6_plain_ms / K6_STEPS,
                          "rays_per_s": ADAPTIVE_RAYS / (a_ms * 1e-3),
                          "max_theta_diff_vs_time": th_at,
@@ -4729,6 +4792,7 @@ def main():
     # a step reads and writes the state and FSAL stage, and two planes
     k6_b = bound(4 * ADAPTIVE_RAYS * 36 + cols_a * 2 * C * 4,
                  k6_flops(ADAPTIVE_RAYS))
+    k6_inst = k6_regs()
     k3r_b = bound(RAYS * 36 + BINS[0] * BINS[1] * 4, k3_flops)
     k3r_ms = batch_ms(lambda: detector.detect(uf_t, *det_t), calls=50)
     k3r_plain_ms = best_ms(lambda: detector.detect_plain(uf_t, *det_t),
@@ -4774,7 +4838,10 @@ def main():
                             + [v["max_abs_err"] for v in k6.values()]),
          "ms": k6_ms, "plain_ms": k6_plain_ms / K6_STEPS,
          "bound_ms": k6_b[0], "bound_by": k6_b[1], "library_ms": None,
-         "trace_ms_per_step": paths["adaptive"]["trace_ms_per_step"]},
+         "trace_ms_per_step": paths["adaptive"]["trace_ms_per_step"],
+         "registers": {k: v["regs"] for k, v in k6_inst.items()},
+         "spills": {k: v.get("spill", [0, 0]) for k, v in k6_inst.items()},
+         "device_kernels_per_step": k6_dev_per_step},
         {"name": "detector_per_ray", "route": "cuda",
          "source": csrc + "detector.cu",
          "replaces": "synthpy_tpu/pipeline.py:76",
@@ -4889,7 +4956,8 @@ def main():
               "device_kernels_per_launch": {
                   "march": 1, "pack_bf16": 1, "pack_int8": 2,
                   "pack_int4": 2, "detector": 1, "slab_march": 1,
-                  "time_march": 1, "adaptive_step": 2, "analytic": 1,
+                  "time_march": 1, "adaptive_step": k6_dev_per_step,
+                  "analytic": 1,
                   "detector_field": 1, "deposit": 2, "bin_image": 1,
                   "bin_field": 1, "fill": 2, "random_normal": 1,
                   "pack_dither": 2, "march_adjoint": 1, "cic": 1,

@@ -8,6 +8,8 @@ time kernel K13 (the Boris push) on the proton path's.
                                      [--against F]
     python3 march_profile.py boris [--root DIR] [--reps N] [--save F]
                                    [--against F]
+    python3 march_profile.py adaptive [--root DIR] [--reps N] [--save F]
+                                      [--against F]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -75,6 +77,24 @@ protons at 14.7 and 3 MeV, 4,092 steps) it prints one JSON line with:
 - with ``--save F`` the rows of every tier and energy written to F; with
   ``--against F`` (another tree's file) whether each is ``torch.equal`` to
   that tree's (IEEE comparison: -0 equals +0) and whether it is bit-equal.
+
+``adaptive`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``adjoint`` does.
+On the adaptive path's inputs (``chip_smoke.py``'s ``adaptive_path``: the
+512^3 bench lens, the first 1,000,000 rays of the 2 mm beam, the local
+step cap) it prints one JSON line with:
+
+- ``ptxas``: registers, spills and theoretical occupancy of every K6
+  instance (each device kernel of ``adaptive.cu``) at C = 3 (the lens) and
+  at the C = 8 full-physics layout;
+- ``step_ms``: one ``rk45_step`` call (CUDA events around 64 back-to-back
+  steps after ``kernels.adaptive.start``, best of ``--reps``), and
+  ``device_ms``: each device kernel's time a step from a ``torch.profiler``
+  trace of 16 steps;
+- ``run``: ``solve_adaptive`` on the 1 M rays (ms, best of ``--reps``;
+  accepted and rejected steps; peak device memory) and a SHA-256 of its
+  exit rows; with ``--save F`` the rows and counts written to F, with
+  ``--against F`` (another tree's file) whether the counts are equal and
+  the rows bit-equal to that tree's, and their largest difference.
 """
 
 from __future__ import annotations
@@ -370,9 +390,125 @@ def boris_part(args):
     print(json.dumps({"part": "boris", **out}), flush=True)
 
 
+def kernel_report(kern: dict, pattern: str, threads: dict) -> dict:
+    """ptxas reports of the kernels whose mangled names match ``pattern``
+    (group 1: the kernel's name), each templated one at C = 3 (the lens)
+    and C = 8 (full physics), with the occupancy at ``threads[name]``
+    threads a block."""
+    report = {}
+    for n, v in kern.items():
+        m = re.search(pattern, n)
+        if not m:
+            continue
+        lay = [tag for tag, code in (("C3", "0ELi0ELi0E"),
+                                     ("C8", "1ELi1ELi1E"))
+               if f"LayoutILi{code}" in n]
+        if "Layout" in n and not lay:
+            continue
+        name = m.group(1)
+        report["_".join([name] + lay)] = {
+            **v, **occupancy(v["regs"], threads[name], v.get("smem", 0))}
+    return report
+
+
+# the adaptive path (chip_smoke.py adaptive_path): 512^3, the first 1 M rays
+ADAPTIVE_RAYS = 1_000_000
+
+
+def adaptive_part(args):
+    """The ``adaptive`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch.fields import ScalarDomain
+    from synthpy_tpu_torch.fields.domain import build_pack, layout_of
+    from synthpy_tpu_torch.kernels import _build, adaptive, march
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, kernel_ms,
+                                                     nvidia_smi, ptxas)
+    from synthpy_tpu_torch.tracer import init_beam
+    from synthpy_tpu_torch.tracer.adaptive import solve_adaptive
+    from synthpy_tpu_torch.tracer.propagator import t_end_of
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi()}
+    src = _build.CSRC / adaptive.KERNEL.source
+    kern, _, _ = ptxas(src, adaptive.KERNEL.flags)
+    text = src.read_text()
+    threads = int(re.search(r"constexpr int THREADS = (\d+);",
+                            text).group(1))
+    # the one-block kernels after each launch: the parent's finalize
+    # kernels (FIN_THREADS), or this tree's controllers (THREADS)
+    fin = re.search(r"constexpr int FIN_THREADS = (\d+);", text)
+    one = int(fin.group(1)) if fin else threads
+    out["ptxas"] = kernel_report(
+        kern, r"\d+(step_kernel|init_kernel|finalize_kernel|init_finalize|"
+        r"controller_kernel|init_controller)",
+        {"step_kernel": threads, "init_kernel": threads,
+         "finalize_kernel": one, "init_finalize": one,
+         "controller_kernel": one, "init_controller": one})
+
+    domain = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                              LR=1.5e-3)
+    tpack = build_pack(domain)
+    tgrid = (tpack.channels, tpack.origin, tpack.inv_spacing)
+    t_end = t_end_of(domain.extent)
+    s_a = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular",
+                    device=dev)[:, :ADAPTIVE_RAYS].contiguous()
+    rows = s_a.T.contiguous()
+    kw = dict(layout=layout_of(domain),
+              plane_amax=adaptive.plane_amax_of(tpack.channels, 2), p_axis=2)
+    order = march.ray_order(rows, tuple(tpack.channels.shape[:3]),
+                            *tgrid[1:])
+
+    def step_of(tr):
+        return lambda: adaptive.KERNEL.launch("rk45_step", dev, *tr.args)
+
+    tr = adaptive.start(adaptive.KERNEL, rows, *tgrid, t_end, order, **kw)
+    out["step_ms"] = min(batch_ms(step_of(tr), calls=64)
+                         for _ in range(args.reps))
+    os.makedirs("chiprun_out", exist_ok=True)
+    out["device_ms"] = kernel_ms(step_of(tr), Path("chiprun_out")
+                                 / "adaptive_steps_trace.json", reps=16)
+    if int(tr.ctrl[9]):
+        sys.exit("march_profile: the timed steps reached t_end")
+    del tr
+
+    runs = []
+    for _ in range(args.reps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res, (n_acc, n_rej) = solve_adaptive(s_a, domain, pack=tpack,
+                                             return_steps=True)
+        torch.cuda.synchronize()
+        runs.append({"run_ms": (time.perf_counter() - t) * 1e3,
+                     "accepted": n_acc, "rejected": n_rej,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    sf = res.sf.cpu()
+    out["run"] = {"runs": runs, "run_ms": min(r["run_ms"] for r in runs),
+                  "ms_per_step": min(r["run_ms"] for r in runs)
+                  / (n_acc + n_rej),
+                  "sha256": hashlib.sha256(sf.numpy().tobytes()).hexdigest()}
+    if args.save:
+        torch.save({"sf": sf, "steps": (n_acc, n_rej)}, args.save)
+    if args.against:
+        ref = torch.load(args.against)
+        same = sf.shape == ref["sf"].shape
+        out["against"] = {
+            "file": args.against,
+            "steps_equal": (n_acc, n_rej) == tuple(ref["steps"]),
+            "bit_equal": same and torch.equal(sf.view(torch.int32),
+                                              ref["sf"].view(torch.int32)),
+            "max_abs_diff": float((sf - ref["sf"]).abs().nan_to_num(0.0)
+                                  .max()) if same else None}
+    print(json.dumps({"part": "adaptive", **out}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("part", nargs="?", choices=["march", "adjoint", "boris"],
+    ap.add_argument("part", nargs="?",
+                    choices=["march", "adjoint", "boris", "adaptive"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -384,6 +520,8 @@ def main():
         return adjoint(args)
     if args.part == "boris":
         return boris_part(args)
+    if args.part == "adaptive":
+        return adaptive_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

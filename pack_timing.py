@@ -3,6 +3,8 @@
 batch write at the main path's shapes.
 
     python3 pack_timing.py [--root DIR] [--reps N] [--variants]
+    python3 pack_timing.py fill [--root DIR] [--reps N] [--save F]
+                                [--against F]
 
 Imports ``synthpy_tpu_torch`` from ``DIR`` (default: beside this script),
 so that two checkouts can be compared in turns on one card (parent,
@@ -22,8 +24,21 @@ limit.
 ``--variants`` (the tree beside this script only) times builds of
 ``pack.cu`` changed by text substitution (``VARIANTS``: what the
 z-probing build leaves out of the row window's code) in turns with the
-shipped code (shipped, variant, variant, shipped). Nothing here imports
-JAX.
+shipped code (shipped, variant, variant, shipped).
+
+``fill`` times kernel K9 (``kernels.fill.fill``) on ``chip_smoke.py``'s
+``scale_path`` batch: the MAGPIE z-pinch at 1024^3 (C = 8, its ne and
+pointwise volumes from the closures), planes 256-287 (segment 1's first
+32 of a K = 256 pack), written at the int4 pack's columns with the
+scene's dither (7), then int4 undithered, int8 with and without the
+dither, f32 and bf16 into tables of the same K. For each it prints the
+per-call median, best, worst and spread of ``N`` rounds of 10 calls, each
+device kernel's time a call from a ``torch.profiler`` trace, and SHA-256s
+of the batch's codes (values) and scales; ``ptxas`` gives registers,
+spills and occupancy of every K9 instance at C = 8 and C = 3. With
+``--save F`` the hashes are written to F; with ``--against F`` (another
+tree's file) it says, mode by mode, whether codes and scales are
+bit-equal to that tree's. Nothing here imports JAX.
 """
 
 import argparse
@@ -50,16 +65,144 @@ VARIANTS = {"row_strides_stored": [ROW_STRIDE], "row_added": ROW_ADD,
             "both": [ROW_STRIDE, *ROW_ADD]}
 
 
+def timed(fn, reps, calls=20):
+    """Per-call median, best, worst and spread of ``reps`` rounds of CUDA
+    events around ``calls`` back-to-back calls, after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    med = statistics.median(times)
+    return {"median_ms": med, "best_ms": min(times), "worst_ms": max(times),
+            "spread": (max(times) - min(times)) / med}
+
+
+FILL_DIM, FILL_K, FILL_PB, FILL_DITHER = 1024, 256, 32, 7
+
+
+def fill_part(args):
+    """The ``fill`` part (see the module's docstring)."""
+    import hashlib
+    import re
+    from pathlib import Path
+
+    import torch
+    sys.path.insert(0, os.path.abspath(args.root))
+    from chip_smoke import magpie_fields
+    from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+    from synthpy_tpu_torch.kernels import _build, fill
+    from synthpy_tpu_torch.kernels.profiling import (kernel_ms, nvidia_smi,
+                                                     ptxas)
+    from synthpy_tpu_torch.tracer import zscan
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "reps": args.reps, "calls": 10}
+    src = _build.CSRC / fill.KERNEL.source
+    kern, _, _ = ptxas(src, fill.KERNEL.flags)
+    threads = int(re.search(r"constexpr int THREADS = (\d+);",
+                            src.read_text()).group(1))
+    report = {}
+    for n, v in kern.items():
+        m = re.search(r"\d+(amax_pass|write_pass)I.*?LayoutILi(\d)ELi(\d)E"
+                      r"Li(\d)E(?:EELi(\d)ELb(\d))?", n)
+        if not m or m.group(2, 3, 4) not in (("0", "0", "0"),
+                                              ("1", "1", "1")):
+            continue
+        C = 8 if m.group(2) == "1" else 3
+        key = f"{m.group(1)}_C{C}"
+        if m.group(5) is not None:
+            key += ("_" + ("f32", "bf16", "int8", "int4")[int(m.group(5))]
+                    + ("_dither" if m.group(6) == "1" else ""))
+        report[key] = {**v, "threads": threads}
+    out["ptxas"] = report
+
+    dm = ScalarDomain(2 * EXT, FILL_DIM, device=dev)
+    dm.inv_brems = dm.phaseshift = dm.B_on = True
+    geo = zscan._geometry_of(dm, 1064e-9)
+    lay = layout_of(dm)
+    C = lay.n_channels
+    (_, k0, pb, lone, slab, ex), = list(zscan._closure_batches(
+        dm, geo, magpie_fields(torch), lay, [(1, 0, FILL_PB, False)],
+        FILL_K))
+    cells = FILL_DIM ** 2
+    hashes, times = {}, {}
+    for name, dtype, dither in (
+            ("int4_dither", "int4", FILL_DITHER), ("int4", "int4", None),
+            ("int8_dither", torch.int8, FILL_DITHER),
+            ("int8", torch.int8, None), ("f32", torch.float32, None),
+            ("bf16", torch.bfloat16, None)):
+        mode = fill.mode_of(dtype)
+        blocks = FILL_K // 2 + 1 if mode == 3 else FILL_K + 1
+        col0 = (k0 // 2 if mode == 3 else k0) * C
+        width = ((pb + 1) // 2 if mode == 3 else pb) * C
+        tdt = {0: torch.float32, 1: torch.bfloat16}.get(mode, torch.int8)
+        buf = torch.zeros((1, cells, blocks * C), dtype=tdt, device=dev)
+        scl = (torch.ones((1, FILL_K + 1, C), device=dev) if mode >= 2
+               else None)
+        fkw = zscan._fill_kw(geo, lay, mode, dither)
+
+        def call():
+            fill.fill(buf, scl, slab, ex, g0=FILL_K + k0, seg_i=0,
+                      col0=col0, k0=k0, pb=pb, lone=lone, **fkw)
+
+        rec = timed(call, args.reps, calls=10)
+        rec["device_ms"] = kernel_ms(call, Path("chiprun_out")
+                                     / f"fill_{name}_trace.json", reps=5)
+        call()
+        torch.cuda.synchronize()
+        codes = buf[0, :, col0:col0 + width].contiguous()
+        hashes[name] = {
+            "codes": hashlib.sha256(codes.view(torch.uint8).cpu().numpy()
+                                    .tobytes()).hexdigest(),
+            "scales": None if scl is None else hashlib.sha256(
+                scl[0, k0:k0 + pb].cpu().numpy().tobytes()).hexdigest()}
+        times[name] = rec
+        del buf, scl, codes
+        torch.cuda.empty_cache()
+    out["batch"] = {"dim": FILL_DIM, "K": FILL_K, "planes": pb,
+                    "first_plane": FILL_K + k0, "channels": C}
+    out["times"] = times
+    out["sha256"] = hashes
+    if args.save:
+        with open(args.save, "w") as f:
+            json.dump(hashes, f)
+    if args.against:
+        with open(args.against) as f:
+            ref = json.load(f)
+        out["against"] = {"file": args.against, **{
+            k: {"codes_bit_equal": v["codes"] == ref[k]["codes"],
+                "scales_bit_equal": v["scales"] == ref[k]["scales"]}
+            for k, v in hashes.items()}}
+    print(json.dumps({"part": "fill", **out}), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("pack_timing: no CUDA device")
     ap = argparse.ArgumentParser()
+    ap.add_argument("part", nargs="?", choices=["pack", "fill"],
+                    default="pack")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--save")
+    ap.add_argument("--against")
     args = ap.parse_args()
+    os.makedirs("chiprun_out", exist_ok=True)
+    if args.part == "fill":
+        return fill_part(args)
     sys.path.insert(0, os.path.abspath(args.root))
     from synthpy_tpu_torch import constants
     from synthpy_tpu_torch.fields import ScalarDomain, layout_of
@@ -86,28 +229,13 @@ def main():
         "int8": lambda: pack.build_quantized_tables(vols, bits=8, **kw),
         "int4": lambda: pack.build_quantized_tables(vols, bits=4, **kw)}
 
-    def timed(fn):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(args.reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(20):
-                fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / 20)
-        med = statistics.median(times)
-        return {"median_ms": med, "best_ms": min(times),
-                "worst_ms": max(times),
-                "spread": (max(times) - min(times)) / med}
+    def timed_(fn):
+        return timed(fn, args.reps)
 
     out = {"root": os.path.abspath(args.root), "nvidia_smi": smi,
            "reps": args.reps, "calls": 20}
     for tier, fn in builds.items():
-        out[tier] = timed(fn)
+        out[tier] = timed_(fn)
 
     # the decimator on each tier's full table (K2's decimate_segment_pack
     # route), stride 2
@@ -125,9 +253,10 @@ def main():
         return lambda: t4[:, :, ::2].contiguous()
 
     for tier in full:
-        out[f"decimate_{tier}"] = timed(dec(tier))
+        out[f"decimate_{tier}"] = timed_(dec(tier))
         if tier != "int4":
-            out[f"decimate_{tier}"]["strided_copy"] = timed(strided(tier))
+            out[f"decimate_{tier}"]["strided_copy"] = timed_(
+                strided(tier))
 
     # K14: one 32-plane batch of a 1024^2 x 3 grid into a table (plane 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -141,8 +270,8 @@ def main():
             "btable_int8_dither_unchanged": lambda: btable.write(
                 tab8, batch, 0, scale, key)}
     for name, fn in cast.items():
-        out[name] = timed(fn)
-    out["btable_bf16"]["copy_"] = timed(lambda: tab16.copy_(batch))
+        out[name] = timed_(fn)
+    out["btable_bf16"]["copy_"] = timed_(lambda: tab16.copy_(batch))
     if args.variants:
         from synthpy_tpu_torch.kernels import _build, profiling
 
@@ -154,13 +283,13 @@ def main():
             # in turns: shipped, variant, variant, shipped (bf16 and int4)
             row = {}
             for tier in ("bf16", "int4"):
-                s = [timed(builds[tier])["median_ms"]]
+                s = [timed_(builds[tier])["median_ms"]]
                 with profiling.kernel_of(pack, kern):
                     if tier == "bf16":
                         assert torch.equal(builds[tier](), ref)
-                    t = [timed(builds[tier])["median_ms"]
+                    t = [timed_(builds[tier])["median_ms"]
                          for _ in range(2)]
-                s.append(timed(builds[tier])["median_ms"])
+                s.append(timed_(builds[tier])["median_ms"])
                 row[tier] = {"variant_ms": t, "shipped_ms": s}
             out[name] = row
     print(json.dumps(out), flush=True)

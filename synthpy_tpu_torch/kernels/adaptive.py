@@ -1,17 +1,18 @@
 """K6: the adaptive Dormand-Prince 5(4) march (one shared step a launch).
 
 ``trace_rk45`` runs the CUDA kernels of ``csrc/adaptive.cu`` on CUDA tensors
-and ``trace_rk45_plain`` on CPU tensors. Both repeat the JAX package's
-``trace_rk45`` (``synthpy_tpu/tracer/adaptive.py:53``): the tableau and the
-stage sums in float32 in the JAX order, each ``x + c * k`` a fused
-multiply-add as XLA's CPU compiler makes it in the compiled JAX step, then
-the error norm, whose mean is summed in float64 (the JAX program sums in
-float32; in float64 the sum, and so every accept, does not depend on the
-order of the terms), then the controller in float32. On the CPU the plain
-version is bit-equal to the JAX program at the sizes of the tests. The
-loop stays on the host: the kernel path launches steps in batches of
-``CHECK_EVERY`` and reads the device's ``done`` flag between batches
-(steps launched after it is set return at once).
+(two device kernels a step: the step, then its one-block step-size
+controller) and ``trace_rk45_plain`` on CPU tensors. Both repeat the JAX
+package's ``trace_rk45`` (``synthpy_tpu/tracer/adaptive.py:53``): the
+tableau and the stage sums in float32 in the JAX order, each ``x + c * k``
+a fused multiply-add as XLA's CPU compiler makes it in the compiled JAX
+step, then the error norm, whose mean is summed in float64 (the JAX
+program sums in float32; in float64 the sum, and so every accept, does not
+depend on the order of the terms), then the controller in float32. On the
+CPU the plain version is bit-equal to the JAX program at the sizes of the
+tests. The loop stays on the host: the kernel path launches steps in
+batches of ``CHECK_EVERY`` and reads the device's ``done`` flag between
+batches (steps launched after it is set return at once).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel, refuse_grad
 from synthpy_tpu_torch.kernels.march import ray_order
 from synthpy_tpu_torch.ops.interp import fma
 
-_COMMON = [P, P, L, P, P, P, P, P, P, P, P, P, I, I, I]
+_COMMON = [P, P, L, P, P, P, P, P, P, P, P, I, I, I]
 KERNEL = Kernel("adaptive.cu", {
     "rk45_init": _COMMON + [F, P],
     "rk45_step": _COMMON + [P],
@@ -36,6 +37,7 @@ KERNEL = Kernel("adaptive.cu", {
 
 CHECK_EVERY = 16   # steps launched between two reads of the done flag
 THREADS = 128      # rays a block of step_kernel (adaptive.cu)
+CTRL_WORDS = 16    # adaptive.cu's Ctrl, zero before rk45_init
 
 # Dormand-Prince 5(4) tableau (scipy's RK45), as the JAX package spells it
 _A = (
@@ -216,7 +218,7 @@ class Trace(NamedTuple):
 
     args: tuple
     S: torch.Tensor       # (2, N, 9): the state rows, in the trace's order
-    ctrl: torch.Tensor    # the controller's 48 bytes
+    ctrl: torch.Tensor    # the controller's state (CTRL_WORDS int32 words)
     host: tuple
 
 
@@ -237,10 +239,8 @@ def start(kernel: Kernel, s_rows: torch.Tensor, channels: torch.Tensor,
     S = torch.empty((2, N, 9), dtype=torch.float32, device=dev)
     torch.index_select(s_rows, 0, order, out=S[0])
     K1 = torch.empty_like(S)
-    n_blocks = -(-N // THREADS)
-    part_err = torch.empty(n_blocks, dtype=torch.float64, device=dev)
-    part_p = torch.empty((n_blocks, 2), dtype=torch.float32, device=dev)
-    ctrl = torch.zeros(12, dtype=torch.int32, device=dev)
+    part_err = torch.empty(-(-N // THREADS), dtype=torch.float64, device=dev)
+    ctrl = torch.zeros(CTRL_WORDS, dtype=torch.int32, device=dev)
     grid = time_march.grid_args(channels, origin, inv_spacing)
     dims = np.array(grid[1:4], np.int32)
     geo = np.array(grid[4:], f32)
@@ -249,13 +249,13 @@ def start(kernel: Kernel, s_rows: torch.Tensor, channels: torch.Tensor,
     consts = k.table(atten_sign)
     args = (S.data_ptr(), K1.data_ptr(), N, grid[0],
             dims.ctypes.data, geo.ctypes.data, part_err.data_ptr(),
-            part_p.data_ptr(), ctrl.data_ptr(),
+            ctrl.data_ptr(),
             None if plane_amax is None else plane_amax.data_ptr(),
             ints.ctypes.data, consts.ctypes.data, int(layout.inv_brems),
             int(layout.phaseshift), int(layout.B_on))
     kernel.launch("rk45_init", dev, *args, float(k.dt0))
-    return Trace(args, S, ctrl, (K1, part_err, part_p, plane_amax, dims,
-                                 geo, ints, consts))
+    return Trace(args, S, ctrl, (K1, part_err, plane_amax, dims, geo, ints,
+                                 consts))
 
 
 def launch(kernel: Kernel, s_rows: torch.Tensor, channels: torch.Tensor,
@@ -280,7 +280,8 @@ def launch(kernel: Kernel, s_rows: torch.Tensor, channels: torch.Tensor,
         if int(tr.ctrl[9]):
             break
     # Ctrl: t, dt_carry, dt_step, pmin, pmax, err_norm (float32), then
-    # n_acc, n_rej, cur, done, accepted (int32)
+    # n_acc, n_rej, cur, done, accepted (int32), then the last launch's span
+    # (reset by the controller)
     n_acc, n_rej, cur = (int(v) for v in tr.ctrl[6:9].tolist())
     out = torch.empty_like(s_rows)
     out.index_copy_(0, order, tr.S[cur])

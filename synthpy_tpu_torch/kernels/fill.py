@@ -114,6 +114,9 @@ def fill(buf: torch.Tensor, scl: Optional[torch.Tensor], slab: torch.Tensor,
                     or ex.stride()[2:] != (nb, 1)):
         raise ValueError("ex must be a (pb, n_extra, na, nb) float32 tensor "
                          "on the pack's device, rows contiguous")
+    if mode == 3 and (pb != 1 if lone else pb % 2):
+        raise ValueError(f"an int4 batch takes plane pairs or one lone "
+                         f"plane, not pb={pb} (lone={lone})")
     want = {0: torch.float32, 1: torch.bfloat16}.get(mode, torch.int8)
     _check_cuda("buf", buf, (want,), dev)
     n_blk = (pb + 1) // 2 if mode == 3 else pb

@@ -84,6 +84,27 @@ def kernel_ms(fn: Callable, trace: Path, reps: int = 5) -> Dict[str, float]:
     return by
 
 
+def device_kernels(fn: Callable, calls: int = 4) -> Dict[str, float]:
+    """Device kernels one fn() call starts, by name (namespace, template
+    arguments and parameters stripped), from a torch.profiler trace of
+    ``calls`` calls; copies and fills are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    count: Dict[str, float] = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith(("Memcpy", "Memset"))):
+            continue
+        name = re.sub(r"\(anonymous namespace\)::", "", e.name)
+        name = re.split(r"[<(]", name)[0].split()[-1]
+        count[name] = count.get(name, 0) + 1 / calls
+    return count
+
+
 def ptxas(source: Path, flags: Sequence[str]
           ) -> Tuple[Dict[str, dict], str, Path]:
     """Registers, shared bytes and spills of each kernel of ``source``
