@@ -121,9 +121,12 @@ interferometry), each image equal to the single-device run on the same
 pack (coherent field sums within 1e-4 of their largest), and
 ``sharded_histogram``; K17 bit-equal to its plain version on a
 65,536-ray subset and beside K1 a segment, K1 on a pipeline device's
-segment range bit-equal to plain, the grid-sharded time tracer (K18) on
-1 M rays over the first quarter of the depth held to its plain version
-and within 1e-4 of a column of K5, and a one-rank nccl group
+segment range bit-equal to plain, the grid-sharded time tracer (K18: one
+fused launch a stage and device, 4 n + 1 a trace, counted by a profiler)
+on 1 M rays over the first quarter of the depth held bit-equal to its
+plain version and within 1e-4 of a column of K5, a step's four stages
+timed as the tracer runs them beside the parent's psum adds, and a
+one-rank nccl group
 (``parallel.multihost``: all_gather, and a rays axis all-reduced). Then
 the sharded field path (``sharded_field_path``) on the same four shards:
 path (b)'s turbulence recipe at res 512, a 1024^3 field synthesised
@@ -1560,6 +1563,42 @@ def k6_registers():
     return ptxas_in_thread(adaptive.KERNEL, pick)
 
 
+def k5_registers():
+    """K5's march kernel at every layout (C = 3 to 8): registers, shared
+    bytes and spills a thread, by ``ptxas_in_thread``; keyed by the
+    layout's switches (inv_brems, phaseshift, B) and C."""
+    import re
+
+    from synthpy_tpu_torch.kernels import time_march
+
+    def pick(report, cubin):
+        out = {}
+        for n, v in report.items():
+            m = re.search(r"rk4_kernel.*LayoutILi(\d)ELi(\d)ELi(\d)E", n)
+            if m:
+                ib, ps, bon = (int(x) for x in m.groups())
+                out[f"{ib}{ps}{bon}_C{3 + ib + ps + 3 * bon}"] = v
+        check(len(out) == 8, f"no ptxas report of K5's layouts: {out}")
+        return out
+
+    return ptxas_in_thread(time_march.KERNEL, pick)
+
+
+def k18_registers():
+    """K18's fused stage at C = 3 (the mesh path's lens) and C = 8:
+    registers, shared bytes and spills a thread, by ``ptxas_in_thread``."""
+    from synthpy_tpu_torch.kernels import sharded_rhs
+
+    def pick(report, cubin):
+        out = {f"C{C}": v for n, v in report.items()
+               for C, lay in ((3, "0ELi0ELi0E"), (8, "1ELi1ELi1E"))
+               if "stage_gather_kernel" in n and f"LayoutILi{lay}" in n}
+        check(len(out) == 2, f"no ptxas report of K18's stage: {out}")
+        return out
+
+    return ptxas_in_thread(sharded_rhs.KERNEL, pick)
+
+
 # K13's planted control: the carried corners shifted to a new cell but not
 # read anew when (i, j) changes (only a move of k reads its new nodes)
 K13_CONTROL = [("      if (j != cj) need |= shift<2>(c, j - cj);\n"
@@ -2978,7 +3017,9 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     plain version on a 65,536-ray subset of each tier's table and beside
     K1 a segment at every ray; K1 on a PP segment range bit-equal to plain;
     the grid-sharded time tracer (K18) on 1 M rays over the first quarter
-    of the depth, held to its plain version; a one-rank nccl group
+    of the depth, held bit-equal to its plain version, its launches and
+    device kernels counted, a step's four stages timed; a one-rank nccl
+    group
     (``multihost``: all_gather, all_reduce). Returns (kernels-line rows,
     detail)."""
     import socket
@@ -2990,11 +3031,12 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     from synthpy_tpu_torch.fields.domain import build_pack
     from synthpy_tpu_torch.kernels import march, march_sharded, sharded_rhs
     from synthpy_tpu_torch.kernels import time_march
-    from synthpy_tpu_torch.kernels.profiling import best_ms
+    from synthpy_tpu_torch.kernels.profiling import best_ms, device_kernels
     from synthpy_tpu_torch.ops.histogram import histogram2d
     from synthpy_tpu_torch.parallel import (Mesh, make_gridsharded_tracer,
                                             multihost, ppermute, psum,
                                             sharded_histogram)
+    from synthpy_tpu_torch.parallel.mesh import line_sum
     from synthpy_tpu_torch.tracer import init_beam, zscan
     from synthpy_tpu_torch.tracer.propagator import default_n_steps, dt_of
 
@@ -3240,26 +3282,38 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     reset()
     out, run_s, peak = run_peak(lambda: tr(rows18, *targs))
     launches = path_launches(("sharded_rhs",), "grid-sharded time tracer")
-    shipped = (sharded_rhs.gather_owned, sharded_rhs.rk4_stage)
+    n_traces = len(set(place))       # one Trace a device on a grid line
+    check(launches["sharded_rhs"] == (4 * n + 1) * n_traces,
+          f"K18 launched {launches['sharded_rhs']} times on the trace, not "
+          f"(4 x {n} + 1) x {n_traces}")
+    shipped = sharded_rhs.Trace.stage
 
-    def gather_plain(t, values, halo, *, layout, **kw):
-        return sharded_rhs.gather_owned_plain(t, values, halo, **kw)
+    def plain_stage(self, summed, stage, gather):
+        sharded_rhs.stage_gather_plain(self.s, self.t, self.acc, self.vals,
+                                       summed, self.shards, stage, gather,
+                                       **self.kw)
 
-    sharded_rhs.gather_owned = gather_plain
-    sharded_rhs.rk4_stage = sharded_rhs.rk4_stage_plain
+    sharded_rhs.Trace.stage = plain_stage
     try:
         plain, plain_s, _ = run_peak(lambda: tr(rows18, *targs))
     finally:
-        sharded_rhs.gather_owned, sharded_rhs.rk4_stage = shipped
+        sharded_rhs.Trace.stage = shipped
     k18 = close(out, plain, "K18 tracer vs its plain versions")
+    check(k18["bit_equal"], "K18 tracer not bit-equal to its plain versions")
     # the unsharded tracer (K5) on the same rays: the shards' moved origins
     # change the values by rounding only (JAX's bound, 1e-4 of a column)
     ref = time_march.march(rows18, *targs, layout=lay, n_steps=n)
     scale = ref.abs().amax(0).clamp_min(1e-30)
     vs_k5 = ((out - ref).abs().amax(0) / scale).tolist()
     check(max(vs_k5) <= 1e-4, f"K18 tracer vs K5 off by {vs_k5}")
-    # one stage's kernels: the G shards' gathers and the stage update, on
-    # the rays in entry-cell order (as the tracer marches them)
+    # device kernels of one trace by a profiler count: K18 once a stage and
+    # device, besides the trace's set-up (ray order, copies)
+    dk = device_kernels(lambda: tr(rows18, *targs), calls=1)
+    check(dk.get("stage_gather_kernel") == (4 * n + 1) * n_traces,
+          f"K18's device kernels on the trace: {dk}")
+    # one stage as the tracer runs it (the devices' partials summed over
+    # the line where it spans several, then each device's launch), on the
+    # rays in entry-cell order
     o = [float(v) for v in tp.origin]
     iv = [float(v) for v in tp.inv_spacing]
     srt = rows18[march.ray_order(rows18, (D, D, D), o, iv)].contiguous()
@@ -3268,24 +3322,43 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     chs = [tp.channels[g * nloc:(g + 1) * nloc].to(sdev[g])
            for g in range(G)]
     hal = [tp.channels[((g + 1) % G) * nloc].to(sdev[g]) for g in range(G)]
-    ts = [srt.to(d) for d in sdev]
-    st = (srt.clone(), srt.clone(), torch.empty_like(srt))
     steps = time_march.Steps.of(dt)
+    kw18 = dict(origin=o, inv_spacing=iv, nx_global=D, steps=steps,
+                layout=lay)
+    by_dev = {}
+    for g, d in enumerate(sdev):
+        by_dev.setdefault(d, []).append(
+            sharded_rhs.Shard(chs[g], hal[g], g * nloc, g == G - 1))
+    traces = {d: sharded_rhs.Trace(srt.T.contiguous().to(d), sh, **kw18)
+              for d, sh in by_dev.items()}
+    for t18 in traces.values():
+        t18.stage(None, None, True)
+    tdevs = list(traces)
 
-    def k18_stage(plain=False):
-        gfn = (gather_plain if plain else sharded_rhs.gather_owned)
-        sfn = (sharded_rhs.rk4_stage_plain if plain
-               else sharded_rhs.rk4_stage)
-        vals = [gfn(ts[g], chs[g], hal[g], origin=o, inv_spacing=iv,
-                    lo=g * nloc, nx_global=D, last=g == G - 1, layout=lay)
-                for g in range(G)]
-        sfn(*st, vals[0].to(dev), 0, steps, lay, -1.0)
+    def k18_step(plain=False):
+        """One step, its four stages as the tracer runs them."""
+        run = plain_stage if plain else sharded_rhs.Trace.stage
+        for stage in range(4):
+            sums = line_sum([traces[d].vals for d in tdevs], tdevs, False)
+            for d, t18 in traces.items():
+                run(t18, sums[d], stage, True)
 
-    k18_ms = wall_ms(k18_stage, calls=10)
-    k18_plain_ms = best_ms(lambda: k18_stage(True), reps=1, warmup=0)
-    # bytes: the positions read once, each shard's values written, the
-    # grid nodes this run's queries touch, the stage's state, stage state
-    # and sum read and written and the summed values read
+    k18_ms = wall_ms(k18_step, calls=25) / 4
+    for t18 in traces.values():
+        t18.t.copy_(t18.s)        # the plain stage 0 reads t, the kernel s
+    k18_plain_ms = best_ms(lambda: k18_step(True), reps=1, warmup=0) / 4
+    # the parent's psum: G per-shard (M, C) values added in shard order
+    # (three adds on one card), which the fused stage no longer runs
+    parts = [torch.zeros((M, C), device=d) for d in sdev]
+    parent_psum_ms = wall_ms(lambda: psum(parts, meshes["grid"], "grid"),
+                             calls=50)
+    del parts
+    # bytes: a stage's own work, a step's least traffic over its four
+    # stages (csrc/sharded_rhs.cu: the start state read four times, the
+    # stage state and sum three times each, the stage state and sum written
+    # three times each and the start state once, 17 x 36 bytes), the (C, N)
+    # partial written and read once a stage, and the grid nodes this run's
+    # queries touch
     t3 = ((srt[:, :3] - torch.tensor(o, device=dev))
           * torch.tensor(iv, device=dev)).floor().nan_to_num(0).clamp(
               0, D - 2).long()
@@ -3293,19 +3366,34 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     nodes = int(torch.unique(torch.cat([
         base + (dx * D + dy) * D + dz for dx in (0, 1) for dy in (0, 1)
         for dz in (0, 1)])).numel())
-    k18_bytes = M * (12 + 5 * 36 + 4 * C) + G * M * 4 * C + nodes * C * 4
+    k18_bytes = M * (17 * 36 // 4 + 2 * 4 * C) + nodes * C * 4
+    # the parent's count: each shard's positions read and values written,
+    # the state, stage state and sum read and written, the sum read
+    parent_bytes = M * (12 + 5 * 36 + 4 * C) + G * M * 4 * C + nodes * C * 4
     k18_flops = M * ((28 + 15 * C) + 6 + 9 * 3 + 9 * 2)
     b18 = bound(k18_bytes, k18_flops)
+    b18_parent = bound(parent_bytes, k18_flops)
+    stages = 4 * n
     k18_detail = {"rays": M, "steps": n, "of_steps": n_full,
-                  "launches": launches, "trace_s": run_s,
+                  "launches": launches, "stages": stages,
+                  "launches_per_stage_per_device":
+                      launches["sharded_rhs"] / n_traces / stages,
+                  "device_kernels_on_trace": dk,
+                  "device_kernels_per_stage_per_device":
+                      dk["stage_gather_kernel"] / n_traces / stages,
+                  "trace_s": run_s, "trace_ms_per_stage":
+                      run_s * 1e3 / stages,
                   "plain_trace_s": plain_s, "peak_gb": peak,
                   "vs_plain": k18, "vs_k5_max_rel_per_column": vs_k5,
                   "stage_ms": k18_ms, "stage_plain_ms": k18_plain_ms,
+                  "parent_psum_adds_ms": parent_psum_ms,
                   "bound_ms": b18[0], "bound_by": b18[1],
                   "bytes": k18_bytes, "flops": k18_flops,
+                  "bound_ms_parent_count": b18_parent[0],
+                  "bytes_parent_count": parent_bytes,
                   "grid_nodes_touched": nodes}
     emit({"phase": "K18_vs_plain", **k18_detail})
-    del tp, out, plain, ref, srt, st, chs, hal, ts
+    del tp, out, plain, ref, srt, chs, hal, traces
     torch.cuda.empty_cache()
 
     # -- multihost on a one-rank nccl group ---------------------------------
@@ -3350,7 +3438,15 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
          "max_abs_err": k18["max_abs_err"], "ms": k18_ms,
          "plain_ms": k18_plain_ms, "bound_ms": b18[0], "bound_by": b18[1],
          "library_ms": None,
-         "per": f"one RK4 stage: {G} gathers and the update, {M} rays"}]
+         "per": f"one RK4 stage of {M} rays on {G} shards ({n_traces} "
+                f"device(s)), the mean of a step's four: the update and the "
+                f"owned gathers; launches on the {n}-step check trace, "
+                f"4 x {n} + 1 a device",
+         "trace_ms": run_s * 1e3, "stages": stages,
+         "device_kernels_per_stage_per_device":
+             k18_detail["device_kernels_per_stage_per_device"],
+         "parent_psum_adds_ms": parent_psum_ms,
+         "bound_ms_parent_count": b18_parent[0]}]
     detail["mesh_path"] = {"placement": place, "modes": modes, "K17": k17,
                            "K18": k18_detail, "multihost": mh}
     return rows_out, detail
@@ -3655,7 +3751,8 @@ def main():
         from synthpy_tpu_torch.kernels import xray as kxray
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
                                                          device_kernels,
-                                                         nvidia_smi)
+                                                         nvidia_smi,
+                                                         time_walk_model)
         from synthpy_tpu_torch.ops.histogram import (_bin_index,
                                                      _pixel_index,
                                                      finalize_complex)
@@ -3696,6 +3793,8 @@ def main():
     k11_regs = k11_registers()
     k13_regs = k13_registers()
     k6_regs = k6_registers()
+    k5_regs = k5_registers()
+    k18_regs = k18_registers()
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
@@ -4296,6 +4395,13 @@ def main():
     sf_tp, k5_plain_ms = timed(lambda: time_march.march_plain(
         rows_all, *tgrid, dt, layout=layout, n_steps=n_steps))
     k5_all = close(sf_t, sf_tp, f"K5 at {RAYS} rays")
+    # and in the caller's order (the identity order, no sort)
+    arange = torch.arange(RAYS, device=dev)
+    k5_caller = close(time_march.launch(
+        time_march.KERNEL, rows_all, *tgrid, dt, arange, layout=layout,
+        n_steps=n_steps), sf_tp, f"K5 at {RAYS} rays in the caller's order")
+    check(k5_all["bit_equal"] and k5_caller["bit_equal"],
+          "K5's rows are not bit-equal to the plain version's")
     del sf_tp
     uf_t = zscan.permute_state(sf_t.T, "z").contiguous()
     p_t = sf_t[:, 2].contiguous()
@@ -4318,7 +4424,6 @@ def main():
         pipeline.run(domain, s0, solver="time", pack=tpack, bins=BINS)
 
     t_ms = best_ms(run_time, reps=3)
-    arange = torch.arange(RAYS, device=dev)
     k5_ms = batch_ms(lambda: time_march.march(
         rows_all, *tgrid, dt, layout=layout, n_steps=n_steps), calls=3)
     k5_caller_ms = batch_ms(lambda: time_march.launch(
@@ -4329,9 +4434,18 @@ def main():
                      "rays_per_s": RAYS / (t_ms * 1e-3), "k5_ms": k5_ms,
                      "k5_caller_order_ms": k5_caller_ms,
                      "k5_plain_ms": k5_plain_ms,
-                     "k5_vs_plain_all_rays": k5_all}
+                     "k5_vs_plain_all_rays": k5_all,
+                     "k5_vs_plain_caller_order": k5_caller}
     emit({"phase": "time_path", "dim": DIM, "rays": RAYS, "bins": list(BINS),
           **paths["time"]})
+    # K5's reads in the carried design (a model): the nodes the carried
+    # corners read along the plain march's stage points of the path's
+    # first 65,536 rays, in their entry-cell order, beside the first
+    # design's 8 nodes (8C loads) every in-grid stage
+    k5_model = time_walk_model(rows_sub, *tgrid, dt, layout=layout,
+                               n_steps=n_steps, order=march.ray_order(
+                                   rows_sub, DIM3, *tgrid[1:]))
+    emit({"phase": "K5_load_model", **k5_model})
 
     # zscan: pipeline.run on a prebuilt f32 ZScanPack (K4, then K3)
     reset()
@@ -4632,6 +4746,8 @@ def main():
     # grid-sharded time tracer (K18), a one-rank nccl group
     mesh_rows, mesh_detail = mesh_path(torch, dev, kernels, bound, reset,
                                        path_launches, close)
+    next(r for r in mesh_rows
+         if r["name"] == "sharded_rhs")["registers"] = k18_regs()
 
     # -- 3g. the sharded field path: a 1024^3 GRF synthesised over four
     # shards, each shard's pack rows built on its device (K2 on a row
@@ -4793,6 +4909,7 @@ def main():
     k6_b = bound(4 * ADAPTIVE_RAYS * 36 + cols_a * 2 * C * 4,
                  k6_flops(ADAPTIVE_RAYS))
     k6_inst = k6_regs()
+    k5_inst = k5_regs()
     k3r_b = bound(RAYS * 36 + BINS[0] * BINS[1] * 4, k3_flops)
     k3r_ms = batch_ms(lambda: detector.detect(uf_t, *det_t), calls=50)
     k3r_plain_ms = best_ms(lambda: detector.detect_plain(uf_t, *det_t),
@@ -4829,7 +4946,11 @@ def main():
          "max_abs_err": max([k5_all["max_abs_err"]]
                             + [v["max_abs_err"] for v in k5.values()]),
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_b[0],
-         "bound_by": k5_b[1], "library_ms": None},
+         "bound_by": k5_b[1], "library_ms": None,
+         "registers": k5_inst, "load_model": {k: k5_model[k] for k in (
+             "nodes_per_in_grid_stage", "loads_per_in_grid_stage",
+             "loads_per_in_grid_step", "first_loads_per_in_grid_stage",
+             "first_loads_per_in_grid_step", "warp_stages_reading")}},
         {"name": "adaptive_step", "route": "cuda",
          "source": csrc + "adaptive.cu",
          "replaces": "synthpy_tpu/tracer/adaptive.py:53",

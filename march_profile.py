@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Profile kernel K1 (the segment march) at the main path's shapes on a
-card, time kernel K11 (its adjoint) on the inversion path's inputs, or
-time kernel K13 (the Boris push) on the proton path's.
+card, or time kernel K11 (its adjoint) on the inversion path's inputs,
+K13 (the Boris push) on the proton path's, K6 (the adaptive step) on the
+adaptive path's, K5 (the time march) on the time path's or K18 (the
+grid-sharded time tracer's stage) on its check trace.
 
     python3 march_profile.py        # from the repository root, one GPU
     python3 march_profile.py adjoint [--root DIR] [--reps N] [--save F]
@@ -10,6 +12,10 @@ time kernel K13 (the Boris push) on the proton path's.
                                    [--against F]
     python3 march_profile.py adaptive [--root DIR] [--reps N] [--save F]
                                       [--against F]
+    python3 march_profile.py time [--root DIR] [--reps N] [--save F]
+                                  [--against F]
+    python3 march_profile.py k18 [--root DIR] [--reps N] [--save F]
+                                 [--against F]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -95,6 +101,29 @@ step cap) it prints one JSON line with:
   exit rows; with ``--save F`` the rows and counts written to F, with
   ``--against F`` (another tree's file) whether the counts are equal and
   the rows bit-equal to that tree's, and their largest difference.
+
+``time`` and ``k18`` import ``synthpy_tpu_torch`` from ``DIR`` as
+``adjoint`` does, so that parent and change run in turns on one card.
+``time``, on the time path's inputs (``chip_smoke.py``'s ``time_path``:
+the 512^3 bench lens, 4 M rays of the 2 mm beam, 723 RK4 steps), prints
+one JSON line with ``ptxas`` (registers, spills and occupancy of K5 at
+every layout, C = 3 to 8), ``k5_ms`` (one ``time_march.march`` call, the
+ray order included; CUDA events around 3 calls, best of ``--reps``),
+``k5_kernel_ms`` (one launch in a precomputed entry-cell order),
+``run_ms`` (``pipeline.run(solver="time")`` on the prebuilt pack), the
+same march at the widest layout (``c8``: C = 8, the lens with inverse
+bremsstrahlung, phase and Faraday channels at 512^3, the first 1 M rays)
+and a SHA-256 of each case's exit rows. ``k18``, on the grid-sharded tracer's check
+trace (``chip_smoke.py``'s ``mesh_path``: the 512^3 lens on four shards of
+one card, the first 1 M rays, the first quarter of the 723 steps),
+prints ``ptxas`` of the tree's K18 kernels at C = 3 and 8, ``trace_ms``
+(one trace, host loop included; best of ``--reps``) and its share a
+stage, K18's launches on the trace, the device kernels of one trace by
+name (a profiler count) and their device time by kernel
+(``device_ms_on_trace``; the trace in ``chiprun_out/k18_trace.json``) and
+a stage's share, and a SHA-256 of the exit rows. For both, ``--save F``
+writes the rows to F and ``--against F`` (another tree's file) says
+whether they are bit-equal to that tree's.
 """
 
 from __future__ import annotations
@@ -505,10 +534,177 @@ def adaptive_part(args):
     print(json.dumps({"part": "adaptive", **out}), flush=True)
 
 
+def _rows_report(out: dict, rows: dict, args) -> None:
+    """A SHA-256 of each of ``rows`` (name: tensor) in ``out``; with
+    ``--save`` the rows written, with ``--against`` whether each is
+    bit-equal to another tree's."""
+    import torch
+    rows = {k: v.cpu() for k, v in rows.items()}
+    out["sha256"] = {k: hashlib.sha256(v.numpy().tobytes()).hexdigest()
+                     for k, v in rows.items()}
+    if args.save:
+        torch.save(rows, args.save)
+    if args.against:
+        ref = torch.load(args.against)
+        out["against"] = {"file": args.against}
+        for k, v in rows.items():
+            same = v.shape == ref[k].shape
+            out["against"][k] = {
+                "bit_equal": same and torch.equal(v.view(torch.int32),
+                                                  ref[k].view(torch.int32)),
+                "max_abs_diff": float((v - ref[k]).abs().nan_to_num(0.0)
+                                      .max()) if same else None}
+
+
+def _threads(src: Path) -> int:
+    return int(re.search(r"constexpr int THREADS = (\d+);",
+                         src.read_text()).group(1))
+
+
+def time_part(args):
+    """The ``time`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch import pipeline
+    from synthpy_tpu_torch.fields import ScalarDomain
+    from synthpy_tpu_torch.fields.domain import build_pack, layout_of
+    from synthpy_tpu_torch.kernels import _build, march, time_march
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     nvidia_smi, ptxas)
+    from synthpy_tpu_torch.tracer import init_beam
+    from synthpy_tpu_torch.tracer.propagator import default_n_steps, dt_of
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi()}
+    src = _build.CSRC / time_march.KERNEL.source
+    kern, _, _ = ptxas(src, time_march.KERNEL.flags)
+    threads = _threads(src)
+    out["ptxas"] = {}
+    for n, v in kern.items():
+        m = re.search(r"rk4_kernel.*LayoutILi(\d)ELi(\d)ELi(\d)E", n)
+        if m:
+            ib, ps, bon = (int(x) for x in m.groups())
+            out["ptxas"][f"C{3 + ib + ps + 3 * bon}_{ib}{ps}{bon}"] = {
+                **v, **occupancy(v["regs"], threads, v.get("smem", 0))}
+
+    domain = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                              LR=1.5e-3)
+    tpack = build_pack(domain)
+    tgrid = (tpack.channels, tpack.origin, tpack.inv_spacing)
+    n_steps = default_n_steps(domain, domain.extent)
+    dt = dt_of(n_steps, domain.extent)
+    s0 = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular", device=dev)
+    rows = s0.T.contiguous()
+    kw = dict(layout=layout_of(domain), n_steps=n_steps)
+    order = march.ray_order(rows, tuple(tpack.channels.shape[:3]),
+                            *tgrid[1:])
+    out.update(n_steps=n_steps, rays=RAYS)
+    out["k5_ms"] = min(batch_ms(lambda: time_march.march(
+        rows, *tgrid, dt, **kw), calls=3) for _ in range(args.reps))
+    out["k5_kernel_ms"] = min(batch_ms(lambda: time_march.launch(
+        time_march.KERNEL, rows, *tgrid, dt, order, **kw), calls=3)
+        for _ in range(args.reps))
+    out["run_ms"] = best_ms(lambda: pipeline.run(
+        domain, s0, solver="time", pack=tpack, bins=BINS), reps=args.reps)
+    lens_rows = time_march.march(rows, *tgrid, dt, **kw)
+    del tpack, tgrid
+    # the widest layout, C = 8 (inverse bremsstrahlung, phase, Faraday) at
+    # 512^3, on the first 1 M rays
+    phys = ScalarDomain(2 * EXT, DIM, inv_brems=True, phaseshift=True,
+                        device=dev).test_lens(ne_0=5e24, LR=1.5e-3)
+    phys.external_Te(50.0 + 10.0 * torch.rand(
+        phys.dims, generator=torch.Generator().manual_seed(1)))
+    phys.external_Z(2.0 * torch.ones(phys.dims))
+    phys.test_B(Bmax=10.0)
+    ppack = build_pack(phys)
+    pgrid = (ppack.channels, ppack.origin, ppack.inv_spacing)
+    p_steps = default_n_steps(phys, phys.extent)
+    pdt = dt_of(p_steps, phys.extent)
+    prows = rows[:C8_RAYS].contiguous()
+    pkw = dict(layout=layout_of(phys), n_steps=p_steps)
+    out["c8"] = {"rays": C8_RAYS, "n_steps": p_steps,
+                 "C": layout_of(phys).n_channels,
+                 "k5_ms": min(batch_ms(lambda: time_march.march(
+                     prows, *pgrid, pdt, **pkw), calls=2)
+                     for _ in range(args.reps))}
+    _rows_report(out, {"lens": lens_rows, "c8": time_march.march(
+        prows, *pgrid, pdt, **pkw)}, args)
+    print(json.dumps({"part": "time", **out}), flush=True)
+
+
+C8_RAYS = 1_000_000   # the time part's C = 8 case
+
+
+# the grid-sharded time tracer's check trace (chip_smoke.py MESH): the
+# 512^3 bench lens on four shards of one card, the first 1 M rays, the
+# first quarter of the depth
+K18_RAYS, K18_SHARDS = 1_000_000, 4
+
+
+def k18_part(args):
+    """The ``k18`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch.fields import ScalarDomain
+    from synthpy_tpu_torch.fields.domain import build_pack, layout_of
+    from synthpy_tpu_torch.kernels import _build, sharded_rhs
+    from synthpy_tpu_torch.kernels.profiling import (best_ms, device_kernels,
+                                                     kernel_ms, nvidia_smi,
+                                                     ptxas)
+    from synthpy_tpu_torch.parallel import Mesh, make_gridsharded_tracer
+    from synthpy_tpu_torch.tracer import init_beam
+    from synthpy_tpu_torch.tracer.propagator import default_n_steps, dt_of
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi()}
+    src = _build.CSRC / sharded_rhs.KERNEL.source
+    kern, _, _ = ptxas(src, sharded_rhs.KERNEL.flags)
+    threads = _threads(src)
+    out["ptxas"] = kernel_report(
+        kern, r"\d+(gather_kernel|stage_kernel|stage_gather_kernel)",
+        {"gather_kernel": threads, "stage_kernel": threads,
+         "stage_gather_kernel": threads})
+
+    dom = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                           LR=1.5e-3)
+    tp = build_pack(dom)
+    n_full = default_n_steps(dom, dom.extent, 1.0)
+    n = n_full // 4
+    dt = dt_of(n_full, dom.extent)
+    rows = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular",
+                     device=dev)[:, :K18_RAYS].T.contiguous()
+    mesh = Mesh((K18_SHARDS,), ("grid",), devices=[dev] * K18_SHARDS)
+    tr = make_gridsharded_tracer(mesh, layout_of(dom), n, nx_global=DIM)
+
+    def trace():
+        return tr(rows, tp.channels, tp.origin, tp.inv_spacing, dt)
+
+    stages = 4 * n
+    out.update(rays=K18_RAYS, steps=n, stages=stages, shards=K18_SHARDS)
+    out["trace_ms"] = best_ms(trace, reps=args.reps)
+    out["trace_ms_per_stage"] = out["trace_ms"] / stages
+    sharded_rhs.KERNEL.launches = 0
+    res = trace()
+    out["launches_on_trace"] = sharded_rhs.KERNEL.launches
+    out["device_kernels_on_trace"] = device_kernels(trace, calls=1)
+    os.makedirs("chiprun_out", exist_ok=True)
+    dev_ms = kernel_ms(trace, Path("chiprun_out") / "k18_trace.json",
+                       reps=1)
+    out["device_ms_on_trace"] = dev_ms
+    out["device_ms_per_stage"] = dev_ms["total"] / stages
+    _rows_report(out, {"trace": res}, args)
+    print(json.dumps({"part": "k18", **out}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("part", nargs="?",
-                    choices=["march", "adjoint", "boris", "adaptive"],
+                    choices=["march", "adjoint", "boris", "adaptive", "time",
+                             "k18"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -522,6 +718,10 @@ def main():
         return boris_part(args)
     if args.part == "adaptive":
         return adaptive_part(args)
+    if args.part == "time":
+        return time_part(args)
+    if args.part == "k18":
+        return k18_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

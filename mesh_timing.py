@@ -3,6 +3,7 @@
 ``sharded_field_path``) alone.
 
     python3 mesh_timing.py        # from the repository root
+    python3 mesh_timing.py mesh   # mesh_path alone
 
 On a host with four or more cards the mesh's four shards go on cuda:0-3,
 otherwise all on cuda:0, as in chip_smoke.py. Builds the kernels the
@@ -73,9 +74,10 @@ def main():
     t = time.perf_counter()
     rows, _ = cs.mesh_path(torch, torch.device("cuda"), kernels, bound,
                            reset, path_launches, close)
-    more, _ = cs.sharded_field_path(torch, torch.device("cuda"), kernels,
-                                    bound, reset, path_launches)
-    rows += more
+    if sys.argv[1:] != ["mesh"]:
+        more, _ = cs.sharded_field_path(torch, torch.device("cuda"),
+                                        kernels, bound, reset, path_launches)
+        rows += more
     print(json.dumps({"kernels": rows,
                       "script_s": time.perf_counter() - t}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -87,15 +87,19 @@ class Kernel:
 
     ``functions`` maps each exported C function to its argument types; each
     returns the ``cudaError_t`` of its launches (0 when all launched).
+    ``helpers``: host functions of the source that launch nothing (no
+    stream argument), with their argument types; each returns an int.
     ``events``: None, or a list to which each launch appends its (start,
     end) CUDA events, recorded on its stream, for timing a launch where a
     caller makes it (off by default).
     """
 
     def __init__(self, source: str, functions: Dict[str, Sequence],
-                 flags: Sequence[str] = ()):
+                 flags: Sequence[str] = (),
+                 helpers: Optional[Dict[str, Sequence]] = None):
         self.source = source
         self.functions = functions
+        self.helpers = dict(helpers or {})
         self.flags = list(flags)
         self.launches = 0
         self.events = None
@@ -105,7 +109,8 @@ class Kernel:
         if self._lib is None:
             path = build({self.source: self.flags})[self.source]
             lib = ctypes.CDLL(str(path))
-            for name, argtypes in self.functions.items():
+            for name, argtypes in {**self.functions,
+                                   **self.helpers}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int

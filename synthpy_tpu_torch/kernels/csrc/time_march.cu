@@ -11,21 +11,40 @@
 // 9-wide update, and read 8C values from the grid, which it touches along
 // the rays' paths only; the state is read and written once. Over the 723
 // steps of the 512^3 main path that is ~1.3e12 operations for 4 M rays
-// (PERF.md has the bound and the measured time).
+// (PERF.md has the bound and the measured time). In practice the corner
+// reads held the first design at 21% of that: 8C scalar loads a stage, 96
+// a ray-step at C = 3, most of them of the cell the ray has just read.
+//
 // The design: one thread owns a ray and keeps its 9 columns in registers for
 // all n_steps, so no state goes to memory between steps; the grid is read
 // through the read-only cache. The wrapper may hand the rays over in an
 // order (kernels/time_march.ray_order: by entry cell), so that the rays of
 // a warp gather neighbouring grid rows; ray i of the launch is ray order[i]
 // of the caller and its result goes back to row order[i]. The order moves
-// only where a ray's result is computed, never its arithmetic.
+// only where a ray's result is computed, never its arithmetic. Then, on
+// K13's template (boris.cu):
+//
+// - Carried corners (time_rhs::trilinear_carried). A thread keeps the 8 x C
+//   corner values of its last cell in registers across stages and steps.
+//   The 723 steps cross the 512 z-cells, so a ray changes its z-cell about
+//   every 5-6 stages and rarely its x- or y-cell: an unchanged cell reads
+//   nothing, a move of one along an axis shifts the carried values and
+//   reads the 4 nodes that came in, a jump or the first in-grid stage all
+//   8 (profiling.time_walk_model counts them along the plain march).
+// - Issue slots, as K13 measured them: each axis shifts under its own
+//   test, a node is C single loads at immediate offsets from one of four
+//   column pointers, reads are predicated per lane, blocks are 128 threads.
+// - Every layout carries: at C = 8, with 143 registers against the first
+//   design's 64, the carried march ran in a third of the first design's
+//   time on the H100 (PERF.md).
+//
 // Arithmetic follows the JAX step (k1, s + (0.5 dt) k1, ..., then
 // s + (dt/6)(((k1 + 2 k2) + 2 k3) + k4)), operation for operation as the
 // plain PyTorch version does it; built with --fmad=false, with a fused
 // multiply-add exactly where XLA's CPU compiler fuses one in the JAX step
 // (each s + c k, and the corner sum of time_rhs.cuh), so the plain version
 // on the CPU is bit-equal to the JAX program and the kernel to the plain
-// version.
+// version. The carried gather blends the same values in the same order.
 
 #include "time_rhs.cuh"
 
@@ -53,18 +72,19 @@ __global__ void __launch_bounds__(THREADS) rk4_kernel(Params P) {
   float s[9];
 #pragma unroll
   for (int q = 0; q < 9; ++q) s[q] = P.s_in[r * 9 + q];
+  time_rhs::Carry<LY::C> K;
   for (int step = 0; step < P.n_steps; ++step) {
     float k1[9], k2[9], k3[9], k4[9], t[9];
-    time_rhs::rhs<LY>(P.G, s, P.atten_sign, k1);
+    time_rhs::rhs_carried<LY>(P.G, K, s, P.atten_sign, k1);
 #pragma unroll
     for (int q = 0; q < 9; ++q) t[q] = __fmaf_rn(P.hh, k1[q], s[q]);
-    time_rhs::rhs<LY>(P.G, t, P.atten_sign, k2);
+    time_rhs::rhs_carried<LY>(P.G, K, t, P.atten_sign, k2);
 #pragma unroll
     for (int q = 0; q < 9; ++q) t[q] = __fmaf_rn(P.hh, k2[q], s[q]);
-    time_rhs::rhs<LY>(P.G, t, P.atten_sign, k3);
+    time_rhs::rhs_carried<LY>(P.G, K, t, P.atten_sign, k3);
 #pragma unroll
     for (int q = 0; q < 9; ++q) t[q] = __fmaf_rn(P.dt, k3[q], s[q]);
-    time_rhs::rhs<LY>(P.G, t, P.atten_sign, k4);
+    time_rhs::rhs_carried<LY>(P.G, K, t, P.atten_sign, k4);
 #pragma unroll
     for (int q = 0; q < 9; ++q)
       s[q] = __fmaf_rn(P.h6, k1[q] + 2.0f * k2[q] + 2.0f * k3[q] + k4[q],

@@ -1,8 +1,8 @@
-"""Timing, ptxas reports and source variants of the CUDA kernels, and K13's
-load model, shared by ``chip_smoke.py`` and the root profilers
-(``march_profile.py``, ``pack_profile.py``). Nothing in the package calls
-it; everything here but the load model needs a CUDA device or ``nvcc``
-when it is called, not when it is imported.
+"""Timing, ptxas reports and source variants of the CUDA kernels, and the
+load models of K13 and K5, shared by ``chip_smoke.py`` and the root
+profilers (``march_profile.py``, ``pack_profile.py``). Nothing in the
+package calls it; everything here but the load models needs a CUDA device
+or ``nvcc`` when it is called, not when it is imported.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import subprocess
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from synthpy_tpu_torch.kernels import _build
@@ -232,6 +233,18 @@ def corners_to_read(old: Sequence[int], new: Sequence[int]) -> int:
     return need
 
 
+def _move_tables(dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(3, 5) ``corners_to_read`` of a move of d (-2 .. 2, index d + 2;
+    beyond two reads as two) along each axis alone, and the popcount of
+    each of the 256 masks."""
+    tables = torch.tensor([[corners_to_read((0, 0, 0), [
+        d if a == axis else 0 for a in range(3)]) for d in range(-2, 3)]
+        for axis in range(3)], device=dev)
+    popcount = torch.tensor([bin(m).count("1") for m in range(256)],
+                            device=dev)
+    return tables, popcount
+
+
 def walk_model(rows: torch.Tensor, shape: Sequence[int],
                origin: Sequence[float], inv_spacing: Sequence[float],
                h: float, n_steps: int, elem_size: int,
@@ -258,12 +271,7 @@ def walk_model(rows: torch.Tensor, shape: Sequence[int],
                        device=dev)
     dims = torch.tensor(list(shape), dtype=torch.float64, device=dev)
     ny, nz = int(shape[1]), int(shape[2])
-    # corners_to_read of a move of d (-2 .. 2) along each axis alone
-    tables = torch.tensor([[corners_to_read((0, 0, 0), [
-        d if a == axis else 0 for a in range(3)]) for d in range(-2, 3)]
-        for axis in range(3)], device=dev)
-    popcount = torch.tensor([bin(m).count("1") for m in range(256)],
-                            device=dev)
+    tables, popcount = _move_tables(dev)
     offs = torch.tensor(node_offsets(shape), device=dev)
     key = torch.full((n, 3), -2, dtype=torch.long, device=dev)
     in_grid = reads = 0
@@ -313,3 +321,99 @@ def walk_model(rows: torch.Tensor, shape: Sequence[int],
         out[f"{k}_sectors_per_warp_load"] = sec / max(ins, 1)
         out[f"{k}_sectors_per_warp_step"] = sec / max(warp_steps, 1)
     return out
+
+
+# -- K5's load model (kernels/time_march.py) ---------------------------------
+
+class CornerWalk:
+    """The carried corners of ``n`` lanes as K5's gather keeps them
+    (``time_rhs.cuh`` ``trilinear_carried``) on an (nx, ny, nz, C) grid:
+    ``visit`` takes the lanes' (n, 3) float32 gather points, computes the
+    fractional index, the inside mask and the corner cell in float32 as
+    the kernel does, and returns the corners (a bit mask of q, as
+    ``corners_to_read``) each lane reads; a point outside the box reads
+    nothing and keeps the lane's carry. Before its first in-grid point a
+    lane carries (-2, -2, -2)."""
+
+    def __init__(self, n: int, shape: Sequence[int], origin, inv_spacing,
+                 device=None):
+        self.o = torch.tensor([float(a) for a in origin],
+                              dtype=torch.float32, device=device)
+        self.inv = torch.tensor([float(a) for a in inv_spacing],
+                                dtype=torch.float32, device=device)
+        self.top = torch.tensor([float(v - 1) for v in shape[:3]],
+                                dtype=torch.float32, device=device)
+        self.key = torch.full((n, 3), -2, dtype=torch.long, device=device)
+        self.tables, self.popcount = _move_tables(device)
+
+    def visit(self, pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the corners each lane reads, the lanes inside the box) at the
+        (n, 3) points ``pos``."""
+        t = (pos.to(torch.float32) - self.o) * self.inv
+        inside = ((t >= 0) & (t <= self.top)).all(dim=1)
+        cell = torch.minimum(torch.floor(t).nan_to_num(0.0),
+                             self.top - 1).long()
+        d = (cell - self.key).clamp(-2, 2) + 2
+        need = (self.tables[0][d[:, 0]] | self.tables[1][d[:, 1]]
+                | self.tables[2][d[:, 2]]) * inside
+        self.moved = (cell != self.key) & inside[:, None]
+        self.key = torch.where(inside[:, None], cell, self.key)
+        return need, inside
+
+
+def time_walk_model(rows: torch.Tensor, channels: torch.Tensor, origin,
+                    inv_spacing, dt, *, layout, n_steps: int,
+                    atten_sign: float = -1.0,
+                    order: Optional[torch.Tensor] = None
+                    ) -> Dict[str, float]:
+    """A model of K5's corner reads along the plain march's stage points:
+    the (N, 9) ``rows`` in ``order`` (None: the rows' own) marched by
+    ``time_march.march_plain``'s arithmetic, each of the 4 stage points of
+    every step visited by a ``CornerWalk``. Counts the in-grid
+    lane-stages, the nodes the carried gather reads and its loads (C a
+    node; the first design read all 8 nodes, 8C loads, at every in-grid
+    stage), and, for warps of 32 lanes, the share of warp-stages in which
+    some lane reads and in which some lane shifts along z, y or x (a warp
+    issues a read or a shift when any of its lanes needs it)."""
+    from synthpy_tpu_torch.kernels.time_march import Steps, rhs
+    from synthpy_tpu_torch.ops.interp import fma
+
+    r = rows if order is None else rows[order]
+    n = r.shape[0] // WARP * WARP
+    s = r[:n].contiguous()
+    dev = s.device
+    C = layout.n_channels
+    st = Steps.of(dt)
+    o = torch.tensor(np.asarray(origin, np.float32), device=dev)
+    inv = torch.tensor(np.asarray(inv_spacing, np.float32), device=dev)
+    walk = CornerWalk(n, channels.shape, origin, inv_spacing, dev)
+    # in-grid lane-stages, node reads, warp-stages with a lane inside, with
+    # a lane reading, with a lane shifting along x, y, z (on the device)
+    tally = torch.zeros(7, dtype=torch.long, device=dev)
+
+    def f(x):
+        need, inside = walk.visit(x[:, 0:3])
+        warps = torch.stack([inside, need > 0, *walk.moved.T]).view(
+            5, -1, WARP).any(2).sum(1)
+        tally.add_(torch.cat([inside.sum()[None],
+                              walk.popcount[need].sum()[None], warps]))
+        return rhs(x, channels, o, inv, layout, atten_sign)
+
+    for _ in range(n_steps):
+        k1 = f(s)
+        k2 = f(fma(st.hh, k1, s))
+        k3 = f(fma(st.hh, k2, s))
+        k4 = f(fma(st.dt, k3, s))
+        s = fma(st.h6, k1 + 2 * k2 + 2 * k3 + k4, s)
+    in_grid, reads, warp_in, warp_read, *shift = tally.tolist()
+    g, w = max(in_grid, 1), max(warp_in, 1)
+    return {"rays": n, "steps": n_steps, "C": C,
+            "in_grid_lane_stages": in_grid,
+            "node_reads": reads,
+            "nodes_per_in_grid_stage": reads / g,
+            "loads_per_in_grid_stage": C * reads / g,
+            "loads_per_in_grid_step": 4 * C * reads / g,
+            "first_loads_per_in_grid_stage": 8 * C,
+            "first_loads_per_in_grid_step": 32 * C,
+            "warp_stages_reading": warp_read / w,
+            "warp_stages_shifting_zyx": [v / w for v in shift[::-1]]}

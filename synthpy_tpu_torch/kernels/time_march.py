@@ -33,7 +33,8 @@ KERNEL = Kernel("time_march.cu", {
 
 class Steps(NamedTuple):
     """The float32 step constants the plain version and the kernel share:
-    dt, 0.5*dt and dt/6 as the JAX step rounds them."""
+    dt, 0.5*dt and dt/6 as the compiled JAX step rounds them (XLA folds
+    the division by 6 into ``dt * f32(1/6)``)."""
 
     dt: float
     hh: float
@@ -43,7 +44,7 @@ class Steps(NamedTuple):
     def of(cls, dt) -> "Steps":
         d = np.float32(float(dt))
         return cls(float(d), float(np.float32(0.5) * d),
-                   float(d / np.float32(6.0)))
+                   float(d * np.float32(1.0 / 6.0)))
 
 
 def rhs(s: torch.Tensor, channels: torch.Tensor, origin, inv_spacing,

@@ -37,8 +37,10 @@ The mesh modes:
   one-row halo from the right neighbour: ``make_gridsharded_segment_tracer``
   (kernel K17, ``kernels.march_sharded``, one launch a shard and segment,
   a psum of the (N, 8) state a segment) and ``make_gridsharded_tracer``
-  (the time tracer; kernel K18, ``kernels.sharded_rhs``, a gather a shard
-  and stage, a psum of the channel values, the stage's update);
+  (the time tracer; kernel K18, ``kernels.sharded_rhs``, one launch a
+  device and stage: the stage's update and the gather of the device's
+  shards, then a psum of the devices' partials where the line spans
+  several);
 * the segments split by probing depth over a ``seg`` axis
   (``parallel.pipeline_pp``).
 
@@ -460,11 +462,14 @@ def make_gridsharded_tracer(mesh: Mesh, layout: ChannelLayout, n_steps: int,
     with ``s_rows`` (N, 9) (a tensor or ``Sharded`` over ``ray_axis``) and
     ``channels`` the (nx, ny, nz, C) grid (a tensor, split here, or a
     ``Sharded`` over ``grid_axis``). Shard g holds x-rows [g nloc, (g+1)
-    nloc) and the first row of shard g+1 (cyclic), ppermuted once; at every
-    stage K18 gathers the values of the queries it owns, a psum adds them
-    over the grid axis, and K18's ``rk4_stage`` makes the derivative and
-    the update. The JAX program rounds the same way (held bit for bit on
-    the CPU); it differs from the unsharded tracer by the shards' moved
+    nloc) and the first row of shard g+1 (cyclic), ppermuted once. Each
+    device runs one K18 launch a stage (``kernels.sharded_rhs.Trace``): it
+    finishes the stage from the channel values summed over the grid line
+    and gathers, at the new stage state, the values of the queries its
+    shards own into one partial; the partials of the line's devices are
+    added in shard order between launches (nothing to add when one device
+    holds the line). The JAX program rounds the same way (held bit for bit
+    on the CPU); it differs from the unsharded tracer by the shards' moved
     origins, within 1e-4 of each column's scale."""
     local_axis(mesh, grid_axis, "the grid-sharded tracer")
     G = mesh.shape[grid_axis]
@@ -473,6 +478,14 @@ def make_gridsharded_tracer(mesh: Mesh, layout: ChannelLayout, n_steps: int,
         raise ValueError(f"nx {nx_global} must divide over the {G}-way "
                          f"{grid_axis!r} axis")
     nloc = nx_global // G
+    keys = _blocks(mesh, r_ax)
+    # the positions each block (ray block, device) holds on its grid line,
+    # in shard order, and each line's blocks in the order of its shards
+    held: Dict[tuple, List[int]] = {}
+    for p, k in enumerate(keys):
+        held.setdefault(k, []).append(p)
+    lines = [list(dict.fromkeys(keys[p] for p in line))
+             for line in mesh.groups(grid_axis)]
 
     def tracer(s_rows, channels, origin, inv_spacing, dt):
         was = isinstance(s_rows, Sharded)
@@ -483,41 +496,52 @@ def make_gridsharded_tracer(mesh: Mesh, layout: ChannelLayout, n_steps: int,
                              f"nx_global={nx_global}")
         o = [float(v) for v in torch.as_tensor(origin).tolist()]
         iv = [float(v) for v in torch.as_tensor(inv_spacing).tolist()]
-        steps = Steps.of(float(dt))
+        kw = dict(origin=o, inv_spacing=iv, nx_global=nx_global,
+                  steps=Steps.of(float(dt)), layout=layout,
+                  atten_sign=atten_sign)
         # the halo: the first x-row of the right neighbour
         halo = ppermute([c[0].contiguous() for c in ch_sh.shards], mesh,
                         grid_axis, [(i, (i - 1) % G) for i in range(G)])
-        keys = _blocks(mesh, r_ax)
-        states = {}
-        for p, k in enumerate(keys):
-            if k in states:
-                continue
-            s = s_sh.shards[p].to(torch.float32).contiguous()
+        traces, orders = {}, {}
+        for k, ps in held.items():
+            s = s_sh.shards[ps[0]].to(torch.float32).contiguous()
             # march in entry-cell order: a warp's gathers share grid rows
             order = _march.ray_order(s, ch_sh.shape[:3], o, iv)
-            s = s[order].contiguous()
-            states[k] = (s, s.clone(), torch.empty_like(s), order)
-        for _ in range(n_steps):
+            shards = [_rhs.Shard(ch_sh.shards[p], halo[p],
+                                 mesh.index(p, grid_axis) * nloc,
+                                 mesh.index(p, grid_axis) == G - 1)
+                      for p in ps]
+            traces[k] = _rhs.Trace(s[order].T.contiguous(), shards, **kw)
+            orders[k] = order
+
+        def summed():
+            """Each block's sum of its line's partials (the partial itself
+            where one device holds the line: nothing is added). A partial
+            is overwritten in place by its device's next launch: PyTorch
+            runs a copy between cards on the source card's current stream,
+            the stream the launch goes to, after a barrier with the
+            destination's, so the launch follows every copy that reads
+            the partial, and each card adds only after its copies land."""
+            out = {}
+            for line in lines:
+                sums = line_sum([traces[k].vals for k in line],
+                                [k[1] for k in line], False)
+                out.update((k, sums[k[1]]) for k in line)
+            return out
+
+        for tr in traces.values():
+            tr.stage(None, None, True)
+        for step in range(n_steps):
             for stage in range(4):
-                vals = [_rhs.gather_owned(
-                    states[keys[p]][1], ch_sh.shards[p], halo[p], origin=o,
-                    inv_spacing=iv, lo=mesh.index(p, grid_axis) * nloc,
-                    nx_global=nx_global,
-                    last=mesh.index(p, grid_axis) == G - 1, layout=layout)
-                    for p in range(mesh.size)]
-                vals = psum(vals, mesh, grid_axis)
-                seen = set()
-                for p, k in enumerate(keys):
-                    if k in seen:
-                        continue
-                    seen.add(k)
-                    s, t, acc, _ = states[k]
-                    _rhs.rk4_stage(s, t, acc, vals[p], stage, steps, layout,
-                                   atten_sign)
+                sums = summed()
+                more = step < n_steps - 1 or stage < 3
+                for k, tr in traces.items():
+                    tr.stage(sums[k], stage, more)
         out = {}
-        for k, (s, _, _, order) in states.items():
-            res = torch.empty_like(s)
-            res[order] = s
+        for k, tr in traces.items():
+            res = torch.empty(tr.s.shape[::-1], dtype=tr.s.dtype,
+                              device=tr.s.device)
+            res[orders[k]] = tr.s.T
             out[k] = res
         return _result(s_sh, out, keys, was)
 

@@ -486,6 +486,106 @@ def _adaptive_pair(dev, layout, probe, n, **kw):
     return a, b
 
 
+def _bit_same(a, b):
+    """Bit for bit (signed zeros apart), NaN rows at the same places."""
+    a, b = a.cpu(), b.cpu()
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0).view(torch.int32),
+                            b.nan_to_num(0.0).view(torch.int32)))
+
+
+def _walk_scene(layout, seed=0):
+    """A (13, 11, 17, C) field with a strong pull to its centre (channels
+    0-2) and noise, and 1,024 rays through it: three quarters cross about
+    a third of a cell a stage, the rest two to three cells (jumps); eight
+    sit on the last x node, one is NaN, seven start below the box heading
+    in; rays near a face leave and come back within a step. 30 RK4 steps.
+    (channels, origin, inv_spacing, rows, dt, n_steps, layout), on the
+    CPU."""
+    lay = ChannelLayout(*(bool(v) for v in layout))
+    C = lay.n_channels
+    shape = (13, 11, 17)
+    rng = np.random.default_rng(seed)
+    o = np.array([-1.0, -0.8, -1.2], np.float32)
+    inv = np.array([6.0, 6.25, 6.5], np.float32)
+    top = o + (np.array(shape) - 1) / inv
+    idx = np.stack(np.meshgrid(*[np.arange(n) for n in shape],
+                               indexing="ij"), -1)
+    ch = rng.normal(size=shape + (C,)).astype(np.float32) * 20
+    ch[..., :3] -= (400.0 * (o + idx / inv - (o + top) / 2)).astype(
+        np.float32)
+    N = 1024
+    rows = np.zeros((N, 9), np.float32)
+    rows[:, :3] = rng.uniform(o, top, (N, 3))
+    d = rng.normal(size=(N, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rows[:, 3:6] = d * np.where(rng.random(N) < 0.75, 2.0, 20.0)[:, None]
+    rows[:, 6:9] = (1.0, 0.1, -0.2)
+    rows[:8, 0], rows[:8, 3] = top[0], 0.0
+    rows[8, 5] = np.nan
+    rows[9:16, 2], rows[9:16, 5] = o[2] - 0.3, 6.0
+    return (torch.tensor(ch), o.tolist(), inv.tolist(), torch.tensor(rows),
+            0.02, 30, lay)
+
+
+def _walk_events(ch, o, inv, rows, dt, n_steps, lay):
+    """The moves K5's carried corners meet along the plain march's stage
+    points (``profiling.CornerWalk``): a face read anew along +-z, +-y,
+    +-x, all 8 after an in-grid stage (a jump), an in-grid stage after an
+    outside one (a return), a point on the last x node."""
+    from synthpy_tpu_torch.kernels.profiling import CornerWalk
+
+    walk = CornerWalk(rows.shape[0], ch.shape, o, inv)
+    faces = {"+z": 0xAA, "-z": 0x55, "+y": 0xCC, "-y": 0x33, "+x": 0xF0,
+             "-x": 0x0F}
+    ev = dict.fromkeys([*faces, "jump", "return", "last_x"], 0)
+    was_in = torch.zeros(rows.shape[0], dtype=torch.bool)
+    out = torch.zeros_like(was_in)
+    st = time_march.Steps.of(dt)
+    ot, it = torch.tensor(o), torch.tensor(inv)
+
+    def f(x):
+        tx = (x[:, 0] - ot[0]) * it[0]
+        ev["last_x"] += int((tx == ch.shape[0] - 1).sum())
+        need, inside = walk.visit(x[:, :3])
+        for k, m in faces.items():
+            ev[k] += int((need == m).sum())
+        ev["jump"] += int(((need == 0xFF) & was_in).sum())
+        ev["return"] += int((inside & out).sum())
+        out.copy_((out | (was_in & ~inside)) & ~inside)
+        was_in.copy_(was_in | inside)
+        return time_march.rhs(x, ch, ot, it, lay, -1.0)
+
+    s = rows
+    for _ in range(n_steps):
+        k1 = f(s)
+        k2 = f(time_march.fma(st.hh, k1, s))
+        k3 = f(time_march.fma(st.hh, k2, s))
+        k4 = f(time_march.fma(st.dt, k3, s))
+        s = time_march.fma(st.h6, k1 + 2 * k2 + 2 * k3 + k4, s)
+    return ev
+
+
+@pytest.mark.parametrize("layout", ALL_LAYOUTS)
+def test_time_march_kernel_carried_walks(dev, layout):
+    """K5's carried corners on walks that meet every move (+-1 along each
+    axis, jumps of two or more cells, the last x node, leaving and
+    re-entering the box, a NaN row): rows bit-equal to ``march_plain`` in
+    entry-cell order and in the caller's, every layout (C = 3 to 8)."""
+    ch, o, inv, rows, dt, n, lay = _walk_scene(layout)
+    ev = _walk_events(ch, o, inv, rows, dt, n, lay)
+    assert min(ev.values()) > 0, ev
+    want = time_march.march_plain(rows, ch, o, inv, dt, layout=lay,
+                                  n_steps=n)
+    kw = dict(layout=lay, n_steps=n)
+    a = time_march.march(rows.to(dev), ch.to(dev), o, inv, dt, **kw)
+    b = time_march.launch(time_march.KERNEL, rows.to(dev), ch.to(dev), o,
+                          inv, dt, torch.arange(rows.shape[0], device=dev),
+                          **kw)
+    assert _bit_same(a, want) and _bit_same(b, want)
+    assert bool(want.isnan().any()) and bool(torch.isfinite(want).any())
+
+
 @pytest.mark.parametrize("n", [1, 127, 129, 4097])
 @pytest.mark.parametrize("layout", ALL_LAYOUTS)
 def test_adaptive_step_kernel_sizes_and_layouts(dev, layout, n):
@@ -2037,23 +2137,18 @@ def _grad_calls(dev):
             torch.zeros((3, 27), device=dev), None, lo=0, naloc=2,
             shape_ab=(3, 3), origin_ab=(0.0, 0.0), inv_ab=(1.0, 1.0),
             dp=1.0, layout=lay, K=8),
-        "gather_owned": lambda: sharded_rhs.gather_owned(
-            s, ch[:2].contiguous(), ch[2].contiguous(), origin=[0.0] * 3,
-            inv_spacing=[1.0] * 3, lo=0, nx_global=4, last=False,
-            layout=lay),
-        "rk4_stage": lambda: sharded_rhs.rk4_stage(
-            s, torch.zeros((8, 9), device=dev),
-            torch.zeros((8, 9), device=dev), torch.zeros((8, 3),
-                                                         device=dev),
-            0, time_march.Steps.of(1e-12), lay),
+        "stage_gather": lambda: sharded_rhs.Trace(
+            s.T, [sharded_rhs.Shard(ch[:2].contiguous(),
+                                    ch[2].contiguous(), 0, False)],
+            origin=[0.0] * 3, inv_spacing=[1.0] * 3, nx_global=4,
+            steps=time_march.Steps.of(1e-12), layout=lay),
     }
 
 
 @pytest.mark.parametrize("wrapper", [
     "adaptive", "analytic", "bin_field", "bin_image", "boris", "btable",
-    "deposit", "detect", "detect_field", "gather_owned", "march_owned",
-    "pp_chords", "pp_fold", "rk4_stage", "slab_march", "time_march",
-    "xray_fold"])
+    "deposit", "detect", "detect_field", "march_owned", "pp_chords",
+    "pp_fold", "slab_march", "stage_gather", "time_march", "xray_fold"])
 def test_wrappers_without_backward_refuse_grad_on_card(dev, wrapper):
     """A tensor that requires grad is refused on the card by every wrapper
     without a backward (K3-K8, K13-K18), never cut from the graph."""
@@ -2110,52 +2205,92 @@ def test_march_owned_kernel_matches_plain(dev, scene, tier, integrator):
         assert _same(a[own], full[own])
 
 
-@pytest.mark.parametrize("layout", LAYOUTS)
-def test_sharded_rhs_kernels_match_plain(dev, layout):
-    """K18's gather on each of 4 shards and its four stages against their
-    plain versions, and a grid-sharded trace on the card against the same
-    trace on the CPU."""
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("layout", ALL_LAYOUTS)
+def test_stage_gather_kernel_matches_plain(dev, layout, G):
+    """K18's fused launch on one card holding G = 1, 2, 4 shards of a
+    16-row line, every layout: each of a 3-step trace's 13 launches (the
+    first only gathers, the last only updates) leaves the state, the
+    partial and, where the next launch reads them (not after a step's last
+    stage), the stage state and running sum bit-equal to
+    ``stage_gather_plain`` on the CPU (rays on the last shard's closed
+    edge, in the cyclic halo, with no owner, -0.0 channel values and a NaN
+    row among them); then the grid-sharded tracer on the card equals the
+    same tracer on the CPU bit for bit."""
     from synthpy_tpu_torch.parallel import Mesh, make_gridsharded_tracer
 
     g, c = _layout_pair(dev, layout, dims=(16, 19, 21))
     lay = layout_of(c)
     pk = build_pack(g)
+    ch = pk.channels.clone()
+    ch[3:6, :, :, 0] = -0.0
     s0 = init_beam(0, 4096, 1.2 * g.extent, 2e-3, g.extent, "circular",
                    device=dev)
     rows = s0.T.contiguous()
     o = np.asarray(pk.origin, np.float32)
     iv = np.asarray(pk.inv_spacing, np.float32)
-    G, nloc = 4, 4
-    ch = pk.channels
-    total = None
-    for s in range(G):
-        args = (ch[s * nloc:(s + 1) * nloc], ch[((s + 1) % G) * nloc])
-        kw = dict(origin=o, inv_spacing=iv, lo=s * nloc, nx_global=16,
-                  last=s == G - 1)
-        a = sharded_rhs.gather_owned(rows, *args, layout=lay, **kw)
-        b = sharded_rhs.gather_owned_plain(rows.cpu(),
-                                           *(x.cpu() for x in args), **kw)
-        _close(a, b, 1e-6)
-        total = a if total is None else total + a
-    st = time_march.Steps.of(1e-13)
-    cpu = [rows.cpu().clone(), rows.cpu().clone(), torch.zeros_like(
-        rows.cpu())]
-    card = [x.to(dev) for x in cpu]
-    for stage in range(4):
-        sharded_rhs.rk4_stage(*card, total, stage, st, lay)
-        sharded_rhs.rk4_stage(*cpu, total.cpu(), stage, st, lay)
-        for x, y in zip(card, cpu):
-            _close(x, y, 1e-6)
-    n_steps = 16
-    dt = float(1e-13)
+    for r, tx in enumerate((15.0, 15.5, -0.5, 16.5, 12.0)):
+        rows[r, 0] = float(o[0] + np.float32(tx) / iv[0])
+    rows[5, 4] = float("nan")
+    nloc = 16 // G
+    steps = time_march.Steps.of(1e-13)
+    kw = dict(origin=o, inv_spacing=iv, nx_global=16, steps=steps,
+              layout=lay)
+    tr = {}
+    for d in (dev, torch.device("cpu")):
+        x = ch.to(d)
+        shards = [sharded_rhs.Shard(x[k * nloc:(k + 1) * nloc],
+                                    x[((k + 1) % G) * nloc], k * nloc,
+                                    k == G - 1) for k in range(G)]
+        tr[d.type] = sharded_rhs.Trace(rows.T.contiguous().to(d), shards,
+                                       **kw)
+    for n in range(13):
+        stage = None if n == 0 else (n - 1) % 4
+        for t in tr.values():
+            t.stage(t.vals, stage, n < 12)
+        a, b = tr["cuda"], tr["cpu"]
+        pairs = [(a.s, b.s)]
+        if n < 12:
+            pairs.append((a.vals, b.vals))
+        if stage != 3:
+            pairs.append((a.t, b.t))
+        if stage in (0, 1, 2):
+            pairs.append((a.acc, b.acc))
+        for x, y in pairs:
+            assert _bit_same(x, y), n
+    assert sharded_rhs.KERNEL.launches > 0
     outs = []
     for d in (dev, "cpu"):
-        m = Mesh((4,), ("grid",), devices=[d] * 4)
-        tr = make_gridsharded_tracer(m, lay, n_steps, nx_global=16)
-        outs.append(tr(rows.to(d), ch.to(d), pk.origin, pk.inv_spacing,
-                       dt))
-    assert sharded_rhs.KERNEL.launches > 0
-    _close(outs[0], outs[1], 1e-6)
+        m = Mesh((G,), ("grid",), devices=[d] * G)
+        t = make_gridsharded_tracer(m, lay, 16, nx_global=16)
+        outs.append(t(rows.to(d), ch.to(d), pk.origin, pk.inv_spacing,
+                      1e-13))
+    assert _bit_same(outs[0], outs[1])
+
+
+def test_stage_gather_kernel_launches_once_a_stage(dev):
+    """The grid-sharded tracer on four shards of one card: 4 n_steps + 1
+    launches of K18, one device kernel each (a profiler count)."""
+    import warnings
+
+    from synthpy_tpu_torch.kernels.profiling import device_kernels
+    from synthpy_tpu_torch.parallel import Mesh, make_gridsharded_tracer
+
+    g, c = _layout_pair(dev, (0, 0, 0), dims=(16, 19, 21))
+    pk = build_pack(g)
+    rows = init_beam(0, 4096, 1.2 * g.extent, 2e-3, g.extent, "circular",
+                     device=dev).T.contiguous()
+    n_steps = 6
+    tr = make_gridsharded_tracer(Mesh((4,), ("grid",), devices=[dev] * 4),
+                                 layout_of(c), n_steps, nx_global=16)
+    tr(rows, pk.channels, pk.origin, pk.inv_spacing, 1e-13)
+    sharded_rhs.KERNEL.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        count = device_kernels(lambda: tr(rows, pk.channels, pk.origin,
+                                          pk.inv_spacing, 1e-13), calls=1)
+    assert sharded_rhs.KERNEL.launches == 4 * n_steps + 1
+    assert count.get("stage_gather_kernel") == 4 * n_steps + 1, count
 
 
 @pytest.mark.parametrize("mode", ["grid", "grid_rays", "pp", "rays"])

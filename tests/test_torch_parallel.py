@@ -306,10 +306,10 @@ def test_k18_plain_versions_gather_the_owned_queries():
     total = torch.zeros((512, 3))
     for g in range(G):
         halo = tp.channels[((g + 1) % G) * nloc]
-        v = sharded_rhs.gather_owned(
+        v = sharded_rhs.gather_owned_plain(
             t, tp.channels[g * nloc:(g + 1) * nloc], halo,
             origin=tp.origin, inv_spacing=tp.inv_spacing, lo=g * nloc,
-            nx_global=16, last=g == G - 1, layout=layout_of(td))
+            nx_global=16, last=g == G - 1)
         assert torch.all((v == 0) | (total == 0))   # one owner a query
         total = total + v
     from synthpy_tpu_torch.ops.interp import trilinear
@@ -322,6 +322,186 @@ def test_k18_plain_versions_gather_the_owned_queries():
     inside = tx <= 15
     assert (~inside).any() and total[~inside].abs().max() > 0
     _col_close(total[inside], full[inside], 1e-5)
+
+
+def _x_at(origin, inv_spacing, tx):
+    """A float32 x whose global x-index (x - origin_x) * inv_x is exactly
+    ``tx`` (a value float32 holds)."""
+    o, iv = np.float32(origin[0]), np.float32(inv_spacing[0])
+    x = np.float32(o + np.float32(tx) / iv)
+    for _ in range(64):
+        got = np.float32(np.float32(x - o) * iv)
+        if got == np.float32(tx):
+            return x
+        x = np.nextafter(x, np.float32(np.inf if got < tx else -np.inf),
+                         dtype=np.float32)
+    raise AssertionError(f"no float32 x has x-index {tx}")
+
+
+# x-indices on a 16-row grid: the last shard's closed edge (15), the cyclic
+# halo beyond it (C.9), no owner on either side, shard boundaries
+EDGE_TX = (15.0, 15.5, 15.75, -0.5, 16.5, 4.0, 8.0, 12.0)
+
+
+def _edge_rows(origin, inv_spacing):
+    """Rays at the x-indices of ``EDGE_TX``, moving along z with small
+    transverse velocities."""
+    rows = np.zeros((len(EDGE_TX), 9), np.float32)
+    rows[:, 1], rows[:, 2] = 0.3e-3, -2e-3
+    rows[:, 3], rows[:, 4], rows[:, 5] = 1.3e5, -2.1e5, 2.99792458e8
+    rows[:, 6] = 1.0
+    for r, tx in enumerate(EDGE_TX):
+        rows[r, 0] = _x_at(origin, inv_spacing, tx)
+    return rows
+
+
+def _bits(x):
+    x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return np.ascontiguousarray(x).view(np.int32)
+
+
+def _lens16():
+    jd = JDomain(2 * EXT, 16).test_lens(ne_0=5e24, LR=1.5e-3)
+    td = convert.domain(jd, "cpu")
+    return jd, td, jbuild_pack(jd), build_pack(td)
+
+
+def _traces(G, jd, td, jch, tch, rows, n_steps, dt):
+    """JAX's grid-sharded tracer on a G x 1 grid x rays mesh and the port's
+    on ``["cpu"] * G`` (one device holds the line: each launch sums its G
+    shards itself), on the same rows."""
+    jp, tp = jbuild_pack(jd), build_pack(td)
+    jtr = jmesh.make_gridsharded_tracer(
+        jmesh.grid_ray_mesh(n_grid=G, n_rays=1), jlayout_of(jd), n_steps,
+        nx_global=16)
+    jout = np.asarray(jtr(jnp.asarray(rows), jch, jp.origin,
+                          jp.inv_spacing, jnp.float32(dt)))
+    tr = make_gridsharded_tracer(Mesh((G,), ("grid",), devices=["cpu"] * G),
+                                 layout_of(td), n_steps, nx_global=16)
+    out = tr(torch.tensor(rows), tch, tp.origin, tp.inv_spacing, float(dt))
+    return out, jout
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_fused_stage_tracer_bit_equal_to_jax_by_shards(G):
+    """The port's grid-sharded tracer (one fused launch a stage: the
+    update, then the gather of every shard the device holds, added in shard
+    order) bit for bit equal to JAX's on 1, 2 and 4 shards, with rays at
+    the last shard's closed edge, in the cyclic halo beyond it, owned by no
+    shard and on shard boundaries."""
+    jd, td, jp, tp = _lens16()
+    s0 = np.asarray(init_beam(jax.random.PRNGKey(1), 64, 2.0e-3, 1e-3, EXT,
+                              "circular")).T
+    rows = np.concatenate([s0, _edge_rows(tp.origin, tp.inv_spacing)])
+    tx = (rows[:, 0] - np.float32(tp.origin[0])) * np.float32(
+        tp.inv_spacing[0])
+    assert {15.0, 15.5, -0.5, 16.5} <= set(tx.tolist())
+    n_steps = 24
+    dt = np.float32(np.sqrt(8.0) * EXT / 2.99792458e8 / 48)
+    out, jout = _traces(G, jd, td, jp.channels, tp.channels, rows, n_steps,
+                        dt)
+    np.testing.assert_array_equal(_bits(out), _bits(jout))
+    assert not torch.equal(out, torch.tensor(rows))
+
+
+@pytest.mark.parametrize("G", [1, 4])
+def test_fused_stage_tracer_bit_equal_to_jax_where_dt_over_6_rounds(G):
+    """At a dt whose dt / 6 and dt * f32(1/6) differ in float32 (XLA folds
+    the step's division into the multiply), the grid-sharded tracer equals
+    JAX's bit for bit, on beam rays and on rays whose transverse velocity
+    starts at 0."""
+    jd, td, jp, tp = _lens16()
+    s0 = np.asarray(init_beam(jax.random.PRNGKey(1), 64, 2.0e-3, 1e-3, EXT,
+                              "circular")).T
+    z = s0.copy()
+    z[:, 3:5] = 0.0
+    rows = np.concatenate([s0, z])
+    dt = np.float32(jnp.asarray(jnp.sqrt(8.0) * EXT / 2.99792458e8 / 40,
+                                jnp.float32))
+    assert dt / np.float32(6.0) != dt * np.float32(1.0 / 6.0)
+    out, jout = _traces(G, jd, td, jp.channels, tp.channels, rows, 24, dt)
+    np.testing.assert_array_equal(_bits(out), _bits(jout))
+    assert np.abs(jout[64:, 3:5]).min() > 0
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_fused_stage_carries_the_psums_signed_zero(G):
+    """An owner's value of -0.0 (every channel -0.0): the psum over G > 1
+    shards adds +0.0 and turns it into +0.0, one shard leaves it; rays
+    with -0.0 velocities keep the sign in their result where no zero was
+    added. Bit for bit equal to JAX's tracer."""
+    jd, td, jp, tp = _lens16()
+    rows = _edge_rows(tp.origin, tp.inv_spacing)
+    rows[:, 3] = rows[:, 4] = rows[:, 5] = rows[:, 7] = -0.0
+    jch = jnp.full(jp.channels.shape, -0.0, jnp.float32)
+    tch = torch.full(tuple(tp.channels.shape), -0.0)
+    out, jout = _traces(G, jd, td, jch, tch, rows, 2, np.float32(1e-14))
+    np.testing.assert_array_equal(_bits(out), _bits(jout))
+    owned = np.array([0 <= tx <= 15.75 for tx in EDGE_TX])
+    neg = np.signbit(out[:, 3].numpy())
+    assert (neg == (owned & (G == 1))).all()
+
+
+@pytest.mark.parametrize("devices", [["cpu"], ["cpu"] * 2, ["cpu"] * 4,
+                                     ["cpu", "cpu", "cpu:0", "cpu:0"],
+                                     ["cpu", "cpu:0", "cpu:1", "cpu:2"]])
+@pytest.mark.parametrize("neg_zero", [False, True])
+def test_stage_gather_plain_is_the_parents_route(devices, neg_zero):
+    """One stage through ``sharded_rhs.Trace`` (each device sums its shards
+    in shard order, the tracer's ``line_sum`` adds the devices' partials)
+    equals the parent's route bit for bit: each shard's
+    ``gather_owned_plain``, ``psum`` over the grid axis in shard order,
+    ``rk4_stage_plain``. A line on several devices ("cpu", "cpu:0", ...
+    are distinct torch devices) and owner values of -0.0 included."""
+    from synthpy_tpu_torch.kernels.time_march import Steps
+    from synthpy_tpu_torch.parallel.mesh import line_sum
+
+    jd, td, jp, tp = _lens16()
+    G = len(devices)
+    nloc = 16 // G
+    m = Mesh((G,), ("grid",), devices=devices)
+    lay = layout_of(td)
+    ch = (torch.full(tuple(tp.channels.shape), -0.0) if neg_zero
+          else tp.channels)
+    rng = np.random.default_rng(7)
+    rows = np.concatenate([rng.uniform(-1.2 * EXT, 1.2 * EXT, (256, 9)),
+                           _edge_rows(tp.origin, tp.inv_spacing)]).astype(
+        np.float32)
+    rows[:, 3:6] *= 1e8
+    t = torch.tensor(rows)
+    kw = dict(origin=tp.origin, inv_spacing=tp.inv_spacing, nx_global=16)
+    shards = [sharded_rhs.Shard(ch[g * nloc:(g + 1) * nloc],
+                                ch[((g + 1) % G) * nloc], g * nloc,
+                                g == G - 1) for g in range(G)]
+    # the parent's route: G gathers, the psum, the update
+    vals = psum([sharded_rhs.gather_owned_plain(t, sh.values, sh.halo,
+                                                lo=sh.lo, last=sh.last, **kw)
+                 for sh in shards], m, "grid")[0]
+    steps = Steps.of(1e-13)
+    want = [t.clone(), t.clone(), torch.full_like(t, 0.5)]
+    sharded_rhs.rk4_stage_plain(*want, vals, 1, steps, lay, -1.0)
+    # the fused route: one Trace a device, its partials added by line_sum
+    by_dev = {}
+    for g, d in enumerate(m.flat_devices):
+        by_dev.setdefault(d, []).append(shards[g])
+    traces = {d: sharded_rhs.Trace(t.T.contiguous(), sh, steps=steps,
+                                   layout=lay, **kw)
+              for d, sh in by_dev.items()}
+    for tr in traces.values():
+        tr.acc.fill_(0.5)
+        tr.stage(None, None, True)
+    devs = list(traces)
+    summed = (traces[devs[0]].vals if len(devs) == 1 else
+              line_sum([traces[d].vals for d in devs], devs, False)[devs[0]])
+    np.testing.assert_array_equal(_bits(summed.T), _bits(vals))
+    for tr in traces.values():
+        tr.stage(summed, 1, True)
+        for got, w in zip((tr.s, tr.t, tr.acc), want):
+            np.testing.assert_array_equal(_bits(got.T), _bits(w))
+    if neg_zero:
+        owned = np.array([0 <= tx <= 15.75 for tx in EDGE_TX])
+        neg = np.signbit(vals[-len(EDGE_TX):].numpy()).all(1)
+        assert (neg == (owned & (G == 1))).all()
 
 
 # ---------------------------------------------------------------------------

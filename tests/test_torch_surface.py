@@ -66,7 +66,7 @@ def test_sources_carry_their_note_and_build_flags():
 def test_kernel_argtypes_match_the_c_entry_points():
     """Each wrapper's ctypes signature has as many arguments as its C entry
     point, the stream last (a missing pointer type would pass the stream
-    as a 32-bit int)."""
+    as a 32-bit int); each host helper's as many as its C function."""
     import re
 
     from synthpy_tpu_torch.kernels import (adaptive, analytic, binning,
@@ -101,11 +101,18 @@ def test_kernel_argtypes_match_the_c_entry_points():
                                                   len(argtypes))
             assert params[-1].split()[-1] == "stream", name
             seen.add(name)
+        for name, argtypes in k.helpers.items():
+            m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+            assert m, (k.source, name)
+            params = [p for p in m.group(1).split(",") if p.strip()]
+            assert len(params) == len(argtypes), (name, len(params),
+                                                  len(argtypes))
+            seen.add(name)
     assert {"analytic_march", "detect_field", "detect_image", "bin_image",
             "bin_field", "deposit_cic", "pack_fill", "random_draw",
             "march_adjoint", "cic_deposit", "cic_adjoint", "boris_push",
             "btable_write", "xray_fold", "pp_fold", "pp_chords",
-            "march_owned", "gather_owned", "rk4_stage"} <= seen
+            "march_owned", "stage_gather", "sharded_trace_fill"} <= seen
 
 
 def test_entry_points_default_to_cuda():
@@ -208,15 +215,13 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
             u, table[0, :6], table[0, 6:], None, lo=0, naloc=2,
             shape_ab=(3, 3), origin_ab=(0.0, 0.0), inv_ab=(1.0, 1.0),
             dp=1.0, layout=lay, K=8),
-        lambda: sharded_rhs.gather_owned(
-            torch.empty((8, 9), device=meta),
-            torch.empty((2, 4, 4, 3), device=meta),
-            torch.empty((4, 4, 3), device=meta), origin=[0.0] * 3,
-            inv_spacing=[1.0] * 3, lo=0, nx_global=4, last=False,
+        lambda: sharded_rhs.Trace(
+            torch.empty((9, 8), device=meta),
+            [sharded_rhs.Shard(torch.empty((2, 4, 4, 3), device=meta),
+                               torch.empty((4, 4, 3), device=meta), 0,
+                               False)], origin=[0.0] * 3,
+            inv_spacing=[1.0] * 3, nx_global=4, steps=Steps.of(1e-12),
             layout=lay),
-        lambda: sharded_rhs.rk4_stage(
-            *(torch.empty((8, 9), device=meta) for _ in range(3)),
-            torch.empty((8, 3), device=meta), 0, Steps.of(1e-12), lay),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
