@@ -1584,6 +1584,30 @@ def k5_registers():
     return ptxas_in_thread(time_march.KERNEL, pick)
 
 
+def k4_registers():
+    """K4's slab kernel at every layout (C = 3 to 8) and plane dtype:
+    registers, shared bytes and spills a thread, by ``ptxas_in_thread``;
+    keyed by the dtype, the layout's switches (inv_brems, phaseshift, B)
+    and C."""
+    import re
+
+    from synthpy_tpu_torch.kernels import slab_march
+
+    def pick(report, cubin):
+        out = {}
+        for n, v in report.items():
+            m = re.search(r"slab_kernelILi(\d)E.*LayoutILi(\d)ELi(\d)ELi(\d)E",
+                          n)
+            if m:
+                dt, ib, ps, bon = (int(x) for x in m.groups())
+                out[f"{('f32', 'bf16')[dt]}_{ib}{ps}{bon}_"
+                    f"C{3 + ib + ps + 3 * bon}"] = v
+        check(len(out) == 16, f"no ptxas report of K4's layouts: {out}")
+        return out
+
+    return ptxas_in_thread(slab_march.KERNEL, pick)
+
+
 def k18_registers():
     """K18's fused stage at C = 3 (the mesh path's lens) and C = 8:
     registers, shared bytes and spills a thread, by ``ptxas_in_thread``."""
@@ -3633,14 +3657,25 @@ def sharded_field_path(torch, dev, kernels, bound, reset, path_launches):
             return fn(vols[p], bits=bits, dither=key, window=w,
                       amax=red[p], **kw)
 
-        shard_ms = []
+        # each shard's calls: the quantised tiers' amax call and codes
+        # call apart (their sum is the shard's launch time); the values
+        # the dither hashes, those of the shard's f32 rows that are not 0
+        shard_ms, amax_call_ms, codes_call_ms, hashed = [], [], [], []
         for g in range(G):
             with torch.cuda.device(sdev[g]):
                 t_codes = batch_ms(lambda: launch(g), calls=5)
                 t_amax = (batch_ms(lambda: pack.build_amax(
                     vols[by_g[g][0]], window=by_g[g][1], **kw), calls=5)
                     if bits else 0.0)
+                if dither is not None:
+                    p, w = by_g[g]
+                    f32g = pack.build_tables(vols[p], dtype=torch.float32,
+                                             window=w, **kw)
+                    hashed.append(int((f32g != 0).sum()))
+                    del f32g
             shard_ms.append(t_codes + t_amax)
+            amax_call_ms.append(t_amax)
+            codes_call_ms.append(t_codes)
         # one shard (with both halo rows) against its windowed plain version
         g1 = 1 if G > 2 else 0
         with torch.cuda.device(sdev[g1]):
@@ -3665,12 +3700,23 @@ def sharded_field_path(torch, dev, kernels, bound, reset, path_launches):
                        + table_bytes // G
                        + (0 if not bits else sps.scales.numel() * 4))
         b = bound(shard_bytes, 0)
+        # the dithered tiers' least time counts the dither's hashes (a
+        # shard's mean), the bytes-only figure beside it
+        db = ({} if not hashed else
+              dithered_bound(shard_bytes, sum(hashed) / len(hashed)))
+        if db:
+            b = (db["bound_ms"], db["bound_by"])
         builds[name] = {
             "launches": launches, "run_launches": run_launches,
             "build_ms": b_ms, "single_device_build_ms": b1_ms,
             "build_peak_gb": b_peak, "single_device_build_peak_gb": b1_peak,
-            "shard_launch_ms": shard_ms, "bound_ms": b[0],
-            "bound_by": b[1], "bytes_per_shard": shard_bytes,
+            "shard_launch_ms": shard_ms,
+            **({"amax_call_ms": amax_call_ms, "codes_call_ms": codes_call_ms}
+               if bits else {}),
+            "bound_ms": b[0], "bound_by": b[1],
+            **{k: db[k] for k in DITHER_BOUND_KEYS if k in db},
+            **({"hashed_values_per_shard": hashed} if hashed else {}),
+            "bytes_per_shard": shard_bytes,
             "plain_ms": plain_ms, "halo_ms": halo_ms,
             "amax_reduce_ms": amax_ms, "rows_bit_equal": True,
             "windowed_bit_equal_plain": True, "max_abs_err": err,
@@ -3720,8 +3766,9 @@ def sharded_field_path(torch, dev, kernels, bound, reset, path_launches):
          "per": f"one shard's f32 rows of a {res * 2}^3 field, K = {K}, "
                 f"{G} shards (the slowest shard)",
          **{t: {k: builds[t][k] for k in (
-             "shard_launch_ms", "plain_ms", "bound_ms", "bound_by",
-             "launches")} for t in ("bf16", "int8", "int4")}}]
+             "shard_launch_ms", "amax_call_ms", "codes_call_ms", "plain_ms",
+             "bound_ms", "bound_by", "bytes_bound_ms", "launches")
+             if k in builds[t]} for t in ("bf16", "int8", "int4")}}]
     return rows_out, {"sharded_field_path": detail}
 
 
@@ -3752,6 +3799,7 @@ def main():
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
                                                          device_kernels,
                                                          nvidia_smi,
+                                                         slab_walk_model,
                                                          time_walk_model)
         from synthpy_tpu_torch.ops.histogram import (_bin_index,
                                                      _pixel_index,
@@ -3794,6 +3842,7 @@ def main():
     k13_regs = k13_registers()
     k6_regs = k6_registers()
     k5_regs = k5_registers()
+    k4_regs = k4_registers()
     k18_regs = k18_registers()
 
     # -- 1. device and kernel build ------------------------------------------
@@ -4454,10 +4503,16 @@ def main():
     launches["zscan"] = path_launches(("slab_march", "detector"), "zscan")
     zkw = dict(layout=layout, n_slabs=DIM - 1)
     uf_z = slab_march.march(u_all, *zargs(zpack), **zkw)
-    # K4 at the path's shape: every ray against the plain version
+    # K4 at the path's shape: every ray against the plain version, in
+    # entry-cell order and in the caller's (the identity order, no sort)
     uf_zp, k4_plain_ms = timed(lambda: slab_march.march_plain(
         u_all, *zargs(zpack), **zkw))
     k4_all = close(uf_z, uf_zp, f"K4 at {RAYS} rays")
+    k4_caller = close(slab_march.launch(
+        slab_march.KERNEL, u_all, *zargs(zpack), arange, **zkw), uf_zp,
+        f"K4 at {RAYS} rays in the caller's order")
+    check(k4_all["bit_equal"] and k4_caller["bit_equal"],
+          "K4's rows are not bit-equal to the plain version's")
     del uf_zp
     p_end_z = zpack.p0 + (DIM - 1) * zpack.dp
     Hp_z = detector.detect_plain(uf_z, p_end_z, domain.extent, "z", stages,
@@ -4492,6 +4547,7 @@ def main():
                       "k4_caller_order_ms": k4_caller_ms,
                       "k4_plain_ms": k4_plain_ms,
                       "k4_vs_plain_all_rays": k4_all,
+                      "k4_vs_plain_caller_order": k4_caller,
                       "max_theta_diff_vs_time": th_zt,
                       "theta_scale": th_scale,
                       "rel_l1_vs_time": float((Hz - Ht).abs().sum()
@@ -4499,6 +4555,14 @@ def main():
     emit({"phase": "zscan_path", "dim": DIM, "rays": RAYS,
           "bins": list(BINS), **paths["zscan"]})
     del rf_z, Hz
+    # K4's reads in the carried design (a model): the corner values the
+    # carried planes read along the plain march's stage points of the
+    # path's first 65,536 rays, in their entry-cell order, beside the
+    # first design's 24C a slab
+    zg = zargs(zpack)
+    k4_model = slab_walk_model(u_sub, *zg, **zkw, order=march.ray_order(
+        u_sub, tuple(zpack.planes.shape[1:3]), *zg[1:3]))
+    emit({"phase": "K4_load_model", **k4_model})
 
     # adaptive: solve_adaptive on the first 1,000,000 rays (K6)
     s_a = s0[:, :ADAPTIVE_RAYS]
@@ -4938,7 +5002,12 @@ def main():
          "max_abs_err": max([k4_all["max_abs_err"]]
                             + [v["max_abs_err"] for v in k4.values()]),
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_b[0],
-         "bound_by": k4_b[1], "library_ms": None},
+         "bound_by": k4_b[1], "library_ms": None,
+         "caller_order_ms": paths["zscan"]["k4_caller_order_ms"],
+         "registers": k4_regs(), "load_model": {k: k4_model[k] for k in (
+             "nodes_per_in_grid_slab", "loads_per_in_grid_slab",
+             "first_loads_per_in_grid_slab", "first_loads_per_slab_inside",
+             "warp_slabs_beyond_plane_k1")}},
         {"name": "time_march", "route": "cuda",
          "source": csrc + "time_march.cu",
          "replaces": "synthpy_tpu/tracer/propagator.py:87",

@@ -16,6 +16,8 @@ grid-sharded time tracer's stage) on its check trace.
                                   [--against F]
     python3 march_profile.py k18 [--root DIR] [--reps N] [--save F]
                                  [--against F]
+    python3 march_profile.py zscan [--root DIR] [--reps N] [--save F]
+                                   [--against F] [--variants [--first F]]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -124,6 +126,23 @@ name (a profiler count) and their device time by kernel
 a stage's share, and a SHA-256 of the exit rows. For both, ``--save F``
 writes the rows to F and ``--against F`` (another tree's file) says
 whether they are bit-equal to that tree's.
+
+``zscan`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does. On
+the zscan path's inputs (``chip_smoke.py``'s ``zscan_path``: the 512^3
+bench lens's f32 ZScanPack, 4 M rays of the 2 mm beam, 511 slabs) it
+prints ``ptxas`` (registers, spills and occupancy of K4 at every layout,
+C = 3 to 8, f32 and bf16 planes), ``k4_ms`` (one ``slab_march.march``
+call, the ray order included; CUDA events around 3 calls, best of
+``--reps``), ``k4_kernel_ms`` (one launch in a precomputed entry-cell
+order), ``k4_caller_ms`` (one launch in the caller's order), ``run_ms``
+(``pipeline.run(solver="zscan")`` on the prebuilt pack), the march on
+the bf16 planes and at the widest layout (``c8``: C = 8 at 512^3, the
+first 1 M rays), and SHA-256s of the exit rows of each case, the caller's
+order included; ``--save`` / ``--against`` as for ``time``. With
+``--variants`` it also times builds of K4 changed by ``ZSCAN_VARIANTS``
+(and the source file ``--first F``, another design of K4) in both orders,
+in turns with the shipped kernel, with registers and bit-equality of the
+rows.
 """
 
 from __future__ import annotations
@@ -634,7 +653,193 @@ def time_part(args):
     print(json.dumps({"part": "time", **out}), flush=True)
 
 
-C8_RAYS = 1_000_000   # the time part's C = 8 case
+C8_RAYS = 1_000_000   # the time and zscan parts' C = 8 case
+
+# name -> text substitutions of slab_march.cu that ``zscan --variants``
+# times beside the shipped kernel: a register cap for 8 blocks an SM; the
+# carried corners shifted along a and b on a move of one, reading only the
+# two that came in (K5's carry), which lost to reading all four
+_READ4 = """  if (ia == K.ia && ib == K.ib) return;
+  K.ia = ia;
+  K.ib = ib;
+"""
+_SHIFT = """  unsigned need = 0;
+  if (ib != K.ib) need |= corner_shift<1, C>(K.c, ib - K.ib);
+  if (ia != K.ia) need |= corner_shift<2, C>(K.c, ia - K.ia);
+  K.ia = ia;
+  K.ib = ib;
+  if (need == 0) return;
+"""
+_LOAD4 = """#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int m = 0; m < C; ++m)
+      K.c[q][m] = load<DT>(w, (q & 2 ? r1 : r0) + C * (q & 1) + m);
+"""
+_LOAD_NEED = """#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (need & (1u << q)) {
+#pragma unroll
+      for (int m = 0; m < C; ++m)
+        K.c[q][m] = load<DT>(w, (q & 2 ? r1 : r0) + C * (q & 1) + m);
+    }
+"""
+_SHIFT_FN = """// Move the carried corners d cells along the axis of bit BIT of q (1: b,
+// 2: a); returns the corners (a bit mask of q) to read anew.
+template <int BIT, int C>
+__device__ __forceinline__ unsigned corner_shift(float c[4][C], int d) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q & BIT) continue;
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      const float lo = c[q][m], hi = c[q | BIT][m];
+      c[q][m] = d == 1 ? hi : lo;
+      c[q | BIT][m] = d == -1 ? lo : hi;
+    }
+  }
+  constexpr unsigned upper = BIT == 1 ? 0xAu : 0xCu;
+  return d == 1 ? upper : d == -1 ? (~upper & 0xFu) : 0xFu;
+}
+
+// Bring K to cell (ia, ib)"""
+_CAP = ("__global__ void __launch_bounds__(THREADS) slab_kernel(Params P) {",
+        "__global__ void __launch_bounds__(THREADS, 8) slab_kernel(Params P) {")
+ZSCAN_VARIANTS = {
+    "cap64": [_CAP],
+    "shift": [(_READ4, _SHIFT), (_LOAD4, _LOAD_NEED),
+              ("// Bring K to cell (ia, ib)", _SHIFT_FN)]}
+
+
+def zscan_part(args):
+    """The ``zscan`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch import pipeline
+    from synthpy_tpu_torch.fields import ScalarDomain
+    from synthpy_tpu_torch.fields.domain import build_pack, layout_of
+    from synthpy_tpu_torch.kernels import _build, march, slab_march
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     nvidia_smi, ptxas)
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi()}
+    src = _build.CSRC / slab_march.KERNEL.source
+    kern, _, _ = ptxas(src, slab_march.KERNEL.flags)
+    threads = _threads(src)
+    out["ptxas"] = {}
+    for n, v in kern.items():
+        m = re.search(r"slab_kernelILi(\d)E.*LayoutILi(\d)ELi(\d)ELi(\d)E", n)
+        if m:
+            dt, ib, ps, bon = (int(x) for x in m.groups())
+            out["ptxas"][f"{('f32', 'bf16')[dt]}_C{3 + ib + ps + 3 * bon}"
+                         f"_{ib}{ps}{bon}"] = {
+                **v, **occupancy(v["regs"], threads, v.get("smem", 0))}
+
+    def case(domain, dtype):
+        tpack = build_pack(domain)
+        lay = layout_of(domain)
+        zp = zscan.make_zscan_pack(tpack, lay, "z", dtype=dtype)
+        del tpack
+        zargs = (zp.planes, zp.origin_ab.tolist(), zp.inv_spacing_ab.tolist(),
+                 zp.dp)
+        kw = dict(layout=lay, n_slabs=zp.planes.shape[0] - 1)
+        return zp, zargs, kw
+
+    domain = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                              LR=1.5e-3)
+    s0 = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular", device=dev)
+    u = zscan.permute_state(s0, "z").contiguous()
+    zp, zargs, kw = case(domain, torch.float32)
+    order = march.ray_order(u, tuple(zp.planes.shape[1:3]), *zargs[1:3])
+    arange = torch.arange(RAYS, device=dev)
+
+    def best(fn, calls=3):
+        return min(batch_ms(fn, calls=calls) for _ in range(args.reps))
+
+    out.update(rays=RAYS, n_slabs=kw["n_slabs"])
+    out["k4_ms"] = best(lambda: slab_march.march(u, *zargs, **kw))
+    out["k4_kernel_ms"] = best(lambda: slab_march.launch(
+        slab_march.KERNEL, u, *zargs, order, **kw))
+    out["k4_caller_ms"] = best(lambda: slab_march.launch(
+        slab_march.KERNEL, u, *zargs, arange, **kw))
+    out["run_ms"] = best_ms(lambda: pipeline.run(
+        domain, s0, solver="zscan", zpack=zp, bins=BINS), reps=args.reps)
+    rows = {"lens": slab_march.march(u, *zargs, **kw),
+            "lens_caller": slab_march.launch(slab_march.KERNEL, u, *zargs,
+                                             arange, **kw)}
+    del zp, zargs
+    zp, zargs, kw = case(domain, torch.bfloat16)
+    out["bf16"] = {"k4_ms": best(lambda: slab_march.march(u, *zargs,
+                                                           **kw))}
+    rows["lens_bf16"] = slab_march.march(u, *zargs, **kw)
+    del zp, zargs
+    # the widest layout, C = 8 (inverse bremsstrahlung, phase, Faraday) at
+    # 512^3, on the first 1 M rays
+    phys = ScalarDomain(2 * EXT, DIM, inv_brems=True, phaseshift=True,
+                        device=dev).test_lens(ne_0=5e24, LR=1.5e-3)
+    phys.external_Te(50.0 + 10.0 * torch.rand(
+        phys.dims, generator=torch.Generator().manual_seed(1)))
+    phys.external_Z(2.0 * torch.ones(phys.dims))
+    phys.test_B(Bmax=10.0)
+    zp, zargs, kw = case(phys, torch.float32)
+    pu = u[:C8_RAYS].contiguous()
+    out["c8"] = {"rays": C8_RAYS, "C": kw["layout"].n_channels,
+                 "k4_ms": best(lambda: slab_march.march(pu, *zargs, **kw),
+                               calls=2)}
+    rows["c8"] = slab_march.march(pu, *zargs, **kw)
+    _rows_report(out, rows, args)
+    if args.variants:
+        del zp, zargs
+        out["variants"] = _zscan_variants(args, domain, u, case,
+                                          rows["lens"])
+    print(json.dumps({"part": "zscan", **out}), flush=True)
+
+
+def _zscan_variants(args, domain, u, case, lens_rows):
+    """K4 builds changed by ``ZSCAN_VARIANTS`` (and the first design's
+    source at ``--first``, when given), each timed in entry-cell order and
+    in the caller's order in turns with the shipped kernel (shipped,
+    variant, variant, shipped), its rows held bit-equal."""
+    import torch
+    from synthpy_tpu_torch.kernels import _build, march, slab_march
+    from synthpy_tpu_torch.kernels.profiling import batch_ms, ptxas, variant
+
+    kernels = {n: variant(slab_march.KERNEL, n, subs)
+               for n, subs in ZSCAN_VARIANTS.items()}
+    if args.first:
+        path = _build.BUILD_DIR / "slab_march_first.cu"
+        path.write_text(Path(args.first).read_text())
+        kernels["first_design"] = _build.Kernel(
+            str(path), slab_march.KERNEL.functions, slab_march.KERNEL.flags)
+    _build.build({k.source: k.flags for k in kernels.values()})
+    zp, zargs, kw = case(domain, torch.float32)
+    order = march.ray_order(u, tuple(zp.planes.shape[1:3]), *zargs[1:3])
+    arange = torch.arange(u.shape[0], device=u.device)
+
+    def ms(kern, o):
+        return min(batch_ms(lambda: slab_march.launch(
+            kern, u, *zargs, o, **kw), calls=3) for _ in range(args.reps))
+
+    out = {}
+    for name, kern in kernels.items():
+        same = torch.equal(slab_march.launch(kern, u, *zargs, order, **kw)
+                           .view(torch.int32), lens_rows.view(torch.int32))
+        row = {"bit_equal": same}
+        for label, o in (("entry_order", order), ("caller_order", arange)):
+            row[label] = {"shipped_ms": [ms(slab_march.KERNEL, o)],
+                          "variant_ms": [ms(kern, o), ms(kern, o)]}
+            row[label]["shipped_ms"].append(ms(slab_march.KERNEL, o))
+        rep, _, _ = ptxas(Path(kern.source), kern.flags)
+        row["ptxas_f32_C3"] = next(
+            (v for n, v in rep.items()
+             if re.search(r"slab_kernelILi0E.*LayoutILi0ELi0ELi0E", n)),
+            None)
+        out[name] = row
+    return out
 
 
 # the grid-sharded time tracer's check trace (chip_smoke.py MESH): the
@@ -704,13 +909,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("part", nargs="?",
                     choices=["march", "adjoint", "boris", "adaptive", "time",
-                             "k18"],
+                             "k18", "zscan"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--save")
     ap.add_argument("--against")
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--first")
     args = ap.parse_args()
     if args.part == "adjoint":
         return adjoint(args)
@@ -722,6 +929,8 @@ def main():
         return time_part(args)
     if args.part == "k18":
         return k18_part(args)
+    if args.part == "zscan":
+        return zscan_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

@@ -5,6 +5,8 @@ batch write at the main path's shapes.
     python3 pack_timing.py [--root DIR] [--reps N] [--variants]
     python3 pack_timing.py fill [--root DIR] [--reps N] [--save F]
                                 [--against F]
+    python3 pack_timing.py window [--root DIR] [--reps N] [--save F]
+                                  [--against F] [--sweep]
 
 Imports ``synthpy_tpu_torch`` from ``DIR`` (default: beside this script),
 so that two checkouts can be compared in turns on one card (parent,
@@ -38,7 +40,23 @@ of the batch's codes (values) and scales; ``ptxas`` gives registers,
 spills and occupancy of every K9 instance at C = 8 and C = 3. With
 ``--save F`` the hashes are written to F; with ``--against F`` (another
 tree's file) it says, mode by mode, whether codes and scales are
-bit-equal to that tree's. Nothing here imports JAX.
+bit-equal to that tree's.
+
+``window`` times kernel K2 at small K: one shard's windowed calls at the
+sharded field path's shapes (``chip_smoke.py``'s ``sharded_field_path``:
+a 1024^3 field on four shards along x, here shard 1 with both halo rows
+and a seeded field of the same shape, z-probing, K = 64), f32 and bf16
+rows, and the int8 and int4 tiers with the path's dither (7) as their
+amax call and codes call apart; then the 512^3 MAGPIE z-pinch (C = 8, the
+volumes from ``chip_smoke.magpie_fields``) dithered at K = 64 (int8,
+int4) and, as ``chip_smoke.py``'s ``dither_path`` builds it, int4 at K =
+256, whole and as the amax call and codes call apart; then the 512^3 bench lens at K = 512 in every tier. For each: the
+per-call median, best, worst and spread of ``N`` rounds of 10 calls and
+SHA-256s of the codes (rows) and scales; ``ptxas`` gives registers and
+spills of the amax and row passes at C = 3 and 8. ``--save`` /
+``--against`` as for ``fill``. ``--sweep`` times each pass of those builds
+with the plan's cells a barrier forced to each of ``SWEEP_CB``, in turns
+with the shipped plan. Nothing here imports JAX.
 """
 
 import argparse
@@ -186,23 +204,232 @@ def fill_part(args):
     print(json.dumps({"part": "fill", **out}), flush=True)
 
 
+WIN_RES, WIN_K, WIN_SHARDS, WIN_DITHER = 1024, 64, 4, 7
+
+
+def _window_inputs(torch, dev):
+    """The window part's inputs: one shard of the sharded path (vols, K2
+    keywords with its Window), the z-pinch's volumes and its K = 64 and
+    256 keywords."""
+    from chip_smoke import magpie_fields
+    from synthpy_tpu_torch import constants
+    from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+    from synthpy_tpu_torch.kernels import pack
+    from synthpy_tpu_torch.tracer import zscan
+
+    n = WIN_RES // WIN_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (n + 2, WIN_RES, WIN_RES)
+    ne = 1e25 * (1.0 + 0.45 * torch.rand(shape, device=dev, generator=gen))
+    h = 2 * EXT / (WIN_RES - 1)
+    omega = constants.omega_from_lwl(1064e-9)
+    lay = layout_of(ScalarDomain(2 * EXT, 8, device="cpu"))
+    kw = dict(p_ax=2, layout=lay, K=WIN_K,
+              n_seg=-(-(WIN_RES - 1) // WIN_K),
+              pref=-0.5 * constants.C**2
+              / constants.critical_density(omega),
+              da=h, db=h, dp=h, omega=omega, verdet=0.0,
+              window=pack.Window(n, WIN_RES, ne[:1], ne[n + 1:]))
+    vols = {"ne": ne[1:n + 1], "Te": None, "Z": None, "B": None}
+    fields = magpie_fields(torch)
+    d = ScalarDomain(2 * EXT, DIM, device=dev)
+    d.inv_brems = d.phaseshift = d.B_on = True
+    X, Y, Z_ = (c.to(dev)[sl] for c, sl in zip(
+        (d.x, d.y, d.z), ((slice(None), None, None), (None, slice(None),
+                                                       None),
+                          (None, None, slice(None)))))
+    zvols = {k: torch.broadcast_to(fields[k](X, Y, Z_), d.dims).contiguous()
+             for k in ("ne", "Te", "Z")}
+    zvols["B"] = torch.stack([torch.broadcast_to(v, d.dims)
+                              for v in fields["B"](X, Y, Z_)], -1)
+    for k, v in zvols.items():
+        setattr(d, k, v)
+    geo = zscan._geometry_of(d, 1064e-9)
+    zkw = {Kz: dict(p_ax=geo.p_ax, layout=layout_of(d), K=Kz,
+                    n_seg=-(-(geo.n_p - 1) // Kz), pref=geo.pref, da=geo.da,
+                    db=geo.db, dp=geo.dp, omega=geo.omega,
+                    verdet=geo.verdet) for Kz in (64, 256)}
+    return vols, kw, zvols, zkw
+
+
+# the cells a barrier that ``window --sweep`` forces on the plan
+SWEEP_CB = (8, 16, 32, 48, 80)
+
+
+def window_sweep(args, out):
+    """``window --sweep`` (the tree beside this script only): each pass of
+    the window part's builds with the plan's cells a barrier forced to
+    each of ``SWEEP_CB``, in turns with the shipped plan (first and
+    last); the median ms of each call, keyed by the forced CB."""
+    import functools
+
+    import torch
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.kernels import pack
+
+    dev = torch.device("cuda")
+    vols, kw, zvols, zkw = _window_inputs(torch, dev)
+    key, zkey = jrandom.key_of(WIN_DITHER), jrandom.key_of(7)
+    amax = pack.build_amax(vols, **kw)
+    zam = {Kz: pack.build_amax(zvols, **zkw[Kz]) for Kz in zkw}
+    calls = {
+        "shard_f32": lambda: pack.build_tables(vols, dtype=torch.float32,
+                                               **kw),
+        "shard_bf16": lambda: pack.build_tables(vols, dtype=torch.bfloat16,
+                                                **kw),
+        "shard_amax": lambda: pack.build_amax(vols, **kw),
+        "shard_int8_codes": lambda: pack.build_quantized_tables(
+            vols, bits=8, dither=key, amax=amax, **kw),
+        "shard_int4_codes": lambda: pack.build_quantized_tables(
+            vols, bits=4, dither=key, amax=amax, **kw),
+        "zpinch_K64_amax": lambda: pack.build_amax(zvols, **zkw[64]),
+        "zpinch_K64_int8_codes": lambda: pack.build_quantized_tables(
+            zvols, bits=8, dither=zkey, amax=zam[64], **zkw[64]),
+        "zpinch_K256_amax": lambda: pack.build_amax(zvols, **zkw[256]),
+        "zpinch_K256_int4_codes": lambda: pack.build_quantized_tables(
+            zvols, bits=4, dither=zkey, amax=zam[256], **zkw[256])}
+    real = pack.build_plan
+    rows = {}
+    for label, cb in (("shipped", None), *((f"CB{c}", c) for c in SWEEP_CB),
+                      ("shipped_again", None)):
+        pack.build_plan = (real if cb is None
+                           else functools.partial(real, CB=cb))
+        rows[label] = {n: timed(fn, args.reps, calls=10)["median_ms"]
+                       for n, fn in calls.items()}
+    pack.build_plan = real
+    out["sweep_ms"] = rows
+    print(json.dumps({"part": "window_sweep", **out}), flush=True)
+
+
+def window_part(args):
+    """The ``window`` part (see the module's docstring)."""
+    import hashlib
+    import re
+
+    import torch
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.fields import ScalarDomain, layout_of
+    from synthpy_tpu_torch.kernels import _build, pack
+    from synthpy_tpu_torch.kernels.profiling import nvidia_smi, ptxas
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "reps": args.reps, "calls": 10}
+    if args.sweep:
+        return window_sweep(args, out)
+    kern, _, _ = ptxas(_build.CSRC / pack.KERNEL.source, pack.KERNEL.flags)
+    out["ptxas"] = {}
+    for n, v in kern.items():
+        m = re.search(r"(amax_pass|rows_pass)I.*?LayoutILi(\d)ELi(\d)ELi(\d)"
+                      r"EEELi(\d)E((?:L[ib]\d+E)*)", n)
+        if m and m.group(2, 3, 4) in (("0", "0", "0"), ("1", "1", "1")):
+            C = 8 if m.group(2) == "1" else 3
+            rest = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(6))]
+            key = f"{m.group(1)}_C{C}_pc{m.group(5)}"
+            if m.group(1) == "amax_pass" and rest:
+                key += "_lanes" if rest[0] else "_one_lane"
+            elif rest:
+                key += ("_" + ("f32", "bf16", "int8", "int4")[rest[0]]
+                        + ("_dither" if rest[1] else ""))
+            out["ptxas"][key] = v
+    hashes, times = {}, {}
+
+    def record(name, fn):
+        times[name] = timed(fn, args.reps, calls=10)
+        res = fn()
+        ts = res if isinstance(res, tuple) else (res,)
+        hashes[name] = [hashlib.sha256(t.contiguous().view(torch.uint8)
+                                       .cpu().numpy().tobytes()).hexdigest()
+                        for t in ts if t is not None]
+        del res, ts
+        torch.cuda.empty_cache()
+
+    def shard_tiers(vols, kw, key):
+        """Every tier of one shard's build; the quantised ones as the amax
+        call and the codes call apart (the codes from an amax above the
+        shard's, as the field's is after pmax)."""
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            record(f"shard_{name}",
+                   lambda dt=dt: pack.build_tables(vols, dtype=dt, **kw))
+        amax = pack.build_amax(vols, **kw) + 1
+        for bits in (8, 4):
+            record(f"shard_int{bits}_amax",
+                   lambda: pack.build_amax(vols, **kw))
+            record(f"shard_int{bits}_codes",
+                   lambda bits=bits: pack.build_quantized_tables(
+                       vols, bits=bits, dither=key, amax=amax, **kw))
+
+    vols, kw, zvols, zkw = _window_inputs(torch, dev)
+    shard_tiers(vols, kw, jrandom.key_of(WIN_DITHER))
+    zkey = jrandom.key_of(7)
+    for Kz, tiers_z in ((64, (8, 4)), (256, (4,))):
+        record(f"zpinch_K{Kz}_amax",
+               lambda k=zkw[Kz]: pack.build_amax(zvols, **k))
+        zam = pack.build_amax(zvols, **zkw[Kz])
+        for bits in tiers_z:
+            record(f"zpinch_K{Kz}_int{bits}_dither",
+                   lambda bits=bits, k=zkw[Kz]: pack.build_quantized_tables(
+                       zvols, bits=bits, dither=zkey, **k))
+            record(f"zpinch_K{Kz}_int{bits}_dither_codes",
+                   lambda bits=bits, k=zkw[Kz], am=zam:
+                   pack.build_quantized_tables(zvols, bits=bits,
+                                               dither=zkey, amax=am, **k))
+    del vols, zvols
+    torch.cuda.empty_cache()
+
+    # -- the bench builds, K = 512 ----------------------------------------
+    dom = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                           LR=1.5e-3)
+    hb = float(dom.x[1].cpu() - dom.x[0].cpu())
+    bkw = dict(p_ax=2, layout=layout_of(dom), K=K, n_seg=1,
+               pref=kw["pref"], da=hb, db=hb,
+               dp=float(dom.z[1].cpu() - dom.z[0].cpu()),
+               omega=kw["omega"], verdet=0.0)
+    bvols = {"ne": dom.ne, "Te": None, "Z": None, "B": None}
+    for name, fn in (
+            ("f32", lambda: pack.build_tables(bvols, dtype=torch.float32,
+                                              **bkw)),
+            ("bf16", lambda: pack.build_tables(bvols, dtype=torch.bfloat16,
+                                               **bkw)),
+            ("int8", lambda: pack.build_quantized_tables(bvols, bits=8,
+                                                         **bkw)),
+            ("int4", lambda: pack.build_quantized_tables(bvols, bits=4,
+                                                         **bkw))):
+        record(f"bench_K512_{name}", fn)
+    out["times"] = times
+    out["sha256"] = hashes
+    if args.save:
+        with open(args.save, "w") as f:
+            json.dump(hashes, f)
+    if args.against:
+        with open(args.against) as f:
+            ref = json.load(f)
+        out["against"] = {"file": args.against, **{
+            k: v == ref.get(k) for k, v in hashes.items()}}
+    print(json.dumps({"part": "window", **out}), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("pack_timing: no CUDA device")
     ap = argparse.ArgumentParser()
-    ap.add_argument("part", nargs="?", choices=["pack", "fill"],
+    ap.add_argument("part", nargs="?", choices=["pack", "fill", "window"],
                     default="pack")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--save")
     ap.add_argument("--against")
     args = ap.parse_args()
     os.makedirs("chiprun_out", exist_ok=True)
     if args.part == "fill":
         return fill_part(args)
+    if args.part == "window":
+        return window_part(args)
     sys.path.insert(0, os.path.abspath(args.root))
     from synthpy_tpu_torch import constants
     from synthpy_tpu_torch.fields import ScalarDomain, layout_of

@@ -19,11 +19,16 @@
 // the tables equal the plain version's bit for bit), the stencil's reads
 // and the loop around them. The design keeps that count low and reads ne
 // from device memory once:
-//   * A block owns CB consecutive cells of one segment (whole table rows)
+//   * A block stages CB consecutive cells of one segment (whole table rows)
 //     and walks the kept planes in chunks as long as its tile holds (one
 //     chunk at the main path's shapes). Per chunk it stages in shared memory
 //     the ne rows of its cells and their b-1/b+1 neighbours, from plane g-1
-//     to g+1, then computes every (cell, kept plane) from there. Consecutive
+//     to g+1, then computes every (cell, kept plane) from there. The launch
+//     plan (kernels/pack.py build_plan, passed in, checked here against
+//     this file's layout) sizes CB from pack.TILE_BUDGET and the pitch: 8
+//     cells at K = 512, where 8 rows fill the tile, up to ~80 at K = 64
+//     (z-probing), so that a barrier and a block's set-up (the row
+//     pointers, the chunk's scales) cover ten times the cells. Consecutive
 //     threads take consecutive planes of a row, so a warp's table stores
 //     cover one contiguous run of it (staging the block's table span in
 //     shared memory and writing it as 16-byte vectors measured 8% slower;
@@ -43,13 +48,18 @@
 //     a strided pack is the decimation of the full one, built directly.
 //   * Quantised tiers never hold a float table: pass A recomputes the
 //     channel values on the same tiles and reduces |v| per (segment, kept
-//     plane, channel) in registers over a long run of cells (each thread
-//     owns its planes), with one atomicMax per block and column (warp
-//     shuffles and a shared-memory stage are not needed: no two threads
-//     of a block share a column); pass B recomputes the same values and
-//     writes codes, with each chunk's scales computed once. The values are
-//     the same f32 numbers by the same operations, so the codes and scales
-//     are those of quantize_tables of the f32 build, bit for bit.
+//     plane, channel) in registers over a long run of cells, with one
+//     atomicMax per block and column. A thread is a (plane slot, cell lane)
+//     pair: with KB < 256 kept planes a chunk (K = 64: 65) the block's
+//     threads form 256 / KB lanes of KB slots (195 threads at work, 65
+//     before the plan), each lane taking every lanes-th staged cell, and
+//     the lanes' maxima meet in shared memory at the block's end (fmaxf of
+//     |v| is exact in any order); with KB >= 256 there is one lane and a
+//     thread owns up to three planes over every cell. Pass B recomputes the
+//     same values and writes codes, with each chunk's scales computed once
+//     a block. The values are the same f32 numbers by the same operations,
+//     so the codes and scales are those of quantize_tables of the f32
+//     build, bit for bit.
 //   * Dither (zscan.py:498-503, :1859-1865): the quantised tiers may add
 //     JAX's uniform dither of fold_in(key, absolute plane) to value / scale
 //     before rounding (channels.cuh dithered_code); the dithered kernels are
@@ -82,10 +92,10 @@ namespace {
 
 using namespace channels;
 
+// THREADS and AMAX_COLS are also kernels/pack.py's BUILD_THREADS and
+// AMAX_COLS (its build_plan sizes the tiles; a test reads both files)
 constexpr int THREADS = 256;
 constexpr int AMAX_CHUNK = 64;
-constexpr int CB_ROWS = 8;             // cells (whole rows) a block owns
-constexpr int TILE_BUDGET = 24 * 1024; // bytes of ne a block stages
 constexpr int DEFAULT_SMEM = 48 * 1024;
 
 struct Vol {
@@ -313,19 +323,32 @@ __host__ __device__ inline int out_blocks(int mode, int Ko) {
 //
 // Block (run, chunk, segment): kept planes [k0, k0+KB) over the cells
 // [run*CR, run*CR + CR), staged CB cells at a time with the row pass's
-// tile. Thread t owns the planes k0 + t + j*THREADS and keeps their running
-// |v| maxima in registers; at the end it sends one atomicMax per owned
-// (plane, channel) (|v| >= 0 orders as an unsigned integer).
-constexpr int AMAX_COLS = 3;  // planes a thread owns: KB <= 3 * THREADS
+// tile. Thread t is plane slot t % slots of cell lane t / slots (lanes x
+// slots <= THREADS; the rest only stage): it owns the planes k0 + slot +
+// j*slots and, of each staged run of cells, those of index lane, lane +
+// lanes, ..., and keeps its planes' running |v| maxima in registers.
+// Consecutive threads take consecutive planes of one cell, so their tile
+// reads are consecutive words. At the end lanes 1.. leave their maxima in
+// shared memory (after the tile) and lane 0 folds them in and sends one
+// atomicMax per owned (plane, channel) (|v| >= 0 orders as an unsigned
+// integer). With one lane (LANES false: KB above half a block, the plan's
+// slots are THREADS) a thread owns planes k0 + t + j*THREADS over every
+// cell, with no fold, as before the plan.
+constexpr int AMAX_COLS = 3;  // planes a slot owns: KB <= 3 * slots
 
-template <class LY, int PC>
+template <class LY, int PC, bool LANES>
 __global__ void __launch_bounds__(THREADS)
-    amax_pass(Field F, unsigned* amax, int KB, int CB, int CR, int pitch) {
+    amax_pass(Field F, unsigned* amax, int KB, int CB, int CR, int pitch,
+              int slots, int lanes) {
   constexpr int C = LY::C;
   extern __shared__ uint4 smem_u4[];
   const int s = blockIdx.z, k0 = (int)blockIdx.y * KB;
   const int k1 = min(k0 + KB, F.Ko + 1);
-  Tile T = tile_at<PC>(reinterpret_cast<uint8_t*>(smem_u4), CB, pitch);
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem_u4);
+  Tile T = tile_at<PC>(sm, CB, pitch);
+  const int slot = LANES ? (int)threadIdx.x % slots : (int)threadIdx.x;
+  const int lane = LANES ? (int)threadIdx.x / slots : 0;
+  const int pstep = LANES ? slots : THREADS, cstep = LANES ? lanes : 1;
   float m[AMAX_COLS][C];
 #pragma unroll
   for (int j = 0; j < AMAX_COLS; ++j)
@@ -335,23 +358,41 @@ __global__ void __launch_bounds__(THREADS)
   for (int c0 = (int)blockIdx.x * CR; c0 < cend; c0 += CB) {
     stage<PC>(F, T, c0, s * F.K + k0 * F.S, s * F.K + (k1 - 1) * F.S);
     const int ncell = min(CB, cend - c0);
+    if (!LANES || lane < lanes) {
 #pragma unroll
-    for (int j = 0; j < AMAX_COLS; ++j) {
-      const int ko = k0 + (int)threadIdx.x + j * THREADS;
-      if (ko < k1) {
-        for (int i = 0; i < ncell; ++i) {
-          float v[C];
-          channel_values<LY, PC>(F, T, i, s * F.K + ko * F.S, v);
+      for (int j = 0; j < AMAX_COLS; ++j) {
+        const int ko = k0 + slot + j * pstep;
+        if (ko < k1) {
+          for (int i = lane; i < ncell; i += cstep) {
+            float v[C];
+            channel_values<LY, PC>(F, T, i, s * F.K + ko * F.S, v);
 #pragma unroll
-          for (int c = 0; c < C; ++c) m[j][c] = fmaxf(m[j][c], fabsf(v[c]));
+            for (int c = 0; c < C; ++c)
+              m[j][c] = fmaxf(m[j][c], fabsf(v[c]));
+          }
         }
       }
     }
     __syncthreads();  // the tile is restaged next
   }
+  if constexpr (LANES) {
+    // one plane a slot here (KB <= slots)
+    float* red = reinterpret_cast<float*>(sm + tile_bytes(CB, pitch, PC) +
+                                          meta_bytes(CB));
+    if (lane >= 1 && lane < lanes)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        red[((lane - 1) * slots + slot) * C + c] = m[0][c];
+    __syncthreads();
+    if (lane != 0) return;
+    for (int l = 0; l < lanes - 1; ++l)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        m[0][c] = fmaxf(m[0][c], red[(l * slots + slot) * C + c]);
+  }
 #pragma unroll
   for (int j = 0; j < AMAX_COLS; ++j) {
-    const int ko = k0 + (int)threadIdx.x + j * THREADS;
+    const int ko = k0 + slot + j * pstep;
     if (ko < k1)
 #pragma unroll
       for (int c = 0; c < C; ++c)
@@ -477,10 +518,35 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// smem of pass A and of the row pass
-size_t rows_smem(int CB, int pitch, int pc, int KB, int C) {
-  return (size_t)tile_bytes(CB, pitch, pc) + (size_t)meta_bytes(CB) +
-         (size_t)KB * C * 4;
+// The launch plan of pack.py build_plan: KB kept planes a chunk (n_chunk
+// chunks) and the tile's pitch; pass A's CB_a cells a barrier, plane
+// slots and cell lanes, its CR cells a block and blocks_a blocks a chunk
+// and segment; pass B's CB_b cells a block (and barrier) and blocks_b
+// blocks a segment; each pass's shared bytes.
+struct Plan {
+  int CB_a, CB_b, KB, n_chunk, pitch, slots, lanes, CR, blocks_a, smem_a,
+      blocks_b, smem_b;
+};
+
+// The plan is this file's layout and covers every (cell, kept plane):
+// pass A's shared memory is the tile, its metadata and lanes 1..'s maxima,
+// pass B's the tile, its metadata and a chunk's scales.
+bool plan_ok(const Plan& L, const Field& F, int pc, int C) {
+  const long long tile_a =
+      (long long)tile_bytes(L.CB_a, L.pitch, pc) + meta_bytes(L.CB_a);
+  const long long tile_b =
+      (long long)tile_bytes(L.CB_b, L.pitch, pc) + meta_bytes(L.CB_b);
+  return L.CB_a >= 1 && L.CB_b >= 1 && L.KB >= 1 && L.slots >= 1 &&
+         L.lanes >= 1 && L.CR % L.CB_a == 0 &&
+         L.pitch == tile_pitch(L.KB, F.S, pc) &&
+         (long long)L.n_chunk * L.KB >= F.Ko + 1 &&
+         (long long)(L.n_chunk - 1) * L.KB < F.Ko + 1 &&
+         L.slots * L.lanes <= THREADS && L.KB <= AMAX_COLS * L.slots &&
+         (L.lanes == 1 ? L.slots == THREADS : L.KB <= L.slots) &&
+         (long long)L.blocks_a * L.CR >= F.cells &&
+         (long long)L.blocks_b * L.CB_b >= F.cells &&
+         L.smem_a == tile_a + 4LL * (L.lanes - 1) * L.slots * C &&
+         L.smem_b == tile_b + 4LL * L.KB * C;
 }
 
 // raise a kernel's dynamic shared memory limit where it needs more than
@@ -493,35 +559,22 @@ int allow_smem(KernelT kernel, size_t smem) {
 }
 
 template <class LY, int PC>
-int build_layout(const Field& F, int mode, int phase, void* out,
-                 unsigned* amax, float* scales, int dither, uint2 dkey,
-                 cudaStream_t st) {
+int build_layout(const Field& F, const Plan& L, int mode, int phase,
+                 void* out, unsigned* amax, float* scales, int dither,
+                 uint2 dkey, cudaStream_t st) {
   constexpr int C = LY::C;
-  // CB_ROWS cells' rows a block; kept planes in chunks as long as a
-  // TILE_BUDGET tile holds (all of them at the main path's shapes), even
-  // unless one chunk takes every plane
-  const int CB = CB_ROWS;
-  const int per_row = TILE_BUDGET / 4 / tile_rows(CB, PC);
-  int KB = (per_row - 9) / F.S + 1;
-  KB = KB < 2 ? 2 : KB & ~1;
-  if (KB > F.Ko + 1) KB = F.Ko + 1;
-  if (KB > AMAX_COLS * THREADS) KB = AMAX_COLS * THREADS;
-  const int pitch = tile_pitch(KB, F.S, PC);
-  const size_t smem = rows_smem(CB, pitch, PC, KB, C);
+  if (!plan_ok(L, F, PC, C)) return (int)cudaErrorInvalidValue;
   if ((mode == INT8 || mode == INT4) && phase != 2) {
-    // pass A: cells in runs of CR, ~2 waves of 8 blocks an SM
-    const int n_chunk = (F.Ko + KB) / KB;
-    const long long want = 132LL * 8 * 2 / ((long long)n_chunk * F.n_seg);
-    const int runs = (int)(want < 1 ? 1 : want);
-    int CR = (F.cells + runs - 1) / runs;
-    CR = (CR + CB - 1) / CB * CB;
-    const dim3 grid((F.cells + CR - 1) / CR, n_chunk, F.n_seg);
-    auto k = amax_pass<LY, PC>;
-    if (const int e = allow_smem(k, smem)) return e;
-    k<<<grid, THREADS, smem, st>>>(F, amax, KB, CB, CR, pitch);
+    const dim3 grid(L.blocks_a, L.n_chunk, F.n_seg);
+    auto k = L.lanes > 1 ? amax_pass<LY, PC, true> : amax_pass<LY, PC, false>;
+    if (const int e = allow_smem(k, L.smem_a)) return e;
+    k<<<grid, THREADS, L.smem_a, st>>>(F, amax, L.KB, L.CB_a, L.CR,
+                                       L.pitch, L.slots, L.lanes);
   }
   if (phase == 1) return 0;
-  const dim3 grid((F.cells + CB - 1) / CB, F.n_seg);
+  const dim3 grid(L.blocks_b, F.n_seg);
+  const int KB = L.KB, CB = L.CB_b, pitch = L.pitch;
+  const size_t smem = L.smem_b;
   void (*k)(Field, void*, const unsigned*, float*, int, int, int, uint2) =
       mode == F32    ? rows_pass<LY, PC, F32, false>
       : mode == BF16 ? rows_pass<LY, PC, BF16, false>
@@ -535,14 +588,14 @@ int build_layout(const Field& F, int mode, int phase, void* out,
 }
 
 template <class LY>
-int build_probe(const Field& F, int mode, int phase, void* out,
-                unsigned* amax, float* scales, int dither, uint2 dkey,
-                cudaStream_t st) {
+int build_probe(const Field& F, const Plan& L, int mode, int phase,
+                void* out, unsigned* amax, float* scales, int dither,
+                uint2 dkey, cudaStream_t st) {
   return F.ne.sp == 1
-             ? build_layout<LY, 1>(F, mode, phase, out, amax, scales, dither,
-                                   dkey, st)
-             : build_layout<LY, 0>(F, mode, phase, out, amax, scales, dither,
-                                   dkey, st);
+             ? build_layout<LY, 1>(F, L, mode, phase, out, amax, scales,
+                                   dither, dkey, st)
+             : build_layout<LY, 0>(F, L, mode, phase, out, amax, scales,
+                                   dither, dkey, st);
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -852,7 +905,10 @@ unsigned blocks_for(long long total) {
 // s*K + k*S. The volumes hold a-rows [a0, a0 + na) of na_total; halo_lo /
 // halo_hi (row a0 - 1 / a0 + na, plane stride hsp, b stride hsb) are read
 // only where a0 > 0 / a0 + na < na_total. phase: 0 the whole build, 1 the
-// amax pass alone (out unused), 2 the codes from the given amax.
+// amax pass alone (out unused), 2 the codes from the given amax. CB_a ..
+// smem_b: the launch plan (pack.py build_plan; Plan above), refused with
+// cudaErrorInvalidValue unless it is this file's layout and covers the
+// build.
 extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
                           const float* ne, const float* te, const float* z,
                           const float* B, long long sp, long long sa,
@@ -864,7 +920,12 @@ extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
                           int dither, long long key0, long long key1,
                           int a0, int na_total, const float* halo_lo,
                           const float* halo_hi, long long hsp, long long hsb,
-                          int phase, void* stream) {
+                          int phase, int CB_a, int CB_b, int KB,
+                          int n_chunk, int pitch, int slots, int lanes,
+                          int CR, int blocks_a, int smem_a, int blocks_b,
+                          int smem_b, void* stream) {
+  const Plan L{CB_a,  CB_b,     KB,     n_chunk,  pitch, slots,
+               lanes, CR,       blocks_a, smem_a, blocks_b, smem_b};
   Field F;
   F.ne = {ne, sp, sa, sb};
   F.hlo = {halo_lo, hsp, 0, hsb};
@@ -885,14 +946,14 @@ extern "C" int pack_build(void* out, int mode, float* scales, unsigned* amax,
   const uint2 dk = make_uint2((uint32_t)key0, (uint32_t)key1);
   int rc;
   switch (inv_brems | (phaseshift << 1) | (B_on << 2)) {
-    case 0: rc = build_probe<Layout<0, 0, 0>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
-    case 1: rc = build_probe<Layout<1, 0, 0>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
-    case 2: rc = build_probe<Layout<0, 1, 0>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
-    case 3: rc = build_probe<Layout<1, 1, 0>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
-    case 4: rc = build_probe<Layout<0, 0, 1>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
-    case 5: rc = build_probe<Layout<1, 0, 1>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
-    case 6: rc = build_probe<Layout<0, 1, 1>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
-    default: rc = build_probe<Layout<1, 1, 1>>(F, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 0: rc = build_probe<Layout<0, 0, 0>>(F, L, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 1: rc = build_probe<Layout<1, 0, 0>>(F, L, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 2: rc = build_probe<Layout<0, 1, 0>>(F, L, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 3: rc = build_probe<Layout<1, 1, 0>>(F, L, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 4: rc = build_probe<Layout<0, 0, 1>>(F, L, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 5: rc = build_probe<Layout<1, 0, 1>>(F, L, mode, phase, out, amax, scales, dither, dk, st); break;
+    case 6: rc = build_probe<Layout<0, 1, 1>>(F, L, mode, phase, out, amax, scales, dither, dk, st); break;
+    default: rc = build_probe<Layout<1, 1, 1>>(F, L, mode, phase, out, amax, scales, dither, dk, st); break;
   }
   return rc ? rc : (int)cudaGetLastError();
 }

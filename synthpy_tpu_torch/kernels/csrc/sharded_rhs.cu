@@ -163,7 +163,8 @@ __global__ void __launch_bounds__(THREADS)
     } else {
 #pragma unroll
       for (int q = 0; q < 9; ++q)
-        a[q] = stage == 3 ? T.acc[q * N + i] + k[q]
+        a[q] = stage == 3 ? time_rhs::rk4_last_add<LY>(q, T.acc[q * N + i],
+                                                       k, v, t, T.atten_sign)
                           : T.acc[q * N + i] + 2.0f * k[q];
     }
     if (stage == 3) {

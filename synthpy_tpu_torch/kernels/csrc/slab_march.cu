@@ -10,17 +10,45 @@
 // What bounds it on the H100: by count, operations. A ray and slab do four
 // stages of ~45 + 11C float32 operations (weights, the per-corner plane
 // blend of the midpoint stages, the 4-corner blend of C channels, the
-// right-hand side) plus the 8-wide stage states and update, and read 24 C
-// plane values (4 corners of one plane for k1 and k4, of two planes for k2
-// and k3); the planes are touched only around the rays' paths and the
-// state is read and written once (PERF.md has the bound and the time).
+// right-hand side) plus the 8-wide stage states and update; the planes are
+// touched only around the rays' paths and the state is read and written
+// once (PERF.md has the bound and the time). The first design read 24C
+// plane values a ray-slab (4 corners of one plane for k1 and k4, of two
+// planes for k2 and k3): 72 scalar loads at C = 3, most of them values the
+// ray had just read, and ran at 23% of the bound.
+//
 // The design: one thread owns a ray and keeps its 8 columns in registers
 // across all slabs. The JAX program blends whole planes (p_h = 0.5 (w0 +
 // w1), or w0 + (j / substeps) (w1 - w0)); here each stage blends only the
 // 4 corner values it reads, which are the same values elementwise, so no
 // blended plane is ever written. The wrapper may hand the rays over in
 // entry-cell order (kernels/march.ray_order) so that a warp's corner reads
-// share sectors; each ray's result goes back to its own row.
+// share sectors; each ray's result goes back to its own row. On K5's and
+// K13's template (time_rhs.cuh, boris.cu), a thread carries corners:
+// - Corners<C> holds one plane's 4 x C corner values at a transverse cell
+//   (ia, ib). A thread keeps two: X, plane k's, and Y, plane k + 1's. At a
+//   new slab X takes Y's values and cell (plane k is the last slab's plane
+//   k + 1) and Y is empty. A stage computes ta, tb, the inside test and the
+//   clamped cell exactly as before, then brings the planes it blends to its
+//   cell: an unchanged cell reads nothing, a move (or an empty carry)
+//   reads the plane's four corners. Outside the box a stage gives 0, reads
+//   nothing and keeps the carry. A ray whose cell holds still reads plane
+//   k + 1's 4C values once a slab: 12 loads at C = 3, against 72
+//   (profiling.slab_walk_model counts them along the plain march's stage
+//   points). A corner is C single loads at immediate offsets from one of
+//   two row pointers; blocks are 128 threads.
+// - In entry-cell order a warp's rays share their corners' sectors, so the
+//   first design's loads mostly hit L1 and the march is held by its
+//   instruction rate and latency, not by its loads. There, shifting the carried corners along
+//   a and b to read only the two that came in (K5's and K13's carry) cost
+//   more registers and selects than the loads it saved, and ran 16%
+//   slower than the first design; reading all four on a move runs within
+//   a few percent of it, and 3.5 times faster in the caller's order, where
+//   the first design's loads miss (PERF.md; march_profile.py zscan
+//   --variants keeps the shifting carry as its "shift" variant).
+// The blend and the right-hand side are unchanged: the same values, in the
+// same order (w00 c00 + w01 c01 + w10 c10 + w11 c11), so the rows are the
+// first design's bit for bit.
 //
 // Rounding rules of the JAX program (zscan.py:219-231), kept here:
 // - substeps == 1: p_h = 0.5 * (w0 + w1) is computed in the plane dtype, so
@@ -64,14 +92,12 @@ __device__ __forceinline__ float bf16r(float v) {
 // How a stage's plane values come from the slab's two planes.
 enum Mode { PLANE0, PLANE1, MID, LERP };
 
-// Value of one channel of the stage plane at flat element idx.
+// The stage plane's value from plane k's a and plane k + 1's b.
 template <int DT>
-__device__ __forceinline__ float stage_value(const void* w0, const void* w1,
-                                             long long idx, int mode,
+__device__ __forceinline__ float stage_value(float a, float b, int mode,
                                              float frac) {
-  if (mode == PLANE0) return load<DT>(w0, idx);
-  if (mode == PLANE1) return load<DT>(w1, idx);
-  const float a = load<DT>(w0, idx), b = load<DT>(w1, idx);
+  if (mode == PLANE0) return a;
+  if (mode == PLANE1) return b;
   if (mode == MID) {
     if constexpr (DT == BF16) return bf16r(0.5f * bf16r(a + b));
     else return 0.5f * (a + b);
@@ -81,11 +107,47 @@ __device__ __forceinline__ float stage_value(const void* w0, const void* w1,
   return a + frac * dw;
 }
 
-// du/dp at u from the stage plane (_bilinear, then _deriv).
+// One plane's corner values at a carried transverse cell: corner q = 2 da +
+// db is node (ia + da, ib + db); (-2, -2) carries nothing.
+template <int C>
+struct Corners {
+  float c[4][C];
+  int ia, ib;
+
+  __device__ __forceinline__ Corners() : ia(-2), ib(-2) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int m = 0; m < C; ++m) c[q][m] = 0.0f;
+  }
+};
+
+// Bring K to cell (ia, ib) of the plane at w: an unchanged cell reads
+// nothing, a move reads the four corners anew.
+template <int DT, int C>
+__device__ __forceinline__ void corners_at(Corners<C>& K, const void* w,
+                                           int ia, int ib, int nb) {
+  if (ia == K.ia && ib == K.ib) return;
+  K.ia = ia;
+  K.ib = ib;
+  // the rows ia and ia + 1; a node's channel offsets are immediates
+  const long long r0 = ((long long)ia * nb + ib) * C;
+  const long long r1 = r0 + (long long)nb * C;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int m = 0; m < C; ++m)
+      K.c[q][m] = load<DT>(w, (q & 2 ? r1 : r0) + C * (q & 1) + m);
+}
+
+// du/dp at u from the stage plane (_bilinear, then _deriv), through the
+// carried corners X (plane k at w0) and Y (plane k + 1 at w1).
 template <int DT, class LY>
 __device__ __forceinline__ void deriv(const Params& P, const void* w0,
-                                      const void* w1, int mode, float frac,
-                                      const float u[8], float d[8]) {
+                                      const void* w1, Corners<LY::C>& X,
+                                      Corners<LY::C>& Y, int mode,
+                                      float frac, const float u[8],
+                                      float d[8]) {
   constexpr int C = LY::C;
   const float ta = (u[0] - P.oa) * P.inva;
   const float tb = (u[1] - P.ob) * P.invb;
@@ -99,15 +161,14 @@ __device__ __forceinline__ void deriv(const Params& P, const void* w0,
     const float fb = fminf(fmaxf(tb - ib, 0.0f), 1.0f);
     const float w00 = (1.0f - fa) * (1.0f - fb), w01 = (1.0f - fa) * fb,
                 w10 = fa * (1.0f - fb), w11 = fa * fb;
-    const long long base = ((long long)ia * P.nb + (long long)ib) * C;
-    const long long row = (long long)P.nb * C;
+    if (mode != PLANE1) corners_at<DT, C>(X, w0, (int)ia, (int)ib, P.nb);
+    if (mode != PLANE0) corners_at<DT, C>(Y, w1, (int)ia, (int)ib, P.nb);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float c00 = stage_value<DT>(w0, w1, base + c, mode, frac);
-      const float c01 = stage_value<DT>(w0, w1, base + C + c, mode, frac);
-      const float c10 = stage_value<DT>(w0, w1, base + row + c, mode, frac);
-      const float c11 =
-          stage_value<DT>(w0, w1, base + row + C + c, mode, frac);
+      const float c00 = stage_value<DT>(X.c[0][c], Y.c[0][c], mode, frac);
+      const float c01 = stage_value<DT>(X.c[1][c], Y.c[1][c], mode, frac);
+      const float c10 = stage_value<DT>(X.c[2][c], Y.c[2][c], mode, frac);
+      const float c11 = stage_value<DT>(X.c[3][c], Y.c[3][c], mode, frac);
       v[c] = w00 * c00 + w01 * c01 + w10 * c10 + w11 * c11;
     }
   } else {
@@ -120,20 +181,21 @@ __device__ __forceinline__ void deriv(const Params& P, const void* w0,
 // One RK4 step between stage planes (m0, frac0), (mh, frach), (m1, frac1).
 template <int DT, class LY>
 __device__ __forceinline__ void rk4_step(const Params& P, const void* w0,
-                                         const void* w1, int m0, float f0,
+                                         const void* w1, Corners<LY::C>& X,
+                                         Corners<LY::C>& Y, int m0, float f0,
                                          int mh, float fh, int m1, float f1,
                                          float u[8]) {
   float k1[8], k2[8], k3[8], k4[8], t[8];
-  deriv<DT, LY>(P, w0, w1, m0, f0, u, k1);
+  deriv<DT, LY>(P, w0, w1, X, Y, m0, f0, u, k1);
 #pragma unroll
   for (int q = 0; q < 8; ++q) t[q] = u[q] + P.hh * k1[q];
-  deriv<DT, LY>(P, w0, w1, mh, fh, t, k2);
+  deriv<DT, LY>(P, w0, w1, X, Y, mh, fh, t, k2);
 #pragma unroll
   for (int q = 0; q < 8; ++q) t[q] = u[q] + P.hh * k2[q];
-  deriv<DT, LY>(P, w0, w1, mh, fh, t, k3);
+  deriv<DT, LY>(P, w0, w1, X, Y, mh, fh, t, k3);
 #pragma unroll
   for (int q = 0; q < 8; ++q) t[q] = u[q] + P.h * k3[q];
-  deriv<DT, LY>(P, w0, w1, m1, f1, t, k4);
+  deriv<DT, LY>(P, w0, w1, X, Y, m1, f1, t, k4);
 #pragma unroll
   for (int q = 0; q < 8; ++q)
     u[q] = u[q] + P.h6 * (k1[q] + 2.0f * k2[q] + 2.0f * k3[q] + k4[q]);
@@ -155,16 +217,21 @@ __global__ void __launch_bounds__(THREADS) slab_kernel(Params P) {
   const long long plane_bytes =
       (long long)P.na * P.nb * C * (DT == F32 ? 4 : 2);
   const float S = (float)P.substeps;
+  Corners<C> X, Y;
   for (int k = 0; k < P.n_slabs; ++k) {
     const char* w0 = (const char*)P.planes + k * plane_bytes;
     const char* w1 = w0 + plane_bytes;
+    // plane k's corners are the last slab's plane k + 1's
+    X = Y;
+    Y.ia = Y.ib = -2;
     if (P.substeps == 1) {
-      rk4_step<DT, LY>(P, w0, w1, PLANE0, 0.0f, MID, 0.0f, PLANE1, 0.0f, u);
+      rk4_step<DT, LY>(P, w0, w1, X, Y, PLANE0, 0.0f, MID, 0.0f, PLANE1,
+                       0.0f, u);
     } else {
       for (int j = 0; j < P.substeps; ++j) {
         const float fj = (float)j;
-        rk4_step<DT, LY>(P, w0, w1, LERP, fj / S, LERP, (fj + 0.5f) / S,
-                         LERP, (fj + 1.0f) / S, u);
+        rk4_step<DT, LY>(P, w0, w1, X, Y, LERP, fj / S, LERP,
+                         (fj + 0.5f) / S, LERP, (fj + 1.0f) / S, u);
       }
     }
   }

@@ -42,7 +42,8 @@
 // s + (dt/6)(((k1 + 2 k2) + 2 k3) + k4)), operation for operation as the
 // plain PyTorch version does it; built with --fmad=false, with a fused
 // multiply-add exactly where XLA's CPU compiler fuses one in the JAX step
-// (each s + c k, and the corner sum of time_rhs.cuh), so the plain version
+// (each s + c k, the corner sum of time_rhs.cuh and k4's amplitude term in
+// the slope sum, time_rhs::rk4_last_add), so the plain version
 // on the CPU is bit-equal to the JAX program and the kernel to the plain
 // version. The carried gather blends the same values in the same order.
 
@@ -84,10 +85,15 @@ __global__ void __launch_bounds__(THREADS) rk4_kernel(Params P) {
     time_rhs::rhs_carried<LY>(P.G, K, t, P.atten_sign, k3);
 #pragma unroll
     for (int q = 0; q < 9; ++q) t[q] = __fmaf_rn(P.dt, k3[q], s[q]);
-    time_rhs::rhs_carried<LY>(P.G, K, t, P.atten_sign, k4);
+    float v4[LY::C];
+    time_rhs::trilinear_carried<LY::C>(P.G, K, t, v4);
+    time_rhs::derivative<LY>(t, v4, P.atten_sign, k4);
 #pragma unroll
     for (int q = 0; q < 9; ++q)
-      s[q] = __fmaf_rn(P.h6, k1[q] + 2.0f * k2[q] + 2.0f * k3[q] + k4[q],
+      s[q] = __fmaf_rn(P.h6,
+                       time_rhs::rk4_last_add<LY>(
+                           q, k1[q] + 2.0f * k2[q] + 2.0f * k3[q], k4, v4, t,
+                           P.atten_sign),
                        s[q]);
   }
 #pragma unroll

@@ -100,6 +100,24 @@ __device__ __forceinline__ void derivative(const float s[9],
     d[8] = v[LY::FI] * s[3] + v[LY::FI + 1] * s[4] + v[LY::FI + 2] * s[5];
 }
 
+// Component q of an RK4 step's slope sum ((k1 + 2 k2) + 2 k3) + k4 from
+// its first three terms acc, with k4's channel values v4 at its stage
+// state t4. XLA's CPU compiler fuses k4's amplitude derivative (atten_sign
+// kappa) amp into the sum's last add (the compiled trace_rk4's and
+// grid-sharded tracer's final fusion: -kappa times amp, then added to
+// (k1 + 2 k2) + 2 k3, one multiply-add); every other component adds k4.
+template <class LY>
+__device__ __forceinline__ float rk4_last_add(int q, float acc,
+                                              const float k4[9],
+                                              const float v4[LY::C],
+                                              const float t4[9],
+                                              float atten_sign) {
+  if constexpr (LY::inv_brems) {
+    if (q == 6) return __fmaf_rn(atten_sign * v4[LY::KI], t4[6], acc);
+  }
+  return acc + k4[q];
+}
+
 // ds/dt of the state s, gathering its channel values from the grid.
 template <class LY>
 __device__ __forceinline__ void rhs(const Grid& G, const float s[9],

@@ -44,7 +44,8 @@ from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
 _FUNCTIONS = {
     "pack_build": [P, I, P, P, P, P, P, P, L, L, L, I, I, I, I, I, I, I,
                    I, I, F, F, F, F, F, F, F, F, I, I, I, I, L, L,
-                   I, I, P, P, L, L, I, P],
+                   I, I, P, P, L, L, I, I, I, I, I, I, I, I, I, I, I, I,
+                   I, P],
     "pack_quantize": [P, I, P, P, P, I, I, I, I, I, I, L, L, P],
     "pack_decimate": [P, P, I, I, L, I, I, I, I, I, I, I, L, I, I, P],
 }
@@ -110,6 +111,119 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes, device) -> None:
 # -- build -----------------------------------------------------------------
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# pack_build's launch plan (csrc/pack.cu; THREADS and AMAX_COLS are that
+# file's too): threads a block; planes a plane slot of the amax pass may
+# own; the cells a block stages at least (the kernel staged exactly this
+# many before it took a plan; kept planes are still chunked as such a tile
+# allows, so KB does not move), and always a multiple of it; the bytes of
+# ne a tile stages; blocks an SM counted when the plan keeps two waves
+BUILD_THREADS = 256
+AMAX_COLS = 3
+CB_ROWS = 8
+TILE_BUDGET = 24 * 1024
+WAVE_BLOCKS_PER_SM = 8
+# the most cells a block of a float table's rows stages: a sweep of the
+# cells a barrier on one 1024^3 shard at K = 64 (pack_timing.py window
+# --sweep; H100 80GB HBM3, 700.00 W, PERF.md) ran the f32 rows in 2.08 ms
+# at 32 cells against 2.65 at 8 and 3.04 at 80, bf16 in 1.79 against 2.62
+# and 2.22, while the codes, amax and dithered z-pinch passes ran fastest
+# with the whole tile budget
+FLOAT_ROWS_CB = 32
+
+
+def tile_rows(CB: int, pc: bool) -> int:
+    """Staged rows of a tile: the CB cells and their b-1 / b+1
+    neighbours, and for x- and y-probing (``pc`` False) the a-1 and a+1
+    neighbour rows too (csrc/pack.cu ``tile_rows``)."""
+    return CB + 2 if pc else 3 * CB + 2
+
+
+def tile_pitch(KB: int, S: int, pc: bool) -> int:
+    """Floats a tile row: planes g-1 .. g+1 of KB kept planes S apart,
+    16-byte aligned along contiguous planes, odd otherwise."""
+    span = (KB - 1) * S + 3
+    return 4 * ((span + 6) // 4) if pc else span | 1
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def tile_bytes(CB: int, pitch: int, pc: bool) -> int:
+    return _up16(tile_rows(CB, pc) * pitch * 4)
+
+
+def meta_bytes(CB: int) -> int:
+    """Each of the 3 CB + 2 rows' pointer and plane stride, each cell's
+    (a, b)."""
+    return _up16((3 * CB + 2) * 12 + CB * 8)
+
+
+class BuildPlan(NamedTuple):
+    """How ``pack_build`` walks a build: the kept planes in ``n_chunk``
+    chunks of ``KB``, staged in tiles of ``pitch`` floats a row. Pass A
+    (the amax) stages ``CB_a`` cells (whole table rows) of a segment
+    between two barriers, in ``blocks_a`` blocks a chunk and segment of
+    ``CR`` cells each; its thread t is plane slot t % ``slots`` of cell
+    lane t / ``slots`` (``lanes`` of them), owning the planes slot + j *
+    slots of the chunk over the staged cells lane, lane + lanes, ... Pass
+    B (rows or codes) runs ``blocks_b`` blocks a segment of ``CB_b``
+    cells. ``smem_a`` / ``smem_b``: each pass's dynamic shared bytes."""
+    CB_a: int
+    CB_b: int
+    KB: int
+    n_chunk: int
+    pitch: int
+    slots: int
+    lanes: int
+    CR: int
+    blocks_a: int
+    smem_a: int
+    blocks_b: int
+    smem_b: int
+
+
+def build_plan(C: int, n_seg: int, K: int, S: int, cells: int, pc: bool,
+               mode: int, n_sm: int = 132,
+               CB: Optional[int] = None) -> BuildPlan:
+    """K2's launch plan for ``cells`` cells a segment, C channels and
+    K / S + 1 kept planes a row; ``pc``: planes contiguous (z-probing).
+    KB is as long as a tile of ``CB_ROWS`` cells holds (every plane at K =
+    64; 513 at K = 512, z-probing); the cells a barrier then fill
+    ``TILE_BUDGET`` in multiples of ``CB_ROWS`` (8 at K = 512, 80 at K = 64
+    z-probing, 24 x- and y-probing), capped so that pass B keeps two waves
+    of ``WAVE_BLOCKS_PER_SM`` blocks an SM, and at ``FLOAT_ROWS_CB`` for
+    the rows of a float table (``mode`` 0 f32, 1 bf16; 2 int8, 3 int4).
+    Pass A takes floor(``BUILD_THREADS`` / KB) cell lanes of KB slots
+    where two or more fit, else one lane of ``BUILD_THREADS`` slots, and
+    its cells in runs for two such waves. ``CB`` forces both passes' cells
+    a barrier (timing variants)."""
+    Ko = K // S
+    per_row = TILE_BUDGET // 4 // tile_rows(CB_ROWS, pc)
+    KB = (per_row - 9) // S + 1
+    KB = 2 if KB < 2 else KB & ~1
+    KB = min(KB, Ko + 1, AMAX_COLS * BUILD_THREADS)
+    pitch = tile_pitch(KB, S, pc)
+    rows = TILE_BUDGET // (4 * pitch)
+    wide = (rows - 2) // (1 if pc else 3) // CB_ROWS * CB_ROWS
+    waves = 2 * n_sm * WAVE_BLOCKS_PER_SM
+    cap = cells * n_seg // waves // CB_ROWS * CB_ROWS
+    CB_a = CB_b = max(CB_ROWS, min(wide, cap)) if CB is None else CB
+    if CB is None and mode < 2:
+        CB_b = min(CB_b, FLOAT_ROWS_CB)
+    n_chunk = -(-(Ko + 1) // KB)
+    slots = KB if 2 * KB <= BUILD_THREADS else BUILD_THREADS
+    lanes = BUILD_THREADS // slots
+    runs = max(1, waves // (n_chunk * n_seg))
+    CR = -(-(-(-cells // runs)) // CB_a) * CB_a
+
+    def tile(cb):
+        return tile_bytes(cb, pitch, pc) + meta_bytes(cb)
+
+    return BuildPlan(CB_a, CB_b, KB, n_chunk, pitch, slots, lanes, CR,
+                     -(-cells // CR), tile(CB_a) + 4 * (lanes - 1) * slots * C,
+                     -(-cells // CB_b), tile(CB_b) + 4 * KB * C)
 
 
 def channels_plain(padded: torch.Tensor, extras, g: torch.Tensor, *,
@@ -353,6 +467,8 @@ def _build(vols, *, mode: int, p_ax: int, layout: ChannelLayout, K: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    plan = build_plan(C, n_seg, K, S, na * nb, st[p_ax] == 1, mode,
+                      n_sm=_card_limits(dev).get("n_sm", H100_SMS))
     kernel = KERNEL if window is None else WINDOW_KERNEL
     kernel.launch(
         "pack_build", dev, ptr(out), mode, ptr(scales), ptr(amax),
@@ -361,7 +477,8 @@ def _build(vols, *, mode: int, p_ax: int, layout: ChannelLayout, K: int,
         n_seg, K, S, dims[p_ax], na, nb, pref, da, db, 2.0 * dp, dp, omega,
         constants.OMEGA_PE_COEFF**2 * 1e-6 / omega**2, verdet,
         int(layout.inv_brems), int(layout.phaseshift), int(layout.B_on),
-        *_dither_args(dither), a0, na_all, ptr(lo), ptr(hi), *hst, phase)
+        *_dither_args(dither), a0, na_all, ptr(lo), ptr(hi), *hst, phase,
+        *plan)
     return (None, amax) if phase == 1 else (out, scales)
 
 
@@ -560,7 +677,8 @@ def decimate_plan(elem_bytes: int, nibbles: bool, n_seg: int, cells: int,
 
 
 def _card_limits(dev: torch.device) -> dict:
-    """The card's SM count and shared memory for ``decimate_plan``."""
+    """The card's SM count and shared memory for ``decimate_plan`` (and
+    its SM count for ``build_plan``)."""
     if dev.type != "cuda":
         return {}
     p = torch.cuda.get_device_properties(dev)

@@ -417,3 +417,137 @@ def time_walk_model(rows: torch.Tensor, channels: torch.Tensor, origin,
             "first_loads_per_in_grid_step": 32 * C,
             "warp_stages_reading": warp_read / w,
             "warp_stages_shifting_zyx": [v / w for v in shift[::-1]]}
+
+
+# -- K4's load model (kernels/slab_march.py) ---------------------------------
+
+# slab_march.cu's stage modes (Mode there)
+PLANE0, PLANE1, MID, LERP = range(4)
+
+
+class SlabWalk:
+    """K4's two carried planes (``slab_march.cu`` ``Corners`` X, plane k,
+    and Y, plane k + 1) for ``n`` lanes on (na, nb) planes. ``new_slab``
+    moves Y's cell to X and empties Y; ``visit`` takes the lanes' (n, 8)
+    stage states and the stage's mode, computes the fractional index, the
+    inside test and the clamped cell in float32 as the kernel does, and
+    returns the nodes each lane reads for X and for Y: none where the
+    plane's carried cell is the stage's, all four where it moved (a point
+    outside reads nothing and keeps the carry)."""
+
+    def __init__(self, n: int, na: int, nb: int, origin_ab, inv_ab,
+                 device=None):
+        self.o = [float(np.float32(v)) for v in origin_ab]
+        self.inv = [float(np.float32(v)) for v in inv_ab]
+        self.na, self.nb = na, nb
+        self.x = torch.full((n, 2), -2, dtype=torch.long, device=device)
+        self.y = self.x.clone()
+
+    def new_slab(self) -> None:
+        self.x = self.y
+        self.y = torch.full_like(self.x, -2)
+
+    @staticmethod
+    def _move(key, cell, inside):
+        moved = (cell != key).any(dim=1) & inside
+        return 4 * moved.long(), torch.where(inside[:, None], cell, key)
+
+    def visit(self, u: torch.Tensor, mode: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(nodes read for X, nodes read for Y, lanes inside)."""
+        u = u.to(torch.float32)
+        ta = (u[:, 0] - self.o[0]) * self.inv[0]
+        tb = (u[:, 1] - self.o[1]) * self.inv[1]
+        inside = ((ta >= 0) & (ta <= self.na - 1) & (tb >= 0)
+                  & (tb <= self.nb - 1))
+        cell = torch.stack([
+            torch.minimum(torch.floor(ta).nan_to_num(0.0),
+                          torch.tensor(float(self.na - 2))),
+            torch.minimum(torch.floor(tb).nan_to_num(0.0),
+                          torch.tensor(float(self.nb - 2)))], 1).long()
+        nx = ny = torch.zeros_like(inside, dtype=torch.long)
+        if mode != PLANE1:
+            nx, self.x = self._move(self.x, cell, inside)
+        if mode != PLANE0:
+            ny, self.y = self._move(self.y, cell, inside)
+        return nx, ny, inside
+
+
+def slab_walk_model(u: torch.Tensor, planes: torch.Tensor, origin_ab,
+                    inv_ab, dp, *, layout, n_slabs: int, substeps: int = 1,
+                    atten_sign: float = -1.0,
+                    order: Optional[torch.Tensor] = None
+                    ) -> Dict[str, float]:
+    """A model of K4's corner reads along the plain march's stage points:
+    the (N, 8) permuted states ``u`` in ``order`` (None: their own)
+    marched by ``slab_march.march_plain``'s arithmetic, each stage visited
+    by a ``SlabWalk``. Counts the in-grid lane-slabs (a stage inside),
+    the values the carried design reads there (C a node) beside those the
+    first design read along the same stages (4 nodes of one plane for k1
+    and k4, of two planes for the midpoint stages: 24C a slab inside), and,
+    for warps of 32 lanes, the share of warp-slabs (with a lane inside) in
+    which some lane reads more than plane k + 1's four nodes once."""
+    from synthpy_tpu_torch.kernels.slab_march import _f32, _steps, deriv
+
+    r = u if order is None else u[order]
+    n = r.shape[0] // WARP * WARP
+    uc = r[:n].contiguous()
+    dev = uc.device
+    C = layout.n_channels
+    oab = [_f32(v) for v in origin_ab]
+    iab = [_f32(v) for v in inv_ab]
+    h, hh, h6 = _steps(dp, substeps)
+    walk = SlabWalk(n, planes.shape[1], planes.shape[2], oab, iab, dev)
+    # in-grid lane-slabs, nodes read, nodes the first design read,
+    # warp-slabs with a lane inside, with a lane reading beyond plane k+1
+    tally = torch.zeros(5, dtype=torch.long, device=dev)
+    slab = {}
+
+    def d(uu, pl, mode):
+        nx, ny, inside = walk.visit(uu, mode)
+        slab["x"] += nx
+        slab["y"] += ny
+        slab["in"] |= inside
+        slab["first"] += inside.long() * (8 if mode in (MID, LERP) else 4)
+        return deriv(uu, pl, oab, iab, layout, atten_sign)
+
+    def step(uc, p0, ph, p1, m0, mh, m1):
+        k1 = d(uc, p0, m0)
+        k2 = d(uc + hh * k1, ph, mh)
+        k3 = d(uc + hh * k2, ph, mh)
+        k4 = d(uc + h * k3, p1, m1)
+        return uc + h6 * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    for k in range(n_slabs):
+        walk.new_slab()
+        zero = torch.zeros(n, dtype=torch.long, device=dev)
+        slab.update(x=zero, y=zero.clone(), first=zero.clone(),
+                    **{"in": torch.zeros(n, dtype=torch.bool, device=dev)})
+        w0, w1 = planes[k], planes[k + 1]
+        if substeps == 1:
+            uc = step(uc, w0, 0.5 * (w0 + w1), w1, PLANE0, MID, PLANE1)
+        else:
+            dw = (w1 - w0).to(torch.float32)
+            w0f = w0.to(torch.float32)
+            S = np.float32(substeps)
+            for j in range(substeps):
+                fj = np.float32(j)
+                uc = step(uc, w0f + float(fj / S) * dw,
+                          w0f + float((fj + np.float32(0.5)) / S) * dw,
+                          w0f + float((fj + np.float32(1.0)) / S) * dw,
+                          LERP, LERP, LERP)
+        beyond = (slab["x"] > 0) | (slab["y"] > 4)
+        warps = torch.stack([slab["in"], beyond]).view(2, -1, WARP).any(2)
+        tally.add_(torch.stack([
+            slab["in"].sum(), (slab["x"] + slab["y"]).sum(),
+            slab["first"].sum(), *warps.sum(1)]))
+    in_grid, reads, first, warp_in, warp_beyond = tally.tolist()
+    g = max(in_grid, 1)
+    return {"rays": n, "slabs": n_slabs, "substeps": substeps, "C": C,
+            "in_grid_lane_slabs": in_grid, "node_reads": reads,
+            "nodes_per_in_grid_slab": reads / g,
+            "loads_per_in_grid_slab": C * reads / g,
+            "first_loads_per_in_grid_slab": C * first / g,
+            "first_loads_per_slab_inside": (24 if substeps == 1
+                                            else 32 * substeps) * C,
+            "warp_slabs_beyond_plane_k1": warp_beyond / max(warp_in, 1)}

@@ -35,7 +35,7 @@ import torch
 
 from synthpy_tpu_torch.fields.domain import ChannelLayout
 from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel, refuse_grad
-from synthpy_tpu_torch.kernels.time_march import Steps, rhs_of
+from synthpy_tpu_torch.kernels.time_march import Steps, rhs_of, rk4_last_add
 from synthpy_tpu_torch.ops.interp import fma, trilinear
 
 KERNEL = Kernel("sharded_rhs.cu", {
@@ -100,13 +100,14 @@ def rk4_stage_plain(s: torch.Tensor, t: torch.Tensor, acc: torch.Tensor,
     """Stage ``stage`` (0-3) of an RK4 step, in place on the (N, 9) step
     start ``s``, stage state ``t`` and running sum ``acc``, from the summed
     (N, C) channel values ``vals`` at ``t``: the derivative k, the sum
-    ((k1 + 2 k2) + 2 k3) + k4, the next stage state s + c k and, at stage
-    3, the step's result in ``s`` and ``t``."""
+    ((k1 + 2 k2) + 2 k3) + k4 (its last add as ``time_march.rk4_last_add``
+    rounds it), the next stage state s + c k and, at stage 3, the step's
+    result in ``s`` and ``t``."""
     k = rhs_of(t, vals, layout, atten_sign)
     if stage == 0:
         acc.copy_(k)
     elif stage == 3:
-        acc.copy_(acc + k)
+        acc.copy_(rk4_last_add(acc, k, vals, t, layout, atten_sign))
     else:
         acc.copy_(acc + 2 * k)
     if stage == 3:

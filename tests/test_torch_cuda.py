@@ -2486,3 +2486,170 @@ def test_sharded_build_on_card_equals_single_device(dev, tier):
         assert torch.equal(sps.seg_planes.gather(), sp1.seg_planes)
         if sp1.scales is not None:
             assert torch.equal(sps.scales, sp1.scales)
+
+
+# -- K2 at small K: the launch plan's wide tiles and amax lanes ------------
+
+WINDOW_TIERS = [("f32", None), ("bf16", None), ("int8", None), ("int8", 5),
+                ("int4", None), ("int4", 5)]
+
+
+@pytest.mark.parametrize("n_sm", [None, 1])
+@pytest.mark.parametrize("probe", ["x", "z"])
+@pytest.mark.parametrize("K", [64, 512])
+@pytest.mark.parametrize("tier,dither", WINDOW_TIERS)
+def test_windowed_pack_kernel_bit_equal_to_plain_by_plan(
+        dev, monkeypatch, tier, dither, K, probe, n_sm):
+    """K2 on three row windows (both halo rows, and each edge) of a
+    seeded field at K = 64 (two segments) and K = 512, bit-equal to its
+    windowed plain version run on the same card tensors: rows, scales and
+    each window's amax, every tier, dithered and not. ``n_sm`` = 1 makes
+    the plan as wide as the tile budget allows (80 cells a barrier at K =
+    64 along z, 3 amax lanes), None the card's own plan at these sizes."""
+    if n_sm is not None:
+        monkeypatch.setattr(pack, "_card_limits", lambda d: {"n_sm": n_sm})
+    n_p = 2 * K + 1 if K == 64 else K + 1
+    trans = (23, 19)
+    dims = (n_p, *trans) if probe == "x" else (*trans, n_p)
+    p_ax = "xyz".index(probe)
+    a_ax, b_ax = [a for a in range(3) if a != p_ax]
+    g = torch.Generator(device=dev).manual_seed(K + p_ax)
+    ne = 1e25 * (1.0 + 0.5 * torch.rand(dims, device=dev, generator=g))
+    omega = float(constants.omega_from_lwl(1064e-9))
+    kw = dict(p_ax=p_ax, layout=ChannelLayout(False, False, False), K=K,
+              n_seg=-(-(n_p - 1) // K),
+              pref=-0.5 * constants.C**2
+              / float(constants.critical_density(omega)),
+              da=1e-5, db=1.1e-5, dp=0.9e-5, omega=omega, verdet=0.0)
+    na, C = dims[a_ax], 3
+    bits = {"int8": 8, "int4": 4}.get(tier)
+    key = None if dither is None else (dither, 2 * dither)
+    plan = pack.build_plan(C, kw["n_seg"], K, 1,
+                           (8 if a_ax == 0 else 7) * dims[b_ax], p_ax == 2,
+                           2, n_sm=pack._card_limits(dev)["n_sm"])
+    if n_sm == 1 and K == 64:
+        assert plan.lanes == 3 and plan.CB_a > 8
+    for a0, a1 in ((0, 8), (8, 15), (15, na)):
+        vols = {"ne": ne.narrow(a_ax, a0, a1 - a0).contiguous(),
+                "Te": None, "Z": None, "B": None}
+        row = (lambda a: ne.narrow(a_ax, a, 1).contiguous())
+        w = pack.Window(a0, na, row(a0 - 1) if a0 > 0 else None,
+                        row(a1) if a1 < na else None)
+        if bits is None:
+            dt = TIERS[tier]
+            got = pack.build_tables(vols, dtype=dt, window=w, **kw)
+            want = pack.build_tables_plain(vols, dtype=dt, window=w, **kw)
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            continue
+        am = pack.build_amax(vols, window=w, **kw)
+        assert torch.equal(am, pack.build_amax_plain(vols, window=w, **kw))
+        field = pack.build_amax_plain({"ne": ne, "Te": None, "Z": None,
+                                       "B": None}, **kw)
+        got = pack.build_quantized_tables(vols, bits=bits, dither=key,
+                                          window=w, amax=field, **kw)
+        want = pack.build_quantized_tables_plain(vols, bits=bits, dither=key,
+                                                 window=w, amax=field, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- K4's carried corners -----------------------------------------------------
+
+def _slab_walk_scene(layout, seed=0):
+    """(17, 13, 11, C) planes with a strong pull to the transverse centre
+    (channels 0 and 1) and noise, and 1,024 states through them: three
+    quarters cross a cell every few slabs, the rest two or more cells
+    between stages (jumps); eight sit on the last a node, one is NaN, seven
+    start outside heading in; rays near a face leave and come back.
+    (planes, origin_ab, inv_ab, dp, u, layout), on the CPU."""
+    lay = ChannelLayout(*(bool(v) for v in layout))
+    C = lay.n_channels
+    n_p, na, nb = 17, 13, 11
+    rng = np.random.default_rng(seed)
+    o = np.array([-1.0, -0.8], np.float32)
+    inv = np.array([6.0, 6.25], np.float32)
+    top = o + (np.array([na, nb]) - 1) / inv
+    idx = np.stack(np.meshgrid(np.arange(na), np.arange(nb),
+                               indexing="ij"), -1)
+    pl = rng.normal(size=(n_p, na, nb, C)).astype(np.float32) * 20
+    pl[..., :2] -= (400.0 * (o + idx / inv - (o + top) / 2)).astype(
+        np.float32)
+    pl[..., 2] = 5.0 * np.abs(pl[..., 2])
+    N = 1024
+    u = np.zeros((N, 8), np.float32)
+    u[:, :2] = rng.uniform(o, top, (N, 2))
+    d = rng.normal(size=(N, 2))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    u[:, 2:4] = d * np.where(rng.random(N) < 0.75, 1.0, 40.0)[:, None]
+    u[:, 4] = 1.0
+    u[:, 5:8] = (1.0, 0.1, -0.2)
+    u[:8, 0], u[:8, 2] = top[0], 0.0
+    u[8, 2] = np.nan
+    u[9:16, 1], u[9:16, 3] = o[1] - 0.05, 3.0
+    return torch.tensor(pl), o.tolist(), inv.tolist(), 0.02, torch.tensor(u), lay
+
+
+def _slab_events(planes, o, inv, dp, u, lay, substeps):
+    """The moves K4's carried corners meet along the plain march's stage
+    points: +-1 along a and b, a jump (two or more cells), an in-grid
+    stage after an outside one (a return), a point on the last a node."""
+    na, nb = planes.shape[1:3]
+    ev = dict.fromkeys(["+a", "-a", "+b", "-b", "jump", "return", "last_a"],
+                       0)
+    prev = torch.full((u.shape[0], 2), -2, dtype=torch.long)
+    was_out = torch.zeros(u.shape[0], dtype=torch.bool)
+    h, hh, h6 = slab_march._steps(dp, substeps)
+
+    def d(x, pl):
+        ta = (x[:, 0] - o[0]) * inv[0]
+        tb = (x[:, 1] - o[1]) * inv[1]
+        ins = (ta >= 0) & (ta <= na - 1) & (tb >= 0) & (tb <= nb - 1)
+        cell = torch.stack([torch.floor(ta).nan_to_num(0).clamp(max=na - 2),
+                            torch.floor(tb).nan_to_num(0).clamp(max=nb - 2)],
+                           1).long()
+        mv = cell - prev
+        seen = ins & (prev[:, 0] >= 0)
+        for k, (ax, s) in {"+a": (0, 1), "-a": (0, -1), "+b": (1, 1),
+                           "-b": (1, -1)}.items():
+            ev[k] += int((seen & (mv[:, ax] == s)
+                          & (mv[:, 1 - ax] == 0)).sum())
+        ev["jump"] += int((seen & (mv.abs().max(1).values >= 2)).sum())
+        ev["return"] += int((ins & was_out).sum())
+        ev["last_a"] += int((ins & (ta == na - 1)).sum())
+        was_out.copy_((was_out | ((prev[:, 0] >= 0) & ~ins)) & ~ins)
+        prev.copy_(torch.where(ins[:, None], cell, prev))
+        return slab_march.deriv(x, pl, o, inv, lay, -1.0)
+
+    for k in range(planes.shape[0] - 1):
+        w0, w1 = planes[k], planes[k + 1]
+        for j in range(substeps):
+            p0 = w0 if substeps == 1 else w0 + (j / substeps) * (w1 - w0)
+            ph = 0.5 * (w0 + w1)
+            k1 = d(u, p0)
+            k2 = d(u + hh * k1, ph)
+            k3 = d(u + hh * k2, ph)
+            k4 = d(u + h * k3, w1)
+            u = u + h6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    return ev
+
+
+@pytest.mark.parametrize("substeps", [1, 2])
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ALL_LAYOUTS)
+def test_slab_march_kernel_carried_walks(dev, layout, tier, substeps):
+    """K4's carried corners on walks that meet every move (+-1 along a and
+    b, jumps, the last a node, leaving and re-entering the box, a NaN
+    row): rows bit-equal to ``march_plain`` run on the same card tensors,
+    in entry-cell order and in the caller's, every layout (C = 3 to 8),
+    f32 and bf16 planes, one and two substeps."""
+    planes, o, inv, dp, u, lay = _slab_walk_scene(layout)
+    planes = planes.to(TIERS[tier])
+    ev = _slab_events(planes.float(), o, inv, dp, u, lay, substeps)
+    assert min(ev.values()) > 0, ev
+    kw = dict(layout=lay, n_slabs=planes.shape[0] - 1, substeps=substeps)
+    ud, pd = u.to(dev), planes.to(dev)
+    want = slab_march.march_plain(ud, pd, o, inv, dp, **kw)
+    a = slab_march.march(ud, pd, o, inv, dp, **kw)
+    b = slab_march.launch(slab_march.KERNEL, ud, pd, o, inv, dp,
+                          torch.arange(u.shape[0], device=dev), **kw)
+    assert _bit_same(a, want) and _bit_same(b, want)
+    assert bool(want.isnan().any()) and bool(torch.isfinite(want).any())

@@ -425,6 +425,33 @@ def test_fused_stage_tracer_bit_equal_to_jax_where_dt_over_6_rounds(G):
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])
+def test_fused_stage_tracer_with_inv_brems_against_jax(G):
+    """With inverse bremsstrahlung on, the stage's slope sum fuses k4's
+    amplitude product into its last add, as XLA's compiled tracer does
+    (``time_march.rk4_last_add``): on 2 and 4 shards every column is bit
+    for bit JAX's; on one shard XLA compiles the step otherwise and the
+    amplitude column may part by one ulp (ROADMAP C.12), every other
+    column bit-equal."""
+    jd = JDomain(2 * EXT, 16, inv_brems=True).test_lens(ne_0=8e24,
+                                                        LR=1.8e-3)
+    rng = np.random.default_rng(1)
+    jd.external_Te(50.0 + 10.0 * rng.random(jd.dims))
+    jd.external_Z(2.0 * np.ones(jd.dims))
+    td = convert.domain(jd, "cpu")
+    jp, tp = jbuild_pack(jd), build_pack(td)
+    rows = np.asarray(init_beam(jax.random.PRNGKey(1), 256, 2.0e-3, 1e-3,
+                                EXT, "circular")).T.copy()
+    dt = np.float32(jnp.asarray(jnp.sqrt(8.0) * EXT / 2.99792458e8 / 40,
+                                jnp.float32))
+    out, jout = _traces(G, jd, td, jp.channels, tp.channels, rows, 24, dt)
+    ulps = (_bits(out).astype(np.int64) - _bits(jout)).reshape(
+        jout.shape)
+    assert np.abs(jout[:, 6] - rows[:, 6]).max() > 0
+    np.testing.assert_array_equal(np.delete(ulps, 6, axis=1), 0)
+    assert np.abs(ulps[:, 6]).max() <= (1 if G == 1 else 0)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
 def test_fused_stage_carries_the_psums_signed_zero(G):
     """An owner's value of -0.0 (every channel -0.0): the psum over G > 1
     shards adds +0.0 and turns it into +0.0, one shard leaves it; rays

@@ -132,9 +132,9 @@ def test_trace_rk4_bit_equal_to_jax_where_dt_over_6_rounds(layout):
     """At a dt whose dt / 6 and dt * f32(1/6) differ in float32 (XLA folds
     the step's division into the multiply), the port's trace_rk4 equals
     JAX's bit for bit over 40 steps, for beam rays and for rays whose
-    transverse velocity starts at 0. With inverse bremsstrahlung on, the
-    amplitude column stays within one ulp of JAX's (ROADMAP C.12); every
-    other column is bit-equal."""
+    transverse velocity starts at 0, every column: with inverse
+    bremsstrahlung on, the amplitude column too (XLA's CPU compiler fuses
+    k4's amplitude product into the slope sum, ``time_march.rk4_last_add``)."""
     jd = scene(layout, "z", dims=33)
     jp = jbuild_pack(jd)
     tp = convert.trace_pack(jp, "cpu")
@@ -152,10 +152,7 @@ def test_trace_rk4_bit_equal_to_jax_where_dt_over_6_rounds(layout):
                           tp.inv_spacing, float(dt), layout=lay,
                           n_steps=40).numpy()
     assert np.isfinite(want).all()
-    ulps = got.view(np.int32).astype(np.int64) - want.view(np.int32)
-    amp = [6] if layout[0] else []
-    assert np.abs(ulps[:, amp]).max(initial=0) <= 1
-    np.testing.assert_array_equal(np.delete(ulps, amp, axis=1), 0)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     # the transverse velocity moved from 0
     assert np.abs(want[512:, 3:5]).min() > 0
 
