@@ -14,8 +14,9 @@ K11 the segment march's adjoint, K12 the differentiable renderer's
 cloud-in-cell image and its adjoint (with the planted controls of
 ``inverse_path``), K13 the proton Boris push, K14 the B-table batch
 write, K15 the X-ray opacity lookup and plane fold, K16 the
-point-projection plane crossings and chord sampler, K17 a shard's segment
-of the grid-sharded march and K18 a stage of the grid-sharded time tracer.
+point-projection plane crossings and chord sampler, K17 a segment of the
+grid-sharded march for a device's shards (and the exchange of owned rows
+between cards) and K18 a stage of the grid-sharded time tracer.
 Each is held to its plain PyTorch version on the card. The
 zscan_seg bench configuration (512^3 bench lens, K = 512, 4,000,000 rays,
 rk2, slab weights, 431 x 321 bins) runs through the port's entry points at
@@ -120,7 +121,8 @@ chunks) and a 4-way rays axis (zscan_seg bf16, the time tracer,
 interferometry), each image equal to the single-device run on the same
 pack (coherent field sums within 1e-4 of their largest), and
 ``sharded_histogram``; K17 bit-equal to its plain version on a
-65,536-ray subset and beside K1 a segment, K1 on a pipeline device's
+65,536-ray subset and beside K1 a segment, its exchange bit-equal to its
+plain version and the dense psum, K1 on a pipeline device's
 segment range bit-equal to plain, the grid-sharded time tracer (K18: one
 fused launch a stage and device, 4 n + 1 a trace, counted by a profiler)
 on 1 M rays over the first quarter of the depth held bit-equal to its
@@ -1623,6 +1625,39 @@ def k18_registers():
     return ptxas_in_thread(sharded_rhs.KERNEL, pick)
 
 
+def sass_in_thread(kernel, fold, pattern, dump):
+    """The SASS of one path of ``kernel``: a build of its source with the
+    runtime switches folded (``profiling.FOLDS[fold]``), compiled by
+    ``ptxas_in_thread`` beside the other work; the result is
+    ``profiling.sass_loop_mix`` of the kernel matching ``pattern`` (its
+    largest loop's instructions by class, written to
+    ``chiprun_out/<dump>``) with its ptxas report."""
+    from pathlib import Path
+
+    from synthpy_tpu_torch.kernels.profiling import (FOLDS, sass_loop_mix,
+                                                     variant)
+
+    def pick(report, cubin):
+        mix = sass_loop_mix(cubin, pattern, Path("chiprun_out") / dump)
+        mix["ptxas"] = report.get(mix["name"])
+        return mix
+
+    return ptxas_in_thread(variant(kernel, f"sass_{fold}", FOLDS[fold]),
+                           pick)
+
+
+def issue_floor(torch, instructions, units):
+    """``profiling.issue_floor_ms`` on this card: its SMs and highest SM
+    clock."""
+    from synthpy_tpu_torch.kernels.profiling import (issue_floor_ms,
+                                                     sm_clock_mhz)
+
+    return issue_floor_ms(
+        instructions, units,
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        sm_clock_mhz())
+
+
 # K13's planted control: the carried corners shifted to a new cell but not
 # read anew when (i, j) changes (only a move of k reads its new nodes)
 K13_CONTROL = [("      if (j != cj) need |= shift<2>(c, j - cj);\n"
@@ -3037,9 +3072,13 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     4-way rays axis for zscan_seg bf16, the time tracer and
     interferometry, and ``sharded_histogram``; each image equal to the
     single-device run on the same pack (coherent field sums within 1e-4 of
-    their largest), each mode's kernels launched. K17 bit-equal to its
-    plain version on a 65,536-ray subset of each tier's table and beside
-    K1 a segment at every ray; K1 on a PP segment range bit-equal to plain;
+    their largest), each mode's kernels launched (K17 once a segment and
+    ray block on each device). K17 (one call a device for its shards)
+    bit-equal to its plain version on a 65,536-ray subset of each tier's
+    table, and a segment at every ray (with the owned rows' exchange
+    where the line spans cards) bit-equal to K1's + 0.0 and timed beside
+    it, its core's SASS counted (``K17_sass``, the issue floor); K1 on a
+    PP segment range bit-equal to plain;
     the grid-sharded time tracer (K18) on 1 M rays over the first quarter
     of the depth, held bit-equal to its plain version, its launches and
     device kernels counted, a step's four stages timed; a one-rank nccl
@@ -3065,6 +3104,11 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     from synthpy_tpu_torch.tracer.propagator import default_n_steps, dt_of
 
     D, N, K, G = MESH["dim"], MESH["rays"], MESH["K"], MESH["shards"]
+    # the SASS of K17's core on the path's rk2 / slab march, counted beside
+    # the phase
+    k17_sass = sass_in_thread(march_sharded.KERNEL, "core_rk2_slab",
+                              r"shards_kernelILi0E.*LayoutILi0ELi0ELi0E",
+                              "k17_core.sass")
     SUB, reps = MESH["subset"], MESH["reps"]
     csrc = "synthpy_tpu_torch/kernels/csrc/"
     detail, modes = {}, {}
@@ -3131,9 +3175,30 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
             if tier == "bf16":
                 kw["pack_dtype"] = "bf16"
             reset()
+            march_sharded.EXCHANGE_KERNEL.launches = 0
             H, run_s, peak = run_peak(lambda: pipeline.run(dom, rays, **kw))
-            launches = path_launches(("march_owned", "pack_window",
+            launches = path_launches(("march_shards", "pack_window",
                                       "detector"), f"mesh {name}/{tier}")
+            # the exchange: one launch a segment and device on each line
+            # over several devices
+            launches["march_exchange"] = \
+                march_sharded.EXCHANGE_KERNEL.launches
+            lines = [set(m.flat_devices[p] for p in line)
+                     for line in m.groups("grid")]
+            spread = sum(len(x) for x in lines if len(x) > 1)
+            check(launches["march_exchange"]
+                  == sp1.seg_planes.shape[0] * spread,
+                  f"mesh {name}/{tier}: the exchange launched "
+                  f"{launches['march_exchange']} times, not "
+                  f"{sp1.seg_planes.shape[0]} x {spread}")
+            # one K17 launch a segment and (ray block, device)
+            blocks = len({(m.index(p, "rays") if "rays" in m.shape else 0,
+                           d) for p, d in enumerate(m.flat_devices)})
+            check(launches["march_shards"]
+                  == sp1.seg_planes.shape[0] * blocks,
+                  f"mesh {name}/{tier}: K17 launched "
+                  f"{launches['march_shards']} times, not "
+                  f"{sp1.seg_planes.shape[0]} x {blocks}")
             check(torch.equal(H, H1) and float(H.sum()) > 0,
                   f"mesh {name}/{tier}: image (sum {float(H.sum())}) != the "
                   f"single-device image (sum {float(H1.sum())})")
@@ -3152,70 +3217,136 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
             if name == "grid":
                 grid_pack = sps
             del sps
-        # K17 at the path's shapes: each shard's launch on one segment
-        # against its plain version (a 65,536-ray subset), the owned rays
-        # against K1 on the whole table; then a segment's G launches at
-        # every ray beside K1's one segment
+        # K17 at the path's shapes: each device's one call for its shards
+        # on one segment against its plain version (a 65,536-ray subset),
+        # the owned rays against K1 on the whole table (+ 0.0); then a
+        # segment at every ray, one launch a device (and, where the line
+        # spans several cards, the owned rows' exchange), beside K1's one
+        # segment
         na, nb = sp1.shape_ab
         naloc = na // G
         # each shard's rows, the halo and the rays on the shard's device
         tabs = [t.reshape(t.shape[0], naloc, nb, -1)
                 for t in grid_pack.seg_planes.shards]
-        sdev = [t.device for t in tabs]
+        sdev = [torch.device(d) for d in place]
         halos = [tabs[(g + 1) % G][:, 0].to(sdev[g]) for g in range(G)]
+        held = {}
+        for g, d in enumerate(sdev):
+            held.setdefault(d, []).append(g)
+
+        def shards_on(d):
+            return [march_sharded.Shard(tabs[g][0], halos[g][0], g * naloc)
+                    for g in held[d]]
+
         kwm = mkw(sp1, "rk2", "slab")
+        kws = dict(kwm, naloc=naloc, line_shards=G)
         full = march.march(u_sub, sp1.seg_planes[:1], None, **kwm)
         err = 0.0
-        for g in range(G):
-            args = (u_sub.to(sdev[g]), tabs[g][0], halos[g][0], None)
-            a = march_sharded.march_owned(*args, lo=g * naloc, naloc=naloc,
-                                          **kwm).to(dev)
+        for d in held:
+            us = u_sub.to(d)
+            a = march_sharded.march_shards(us, shards_on(d), None,
+                                           **kws).to(dev)
             torch.cuda.synchronize()
-            b = march_sharded.march_owned_plain(*args, lo=g * naloc,
-                                                naloc=naloc, **kwm).to(dev)
-            check(torch.equal(a, b), f"K17 {tier} shard {g} != plain")
-            own = march_sharded.owned(u_sub, g * naloc, naloc, na,
-                                      kwm["origin_ab"][0], kwm["inv_ab"][0])
+            b = march_sharded.march_shards_plain(us, shards_on(d), None,
+                                                 **kws).to(dev)
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"K17 {tier} on {d} != plain")
+            own = march_sharded.owner(u_sub, naloc, na, kwm["origin_ab"][0],
+                                      kwm["inv_ab"][0])
+            own = sum(own == g for g in held[d]).bool()
             check(torch.equal(a[own], full[own]),
-                  f"K17 {tier} shard {g}: owned rays != K1")
+                  f"K17 {tier} on {d}: owned rays != K1")
             err = max(err, float((a - b).abs().max()))
         geo = (sp1.shape_ab, kwm["origin_ab"], kwm["inv_ab"])
         order = march.ray_order(u_all, *geo)
-        on = [(u_all.to(d), order.to(d)) for d in sdev]
+        on = {d: (u_all.to(d), order.to(d)) for d in held}
 
         def k17_segment(plain=False):
-            fn = (march_sharded.march_owned_plain if plain
-                  else march_sharded.march_owned)
-            return [fn(on[g][0], tabs[g][0], halos[g][0], None,
-                       lo=g * naloc, naloc=naloc, **kwm,
-                       **({} if plain else {"order": on[g][1]}))
-                    for g in range(G)]
+            fn = (march_sharded.march_shards_plain if plain
+                  else march_sharded.march_shards)
+            return {d: fn(on[d][0], shards_on(d), None, **kws,
+                          **({} if plain else {"order": on[d][1]}))
+                    for d in held}
 
         outs = k17_segment()
+        # the exchange of owned rows (K17's second entry point): on
+        # distinct cards as the tracer runs it; on one card over four
+        # blocks of the card (each a shard's result), against its plain
+        # version and the dense psum it replaces
+        devs_l = list(held)
+        geo_x = dict(naloc=naloc, na=na, origin_a=kwm["origin_ab"][0],
+                     inv_a=kwm["inv_ab"][0])
+        if len(held) > 1:
+            outs_l = [outs[d] for d in devs_l]
+            starts = [on[d][0] for d in devs_l]
+            block_of = [devs_l.index(sdev[g]) for g in range(G)]
+        else:
+            d0 = devs_l[0]
+            outs_l = [march_sharded.march_shards(
+                on[d0][0], [march_sharded.Shard(tabs[g][0], halos[g][0],
+                                                g * naloc)], None,
+                **kws, order=on[d0][1]) for g in range(G)]
+            starts = [on[d0][0]] * G
+            block_of = list(range(G))
+        dense = psum([o.clone() for o in outs_l],
+                     Mesh((len(outs_l),), ("grid",),
+                          devices=[o.device for o in outs_l]), "grid")
+        plain_x = [o.cpu() for o in outs_l]
+        march_sharded.exchange_rows_plain(plain_x, [x.cpu() for x in starts],
+                                          block_of, **geo_x)
+        exchange_ms = wall_ms(lambda: march_sharded.exchange_rows(
+            outs_l, starts, block_of, **geo_x))
+        for o, q, r in zip(outs_l, plain_x, dense):
+            check(torch.equal(o.cpu().view(torch.int32), q.view(torch.int32))
+                  and torch.equal(o.view(torch.int32), r.view(torch.int32)),
+                  f"K17 {tier}: the exchange != its plain version or the "
+                  "dense psum")
+        whole, n_blocks = outs_l[0], len(outs_l)
+        del dense, plain_x
+        ref_seg = march.march(u_all, sp1.seg_planes[:1], None, **kwm)
+        check(torch.equal(whole.to(dev).view(torch.int32),
+                          (ref_seg + 0.0).view(torch.int32)),
+              f"K17 {tier}: a segment at every ray != K1's + 0.0")
+        del outs_l, starts
         cell = march.entry_cells(u_all, *geo).long()
         rows = int(torch.unique(torch.cat([cell, cell + 1, cell + nb,
                                            cell + nb + 1])).numel())
         stage = 7 * C + 6
         flops = N * K * (8 * C + 24 + 2 * stage + 32)
-        nbytes = (N * 32 + G * N * 32
-                  + rows * sp1.seg_planes.shape[-1]
-                  * sp1.seg_planes.element_size())
+        row_bytes = sp1.seg_planes.shape[-1] * sp1.seg_planes.element_size()
+        # the function's least work: each ray's state read and written
+        # once, the table rows it touches; the parent's count added G
+        # launches' (N, 8) outputs
+        nbytes = 2 * N * 32 + rows * row_bytes
+        parent_bytes = N * 32 + G * N * 32 + rows * row_bytes
         b = bound(nbytes, flops)
+        parts = [torch.zeros((N, 8), device=d) for d in sdev]
         k17[tier] = {
             "subset_bit_equal_plain": True, "owned_equal_K1": True,
-            "max_abs_err": err,
+            "max_abs_err": err, "shards_per_device": {
+                str(d): len(g) for d, g in held.items()},
+            "launches_a_segment": len(held),
             "ms": wall_ms(k17_segment),
             "k1_segment_ms": wall_ms(lambda: march.march(
                 u_all, sp1.seg_planes[:1], None, **kwm)),
+            # K1's launch alone, in the same precomputed order as K17's
+            "k1_kernel_segment_ms": wall_ms(lambda: march.launch(
+                march.KERNEL, u_all, sp1.seg_planes[:1], None, order,
+                **kwm)),
             "plain_ms": best_ms(lambda: k17_segment(True), reps=1,
                                 warmup=0),
             "bound_ms": b[0], "bound_by": b[1], "bytes": nbytes,
             "flops": flops, "table_rows_touched": rows,
-            "psum_ms": wall_ms(lambda: psum(outs, meshes["grid"], "grid")),
+            "bound_ms_parent_count": bound(parent_bytes, flops)[0],
+            "exchange_ms": exchange_ms,
+            "exchange_blocks": n_blocks,
+            "exchange_bit_equal_plain_and_psum": True,
+            "parent_psum_ms": wall_ms(lambda: psum(parts, meshes["grid"],
+                                                   "grid")),
             "ppermute_ms": wall_ms(lambda: ppermute(
                 [t[:, 0] for t in tabs], meshes["grid"], "grid",
                 [(i, (i - 1) % G) for i in range(G)]))}
-        del grid_pack, tabs, halos, outs, full, cell, on
+        del grid_pack, tabs, halos, outs, full, cell, on, parts, ref_seg
         torch.cuda.empty_cache()
     emit({"phase": "K17_vs_plain", "rays": SUB, "placement": place, **k17})
 
@@ -3441,20 +3572,32 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
         dist.destroy_process_group()
     emit({"phase": "multihost_nccl", **mh})
 
+    # K17's issue floor: the core's SASS a ray-plane (the plane loop of the
+    # rk2 / slab build) at one instruction a lane a clock
+    sass17 = k17_sass()
+    floor17 = issue_floor(torch, sass17["loop"]["total"], N * K)
+    emit({"phase": "K17_sass", "issue_floor_ms": floor17, **sass17})
+
     rows_out = [
-        {"name": "march_owned", "route": "cuda",
+        {"name": "march_shards", "route": "cuda",
          "source": csrc + "march_sharded.cu",
          "replaces": "synthpy_tpu/parallel/mesh.py:277",
-         "launches": modes["grid/f32"]["launches"]["march_owned"],
+         "launches": modes["grid/f32"]["launches"]["march_shards"],
          "max_abs_err": max(k17[t]["max_abs_err"] for t in k17),
          "ms": k17["f32"]["ms"], "plain_ms": k17["f32"]["plain_ms"],
          "bound_ms": k17["f32"]["bound_ms"],
          "bound_by": k17["f32"]["bound_by"], "library_ms": None,
-         "per": f"one segment of {K} slabs, {G} shards, {N} rays, f32, "
-                "rk2, slab weights",
+         "per": f"one segment of {K} slabs, {G} shards "
+                f"({len(set(place))} device(s), one launch each), {N} rays, "
+                "f32, rk2, slab weights",
          "k1_segment_ms": k17["f32"]["k1_segment_ms"],
+         "k1_kernel_segment_ms": k17["f32"]["k1_kernel_segment_ms"],
+         "bound_ms_parent_count": k17["f32"]["bound_ms_parent_count"],
+         "exchange_ms": k17["f32"]["exchange_ms"],
+         "issue_floor_ms": floor17, "sass_core": sass17,
          "bf16": {k: k17["bf16"][k] for k in (
-             "ms", "k1_segment_ms", "plain_ms", "bound_ms", "bound_by")}},
+             "ms", "k1_segment_ms", "k1_kernel_segment_ms", "plain_ms",
+             "bound_ms", "bound_by", "exchange_ms")}},
         {"name": "sharded_rhs", "route": "cuda",
          "source": csrc + "sharded_rhs.cu",
          "replaces": "synthpy_tpu/parallel/mesh.py:178",
@@ -3587,7 +3730,7 @@ def sharded_field_path(torch, dev, kernels, bound, reset, path_launches):
     reset()
     H_main, main_ms, main_peak = peaked(lambda: pipeline.run(
         dom, rays, mesh=mesh, grid_axis="grid", **run_kw))
-    main_launches = path_launches(("pack_window", "march_owned",
+    main_launches = path_launches(("pack_window", "march_shards",
                                    "detector"), "sharded field run")
     check(tuple(H_main.shape) == (BINS[1], BINS[0])
           and bool(torch.isfinite(H_main).all()) and float(H_main.sum()) > 0,
@@ -3621,7 +3764,7 @@ def sharded_field_path(torch, dev, kernels, bound, reset, path_launches):
         reset()
         H = pipeline.run(dom, rays, mesh=mesh, grid_axis="grid", spack=sps,
                          **rk)
-        run_launches = path_launches(("march_owned", "detector"),
+        run_launches = path_launches(("march_shards", "detector"),
                                      f"sharded field run, {name} pack")
         H1 = pipeline.run(ref, rays, spack=sp1, **rk)
         check(torch.equal(H, H1) and float(H.sum()) > 0,
@@ -3832,7 +3975,8 @@ def main():
                "btable": btable.KERNEL, "xray_fold": kxray.FOLD_KERNEL,
                "pp_fold": kxray.PP_FOLD_KERNEL,
                "pp_chords": kxray.PP_CHORDS_KERNEL,
-               "march_owned": march_sharded.KERNEL,
+               "march_shards": march_sharded.KERNEL,
+               "march_exchange": march_sharded.EXCHANGE_KERNEL,
                "sharded_rhs": sharded_rhs.KERNEL,
                "pack_window": pack.WINDOW_KERNEL,
                "pack_chain": pack_chain.KERNEL,
@@ -3844,6 +3988,12 @@ def main():
     k5_regs = k5_registers()
     k4_regs = k4_registers()
     k18_regs = k18_registers()
+    # K7's SASS a step on the bench lens (C = 3, probing along z), rk2 and
+    # rk4 each with the integrator folded
+    k7_sass = {i: sass_in_thread(
+        analytic.KERNEL, f"k7_{i}",
+        r"analytic_kernelILi4EN7layouts6LayoutILi0ELi0ELi0EEELi2E",
+        f"k7_{i}.sass") for i in ("rk2", "rk4")}
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
@@ -4660,9 +4810,22 @@ def main():
         torch.cuda.synchronize()
         k7[name] = close(a, analytic.march_plain(u, forms["lens"], bz, **kw),
                          f"K7 {name}")
+    # the other probing axes' instances, (a, b) in order and swapped (the
+    # wrapper permutes the columns): the lens, C = 7, rk4
+    for axes in ((1, 2, 0), (2, 0, 1)):
+        kw = dict(k7_kw(lay7, "rk4", A_STEPS), axes=axes,
+                  p0=lo[axes[2]], h=(hi[axes[2]] - lo[axes[2]]) / A_STEPS)
+        a = analytic.march(u_sub, forms["liner"], bz, **kw)
+        torch.cuda.synchronize()
+        k7[f"C = 7 liner + Bz, rk4, axes {axes}"] = close(
+            a, analytic.march_plain(u_sub, forms["liner"], bz, **kw),
+            f"K7 axes {axes}")
+    for name, v in k7.items():
+        check(v["bit_equal"], f"K7 {name}: not bit-equal to its plain "
+              f"version ({v['max_abs_err']})")
     del a
     emit({"phase": "K7_vs_plain", "rays": SUBSET, "n_steps": A_STEPS,
-          "tolerance": "atol 1e-5 * max|column|, same NaNs", **k7})
+          "tolerance": "bit-equal (NaNs as NaNs)", **k7})
 
     # the analytic tier of bench.py: pipeline.run(solver="analytic") on the
     # bench lens, rk2, 64 steps (then rk4 over the 511 cells), K7 held to
@@ -4685,6 +4848,8 @@ def main():
         uf_ap, a_plain_ms = timed(lambda: analytic.march_plain(
             u_all, forms["lens"], None, **akw))
         a_all = close(uf_a, uf_ap, f"K7 {integrator} at {RAYS} rays")
+        check(a_all["bit_equal"], f"K7 {integrator} at {RAYS} rays: not "
+              f"bit-equal to its plain version ({a_all['max_abs_err']})")
         del uf_ap
         Hp_a = detector.detect_plain(uf_a, hi[2], ext, "z", stages, BINS,
                                      range_)
@@ -5063,6 +5228,16 @@ def main():
     k7_b4 = bound(2 * RAYS * 32, k7_flops("lens", layout, "rk4", DIM - 1,
                                           RAYS))
     paths["analytic_rk4"].update(bound_ms=k7_b4[0], bound_by=k7_b4[1])
+    # K7's issue floor: the SASS of a step (the step loop of the build with
+    # the integrator folded) at one instruction a lane a clock
+    for integrator, n in (("rk2", A_STEPS), ("rk4", DIM - 1)):
+        mix = k7_sass[integrator]()
+        paths[f"analytic_{integrator}"].update(
+            sass_step=mix, issue_floor_ms=issue_floor(
+                torch, mix["loop"]["total"], RAYS * n))
+    emit({"phase": "K7_sass", **{
+        i: {"issue_floor_ms": paths[f"analytic_{i}"]["issue_floor_ms"],
+            **paths[f"analytic_{i}"]["sass_step"]} for i in ("rk2", "rk4")}})
     st_i = BENCHES["interferometry"][0]()
     ref_i = (10.0, 20.0)
     fargs = (uf, p_end, ext, "z", st_i, BINS, 18.0, 13.5, 1064e-9)
@@ -5112,8 +5287,13 @@ def main():
          "ms": paths["analytic_rk2"]["k7_ms"],
          "plain_ms": paths["analytic_rk2"]["k7_plain_ms"],
          "bound_ms": k7_b[0], "bound_by": k7_b[1], "library_ms": None,
+         "issue_floor_ms": paths["analytic_rk2"]["issue_floor_ms"],
+         "sass_a_step": paths["analytic_rk2"]["sass_step"]["loop"],
+         "registers": paths["analytic_rk2"]["sass_step"]["ptxas"],
          "rk4_511_steps": {k: paths["analytic_rk4"][k] for k in (
-             "k7_ms", "k7_plain_ms", "bound_ms", "bound_by")}},
+             "k7_ms", "k7_plain_ms", "bound_ms", "bound_by",
+             "issue_floor_ms")} | {
+             "sass_a_step": paths["analytic_rk4"]["sass_step"]["loop"]}},
         {"name": "detector_field", "route": "cuda",
          "source": csrc + "detector.cu",
          "replaces": "synthpy_tpu/pipeline.py:115",
@@ -5153,7 +5333,7 @@ def main():
                   "pack_dither": 2, "march_adjoint": 1, "cic": 1,
                   "cic_adjoint": 1, "boris": 1, "btable_bf16": 1,
                   "btable_int8": 1, "xray_fold": 1, "pp_fold": 1,
-                  "pp_chords": 1, "march_owned": 1, "sharded_rhs": 1,
+                  "pp_chords": 1, "march_shards": 1, "sharded_rhs": 1,
                   "pack_chain": 1, "pack_chain_adjoint": 1,
                   # one decimate_kernel: the tiles, then the tail rows
                   "pack_decimate": 1,

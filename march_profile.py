@@ -905,11 +905,246 @@ def k18_part(args):
     print(json.dumps({"part": "k18", **out}), flush=True)
 
 
+def _here_profiling():
+    """This tree's ``kernels/profiling.py`` (its SASS counter), loaded
+    beside the ``--root`` tree's package, whose ``_build`` it uses."""
+    import importlib.util
+
+    path = (Path(__file__).resolve().parent / "synthpy_tpu_torch" / "kernels"
+            / "profiling.py")
+    spec = importlib.util.spec_from_file_location("profiling_here", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sass(kernel, name: str, subs, patterns, dump: str) -> dict:
+    """The SASS mix (``profiling.sass_loop_mix``) of a build of
+    ``kernel``'s source with the text substitutions ``subs`` (runtime
+    switches folded to the path's values), for the first of ``patterns``
+    found; registers beside it."""
+    from synthpy_tpu_torch.kernels import profiling
+
+    here = _here_profiling()
+    var = profiling.variant(kernel, name, subs)
+    kern, _, cubin = profiling.ptxas(Path(var.source), kernel.flags)
+    for pattern in patterns:
+        try:
+            mix = here.sass_loop_mix(cubin, pattern,
+                                     Path("chiprun_out") / dump)
+        except RuntimeError:
+            continue
+        mix["ptxas"] = kern.get(mix["name"])
+        return mix
+    raise RuntimeError(f"{name}: no kernel matching {patterns}")
+
+
+# the lens (form 4) at C = 3, probing along z; the parent's instances have
+# no axis argument
+K7_PATTERNS = (r"analytic_kernelILi4EN7layouts6LayoutILi0ELi0ELi0EEELi2E",
+               r"analytic_kernelILi4EN7layouts6LayoutILi0ELi0ELi0EEE")
+# K7 builds that ``analytic --variants`` times beside the shipped kernel
+K7_VARIANTS = {
+    "threads256": [("constexpr int THREADS = 128;",
+                    "constexpr int THREADS = 256;")],
+    "cap_8_blocks": [("__launch_bounds__(THREADS) analytic_kernel",
+                      "__launch_bounds__(THREADS, 8) analytic_kernel")],
+    "cap_12_blocks": [("__launch_bounds__(THREADS) analytic_kernel",
+                       "__launch_bounds__(THREADS, 12) analytic_kernel")]}
+
+
+def analytic_part(args):
+    """The ``analytic`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch import constants, pipeline
+    from synthpy_tpu_torch.fields import ScalarDomain
+    from synthpy_tpu_torch.fields.domain import layout_of
+    from synthpy_tpu_torch.kernels import _build, analytic
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     kernel_of, nvidia_smi,
+                                                     ptxas, variant)
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+
+    here = _here_profiling()
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "sm_clock_mhz": here.sm_clock_mhz(),
+           "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+    src = _build.CSRC / analytic.KERNEL.source
+    t = time.perf_counter()
+    kern, _, _ = ptxas(src, analytic.KERNEL.flags)
+    out["ptxas_s"] = time.perf_counter() - t
+    out["instances"] = len(kern)
+    out["ptxas"] = {n: v for n, v in kern.items()
+                    if re.search(r"ILi4E.*LayoutILi0ELi0ELi0E", n)}
+    out["sass"] = {k: _sass(analytic.KERNEL, f"sass_{k}",
+                            here.FOLDS[f"k7_{k}"], K7_PATTERNS,
+                            f"k7_{k}_{Path(args.root).name}.sass")
+                   for k in ("rk2", "rk4")}
+
+    domain = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                              LR=1.5e-3)
+    s0 = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular", device=dev)
+    u = zscan.permute_state(s0, "z").contiguous()
+    lo = [float(c[0]) for c in (domain.x, domain.y, domain.z)]
+    hi = [float(c[-1]) for c in (domain.x, domain.y, domain.z)]
+    ne = domain.analytic["ne"]
+    omega = constants.omega_from_lwl(1064e-9)
+    rows, cases = {}, {"rk2": 64, "rk4": DIM - 1}
+    for integrator, n in cases.items():
+        kw = dict(layout=layout_of(domain), axes=(0, 1, 2), bounds=(lo, hi),
+                  omega=omega, lwl=1064e-9, p0=lo[2], h=(hi[2] - lo[2]) / n,
+                  n_steps=n, integrator=integrator)
+        calls = 10 if integrator == "rk2" else 3
+        res = {"n_steps": n, "k7_ms": min(batch_ms(lambda: analytic.march(
+            u, ne, None, **kw), calls=calls) for _ in range(args.reps)),
+            "run_ms": best_ms(lambda: pipeline.run(
+                domain, s0, solver="analytic", integrator=integrator,
+                n_steps=n, critical_guard=None, bins=BINS), reps=args.reps)}
+        ins = out["sass"][integrator]["loop"]["total"]
+        res["issue_floor_ms"] = here.issue_floor_ms(
+            ins, RAYS * n, out["sms"], out["sm_clock_mhz"])
+        rows[integrator] = analytic.march(u, ne, None, **kw)
+        if args.variants:
+            res["variants"] = {}
+            for name, subs in K7_VARIANTS.items():
+                var = variant(analytic.KERNEL, name, subs)
+                with kernel_of(analytic, var):
+                    got = analytic.march(u, ne, None, **kw)
+                    ms = min(batch_ms(lambda: analytic.march(
+                        u, ne, None, **kw), calls=calls)
+                        for _ in range(args.reps))
+                res["variants"][name] = {
+                    "ms": ms, "bit_equal": torch.equal(
+                        got.view(torch.int32),
+                        rows[integrator].view(torch.int32))}
+            res["k7_ms_after_variants"] = min(batch_ms(
+                lambda: analytic.march(u, ne, None, **kw), calls=calls)
+                for _ in range(args.reps))
+        out[integrator] = res
+    if args.variants:
+        for name, subs in K7_VARIANTS.items():
+            kv, _, _ = ptxas(Path(variant(analytic.KERNEL, name,
+                                          subs).source),
+                             analytic.KERNEL.flags)
+            out.setdefault("variant_ptxas", {})[name] = {
+                n: v for n, v in kv.items()
+                if re.search(r"ILi4E.*LayoutILi0ELi0ELi0E", n)}
+    _rows_report(out, rows, args)
+    print(json.dumps({"part": "analytic", **out}), flush=True)
+
+
+K17_K = 64            # the mesh path's segment depth (chip_smoke MESH)
+K17_SHARDS = 4
+
+
+def k17_part(args):
+    """The ``k17`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch import pipeline
+    from synthpy_tpu_torch.fields import ScalarDomain
+    from synthpy_tpu_torch.fields.domain import layout_of
+    from synthpy_tpu_torch.kernels import march, march_sharded
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     nvidia_smi)
+    from synthpy_tpu_torch.parallel import Mesh, psum
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+
+    here = _here_profiling()
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "sm_clock_mhz": here.sm_clock_mhz(),
+           "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+    patterns = (r"(shards|owned)_kernelILi0E.*LayoutILi0ELi0ELi0E",)
+    fold = here.FOLDS["core_rk2_slab"]
+    out["sass_core"] = _sass(march_sharded.KERNEL, "sass_rk2_slab", fold,
+                             patterns,
+                             f"k17_core_{Path(args.root).name}.sass")
+    out["sass_k1"] = _sass(march.KERNEL, "sass_rk2_slab", fold,
+                           (r"march_kernelILi0E.*LayoutILi0ELi0ELi0E",),
+                           f"k1_core_{Path(args.root).name}.sass")
+    dom = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                           LR=1.5e-3)
+    lay = layout_of(dom)
+    s0 = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular", device=dev)
+    u = zscan.permute_state(s0, "z").contiguous()
+    G = K17_SHARDS
+    seg_kw = dict(solver="zscan_seg", seg_K=K17_K, integrator="rk2",
+                  seg_weights="slab", bins=BINS)
+    grid = Mesh((G,), ("grid",), devices=[dev] * G)
+    grid_rays = Mesh((2, 2), ("grid", "rays"), devices=[dev] * 4)
+    rows = {}
+    for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        sp = zscan.build_segment_pack_device(dom, K=K17_K, dtype=dtype)
+        na, nb = sp.shape_ab
+        naloc = na // G
+        kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+                  inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp, layout=lay,
+                  K=sp.K, integrator="rk2", weights="slab", qbits=sp.qbits)
+        table = sp.seg_planes[0].reshape(na, nb, -1)
+        order = march.ray_order(u, sp.shape_ab, kw["origin_ab"],
+                                kw["inv_ab"])
+        halos = [table[((g + 1) % G) * naloc] for g in range(G)]
+        if hasattr(march_sharded, "march_shards"):
+            shards = [march_sharded.Shard(table[g * naloc:(g + 1) * naloc],
+                                          halos[g], g * naloc)
+                      for g in range(G)]
+
+            def segment():
+                return march_sharded.march_shards(
+                    u, shards, None, naloc=naloc, line_shards=G, order=order,
+                    **kw)
+        else:
+            def segment():
+                return psum([march_sharded.march_owned(
+                    u, table[g * naloc:(g + 1) * naloc], halos[g], None,
+                    lo=g * naloc, naloc=naloc, order=order, **kw)
+                    for g in range(G)], grid, "grid")[0]
+        res = {"segment_ms": min(batch_ms(segment, calls=10)
+                                 for _ in range(args.reps)),
+               "k1_segment_ms": min(batch_ms(lambda: march.march(
+                   u, sp.seg_planes[:1], None, **kw), calls=10)
+                   for _ in range(args.reps)),
+               # K1's launch alone, in the same precomputed order
+               "k1_kernel_segment_ms": min(batch_ms(lambda: march.launch(
+                   march.KERNEL, u, sp.seg_planes[:1], None, order, **kw),
+                   calls=10) for _ in range(args.reps))}
+        march_sharded.KERNEL.launches = 0
+        rows[f"{tier}_segment"] = segment()
+        res["launches_a_segment"] = march_sharded.KERNEL.launches
+        res["issue_floor_ms"] = here.issue_floor_ms(
+            out["sass_core"]["loop"]["total"], RAYS * K17_K, out["sms"],
+            out["sm_clock_mhz"])
+        for name, m in (("grid4", grid), ("grid2_rays2", grid_rays)):
+            sps = zscan.build_segment_pack_device(
+                dom, K=K17_K, dtype=dtype, mesh=m, mesh_axis="grid")
+            run = lambda: pipeline.run(dom, s0, spack=sps, mesh=m,  # noqa
+                                       grid_axis="grid", **seg_kw)
+            march_sharded.KERNEL.launches = 0
+            rows[f"{tier}_{name}"] = run()
+            res[name] = {"ms": best_ms(run, reps=args.reps),
+                         "launches": march_sharded.KERNEL.launches}
+            del sps
+        res["single_device_ms"] = best_ms(lambda: pipeline.run(
+            dom, s0, spack=sp, **seg_kw), reps=args.reps)
+        out[tier] = res
+        del sp, table, halos
+        torch.cuda.empty_cache()
+    _rows_report(out, rows, args)
+    print(json.dumps({"part": "k17", **out}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("part", nargs="?",
                     choices=["march", "adjoint", "boris", "adaptive", "time",
-                             "k18", "zscan"],
+                             "k18", "zscan", "analytic", "k17"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -931,6 +1166,10 @@ def main():
         return k18_part(args)
     if args.part == "zscan":
         return zscan_part(args)
+    if args.part == "analytic":
+        return analytic_part(args)
+    if args.part == "k17":
+        return k17_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

@@ -40,7 +40,8 @@ def main():
                "detector_field": detector.FIELD_KERNEL,
                "time_march": time_march.KERNEL,
                "bin_image": binning.BIN_KERNEL,
-               "march_owned": march_sharded.KERNEL,
+               "march_shards": march_sharded.KERNEL,
+               "march_exchange": march_sharded.EXCHANGE_KERNEL,
                "sharded_rhs": sharded_rhs.KERNEL,
                "pack_window": pack.WINDOW_KERNEL,
                "random": krandom.KERNEL}

@@ -10,8 +10,8 @@ fill), K10 ``random`` (threefry draws), K11 ``march_adjoint`` (the segment
 march's adjoint), K12 ``cic`` (the differentiable renderer's
 cloud-in-cell image and its adjoint), K13 ``boris`` (the proton push), K14
 ``btable`` (the B-table write), K15 and K16 ``xray`` (the X-ray fold,
-point-projection crossings and chords), K17 ``march_sharded`` (a shard's
-segment of the grid-sharded march), K18 ``sharded_rhs`` (a stage of the
+point-projection crossings and chords), K17 ``march_sharded`` (a segment
+of the grid-sharded march for the shards one device holds), K18 ``sharded_rhs`` (a stage of the
 grid-sharded time tracer) and K19 ``pack_chain`` (the renderer's pack
 chain, forward and adjoint, under one autograd Function). The sources are
 in ``csrc/`` (K5 and K6 share ``time_rhs.cuh``, K4, K7 and K11

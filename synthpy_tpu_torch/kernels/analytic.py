@@ -29,8 +29,12 @@ from synthpy_tpu_torch.kernels.slab_march import cols_rhs
 from synthpy_tpu_torch.ops.interp import fma
 
 KERNEL = Kernel("analytic.cu", {
-    "analytic_march": [P, P, L, I, I, I, I, I, I, I, I, P, P],
+    "analytic_march": [P, P, L, I, I, I, I, I, I, P, P],
 }, flags=["--fmad=false"])
+
+# the columns (a, b, va, vb) swapped, for axes whose (a, b) are not in
+# order: the kernel's instances take the transverse axes of p in order
+_SWAP_AB = [1, 0, 3, 2, 4, 5, 6, 7]
 
 # the ne profiles the kernel evaluates (analytic.cu enum Form)
 NE_FORMS = ("null", "slab", "linear_cos", "exponential_cos", "lens", "liner")
@@ -187,6 +191,15 @@ def march(u: torch.Tensor, ne: ClosedForm, B: Optional[ClosedForm], *,
     if (u.dtype != torch.float32 or u.dim() != 2 or u.shape[1] != 8
             or not u.is_contiguous()):
         raise ValueError("u must be a contiguous (N, 8) float32 tensor")
+    if sorted(axes) != [0, 1, 2]:
+        raise ValueError(f"axes {tuple(axes)} are not a permutation of "
+                         "(0, 1, 2)")
+    a_ax, b_ax, p_ax = (int(a) for a in axes)
+    swap = a_ax > b_ax
+    if swap:
+        # the same march with (a, b) in order: every column's arithmetic
+        # is its own, so swapping the columns there and back is exact
+        u = u[:, _SWAP_AB].contiguous()
     # the kernel reads states as 16-byte vectors: a fresh allocation is
     # aligned
     if u.data_ptr() % 16:
@@ -203,6 +216,6 @@ def march(u: torch.Tensor, ne: ClosedForm, B: Optional[ClosedForm], *,
     KERNEL.launch(
         "analytic_march", u.device, u.data_ptr(), out.data_ptr(),
         u.shape[0], NE_FORMS.index(ne.kind), int(n_steps),
-        int(integrator == "rk4"), *(int(a) for a in axes),
-        int(layout.phaseshift), int(layout.B_on), f.ctypes.data)
-    return out
+        int(integrator == "rk4"), p_ax, int(layout.phaseshift),
+        int(layout.B_on), f.ctypes.data)
+    return out[:, _SWAP_AB].contiguous() if swap else out

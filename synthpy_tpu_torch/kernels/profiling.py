@@ -154,6 +154,117 @@ def load_mix(cubin: Path, pattern: str) -> dict:
     return counts
 
 
+# SASS opcodes by class (the root before the first '.')
+SASS_CLASSES = {
+    "fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FCHK", "FSWZADD", "FSET"),
+    "mufu": ("MUFU",),
+    "compare": ("FSETP", "ISETP", "PLOP3", "DSETP", "VOTE", "VOTEU"),
+    "select": ("FSEL", "SEL"),
+    "integer": ("IMAD", "IADD3", "IADD", "LEA", "LOP3", "SHF", "SHL", "SHR",
+                "IMNMX", "IABS", "PRMT", "POPC", "FLO", "BMSK", "BREV",
+                "IDP", "LOP", "UIADD3", "UIMAD", "ULEA", "ULOP3", "USHF",
+                "USEL", "UISETP", "UPRMT"),
+    "load": ("LDG", "LD", "LDS", "LDC", "LDL", "ULDC", "LDGSTS", "LDSM"),
+    "store": ("STG", "ST", "STS", "STL", "RED", "ATOM", "ATOMG"),
+    "conversion": ("F2I", "I2F", "F2F", "FRND", "F2FP", "I2FP", "F2IP"),
+    "control": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "WARPSYNC",
+                "BAR", "YIELD", "JMP", "BREAK", "BPT", "NANOSLEEP", "KILL"),
+    "move": ("MOV", "S2R", "S2UR", "CS2R", "P2R", "R2P", "UMOV", "R2UR",
+             "SHFL", "MOVM"),
+}
+_SASS_CLASS = {op: c for c, ops in SASS_CLASSES.items() for op in ops}
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_]*)"
+    r"([^;]*);")
+
+
+def sass_loop_mix(cubin: Path, pattern: str,
+                  dump: Optional[Path] = None) -> dict:
+    """The SASS of the first kernel whose mangled name matches ``pattern``,
+    by class (``SASS_CLASSES``; NOPs left out): ``kernel`` the whole
+    function, ``loop`` the body of its largest loop (from the target of a
+    backward branch to the branch, the code a trip issues with the branches
+    inside it counted once each), ``loops`` the number of backward
+    branches. A static count: a block a branch skips on most trips is
+    counted as if it ran. ``dump``: a file for the function's SASS."""
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    code, text, name, on = [], [], None, False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if on:
+                break
+            on = re.search(pattern, m.group(1)) is not None
+            name = m.group(1) if on else None
+            continue
+        if not on:
+            continue
+        text.append(line)
+        m = _SASS_LINE.search(line)
+        if m and m.group(2) != "NOP":
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    if not code:
+        raise RuntimeError(f"no kernel matching {pattern!r} in {cubin}")
+    if dump is not None:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        dump.write_text(name + "\n" + "\n".join(text) + "\n")
+
+    def mix(ops):
+        out = {c: 0 for c in SASS_CLASSES}
+        out["other"] = 0
+        for op in ops:
+            out[_SASS_CLASS.get(op, "other")] += 1
+        out["total"] = len(ops)
+        return out
+
+    loops = []
+    for i, (addr, op, args) in enumerate(code):
+        m = re.search(r"0x([0-9a-f]+)", args)
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            start = int(m.group(1), 16)
+            loops.append([o for a, o, _ in code if start <= a <= addr])
+    body = max(loops, key=len) if loops else []
+    return {"name": name, "kernel": mix([o for _, o, _ in code]),
+            "loop": mix(body), "loops": len(loops)}
+
+
+# Text substitutions that fold a kernel's runtime switches to one path's
+# values, for counting that path's SASS (``variant`` + ``sass_loop_mix``):
+# K1's and K17's core (march_core.cuh) on rk2 with slab weights, the mesh
+# path's; K7 (analytic.cu) on rk2 and on rk4
+FOLDS = {
+    "core_rk2_slab": [
+        ("  const bool rk4 = P.integrator == RK4;",
+         "  const bool rk4 = false;"),
+        ("  if (P.slab_weights) slab_weights(P, X, s, ws);",
+         "  slab_weights(P, X, s, ws);"),
+        ("  if (P.slab_weights) {", "  if (true) {"),
+        ("  if (P.integrator == RK2S4) {", "  if (false) {"),
+        ("  } else if (P.integrator == RK2S2) {", "  } else if (false) {")],
+    "k7_rk2": [("    if (!P.rk4) {", "    if (true) {")],
+    "k7_rk4": [("    if (!P.rk4) {", "    if (false) {")],
+}
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock [MHz] (``nvidia-smi clocks.max.sm``)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def issue_floor_ms(instructions: float, units: float, sms: int,
+                   clock_mhz: float) -> float:
+    """The least time [ms] to issue ``instructions`` SASS instructions for
+    each of ``units`` threads' work items at one instruction a lane a
+    clock: 4 schedulers of 32 lanes on each of ``sms`` SMs at
+    ``clock_mhz``."""
+    return instructions * units / (sms * 4 * 32 * clock_mhz * 1e6) * 1e3
+
+
 def _inline_headers(text: str, seen: set) -> str:
     """``text`` with each ``#include "x.cuh"`` of ``csrc/`` replaced by the
     header's text, once per header (``#pragma once``)."""

@@ -35,8 +35,10 @@ The mesh modes:
   K3's ``bin_image`` a shard, then a psum);
 * the field split along a transverse axis over a ``grid`` axis, with a
   one-row halo from the right neighbour: ``make_gridsharded_segment_tracer``
-  (kernel K17, ``kernels.march_sharded``, one launch a shard and segment,
-  a psum of the (N, 8) state a segment) and ``make_gridsharded_tracer``
+  (kernel K17, ``kernels.march_sharded``, one launch a device and segment
+  for the device's shards; where the line spans several devices, each
+  reads the rows the others own, ``march_sharded.exchange_rows``) and
+  ``make_gridsharded_tracer``
   (the time tracer; kernel K18, ``kernels.sharded_rhs``, one launch a
   device and stage: the stage's update and the gather of the device's
   shards, then a psum of the devices' partials where the line spans
@@ -566,13 +568,18 @@ def make_gridsharded_segment_tracer(mesh: Mesh, layout: ChannelLayout,
 
     Shard g holds a-rows [g naloc, (g+1) naloc) of every segment's corner
     table, naloc = table_na / G, plus the first a-row of its right
-    neighbour (one ppermute a call). For each segment, K17
-    (``kernels.march_sharded``) marches the rays whose corner cell,
-    frozen at the segment's start, lies in the shard's rows, with the
-    global indices, fractions and inside-mask of K1 and the corner rows
-    read from the local table, and writes zeros for the rest; a psum of
-    the (N, 8) state over the grid axis gives every ray its owner's
-    result. Owned rays are bit-identical to the single-device march.
+    neighbour (one ppermute a call). For each segment, each device runs one
+    K17 launch (``kernels.march_sharded``) over its ray block: a ray whose
+    corner cell, frozen at the segment's start, lies in one of the
+    device's shards is marched with the global indices, fractions and
+    inside-mask of K1 and the corner rows read from that shard's table,
+    with the psum's rounding of JAX's program (+ 0.0 on a line of G > 1
+    shards); the other rays get zeros. Where one device holds the whole
+    line, that launch is the result; otherwise each device reads the rows
+    the others own from their results (``march_sharded.exchange_rows``,
+    one launch a device), which equals JAX's psum of the masked results
+    bit for bit. Owned rays are bit-identical to the single-device
+    march (up to the sign of a zero on G > 1, as in JAX).
     ``table_na``: the tables' a-rows (default the pack's na); a pack whose
     na does not divide over the axis is padded with zero a-rows to it by
     the caller (``pipeline.run``), which no ray ever owns. ``ray_axis``
@@ -606,6 +613,18 @@ def make_gridsharded_segment_tracer(mesh: Mesh, layout: ChannelLayout,
     naloc = table_na // G
     K = spack.K
     r_ax = _ray_axis(mesh, ray_axis)
+    keys = _blocks(mesh, r_ax)
+    # the positions each block (ray block, device) holds on its grid line,
+    # in shard order, and each line's blocks in the order of their shards
+    held: Dict[tuple, List[int]] = {}
+    for p, k in enumerate(keys):
+        held.setdefault(k, []).append(p)
+    lines = [list(dict.fromkeys(keys[p] for p in line))
+             for line in mesh.groups(grid_axis)]
+    # on a line over several devices, each shard's block in the line
+    block_of = {k: [line.index(keys[p]) for p in group]
+                for line, group in zip(lines, mesh.groups(grid_axis))
+                for k in line if len(line) > 1}
 
     def tracer(u, seg_tables, origin_ab, inv_ab, dp):
         was = isinstance(u, Sharded)
@@ -633,33 +652,39 @@ def make_gridsharded_segment_tracer(mesh: Mesh, layout: ChannelLayout,
                         [(i, (i - 1) % G) for i in range(G)])
         sc = (None if scales is None
               else replicate(scales, mesh).shards)
-        kw = dict(shape_ab=(na, nb),
-                  origin_ab=[float(v) for v in torch.as_tensor(
-                      origin_ab).tolist()],
-                  inv_ab=[float(v) for v in torch.as_tensor(inv_ab).tolist()],
+        o_ab = [float(v) for v in torch.as_tensor(origin_ab).tolist()]
+        i_ab = [float(v) for v in torch.as_tensor(inv_ab).tolist()]
+        kw = dict(shape_ab=(na, nb), origin_ab=o_ab, inv_ab=i_ab,
                   dp=float(dp), layout=layout, K=K, integrator=integrator,
                   weights=weights, qbits=qbits, atten_sign=atten_sign,
-                  naloc=naloc)
-        keys = _blocks(mesh, r_ax)
+                  naloc=naloc, line_shards=G)
         cur, orders = {}, {}
-        for p, k in enumerate(keys):
-            if k not in cur:
-                x = u_sh.shards[p].contiguous()
-                if x.data_ptr() % 16:
-                    x = x.clone()
-                cur[k] = x
-                orders[k] = (None if x.device.type == "cpu" else
-                             _march.ray_order(x, (na, nb), kw["origin_ab"],
-                                              kw["inv_ab"]))
+        for k, ps in held.items():
+            x = u_sh.shards[ps[0]].contiguous()
+            if x.data_ptr() % 16:
+                x = x.clone()
+            cur[k] = x
+            orders[k] = (None if x.device.type == "cpu" else
+                         _march.ray_order(x, (na, nb), o_ab, i_ab))
+        spread = [line for line in lines if len(line) > 1]
         for s in range(n_seg):
-            outs = [_owned.march_owned(
-                cur[keys[p]], tabs[p][s], halo[p][s],
-                None if sc is None else sc[p][s],
-                lo=mesh.index(p, grid_axis) * naloc, order=orders[keys[p]],
-                **kw) for p in range(mesh.size)]
-            outs = psum(outs, mesh, grid_axis)
-            for p, k in enumerate(keys):
-                cur[k] = outs[p]
+            outs = {k: _owned.march_shards(
+                cur[k], [_owned.Shard(tabs[p][s], halo[p][s],
+                                      mesh.index(p, grid_axis) * naloc)
+                         for p in ps],
+                None if sc is None else sc[ps[0]][s], order=orders[k], **kw)
+                for k, ps in held.items()}
+            # a device's result of segment s is read by its peers' exchange
+            # and freed after segment s + 1; its memory is reused only by
+            # the device's march of segment s + 2, which its exchange of
+            # segment s + 1 orders after every peer's march of s + 1, and so
+            # after their reads of segment s
+            for line in spread:
+                _owned.exchange_rows(
+                    [outs[k] for k in line], [cur[k] for k in line],
+                    block_of[line[0]], naloc=naloc, na=na, origin_a=o_ab[0],
+                    inv_a=i_ab[0])
+            cur = outs
         return _result(u_sh, cur, keys, was)
 
     return tracer

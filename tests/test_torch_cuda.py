@@ -751,6 +751,57 @@ def test_analytic_kernel_matches_plain(dev, field, integrator, physics):
     _close(a, p)
 
 
+def _bits_equal(a, b):
+    """Bit for bit, signed zeros included; NaN as NaN (the card's add
+    gives one canonical NaN, the plain version's payload may differ)."""
+    a, b = a.cpu(), b.cpu()
+    nan = a.isnan()
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a.masked_fill(nan, 0.0).view(torch.int32),
+                            b.masked_fill(nan, 0.0).view(torch.int32)))
+
+
+@pytest.mark.parametrize("physics", sorted(PHYSICS))
+@pytest.mark.parametrize("integrator", ["rk2", "rk4"])
+@pytest.mark.parametrize("probe", ["x", "y", "z"])
+@pytest.mark.parametrize("field", sorted(FORMS))
+def test_analytic_kernel_instances_bit_equal_to_plain(dev, field, probe,
+                                                      integrator, physics):
+    """K7's instances (form x layout x probing axis) bit for bit equal to
+    ``march_plain`` run on the card, in the transverse axes' order and
+    swapped (the wrapper permutes the columns), forward and with a
+    negative h; the dead columns' one update (analytic.cu's header) on
+    -0.0, +0.0, NaN and inf start values."""
+    d = _form_domain(dev, field, physics, probe)
+    u = zscan.permute_state(_rays(dev, probe), probe).contiguous()
+    n = u.shape[0]
+    for q in (5, 6, 7):
+        u[0:n:4, q] = -0.0
+        u[1:n:4, q] = 0.0
+        u[2:n:8, q] = float("nan")
+        u[3:n:8, q] = float("inf")
+        u[6:n:8, q] = -float("inf")
+    p_ax = "xyz".index(probe)
+    a_ax, b_ax = [a for a in range(3) if a != p_ax]
+    lo = [float(c[0]) for c in (d.x, d.y, d.z)]
+    hi = [float(c[-1]) for c in (d.x, d.y, d.z)]
+    B = d.analytic.get("B")
+    for axes, sign in (((a_ax, b_ax, p_ax), 1), ((b_ax, a_ax, p_ax), 1),
+                       ((a_ax, b_ax, p_ax), -1)):
+        p0 = lo[p_ax] if sign > 0 else hi[p_ax]
+        kw = dict(layout=layout_of(d), axes=axes, bounds=(lo, hi),
+                  omega=constants.omega_from_lwl(1064e-9), lwl=1064e-9,
+                  p0=p0, h=sign * (hi[p_ax] - lo[p_ax]) / 24, n_steps=24,
+                  integrator=integrator)
+        uu = u[:, [1, 0, 3, 2, 4, 5, 6, 7]].contiguous() \
+            if axes[0] > axes[1] else u
+        a = analytic.march(uu, d.analytic["ne"], B, **kw)
+        p = analytic.march_plain(uu, d.analytic["ne"], B, **kw)
+        assert _bits_equal(a, p), (axes, sign)
+        assert bool(a[:, :5].isnan().any())
+    assert np.signbit(a[0:n:4, 5].cpu().numpy()).all()
+
+
 def test_analytic_route_kernel_refuses_a_user_closure(dev):
     d = ScalarDomain(2 * EXT, 17, device=dev)
     d.analytic = {"ne": lambda x, y, z: 5e24 * torch.exp(-(x**2 + y**2)
@@ -2132,11 +2183,12 @@ def _grad_calls(dev):
                 [0.0] * 3, [1.0] * 3, [0.0] * 3, [3.0] * 3, [1.5, 1.5, -1.0],
                 1.5, 1.5, 4.0, torch.zeros(2), torch.zeros(2), (2, 0, 1)),
             4, 1),
-        "march_owned": lambda: march_sharded.march_owned(
-            u, torch.zeros((2, 3, 27), device=dev),
-            torch.zeros((3, 27), device=dev), None, lo=0, naloc=2,
-            shape_ab=(3, 3), origin_ab=(0.0, 0.0), inv_ab=(1.0, 1.0),
-            dp=1.0, layout=lay, K=8),
+        "march_shards": lambda: march_sharded.march_shards(
+            u, [march_sharded.Shard(torch.zeros((2, 3, 27), device=dev),
+                                    torch.zeros((3, 27), device=dev), 0)],
+            None, naloc=2, line_shards=1, shape_ab=(3, 3),
+            origin_ab=(0.0, 0.0), inv_ab=(1.0, 1.0), dp=1.0, layout=lay,
+            K=8),
         "stage_gather": lambda: sharded_rhs.Trace(
             s.T, [sharded_rhs.Shard(ch[:2].contiguous(),
                                     ch[2].contiguous(), 0, False)],
@@ -2147,7 +2199,7 @@ def _grad_calls(dev):
 
 @pytest.mark.parametrize("wrapper", [
     "adaptive", "analytic", "bin_field", "bin_image", "boris", "btable",
-    "deposit", "detect", "detect_field", "march_owned", "pp_chords",
+    "deposit", "detect", "detect_field", "march_shards", "pp_chords",
     "pp_fold", "slab_march", "stage_gather", "time_march", "xray_fold"])
 def test_wrappers_without_backward_refuse_grad_on_card(dev, wrapper):
     """A tensor that requires grad is refused on the card by every wrapper
@@ -2166,24 +2218,23 @@ def _card_mesh(dev, shape, names):
     return Mesh(shape, names, devices=[dev] * int(np.prod(shape)))
 
 
-@pytest.mark.parametrize("tier,integrator", [("f32", "rk4"),
-                                             ("bf16", "rk2"),
-                                             ("int8", "rk2s2"),
-                                             ("int4", "rk2s4")])
-@pytest.mark.parametrize("scene", ["physics_z", "lens_y"])
-def test_march_owned_kernel_matches_plain(dev, scene, tier, integrator):
-    """K17 on each of 4 shards of one segment against its plain version
-    (bit for bit), and the owned rays against K1 on the whole table."""
-    g, c = _pair(dev, **SCENES[scene])
+K17_TIERS = [("f32", "rk4"), ("bf16", "rk2"), ("int8", "rk2s2"),
+             ("int4", "rk2s4")]
+
+
+def _k17_check(dev, g, c, tier, integrator, per_device, weights="slab",
+               probe="z", n=4096):
+    """K17 over one segment of a 4-shard line, ``per_device`` shards a
+    call (all on the one card): each call bit-equal to its plain version
+    on the CPU, every ray owned once, its value K1's on the whole table
+    (+ 0.0); a one-shard line (G = 1) bit-equal to K1."""
     sp = zscan.build_segment_pack_device(g, K=8, dtype=TIERS[tier])
-    s0 = init_beam(0, 4096, 1.2 * g.extent, 2e-3, g.extent, "circular",
-                   probing_direction=g.probing_direction, device=dev)
-    u = zscan.permute_state(s0, g.probing_direction).contiguous()
+    u = zscan.permute_state(_rays(dev, probe, n), probe).contiguous()
     na, nb = sp.shape_ab
     kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
               inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
               layout=layout_of(c), K=sp.K, integrator=integrator,
-              weights="slab", qbits=sp.qbits)
+              weights=weights, qbits=sp.qbits)
     sc = None if sp.scales is None else sp.scales[0]
     full = march.march(u, sp.seg_planes[:1], None if sc is None
                        else sc[None], **kw)
@@ -2191,18 +2242,110 @@ def test_march_owned_kernel_matches_plain(dev, scene, tier, integrator):
     naloc = -(-na // G)
     table = torch.nn.functional.pad(sp.seg_planes[0].reshape(na, nb, -1),
                                     (0, 0, 0, 0, 0, G * naloc - na))
-    for s in range(G):
-        lo = s * naloc
-        args = (table[lo:lo + naloc], table[(lo + naloc) % (G * naloc)],
-                sc)
-        a = march_sharded.march_owned(u, *args, lo=lo, naloc=naloc, **kw)
-        b = march_sharded.march_owned_plain(
-            u.cpu(), *(None if x is None else x.cpu() for x in args),
-            lo=lo, naloc=naloc, **kw)
+    shards = [march_sharded.Shard(table[lo:lo + naloc],
+                                  table[(lo + naloc) % (G * naloc)], lo)
+              for lo in range(0, G * naloc, naloc)]
+    total = torch.zeros_like(u)
+    seen = torch.zeros(u.shape[0], dtype=torch.bool, device=dev)
+    for first in range(0, G, per_device):
+        group = shards[first:first + per_device]
+        a = march_sharded.march_shards(u, group, sc, naloc=naloc,
+                                       line_shards=G, **kw)
+        b = march_sharded.march_shards_plain(
+            u.cpu(), [march_sharded.Shard(*(
+                x.cpu() if isinstance(x, torch.Tensor) else x
+                for x in sh)) for sh in group],
+            None if sc is None else sc.cpu(), naloc=naloc, line_shards=G,
+            **kw)
         assert _same(a.cpu(), b)
-        own = march_sharded.owned(u, lo, naloc, na, kw["origin_ab"][0],
-                                  kw["inv_ab"][0])
-        assert _same(a[own], full[own])
+        own = sum(march_sharded.owned(u, sh.lo, naloc, na,
+                                      kw["origin_ab"][0], kw["inv_ab"][0])
+                  for sh in group).bool()
+        assert not (seen & own).any()
+        seen |= own
+        assert _same(a[own], full[own] + 0.0) and not a[~own].any()
+        total = total + a
+    assert seen.all()
+    one = march_sharded.march_shards(
+        u, [march_sharded.Shard(table[:na], table[0], 0)], sc, naloc=na,
+        line_shards=1, **kw)
+    assert _same(one, full) and torch.equal(
+        one.nan_to_num(0.0).view(torch.int32),
+        full.nan_to_num(0.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("tier,integrator", K17_TIERS)
+@pytest.mark.parametrize("scene", ["physics_z", "lens_y"])
+def test_march_owned_kernel_matches_plain(dev, scene, tier, integrator):
+    """K17 (``march_shards``) one shard a call of a 4-shard line against
+    its plain version (bit for bit), and the owned rays against K1 on the
+    whole table."""
+    g, c = _pair(dev, **SCENES[scene])
+    probe = SCENES[scene].get("probe", "z")
+    _k17_check(dev, g, c, tier, integrator, 1, probe=probe)
+
+
+@pytest.mark.parametrize("per_device", [1, 2, 4])
+@pytest.mark.parametrize("tier,integrator", K17_TIERS)
+@pytest.mark.parametrize("layout", ALL_LAYOUTS)
+def test_march_shards_kernel_matches_plain(dev, layout, tier, integrator,
+                                           per_device):
+    """K17 with 1, 2 and 4 shards of a 4-shard line a launch, every
+    layout, tier and integrator, stage and slab weights: bit-equal to
+    its plain version, each ray owned once and equal to K1 (+ 0.0), and a
+    one-shard line bit-equal to K1; rays outside the grid and a NaN ray
+    included."""
+    g, c = _layout_pair(dev, layout)
+    for weights in ("slab", "stage"):
+        _k17_check(dev, g, c, tier, integrator, per_device, weights)
+
+
+@pytest.mark.parametrize("per_device", [1, 2])
+@pytest.mark.parametrize("tier,integrator", K17_TIERS[:2])
+def test_exchange_rows_kernel_matches_plain(dev, tier, integrator,
+                                            per_device):
+    """K17's exchange on one card, the line's "devices" being blocks of
+    the one card (4 / per_device of them): each block ends with every
+    row, bit-equal to the plain exchange and to the dense psum of the
+    shards' masked results (the parent's route), rays outside the grid
+    and a NaN ray included."""
+    from synthpy_tpu_torch.parallel import Mesh, psum
+
+    g, c = _layout_pair(dev, (0, 1, 1))
+    sp = zscan.build_segment_pack_device(g, K=8, dtype=TIERS[tier])
+    u = zscan.permute_state(_rays(dev, "z"), "z").contiguous()
+    na, nb = sp.shape_ab
+    kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+              inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+              layout=layout_of(c), K=sp.K, integrator=integrator,
+              weights="slab", qbits=sp.qbits)
+    G = 4
+    naloc = -(-na // G)
+    table = torch.nn.functional.pad(sp.seg_planes[0].reshape(na, nb, -1),
+                                    (0, 0, 0, 0, 0, G * naloc - na))
+    shards = [march_sharded.Shard(table[lo:lo + naloc],
+                                  table[(lo + naloc) % (G * naloc)], lo)
+              for lo in range(0, G * naloc, naloc)]
+    sc = None if sp.scales is None else sp.scales[0]
+    geo = dict(naloc=naloc, na=na, origin_a=kw["origin_ab"][0],
+               inv_a=kw["inv_ab"][0])
+    parts = [march_sharded.march_shards(u, [sh], sc, naloc=naloc,
+                                        line_shards=1, **kw)
+             for sh in shards]
+    dense = psum(parts, Mesh((G,), ("grid",), devices=[dev] * G),
+                 "grid")[0]
+    groups = [shards[i:i + per_device] for i in range(0, G, per_device)]
+    outs = [march_sharded.march_shards(u, gr, sc, naloc=naloc,
+                                       line_shards=G, **kw) for gr in groups]
+    plain = [o.cpu() for o in outs]
+    block_of = [g // per_device for g in range(G)]
+    march_sharded.EXCHANGE_KERNEL.launches = 0
+    march_sharded.exchange_rows(outs, [u] * len(outs), block_of, **geo)
+    assert march_sharded.EXCHANGE_KERNEL.launches == len(outs)
+    march_sharded.exchange_rows_plain(plain, [u.cpu()] * len(outs),
+                                      block_of, **geo)
+    for o, p in zip(outs, plain):
+        assert _bits_equal(o, p) and _bits_equal(o, dense)
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])

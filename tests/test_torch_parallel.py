@@ -428,27 +428,26 @@ def test_fused_stage_tracer_bit_equal_to_jax_where_dt_over_6_rounds(G):
 def test_fused_stage_tracer_with_inv_brems_against_jax(G):
     """With inverse bremsstrahlung on, the stage's slope sum fuses k4's
     amplitude product into its last add, as XLA's compiled tracer does
-    (``time_march.rk4_last_add``): on 2 and 4 shards every column is bit
-    for bit JAX's; on one shard XLA compiles the step otherwise and the
-    amplitude column may part by one ulp (ROADMAP C.12), every other
-    column bit-equal."""
+    (``time_march.rk4_last_add``): on 1, 2 and 4 shards every column is
+    bit for bit JAX's. Both tracers read one channel table (JAX's): the
+    two packs' kappa channels part by a few ulp at some nodes (ROADMAP
+    C.8), which the tracers would carry into the amplitude column."""
     jd = JDomain(2 * EXT, 16, inv_brems=True).test_lens(ne_0=8e24,
                                                         LR=1.8e-3)
     rng = np.random.default_rng(1)
     jd.external_Te(50.0 + 10.0 * rng.random(jd.dims))
     jd.external_Z(2.0 * np.ones(jd.dims))
     td = convert.domain(jd, "cpu")
-    jp, tp = jbuild_pack(jd), build_pack(td)
+    jp = jbuild_pack(jd)
+    tch = torch.tensor(np.asarray(jp.channels))
+    assert not torch.equal(tch, build_pack(td).channels)
     rows = np.asarray(init_beam(jax.random.PRNGKey(1), 256, 2.0e-3, 1e-3,
                                 EXT, "circular")).T.copy()
     dt = np.float32(jnp.asarray(jnp.sqrt(8.0) * EXT / 2.99792458e8 / 40,
                                 jnp.float32))
-    out, jout = _traces(G, jd, td, jp.channels, tp.channels, rows, 24, dt)
-    ulps = (_bits(out).astype(np.int64) - _bits(jout)).reshape(
-        jout.shape)
+    out, jout = _traces(G, jd, td, jp.channels, tch, rows, 24, dt)
     assert np.abs(jout[:, 6] - rows[:, 6]).max() > 0
-    np.testing.assert_array_equal(np.delete(ulps, 6, axis=1), 0)
-    assert np.abs(ulps[:, 6]).max() <= (1 if G == 1 else 0)
+    np.testing.assert_array_equal(_bits(out), _bits(jout))
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])
@@ -618,6 +617,8 @@ def test_gridsharded_segment_march_padded_rows_and_refusals(grid_scene):
 
 
 def test_k17_plain_version_is_k1_on_the_owned_rays(grid_scene):
+    """One shard a call of a 4-shard line (24 a-rows, 6 a shard): each
+    ray is owned once, its value K1's on the whole table, the rest zeros."""
     jd, td, s0 = grid_scene
     sp = tz.build_segment_pack_device(td, K=8, dtype=torch.bfloat16)
     lay = layout_of(td)
@@ -630,9 +631,10 @@ def test_k17_plain_version_is_k1_on_the_owned_rays(grid_scene):
     table = sp.seg_planes[0].reshape(na, nb, -1)
     seen = torch.zeros(u.shape[0], dtype=torch.bool)
     for lo in range(0, na, 6):
-        out = march_sharded.march_owned(u, table[lo:lo + 6],
-                                        table[(lo + 6) % na], None, lo=lo,
-                                        naloc=6, **kw)
+        out = march_sharded.march_shards(
+            u, [march_sharded.Shard(table[lo:lo + 6], table[(lo + 6) % na],
+                                    lo)], None, naloc=6, line_shards=4,
+            **kw)
         own = march_sharded.owned(u, lo, 6, na, kw["origin_ab"][0],
                                   kw["inv_ab"][0])
         assert torch.equal(out[own], full[own])
@@ -640,6 +642,219 @@ def test_k17_plain_version_is_k1_on_the_owned_rays(grid_scene):
         assert not (seen & own).any()
         seen |= own
     assert seen.all()
+    assert torch.equal(march_sharded.owner(u, 6, na, kw["origin_ab"][0],
+                                           kw["inv_ab"][0]).bincount(),
+                       torch.stack([march_sharded.owned(
+                           u, lo, 6, na, kw["origin_ab"][0],
+                           kw["inv_ab"][0]).sum() for lo in (0, 6, 12, 18)]))
+
+
+def test_k17_one_call_holds_every_shard_of_the_device(grid_scene):
+    """``march_shards`` given 1, 2 or 4 shards of a 4-shard line marches
+    the rays any of them owns, as the shards' calls one at a time do; its
+    Python ``MAX_SHARDS`` is the kernel's."""
+    import re
+    from pathlib import Path
+
+    jd, td, s0 = grid_scene
+    sp = tz.build_segment_pack_device(td, K=8, dtype=torch.float32)
+    lay = layout_of(td)
+    na, nb = sp.shape_ab
+    u = torch.tensor(_u(s0))
+    kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+              inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp, layout=lay,
+              K=sp.K, integrator="rk4", weights="stage", naloc=6,
+              line_shards=4)
+    table = sp.seg_planes[0].reshape(na, nb, -1)
+    shards = [march_sharded.Shard(table[lo:lo + 6], table[(lo + 6) % na],
+                                  lo) for lo in (0, 6, 12, 18)]
+    ones = [march_sharded.march_shards(u, [sh], None, **kw)
+            for sh in shards]
+    for group in ([0], [1, 2], [0, 1, 2, 3]):
+        got = march_sharded.march_shards(u, [shards[g] for g in group],
+                                         None, **kw)
+        want = sum((ones[g] for g in group), torch.zeros_like(u))
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    src = (Path(march_sharded.__file__).parent / "csrc"
+           / "march_sharded.cu").read_text()
+    for name in ("MAX_SHARDS", "MAX_DEVICES", "MAX_LINE_SHARDS"):
+        assert int(re.search(name + r" = (\d+);", src).group(1)) == \
+            getattr(march_sharded, name)
+
+
+K17_CASES = [(t, i) for t in ("f32", "bf16", "int8")
+             for i in ("rk2", "rk2s2", "rk4")] + [("int4", "rk2s2"),
+                                                  ("int4", "rk2s4")]
+K17_MESHES = {"cpu4": ((4,), ("grid",), ["cpu"] * 4),
+              "cpu4_distinct": ((4,), ("grid",),
+                                ["cpu", "cpu", "cpu:0", "cpu:0"]),
+              "grid2_rays2": ((2, 2), ("grid", "rays"),
+                              ["cpu", "cpu:0", "cpu:1", "cpu:2"])}
+_K17_PACKS = {}
+
+
+def _k17_pack(grid_scene, tier):
+    """JAX's pack of the grid scene at K = 8 and the port's copy of it
+    (one build a tier and worker)."""
+    if tier not in _K17_PACKS:
+        jd = grid_scene[0]
+        dtype = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.int8,
+                 "int4": "int4"}[tier]
+        jsp = jz.build_segment_pack_device(jd, K=8, dtype=dtype)
+        _K17_PACKS[tier] = (jsp, convert.segment_pack(jsp, "cpu"))
+    return _K17_PACKS[tier]
+
+
+@pytest.mark.parametrize("mesh_name", list(K17_MESHES))
+@pytest.mark.parametrize("tier,integrator", K17_CASES)
+def test_k17_segment_tracer_on_repeated_and_distinct_devices(
+        grid_scene, tier, integrator, mesh_name):
+    """The segment tracer (one K17 call a device and segment, the owned
+    rows exchanged where a line spans several devices) on 4 repeated CPU
+    devices, on a line over two distinct ones ("cpu" and "cpu:0" are
+    distinct torch devices) and on a 2 x 2 grid x rays mesh of distinct
+    devices: bit for bit the single-device march but for the psum's + 0.0
+    (so equal as values), every tier and integrator, and within C.6's 2e-6
+    of a column of JAX's tracer on the same pack (on the distinct line)."""
+    jd, td, s0 = grid_scene
+    jsp, sp = _k17_pack(grid_scene, tier)
+    weights = "slab" if integrator != "rk4" else "stage"
+    lay = layout_of(td)
+    n_seg = sp.seg_planes.shape[0]
+    na, nb = sp.shape_ab
+    u = torch.tensor(_u(s0))
+    ref = tz.trace_zscan_segments(
+        u, sp.seg_planes, sp.origin_ab, sp.inv_spacing_ab, sp.dp,
+        shape_ab=sp.shape_ab, layout=lay, K=sp.K, n_seg=n_seg,
+        integrator=integrator, weights=weights, seg_scales=sp.scales,
+        qbits=sp.qbits)
+    shape, names, devices = K17_MESHES[mesh_name]
+    m = Mesh(shape, names, devices=devices)
+    tr = make_gridsharded_segment_tracer(
+        m, lay, sp, ray_axis="rays" if "rays" in names else None,
+        integrator=integrator, weights=weights)
+    tables = sp.seg_planes.reshape(n_seg, na, nb, -1)
+    out = tr(u, tables, sp.origin_ab, sp.inv_spacing_ab, sp.dp)
+    np.testing.assert_array_equal(_bits(out), _bits(ref + 0.0))
+    assert torch.equal(out, ref)
+    if mesh_name != "cpu4_distinct":
+        return
+    jtr = jmesh.make_gridsharded_segment_tracer(
+        _jmesh((4,), ("grid",)), jlayout_of(jd), jsp,
+        integrator=integrator, weights=weights)
+    jout = np.asarray(jtr(jnp.asarray(_u(s0)),
+                          jsp.seg_planes.reshape(n_seg, na, nb, -1),
+                          jsp.origin_ab, jsp.inv_spacing_ab,
+                          jnp.float32(jsp.dp)))
+    _col_close(out, jout, 2e-6)
+
+
+@pytest.mark.parametrize("devices", [["cpu"], ["cpu"] * 2, ["cpu"] * 4,
+                                     ["cpu", "cpu:0", "cpu:1", "cpu:2"]])
+def test_k17_segment_tracer_carries_the_psums_signed_zero(devices):
+    """On a table of -0.0 (every channel), rays with -0.0 transverse
+    velocities keep them through the march where they are inside the grid
+    (stage weights: outside, the channels are +0.0);
+    the psum over G > 1 shards turns the owner's -0.0 into +0.0, one shard
+    leaves it. The march is exact here, so the result is bit for bit
+    JAX's, on repeated and on distinct devices."""
+    G = len(devices)
+    jd = JDomain(2 * EXT, 16).test_lens(ne_0=5e24, LR=1.5e-3)
+    td = convert.domain(jd, "cpu")
+    jsp = jz.build_segment_pack_device(jd, K=4, dtype=jnp.float32)
+    jsp = jsp._replace(seg_planes=jnp.full(jsp.seg_planes.shape, -0.0,
+                                           jnp.float32))
+    sp = convert.segment_pack(jsp, "cpu")
+    lay = layout_of(td)
+    n_seg = sp.seg_planes.shape[0]
+    na, nb = sp.shape_ab
+    s0 = np.asarray(init_beam(jax.random.PRNGKey(3), 64, 7e-3, 1e-3, EXT,
+                              "circular"))
+    u = _u(s0)
+    u[:, 2:4] = -0.0
+    u[:, 6] = -0.0
+    tr = make_gridsharded_segment_tracer(
+        Mesh((G,), ("grid",), devices=devices), lay, sp, integrator="rk2",
+        weights="stage")
+    out = tr(torch.tensor(u), sp.seg_planes.reshape(n_seg, na, nb, -1),
+             sp.origin_ab, sp.inv_spacing_ab, sp.dp)
+    jtr = jmesh.make_gridsharded_segment_tracer(
+        _jmesh((G,), ("grid",)), jlayout_of(jd), jsp, integrator="rk2",
+        weights="stage")
+    jout = np.asarray(jtr(jnp.asarray(u),
+                          jsp.seg_planes.reshape(n_seg, na, nb, -1),
+                          jsp.origin_ab, jsp.inv_spacing_ab,
+                          jnp.float32(jsp.dp)))
+    np.testing.assert_array_equal(_bits(out), _bits(jout))
+    t = (u[:, :2] - sp.origin_ab.numpy()) * sp.inv_spacing_ab.numpy()
+    inside = ((t >= 0) & (t <= [na - 1, nb - 1])).all(1)
+    assert 0 < inside.sum() < len(u)
+    neg = np.signbit(out[:, 2].numpy())
+    assert (neg == (inside & (G == 1))).all()
+    assert not np.signbit(out[:, 6].numpy()).any()
+
+
+@pytest.mark.parametrize("devices", [["cpu", "cpu:0"],
+                                     ["cpu", "cpu:0", "cpu:1", "cpu:2"],
+                                     ["cpu", "cpu", "cpu:0", "cpu:0"]])
+@pytest.mark.parametrize("neg_zero", [False, True])
+def test_k17_exchange_equals_the_dense_psum(grid_scene, devices, neg_zero):
+    """The owned-rows exchange of a line over distinct devices equals the
+    dense psum it replaces (each shard's masked result, summed over the
+    line in shard order) bit for bit, on fast rays whose corner cells
+    cross shard boundaries within the segment (ownership stays frozen at
+    its start), with -0.0 owner values where ``neg_zero``."""
+    jd, td, s0 = grid_scene
+    sp = tz.build_segment_pack_device(td, K=8, dtype=torch.float32)
+    lay = layout_of(td)
+    na, nb = sp.shape_ab
+    G = len(devices)
+    naloc = na // G
+    u = torch.tensor(_u(s0))
+    # slopes of +-1.2: a ray crosses ~9 a-rows in the segment
+    u[::2, 2] = 1.2 * u[::2, 4] * torch.sign(u[::2, 2])
+    if neg_zero:
+        u[1::2, 2:4] = -0.0
+    table = sp.seg_planes[0].reshape(na, nb, -1)
+    if neg_zero:
+        table = torch.full_like(table, -0.0)
+    o_ab, i_ab = sp.origin_ab.tolist(), sp.inv_spacing_ab.tolist()
+    kw = dict(shape_ab=sp.shape_ab, origin_ab=o_ab, inv_ab=i_ab, dp=sp.dp,
+              layout=lay, K=sp.K, integrator="rk2", weights="slab",
+              naloc=naloc)
+    shards = [march_sharded.Shard(table[g * naloc:(g + 1) * naloc],
+                                  table[((g + 1) % G) * naloc], g * naloc)
+              for g in range(G)]
+    full = march.march(u, sp.seg_planes[:1] if not neg_zero
+                       else table.reshape(1, na * nb, -1), None,
+                       **{k: v for k, v in kw.items() if k != "naloc"})
+    ia0 = march_sharded.owner(u, 1, na, o_ab[0], i_ab[0])
+    ia1 = march_sharded.owner(full, 1, na, o_ab[0], i_ab[0])
+    assert ((ia0 // naloc) != (ia1 // naloc)).sum() > 10
+    # the parent's route: each shard's masked march, the psum in shard order
+    m = Mesh((G,), ("grid",), devices=devices)
+    parts = [march_sharded.march_shards(u.to(d), [sh], None, line_shards=1,
+                                        **kw)
+             for d, sh in zip(m.flat_devices, shards)]
+    dense = psum(parts, m, "grid")
+    # the tracer's route: one call a device, then the exchange
+    devs = list(dict.fromkeys(m.flat_devices))
+    held = {d: [g for g in range(G) if m.flat_devices[g] == d]
+            for d in devs}
+    outs = [march_sharded.march_shards(
+        u.to(d), [shards[g] for g in held[d]], None, line_shards=G, **kw)
+        for d in devs]
+    march_sharded.exchange_rows(
+        outs, [u.to(d) for d in devs],
+        [devs.index(m.flat_devices[g]) for g in range(G)], naloc=naloc,
+        na=na, origin_a=o_ab[0], inv_a=i_ab[0])
+    for g, d in enumerate(m.flat_devices):
+        np.testing.assert_array_equal(_bits(outs[devs.index(d)]),
+                                      _bits(dense[g]))
+    assert torch.equal(outs[0], full)
+    if neg_zero:
+        assert np.signbit(full[1::2, 2].numpy()).any()
+        assert not np.signbit(outs[0][1::2, 2].numpy()).any()
 
 
 # ---------------------------------------------------------------------------

@@ -84,7 +84,7 @@ def test_kernel_argtypes_match_the_c_entry_points():
     kernels += [detector.FIELD_KERNEL, binning.BIN_KERNEL,
                 binning.BIN_FIELD_KERNEL, cic.BACKWARD_KERNEL,
                 xray.FOLD_KERNEL, xray.PP_FOLD_KERNEL,
-                xray.PP_CHORDS_KERNEL]
+                xray.PP_CHORDS_KERNEL, march_sharded.EXCHANGE_KERNEL]
     seen = set()
     for k in kernels:
         text = (_build.CSRC / k.source).read_text()
@@ -112,7 +112,8 @@ def test_kernel_argtypes_match_the_c_entry_points():
             "bin_field", "deposit_cic", "pack_fill", "random_draw",
             "march_adjoint", "cic_deposit", "cic_adjoint", "boris_push",
             "btable_write", "xray_fold", "pp_fold", "pp_chords",
-            "march_owned", "stage_gather", "sharded_trace_fill"} <= seen
+            "march_shards", "exchange_rows", "stage_gather",
+            "sharded_trace_fill"} <= seen
 
 
 def test_entry_points_default_to_cuda():
@@ -211,10 +212,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                 [0.0] * 3, [1.0] * 3, [0.0] * 3, [3.0] * 3,
                 [1.5, 1.5, -1.0], 1.5, 1.5, 4.0, torch.zeros(2),
                 torch.zeros(2), (2, 0, 1)), 4, 1),
-        lambda: march_sharded.march_owned(
-            u, table[0, :6], table[0, 6:], None, lo=0, naloc=2,
-            shape_ab=(3, 3), origin_ab=(0.0, 0.0), inv_ab=(1.0, 1.0),
-            dp=1.0, layout=lay, K=8),
+        lambda: march_sharded.march_shards(
+            u, [march_sharded.Shard(table[0, :6], table[0, 6:], 0)], None,
+            naloc=2, line_shards=1, shape_ab=(3, 3), origin_ab=(0.0, 0.0),
+            inv_ab=(1.0, 1.0), dp=1.0, layout=lay, K=8),
         lambda: sharded_rhs.Trace(
             torch.empty((9, 8), device=meta),
             [sharded_rhs.Shard(torch.empty((2, 4, 4, 3), device=meta),
