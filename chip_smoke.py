@@ -1646,13 +1646,19 @@ def sass_in_thread(kernel, fold, pattern, dump):
                            pick)
 
 
-def issue_floor(torch, instructions, units):
-    """``profiling.issue_floor_ms`` on this card: its SMs and highest SM
-    clock."""
-    from synthpy_tpu_torch.kernels.profiling import (issue_floor_ms,
-                                                     sm_clock_mhz)
+# what the kernels line says of ``static_issue_ms``
+STATIC_ISSUE = ("a static SASS count of the loop body at one instruction a "
+                "lane a clock, every block counted as if each trip ran it: "
+                "an estimate, not a floor")
 
-    return issue_floor_ms(
+
+def static_issue(torch, instructions, units):
+    """``profiling.static_issue_ms`` on this card: its SMs and highest SM
+    clock."""
+    from synthpy_tpu_torch.kernels.profiling import (sm_clock_mhz,
+                                                     static_issue_ms)
+
+    return static_issue_ms(
         instructions, units,
         torch.cuda.get_device_properties(0).multi_processor_count,
         sm_clock_mhz())
@@ -3077,7 +3083,7 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
     bit-equal to its plain version on a 65,536-ray subset of each tier's
     table, and a segment at every ray (with the owned rows' exchange
     where the line spans cards) bit-equal to K1's + 0.0 and timed beside
-    it, its core's SASS counted (``K17_sass``, the issue floor); K1 on a
+    it, its core's SASS counted (``K17_sass``, the static issue time); K1 on a
     PP segment range bit-equal to plain;
     the grid-sharded time tracer (K18) on 1 M rays over the first quarter
     of the depth, held bit-equal to its plain version, its launches and
@@ -3291,17 +3297,46 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
         dense = psum([o.clone() for o in outs_l],
                      Mesh((len(outs_l),), ("grid",),
                           devices=[o.device for o in outs_l]), "grid")
+        n_blocks = len(outs_l)
+        one_card = len({o.device for o in outs_l}) == 1
+        # the library yardstick on one card: one torch.gather of the blocks'
+        # stacked results by each ray's owning block (owners precomputed)
+        if one_card:
+            stacked = torch.stack(outs_l)
+            own_block = torch.tensor(block_of, device=dev)[march_sharded.owner(
+                starts[0], **geo_x)]
+            idx = own_block[None, :, None].expand(n_blocks, -1, 8)
+            gathered = torch.empty_like(stacked)
         plain_x = [o.cpu() for o in outs_l]
+        t = time.perf_counter()
         march_sharded.exchange_rows_plain(plain_x, [x.cpu() for x in starts],
                                           block_of, **geo_x)
+        exchange_plain_ms = (time.perf_counter() - t) * 1e3
         exchange_ms = wall_ms(lambda: march_sharded.exchange_rows(
             outs_l, starts, block_of, **geo_x))
+        exchange_err = 0.0
         for o, q, r in zip(outs_l, plain_x, dense):
             check(torch.equal(o.cpu().view(torch.int32), q.view(torch.int32))
                   and torch.equal(o.view(torch.int32), r.view(torch.int32)),
                   f"K17 {tier}: the exchange != its plain version or the "
                   "dense psum")
-        whole, n_blocks = outs_l[0], len(outs_l)
+            exchange_err = max(exchange_err, float(
+                (o.cpu() - q).abs().nan_to_num(0.0).max()))
+        exchange_lib_ms = None
+        if one_card:
+            exchange_lib_ms = wall_ms(lambda: torch.gather(
+                stacked, 0, idx, out=gathered))
+            check(all(torch.equal(gathered[d].view(torch.int32),
+                                  o.view(torch.int32))
+                      for d, o in enumerate(outs_l)),
+                  f"K17 {tier}: the gather yardstick != the exchange")
+            del stacked, own_block, idx, gathered
+        # the exchange's least work: each block reads column 0 of its start
+        # states and the (D - 1) / D of the rows it lacks, and writes them
+        # (a few operations a ray to find the owner)
+        x_bytes = 4 * n_blocks * N + 2 * 32 * (n_blocks - 1) * N
+        x_bound = bound(x_bytes, 6 * n_blocks * N)
+        whole = outs_l[0]
         del dense, plain_x
         ref_seg = march.march(u_all, sp1.seg_planes[:1], None, **kwm)
         check(torch.equal(whole.to(dev).view(torch.int32),
@@ -3340,7 +3375,13 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
             "bound_ms_parent_count": bound(parent_bytes, flops)[0],
             "exchange_ms": exchange_ms,
             "exchange_blocks": n_blocks,
+            "exchange_one_card": one_card,
             "exchange_bit_equal_plain_and_psum": True,
+            "exchange_max_abs_err": exchange_err,
+            "exchange_plain_ms": exchange_plain_ms,
+            "exchange_bound_ms": x_bound[0], "exchange_bound_by": x_bound[1],
+            "exchange_bytes": x_bytes,
+            "exchange_library_ms": exchange_lib_ms,
             "parent_psum_ms": wall_ms(lambda: psum(parts, meshes["grid"],
                                                    "grid")),
             "ppermute_ms": wall_ms(lambda: ppermute(
@@ -3572,11 +3613,11 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
         dist.destroy_process_group()
     emit({"phase": "multihost_nccl", **mh})
 
-    # K17's issue floor: the core's SASS a ray-plane (the plane loop of the
-    # rk2 / slab build) at one instruction a lane a clock
+    # K17's static issue time: the core's SASS a ray-plane (the plane loop
+    # of the rk2 / slab build) at one instruction a lane a clock
     sass17 = k17_sass()
-    floor17 = issue_floor(torch, sass17["loop"]["total"], N * K)
-    emit({"phase": "K17_sass", "issue_floor_ms": floor17, **sass17})
+    issue17 = static_issue(torch, sass17["loop"]["total"], N * K)
+    emit({"phase": "K17_sass", "static_issue_ms": issue17, **sass17})
 
     rows_out = [
         {"name": "march_shards", "route": "cuda",
@@ -3594,10 +3635,34 @@ def mesh_path(torch, dev, kernels, bound, reset, path_launches, close):
          "k1_kernel_segment_ms": k17["f32"]["k1_kernel_segment_ms"],
          "bound_ms_parent_count": k17["f32"]["bound_ms_parent_count"],
          "exchange_ms": k17["f32"]["exchange_ms"],
-         "issue_floor_ms": floor17, "sass_core": sass17,
+         "static_issue_ms": issue17, "static_issue": STATIC_ISSUE,
+         "sass_core": sass17,
          "bf16": {k: k17["bf16"][k] for k in (
              "ms", "k1_segment_ms", "k1_kernel_segment_ms", "plain_ms",
              "bound_ms", "bound_by", "exchange_ms")}},
+        {"name": "march_exchange", "route": "cuda",
+         "source": csrc + "march_sharded.cu",
+         "replaces": "synthpy_tpu/parallel/mesh.py:305",
+         "launches": modes["grid/f32"]["launches"]["march_exchange"],
+         "max_abs_err": max(k17[t]["exchange_max_abs_err"] for t in k17),
+         "ms": k17["f32"]["exchange_ms"],
+         "plain_ms": k17["f32"]["exchange_plain_ms"],
+         "bound_ms": k17["f32"]["exchange_bound_ms"],
+         "bound_by": k17["f32"]["exchange_bound_by"],
+         "library_ms": k17["f32"]["exchange_library_ms"],
+         "per": f"one segment's exchange of owned rows among "
+                f"{k17['f32']['exchange_blocks']} blocks of {N} rays "
+                + ("on one card (its rows read from the same card's memory; "
+                   "four-card times come from mesh_timing.py)"
+                   if k17["f32"]["exchange_one_card"] else
+                   "on distinct cards, by peer loads"),
+         "launches_note": "the exchange runs only where a grid line spans "
+                          "several devices: none when one card holds the "
+                          "line, one a segment and device on four cards",
+         "library_note": "one torch.gather of the blocks' stacked results "
+                         "by each ray's owning block, the owners "
+                         "precomputed; null on distinct cards",
+         "psum_ms": k17["f32"]["parent_psum_ms"]},
         {"name": "sharded_rhs", "route": "cuda",
          "source": csrc + "sharded_rhs.cu",
          "replaces": "synthpy_tpu/parallel/mesh.py:178",
@@ -5228,15 +5293,15 @@ def main():
     k7_b4 = bound(2 * RAYS * 32, k7_flops("lens", layout, "rk4", DIM - 1,
                                           RAYS))
     paths["analytic_rk4"].update(bound_ms=k7_b4[0], bound_by=k7_b4[1])
-    # K7's issue floor: the SASS of a step (the step loop of the build with
-    # the integrator folded) at one instruction a lane a clock
+    # K7's static issue time: the SASS of a step (the step loop of the
+    # build with the integrator folded) at one instruction a lane a clock
     for integrator, n in (("rk2", A_STEPS), ("rk4", DIM - 1)):
         mix = k7_sass[integrator]()
         paths[f"analytic_{integrator}"].update(
-            sass_step=mix, issue_floor_ms=issue_floor(
+            sass_step=mix, static_issue_ms=static_issue(
                 torch, mix["loop"]["total"], RAYS * n))
     emit({"phase": "K7_sass", **{
-        i: {"issue_floor_ms": paths[f"analytic_{i}"]["issue_floor_ms"],
+        i: {"static_issue_ms": paths[f"analytic_{i}"]["static_issue_ms"],
             **paths[f"analytic_{i}"]["sass_step"]} for i in ("rk2", "rk4")}})
     st_i = BENCHES["interferometry"][0]()
     ref_i = (10.0, 20.0)
@@ -5287,12 +5352,13 @@ def main():
          "ms": paths["analytic_rk2"]["k7_ms"],
          "plain_ms": paths["analytic_rk2"]["k7_plain_ms"],
          "bound_ms": k7_b[0], "bound_by": k7_b[1], "library_ms": None,
-         "issue_floor_ms": paths["analytic_rk2"]["issue_floor_ms"],
+         "static_issue_ms": paths["analytic_rk2"]["static_issue_ms"],
+         "static_issue": STATIC_ISSUE,
          "sass_a_step": paths["analytic_rk2"]["sass_step"]["loop"],
          "registers": paths["analytic_rk2"]["sass_step"]["ptxas"],
          "rk4_511_steps": {k: paths["analytic_rk4"][k] for k in (
              "k7_ms", "k7_plain_ms", "bound_ms", "bound_by",
-             "issue_floor_ms")} | {
+             "static_issue_ms")} | {
              "sass_a_step": paths["analytic_rk4"]["sass_step"]["loop"]}},
         {"name": "detector_field", "route": "cuda",
          "source": csrc + "detector.cu",

@@ -1005,7 +1005,7 @@ def analytic_part(args):
                 domain, s0, solver="analytic", integrator=integrator,
                 n_steps=n, critical_guard=None, bins=BINS), reps=args.reps)}
         ins = out["sass"][integrator]["loop"]["total"]
-        res["issue_floor_ms"] = here.issue_floor_ms(
+        res["static_issue_ms"] = here.static_issue_ms(
             ins, RAYS * n, out["sms"], out["sm_clock_mhz"])
         rows[integrator] = analytic.march(u, ne, None, **kw)
         if args.variants:
@@ -1118,7 +1118,7 @@ def k17_part(args):
         march_sharded.KERNEL.launches = 0
         rows[f"{tier}_segment"] = segment()
         res["launches_a_segment"] = march_sharded.KERNEL.launches
-        res["issue_floor_ms"] = here.issue_floor_ms(
+        res["static_issue_ms"] = here.static_issue_ms(
             out["sass_core"]["loop"]["total"], RAYS * K17_K, out["sms"],
             out["sm_clock_mhz"])
         for name, m in (("grid4", grid), ("grid2_rays2", grid_rays)):

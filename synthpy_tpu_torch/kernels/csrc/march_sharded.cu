@@ -30,9 +30,10 @@
 // finds each ray's owner itself, as shards_kernel does: no indices travel,
 // nothing is added (the owner's + 0.0 is already in its row), and a device
 // receives the (D - 1) / D of the rows it lacks, 32 bytes each, where the
-// psum copied D - 1 whole (N, 8) results and added them. The caller orders
-// the launch after each peer's march (stream events); there is no host
-// sync.
+// psum copied D - 1 whole (N, 8) results and added them. The wrapper
+// orders the launch after each peer's march, and each device's later work
+// after every peer's launch (stream events), so a result's memory is not
+// reused while a peer reads it; there is no host sync.
 //
 // The psum's rounding: JAX's psum over G > 1 shards adds G - 1 zeros
 // (+0.0) to the owner's value, which turns -0.0 into +0.0 and leaves every
@@ -61,7 +62,15 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int MAX_SHARDS = 8;  // kernels/march_sharded.py MAX_SHARDS
+constexpr int MAX_SHARDS = 8;
+
+// The frozen corner row of coordinate x on an axis of n nodes, clip(floor(
+// (x - o) * inv), 0, n - 2) as mesh.py:292-297 computes it (a NaN gives 0):
+// a-rows pick the owning shard, in shards_kernel and exchange_kernel alike.
+__device__ __forceinline__ int corner_row(float x, float o, float inv,
+                                          int n) {
+  return (int)fminf(fmaxf(floorf((x - o) * inv), 0.0f), (float)(n - 2));
+}
 
 // The device's shards of one segment, in shard order.
 struct Shards {
@@ -85,10 +94,8 @@ __global__ void __launch_bounds__(THREADS) shards_kernel(const Params P,
     s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
   }
   float4* out = reinterpret_cast<float4*>(P.u_out + r * 8);
-  const float ta = (s[0] - P.oa) * P.inva;
-  const float tb = (s[1] - P.ob) * P.invb;
-  const int ia0 = (int)fminf(fmaxf(floorf(ta), 0.0f), (float)(P.na - 2));
-  const int ib0 = (int)fminf(fmaxf(floorf(tb), 0.0f), (float)(P.nb - 2));
+  const int ia0 = corner_row(s[0], P.oa, P.inva, P.na);
+  const int ib0 = corner_row(s[1], P.ob, P.invb, P.nb);
   // the owner among this device's shards (at most one)
   const unsigned char* table = nullptr;
   const unsigned char* halo = nullptr;
@@ -149,8 +156,8 @@ void launch_dtype(const Params& P, const Shards& S, int layout,
   }
 }
 
-constexpr int MAX_DEVICES = 8;       // kernels/march_sharded.py
-constexpr int MAX_LINE_SHARDS = 64;  // the same
+constexpr int MAX_DEVICES = 8;
+constexpr int MAX_LINE_SHARDS = 64;
 
 // One device's part of a line's exchange.
 struct Exchange {
@@ -167,9 +174,8 @@ __global__ void __launch_bounds__(THREADS) exchange_kernel(const Exchange E) {
   const long long i = blockIdx.x * (long long)THREADS + threadIdx.x;
   if (i >= E.N) return;
   // the owner of the ray's frozen corner a-row, as shards_kernel finds it
-  const float ta = (E.u[i * 8] - E.oa) * E.inva;
-  const int ia0 = (int)fminf(fmaxf(floorf(ta), 0.0f), (float)(E.na - 2));
-  const int d = E.block_of[ia0 / E.naloc];
+  const int d =
+      E.block_of[corner_row(E.u[i * 8], E.oa, E.inva, E.na) / E.naloc];
   if (d == E.self) return;
   const float4* src = reinterpret_cast<const float4*>(E.peer[d] + i * 8);
   float4* dst = reinterpret_cast<float4*>(E.out + i * 8);

@@ -44,13 +44,6 @@ EXCHANGE_KERNEL = Kernel("march_sharded.cu", {
     "exchange_rows": [P, P, P, P, I, I, P, I, L, I, I, F, F, P],
 }, flags=["--fmad=false"])
 
-# the shards one launch takes, the devices and shards of a line one
-# exchange takes (csrc/march_sharded.cu MAX_SHARDS, MAX_DEVICES,
-# MAX_LINE_SHARDS)
-MAX_SHARDS = 8
-MAX_DEVICES = 8
-MAX_LINE_SHARDS = 64
-
 
 class Shard(NamedTuple):
     """One shard of a grid line on the rays' device: its (naloc, nb, row)
@@ -124,7 +117,8 @@ def march_shards(u: torch.Tensor, shards: Sequence[Shard],
     Each shard's table is f32, bf16, int8 or int4 nibble pairs
     (``qbits=4``); ``scales``: the segment's (K+1, C) f32 for the
     quantised tables, else None. ``order``: the launch order (on CUDA
-    tensors; default ``ray_order`` of ``u``)."""
+    tensors; default ``ray_order`` of ``u``). A launch takes 1 to the
+    kernel's ``MAX_SHARDS`` (8) shards and raises on more."""
     kw = dict(naloc=naloc, line_shards=line_shards, shape_ab=shape_ab,
               origin_ab=origin_ab, inv_ab=inv_ab, dp=dp, layout=layout, K=K,
               integrator=integrator, weights=weights, qbits=qbits,
@@ -140,9 +134,8 @@ def march_shards(u: torch.Tensor, shards: Sequence[Shard],
     na, nb = shape_ab
     C = layout.n_channels
     row = plane_blocks(K, qbits) * C
-    if not 1 <= len(shards) <= MAX_SHARDS:
-        raise ValueError(f"a device holds 1 to {MAX_SHARDS} shards of a "
-                         f"grid line, not {len(shards)}")
+    if not shards:
+        raise ValueError("a device holds at least one shard of the line")
     dtype = shards[0].table.dtype
     for sh in shards:
         for name, t, n in (("table", sh.table, naloc * nb),
@@ -235,17 +228,17 @@ def exchange_rows(outs: Sequence[torch.Tensor],
     same); ``block_of[g]``: the line index of the device that holds shard
     g (of naloc a-rows each). No indices travel and nothing is added; on a
     card each device's launch waits (stream events, no host sync) for
-    every other device's march and reads their rows by peer loads."""
+    every other device's march and reads their rows by peer loads, and
+    every device's stream then waits for every other device's launch, so
+    that no later work on a device (its allocator reusing ``outs[d]``'s
+    memory included) runs while a peer still reads it. A launch takes 1
+    to the kernel's ``MAX_DEVICES`` (8) devices and ``MAX_LINE_SHARDS``
+    (64) shards and raises on more."""
     D = len(outs)
     geo = dict(naloc=naloc, na=na, origin_a=origin_a, inv_a=inv_a)
     if outs[0].device.type == "cpu":
         return exchange_rows_plain(outs, starts, block_of, **geo)
     refuse_grad("march_sharded.exchange_rows (K17)", *outs, *starts)
-    if not 1 <= D <= MAX_DEVICES or not 1 <= len(block_of) <= \
-            MAX_LINE_SHARDS:
-        raise ValueError(f"an exchange takes 1 to {MAX_DEVICES} devices and "
-                         f"1 to {MAX_LINE_SHARDS} shards, not {D} and "
-                         f"{len(block_of)}")
     N = outs[0].shape[0]
     for t in (*outs, *starts):
         if (t.device.type != "cuda" or t.dtype != torch.float32
@@ -256,21 +249,29 @@ def exchange_rows(outs: Sequence[torch.Tensor],
     devs = [o.device for o in outs]
     if any(u.device != d for u, d in zip(starts, devs)):
         raise ValueError("starts[d] must lie on outs[d]'s device")
-    # every march first: an event on each device after its march
+    peers = (ctypes.c_void_p * D)(*(o.data_ptr() for o in outs))
+    ordinals = (ctypes.c_int * D)(*(torch.cuda.device(d).idx for d in devs))
+    blocks = (ctypes.c_int * len(block_of))(*(int(b) for b in block_of))
+    # every march first, then every launch
+    _cross_wait(devs)
+    for d, out in enumerate(outs):
+        EXCHANGE_KERNEL.launch(
+            "exchange_rows", devs[d], starts[d].data_ptr(), out.data_ptr(),
+            peers, ordinals, D, d, blocks, len(block_of), N, int(naloc),
+            int(na), float(origin_a), float(inv_a))
+    _cross_wait(devs)
+
+
+def _cross_wait(devs: Sequence[torch.device]) -> None:
+    """Order each device's current stream after the work queued so far on
+    every other device's (an event on each, no host sync)."""
     events = []
     for d in devs:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(d))
         events.append(ev)
-    peers = (ctypes.c_void_p * D)(*(o.data_ptr() for o in outs))
-    ordinals = (ctypes.c_int * D)(*(torch.cuda.device(d).idx for d in devs))
-    blocks = (ctypes.c_int * len(block_of))(*(int(b) for b in block_of))
-    for d, out in enumerate(outs):
-        stream = torch.cuda.current_stream(devs[d])
+    for d, dev in enumerate(devs):
+        stream = torch.cuda.current_stream(dev)
         for e, ev in enumerate(events):
             if e != d:
                 stream.wait_event(ev)
-        EXCHANGE_KERNEL.launch(
-            "exchange_rows", devs[d], starts[d].data_ptr(), out.data_ptr(),
-            peers, ordinals, D, d, blocks, len(block_of), N, int(naloc),
-            int(na), float(origin_a), float(inv_a))

@@ -256,12 +256,15 @@ def sm_clock_mhz() -> float:
         check=True).stdout.strip().splitlines()[0])
 
 
-def issue_floor_ms(instructions: float, units: float, sms: int,
-                   clock_mhz: float) -> float:
-    """The least time [ms] to issue ``instructions`` SASS instructions for
-    each of ``units`` threads' work items at one instruction a lane a
-    clock: 4 schedulers of 32 lanes on each of ``sms`` SMs at
-    ``clock_mhz``."""
+def static_issue_ms(instructions: float, units: float, sms: int,
+                    clock_mhz: float) -> float:
+    """The time [ms] to issue ``instructions`` SASS instructions for each
+    of ``units`` threads' work items at one instruction a lane a clock: 4
+    schedulers of 32 lanes on each of ``sms`` SMs at ``clock_mhz``. Fed a
+    static count (``sass_loop_mix``, which counts every block of a loop
+    body as if each trip ran it), it is an estimate, not a floor: a kernel
+    whose trips skip blocks (an out-of-box path, a division's slow-path
+    call) can run under it."""
     return instructions * units / (sms * 4 * 32 * clock_mhz * 1e6) * 1e3
 
 

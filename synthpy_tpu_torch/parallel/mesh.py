@@ -674,11 +674,11 @@ def make_gridsharded_segment_tracer(mesh: Mesh, layout: ChannelLayout,
                          for p in ps],
                 None if sc is None else sc[ps[0]][s], order=orders[k], **kw)
                 for k, ps in held.items()}
-            # a device's result of segment s is read by its peers' exchange
-            # and freed after segment s + 1; its memory is reused only by
-            # the device's march of segment s + 2, which its exchange of
-            # segment s + 1 orders after every peer's march of s + 1, and so
-            # after their reads of segment s
+            # a device's result is read by its peers' exchange; the exchange
+            # ends with every device's stream waiting for every peer's
+            # launch, so no later work on the device, the reuse of that
+            # memory by its allocator after the last segment included,
+            # runs before those reads end
             for line in spread:
                 _owned.exchange_rows(
                     [outs[k] for k in line], [cur[k] for k in line],

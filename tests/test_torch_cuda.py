@@ -2348,6 +2348,32 @@ def test_exchange_rows_kernel_matches_plain(dev, tier, integrator,
         assert _bits_equal(o, p) and _bits_equal(o, dense)
 
 
+def test_k17_kernels_refuse_counts_past_their_limits(dev):
+    """The kernel's limits, held in march_sharded.cu alone: a launch of 9
+    shards (MAX_SHARDS 8) and an exchange of 9 devices (MAX_DEVICES 8)
+    raise, and an empty shard list is refused before the launch."""
+    g, c = _layout_pair(dev, (0, 0, 0))
+    sp = zscan.build_segment_pack_device(g, K=8, dtype=torch.float32)
+    u = zscan.permute_state(_rays(dev, "z"), "z").contiguous()
+    na, nb = sp.shape_ab
+    naloc = na // 2
+    kw = dict(shape_ab=sp.shape_ab, origin_ab=sp.origin_ab.tolist(),
+              inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+              layout=layout_of(c), K=sp.K, integrator="rk2",
+              weights="slab", naloc=naloc, line_shards=9)
+    table = sp.seg_planes[0].reshape(na, nb, -1)
+    sh = march_sharded.Shard(table[:naloc].contiguous(), table[naloc], 0)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        march_sharded.march_shards(u, [sh] * 9, None, **kw)
+    with pytest.raises(ValueError, match="at least one shard"):
+        march_sharded.march_shards(u, [], None, **kw)
+    outs = [torch.zeros_like(u) for _ in range(9)]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        march_sharded.exchange_rows(outs, [u] * 9, [0], naloc=na, na=na,
+                                    origin_a=kw["origin_ab"][0],
+                                    inv_a=kw["inv_ab"][0])
+
+
 @pytest.mark.parametrize("G", [1, 2, 4])
 @pytest.mark.parametrize("layout", ALL_LAYOUTS)
 def test_stage_gather_kernel_matches_plain(dev, layout, G):

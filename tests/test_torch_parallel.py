@@ -451,6 +451,33 @@ def test_fused_stage_tracer_with_inv_brems_against_jax(G):
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])
+def test_fused_stage_tracer_with_inv_brems_on_the_ports_pack(G):
+    """End to end with inverse bremsstrahlung on: the port's pack
+    (``build_pack``) into the port's tracer against JAX's pack into JAX's.
+    On 2 and 4 shards every column is bit for bit JAX's; on one shard the
+    packs' kappa channels, a few ulp apart at some nodes (ROADMAP C.8),
+    may move the amplitude column by one ulp, every other column
+    bit-equal."""
+    jd = JDomain(2 * EXT, 16, inv_brems=True).test_lens(ne_0=8e24,
+                                                        LR=1.8e-3)
+    rng = np.random.default_rng(1)
+    jd.external_Te(50.0 + 10.0 * rng.random(jd.dims))
+    jd.external_Z(2.0 * np.ones(jd.dims))
+    td = convert.domain(jd, "cpu")
+    jp, tp = jbuild_pack(jd), build_pack(td)
+    rows = np.asarray(init_beam(jax.random.PRNGKey(1), 256, 2.0e-3, 1e-3,
+                                EXT, "circular")).T.copy()
+    dt = np.float32(jnp.asarray(jnp.sqrt(8.0) * EXT / 2.99792458e8 / 40,
+                                jnp.float32))
+    out, jout = _traces(G, jd, td, jp.channels, tp.channels, rows, 24, dt)
+    ulps = (_bits(out).astype(np.int64) - _bits(jout)).reshape(
+        jout.shape)
+    assert np.abs(jout[:, 6] - rows[:, 6]).max() > 0
+    np.testing.assert_array_equal(np.delete(ulps, 6, axis=1), 0)
+    assert np.abs(ulps[:, 6]).max() <= (1 if G == 1 else 0)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
 def test_fused_stage_carries_the_psums_signed_zero(G):
     """An owner's value of -0.0 (every channel -0.0): the psum over G > 1
     shards adds +0.0 and turns it into +0.0, one shard leaves it; rays
@@ -651,11 +678,7 @@ def test_k17_plain_version_is_k1_on_the_owned_rays(grid_scene):
 
 def test_k17_one_call_holds_every_shard_of_the_device(grid_scene):
     """``march_shards`` given 1, 2 or 4 shards of a 4-shard line marches
-    the rays any of them owns, as the shards' calls one at a time do; its
-    Python ``MAX_SHARDS`` is the kernel's."""
-    import re
-    from pathlib import Path
-
+    the rays any of them owns, as the shards' calls one at a time do."""
     jd, td, s0 = grid_scene
     sp = tz.build_segment_pack_device(td, K=8, dtype=torch.float32)
     lay = layout_of(td)
@@ -675,11 +698,6 @@ def test_k17_one_call_holds_every_shard_of_the_device(grid_scene):
                                          None, **kw)
         want = sum((ones[g] for g in group), torch.zeros_like(u))
         np.testing.assert_array_equal(_bits(got), _bits(want))
-    src = (Path(march_sharded.__file__).parent / "csrc"
-           / "march_sharded.cu").read_text()
-    for name in ("MAX_SHARDS", "MAX_DEVICES", "MAX_LINE_SHARDS"):
-        assert int(re.search(name + r" = (\d+);", src).group(1)) == \
-            getattr(march_sharded, name)
 
 
 K17_CASES = [(t, i) for t in ("f32", "bf16", "int8")
