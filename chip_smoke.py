@@ -1476,11 +1476,11 @@ K11_CONTROL = [("  ds[0] = dfa * clip01_grad(ra) * P.inva;\n"
 
 # K19's planted controls: the forward with the inner stencil at the two
 # ends of every axis (the edges' difference halved), the adjoint without
-# the second copy of each border plane
-K19_FORWARD_CONTROL = [("(lo_edge || hi_edge) ? __fdiv_rn(d, h)",
-                        "false ? __fdiv_rn(d, h)")]
-K19_ADJOINT_CONTROL = [("  if (k == 0 && s >= 1)\n    v = __fadd_rn(",
-                        "  if (false)\n    v = __fadd_rn(")]
+# the second copy of each border plane (no plane staged with one)
+K19_FORWARD_CONTROL = [("edge ? d : __fmul_rn(d, 0.5f)",
+                        "false ? d : __fmul_rn(d, 0.5f)")]
+K19_ADJOINT_CONTROL = [("      if (k == 0 && ss >= 1) {",
+                        "      if (false) {")]
 # K19's tolerance against its plain adjoint (the same operations in the
 # same order) and against autograd through the plain chain: the same for a
 # float32 table, and for a bf16 table, whose two copies of a border plane
@@ -1712,6 +1712,60 @@ def cosine_decay(lr, steps, t):
     return lr * 0.5 * (1.0 + math.cos(math.pi * min(t, steps) / steps))
 
 
+def k19_static(torch, rows, detail, k19_sass):
+    """K19's static SASS (phase ``K19_sass``) from each kernel's innermost
+    loops: the compute loop (its global stores: one a slot or cell), the
+    copy loop (its cp.async: one a staged slot; the adjoint's two, a
+    border plane's second copy beside it) and the forward's division loop
+    (its shared stores: one a staged value); a slot's (a cell's) count is
+    the compute loop's a slot plus the staging loops' a staged element
+    times the staged elements a slot (cell), halos included; and the
+    static issue estimate at the path's slots (cells). Adds them to the
+    kernels-line rows."""
+    t19 = detail["K19_times"]
+    out = {}
+    for kind, name, units in (("forward", "pack_chain", t19["slots"]),
+                              ("adjoint", "pack_chain_adjoint",
+                               t19["cells"])):
+        mix = k19_sass[kind]()
+        inner = mix["inner"]
+
+        def largest(keep, what):
+            loops = [lp for lp in inner if keep(lp)]
+            check(bool(loops), f"K19_sass: no {kind} {what} loop in "
+                  f"{[lp['total'] for lp in inner]}")
+            return max(loops, key=lambda lp: lp["total"],
+                       default={"total": 0})
+
+        comp = largest(lambda lp: lp["STG"], "compute")
+        per = comp["total"] / max(comp["STG"], 1)
+        copy_ = largest(lambda lp: lp["LDGSTS"], "copy")
+        staging = copy_["total"] / max(
+            copy_["LDGSTS"] / (2 if kind == "adjoint" else 1), 1)
+        conv = None
+        if kind == "forward":
+            conv = largest(lambda lp: lp["STS"] and not lp["STG"]
+                           and not lp["LDGSTS"], "division")
+            staging += conv["total"] / max(conv["STS"], 1)
+        L = t19["plans"][kind]
+        n_u = L["TB"] * (L["PB"] - (kind == "adjoint"))
+        staged = (L["TB"] + 2) * (L["PB"] + 2 - (kind == "adjoint")) / n_u
+        per += staging * staged
+        out[kind] = {
+            "per_slot" if kind == "forward" else "per_cell": per,
+            "compute_loop": comp, "copy_loop": copy_, "division_loop": conv,
+            "staged_per_unit": staged, "ptxas": mix.get("ptxas"),
+            "static_issue_ms": static_issue(torch, per, units)}
+        row = next(r for r in rows if r["name"] == name)
+        row.update({"sass_per_unit": per,
+                    "static_issue_ms": out[kind]["static_issue_ms"],
+                    "static_issue": STATIC_ISSUE,
+                    "registers": (mix.get("ptxas") or {}).get("regs"),
+                    "plan": L})
+    emit({"phase": "K19_sass", **out})
+    detail["K19_sass"] = out
+
+
 def inverse_path(torch, dev, kernels, bound, reset, path_launches,
                  controls, k11_regs):
     """The differentiable renderer at full width (``inverse_path``):
@@ -1722,6 +1776,7 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     and K12 held to their plain versions at the path's
     shapes, each with a planted control that must fail. Returns
     (kernels-line rows, detail)."""
+    import copy
     import math
 
     from synthpy_tpu_torch import constants
@@ -2211,10 +2266,29 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     k19_adj_plain = best_ms(lambda: kpc.seg_planes_vjp_plain(
         ne_path, dseg_path, path_spec), reps=2)
     slots = table.shape[0] * table.shape[1] * (K + 1)
+    cells19 = ne_path.numel()
+    path_spec_ab = kpc._dims(path_spec, ne_path)[2:4]
     k19_fwd_b = bound(ne_path.numel() * 4 + table.numel() * 2, slots * 23)
     k19_adj_b = bound(table.numel() * 2 + ne_path.numel() * 8,
                       ne_path.numel() * 26)
     del table, dseg_path
+    torch.cuda.empty_cache()
+    # the same volume probed along x and y (the tables' transverse axis b
+    # is then ne's contiguous z)
+    k19_xy = {}
+    for probe in ("x", "y"):
+        d_xy = copy.copy(path_spec.domain)
+        d_xy.probing_direction = probe
+        spec_xy = kpc.chain_spec(d_xy, K=K, pack_dtype=torch.bfloat16)
+        t_xy = kpc.forward(ne_path, spec_xy)
+        ds_xy = torch.randn(t_xy.shape, generator=gen, device=dev).to(
+            t_xy.dtype)
+        k19_xy[probe] = {
+            "forward_ms": batch_ms(lambda: kpc.forward(ne_path, spec_xy),
+                                   calls=10),
+            "adjoint_ms": batch_ms(lambda: kpc.adjoint(ne_path, ds_xy,
+                                                       spec_xy), calls=10)}
+        del t_xy, ds_xy
     torch.cuda.empty_cache()
 
     # -- times at the path's shapes, bounds, plain and library times
@@ -2326,7 +2400,10 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     k19_t = {"forward_ms": k19_fwd_ms, "adjoint_ms": k19_adj_ms,
              "forward_plain_ms": k19_fwd_plain,
              "adjoint_plain_ms": k19_adj_plain, "forward_bound": k19_fwd_b,
-             "adjoint_bound": k19_adj_b}
+             "adjoint_bound": k19_adj_b, "x": k19_xy["x"], "y": k19_xy["y"],
+             "plans": {k: kpc.plan(k, *path_spec_ab, K, 4, 2)._asdict()
+                       for k in ("forward", "adjoint")},
+             "slots": slots, "cells": cells19}
     detail.update({"K19_vs_plain": k19, f"K19_checks_{D19}": k19_small,
                    "K19_times": k19_t})
     detail.update({"K11_vs_plain": k11, "K11_control": k11_control,
@@ -2376,7 +2453,9 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
          "ms": k19_fwd_ms, "plain_ms": k19_fwd_plain,
          "bound_ms": k19_fwd_b[0], "bound_by": k19_fwd_b[1],
          "library_ms": None,
-         "per": f"{D}^3, K = {K}, C = 4, bf16 (the forward)"},
+         "per": f"{D}^3, K = {K}, C = 4, bf16 (the forward)",
+         "x_probing_ms": k19_xy["x"]["forward_ms"],
+         "y_probing_ms": k19_xy["y"]["forward_ms"]},
         {"name": "pack_chain_adjoint", "route": "cuda",
          "source": csrc + "pack_chain.cu",
          "replaces": "synthpy_tpu/inverse.py:288",
@@ -2385,7 +2464,9 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
          "ms": k19_adj_ms, "plain_ms": k19_adj_plain,
          "bound_ms": k19_adj_b[0], "bound_by": k19_adj_b[1],
          "library_ms": None,
-         "per": f"{D}^3, K = {K}, C = 4, a bf16 cotangent (the VJP)"}]
+         "per": f"{D}^3, K = {K}, C = 4, a bf16 cotangent (the VJP)",
+         "x_probing_ms": k19_xy["x"]["adjoint_ms"],
+         "y_probing_ms": k19_xy["y"]["adjoint_ms"]}]
     detail["inverse_path_s"] = time.perf_counter() - t_path
     emit({"phase": "inverse_times", "k11_ms": k11_ms,
           "k11_plain_ms": k11_plain_ms, "k11_bound": k11_b,
@@ -4059,6 +4140,11 @@ def main():
         analytic.KERNEL, f"k7_{i}",
         r"analytic_kernelILi4EN7layouts6LayoutILi0ELi0ELi0EEELi2E",
         f"k7_{i}.sass") for i in ("rk2", "rk4")}
+    # K19's SASS at the inversion path's instances (C = 4, bf16)
+    k19_sass = {k: sass_in_thread(
+        pack_chain.KERNEL, "k19",
+        rf"{k}_kernelIN7layouts6LayoutILi0ELi1ELi0EEE13__nv_bfloat16E",
+        f"k19_{k}.sass") for k in ("forward", "adjoint")}
 
     # -- 1. device and kernel build ------------------------------------------
     smi = nvidia_smi()
@@ -5029,6 +5115,7 @@ def main():
     # K12 held to their plain versions at its shapes
     inv_rows, inv_detail = inverse_path(torch, dev, kernels, bound, reset,
                                         path_launches, controls, k11_regs)
+    k19_static(torch, inv_rows, inv_detail, k19_sass)
 
     # -- 3e. proton radiography at 1024^3 (K13, K14) and X-ray radiography,
     # the 1024^3 streamed survey and the 256^3 dense images (K15, K16)

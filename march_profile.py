@@ -2,8 +2,9 @@
 """Profile kernel K1 (the segment march) at the main path's shapes on a
 card, or time kernel K11 (its adjoint) on the inversion path's inputs,
 K13 (the Boris push) on the proton path's, K6 (the adaptive step) on the
-adaptive path's, K5 (the time march) on the time path's or K18 (the
-grid-sharded time tracer's stage) on its check trace.
+adaptive path's, K5 (the time march) on the time path's, K18 (the
+grid-sharded time tracer's stage) on its check trace or K19 (the
+renderer's pack chain) on the inversion path's volume.
 
     python3 march_profile.py        # from the repository root, one GPU
     python3 march_profile.py adjoint [--root DIR] [--reps N] [--save F]
@@ -18,6 +19,8 @@ grid-sharded time tracer's stage) on its check trace.
                                  [--against F]
     python3 march_profile.py zscan [--root DIR] [--reps N] [--save F]
                                    [--against F] [--variants [--first F]]
+    python3 march_profile.py k19 [--root DIR] [--reps N] [--save F]
+                                 [--against F] [--variants] [--builds]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -143,6 +146,28 @@ order included; ``--save`` / ``--against`` as for ``time``. With
 (and the source file ``--first F``, another design of K4) in both orders,
 in turns with the shipped kernel, with registers and bit-equality of the
 rows.
+
+``k19`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does. On the
+inversion path's volume (``chip_smoke.py``'s ``inverse_path``: 512^3, the
+two-blob volume at theta = -1.5, K = 64) in the cases of ``K19_CASES`` (the
+path's phase layout C = 4 with a bf16 table probed along z, x and y; then
+along z a float32 table at C = 4, the renderer's default below 256^3, and
+C = 8, every channel, with seeded Te, Z and B, in bf16 and float32), it
+prints one JSON line with ``sass`` (the static SASS of the C = 4 bf16
+instances: the whole kernel and each innermost loop with its global and
+shared loads, stores and cp.async copies; ptxas registers and spills), and
+for each case ``forward_ms`` and ``adjoint_ms`` (CUDA events around 10
+back-to-back calls, best of ``--reps``; a seeded cotangent), the launch
+plans with their shared bytes (where the tree has ``pack_chain.plan``) and
+a SHA-256 of the table and of d ne; on the path's case also the forward
+held bit-equal to ``seg_planes_plain`` and the adjoint's relative L2
+distance from ``seg_planes_vjp_plain``. ``--save F`` writes the hashes to F
+(JSON), ``--against F`` (another tree's file) says whether each output is
+bit-equal to that tree's. With ``--variants`` it also times the plans of
+``K19_VARIANTS`` (cells a tile, rows a run), each held bit-equal to the
+default plan's outputs; with ``--builds`` the builds of
+``K19_SOURCE_VARIANTS`` on the path's case (the probes' outputs are not
+the shipped ones).
 """
 
 from __future__ import annotations
@@ -1140,11 +1165,263 @@ def k17_part(args):
     print(json.dumps({"part": "k17", **out}), flush=True)
 
 
+# K19's instances on the inversion path: the phase layout (C = 4), bf16
+K19_PATTERNS = {
+    kind: rf"{kind}_kernelIN7layouts6LayoutILi0ELi1ELi0EEE13__nv_bfloat16E"
+    for kind in ("forward", "adjoint")}
+# the cases: (name, probing axis, C, table dtype); the path's first, then
+# its volume along x and y, then the other layouts and table types along z
+# (C = 4 float32 is the renderer's default below 256^3)
+K19_CASES = (("z", "z", 4, "bf16"), ("x", "x", 4, "bf16"),
+             ("y", "y", 4, "bf16"), ("z_f32_C4", "z", 4, "f32"),
+             ("z_bf16_C8", "z", 8, "bf16"), ("z_f32_C8", "z", 8, "f32"))
+
+
+def _k19_sass(kpc, tag: str) -> tuple:
+    """The static SASS of K19's path instances (the parent's kernel is one
+    slot (forward) or cell (adjoint) a thread, so its whole function is a
+    slot's count; the tiled kernel's innermost loops are its staging and
+    its compute loop), and the ptxas registers and spills of every
+    instance, by kernel, layout switches (inv_brems, phaseshift, B_on)
+    and table type."""
+    from synthpy_tpu_torch.kernels import _build
+    from synthpy_tpu_torch.kernels.profiling import ptxas
+
+    here = _here_profiling()
+    kern, _, cubin = ptxas(_build.CSRC / kpc.KERNEL.source, kpc.KERNEL.flags)
+    sass = {}
+    for kind, short in (("forward", "fwd"), ("adjoint", "adj")):
+        mix = here.sass_loop_mix(cubin, K19_PATTERNS[kind],
+                                 Path("chiprun_out") / f"k19_{short}_{tag}"
+                                 ".sass")
+        mix["ptxas"] = kern.get(mix["name"])
+        sass[kind] = mix
+    regs = {}
+    for name, v in kern.items():
+        m = re.search(r"(forward|adjoint)_kernelIN7layouts6LayoutILi(\d)ELi"
+                      r"(\d)ELi(\d)EEE(f|13__nv_bfloat16)E", name)
+        if m:
+            regs[f"{m[1]}_{m[2]}{m[3]}{m[4]}_"
+                 f"{'f32' if m[5] == 'f' else 'bf16'}"] = v
+    return sass, regs
+
+
+def _k19_domain(dom, probe: str, C: int):
+    """The inversion path's domain probed along ``probe`` in the layout of
+    C channels (8: Te, Z and B made from a seed on the card)."""
+    import copy
+
+    import torch
+    d = copy.copy(dom)
+    d.probing_direction = probe
+    if C == 8:
+        g = torch.Generator(device=dom.ne.device).manual_seed(8)
+        shape = tuple(dom.ne.shape)
+        d.inv_brems = True
+        d.external_Te(20.0 + 40.0 * torch.rand(shape, generator=g,
+                                               device=dom.ne.device))
+        d.external_Z(1.0 + 3.0 * torch.rand(shape, generator=g,
+                                            device=dom.ne.device))
+        d.external_B(5.0 * torch.randn(shape + (3,), generator=g,
+                                       device=dom.ne.device))
+    return d
+
+
+def k19_part(args):
+    """The ``k19`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch.kernels import pack_chain as kpc
+    from synthpy_tpu_torch.kernels.profiling import batch_ms, nvidia_smi
+
+    here = _here_profiling()
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "sm_clock_mhz": here.sm_clock_mhz(),
+           "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+           "tiled": hasattr(kpc, "plan")}
+    out["sass"], out["ptxas"] = _k19_sass(kpc, Path(args.root).name)
+    builds = _k19_builds(kpc) if args.builds and out["tiled"] else {}
+    dom, _, theta, volume, _, _ = inversion_inputs(dev)
+    ne = volume(torch.nn.functional.softplus(theta))
+    gen = torch.Generator(device=dev).manual_seed(19)
+    hashes, cases = {}, {}
+
+    def best(fn):
+        return min(batch_ms(fn, calls=10) for _ in range(args.reps))
+
+    for case, probe, C, tier in K19_CASES:
+        dt = torch.bfloat16 if tier == "bf16" else torch.float32
+        spec = kpc.chain_spec(_k19_domain(dom, probe, C), K=INV_K,
+                              pack_dtype=dt)
+        table = kpc.forward(ne, spec)
+        dseg = torch.randn(table.shape, generator=gen, device=dev).to(
+            table.dtype)
+        dne = kpc.adjoint(ne, dseg, spec)
+        res = {"forward_ms": best(lambda: kpc.forward(ne, spec)),
+               "adjoint_ms": best(lambda: kpc.adjoint(ne, dseg, spec))}
+        if case == "z":
+            # the path's case against the plain versions
+            want = kpc.seg_planes_plain(ne, spec)
+            ref = kpc.seg_planes_vjp_plain(ne, dseg, spec)
+            res["forward_bit_equal_plain"] = torch.equal(
+                table.view(torch.int16), want.view(torch.int16))
+            res["adjoint_rel_l2_plain"] = float(
+                (dne - ref).double().norm() / ref.double().norm())
+            del want, ref
+        if out["tiled"]:
+            _, _, na, nb, _ = kpc._dims(spec, ne)
+            tb = 2 if tier == "bf16" else 4
+            res["plans"] = {}
+            for k in ("forward", "adjoint"):
+                L = kpc.plan(k, na, nb, INV_K, C, tb)
+                res["plans"][k] = {**L._asdict(), "smem": kpc.plan_smem(
+                    k, L.TB, L.PB, C, INV_K, tb)}
+            if args.variants and case in K19_VARIANTS:
+                res["variants"] = _k19_variants(
+                    kpc, K19_VARIANTS[case], ne, dseg, spec, best, table,
+                    dne)
+            if builds:
+                res["builds"] = _k19_build_times(kpc, builds, ne, dseg, spec,
+                                                 best, table, dne)
+        hashes[case] = {
+            k: hashlib.sha256(v.cpu().view(torch.int16 if v.dtype ==
+                                           torch.bfloat16 else torch.int32)
+                              .numpy().tobytes()).hexdigest()
+            for k, v in (("table", table), ("dne", dne))}
+        cases[case] = res
+        del table, dseg, dne, spec
+        torch.cuda.empty_cache()
+    out["cases"] = cases
+    out["sha256"] = hashes
+    if args.save:
+        Path(args.save).write_text(json.dumps(hashes))
+    if args.against:
+        ref = json.loads(Path(args.against).read_text())
+        out["against"] = {"file": args.against, **{
+            c: {k: hashes[c][k] == ref[c][k] for k in hashes[c]}
+            for c in hashes if c in ref}}
+    print(json.dumps({"part": "k19", **out}), flush=True)
+
+
+# the plans ``k19 --variants`` times beside the default one, by case:
+# cells a tile and rows a run of each kernel on the path's case; on the
+# layouts whose slots take 16 or 32 bytes the tiles of both kernels
+K19_VARIANTS = {
+    "z": {"forward": [{"TB": 15}, {"TB": 31}, {"AR": 8}, {"AR": 32}],
+          "adjoint": [{"TB": 8}, {"TB": 32}, {"AR": 8}, {"AR": 32}]},
+    **{case: {"forward": [{"TB": 15}, {"TB": 31}],
+              "adjoint": [{"TB": 16}, {"TB": 8}, {"TB": 4}]}
+       for case in ("z_f32_C4", "z_bf16_C8", "z_f32_C8")}}
+
+
+# builds of pack_chain.cu that ``k19 --builds`` times beside the shipped
+# one in every case: two slots (cells) a trip in every layout, the compute
+# loops unrolled by the compiler, both kernels without their register cap,
+# and a probe that gives wrong numbers and only says where the time goes:
+# the rows staged but not computed
+K19_SOURCE_VARIANTS = {
+    "pair_all": [("LY::inv_brems || LY::B_on ? 1 : 2;",
+                  "LY::inv_brems || LY::B_on ? 2 : 2;")],
+    "unrolled": [("#pragma unroll 1\n    for (int i = threadIdx.x; i < n_",
+                  "    for (int i = threadIdx.x; i < n_")],
+    "regs_free": [("constexpr int MIN_BLOCKS = 4;",
+                   "constexpr int MIN_BLOCKS = 1;")],
+    "stage_only": [("    compute(a, k & 3,",
+                    "    if (false) compute(a, k & 3,")],
+}
+
+
+def _k19_variants(kpc, plans, ne, dseg, spec, best, table, dne):
+    """Each of ``plans``' plans (the default plan's TB, PB or AR moved),
+    timed with its shared bytes and held bit-equal to the default plan's
+    outputs."""
+    import torch
+
+    shipped = kpc.plan
+    C = spec.layout.n_channels
+    tb = 2 if spec.pack_dtype == torch.bfloat16 else 4
+    res = {}
+    for kind, overs in plans.items():
+        for over in overs:
+            kpc.plan = lambda k, *a, _o=over, _k=kind: shipped(  # noqa
+                k, *a, **(_o if k == _k else {}))
+            try:
+                L = kpc.plan(kind, *kpc._dims(spec, ne)[2:4], INV_K, C, tb)
+                if kind == "forward":
+                    fn = lambda: kpc.forward(ne, spec)  # noqa: E731
+                    same = torch.equal(fn(), table)
+                else:
+                    fn = lambda: kpc.adjoint(ne, dseg, spec)  # noqa: E731
+                    same = torch.equal(fn().view(torch.int32),
+                                       dne.view(torch.int32))
+                res[f"{kind}_" + "_".join(f"{k}{v}" for k, v in
+                                          over.items())] = {
+                    "ms": best(fn), "bit_equal": same, "plan": L._asdict(),
+                    "smem": kpc.plan_smem(kind, L.TB, L.PB, C, INV_K, tb)}
+            finally:
+                kpc.plan = shipped
+    return res
+
+
+def _k19_builds(kpc):
+    """``K19_SOURCE_VARIANTS``' builds (all built at once), each with the
+    ptxas registers and spills of its instances."""
+    from synthpy_tpu_torch.kernels import _build
+    from synthpy_tpu_torch.kernels.profiling import ptxas, variant
+
+    builds = {name: variant(kpc.KERNEL, f"k19_{name}", subs)
+              for name, subs in K19_SOURCE_VARIANTS.items()}
+    _build.build({b.source: b.flags for b in builds.values()})
+    out = {}
+    for name, b in builds.items():
+        kern, _, _ = ptxas(Path(b.source), b.flags)
+        out[name] = (b, {k: v for k, v in kern.items()
+                         if "_kernelIN7layouts" in k})
+    return out
+
+
+def _k19_build_times(kpc, builds, ne, dseg, spec, best, table, dne):
+    """Each build of ``_k19_builds`` on one case: timed, with whether its
+    outputs are the shipped kernels' and the registers of the case's
+    instances."""
+    import torch
+    from synthpy_tpu_torch.kernels import _build
+
+    res = {}
+    lay = spec.layout
+    mangled = (f"LayoutILi{int(lay.inv_brems)}ELi{int(lay.phaseshift)}ELi"
+               f"{int(lay.B_on)}EEE" + ("13__nv_bfloat16E" if
+                                       spec.pack_dtype == torch.bfloat16
+                                       else "fE"))
+    shipped = kpc.KERNEL, kpc.BACKWARD_KERNEL
+    for name, (b, kern) in builds.items():
+        kpc.KERNEL = b
+        kpc.BACKWARD_KERNEL = _build.Kernel(
+            b.source, shipped[1].functions, b.flags)
+        try:
+            f = kpc.forward(ne, spec)
+            g = kpc.adjoint(ne, dseg, spec)
+            res[name] = {
+                "forward_ms": best(lambda: kpc.forward(ne, spec)),
+                "adjoint_ms": best(lambda: kpc.adjoint(ne, dseg, spec)),
+                "forward_bit_equal": torch.equal(f, table),
+                "adjoint_bit_equal": torch.equal(g.view(torch.int32),
+                                                 dne.view(torch.int32)),
+                "ptxas": {("forward" if "forward_kernel" in k else "adjoint"):
+                          v for k, v in kern.items() if mangled in k}}
+        finally:
+            kpc.KERNEL, kpc.BACKWARD_KERNEL = shipped
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("part", nargs="?",
                     choices=["march", "adjoint", "boris", "adaptive", "time",
-                             "k18", "zscan", "analytic", "k17"],
+                             "k18", "zscan", "analytic", "k17", "k19"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -1152,6 +1429,7 @@ def main():
     ap.add_argument("--save")
     ap.add_argument("--against")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--builds", action="store_true")
     ap.add_argument("--first")
     args = ap.parse_args()
     if args.part == "adjoint":
@@ -1170,6 +1448,8 @@ def main():
         return analytic_part(args)
     if args.part == "k17":
         return k17_part(args)
+    if args.part == "k19":
+        return k19_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

@@ -14,7 +14,9 @@ and its VJP.
 
 ``SegPlanes`` is a ``torch.autograd.Function`` that saves only ``ne``: on
 CUDA tensors its forward launches ``pack_chain_forward`` and its backward
-``pack_chain_adjoint`` of ``csrc/pack_chain.cu``; on CPU tensors it runs
+``pack_chain_adjoint`` of ``csrc/pack_chain.cu``, each over the launch
+plan ``plan`` gives (tiles of cells along b, chunks of a segment's planes,
+runs of rows along a, the grid and shared bytes); on CPU tensors it runs
 ``seg_planes_plain`` (the chain above, unchanged) and
 ``seg_planes_vjp_plain`` (the adjoint written out in the kernel's gather
 form: each ne cell sums the table cotangents of its own plane position and
@@ -48,13 +50,93 @@ from synthpy_tpu_torch.fields.domain import (ChannelLayout, ScalarDomain,
                                              build_pack, layout_of)
 from synthpy_tpu_torch.kernels._build import F, I, P, Kernel
 
-_ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, I, I]
+# the geometry (4 pointers, 10 ints), then the plan's TB, PB and AR
+_ARGS = [P, P, P, P] + [I] * 10 + [I] * 3
 KERNEL = Kernel("pack_chain.cu", {
     "pack_chain_forward": _ARGS + [F, F, F, F, F, F, F, F, P, P],
-}, flags=["--fmad=false"])
+}, flags=["--fmad=false"], helpers={"pack_chain_smem": [I] * 6})
 BACKWARD_KERNEL = Kernel("pack_chain.cu", {
     "pack_chain_adjoint": _ARGS + [P, F, F, F, F, F, F, F, F, P, P],
 }, flags=["--fmad=false"])
+
+SMEM_MAX = 232448        # a block's shared memory on an H100 (227 KB)
+# a block's share of an H100 SM's shared memory at four blocks an SM (228
+# KB, 1 KB of it each block's own)
+SMEM_QUARTER = 233472 // 4 - 1024
+# the plan's defaults: cells a tile (forward, adjoint) and rows a run
+FORWARD_TB, ADJOINT_TB, RUN_ROWS = 23, 16, 16
+
+
+class Plan(NamedTuple):
+    """K19's launch plan: a block owns a tile of ``TB`` cells along b and a
+    chunk of ``PB`` planes of one segment, and walks a run of ``AR`` rows
+    along a. ``pack_chain.cu`` derives the rest from it (``plan_of``: the
+    staged rows' pitch, the grid and the shared bytes) and refuses a plan
+    that does not fit the card."""
+
+    TB: int
+    PB: int
+    AR: int
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def plan_smem(kind: str, TB: int, PB: int, C: int, K: int,
+              tbytes: int = 4) -> int:
+    """A block's shared bytes, the model by which ``plan`` picks PB (the
+    kernel computes its own, ``pack_chain.cu`` smem_of, exported as
+    ``pack_chain_smem``): the forward's four staged rows of ne / nc and
+    three of ne as copied, (TB + 2) x ((PB + 2) | 1) floats each; the
+    adjoint's, each region from a 16-byte boundary, a staged plane's
+    sources (two table offsets and a border index), a staged cell's
+    offset, a ring of four rows of table slots as copied (C
+    ``tbytes``-byte values each), its rows' second copies of their border
+    planes ((PB + 1) // K + 1 at most) and its border planes as float32
+    sums."""
+    sp, sc = PB + 2, TB + 2
+    if kind == "forward":
+        return 7 * sc * (sp | 1) * 4
+    B, nbx = C * tbytes, (PB + 1) // K + 1
+    return (2 * _up16(8 * sp) + _up16(4 * sp) + _up16(4 * sc)
+            + _up16(4 * sc * sp * B) + _up16(4 * sc * nbx * B)
+            + 4 * sc * nbx * C * 4)
+
+
+def plan(kind: str, na: int, nb: int, K: int, C: int, tbytes: int = 4,
+         TB: Optional[int] = None, PB: Optional[int] = None,
+         AR: Optional[int] = None) -> Plan:
+    """The launch plan of the ``kind`` ("forward" or "adjoint") kernel for
+    na x nb cells, K, C channels and a table of ``tbytes``-byte values (2
+    for bf16; the adjoint copies them): TB (default ``FORWARD_TB``, or
+    ``ADJOINT_TB`` halved, down to 4, while the adjoint's ring of a whole
+    segment takes more than ``SMEM_QUARTER``: four blocks an SM, 16 cells
+    a tile for 8-byte slots, 8 for 16-byte and 4 for 32-byte ones at K =
+    64) at most nb, AR
+    (``RUN_ROWS``) at most na, PB at most the K + 1 slots of a segment; by
+    default the most whose shared bytes fit ``SMEM_MAX``, evened out over
+    the chunks."""
+    if kind not in ("forward", "adjoint"):
+        raise ValueError(f"no K19 kernel {kind!r}")
+    if TB is None and kind == "adjoint":
+        TB = ADJOINT_TB
+        while TB > 4 and plan_smem(kind, TB, K + 1, C, K,
+                                   tbytes) > SMEM_QUARTER:
+            TB //= 2
+    TB = min(TB or FORWARD_TB, nb)
+    AR = min(AR or RUN_ROWS, na)
+    if PB is None:
+        PB = K + 1
+        while PB > 1 and plan_smem(kind, TB, PB, C, K, tbytes) > SMEM_MAX:
+            PB -= 1
+        n_pc = -(-(K + 1) // PB)
+        PB = -(-(K + 1) // n_pc)
+    PB = min(PB, K + 1)
+    if plan_smem(kind, TB, PB, C, K, tbytes) > SMEM_MAX:
+        raise ValueError(f"K19's {kind} tile of {TB} cells does not fit "
+                         f"{SMEM_MAX} shared bytes at C = {C}")
+    return Plan(TB, PB, AR)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _AXIS = {"x": 0, "y": 1, "z": 2}
@@ -274,13 +356,29 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _geometry_args(spec: ChainSpec, ne, te, z, B):
+_INT_MAX = 2 ** 31 - 1
+
+
+def _geometry_args(spec: ChainSpec, kind: str, ne, te, z, B):
+    """The geometry and the plan, as the kernel takes them: refused here,
+    before a launch, where its 32-bit extents and a block's 32-bit offsets
+    from its row's first cell (``pack_chain.cu`` geo_of, plan_of) would
+    not hold them."""
     lay = spec.layout
     n, n_p, na, nb, n_seg = _dims(spec, ne)
-    return [_ptr(ne), _ptr(te), _ptr(z), _ptr(B), *n, spec.axes[0],
-            spec.K, n_seg, int(lay.inv_brems), int(lay.phaseshift),
-            int(lay.B_on),
-            _DTYPE_CODE[spec.pack_dtype or torch.float32]]
+    C = lay.n_channels
+    L = plan(kind, na, nb, spec.K, C,
+             2 if spec.pack_dtype == torch.bfloat16 else 4)
+    p, a, b = spec.axes
+    st = (n[1] * n[2], n[2], 1)
+    if max(n[1] * n[2], na * nb, nb * (spec.K + 1) * C,
+           (L.TB + 1) * st[b] + (L.PB + 1) * st[p]) > _INT_MAX:
+        raise ValueError(f"K19 takes no {tuple(n)} volume probed along "
+                         f"{'xyz'[p]} at K = {spec.K}, C = {C}: its "
+                         "32-bit offsets would overflow")
+    return [_ptr(ne), _ptr(te), _ptr(z), _ptr(B), *n, p, spec.K, n_seg,
+            int(lay.inv_brems), int(lay.phaseshift), int(lay.B_on),
+            _DTYPE_CODE[spec.pack_dtype or torch.float32], *L]
 
 
 def forward(ne: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
@@ -296,8 +394,9 @@ def forward(ne: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
                       device=ne.device)
     k = _consts(spec)
     KERNEL.launch("pack_chain_forward", ne.device,
-                  *_geometry_args(spec, ne, te, z, B), k.nc, *k.h, k.pref,
-                  k.omega, k.n_coef, k.verdet, out.data_ptr())
+                  *_geometry_args(spec, "forward", ne, te, z, B), k.nc,
+                  *k.h, k.pref, k.omega, k.n_coef, k.verdet,
+                  out.data_ptr())
     return out
 
 
@@ -317,11 +416,15 @@ def adjoint(ne: torch.Tensor, dseg: torch.Tensor,
         raise ValueError(f"the table cotangent must be a {dt} {shape} "
                          "tensor on ne's device")
     dseg = dseg.contiguous()
+    if dseg.data_ptr() % 16:
+        # the kernel reads a slot's channels as aligned vectors: a view
+        # off a 16-byte boundary is copied to one of its own
+        dseg = dseg.clone()
     dne = torch.empty_like(ne)
     k = _consts(spec)
     q = [k.pref / h for h in k.h]
     BACKWARD_KERNEL.launch("pack_chain_adjoint", ne.device,
-                           *_geometry_args(spec, ne, te, z, B),
+                           *_geometry_args(spec, "adjoint", ne, te, z, B),
                            dseg.data_ptr(), k.nc, *q, k.omega, k.n_coef,
                            k.verdet, 1e-6 / k.omega, dne.data_ptr())
     return dne

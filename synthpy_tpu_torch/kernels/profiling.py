@@ -185,7 +185,10 @@ def sass_loop_mix(cubin: Path, pattern: str,
     function, ``loop`` the body of its largest loop (from the target of a
     backward branch to the branch, the code a trip issues with the branches
     inside it counted once each), ``loops`` the number of backward
-    branches. A static count: a block a branch skips on most trips is
+    branches, ``inner`` each innermost loop's body (one holding no other
+    loop) in address order, with its global and shared loads and stores
+    and asynchronous copies (``LDG``, ``STG``, ``LDS``, ``STS``,
+    ``LDGSTS``). A static count: a block a branch skips on most trips is
     counted as if it ran. ``dump``: a file for the function's SASS."""
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(cubin)],
@@ -219,21 +222,28 @@ def sass_loop_mix(cubin: Path, pattern: str,
         out["total"] = len(ops)
         return out
 
-    loops = []
+    loops, spans = [], []
     for i, (addr, op, args) in enumerate(code):
         m = re.search(r"0x([0-9a-f]+)", args)
         if op == "BRA" and m and int(m.group(1), 16) < addr:
             start = int(m.group(1), 16)
             loops.append([o for a, o, _ in code if start <= a <= addr])
+            spans.append((start, addr, loops[-1]))
     body = max(loops, key=len) if loops else []
+    inner = [dict(mix(ops), **{k: ops.count(k) for k in (
+                 "LDG", "STG", "LDS", "STS", "LDGSTS")})
+             for lo, hi, ops in sorted(spans)
+             if not any((l2, h2) != (lo, hi) and lo <= l2 and h2 <= hi
+                        for l2, h2, _ in spans)]
     return {"name": name, "kernel": mix([o for _, o, _ in code]),
-            "loop": mix(body), "loops": len(loops)}
+            "loop": mix(body), "loops": len(loops), "inner": inner}
 
 
 # Text substitutions that fold a kernel's runtime switches to one path's
 # values, for counting that path's SASS (``variant`` + ``sass_loop_mix``):
 # K1's and K17's core (march_core.cuh) on rk2 with slab weights, the mesh
-# path's; K7 (analytic.cu) on rk2 and on rk4
+# path's; K7 (analytic.cu) on rk2 and on rk4; K19 (pack_chain.cu) has none
+# to fold (its instances are its layouts and table types)
 FOLDS = {
     "core_rk2_slab": [
         ("  const bool rk4 = P.integrator == RK4;",
@@ -245,6 +255,7 @@ FOLDS = {
         ("  } else if (P.integrator == RK2S2) {", "  } else if (false) {")],
     "k7_rk2": [("    if (!P.rk4) {", "    if (true) {")],
     "k7_rk4": [("    if (!P.rk4) {", "    if (false) {")],
+    "k19": [],
 }
 
 

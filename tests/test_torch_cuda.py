@@ -1716,6 +1716,96 @@ def test_pack_chain_kernel_matches_plain(dev, probe, K, C, tier):
     assert err <= 1e-6, err
 
 
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [3, 4, 8])
+@pytest.mark.parametrize("probe,K", [("z", 8), ("x", 5), ("y", 1)])
+@pytest.mark.parametrize("over", [
+    {"forward": {"TB": 5, "AR": 4, "PB": 3},
+     "adjoint": {"TB": 3, "AR": 4, "PB": 3}},
+    {"forward": {"TB": 7, "AR": 1, "PB": 2},
+     "adjoint": {"TB": 32, "AR": 1, "PB": 2}}],
+    ids=["small", "one_row"])
+def test_pack_chain_kernel_bit_equal_by_plan(dev, probe, K, C, tier, over,
+                                             monkeypatch):
+    """K19 on plans cut to a few cells, rows and planes a block (many tiles
+    with their halos, runs and chunks of a segment) against its plain
+    versions on the card, as above, and against the default plan's
+    outputs bit for bit."""
+    from synthpy_tpu_torch.kernels import pack_chain as kpc
+
+    d, g = _chain_scene(dev, (33, 20, 27), probe, C, seed=C + K)
+    spec = kpc.chain_spec(d, K=K, pack_dtype=torch.bfloat16
+                          if tier == "bf16" else None)
+    table = kpc.forward(d.ne, spec)
+    dseg = torch.randn(table.shape, generator=g, device=dev).to(table.dtype)
+    dne = kpc.adjoint(d.ne, dseg, spec)
+    plan = kpc.plan
+    monkeypatch.setattr(kpc, "plan", lambda kind, *a: plan(kind, *a,
+                                                           **over[kind]))
+    got = kpc.forward(d.ne, spec)
+    assert torch.equal(got, kpc.seg_planes_plain(d.ne, spec))
+    assert torch.equal(got, table)
+    got = kpc.adjoint(d.ne, dseg, spec)
+    assert torch.equal(got.view(torch.int32), dne.view(torch.int32))
+    ref = kpc.seg_planes_vjp_plain(d.ne, dseg, spec)
+    err = float((got - ref).double().norm() / ref.double().norm())
+    assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("K", [1, 8, 64, 1023])
+def test_pack_chain_plan_smem_is_the_kernels(dev, K):
+    """The shared bytes by which pack_chain.plan picks its chunk of planes
+    are those the kernels launch with (pack_chain.cu smem_of)."""
+    from synthpy_tpu_torch.kernels import pack_chain as kpc
+
+    lib = kpc.KERNEL.load()
+    for kind in ("forward", "adjoint"):
+        for C in (3, 4, 8):
+            for tb in (2, 4):
+                for TB, PB in ((1, 1), (16, 65), (23, 3), (5, K + 1)):
+                    assert kpc.plan_smem(kind, TB, PB, C, K, tb) == \
+                        lib.pack_chain_smem(int(kind == "adjoint"), TB, PB,
+                                            C, tb, K), (kind, C, tb, TB, PB)
+
+
+@pytest.mark.parametrize("C", [3, 4])
+@pytest.mark.parametrize("probe", ["z", "x"])
+def test_pack_chain_kernel_exact_across_exponents(dev, probe, C):
+    """K19 writes out the fast paths of IEEE division and square root (a
+    divisor's reciprocal computed once, __fdiv_rn / __fsqrt_rn where an
+    operand leaves their range): on values spread over the float range,
+    ne of random mantissas times 2^-140 .. 2^100 (subnormals among them),
+    zeros, negative values and flat stretches, and a cotangent of random
+    mantissas times 2^-100 .. 2^40 with zeros, the float32 table and d ne
+    are bit-equal to the plain chain's on the card (no kappa channel,
+    whose log and pow are PyTorch's)."""
+    from synthpy_tpu_torch.kernels import pack_chain as kpc
+
+    shape = (33, 20, 27)
+    d, g = _chain_scene(dev, shape, probe, C, seed=11)
+
+    def spread(lo, hi, size):
+        m = 1.0 + torch.rand(size, generator=g, device=dev)
+        e = torch.randint(lo, hi + 1, size, generator=g, device=dev)
+        v = m * torch.pow(2.0, e.double()).float()
+        v[torch.rand(size, generator=g, device=dev) < 0.2] = 0.0
+        sign = torch.rand(size, generator=g, device=dev) < 0.1
+        return torch.where(sign, -v, v)
+
+    ne = spread(-140, 100, shape)
+    ne[:, 3:9, :] = ne[:, 3:4, :]            # flat along y
+    ne[10:14] = ne[10:11]                    # and along x
+    d.ne = ne
+    spec = kpc.chain_spec(d, K=8)
+    table = kpc.forward(ne, spec)
+    want = kpc.seg_planes_plain(ne, spec)
+    assert torch.equal(table.view(torch.int32), want.view(torch.int32))
+    dseg = spread(-100, 40, tuple(table.shape))
+    got = kpc.adjoint(ne, dseg, spec)
+    ref = kpc.seg_planes_vjp_plain(ne, dseg, spec)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
 @pytest.mark.parametrize("probe", ["z", "x"])
 def test_renderer_launches_the_pack_chain_kernel(dev, probe, monkeypatch):
     """make_renderer on the card builds its tables with K19 and takes their
