@@ -1177,6 +1177,14 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
         acc = imgs if acc is None else {k: acc[k] + imgs[k] for k in acc}
     run_launch = path_launches(("march", "detector", "detector_field",
                                 "random"), "1024^3 run")
+    # one beam's K10 draws alone (each launch's CUDA events): a circular
+    # beam draws phi, chi (a normal) and two positions, SCALE_CHUNK each
+    kernels["random"].events = []
+    init_beam(keys[0], SCALE_CHUNK, 2.5e-3, 0.0, EXT, "circular",
+              device=dev)
+    torch.cuda.synchronize()
+    beam_draw_ms = [a.elapsed_time(b) for a, b in kernels["random"].events]
+    kernels["random"].events = None
     final = {n: pipeline.finalize_coherent(acc[n], n) for n in acc}
     for n, im in final.items():
         check(tuple(im.shape) == (BINS[1], BINS[0])
@@ -1254,6 +1262,7 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
              "build_launches": build_launch, "peak_gb": peak_gb,
              "rays": SCALE_RAYS, "chunk_rays": SCALE_CHUNK,
              "run_ms_per_chunk": chunk_ms, "run_launches": run_launch,
+             "beam_draw_ms": beam_draw_ms,
              "calls_per_chunk": -(-SCALE_CHUNK // max(int(
                  (1 << 30) // (4 * spack.seg_planes.shape[-1])), 1024)),
              "image_sums": {n: float(im.sum()) for n, im in final.items()},
@@ -1402,7 +1411,12 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
          "ms": k10_ms, "plain_ms": k10_plain_ms, "bound_ms": k10_b[0],
          "bound_by": k10_b[1], "library_ms": None,
          "torch_randn_ms_context": rnd["randn_ms_context"],
-         "ms_2x512_3": rnd["normal"]["ms"]}]
+         "ms_2x512_3": rnd["normal"]["ms"],
+         # the MAGPIE path's beams: 4 draws a beam, 16 launches on the path
+         "magpie_beam_draws_ms": scale["beam_draw_ms"],
+         "magpie_beam_launches": run_launch["random"],
+         "magpie_beam_normal_bound_ms": bound(SCALE_CHUNK * 4,
+                                              SCALE_CHUNK * 155)[0]}]
     # K2's dithered builds on the pack_dither path (512^3 z-pinch, C = 8,
     # int4 K = 256 and int8 K = 64), the 512^3 lens's (K = 512) beside them
     for name in ("int8", "int4"):
@@ -2814,6 +2828,7 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
     for tier in ("bf16", "int8"):
         rows_out.append(detail[f"K14_{tier}"].pop("row"))
         rows_out[-1]["launches"] = tiers[tier]["launches"]["btable"]
+        rows_out[-1]["build_ms"] = tiers[tier]["build_ms"]
 
     # -- xray_path ------------------------------------------------------------
     t_x = time.perf_counter()
@@ -3023,6 +3038,16 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
     chords_ms = batch_ms(lambda: kx.pp_chords(rho_d, te_d, g,
                                               XRAY["n_steps"], 0, tab),
                          calls=10)
+    # K15 on the dense route's fold (tau, the whole volume one batch) along
+    # each probing axis: x and y read along b, z along the probing axis
+    dense["k15_dense_ms"] = {}
+    for p_ax, name in enumerate("xyz"):
+        r_p, t_p = rho_d.movedim(p_ax, 0), te_d.movedim(p_ax, 0)
+        tau_p = torch.zeros(r_p.shape[1:], device=dev)
+        dense["k15_dense_ms"][name] = batch_ms(lambda: kx.fold(
+            r_p, t_p, mode=0, table=tab, w0=True, wlast=True, tau=tau_p,
+            em=None), calls=10)
+    del r_p, t_p, tau_p
     P = 431 * 321
     chords_b = bound(2 * rho_d.numel() * 4 + P * 4,
                      P * XRAY["n_steps"] * (54 + 110 + 8))
@@ -3042,9 +3067,13 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
          "max_abs_err": max(k15_err.values()),
          "ms": k15_ms, "plain_ms": k15_plain_ms, "bound_ms": k15_b[0],
          "bound_by": k15_b[1], "library_ms": None,
+         "dense_ms": {"res": res_d, **dense["k15_dense_ms"]},
+         "survey_s": survey_s,
          "per": f"one batch of {XRAY['plane_batch']} planes at "
                 f"{res_x}^3 (tau, em and the w scratch); max_abs_err is "
-                "relative to the largest value"},
+                "relative to the largest value; dense_ms: the dense "
+                "route's fold (tau) of the whole volume along each axis; "
+                f"survey_s: the {res_x}^3 streamed survey"},
         {"name": "pp_fold", "route": "cuda", "source": csrc + "xray.cu",
          "replaces": "synthpy_tpu/optics/xray.py:452",
          "launches": launches["pp_fold"], "max_abs_err": k16_err,
@@ -3118,6 +3147,9 @@ def k14_vs_plain(torch, dev, btable, jrandom, Bh, tab, tier, batch_ms,
     lib = None
     if tier == "bf16":
         lib = batch_ms(lambda: got.copy_(batch), calls=20)
+    else:
+        rec["undithered_ms"] = batch_ms(lambda: btable.write(
+            got, batch, 0, tab.scale, None), calls=20)
     nbytes = batch.numel() * (4 + got.element_size())
     # K14 hashes every value of a dithered batch
     db = dithered_bound(nbytes, batch.numel() if key is not None else 0)
@@ -3130,8 +3162,12 @@ def k14_vs_plain(torch, dev, btable, jrandom, Bh, tab, tier, batch_ms,
         "plain_ms": plain_ms, "bound_ms": db["bound_ms"],
         "bound_by": db["bound_by"], "library_ms": lib,
         **{k: db[k] for k in DITHER_BOUND_KEYS},
+        **({"undithered_ms": rec["undithered_ms"],
+            "undithered_bound_ms": dithered_bound(nbytes, 0)["bound_ms"]}
+           if tier == "int8" else {}),
         "per": f"one batch of {pb} planes of {Bh.shape[1]}^2 x 3"
-               + ("; library: tab[i0:i1].copy_(batch)" if lib else "")}
+               + ("; library: tab[i0:i1].copy_(batch)" if lib else "")
+               + "; build_ms: the tier's whole build_B_table"}
     return rec
 
 

@@ -3,8 +3,10 @@
 card, or time kernel K11 (its adjoint) on the inversion path's inputs,
 K13 (the Boris push) on the proton path's, K6 (the adaptive step) on the
 adaptive path's, K5 (the time march) on the time path's, K18 (the
-grid-sharded time tracer's stage) on its check trace or K19 (the
-renderer's pack chain) on the inversion path's volume.
+grid-sharded time tracer's stage) on its check trace, K19 (the
+renderer's pack chain) on the inversion path's volume, K15 (the X-ray
+fold) on the X-ray path's scene or K14 (the B-table write) on the proton
+path's batch.
 
     python3 march_profile.py        # from the repository root, one GPU
     python3 march_profile.py adjoint [--root DIR] [--reps N] [--save F]
@@ -21,6 +23,10 @@ renderer's pack chain) on the inversion path's volume.
                                    [--against F] [--variants [--first F]]
     python3 march_profile.py k19 [--root DIR] [--reps N] [--save F]
                                  [--against F] [--variants] [--builds]
+    python3 march_profile.py xray [--root DIR] [--reps N] [--save F]
+                                  [--against F] [--variants]
+    python3 march_profile.py btable [--root DIR] [--reps N] [--save F]
+                                    [--against F] [--variants]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -168,6 +174,37 @@ bit-equal to that tree's. With ``--variants`` it also times the plans of
 default plan's outputs; with ``--builds`` the builds of
 ``K19_SOURCE_VARIANTS`` on the path's case (the probes' outputs are not
 the shipped ones).
+
+``xray`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does. It
+times K15 (``kernels.xray.fold``) on the X-ray path's scene
+(``chip_smoke.py``'s ``xray_path``: the shell and core of
+``examples/xray_radiography.py`` with a seeded ripple, the path's 30 x 40
+opacity table): the survey's 32-plane 1024^2 batch (mode 0 with em and the
+w scratch, as ``xray_survey_streamed`` folds it; the same with the 120 x
+130 table, read through L1; mode 1 on the batch's w and j planes), every
+float32 Te in [1, 2000] and every rho in [1e-5, 10] (their w hashed: the
+logs, cells and fractions of each float), and the dense route's fold
+(tau, the whole volume one batch) along x, y and z at 256^3 and 512^3; then ``xray_survey_streamed`` at 1024^3 from host
+volumes and from device volumes (seconds, best of 2). It prints one JSON
+line with ``ptxas`` (registers, shared bytes and spills of each fold
+instance), ``cases`` (ms: CUDA events around 10 back-to-back calls, best of
+``--reps``) and a SHA-256 of each case's tau / em / w; ``--save`` /
+``--against`` as for ``k19``. ``--variants`` times builds of ``xray.cu``
+changed by ``XRAY_VARIANTS`` on the survey batch, each held bit-equal to
+the shipped build.
+
+``btable`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does. It
+times K14 (``kernels.btable.write``) on a 32-plane 1024^2 x 3 batch of a
+seeded field (the proton path's batch shape), written at plane 32 of a
+64-plane table: int8 dithered (the path's key, fold_in(PRNGKey(5), 32))
+and undithered, and bf16 (the control, unchanged), and the int8 writes at
+a destination one byte off a 4-byte boundary. It prints one JSON line with
+``ptxas`` (registers and spills of each instance), the opcodes of the
+dithered int8 instance's main loop (``sass``), ``cases`` (ms, as for
+``xray``, calls of 20) and SHA-256s of the codes, and of the int8 codes of
+a 3-plane batch written at every destination offset 0-15 mod 16;
+``--save`` / ``--against`` as for ``k19``; ``--variants`` times builds
+changed by ``BTABLE_VARIANTS``.
 """
 
 from __future__ import annotations
@@ -1417,11 +1454,403 @@ def _k19_build_times(kpc, builds, ne, dseg, spec, best, table, dne):
     return res
 
 
+# the X-ray path's table and scene (chip_smoke.py XRAY, xray_path)
+XRAY_T = (0.0, 3.0, 30)
+XRAY_RHO = (-5.0, 1.0, 40)
+XRAY_HALF = 2.5e-3
+# builds of xray.cu that ``xray --variants`` times beside the shipped one;
+# a ``probe_`` build leaves out one part of the lookup (its outputs are not
+# the shipped ones): what that part costs
+_CAP = "__global__ void __launch_bounds__(THREADS, 3)\n    fold_kernel("
+_COPIES = ("      if constexpr (B::A) __pipeline_memcpy_async(sa + at, F.a + e, 4);"
+           "\n      if constexpr (B::B) __pipeline_memcpy_async(sb + at, F.b + e,"
+           " 4);\n")
+_WOUT = "    const bool keep_w = B::A && F.wout != nullptr && pix_ok;"
+_CHUNK = "constexpr int CHUNK_PLANES = 8;"
+XRAY_VARIANTS = {
+    "libm_logf": [("  if constexpr (REG) return log_normal(fmaxf(v, first));",
+                   "  if constexpr (REG) return logf(fmaxf(v, first));")],
+    "no_cap": [(_CAP, _CAP.replace("(THREADS, 3)", "(THREADS)"))],
+    "cap_2_blocks": [(_CAP, _CAP.replace("(THREADS, 3)", "(THREADS, 2)"))],
+    "chunk_16": [(_CHUNK, _CHUNK.replace("8", "16"))],
+    "probe_no_lookup": [("w = __fmul_rn(kappa<S, REG>(T, te, rho), rho);",
+                         "w = __fmul_rn(te, rho);")],
+    "probe_compute_only": [(_COPIES, ""),
+                           (_WOUT, "    const bool keep_w = false;")],
+}
+# the survey's instance (mode 0 with em, along b, the table staged) and
+# the parent's one kernel
+K15_PATTERNS = (r"fold_kernelILi1ELi0ELb1ELb1E", r"11fold_kernelENS")
+
+
+def _sha(t) -> str:
+    import torch
+    if t is None:
+        return None
+    t = t.detach().cpu().contiguous()
+    if t.dtype in (torch.float32, torch.int32):
+        t = t.view(torch.int32)
+    elif t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def _save_against(out: dict, hashes: dict, args) -> None:
+    out["sha256"] = hashes
+    if args.save:
+        Path(args.save).write_text(json.dumps(hashes))
+    if args.against:
+        ref = json.loads(Path(args.against).read_text())
+        out["against"] = {"file": args.against, **{
+            c: {k: hashes[c][k] == ref[c].get(k) for k in hashes[c]}
+            for c in hashes if c in ref}}
+        out["against"]["all_bit_equal"] = all(
+            v for c in hashes if c in ref
+            for v in out["against"][c].values())
+
+
+def _xray_scene(res: int, dev):
+    """(rho, Te) (res, res, res) float32 on ``dev``: the shell and core of
+    examples/xray_radiography.py over the (x, z) plane with a seeded
+    ripple, broadcast along y."""
+    import numpy as np
+    import torch
+    ax = np.linspace(-XRAY_HALF, XRAY_HALF, res).astype(np.float32)
+    X2, Z2 = np.meshgrid(ax, ax, indexing="ij")
+    r = np.sqrt(X2**2 + Z2**2)
+    ripple = np.random.default_rng(7).standard_normal((res, res))
+    r0 = 1.4e-3 * (1.0 + 0.012 * ripple)
+    shell = np.exp(-((r - r0) / 2.5e-4) ** 2)
+    core = np.exp(-(r / 8e-4) ** 2)
+    rho2 = torch.from_numpy((0.5 * shell + 1e-2 * core).astype(np.float32))
+    te2 = torch.from_numpy((15.0 + 485.0 * core).astype(np.float32))
+    return [m.to(dev)[:, None, :].expand(res, res, res).contiguous()
+            for m in (rho2, te2)], ax
+
+
+def _fold_ptxas(kx, tag: str) -> tuple:
+    """ptxas reports of every fold instance, and the static SASS of the
+    survey's (its whole function, innermost loops, and the opcodes of its
+    largest loop; written to chiprun_out/k15_<tag>.sass)."""
+    from synthpy_tpu_torch.kernels import _build
+    from synthpy_tpu_torch.kernels.profiling import ptxas
+    kern, _, cubin = ptxas(_build.CSRC / kx.FOLD_KERNEL.source,
+                           kx.FOLD_KERNEL.flags)
+    dump = Path("chiprun_out") / f"k15_{tag}.sass"
+    here = _here_profiling()
+    for pattern in K15_PATTERNS:
+        try:
+            mix = here.sass_loop_mix(cubin, pattern, dump)
+            break
+        except RuntimeError:
+            continue
+    sass = {"name": mix["name"], "kernel": mix["kernel"],
+            "loop": mix["loop"], "inner": mix["inner"],
+            "loop_opcodes": _opcodes(dump)}
+    return {k: v for k, v in kern.items() if "fold_kernel" in k}, sass
+
+
+def xray_part(args):
+    """The ``xray`` part (see the module's docstring)."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch.kernels import xray as kx
+    from synthpy_tpu_torch.kernels.profiling import batch_ms, nvidia_smi
+    from synthpy_tpu_torch.optics import xray
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "guided": hasattr(kx, "make_table")}
+    out["ptxas"], out["sass"] = _fold_ptxas(kx, Path(args.root).name)
+    Tg = np.logspace(*XRAY_T)
+    rg = np.logspace(*XRAY_RHO)
+    kfn = xray.make_opacity_lookup(Tg, rg, 5e3 * np.outer(Tg**-1.5,
+                                                          rg**0.5),
+                                   device=dev)
+    T2, r2 = np.logspace(0, 3, 120), np.logspace(-5, 1, 130)
+    big = xray.make_opacity_lookup(T2, r2, 5e3 * np.outer(T2**-1.5,
+                                                          r2**0.5),
+                                   device=dev)
+
+    def best(fn):
+        return min(batch_ms(fn, calls=10) for _ in range(args.reps))
+
+    cases, hashes = {}, {}
+
+    def fold_case(name, a, b, mode, table, tau, em, wout, w0, wlast):
+        def call():
+            kx.fold(a, b, mode=mode, table=table, w0=w0, wlast=wlast,
+                    tau=tau, em=em, wout=wout)
+        for t in (tau, em):
+            if t is not None:
+                t.zero_()
+        call()
+        torch.cuda.synchronize()
+        hashes[name] = {k: _sha(v) for k, v in (("tau", tau), ("em", em),
+                                                ("w", wout))
+                        if v is not None}
+        keep = [None if t is None else t.clone() for t in (tau, em)]
+        cases[name] = {"ms": best(call), "shape": list(a.shape
+                                                       if a is not None
+                                                       else b.shape)}
+        for t, k in zip((tau, em), keep):
+            if t is not None:
+                t.copy_(k)
+        emit({"case": name, **cases[name]})
+
+    # the survey's batch: planes 480-511 of the 1024^3 scene along y
+    (rho, te), _ = _xray_scene(1024, dev)
+    rb = rho.movedim(1, 0)[480:512].contiguous()
+    tb = te.movedim(1, 0)[480:512].contiguous()
+    del rho, te
+    torch.cuda.empty_cache()
+    f32 = dict(dtype=torch.float32, device=dev)
+    img = [torch.zeros(rb.shape[1:], **f32) for _ in range(2)]
+    wout = torch.empty(rb.shape, **f32)
+    fold_case("survey", rb, tb, 0, kfn.table(dev), img[0], img[1], wout,
+              False, False)
+    fold_case("survey_large_table", rb, tb, 0, big.table(dev), img[0],
+              img[1], wout, False, False)
+    w_pl = kfn(tb, rb) * rb
+    t2 = tb * tb
+    j_pl = w_pl * (t2 * t2)
+    fold_case("survey_mode1", w_pl, j_pl, 1, None, img[0], img[1], None,
+              False, False)
+    fold_case("survey_tau_only", rb, tb, 0, kfn.table(dev), img[0], None,
+              None, False, False)
+    if args.variants:
+        cases["variants"] = _xray_variants(kx, rb, tb, kfn.table(dev), img,
+                                           wout, best, hashes["survey"])
+    del rb, tb, w_pl, j_pl, t2, img, wout
+    torch.cuda.empty_cache()
+
+    # every float32 Te in [1, 2000] (rho 0.01) and every rho in [1e-5, 10]
+    # (Te 50), 16 planes of one row, w kept: their logs, cells and
+    # fractions against the other tree's
+    for name, lo, hi, fixed in (("sweep_te", 1.0, 2000.0, 0.01),
+                                ("sweep_rho", 1e-5, 10.0, 50.0)):
+        bits = torch.arange(*(int(np.float32(v).view(np.int32))
+                              for v in (lo, hi)), dtype=torch.int32,
+                            device=dev)
+        n = bits.numel() // 16 * 16
+        sweep = bits[:n].view(torch.float32).view(16, 1, n // 16)
+        other = torch.full_like(sweep, fixed)
+        r, t = (other, sweep) if name == "sweep_te" else (sweep, other)
+        tau = torch.zeros((1, n // 16), **f32)
+        w = torch.empty_like(sweep)
+        fold_case(name, r, t, 0, kfn.table(dev), tau, None, w, True, True)
+        del bits, sweep, other, r, t, tau, w
+        torch.cuda.empty_cache()
+
+    # the dense route: tau over the whole volume, along x, y and z
+    for res in (256, 512):
+        (rho, te), _ = _xray_scene(res, dev)
+        for p_ax, name in enumerate("xyz"):
+            r, t = rho.movedim(p_ax, 0), te.movedim(p_ax, 0)
+            tau = torch.zeros(r.shape[1:], **f32)
+            fold_case(f"dense_{res}_{name}", r, t, 0, kfn.table(dev), tau,
+                      None, None, True, True)
+        del rho, te
+        torch.cuda.empty_cache()
+
+    # the 1024^3 survey (tau, emission, point projection) from host and
+    # from device volumes, best of 2 (s)
+    (rho, te), ax = _xray_scene(1024, dev)
+    pp_kw = dict(source_distance=8e-3, detector_distance=80e-3,
+                 bins=(431, 321), Lx=90.0, Ly=67.0, probing_direction="y")
+    jfn = xray.grey_emissivity(kfn)
+    surveys = {}
+    for where in ("device", "host"):
+        if where == "host":
+            rho, te = rho.cpu(), te.cpu()
+            torch.cuda.empty_cache()
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs = xray.xray_survey_streamed(
+                rho, te, kfn, [ax] * 3, emiss_fn=jfn, plane_batch=32,
+                device=dev, **pp_kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        surveys[f"survey_{where}_s"] = min(times)
+        hashes[f"survey_{where}"] = {k: _sha(v) for k, v in imgs.items()}
+    emit(surveys)
+    out["cases"] = cases
+    out.update(surveys)
+    _save_against(out, hashes, args)
+    print(json.dumps({"part": "xray", **out}), flush=True)
+
+
+def _xray_variants(kx, rb, tb, tab, img, wout, best, want):
+    import concurrent.futures as cf
+
+    import torch
+    from synthpy_tpu_torch.kernels import _build, profiling
+    from synthpy_tpu_torch.kernels.profiling import ptxas
+    shipped = kx.FOLD_KERNEL
+    builds = {name: profiling.variant(shipped, f"k15_{name}", subs)
+              for name, subs in XRAY_VARIANTS.items()}
+    # every build at once, and their ptxas reports beside them
+    with cf.ThreadPoolExecutor(len(builds)) as pool:
+        reports = {n: pool.submit(ptxas, Path(v.source), v.flags)
+                   for n, v in builds.items()}
+        _build.build({v.source: v.flags for v in builds.values()})
+        reports = {n: f.result()[0] for n, f in reports.items()}
+    res = {}
+    for name, v in builds.items():
+        kx.FOLD_KERNEL = v
+        try:
+            def call():
+                kx.fold(rb, tb, mode=0, table=tab, w0=False, wlast=False,
+                        tau=img[0], em=img[1], wout=wout)
+            for t in img:
+                t.zero_()
+            call()
+            torch.cuda.synchronize()
+            same = (_sha(img[0]) == want["tau"] and _sha(img[1]) == want["em"]
+                    and _sha(wout) == want["w"])
+            res[name] = {"ms": best(call), "bit_equal": same,
+                         "ptxas": {k: r for k, r in reports[name].items()
+                                   if re.search(K15_PATTERNS[0], k)}}
+        finally:
+            kx.FOLD_KERNEL = shipped
+        emit({"variant": name, **res[name]})
+    return res
+
+
+# builds of btable.cu that ``btable --variants`` times beside the shipped one
+BTABLE_VARIANTS = {
+    "group_24": [("constexpr int GROUP = 12;", "constexpr int GROUP = 24;")],
+    "cap_4_blocks": [("__global__ void __launch_bounds__(THREADS)\n"
+                      "    to_int8(", "__global__ void __launch_bounds__("
+                      "THREADS, 4)\n    to_int8(")],
+}
+
+
+def _opcodes(dump: Path) -> dict:
+    """Opcode counts of the largest loop of a SASS dump (one function; the
+    whole function where it has no loop)."""
+    from synthpy_tpu_torch.kernels.profiling import _SASS_LINE
+    code = []
+    for line in dump.read_text().splitlines():
+        m = _SASS_LINE.search(line)
+        if m and m.group(2) != "NOP":
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    best_span = []
+    for addr, op, rest in code:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            start = int(m.group(1), 16)
+            span = [o for a, o, _ in code if start <= a <= addr]
+            if len(span) > len(best_span):
+                best_span = span
+    counts = {}
+    for op in best_span or [o for _, o, _ in code]:
+        counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def btable_part(args):
+    """The ``btable`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.kernels import _build, btable
+    from synthpy_tpu_torch.kernels.profiling import batch_ms, nvidia_smi, ptxas
+
+    here = _here_profiling()
+    dev = torch.device("cuda")
+    kern, _, cubin = ptxas(_build.CSRC / btable.KERNEL.source,
+                           btable.KERNEL.flags)
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "ptxas": kern}
+    dump = Path("chiprun_out") / f"k14_int8_{Path(args.root).name}.sass"
+    mix = here.sass_loop_mix(cubin, r"to_int8ILb1E(?:Lb1E)?E", dump)
+    out["sass"] = {"name": mix["name"], "kernel": mix["kernel"],
+                   "loop": mix["loop"], "loop_opcodes": _opcodes(dump)}
+
+    def best(fn):
+        return min(batch_ms(fn, calls=20) for _ in range(args.reps))
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    pb, n = 32, 1024
+    batch = 10.0 * torch.randn((pb, n, n, 3), generator=gen, device=dev)
+    scale = (batch.abs().amax(dim=(0, 1, 2)) / 127.0).contiguous()
+    key = jrandom.key_data(jrandom.fold_in(jrandom.PRNGKey(5), 32))
+    cases, hashes = {}, {}
+    for name, dt, k in (("int8_dither", torch.int8, key),
+                        ("int8", torch.int8, None),
+                        ("bf16", torch.bfloat16, None)):
+        tab = torch.zeros((2 * pb, n, n, 3), dtype=dt, device=dev)
+
+        def call():
+            btable.write(tab, batch, pb, scale, k)
+        call()
+        torch.cuda.synchronize()
+        hashes[name] = {"codes": _sha(tab[pb:])}
+        cases[name] = {"ms": best(call)}
+        if dt == torch.int8:
+            # the table one byte past a 4-byte boundary
+            buf = torch.zeros(batch.numel() + 16, dtype=dt, device=dev)
+            off = buf[1:1 + batch.numel()].view(batch.shape)
+
+            def call_off():
+                btable.write(off, batch, 0, scale, k)
+            call_off()
+            torch.cuda.synchronize()
+            cases[name]["off_by_1_ms"] = best(call_off)
+            cases[name]["off_by_1_equal"] = torch.equal(off, tab[pb:])
+            # a 3-plane batch at every destination offset 0-15 mod 16
+            small = batch[:3]
+            for o in range(16):
+                dst = buf[o:o + small.numel()].view(small.shape)
+                btable.write(dst, small, 0, scale, k)
+                hashes[name][f"offset_{o}"] = _sha(dst)
+            del buf, off
+        emit({"case": name, **cases[name]})
+        del tab
+        torch.cuda.empty_cache()
+    if args.variants:
+        cases["variants"] = _btable_variants(btable, batch, scale, key, best,
+                                             hashes["int8_dither"]["codes"])
+    out["cases"] = cases
+    _save_against(out, hashes, args)
+    print(json.dumps({"part": "btable", **out}), flush=True)
+
+
+def _btable_variants(btable, batch, scale, key, best, want):
+    import torch
+    from synthpy_tpu_torch.kernels import profiling
+    from synthpy_tpu_torch.kernels.profiling import ptxas
+    res = {}
+    for name, subs in BTABLE_VARIANTS.items():
+        v = profiling.variant(btable.KERNEL, f"k14_{name}", subs)
+        kern, _, _ = ptxas(Path(v.source), v.flags)
+        tab = torch.zeros(batch.shape, dtype=torch.int8, device=batch.device)
+        with profiling.kernel_of(btable, v):
+            def call():
+                btable.write(tab, batch, 0, scale, key)
+            call()
+            torch.cuda.synchronize()
+            res[name] = {"ms": best(call), "bit_equal": _sha(tab) == want,
+                         "ptxas": {k: v for k, v in kern.items()
+                                   if "to_int8" in k}}
+        emit({"variant": name, **res[name]})
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("part", nargs="?",
                     choices=["march", "adjoint", "boris", "adaptive", "time",
-                             "k18", "zscan", "analytic", "k17", "k19"],
+                             "k18", "zscan", "analytic", "k17", "k19",
+                             "xray", "btable"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -1450,6 +1879,10 @@ def main():
         return k17_part(args)
     if args.part == "k19":
         return k19_part(args)
+    if args.part == "xray":
+        return xray_part(args)
+    if args.part == "btable":
+        return btable_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

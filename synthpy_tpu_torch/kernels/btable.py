@@ -86,6 +86,9 @@ def write(tab: torch.Tensor, batch: torch.Tensor, i0: int,
                  or scale.dtype != torch.float32 or scale.shape != (3,)):
         raise ValueError("an int8 table needs (3,) float32 scales on its "
                          "device")
+    if int8 and batch.numel() >= 2**32:
+        raise ValueError(f"an int8 batch of {batch.numel()} values: K14 "
+                         "takes fewer than 2^32")
     on, k0, k1 = (0, 0, 0) if key is None else (1, int(key[0]),
                                                  int(key[1]))
     KERNEL.launch("btable_write", dev, tab[i0].data_ptr(), _MODES[tab.dtype],

@@ -4,8 +4,10 @@
 // (fill.cu) give the same bits.
 //
 //   * threefry2x32(key, x): 20 rounds in five groups of four, rotations
-//     13, 15, 26, 6 / 17, 29, 16, 24, key schedule k0, k1, k0^k1^0x1BD11BDA
-//     (jax/_src/prng.py, _threefry2x32_lowering);
+//     13, 15, 26, 6 / 17, 29, 16, 24 (each one funnel shift), key schedule
+//     k0, k1, k0^k1^0x1BD11BDA (jax/_src/prng.py, _threefry2x32_lowering),
+//     which a kernel hashing many values under one key makes once
+//     (Schedule);
 //   * bits of flat index i of a draw: x0 ^ x1 of threefry(key, (hi32(i),
 //     lo32(i))) (iota_2x32_shape and _threefry_random_bits_partitionable);
 //   * fold_in(key, d) = threefry(key, (0, d)), split(key)[i] likewise;
@@ -23,14 +25,32 @@
 namespace threefry {
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
+  return __funnelshift_l(x, x, r);
 }
 
-__device__ __forceinline__ uint2 hash(uint2 key, uint32_t x0, uint32_t x1) {
-  const uint32_t ks[3] = {key.x, key.y, key.x ^ key.y ^ 0x1BD11BDAu};
+// a key's schedule: its first two words and each of the five injections'
+// two words (the third key word, and the injection count added), made once
+// where many values are hashed under one key
+struct Schedule {
+  uint32_t k0, k1, inj0[5], inj1[5];
+
+  __device__ __forceinline__ explicit Schedule(uint2 key) {
+    const uint32_t ks[3] = {key.x, key.y, key.x ^ key.y ^ 0x1BD11BDAu};
+    k0 = ks[0];
+    k1 = ks[1];
+#pragma unroll
+    for (int g = 0; g < 5; ++g) {
+      inj0[g] = ks[(g + 1) % 3];
+      inj1[g] = ks[(g + 2) % 3] + (uint32_t)(g + 1);
+    }
+  }
+};
+
+__device__ __forceinline__ uint2 hash(const Schedule& S, uint32_t x0,
+                                      uint32_t x1) {
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
+  x0 += S.k0;
+  x1 += S.k1;
 #pragma unroll
   for (int g = 0; g < 5; ++g) {
 #pragma unroll
@@ -39,10 +59,14 @@ __device__ __forceinline__ uint2 hash(uint2 key, uint32_t x0, uint32_t x1) {
       x1 = rotl(x1, rot[g & 1][r]);
       x1 ^= x0;
     }
-    x0 += ks[(g + 1) % 3];
-    x1 += ks[(g + 2) % 3] + (uint32_t)(g + 1);
+    x0 += S.inj0[g];
+    x1 += S.inj1[g];
   }
   return make_uint2(x0, x1);
+}
+
+__device__ __forceinline__ uint2 hash(uint2 key, uint32_t x0, uint32_t x1) {
+  return hash(Schedule(key), x0, x1);
 }
 
 __device__ __forceinline__ uint2 fold_in(uint2 key, uint32_t d) {
@@ -55,10 +79,16 @@ __device__ __forceinline__ uint32_t bits(uint2 key, unsigned long long i) {
   return y.x ^ y.y;
 }
 
+// a uniform float in [lo, hi) of 32 random bits
+__device__ __forceinline__ float uniform_of(uint32_t bits, float lo,
+                                            float hi) {
+  const float f = __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
+  return fmaxf(lo, f * (hi - lo) + lo);
+}
+
 __device__ __forceinline__ float uniform(uint2 key, unsigned long long i,
                                          float lo, float hi) {
-  const float f = __uint_as_float((bits(key, i) >> 9) | 0x3f800000u) - 1.0f;
-  return fmaxf(lo, f * (hi - lo) + lo);
+  return uniform_of(bits(key, i), lo, hi);
 }
 
 // XLA's ErfInv for float32 (xla/hlo/builder/lib/math.cc)

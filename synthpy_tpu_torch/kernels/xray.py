@@ -14,42 +14,185 @@ is not a table). Each launches its kernel on CUDA tensors and runs its
 plain PyTorch version (``*_plain``) on CPU tensors. The arithmetic is the
 JAX package's (``synthpy_tpu/optics/xray.py``): the plain versions and the
 kernels round the same operations, so they agree to the order of the
-library ``log`` / ``exp``.
+library ``log`` / ``exp``. The kernels take the opacity table in the form
+``make_table`` builds on the host: each log axis' guide over uniform
+buckets (an O(1) cell: the guess, then a short walk), its nodes' widths
+and their reciprocals, each cell's four corner values.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from synthpy_tpu_torch.kernels._build import (F, I, L, P, Kernel,
                                               refuse_grad)
 from synthpy_tpu_torch.ops.interp import fma, trilinear
 
+# the opacity table's arguments of xray_fold and pp_chords (``_table_args``)
+_TABLE = [P, P, P, I, I, F, F, I, I, P, P, I, I, F, F, I, I, I, F, F]
 FOLD_KERNEL = Kernel("xray.cu", {
-    "xray_fold": [P, P, L, L, L, I, I, I, I, I, I, P, I, P, I, P, I, F, F,
-                  P, P, P, P],
+    "xray_fold": [P, P, L, L, L, I, I, I, I, I, I, *_TABLE, P, P, P, P],
 }, flags=["--fmad=false"])
 PP_FOLD_KERNEL = Kernel("xray.cu", {
     "pp_fold": [P, I, I, I, P, P, L, P, P, F, F, F, F, P, P],
 }, flags=["--fmad=false"])
 PP_CHORDS_KERNEL = Kernel("xray.cu", {
-    "pp_chords": [P, P, L, L, L, I, I, I, P, P, P, I, I, I, I, I, I, I, P,
-                  I, P, I, P, I, F, F, P, P, P, P, P],
+    "pp_chords": [P, P, L, L, L, I, I, I, P, P, P, I, I, I, I, I, I, I,
+                  *_TABLE, P, P, P, P, P],
 }, flags=["--fmad=false"])
+
+
+class Axis(NamedTuple):
+    """One log axis of an opacity table as the kernels walk it: ``cell``
+    (n, 4) float32, node i, node i+1 less node i (0 at the last node), the
+    correctly rounded reciprocal of that width, 0; ``guide`` (buckets,)
+    int32, the nodes whose bucket is below each bucket, less one; ``a0``
+    node 0 and ``inv_h`` the buckets over the axis' span (float32 values)
+    (``axis_guide``); ``steps`` the most nodes in one bucket (a walk from
+    the guide takes at most that many steps); ``exact_div`` whether every
+    node is 0 or within [2^-40, 2^60] in magnitude and every width within
+    [2^-60, 2^60], where a product with the reciprocal and one correction
+    give the IEEE quotient of any fraction the kernels form."""
+    cell: torch.Tensor
+    guide: torch.Tensor
+    a0: float
+    inv_h: float
+    steps: int
+    exact_div: bool
 
 
 class Table(NamedTuple):
     """An opacity table on one device: the log axes ``lt`` (n_t,) and
     ``lr`` (n_r,), the values ``vals`` (n_t, n_r) (logs when
-    ``log_space``), and the grids' first nodes."""
+    ``log_space``), and the grids' first nodes (what the plain lookup
+    reads); the kernels' forms of the same table: each axis' cells and
+    guide (``t_axis``, ``r_axis``) and each cell's four corner values
+    ``corners`` (n_t-1, n_r-1, 4) (``make_table``)."""
     lt: torch.Tensor
     lr: torch.Tensor
     vals: torch.Tensor
     log_space: bool
     t_min: float
     r_min: float
+    t_axis: Axis
+    r_axis: Axis
+    corners: torch.Tensor
+
+
+def bucket_of(q: np.ndarray, a0: np.float32, inv_h: np.float32,
+              buckets: int) -> np.ndarray:
+    """The kernels' bucket of float32 queries ``q``: floor((q - a0) inv_h)
+    in float32 (each operation rounded), clamped to [0, buckets - 1], NaN
+    to buckets - 1. Monotone in q."""
+    q = np.asarray(q, np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        f = np.floor((q - np.float32(a0)) * np.float32(inv_h))
+        top = ~(f < np.float32(buckets - 1))
+        k = np.where(top, buckets - 1, np.where(f > 0, f, 0))
+    return k.astype(np.int64)
+
+
+def axis_guide(axis: np.ndarray, buckets: int
+               ) -> Tuple[np.ndarray, np.float32, np.float32]:
+    """(guide, a0, inv_h) of an ascending float32 axis over ``buckets``
+    uniform buckets of its span: guide[k] counts the nodes whose bucket
+    (``bucket_of``) is below k, less one, so that for any query q the
+    guide of q's bucket is at most searchsorted(axis, q, side="right") - 1
+    (nodes in lower buckets lie below q). A span that is not finite and
+    positive gives inv_h 0: every finite query starts at the first node."""
+    axis = np.asarray(axis, np.float32)
+    a0 = np.float32(axis[0])
+    span = float(axis[-1]) - float(axis[0])
+    inv_h = (np.float32(buckets / span) if np.isfinite(span) and span > 0
+             else np.float32(0.0))
+    nodes = bucket_of(axis, a0, inv_h, buckets)
+    guide = np.searchsorted(nodes, np.arange(buckets), side="left") - 1
+    return guide.astype(np.int32), a0, inv_h
+
+
+def walk_cell(axis: np.ndarray, guide: np.ndarray, a0: np.float32,
+              inv_h: np.float32, q: np.ndarray,
+              steps: Optional[int] = None) -> np.ndarray:
+    """The kernels' cell of float32 queries ``q`` (a plain copy of
+    ``cell`` in csrc/xray.cu): the guide's guess at q's bucket, then
+    forward while the next node is not above q (a NaN query walks to the
+    end), clipped to [0, n - 2]; with ``steps``, exactly that many
+    predicated steps (a regular table's walk)."""
+    axis = np.asarray(axis, np.float32)
+    q = np.asarray(q, np.float32)
+    n = axis.shape[0]
+    g = guide[bucket_of(q, a0, inv_h, guide.shape[0])].astype(np.int64)
+    s = 0
+    while steps is None or s < steps:
+        nxt = np.minimum(g + 1, n - 1)
+        step = (g + 1 < n) & ~(axis[nxt] > q)
+        if steps is None and not step.any():
+            break
+        g = g + step
+        s += 1
+    return np.clip(g, 0, n - 2)
+
+
+def exact_div(axis: np.ndarray) -> bool:
+    """Whether the kernels' reciprocal division is exact on a float32 axis:
+    every node 0 or within [2^-40, 2^60] in magnitude, every width (next
+    node less node) within [2^-60, 2^60]. A log query q (0, +inf, or
+    within [2^-25, 104] in magnitude) less such a node is 0, +inf or
+    within [2^-63, 2^61] in magnitude, where RN(x r) corrected once by the
+    exact remainder, RN(q0 + r RN(x - w q0)) with r = RN(1 / w), is the
+    IEEE quotient x / w (Markstein)."""
+    axis = np.asarray(axis, np.float64)
+    if axis.shape[0] < 2 or not np.isfinite(axis).all():
+        return False
+    mag = np.abs(axis)
+    width = np.diff(np.asarray(axis, np.float32)).astype(np.float64)
+    return bool(((mag == 0) | ((mag >= 2.0**-40) & (mag <= 2.0**60))).all()
+                and ((width >= 2.0**-60) & (width <= 2.0**60)).all())
+
+
+def make_axis(axis: torch.Tensor, buckets: Optional[int] = None) -> Axis:
+    """An axis' kernel form (CPU tensors), over ``buckets`` (default 2 n)
+    buckets."""
+    ax = axis.detach().cpu().numpy().astype(np.float32)
+    n = ax.shape[0]
+    buckets = 2 * n if buckets is None else int(buckets)
+    if buckets < 1:
+        raise ValueError(f"buckets must be >= 1, got {buckets}")
+    guide, a0, inv_h = axis_guide(ax, buckets)
+    nxt = np.concatenate([ax[1:], ax[-1:]])
+    width = (nxt - ax).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        rcp = np.float32(1.0) / width
+    cell = np.stack([ax, width, rcp, np.zeros_like(ax)], axis=1)
+    steps = int(np.bincount(bucket_of(ax, a0, inv_h, buckets),
+                            minlength=buckets).max()) if n else 0
+    return Axis(torch.from_numpy(cell.astype(np.float32)),
+                torch.from_numpy(guide), float(a0), float(inv_h), steps,
+                exact_div(ax))
+
+
+def make_table(lt: torch.Tensor, lr: torch.Tensor, vals: torch.Tensor,
+               log_space: bool, t_min: float, r_min: float,
+               device) -> Table:
+    """A ``Table`` on ``device``: the axes, values and first nodes, and
+    their kernel forms built on the host in float32 (each axis' cells and
+    guide over 2 n buckets, the corner values)."""
+    dev = torch.device(device)
+    axes = [make_axis(ax) for ax in (lt, lr)]
+    v = vals.detach().to("cpu", torch.float32)
+    corners = torch.stack([v[:-1, :-1], v[:-1, 1:], v[1:, :-1], v[1:, 1:]],
+                          dim=-1)
+
+    def to(t):
+        return t.to(dev).contiguous()
+
+    return Table(to(lt), to(lr), to(vals), bool(log_space), float(t_min),
+                 float(r_min),
+                 *(a._replace(cell=to(a.cell), guide=to(a.guide))
+                   for a in axes), to(corners))
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -120,19 +263,37 @@ def fold_plain(a: Optional[torch.Tensor], b: Optional[torch.Tensor], *,
 
 def _table_args(table: Optional[Table]):
     if table is None:
-        return (None, 0, None, 0, None, 0, 0.0, 0.0)
-    return (table.lt.data_ptr(), table.lt.shape[0], table.lr.data_ptr(),
-            table.lr.shape[0], table.vals.data_ptr(), int(table.log_space),
-            float(table.t_min), float(table.r_min))
+        return (None,) + (None, None, 0, 0, 0.0, 0.0, 0, 0) * 2 + (0, 0.0,
+                                                                    0.0)
+    out = [table.corners.data_ptr()]
+    for a in (table.t_axis, table.r_axis):
+        out += [a.cell.data_ptr(), a.guide.data_ptr(), a.cell.shape[0],
+                a.guide.shape[0], a.a0, a.inv_h, a.steps, int(a.exact_div)]
+    return (*out, int(table.log_space), float(table.t_min),
+            float(table.r_min))
 
 
 def _check_table(table: Table, dev) -> None:
-    for name in ("lt", "lr", "vals"):
-        t = getattr(table, name)
-        if (t.device != dev or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise ValueError(f"the table's {name} must be contiguous float32 "
+    for name, t, dt in (
+            ("lt", table.lt, torch.float32), ("lr", table.lr, torch.float32),
+            ("vals", table.vals, torch.float32),
+            ("corners", table.corners, torch.float32),
+            ("t_axis.cell", table.t_axis.cell, torch.float32),
+            ("t_axis.guide", table.t_axis.guide, torch.int32),
+            ("r_axis.cell", table.r_axis.cell, torch.float32),
+            ("r_axis.guide", table.r_axis.guide, torch.int32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"the table's {name} must be contiguous {dt} "
                              f"on {dev}")
+    n_t, n_r = table.lt.shape[0], table.lr.shape[0]
+    if n_t < 2 or n_r < 2:
+        raise ValueError("the kernels' opacity table needs two nodes or more "
+                         f"on each axis, got ({n_t}, {n_r})")
+    if (tuple(table.corners.shape) != (n_t - 1, n_r - 1, 4)
+            or tuple(table.t_axis.cell.shape) != (n_t, 4)
+            or tuple(table.r_axis.cell.shape) != (n_r, 4)):
+        raise ValueError("the table's kernel forms do not match its axes "
+                         "(build it with make_table)")
 
 
 def _check_out(name: str, t: Optional[torch.Tensor], shape, dev) -> None:
@@ -180,6 +341,9 @@ def fold(a: Optional[torch.Tensor], b: Optional[torch.Tensor], *,
     _check_out("tau", tau, (na, nb), dev)
     _check_out("em", em, (na, nb), dev)
     _check_out("wout", wout, (pb, na, nb), dev)
+    if na * nb >= 2**31:
+        raise ValueError(f"a batch of {na} x {nb} pixels: K15 takes fewer "
+                         "than 2^31")
     sp, sa, sb = like.stride()
 
     def ptr(t):

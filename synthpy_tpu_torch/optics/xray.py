@@ -77,10 +77,9 @@ class OpacityLookup:
         """The table on ``device`` (copied there once)."""
         dev = torch.device(device)
         if dev not in self._tables:
-            self._tables[dev] = kx.Table(
-                *(t.to(dev).contiguous() for t in (self.lt, self.lr,
-                                                   self.vals)),
-                self.log_space, self.t_min, self.r_min)
+            self._tables[dev] = kx.make_table(
+                self.lt, self.lr, self.vals, self.log_space, self.t_min,
+                self.r_min, dev)
         return self._tables[dev]
 
     def __call__(self, Te, rho) -> torch.Tensor:

@@ -2034,7 +2034,11 @@ def test_btable_kernel_matches_plain(dev, mode, n):
     cases planted through the batch;
     int8 codes within one step on at most 1e-4 of them (a true division may
     cross a rounding tie), dithered too; a dither under the next plane's key
-    (the planted control) moves more than 1e-4 of them."""
+    (the planted control) moves more than 1e-4 of them. int8, dithered and
+    not: the same batch written at every destination byte offset 0-15 mod
+    16, and its first m values for m off the kernel's 12-value groups (NaN,
+    inf and values past the clip planted), gives the same codes as at
+    offset 0 (the head, the groups and the tail in one launch)."""
     from synthpy_tpu_torch import random as jrandom
     from synthpy_tpu_torch.kernels import btable
 
@@ -2070,6 +2074,33 @@ def test_btable_kernel_matches_plain(dev, mode, n):
             btable.write(bad, batch, i0, scale, jrandom.key_data(
                 jrandom.fold_in(jrandom.PRNGKey(5), i0 + 1)))
             assert float((bad != want).float().mean()) > 1e-4
+    if mode == "bf16":
+        return
+    key = (None if mode == "int8" else
+           jrandom.key_data(jrandom.fold_in(jrandom.PRNGKey(5), 3)))
+    vals = torch.from_numpy(np.ascontiguousarray(B[:5])).to(dev).reshape(-1)
+    vals[::29] = float("nan")
+    vals[7::31] = float("inf")
+    vals[11::37] = -1e6
+    scale = torch.tensor([0.02, 0.03, 0.05], device=dev)
+    # batch lengths (multiples of 3) off the kernel's 12-value groups
+    for m in sorted({3, 6, 9, 15, 27, 39, vals.numel() - 3, vals.numel()}):
+        batch = vals[:m].reshape(1, 1, m // 3, 3)
+        ref = torch.zeros((1, *batch.shape[1:]), dtype=torch.int8,
+                          device=dev)
+        btable.write(ref, batch.contiguous(), 0, scale, key)
+        want = torch.zeros_like(ref)
+        btable.write_plain(want, batch.contiguous(), 0, scale, key)
+        fin = torch.isfinite(batch)
+        d = (ref.to(torch.int16) - want.to(torch.int16)).abs()[fin]
+        assert int(d.max()) <= 1
+        for off in range(16):
+            buf = torch.zeros(ref.numel() + 32, dtype=torch.int8, device=dev)
+            tab = buf[off:off + ref.numel()].view(ref.shape)
+            btable.write(tab, batch.contiguous(), 0, scale, key)
+            assert torch.equal(tab, ref), (m, off)
+            assert int(buf[:off].abs().sum()) == 0
+            assert int(buf[off + ref.numel():].abs().sum()) == 0
 
 
 def _xray_scene(dev, n=24, probe_stride=False):
@@ -2092,8 +2123,15 @@ def _xray_scene(dev, n=24, probe_stride=False):
 def test_xray_fold_kernel_matches_plain(dev, mode, probe):
     """K15 on strided plane batches of every probing axis against its
     plain version: tau, em and the w scratch within 1e-6 relative (CUDA's
-    logf / expf against PyTorch's)."""
+    logf / expf against PyTorch's). Also, on a volume whose batches are off
+    the kernel's tiles and span several chunks of planes: every
+    combination of tau / em / w scratch; in mode 0 the path's 30 x 40
+    table (staged in shared memory) and a 120 x 130 one (read through L1),
+    with Te and rho planted at the grids' nodes, either side of them,
+    below and above the tables, at +-inf, and rho at NaN (a NaN Te takes
+    the first node on the card; the plain lookup gives NaN)."""
     from synthpy_tpu_torch.kernels import xray as kx
+    from synthpy_tpu_torch.optics import xray
 
     rho, Te, kfn = _xray_scene(dev)
     r, t = rho.movedim(probe, 0)[3:11], Te.movedim(probe, 0)[3:11]
@@ -2109,6 +2147,62 @@ def test_xray_fold_kernel_matches_plain(dev, mode, probe):
         out[fn.__name__] = (tau, em, w)
     for a, b in zip(out["fold"], out["fold_plain"]):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+    rng = np.random.default_rng(21 + probe)
+    shape = (37, 41, 150)
+    rho = 1e-3 * (1 + 0.5 * rng.random(shape))
+    Te = 50 * (1 + rng.random(shape))
+    T2, rg2 = np.logspace(0, 3, 120), np.logspace(-5, 1, 130)
+    tables = {"path": kfn, "large": xray.make_opacity_lookup(
+        T2, rg2, 5e3 * np.outer(T2**-1.5, rg2**0.5), device=dev)}
+    f32 = np.float32
+    t_nodes = np.concatenate([T2, np.nextafter(T2.astype(f32), f32(0)),
+                              np.nextafter(T2.astype(f32), f32(np.inf)),
+                              [0.5, 2e3, np.inf, -np.inf]])
+    r_nodes = np.concatenate([rg2, np.nextafter(rg2.astype(f32), f32(0)),
+                              np.nextafter(rg2.astype(f32), f32(np.inf)),
+                              [1e-7, 50.0, np.inf, -np.inf, np.nan]])
+    idx = rng.choice(rho.size, t_nodes.size + r_nodes.size, replace=False)
+    Te.flat[idx[:t_nodes.size]] = t_nodes
+    rho.flat[idx[t_nodes.size:]] = r_nodes
+    R = torch.from_numpy(rho.astype(f32)).to(dev).movedim(probe, 0)
+    T = torch.from_numpy(Te.astype(f32)).to(dev).movedim(probe, 0)
+
+    def close(a, b):
+        if b is None:
+            assert a is None
+            return
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert torch.equal(a[~fin].isnan(), b[~fin].isnan())
+        assert float((a - b)[fin].abs().max()) <= 1e-6 * float(
+            b[fin].abs().max())
+
+    for name, lookup in (tables.items() if mode == 0 else [("", None)]):
+        if mode == 0:
+            a_in, b_in, tab = R, T, lookup.table(dev)
+        else:
+            # the planes in the volume's strides
+            a_in = torch.empty_like(R).copy_(kfn(T, R) * R)
+            b_in = torch.empty_like(T).copy_(T**4)
+            tab = None
+        for want in range(1, 8):
+            outs = {}
+            for fn in (kx.fold, kx.fold_plain):
+                pb, na, nb = a_in.shape
+                tau = (torch.full((na, nb), 0.25, device=dev)
+                       if want & 1 else None)
+                em = (torch.full((na, nb), 0.5, device=dev)
+                      if want & 2 else None)
+                w = (torch.full((pb, na, nb), -1.0, device=dev)
+                     if want & 4 else None)
+                a_ = a_in if mode == 0 or want & 5 else None
+                b_ = b_in if mode == 0 or want & 2 else None
+                fn(a_, b_, mode=mode, table=tab, w0=probe != 0,
+                   wlast=True, tau=tau, em=em, wout=w)
+                outs[fn.__name__] = (tau, em, w)
+            for a, b in zip(outs["fold"], outs["fold_plain"]):
+                close(a, b)
 
 
 def test_pp_kernels_match_plain(dev):
