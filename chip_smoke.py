@@ -1802,7 +1802,8 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
     from synthpy_tpu_torch.inverse import make_renderer
     from synthpy_tpu_torch.kernels import cic, march, march_adjoint
     from synthpy_tpu_torch.kernels import pack_chain as kpc
-    from synthpy_tpu_torch.kernels.profiling import batch_ms, best_ms
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     graph_ms)
     from synthpy_tpu_torch.priors import tv
     from synthpy_tpu_torch.tracer import init_beam, zscan
     from torch.utils.checkpoint import checkpoint
@@ -2365,10 +2366,19 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
         x, y, vals, bins_, lx, ly = cic_inputs[V]
         dacc = adjoint_inputs[V]
         nxy = bins_[0] * bins_[1]
-        fwd_ms = batch_ms(lambda: cic.deposit(x, y, vals, bins_, lx, ly),
-                          calls=20)
-        bwd_ms = batch_ms(lambda: cic.adjoint(x, y, vals, dacc, bins_, lx,
-                                              ly), calls=20)
+        # device time of one call (20 calls replayed as a CUDA graph: the
+        # host's time a call passes the kernels' here), and the call's
+        fwd_ms = graph_ms(lambda: cic.deposit(x, y, vals, bins_, lx, ly))
+        bwd_ms = graph_ms(lambda: cic.adjoint(x, y, vals, dacc, bins_, lx,
+                                              ly))
+        fwd_call = batch_ms(lambda: cic.deposit(x, y, vals, bins_, lx, ly),
+                            calls=20)
+        bwd_call = batch_ms(lambda: cic.adjoint(x, y, vals, dacc, bins_, lx,
+                                                ly), calls=20)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plans = {k: cic.plan(k, bins_, V, x.shape[0], sms)
+                 for k in ("forward", "adjoint")}
+        part = plans["forward"].partials * cic.image_bytes(bins_, V)
         fwd_plain = best_ms(lambda: cic.cic_plain(x, y, vals, bins_, lx,
                                                   ly), reps=3)
         bwd_plain = best_ms(lambda: cic.cic_vjp_plain(x, y, vals, dacc,
@@ -2402,13 +2412,26 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
             ref.abs().max()), "index_put_ yardstick disagrees with K12")
         # operations from cic.cu: coordinates and fractions ~12, weights 6,
         # a corner's V products and adds (the atomic counted as the add);
-        # the adjoint's corners 4 V gathers of two products and adds each
-        fwd_b = bound(N * (8 + 4 * V) + nxy * V * 4, N * (18 + 8 * V))
+        # the adjoint's corners 4 V gathers of two products and adds each.
+        # Bytes: each ray read once, the image written once, and the shared
+        # form's partial images written and read (the first design's count
+        # beside it)
+        fwd_b = bound(N * (8 + 4 * V) + nxy * V * 4 + 2 * part,
+                      N * (18 + 8 * V))
+        fwd_b_first = bound(N * (8 + 4 * V) + nxy * V * 4, N * (18 + 8 * V))
         bwd_b = bound(2 * N * (8 + 4 * V) + nxy * V * 4, N * (34 + 16 * V))
         return {"forward_ms": fwd_ms, "adjoint_ms": bwd_ms,
+                "forward_call_ms": fwd_call, "adjoint_call_ms": bwd_call,
                 "forward_plain_ms": fwd_plain, "adjoint_plain_ms": bwd_plain,
                 "library_ms": lib_ms, "forward_bound": fwd_b,
-                "adjoint_bound": bwd_b}
+                "forward_bound_first_design": fwd_b_first,
+                "adjoint_bound": bwd_b,
+                "plan": {k: {**p._asdict(), "shared_bytes": (
+                    cic.image_bytes(bins_, V) if p.grid else 0),
+                             "form": "shared" if p.grid else "global",
+                             **({"partials": p.partials}
+                                if k == "forward" else {})}
+                         for k, p in plans.items()}}
 
     k12_t = {V: k12_times(V) for V in (1, 2, 4)}
     k19_t = {"forward_ms": k19_fwd_ms, "adjoint_ms": k19_adj_ms,
@@ -2444,11 +2467,15 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
          "ms": t1["forward_ms"], "plain_ms": t1["forward_plain_ms"],
          "bound_ms": t1["forward_bound"][0],
          "bound_by": t1["forward_bound"][1], "library_ms": t1["library_ms"],
-         "per": f"V = 1, {N} rays, {bins[0]} x {bins[1]}",
-         "V2": {k: k12_t[2][k] for k in ("forward_ms", "forward_plain_ms",
-                                         "library_ms")},
-         "V4": {k: k12_t[4][k] for k in ("forward_ms", "forward_plain_ms",
-                                         "library_ms")}},
+         "per": f"V = 1, {N} rays, {bins[0]} x {bins[1]}; ms: the device "
+                "time of a call (its two kernels; calls replayed as a CUDA "
+                "graph); call_ms: CUDA events around back-to-back calls",
+         "call_ms": t1["forward_call_ms"], "form": t1["plan"]["forward"],
+         "bound_first_design_ms": t1["forward_bound_first_design"][0],
+         "V2": {k: k12_t[2][k] for k in ("forward_ms", "forward_call_ms",
+                                         "forward_plain_ms", "library_ms")},
+         "V4": {k: k12_t[4][k] for k in ("forward_ms", "forward_call_ms",
+                                         "forward_plain_ms", "library_ms")}},
         {"name": "cic_adjoint", "route": "cuda", "source": csrc + "cic.cu",
          "replaces": "synthpy_tpu/inverse.py:139",
          "launches": launches["cic_adjoint"],
@@ -2456,9 +2483,13 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
          "ms": t1["adjoint_ms"], "plain_ms": t1["adjoint_plain_ms"],
          "bound_ms": t1["adjoint_bound"][0],
          "bound_by": t1["adjoint_bound"][1], "library_ms": None,
-         "per": f"V = 1, {N} rays, {bins[0]} x {bins[1]}",
-         "V2": {k: k12_t[2][k] for k in ("adjoint_ms", "adjoint_plain_ms")},
-         "V4": {k: k12_t[4][k] for k in ("adjoint_ms", "adjoint_plain_ms")}},
+         "per": f"V = 1, {N} rays, {bins[0]} x {bins[1]}; ms as the "
+                "forward's",
+         "call_ms": t1["adjoint_call_ms"], "form": t1["plan"]["adjoint"],
+         "V2": {k: k12_t[2][k] for k in ("adjoint_ms", "adjoint_call_ms",
+                                         "adjoint_plain_ms")},
+         "V4": {k: k12_t[4][k] for k in ("adjoint_ms", "adjoint_call_ms",
+                                         "adjoint_plain_ms")}},
         {"name": "pack_chain", "route": "cuda",
          "source": csrc + "pack_chain.cu",
          "replaces": "synthpy_tpu/inverse.py:288",
@@ -2538,7 +2569,7 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
     from synthpy_tpu_torch.kernels import boris, btable, march
     from synthpy_tpu_torch.kernels import xray as kx
     from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
-                                                     walk_model)
+                                                     graph_ms, walk_model)
     from synthpy_tpu_torch.optics import xray
     from synthpy_tpu_torch.tracer import particles
 
@@ -2954,6 +2985,25 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
     k16_err = rel_err(t_k, t_p)
     check(max(k15_err.values()) <= 1e-6 and k16_err <= 1e-6,
           f"K15 / K16 off their plain versions: {k15_err}, {k16_err}")
+    # C.13: NaN Te at 16 seeded voxels of the batch: K15's tau, em and w
+    # NaN exactly where the plain version's are
+    t_nan = tb.clone()
+    t_nan.view(-1)[torch.from_numpy(np.random.default_rng(22).choice(
+        t_nan.numel(), 16, replace=False)).to(dev)] = float("nan")
+    nan_outs = {}
+    for name, fn in (("kernel", kx.fold), ("plain", kx.fold_plain)):
+        o = [torch.zeros(rb.shape[1:], device=dev) for _ in range(2)]
+        w = torch.empty(rb.shape, device=dev)
+        fn(rb, t_nan, mode=0, table=tab, w0=False, wlast=False, tau=o[0],
+           em=o[1], wout=w)
+        nan_outs[name] = (*o, w)
+    k15_nan = {k: bool(torch.equal(a.isnan(), b.isnan())) and bool(
+        b.isnan().any()) for k, a, b in zip(("tau", "em", "w"),
+                                            nan_outs["kernel"],
+                                            nan_outs["plain"])}
+    check(all(k15_nan.values()), f"K15 and its plain version give NaN "
+          f"apart on a NaN Te: {k15_nan}")
+    del t_nan, nan_outs
     tau_s = torch.zeros(rb.shape[1:], device=dev)
     em_s = torch.zeros_like(tau_s)
     k15_ms = batch_ms(lambda: kx.fold(rb, tb, mode=0, table=tab, w0=False,
@@ -2962,7 +3012,10 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
     k15_plain_ms = best_ms(lambda: kx.fold_plain(
         rb, tb, mode=0, table=tab, w0=False, wlast=False, tau=tau_s,
         em=em_s, wout=w_b), reps=1)
-    k16_ms = batch_ms(lambda: kx.pp_fold(w_b, *pargs, t_k), calls=20)
+    # device time of a launch (calls replayed as a CUDA graph; the host's
+    # time a call passes the kernel's at this size), and the call's
+    k16_ms = graph_ms(lambda: kx.pp_fold(w_b, *pargs, t_k))
+    k16_call_ms = batch_ms(lambda: kx.pp_fold(w_b, *pargs, t_k), calls=20)
     k16_plain_ms = best_ms(lambda: kx.pp_fold_plain(w_b, *pargs, t_k),
                            reps=1)
     n_vox = rb.numel()
@@ -3035,9 +3088,28 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
     check(dense["k15_vs_plain_rel"] <= 1e-6
           and dense["k16_chords_vs_plain_rel"] <= 1e-6,
           f"K15 / K16 off their plain versions (dense): {dense}")
-    chords_ms = batch_ms(lambda: kx.pp_chords(rho_d, te_d, g,
+    # C.13: a NaN Te voxel on the chords' way: NaN depth at the chords the
+    # plain version gives it
+    te_nan = te_d.clone()
+    c_ = res_d // 2
+    te_nan[c_ - 1:c_ + 1, c_, c_ - 1:c_ + 1] = float("nan")
+    ck_nan = kx.pp_chords(rho_d, te_nan, g, XRAY["n_steps"], 0, tab)
+    cp_nan = kx.pp_chords_plain(rho_d, te_nan, g, XRAY["n_steps"], 0, tab)
+    dense["k16_chords_nan_te"] = {
+        "nan_chords": int(cp_nan.isnan().sum()),
+        "same_as_plain": bool(torch.equal(ck_nan.isnan(), cp_nan.isnan()))}
+    check(dense["k16_chords_nan_te"]["same_as_plain"]
+          and dense["k16_chords_nan_te"]["nan_chords"] > 0,
+          f"pp_chords and its plain version give NaN apart on a NaN Te: "
+          f"{dense['k16_chords_nan_te']}")
+    del te_nan, ck_nan, cp_nan
+    g_dev = g._replace(xa=g.xa.to(dev), xb=g.xb.to(dev))
+    chords_ms = graph_ms(lambda: kx.pp_chords(rho_d, te_d, g_dev,
                                               XRAY["n_steps"], 0, tab),
-                         calls=10)
+                         calls=5)
+    chords_call_ms = batch_ms(lambda: kx.pp_chords(rho_d, te_d, g,
+                                                   XRAY["n_steps"], 0, tab),
+                              calls=10)
     # K15 on the dense route's fold (tau, the whole volume one batch) along
     # each probing axis: x and y read along b, z along the probing axis
     dense["k15_dense_ms"] = {}
@@ -3059,7 +3131,9 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
     emit({"phase": "K15_K16_vs_plain", "batch": [i0, i1],
           "tolerance": "1e-6 relative", "k15": k15_err,
           "k16_pp_fold": k16_err, "k15_dense": dense["k15_vs_plain_rel"],
-          "k16_chords": dense["k16_chords_vs_plain_rel"]})
+          "k16_chords": dense["k16_chords_vs_plain_rel"],
+          "k15_nan_te_as_plain": k15_nan,
+          "k16_chords_nan_te": dense["k16_chords_nan_te"]})
     rows_out += [
         {"name": "xray_fold", "route": "cuda", "source": csrc + "xray.cu",
          "replaces": "synthpy_tpu/optics/xray.py:434",
@@ -3079,16 +3153,22 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
          "launches": launches["pp_fold"], "max_abs_err": k16_err,
          "ms": k16_ms, "plain_ms": k16_plain_ms, "bound_ms": k16_b[0],
          "bound_by": k16_b[1], "library_ms": None,
-         "per": f"one batch, {P} pixels; bound: the {nodes} w nodes its "
-                "crossings read"},
+         "call_ms": k16_call_ms,
+         "per": f"one batch, {P} pixels of a 431 x 321 detector; "
+                f"bound: the {nodes} w nodes its crossings read; ms: the "
+                "device time of a launch (calls replayed as a CUDA graph), "
+                "call_ms: CUDA events around back-to-back calls"},
         {"name": "pp_chords", "route": "cuda", "source": csrc + "xray.cu",
          "replaces": "synthpy_tpu/optics/xray.py:185",
          "launches": dense_launches["pp_chords"],
          "max_abs_err": dense["k16_chords_vs_plain_rel"],
          "ms": chords_ms, "plain_ms": chords_plain_s * 1e3,
          "bound_ms": chords_b[0], "bound_by": chords_b[1],
-         "library_ms": None,
-         "per": f"{res_d}^3, {P} chords of {XRAY['n_steps']} samples"}]
+         "library_ms": None, "call_ms": chords_call_ms,
+         "tile": ("flat" if kx.CHORDS_TILE_LG is None
+                  else 2 ** kx.CHORDS_TILE_LG),
+         "per": f"{res_d}^3, {P} chords of {XRAY['n_steps']} samples; ms "
+                "as pp_fold's"}]
     for mod, name, fn in originals:
         setattr(mod, name, fn)
     del rho_d, te_d, rho_hd, te_hd

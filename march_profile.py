@@ -4,9 +4,10 @@ card, or time kernel K11 (its adjoint) on the inversion path's inputs,
 K13 (the Boris push) on the proton path's, K6 (the adaptive step) on the
 adaptive path's, K5 (the time march) on the time path's, K18 (the
 grid-sharded time tracer's stage) on its check trace, K19 (the
-renderer's pack chain) on the inversion path's volume, K15 (the X-ray
-fold) on the X-ray path's scene or K14 (the B-table write) on the proton
-path's batch.
+renderer's pack chain) on the inversion path's volume, K15 and K16 (the
+X-ray fold, crossings and chords) on the X-ray path's scene, K14 (the
+B-table write) on the proton path's batch or K12 (the renderer's CIC
+image) on the inversion path's exit rays.
 
     python3 march_profile.py        # from the repository root, one GPU
     python3 march_profile.py adjoint [--root DIR] [--reps N] [--save F]
@@ -27,6 +28,8 @@ path's batch.
                                   [--against F] [--variants]
     python3 march_profile.py btable [--root DIR] [--reps N] [--save F]
                                     [--against F] [--variants]
+    python3 march_profile.py cic [--root DIR] [--reps N] [--save F]
+                                 [--against F] [--variants]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -191,7 +194,34 @@ instance), ``cases`` (ms: CUDA events around 10 back-to-back calls, best of
 ``--reps``) and a SHA-256 of each case's tau / em / w; ``--save`` /
 ``--against`` as for ``k19``. ``--variants`` times builds of ``xray.cu``
 changed by ``XRAY_VARIANTS`` on the survey batch, each held bit-equal to
-the shipped build.
+the shipped build. It also times K16 there: ``pp_fold`` on the survey
+batch's w planes with the survey's 431 x 321 detector, with the w nodes
+its crossings read and the 32-byte sectors they lie in, and ``pp_chords``
+at 256^3 with that detector and 160 samples a chord (mode 0 along x, y
+and z, mode 1 along y; ``--variants``: 2-D tiles of its pixels, lanes a
+chord, unrolls), each with ``graph_ms`` (calls replayed as a CUDA graph);
+and C.13's
+cases, the survey batch (K15) and the chords along y with NaN Te planted
+at 64 seeded voxels: NaN where the plain version gives NaN
+(``nan_as_plain``) and the other elements hashed for the other tree.
+
+``cic`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does. It
+records K12's inputs where the inversion path makes them (one render of
+``inverse_path``'s two renderers on its 512^3 volume at theta = -1.5, 1 M
+rays, 96 x 96 bins: V = 1, 2 and 4) and prints one JSON line with
+``ptxas`` (registers, spills of every K12 instance), the opcodes of the
+forward's ray loop (``sass``), and for each V the forward's and the
+adjoint's ms (CUDA events around 20 back-to-back calls, best of
+``--reps``; a seeded cotangent) and device times (``*_graph_ms``: 20
+calls replayed as a CUDA graph, ``profiling.graph_ms``; the forward's two
+kernels apart from a profiler trace), the forward's largest error
+relative to ``cic_plain`` and its run-to-run spread, the plan (where the
+tree has ``cic.plan``: grid, cluster, partial images, shared bytes a
+block) and the bytes bounds (the first design's count, and the design's
+with its partial images written and read); the adjoint's outputs are
+hashed for the other tree. Then the path's V = 4 rays onto 431 x 321
+pixels (the global form). ``--variants`` times the forward at the plans
+of ``CIC_VARIANTS`` (blocks a cluster, blocks an SM).
 
 ``btable`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does. It
 times K14 (``kernels.btable.write``) on a 32-plane 1024^2 x 3 batch of a
@@ -1468,19 +1498,56 @@ _COPIES = ("      if constexpr (B::A) __pipeline_memcpy_async(sa + at, F.a + e, 
 _WOUT = "    const bool keep_w = B::A && F.wout != nullptr && pix_ok;"
 _CHUNK = "constexpr int CHUNK_PLANES = 8;"
 XRAY_VARIANTS = {
-    "libm_logf": [("  if constexpr (REG) return log_normal(fmaxf(v, first));",
-                   "  if constexpr (REG) return logf(fmaxf(v, first));")],
+    "libm_logf": [("    const float l = log_normal(fmaxf(v, first));",
+                   "    const float l = logf(fmaxf(v, first));")],
     "no_cap": [(_CAP, _CAP.replace("(THREADS, 3)", "(THREADS)"))],
     "cap_2_blocks": [(_CAP, _CAP.replace("(THREADS, 3)", "(THREADS, 2)"))],
     "chunk_16": [(_CHUNK, _CHUNK.replace("8", "16"))],
     "probe_no_lookup": [("w = __fmul_rn(kappa<S, REG>(T, te, rho), rho);",
                          "w = __fmul_rn(te, rho);")],
+    # the first kernel's NaN-dropping lookup (C.13's repair left out): its
+    # query select and saturating clip
+    "probe_no_nan": [
+        ("    return v < INFINITY ? l : v;",
+         "    return v == INFINITY ? v : l;"),
+        ("    return max_nan(!(x >= c.y) ? q : 1.0f, 0.0f);",
+         "    return clip01(x < c.y ? q : 1.0f);")],
     "probe_compute_only": [(_COPIES, ""),
                            (_WOUT, "    const bool keep_w = false;")],
 }
 # the survey's instance (mode 0 with em, along b, the table staged) and
 # the parent's one kernel
 K15_PATTERNS = (r"fold_kernelILi1ELi0ELb1ELb1E", r"11fold_kernelENS")
+
+
+def _graph_ms():
+    """``profiling.graph_ms`` of the tree imported (a parent's may lack it:
+    then this script's own copy)."""
+    from synthpy_tpu_torch.kernels import profiling
+    if hasattr(profiling, "graph_ms"):
+        return profiling.graph_ms
+    here = _here_profiling()
+    return here.graph_ms
+
+
+def event_ms(kern, fn, calls: int = 20) -> dict:
+    """Device time of one launch through ``kern`` (a ``_build.Kernel``),
+    from the CUDA events its launches record around themselves on their
+    stream, over ``calls`` back-to-back fn() calls: median and least [ms].
+    Unlike ``batch_ms`` this leaves out the host's time between launches,
+    which passes a kernel's own below ~0.05 ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    kern.events = []
+    try:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        t = sorted(a.elapsed_time(b) for a, b in kern.events)
+    finally:
+        kern.events = None
+    return {"median": t[len(t) // 2], "min": t[0]}
 
 
 def _sha(t) -> str:
@@ -1593,16 +1660,17 @@ def xray_part(args):
                                                 ("w", wout))
                         if v is not None}
         keep = [None if t is None else t.clone() for t in (tau, em)]
-        cases[name] = {"ms": best(call), "shape": list(a.shape
-                                                       if a is not None
-                                                       else b.shape)}
+        cases[name] = {"ms": best(call),
+                       "device_ms": event_ms(kx.FOLD_KERNEL, call, calls=10),
+                       "shape": list(a.shape if a is not None
+                                     else b.shape)}
         for t, k in zip((tau, em), keep):
             if t is not None:
                 t.copy_(k)
         emit({"case": name, **cases[name]})
 
     # the survey's batch: planes 480-511 of the 1024^3 scene along y
-    (rho, te), _ = _xray_scene(1024, dev)
+    (rho, te), ax_s = _xray_scene(1024, dev)
     rb = rho.movedim(1, 0)[480:512].contiguous()
     tb = te.movedim(1, 0)[480:512].contiguous()
     del rho, te
@@ -1624,6 +1692,9 @@ def xray_part(args):
     if args.variants:
         cases["variants"] = _xray_variants(kx, rb, tb, kfn.table(dev), img,
                                            wout, best, hashes["survey"])
+    _nan_te_case(kx, rb, tb, kfn.table(dev), cases, hashes)
+    _pp_fold_cases(kx, xray, ax_s, rb, tb, kfn.table(dev), best, cases,
+                   hashes)
     del rb, tb, w_pl, j_pl, t2, img, wout
     torch.cuda.empty_cache()
 
@@ -1645,14 +1716,18 @@ def xray_part(args):
         del bits, sweep, other, r, t, tau, w
         torch.cuda.empty_cache()
 
-    # the dense route: tau over the whole volume, along x, y and z
+    # the dense route: tau over the whole volume, along x, y and z; at
+    # 256^3 (the dense images' size) the chords too
     for res in (256, 512):
-        (rho, te), _ = _xray_scene(res, dev)
+        (rho, te), ax_d = _xray_scene(res, dev)
         for p_ax, name in enumerate("xyz"):
             r, t = rho.movedim(p_ax, 0), te.movedim(p_ax, 0)
             tau = torch.zeros(r.shape[1:], **f32)
             fold_case(f"dense_{res}_{name}", r, t, 0, kfn.table(dev), tau,
                       None, None, True, True)
+        if res == 256:
+            _chords_cases(kx, xray, ax_d, rho, te, kfn.table(dev), best,
+                          cases, hashes, args.variants)
         del rho, te
         torch.cuda.empty_cache()
 
@@ -1683,6 +1758,195 @@ def xray_part(args):
     out.update(surveys)
     _save_against(out, hashes, args)
     print(json.dumps({"part": "xray", **out}), flush=True)
+
+
+def _masked_sha(t, nan):
+    """SHA-256 of ``t`` with the elements where ``nan`` holds set to 0: two
+    trees' outputs compared away from the NaN a NaN Te gives (C.13)."""
+    import torch
+    return _sha(torch.where(nan, torch.zeros_like(t), t))
+
+
+def _nan_te_case(kx, rb, tb, tab, cases, hashes):
+    """K15 on the survey batch with NaN Te planted at 64 seeded voxels:
+    tau, em and w NaN at the elements where ``fold_plain``'s are
+    (``nan_as_plain``; the first kernel took the table's first node), and
+    the rest hashed for the other tree."""
+    import numpy as np
+    import torch
+    dev = rb.device
+    idx = torch.from_numpy(np.random.default_rng(13).choice(
+        tb.numel(), 64, replace=False)).to(dev)
+    t_nan = tb.clone()
+    t_nan.view(-1)[idx] = float("nan")
+    outs = {}
+    for name, fn in (("kernel", kx.fold), ("plain", kx.fold_plain)):
+        o = [torch.zeros(rb.shape[1:], device=dev) for _ in range(2)]
+        w = torch.empty(rb.shape, device=dev)
+        fn(rb, t_nan, mode=0, table=tab, w0=False, wlast=False, tau=o[0],
+           em=o[1], wout=w)
+        outs[name] = dict(zip(("tau", "em", "w"), (*o, w)))
+    torch.cuda.synchronize()
+    plain = outs["plain"]
+    cases["survey_nan_te"] = {
+        "nan_as_plain": {k: bool(torch.equal(v.isnan(), plain[k].isnan()))
+                         for k, v in outs["kernel"].items()},
+        "nan_elements": {k: int(v.isnan().sum()) for k, v in plain.items()}}
+    hashes["survey_nan_te"] = {k: _masked_sha(v, plain[k].isnan())
+                               for k, v in outs["kernel"].items()}
+    emit({"case": "survey_nan_te", **cases["survey_nan_te"]})
+
+
+# the chord sampler's tiles ``xray --variants`` times (log2 of a tile's
+# detector columns; the shipped kernel walks the detector flat), and
+# builds of xray.cu with other lanes a chord or sample-loop unrolls
+CHORDS_TILE_VARIANTS = (3, 5, 8)
+_LANES = "constexpr int CHORD_LANES = 2;"
+_UNROLL = ("#pragma unroll 2\n"
+           "  for (int k0 = 0; k0 <= last; k0 += CHORD_LANES) {")
+CHORDS_BUILD_VARIANTS = {
+    "chord_lanes_1": [(_LANES, _LANES.replace("2", "1"))],
+    "chord_lanes_4": [(_LANES, _LANES.replace("2", "4"))],
+    "chord_unroll_1": [(_UNROLL, _UNROLL.replace("unroll 2", "unroll 1"))],
+    "chord_unroll_4": [(_UNROLL, _UNROLL.replace("unroll 2", "unroll 4"))],
+}
+
+
+def _pp_fold_cases(kx, xray, ax, rb, tb, tab, best, cases, hashes):
+    """K16's crossings of the survey batch (planes 480-511 of the 1024^3
+    scene, the survey's 431 x 321 detector): w from K15, then ``pp_fold``;
+    ms, the w nodes its crossings read (the bytes bound) and the 32-byte
+    sectors they lie in, and a SHA-256 of tau."""
+    import numpy as np
+    import torch
+    graph_ms = _graph_ms()
+    dev = rb.device
+    w = torch.empty(rb.shape, device=dev)
+    kx.fold(rb, tb, mode=0, table=tab, w0=False, wlast=False, tau=None,
+            em=None, wout=w)
+    frame = xray._pp_frame([ax] * 3, 1, 0, 2, 8e-3, 80e-3, (431, 321), 90.0,
+                           67.0)
+    da, db = (torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+              for v in frame[:2])
+    fr = torch.from_numpy(frame[3][480:512].astype(np.float32)).to(dev)
+    wt = torch.from_numpy(np.asarray(frame[4][480:512])).to(dev)
+    pargs = (da, db, fr, wt, float(frame[5]), float(frame[6]),
+             float(np.float32(frame[7])), float(np.float32(frame[8])))
+    tau = torch.zeros(da.shape[0], device=dev)
+    kx.pp_fold(w, *pargs, tau)
+    torch.cuda.synchronize()
+    hashes["pp_fold"] = {"tau": _sha(tau)}
+    c = {"ms": best(lambda: kx.pp_fold(w, *pargs, tau)),
+         "graph_ms": graph_ms(lambda: kx.pp_fold(w, *pargs, tau)),
+         "pixels": int(da.shape[0]), "planes": 32}
+    # the w nodes the crossings read, each counted once, and the 32-byte
+    # sectors they lie in: what the card moves to read them, crossings a
+    # few nodes apart in the survey's geometry
+    pb, na, nb = w.shape
+    qa = (da[None] * fr[:, None] + pargs[4]) * pargs[6]
+    qb = (db[None] * fr[:, None] + pargs[5]) * pargs[7]
+    ins = (qa >= 0) & (qa <= na - 1) & (qb >= 0) & (qb <= nb - 1)
+    ia = qa.floor().clamp(0, na - 2).long()
+    ib = qb.floor().clamp(0, nb - 2).long()
+    base = (torch.arange(pb, device=dev)[:, None] * (na * nb)
+            + ia * nb + ib)[ins]
+    corners = torch.cat([base, base + 1, base + nb, base + nb + 1])
+    c["w_nodes"] = int(torch.unique(corners).numel())
+    c["w_sectors"] = int(torch.unique(corners // 8).numel())
+    c["bound_ms"] = (c["w_nodes"] * 4 + 4 * da.numel() * 4) / 3.35e12 * 1e3
+    c["sector_bytes_ms"] = (c["w_sectors"] * 32 + 4 * da.numel() * 4
+                            ) / 3.35e12 * 1e3
+    cases["pp_fold"] = c
+    emit({"case": "pp_fold", **c})
+
+
+def _chords_cases(kx, xray, ax, rho, te, tab, best, cases, hashes,
+                  variants=False):
+    """K16's chord sampler on the 256^3 scene with the survey's geometry
+    (431 x 321 pixels, 160 samples a chord): mode 0 probing along x, y and
+    z, mode 1 along y (ms, SHA-256s), and along y with NaN Te planted at
+    64 seeded voxels (NaN depth at the chords ``pp_chords_plain`` gives
+    it, the rest hashed)."""
+    import numpy as np
+    import torch
+    graph_ms = _graph_ms()
+    for probe in "xyz":
+        g = xray.chord_geometry([ax] * 3, 8e-3, 80e-3, (431, 321), 90.0,
+                                67.0, probe)
+        # the pixel offsets on the card: a graph captures no host copy
+        g = g._replace(xa=g.xa.to(rho.device), xb=g.xb.to(rho.device))
+        tau = kx.pp_chords(rho, te, g, 160, 0, tab)
+        torch.cuda.synchronize()
+        hashes[f"chords_{probe}"] = {"tau": _sha(tau)}
+        cases[f"chords_{probe}"] = {
+            "ms": best(lambda: kx.pp_chords(rho, te, g, 160, 0, tab)),
+            "graph_ms": graph_ms(
+                lambda: kx.pp_chords(rho, te, g, 160, 0, tab), calls=5)}
+        emit({"case": f"chords_{probe}", **cases[f"chords_{probe}"]})
+    g = xray.chord_geometry([ax] * 3, 8e-3, 80e-3, (431, 321), 90.0, 67.0,
+                            "y")
+    g = g._replace(xa=g.xa.to(rho.device), xb=g.xb.to(rho.device))
+    smp = kx.pp_chords(rho, te, g, 160, 1)
+    hashes["chords_y_mode1"] = {k: _sha(v) for k, v in zip(
+        ("rho_s", "te_s", "path"), smp)}
+    cases["chords_y_mode1"] = {
+        "ms": best(lambda: kx.pp_chords(rho, te, g, 160, 1))}
+    del smp
+    if variants and hasattr(kx, "CHORDS_TILE_LG"):
+        shipped, res = kx.CHORDS_TILE_LG, {}
+        for lg in CHORDS_TILE_VARIANTS:
+            kx.CHORDS_TILE_LG = lg
+            try:
+                tau = kx.pp_chords(rho, te, g, 160, 0, tab)
+                torch.cuda.synchronize()
+                res[f"tile_lg_{lg}"] = {
+                    "ms": best(lambda: kx.pp_chords(rho, te, g, 160, 0,
+                                                    tab)),
+                    "graph_ms": graph_ms(
+                        lambda: kx.pp_chords(rho, te, g, 160, 0, tab),
+                        calls=5),
+                    "bit_equal": _sha(tau) == hashes["chords_y"]["tau"]}
+            finally:
+                kx.CHORDS_TILE_LG = shipped
+            emit({"variant": f"chords_tile_lg_{lg}",
+                  **res[f"tile_lg_{lg}"]})
+        from synthpy_tpu_torch.kernels import _build, profiling
+        kern = kx.PP_CHORDS_KERNEL
+        builds = {n: profiling.variant(kern, f"k16_{n}", subs)
+                  for n, subs in CHORDS_BUILD_VARIANTS.items()}
+        _build.build({v.source: v.flags for v in builds.values()})
+        for name, v in builds.items():
+            kx.PP_CHORDS_KERNEL = v
+            try:
+                tau = kx.pp_chords(rho, te, g, 160, 0, tab)
+                smp = kx.pp_chords(rho, te, g, 160, 1)
+                torch.cuda.synchronize()
+                res[name] = {
+                    "ms": best(lambda: kx.pp_chords(rho, te, g, 160, 0,
+                                                    tab)),
+                    "graph_ms": graph_ms(
+                        lambda: kx.pp_chords(rho, te, g, 160, 0, tab),
+                        calls=5),
+                    "bit_equal": _sha(tau) == hashes["chords_y"]["tau"]
+                    and all(_sha(a) == hashes["chords_y_mode1"][k]
+                            for k, a in zip(("rho_s", "te_s", "path"),
+                                            smp))}
+                del smp
+            finally:
+                kx.PP_CHORDS_KERNEL = kern
+            emit({"variant": name, **res[name]})
+        cases["chords_variants"] = res
+    idx = torch.from_numpy(np.random.default_rng(14).choice(
+        te.numel(), 64, replace=False)).to(te.device)
+    t_nan = te.clone()
+    t_nan.view(-1)[idx] = float("nan")
+    got = kx.pp_chords(rho, t_nan, g, 160, 0, tab)
+    want = kx.pp_chords_plain(rho, t_nan, g, 160, 0, tab)
+    cases["chords_nan_te"] = {
+        "nan_as_plain": bool(torch.equal(got.isnan(), want.isnan())),
+        "nan_chords": int(want.isnan().sum())}
+    hashes["chords_nan_te"] = {"tau": _masked_sha(got, want.isnan())}
+    emit({"case": "chords_nan_te", **cases["chords_nan_te"]})
 
 
 def _xray_variants(kx, rb, tb, tab, img, wout, best, want):
@@ -1720,6 +1984,158 @@ def _xray_variants(kx, rb, tb, tab, img, wout, best, want):
             kx.FOLD_KERNEL = shipped
         emit({"variant": name, **res[name]})
     return res
+
+
+# the K12 plans ``cic --variants`` times beside the default one (where the
+# tree has ``cic.plan``): (blocks a cluster, blocks an SM)
+CIC_VARIANTS = ((1, 1), (2, 1), (4, 1), (8, 1), (1, 2), (2, 2))
+
+
+def cic_part(args):
+    """The ``cic`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch.inverse import make_renderer
+    from synthpy_tpu_torch.kernels import _build, cic
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, kernel_ms,
+                                                     nvidia_smi, ptxas)
+    graph_ms = _graph_ms()
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "planned": hasattr(cic, "plan")}
+    kern, _, cubin = ptxas(_build.CSRC / cic.KERNEL.source,
+                           cic.KERNEL.flags)
+    out["ptxas"] = {k: v for k, v in kern.items() if "cic" in k}
+    # the opcodes of the forward's loop over rays, each form and V
+    out["sass"] = {}
+    here = _here_profiling()
+    for V in (1, 4):
+        for pat in (rf"cic_forward_sharedILi{V}ELb0E", rf"cic_forwardILi{V}E"):
+            dump = Path("chiprun_out") / f"cic_{Path(args.root).name}_{V}.sass"
+            try:
+                here.sass_loop_mix(cubin, pat, dump)
+            except RuntimeError:
+                continue
+            out["sass"][pat] = _opcodes(dump)
+
+    # the path's exit rays and values: one render of each renderer of
+    # inverse_path, its deposits recorded (cic.RECORD)
+    dom, s0, theta, volume, _, _ = inversion_inputs(dev)
+    kw = dict(bins=INV_BINS, K=INV_K, Lx=INV_LXY, Ly=INV_LXY,
+              pack_dtype=torch.bfloat16,
+              bench_kwargs={"schlieren_df": {"stop_R": INV_STOP_R}})
+    inputs = {}
+    cic.RECORD = []
+    try:
+        with torch.no_grad():
+            for diag in (("shadowgraphy", "schlieren_df", "interferometry"),
+                         ("shadowgraphy", "schlieren_df", "phase_map")):
+                render = make_renderer(dom, s0, diagnostic=diag,
+                                       n_fringes=16.0, **kw)
+                render(volume(torch.nn.functional.softplus(theta)))
+        for r in cic.RECORD:
+            if r[0] == "deposit":
+                inputs.setdefault(r[3].shape[1], r[1:])
+    finally:
+        cic.RECORD = None
+    del dom, s0, theta, render
+    torch.cuda.empty_cache()
+
+    def best(fn):
+        return min(batch_ms(fn, calls=20) for _ in range(args.reps))
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases, hashes = {}, {}
+    for V in (1, 2, 4):
+        x, y, vals, bins, lx, ly = inputs[V]
+        N = x.shape[0]
+        dacc = torch.randn(tuple(bins) + (V,), generator=gen, device=dev)
+        acc = cic.deposit(x, y, vals, bins, lx, ly)
+        ref = cic.cic_plain(x, y, vals, bins, lx, ly)
+        grads = cic.adjoint(x, y, vals, dacc, bins, lx, ly)
+        torch.cuda.synchronize()
+        c = {"rays": N, "bins": list(bins),
+             "forward_ms": best(lambda: cic.deposit(x, y, vals, bins, lx,
+                                                    ly)),
+             "adjoint_ms": best(lambda: cic.adjoint(x, y, vals, dacc, bins,
+                                                    lx, ly)),
+             "forward_graph_ms": graph_ms(lambda: cic.deposit(
+                 x, y, vals, bins, lx, ly)),
+             "adjoint_graph_ms": graph_ms(lambda: cic.adjoint(
+                 x, y, vals, dacc, bins, lx, ly)),
+             "forward_kernels_ms": kernel_ms(
+                 lambda: cic.deposit(x, y, vals, bins, lx, ly),
+                 Path("chiprun_out") / f"cic_V{V}_trace.json"),
+             "forward_rel_err": float((acc - ref).abs().max())
+             / float(ref.abs().max()),
+             # the image's largest run-to-run spread over 5 launches
+             "forward_repeat_max_abs": max(
+                 float((cic.deposit(x, y, vals, bins, lx, ly) - acc).abs()
+                       .max()) for _ in range(5))}
+        nxy = bins[0] * bins[1]
+        if out["planned"]:
+            pf = cic.plan("forward", bins, V, N, cic._sms(dev))
+            pa = cic.plan("adjoint", bins, V, N, cic._sms(dev))
+            c["plan"] = {"forward": pf._asdict(), "adjoint": pa._asdict(),
+                         "partials": pf.partials,
+                         "shared_bytes": cic.image_bytes(bins, V)}
+            part = pf.partials * cic.image_bytes(bins, V)
+        else:
+            part = 0
+        # bytes: each ray's position and values read once, the image
+        # written once, and the design's partial images written and read
+        c["forward_bound_ms"] = (N * (8 + 4 * V) + nxy * V * 4
+                                 + 2 * part) / 3.35e12 * 1e3
+        c["forward_bound_first_ms"] = (N * (8 + 4 * V)
+                                       + nxy * V * 4) / 3.35e12 * 1e3
+        c["adjoint_bound_ms"] = (2 * N * (8 + 4 * V)
+                                 + nxy * V * 4) / 3.35e12 * 1e3
+        if args.variants and out["planned"]:
+            c["variants"] = {}
+            shipped = cic.plan
+            for cl, per in CIC_VARIANTS:
+                def forced(kind, *a, _cl=cl, _per=per, **k):
+                    if kind == "forward":
+                        k.update(cluster=_cl, per_sm=_per)
+                    return shipped(kind, *a, **k)
+                cic.plan = forced
+                try:
+                    got = cic.deposit(x, y, vals, bins, lx, ly)
+                    c["variants"][f"cluster{cl}_per_sm{per}"] = {
+                        "forward_ms": best(lambda: cic.deposit(
+                            x, y, vals, bins, lx, ly)),
+                        "forward_graph_ms": graph_ms(
+                            lambda: cic.deposit(x, y, vals, bins, lx, ly)),
+                        "rel_err": float((got - ref).abs().max())
+                        / float(ref.abs().max())}
+                finally:
+                    cic.plan = shipped
+        cases[f"V{V}"] = c
+        hashes[f"V{V}"] = {"dx": _sha(grads[0]), "dy": _sha(grads[1]),
+                           "dvals": _sha(grads[2])}
+        emit({"case": f"V{V}", **c})
+    # the large-image form: the path's rays onto 431 x 321 pixels at V = 4
+    x, y, vals, _, lx, ly = inputs[4]
+    big = (431, 321)
+    dacc = torch.randn(big + (4,), generator=gen, device=dev)
+    grads = cic.adjoint(x, y, vals, dacc, big, lx, ly)
+    cases["V4_431x321"] = {
+        "forward_graph_ms": graph_ms(lambda: cic.deposit(x, y, vals, big, lx,
+                                                         ly)),
+        "adjoint_graph_ms": graph_ms(lambda: cic.adjoint(x, y, vals, dacc,
+                                                         big, lx, ly)),
+        "forward_ms": best(lambda: cic.deposit(x, y, vals, big, lx, ly)),
+        "adjoint_ms": best(lambda: cic.adjoint(x, y, vals, dacc, big, lx,
+                                               ly))}
+    hashes["V4_431x321"] = {"dx": _sha(grads[0]), "dy": _sha(grads[1]),
+                            "dvals": _sha(grads[2])}
+    emit({"case": "V4_431x321", **cases["V4_431x321"]})
+    out["cases"] = cases
+    _save_against(out, hashes, args)
+    print(json.dumps({"part": "cic", **out}), flush=True)
 
 
 # builds of btable.cu that ``btable --variants`` times beside the shipped one
@@ -1850,7 +2266,7 @@ def main():
     ap.add_argument("part", nargs="?",
                     choices=["march", "adjoint", "boris", "adaptive", "time",
                              "k18", "zscan", "analytic", "k17", "k19",
-                             "xray", "btable"],
+                             "xray", "btable", "cic"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -1883,6 +2299,8 @@ def main():
         return xray_part(args)
     if args.part == "btable":
         return btable_part(args)
+    if args.part == "cic":
+        return cic_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

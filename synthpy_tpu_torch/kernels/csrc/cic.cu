@@ -22,24 +22,58 @@
 //
 // What bounds it on the H100. By count, bytes: at the inversion's 1 M
 // rays and 96 x 96 pixels the forward reads (8 + 4 V) bytes a ray and
-// writes a 147 KB image, the adjoint reads the same plus the image and
-// writes (8 + 4 V) bytes a ray, each ~0.01 ms. But the forward issues 4 V
-// float atomics a ray into an image that sits in L2, ~100 rays a pixel
-// on the beam, and queues there as K8 does. The design is the simple first
-// one: one thread a ray in the caller's order, the channel loop of K8
-// (deposit.cuh), one template instance per V. Built with --fmad=false:
-// each product is rounded as the plain version rounds it, so the forward
-// differs from it only by the order of the atomic adds and the adjoint is
-// its arithmetic in another summation order.
+// writes a 37-147 KB image, the adjoint reads the same plus the image and
+// writes (8 + 4 V) bytes a ray, each ~0.004-0.01 ms. The first design (one
+// thread a ray, 4 V float atomics a ray into an image that sits in L2,
+// ~100 rays a pixel on the beam) queued on the L2's atomics at 3-4% of
+// that. So the image is built where atomics are cheap:
+//
+//   * The forward's shared form (an image of at most SMEM_MAX bytes): a
+//     persistent block takes a contiguous range of rays and adds each into
+//     a private copy of the image in shared memory, a plane a channel
+//     (shared-memory atomicAdd, a compare-and-swap loop on this card; each
+//     ray's V values one vector load, RAYS rays' loads in flight). A
+//     cluster of ``cluster`` blocks then sums its copies through distributed
+//     shared memory, each block one slice of the image in rank order, and
+//     writes the cluster's partial image to scratch (one block a cluster,
+//     the plan's default: clusters of 2-8 ran slower on the inversion
+//     path's images); a second kernel adds the grid / cluster partials in a
+//     fixed order. The order across blocks is fixed, so the partials' sum is
+//     repeatable given the partials; the shared-memory atomics inside a
+//     block are not, so a block's copy, and the image, can differ by the
+//     order of its adds from run to run.
+//   * The adjoint's staged form: persistent blocks stage the cotangent
+//     image in shared memory once and gather each ray's four corners from
+//     it; each ray's arithmetic is the first kernel's, operation by
+//     operation, so its results are bit-equal to it.
+//   * Images too large for shared memory keep the first design (the global
+//     form: atomics into the image in device memory, corners gathered from
+//     it), chosen on the host by the image's bytes (kernels/cic.py plan).
+//
+// Built with --fmad=false: each product is rounded as the plain version
+// rounds it, so the forward differs from it only by the order of the adds
+// and the adjoint is its arithmetic in another summation order.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "deposit.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
+// the shared forms' blocks
+constexpr int SM_THREADS = 1024;
+// the largest cluster the shared forward takes (the portable limit)
+constexpr int MAX_CLUSTER = 8;
+// rays a shared-form thread has in flight a trip
+constexpr int RAYS = 4;
+// runs of partials the sum kernel adds apart (one warp each)
+constexpr int SUM_SPLIT = THREADS / 32;
 
 struct Geometry {
   int nx, ny;
@@ -74,17 +108,77 @@ __device__ __forceinline__ bool cloud_of(const Geometry& G, float x, float y,
   return true;
 }
 
+// ray i's V values, one vector load for V = 2 and 4 (the wrapper passes
+// vals 4 V-byte aligned)
 template <int V>
-__global__ void __launch_bounds__(THREADS)
-    cic_forward(const float* x, const float* y, const float* vals,
-                long long N, Geometry G, float* acc) {
-  const long long i = blockIdx.x * (long long)THREADS + threadIdx.x;
-  if (i >= N) return;
-  Cloud c;
-  if (!cloud_of(G, x[i], y[i], c)) return;
-  float v[V];
+__device__ __forceinline__ void load_vals(const float* vals, long long i,
+                                          float v[V]) {
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(vals) + i);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(vals) + i);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = __ldg(vals + i);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vals(float* out, long long i,
+                                           const float v[V]) {
+  if constexpr (V == 4)
+    reinterpret_cast<float4*>(out)[i] = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2)
+    reinterpret_cast<float2*>(out)[i] = make_float2(v[0], v[1]);
+  else
+    out[i] = v[0];
+}
+
+// the shared image's layout: one plane a channel, each of plane_of floats
+// (the pixels to a 16-byte boundary), so that a warp's adds to one channel
+// spread over the banks whatever V is (a float atomicAdd to shared memory
+// is a compare-and-swap loop, and a conflict repeats its load and swap)
+__host__ __device__ inline int plane_of(int npix) {
+  return (npix + 3) / 4 * 4;
+}
+
+template <int V>
+__device__ __forceinline__ void add_shared(float* img, int plane, int pix,
+                                           const float v[V], float w) {
 #pragma unroll
-  for (int k = 0; k < V; ++k) v[k] = vals[i * V + k];
+  for (int c = 0; c < V; ++c) atomicAdd(img + c * plane + pix, v[c] * w);
+}
+
+// output chunk k (floats 4k .. 4k + 3 of the (nx, ny, V) image) of a
+// shared image
+template <int V>
+__device__ __forceinline__ float4 chunk_of(const float* img, int plane,
+                                           int k) {
+  if constexpr (V == 4) {
+    return make_float4(img[k], img[plane + k], img[2 * plane + k],
+                       img[3 * plane + k]);
+  } else if constexpr (V == 2) {
+    const float2 a = reinterpret_cast<const float2*>(img)[k];
+    const float2 b = reinterpret_cast<const float2*>(img + plane)[k];
+    return make_float4(a.x, b.x, a.y, b.y);
+  } else {
+    return reinterpret_cast<const float4*>(img)[k];
+  }
+}
+
+// ray i's deposit (position x, y; values from values(v), asked for only
+// where the ray lands) into the image at img: device memory (the global
+// form, as large as the caller's: 64-bit node offsets) or a block's shared
+// copy (SHARED)
+template <int V, bool SHARED, typename VALUES>
+__device__ __forceinline__ void deposit_ray(const Geometry& G, float x,
+                                            float y, VALUES values,
+                                            float* img) {
+  Cloud c;
+  if (!cloud_of(G, x, y, c)) return;
+  float v[V];
+  values(v);
   const float gx[2] = {1.0f - c.fx, c.fx}, gy[2] = {1.0f - c.fy, c.fy};
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
@@ -92,33 +186,156 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       if (!c.oky[b]) continue;
-      float* node = acc + ((long long)(c.ix + a) * G.ny + c.iy + b) * V;
-      deposit::add_weighted<V>(node, v, gx[a] * gy[b]);
+      if constexpr (SHARED) {
+        add_shared<V>(img, plane_of(G.nx * G.ny), (c.ix + a) * G.ny + c.iy + b,
+                      v, gx[a] * gy[b]);
+      } else {
+        float* node = img + ((long long)(c.ix + a) * G.ny + c.iy + b) * V;
+        deposit::add_weighted<V>(node, v, gx[a] * gy[b]);
+      }
     }
   }
 }
 
+// the global form: one thread a ray in the caller's order, atomics into
+// the image in device memory
 template <int V>
 __global__ void __launch_bounds__(THREADS)
-    cic_backward(const float* x, const float* y, const float* vals,
-                 long long N, Geometry G, const float* dacc, float* dx,
-                 float* dy, float* dvals) {
+    cic_forward(const float* x, const float* y, const float* vals,
+                long long N, Geometry G, float* acc) {
   const long long i = blockIdx.x * (long long)THREADS + threadIdx.x;
   if (i >= N) return;
+  deposit_ray<V, false>(G, x[i], y[i],
+                        [&](float v[V]) { load_vals<V>(vals, i, v); }, acc);
+}
+
+// the shared form's image: pitch floats (V planes), a block's slice of
+// it in a cluster of cl
+__host__ __device__ inline int pitch_of(const Geometry& G, int V) {
+  return V * plane_of(G.nx * G.ny);
+}
+
+__host__ __device__ inline int slice_of(int pitch, int cl) {
+  return (pitch / 4 + cl - 1) / cl * 4;
+}
+
+// the shared form: a block's contiguous range of rays into its copy of
+// the image, the cluster's copies summed slice by slice in rank order into
+// the cluster's partial image (partials + cluster index x pitch)
+template <int V, bool CLUSTER>
+__global__ void __launch_bounds__(SM_THREADS)
+    cic_forward_shared(const float* x, const float* y, const float* vals,
+                       long long N, Geometry G, float* partials) {
+  extern __shared__ __align__(16) float img[];
+  const int pitch = pitch_of(G, V);
+  float4* img4 = reinterpret_cast<float4*>(img);
+  for (int k = threadIdx.x; k < pitch / 4; k += SM_THREADS)
+    img4[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  const long long per = (N + gridDim.x - 1) / gridDim.x;
+  const long long r0 = blockIdx.x * per;
+  const long long r1 = min(N, r0 + per);
+  // RAYS rays a thread a trip, their loads issued before their adds
+  for (long long i0 = r0 + threadIdx.x; i0 < r1;
+       i0 += (long long)RAYS * SM_THREADS) {
+    float px[RAYS], py[RAYS], v[RAYS][V];
+#pragma unroll
+    for (int r = 0; r < RAYS; ++r) {
+      const long long i = i0 + (long long)r * SM_THREADS;
+      if (i < r1) {
+        px[r] = __ldg(x + i);
+        py[r] = __ldg(y + i);
+        load_vals<V>(vals, i, v[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RAYS; ++r)
+      if (i0 + (long long)r * SM_THREADS < r1)
+        deposit_ray<V, true>(G, px[r], py[r], [&](float u[V]) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) u[k] = v[r][k];
+        }, img);
+  }
+  int rank = 0, cl = 1;
+  if constexpr (CLUSTER) {
+    rank = (int)cg::this_cluster().block_rank();
+    cl = (int)cg::this_cluster().num_blocks();
+    // every copy of the cluster is complete
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+  const int slice = slice_of(pitch, cl);
+  const int s0 = rank * slice, s1 = min(pitch, s0 + slice);
+  float4* out = reinterpret_cast<float4*>(
+      partials + (long long)(blockIdx.x / cl) * pitch);
+  const int plane = plane_of(G.nx * G.ny);
+  for (int k = s0 / 4 + threadIdx.x; k < s1 / 4; k += SM_THREADS) {
+    float4 sum = chunk_of<V>(img, plane, k);
+    if constexpr (CLUSTER) {
+      cg::cluster_group cluster = cg::this_cluster();
+      sum = chunk_of<V>(cluster.map_shared_rank(img, 0), plane, k);
+      for (int r = 1; r < cl; ++r) {
+        const float4 q = chunk_of<V>(cluster.map_shared_rank(img, r), plane,
+                                     k);
+        sum.x = sum.x + q.x; sum.y = sum.y + q.y;
+        sum.z = sum.z + q.z; sum.w = sum.w + q.w;
+      }
+    }
+    out[k] = sum;
+  }
+  // no block leaves while another reads its copy
+  if constexpr (CLUSTER) cg::this_cluster().sync();
+}
+
+// acc[k], the sum of the partial images' element k in a fixed order:
+// SUM_SPLIT runs of consecutive partials, each summed in partial order by
+// one warp's lane, then the runs' sums in run order
+__global__ void __launch_bounds__(THREADS)
+    cic_sum(const float* partials, int n_partials, int pitch, int n,
+            float* acc) {
+  __shared__ float run[SUM_SPLIT][32];
+  const int lane = threadIdx.x % 32, r = threadIdx.x / 32;
+  const int k = blockIdx.x * 32 + lane;
+  const int per = (n_partials + SUM_SPLIT - 1) / SUM_SPLIT;
+  const int p0 = r * per, p1 = min(n_partials, p0 + per);
+  if (k < n && p0 < p1) {
+    float s = partials[(long long)p0 * pitch + k];
+#pragma unroll 4
+    for (int p = p0 + 1; p < p1; ++p)
+      s = s + partials[(long long)p * pitch + k];
+    run[r][lane] = s;
+  }
+  __syncthreads();
+  if (r == 0 && k < n) {
+    float s = run[0][lane];
+    for (int q = 1; q < SUM_SPLIT && q * per < n_partials; ++q)
+      s = s + run[q][lane];
+    acc[k] = s;
+  }
+}
+
+// ray i's adjoint (position px, py; values from values(v), asked for only
+// where the ray lands) against the cotangent image at img (device memory:
+// 64-bit node offsets; or shared: int)
+template <int V, typename IDX, typename VALUES>
+__device__ __forceinline__ void adjoint_ray(const Geometry& G, float px,
+                                            float py, VALUES values,
+                                            long long i, const float* img,
+                                            float* dx, float* dy,
+                                            float* dvals) {
   Cloud c;
   float dv[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) dv[k] = 0.0f;
-  if (!cloud_of(G, x[i], y[i], c)) {
+  if (!cloud_of(G, px, py, c)) {
     dx[i] = 0.0f;
     dy[i] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < V; ++k) dvals[i * V + k] = 0.0f;
+    store_vals<V>(dvals, i, dv);
     return;
   }
   float v[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) v[k] = vals[i * V + k];
+  values(v);
   const float gx[2] = {1.0f - c.fx, c.fx}, gy[2] = {1.0f - c.fy, c.fy};
   float dw[2][2];
 #pragma unroll
@@ -127,8 +344,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int b = 0; b < 2; ++b) {
       dw[a][b] = 0.0f;
       if (!(c.okx[a] && c.oky[b])) continue;
-      const float* g =
-          dacc + ((long long)(c.ix + a) * G.ny + c.iy + b) * V;
+      const float* g = img + ((IDX)(c.ix + a) * G.ny + c.iy + b) * V;
       const float w = gx[a] * gy[b];
 #pragma unroll
       for (int k = 0; k < V; ++k) {
@@ -144,8 +360,64 @@ __global__ void __launch_bounds__(THREADS)
                     gx[1] * (dw[1][1] - dw[1][0]);
   dx[i] = dfx * G.sx;
   dy[i] = dfy * G.sy;
+  store_vals<V>(dvals, i, dv);
+}
+
+// the global form: one thread a ray, corners gathered from device memory
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+    cic_backward(const float* x, const float* y, const float* vals,
+                 long long N, Geometry G, const float* dacc, float* dx,
+                 float* dy, float* dvals) {
+  const long long i = blockIdx.x * (long long)THREADS + threadIdx.x;
+  if (i >= N) return;
+  adjoint_ray<V, long long>(
+      G, x[i], y[i], [&](float v[V]) { load_vals<V>(vals, i, v); }, i, dacc,
+      dx, dy, dvals);
+}
+
+// the staged form: persistent blocks, the cotangent image copied to shared
+// memory once a block, RAYS rays a thread a trip with their loads issued
+// first
+template <int V>
+__global__ void __launch_bounds__(SM_THREADS)
+    cic_backward_staged(const float* __restrict__ x,
+                        const float* __restrict__ y,
+                        const float* __restrict__ vals, long long N,
+                        Geometry G, const float* __restrict__ dacc,
+                        float* __restrict__ dx, float* __restrict__ dy,
+                        float* __restrict__ dvals) {
+  extern __shared__ __align__(16) float img[];
+  const int n = G.nx * G.ny * V;
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(dacc) % 16 == 0) {
+    for (int k = threadIdx.x; k < n / 4; k += SM_THREADS)
+      reinterpret_cast<float4*>(img)[k] =
+          __ldg(reinterpret_cast<const float4*>(dacc) + k);
+  } else {
+    for (int k = threadIdx.x; k < n; k += SM_THREADS) img[k] = dacc[k];
+  }
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * SM_THREADS;
+  for (long long i0 = blockIdx.x * (long long)SM_THREADS + threadIdx.x;
+       i0 < N; i0 += RAYS * stride) {
+    float px[RAYS], py[RAYS], v[RAYS][V];
 #pragma unroll
-  for (int k = 0; k < V; ++k) dvals[i * V + k] = dv[k];
+    for (int r = 0; r < RAYS; ++r) {
+      const long long i = i0 + r * stride;
+      if (i < N) {
+        px[r] = __ldg(x + i);
+        py[r] = __ldg(y + i);
+        load_vals<V>(vals, i, v[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RAYS; ++r)
+      if (i0 + r * stride < N)
+        adjoint_ray<V, int>(G, px[r], py[r], [&](float u[V]) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) u[k] = v[r][k];
+        }, i0 + r * stride, img, dx, dy, dvals);
+  }
 }
 
 Geometry geometry(int nx, int ny, float hx, float sx, float hy, float sy) {
@@ -158,20 +430,115 @@ unsigned blocks_of(long long N) {
   return (unsigned)((N + THREADS - 1) / THREADS);
 }
 
+// a kernel's dynamic shared bytes allowed where they pass the default
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int V>
+int forward_shared(const float* x, const float* y, const float* vals,
+                   long long N, const Geometry& G, int grid, int cl,
+                   float* scratch, float* acc, cudaStream_t s) {
+  const size_t smem = (size_t)pitch_of(G, V) * sizeof(float);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(SM_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t rc;
+  if (cl > 1) {
+    rc = allow_smem(cic_forward_shared<V, true>, smem);
+    if (rc == cudaSuccess)
+      rc = cudaLaunchKernelEx(&cfg, cic_forward_shared<V, true>, x, y, vals,
+                              N, G, scratch);
+  } else {
+    cfg.numAttrs = 0;
+    rc = allow_smem(cic_forward_shared<V, false>, smem);
+    if (rc == cudaSuccess)
+      rc = cudaLaunchKernelEx(&cfg, cic_forward_shared<V, false>, x, y, vals,
+                              N, G, scratch);
+  }
+  if (rc != cudaSuccess) return (int)rc;
+  const int n = G.nx * G.ny * V;
+  cic_sum<<<(n + 31) / 32, THREADS, 0, s>>>(scratch, grid / cl,
+                                             pitch_of(G, V), n, acc);
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+int adjoint_staged(const float* x, const float* y, const float* vals,
+                   long long N, const Geometry& G, int grid, const float* dacc,
+                   float* dx, float* dy, float* dvals, cudaStream_t s) {
+  const size_t smem = (size_t)G.nx * G.ny * V * sizeof(float);
+  const cudaError_t rc = allow_smem(cic_backward_staged<V>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  cic_backward_staged<V><<<(unsigned)grid, SM_THREADS, smem, s>>>(
+      x, y, vals, N, G, dacc, dx, dy, dvals);
+  return (int)cudaGetLastError();
+}
+
+// whether the shared forms take an image of nx ny V floats on this card
+bool image_fits(int nx, int ny, int V) {
+  int dev = 0, most = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  return (long long)V * ((nx * (long long)ny + 3) / 4) * 16 <= most;
+}
+
 }  // namespace
 
-// x, y: (N,) f32 positions [mm]; vals: (N, V) f32, V = 1, 2 or 4; hx, hy
-// = L/2 and sx, sy = n/L of each axis as float32; acc: (nx, ny, V) f32,
-// zeroed. Returns cudaGetLastError(), or cudaErrorInvalidValue.
+// The shared forward's scratch: the floats of one partial image (V planes
+// of nx ny floats, each to a 16-byte boundary).
+extern "C" int cic_pitch(int V, int nx, int ny) {
+  Geometry G;
+  G.nx = nx; G.ny = ny;
+  return pitch_of(G, V);
+}
+
+// x, y: (N,) f32 positions [mm]; vals: (N, V) f32, V = 1, 2 or 4, 4 V-byte
+// aligned; hx, hy = L/2 and sx, sy = n/L of each axis as float32. grid 0:
+// the global form, acc (nx, ny, V) f32 zeroed. grid > 0: the shared form,
+// grid blocks in clusters of ``cluster`` (1 to MAX_CLUSTER, dividing grid),
+// scratch grid / cluster partial images of cic_pitch floats, acc written.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for what the form
+// does not take.
 extern "C" int cic_deposit(const float* x, const float* y, const float* vals,
                            int V, long long N, int nx, int ny, float hx,
-                           float sx, float hy, float sy, float* acc,
+                           float sx, float hy, float sy, int grid,
+                           int cluster, float* scratch, float* acc,
                            void* stream) {
-  if ((V != 1 && V != 2 && V != 4) || nx < 1 || ny < 1)
+  if ((V != 1 && V != 2 && V != 4) || nx < 1 || ny < 1 || grid < 0)
     return (int)cudaErrorInvalidValue;
-  if (N == 0) return 0;
+  if (grid > 0 && (cluster < 1 || cluster > MAX_CLUSTER ||
+                   grid % cluster != 0 || !image_fits(nx, ny, V) ||
+                   (long long)nx * ny * V >= 0x7fffffffLL))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Geometry G = geometry(nx, ny, hx, sx, hy, sy);
+  if (grid > 0) {
+    if (V == 1)
+      return forward_shared<1>(x, y, vals, N, G, grid, cluster, scratch, acc,
+                               s);
+    if (V == 2)
+      return forward_shared<2>(x, y, vals, N, G, grid, cluster, scratch, acc,
+                               s);
+    return forward_shared<4>(x, y, vals, N, G, grid, cluster, scratch, acc,
+                             s);
+  }
+  if (N == 0) return 0;
   const unsigned b = blocks_of(N);
   if (V == 1)
     cic_forward<1><<<b, THREADS, 0, s>>>(x, y, vals, N, G, acc);
@@ -183,18 +550,29 @@ extern "C" int cic_deposit(const float* x, const float* y, const float* vals,
 }
 
 // The adjoint of cic_deposit at the same inputs: dacc (nx, ny, V) f32 in;
-// dx, dy (N,) and dvals (N, V) f32 out, every element written. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue.
+// dx, dy (N,) and dvals (N, V) f32 out (4 V-byte aligned), every element
+// written. grid 0: the global form; grid > 0: the staged form, grid
+// persistent blocks. Returns cudaGetLastError(), or cudaErrorInvalidValue.
 extern "C" int cic_adjoint(const float* x, const float* y, const float* vals,
                            int V, long long N, int nx, int ny, float hx,
-                           float sx, float hy, float sy, const float* dacc,
-                           float* dx, float* dy, float* dvals,
-                           void* stream) {
-  if ((V != 1 && V != 2 && V != 4) || nx < 1 || ny < 1)
+                           float sx, float hy, float sy, int grid,
+                           const float* dacc, float* dx, float* dy,
+                           float* dvals, void* stream) {
+  if ((V != 1 && V != 2 && V != 4) || nx < 1 || ny < 1 || grid < 0)
+    return (int)cudaErrorInvalidValue;
+  if (grid > 0 && (!image_fits(nx, ny, V) ||
+                   (long long)nx * ny * V >= 0x7fffffffLL))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const Geometry G = geometry(nx, ny, hx, sx, hy, sy);
+  if (grid > 0) {
+    if (V == 1)
+      return adjoint_staged<1>(x, y, vals, N, G, grid, dacc, dx, dy, dvals, s);
+    if (V == 2)
+      return adjoint_staged<2>(x, y, vals, N, G, grid, dacc, dx, dy, dvals, s);
+    return adjoint_staged<4>(x, y, vals, N, G, grid, dacc, dx, dy, dvals, s);
+  }
   const unsigned b = blocks_of(N);
   if (V == 1)
     cic_backward<1><<<b, THREADS, 0, s>>>(x, y, vals, N, G, dacc, dx, dy,

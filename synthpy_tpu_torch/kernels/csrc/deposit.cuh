@@ -1,7 +1,8 @@
 // The channel loop of a cloud-in-cell deposit, shared by K8 (deposit.cu)
 // and K12 (cic.cu): V values of one ray, each times its corner weight,
-// added atomically into the V channels of one node. Both files are built
-// with --fmad=false, so each product is rounded before its add.
+// added atomically into the V channels of one node (in device memory, or
+// in a block's shared copy of the image: K12's shared form). Both files
+// are built with --fmad=false, so each product is rounded before its add.
 
 #pragma once
 

@@ -62,6 +62,38 @@ def batch_ms(fn: Callable, calls: int = 20) -> float:
     return a.elapsed_time(b) / calls
 
 
+def graph_ms(fn: Callable, calls: int = 20, reps: int = 3) -> float:
+    """Device time of one fn() call [ms], the host's time left out: ``calls``
+    calls captured in one CUDA graph and replayed between CUDA events
+    (best of ``reps``). A kernel below ~0.05 ms takes less than the host's
+    Python a call, so ``batch_ms`` would time the host there. fn must be
+    capturable: its tensors on the card, no host synchronisation."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b) / calls)
+    del graph
+    return best
+
+
 def kernel_ms(fn: Callable, trace: Path, reps: int = 5) -> Dict[str, float]:
     """Device time of one fn() call [ms] by device kernel (``total`` for
     all), from a torch.profiler trace over ``reps`` calls written to
@@ -311,7 +343,8 @@ def variant(kernel: _build.Kernel, name: str,
     path = _build.BUILD_DIR / f"{Path(kernel.source).stem}_{name}.cu"
     path.write_text(text)
     return _build.Kernel(str(path), kernel.functions,
-                         kernel.flags if flags is None else flags)
+                         kernel.flags if flags is None else flags,
+                         helpers=kernel.helpers)
 
 
 @contextlib.contextmanager

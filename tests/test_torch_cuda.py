@@ -1626,6 +1626,84 @@ def test_cic_kernels_match_plain(dev, V):
         assert float(a[2:4].abs().max()) == 0.0
 
 
+def _cic_rays(dev, V, n, bins, L):
+    """n rays over and around a detector of ``bins`` pixels spanning L (mm),
+    with parked (NaN, inf), edge and far-off rays first, and their
+    values."""
+    g = torch.Generator(device=dev).manual_seed(10 + V)
+    x = (torch.rand(n, generator=g, device=dev) - 0.5) * 1.2 * L[0]
+    y = (torch.rand(n, generator=g, device=dev) - 0.5) * 1.2 * L[1]
+    hx, hy = L[0] / 2, L[1] / 2
+    x[:8] = torch.tensor([-hx, hx, 1e12, float("nan"), float("inf"),
+                          -1e30, hx - 1e-6, 0.0], device=dev)
+    y[:8] = torch.tensor([0.0, hy, 0.0, 1.0, 0.0, 0.0, -hy, float("nan")],
+                         device=dev)
+    vals = torch.randn((n, V), generator=g, device=dev)
+    return x, y, vals
+
+
+@pytest.mark.parametrize("bins", [(96, 96), (431, 321)])
+@pytest.mark.parametrize("V", [1, 2, 4])
+def test_cic_forms_match_plain(dev, V, bins, monkeypatch):
+    """K12's forms on 300,000 rays with parked, NaN, edge and far-off rays:
+    the plan's form (shared memory at 96 x 96, the global form at 431 x
+    321) and the global form each within 1e-5 of the largest value of
+    cic_plain; the adjoint's staged form bit-equal to the global form (the
+    first design's arithmetic), parked rays exactly 0."""
+    from synthpy_tpu_torch.kernels import cic
+
+    L = (18.0, 13.5)
+    x, y, vals = _cic_rays(dev, V, 300_000, bins, L)
+    ref = cic.cic_plain(x, y, vals, bins, *L)
+    dacc = torch.randn(ref.shape, generator=torch.Generator(
+        device=dev).manual_seed(V), device=dev)
+    shared = bins == (96, 96)
+    assert (cic.plan("forward", bins, V, x.shape[0], 132).grid > 0) == shared
+    out = {}
+    for form in ("plan", "global"):
+        if form == "global":
+            monkeypatch.setattr(cic, "SMEM_MAX", 0)
+        acc = cic.deposit(x, y, vals, bins, *L)
+        assert float((acc - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+        out[form] = cic.adjoint(x, y, vals, dacc, bins, *L)
+    want = cic.cic_vjp_plain(x, y, vals, dacc, bins, *L)
+    for a, b, c in zip(out["plan"], out["global"], want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max())
+        assert float(a[2:6].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_cic_forward_clusters_match_plain(dev, cluster, monkeypatch):
+    """The shared forward at every cluster size, V = 1, 2, 4 at 96 x 96 on
+    1 M rays (ranges of rays a block, one partial image a cluster): within
+    1e-5 of the largest value of cic_plain; a grid of one cluster too."""
+    from synthpy_tpu_torch.kernels import cic
+
+    monkeypatch.setitem(cic.FORWARD_CLUSTER, 1, cluster)
+    monkeypatch.setitem(cic.FORWARD_CLUSTER, 2, cluster)
+    monkeypatch.setitem(cic.FORWARD_CLUSTER, 4, cluster)
+    for V in (1, 2, 4):
+        for n in (1_000_000, 3_000):
+            x, y, vals = _cic_rays(dev, V, n, (96, 96), (18.0, 13.5))
+            acc = cic.deposit(x, y, vals, (96, 96), 18.0, 13.5)
+            ref = cic.cic_plain(x, y, vals, (96, 96), 18.0, 13.5)
+            assert float((acc - ref).abs().max()) <= 1e-5 * float(
+                ref.abs().max())
+
+
+def test_cic_pitch_is_the_kernels(dev):
+    """The scratch a partial image takes (``cic.image_bytes``) is the
+    kernel's own (``cic.cu`` cic_pitch)."""
+    from synthpy_tpu_torch.kernels import cic
+
+    lib = cic.KERNEL.load()
+    for V in cic.CHANNELS:
+        for bins in ((96, 96), (95, 97), (1, 1), (3, 5), (431, 321)):
+            assert lib.cic_pitch(V, *bins) * 4 == cic.image_bytes(bins, V)
+
+
 @pytest.mark.parametrize("tier", ["f32", "bf16"])
 @pytest.mark.parametrize("probe", ["z", "x"])
 def test_renderer_gradient_on_card_matches_cpu(dev, probe, tier):
@@ -2128,8 +2206,11 @@ def test_xray_fold_kernel_matches_plain(dev, mode, probe):
     combination of tau / em / w scratch; in mode 0 the path's 30 x 40
     table (staged in shared memory) and a 120 x 130 one (read through L1),
     with Te and rho planted at the grids' nodes, either side of them,
-    below and above the tables, at +-inf, and rho at NaN (a NaN Te takes
-    the first node on the card; the plain lookup gives NaN)."""
+    below and above the tables, at +-inf and at NaN, and a table whose
+    clustered nodes take the walk's loop: NaN at the same elements as the
+    plain version (a NaN Te or rho gives NaN w, tau and em), and every
+    other element bit-equal to the kernel's on the same volumes with each
+    NaN Te replaced by a finite one."""
     from synthpy_tpu_torch.kernels import xray as kx
     from synthpy_tpu_torch.optics import xray
 
@@ -2153,12 +2234,18 @@ def test_xray_fold_kernel_matches_plain(dev, mode, probe):
     rho = 1e-3 * (1 + 0.5 * rng.random(shape))
     Te = 50 * (1 + rng.random(shape))
     T2, rg2 = np.logspace(0, 3, 120), np.logspace(-5, 1, 130)
+    # nodes clustered at 1 eV: more than two nodes a bucket (the loop walk)
+    T3 = np.concatenate([[1.0, 1.0005, 1.001, 1.0015],
+                         np.logspace(0.1, 3, 26)])
     tables = {"path": kfn, "large": xray.make_opacity_lookup(
-        T2, rg2, 5e3 * np.outer(T2**-1.5, rg2**0.5), device=dev)}
+        T2, rg2, 5e3 * np.outer(T2**-1.5, rg2**0.5), device=dev),
+        "loop": xray.make_opacity_lookup(
+            T3, rg2, 5e3 * np.outer(T3**-1.5, rg2**0.5), device=dev)}
+    assert tables["loop"].table(dev).t_axis.steps > 2
     f32 = np.float32
     t_nodes = np.concatenate([T2, np.nextafter(T2.astype(f32), f32(0)),
                               np.nextafter(T2.astype(f32), f32(np.inf)),
-                              [0.5, 2e3, np.inf, -np.inf]])
+                              [0.5, 2e3, np.inf, -np.inf, np.nan, np.nan]])
     r_nodes = np.concatenate([rg2, np.nextafter(rg2.astype(f32), f32(0)),
                               np.nextafter(rg2.astype(f32), f32(np.inf)),
                               [1e-7, 50.0, np.inf, -np.inf, np.nan]])
@@ -2167,8 +2254,11 @@ def test_xray_fold_kernel_matches_plain(dev, mode, probe):
     rho.flat[idx[t_nodes.size:]] = r_nodes
     R = torch.from_numpy(rho.astype(f32)).to(dev).movedim(probe, 0)
     T = torch.from_numpy(Te.astype(f32)).to(dev).movedim(probe, 0)
+    # the same volumes with each NaN Te replaced by a finite one
+    T_fin = torch.from_numpy(np.where(np.isnan(Te), 50.0, Te).astype(
+        f32)).to(dev).movedim(probe, 0)
 
-    def close(a, b):
+    def close(a, b, c=None):
         if b is None:
             assert a is None
             return
@@ -2177,6 +2267,9 @@ def test_xray_fold_kernel_matches_plain(dev, mode, probe):
         assert torch.equal(a[~fin].isnan(), b[~fin].isnan())
         assert float((a - b)[fin].abs().max()) <= 1e-6 * float(
             b[fin].abs().max())
+        if c is not None:
+            assert torch.equal(a[fin].view(torch.int32),
+                               c[fin].view(torch.int32))
 
     for name, lookup in (tables.items() if mode == 0 else [("", None)]):
         if mode == 0:
@@ -2188,7 +2281,11 @@ def test_xray_fold_kernel_matches_plain(dev, mode, probe):
             tab = None
         for want in range(1, 8):
             outs = {}
-            for fn in (kx.fold, kx.fold_plain):
+            runs = [("fold", kx.fold, b_in), ("fold_plain", kx.fold_plain,
+                                             b_in)]
+            if mode == 0:
+                runs.append(("finite_te", kx.fold, T_fin))
+            for name, fn, b_run in runs:
                 pb, na, nb = a_in.shape
                 tau = (torch.full((na, nb), 0.25, device=dev)
                        if want & 1 else None)
@@ -2197,18 +2294,24 @@ def test_xray_fold_kernel_matches_plain(dev, mode, probe):
                 w = (torch.full((pb, na, nb), -1.0, device=dev)
                      if want & 4 else None)
                 a_ = a_in if mode == 0 or want & 5 else None
-                b_ = b_in if mode == 0 or want & 2 else None
+                b_ = b_run if mode == 0 or want & 2 else None
                 fn(a_, b_, mode=mode, table=tab, w0=probe != 0,
                    wlast=True, tau=tau, em=em, wout=w)
-                outs[fn.__name__] = (tau, em, w)
-            for a, b in zip(outs["fold"], outs["fold_plain"]):
-                close(a, b)
+                outs[name] = (tau, em, w)
+            if mode == 0:
+                # the planted NaNs reach every output
+                assert all(bool(t.isnan().any()) for t in outs["fold_plain"]
+                           if t is not None)
+            for k, (a, b) in enumerate(zip(outs["fold"],
+                                           outs["fold_plain"])):
+                close(a, b, outs["finite_te"][k] if mode == 0 else None)
 
 
 def test_pp_kernels_match_plain(dev):
     """K16: ``pp_fold`` on a batch of w planes and ``pp_chords`` (both
     modes, y-probing through strided volumes) against their plain
-    versions, within 1e-6 relative."""
+    versions, within 1e-6 relative; ``pp_chords`` with a NaN Te voxel:
+    NaN depth at the same chords as the plain version."""
     from synthpy_tpu_torch.kernels import xray as kx
 
     rho, Te, kfn = _xray_scene(dev)
@@ -2243,6 +2346,59 @@ def test_pp_kernels_match_plain(dev):
     for a, b in zip(kx.pp_chords(r, t, geo, 40, 1),
                     kx.pp_chords_plain(r, t, geo, 40, 1, None)):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    # a NaN Te voxel in the chords' way
+    t_nan = t.clone()
+    t_nan[n // 2, 3:7, n // 2] = float("nan")
+    a = kx.pp_chords(r, t_nan, geo, 40, 0, kfn.table(dev))
+    b = kx.pp_chords_plain(r, t_nan, geo, 40, 0, kfn.table(dev))
+    assert bool(b.isnan().any()) and not bool(b.isnan().all())
+    assert torch.equal(a.isnan(), b.isnan())
+    fin = ~b.isnan()
+    assert float((a - b)[fin].abs().max()) <= 1e-6 * float(
+        b[fin].abs().max())
+
+
+@pytest.mark.parametrize("tile", [None, 3])
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("probe", ["x", "y", "z"])
+def test_pp_chords_kernel_every_axis_and_mode(dev, probe, mode, tile,
+                                              monkeypatch):
+    """K16's chord sampler probing along x, y and z in both modes, its
+    pixels flat and in 2-D tiles of a detector whose sides are not
+    multiples of them, through strided volumes with a NaN Te voxel: within
+    1e-6 relative of its plain version, NaN at the same chords and
+    samples, and every other value bit-equal to the kernel's on the
+    volumes without the NaN."""
+    from synthpy_tpu_torch.kernels import xray as kx
+    from synthpy_tpu_torch.optics import xray
+
+    monkeypatch.setattr(kx, "CHORDS_TILE_LG", tile)
+
+    rho, Te, kfn = _xray_scene(dev)
+    coords = [np.linspace(-2e-3, 2e-3, k, dtype=np.float32)
+              for k in rho.shape]
+    geo = xray.chord_geometry(coords, 0.05, 0.2, (37, 45), 20.0, 16.0,
+                              probe)
+    r = rho.transpose(0, 2).contiguous().transpose(0, 2)
+    t = Te.transpose(0, 2).contiguous().transpose(0, 2)
+    t_nan = t.clone()
+    c = [k // 2 for k in rho.shape]
+    t_nan[c[0] - 1:c[0] + 1, c[1] - 1:c[1] + 1, c[2]] = float("nan")
+    tab = kfn.table(dev) if mode == 0 else None
+    got = kx.pp_chords(r, t_nan, geo, 48, mode, tab)
+    want = kx.pp_chords_plain(r, t_nan, geo, 48, mode, tab)
+    clean = kx.pp_chords(r, t, geo, 48, mode, tab)
+    if mode == 0:
+        got, want, clean = (got,), (want,), (clean,)
+    assert bool(want[0].isnan().any()) == (mode == 0)
+    for a, b, k in zip(got, want, clean):
+        assert torch.equal(a.isnan(), b.isnan())
+        fin = ~b.isnan()
+        assert float(b[fin].abs().max()) > 0
+        assert float((a - b)[fin].abs().max()) <= 1e-6 * float(
+            b[fin].abs().max())
+        assert torch.equal(a[fin].view(torch.int32),
+                           k[fin].view(torch.int32))
 
 
 def test_xray_explicit_device_and_mixed_routes_on_card(dev):

@@ -93,6 +93,39 @@ def test_torch_opacity_lookup_matches_jax(log_space):
         convert.opacity_lookup(lambda t, r: t, device="cpu")
 
 
+@pytest.mark.parametrize("log_space", [True, False])
+@pytest.mark.parametrize("te_special", ["nan", "inf", "-inf", "zero",
+                                        "first", "last", "below"])
+def test_torch_lookup_plain_special_queries_match_jax(te_special, log_space):
+    """The contract the kernels' lookup is held to (C.13):
+    ``kernels.xray.lookup_plain`` against JAX's ``make_opacity_lookup`` on
+    NaN, +-inf, zero and edge Te, each beside every such rho: NaN exactly
+    where JAX's is NaN (a NaN Te or rho), the rest within 1e-6 of JAX's
+    largest finite value and infinite where JAX's is."""
+    T, rg, table, _ = _power_law_table()
+    jk = jx.make_opacity_lookup(T, rg, table, log_space=log_space)
+    tab = tx.make_opacity_lookup(T, rg, table, log_space=log_space,
+                                 device="cpu").table("cpu")
+    f32 = np.float32
+    special = {"nan": np.nan, "inf": np.inf, "-inf": -np.inf, "zero": 0.0,
+               "first": f32(T[0]), "last": f32(T[-1]),
+               "below": np.nextafter(f32(T[0]), f32(0))}
+    r_vals = np.array([np.nan, np.inf, -np.inf, 0.0, rg[0], rg[-1],
+                       np.nextafter(f32(rg[0]), f32(0)), 1e-3, 1e3],
+                      dtype=f32)
+    te = np.full(r_vals.shape, special[te_special], dtype=f32)
+    want = np.asarray(jk(te, r_vals))
+    got = kx.lookup_plain(tab, _t(te), _t(r_vals)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    # a NaN rho, and a NaN Te with any rho, give NaN
+    assert np.isnan(got[0]) and np.isnan(got).all() == (te_special == "nan")
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    if fin.any():
+        assert np.abs(got[fin] - want[fin]).max() <= 1e-6 * np.abs(
+            want[fin]).max()
+
+
 @pytest.mark.parametrize("probe", ["x", "y", "z"])
 def test_torch_dense_images_match_jax(probe):
     jk, tk = _lookups()

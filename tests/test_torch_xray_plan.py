@@ -23,6 +23,9 @@ planes staged in shared memory. The kernel runs only on a card; here:
   (staged w and j, plane-ordered sums, the w scratch) is bit-equal to
   ``fold_plain`` in both modes, every output combination and every
   probing axis, with ragged tiles and several chunks;
+* the chord sampler's pixel tiles (``kernels.xray.pixel_tile`` and a plain
+  copy of the kernel's ``pixel_of``) take every pixel of a detector once,
+  for shapes off the tiles and flat;
 * the wrappers refuse, before a launch, what the kernels cannot take (the
   "meta" device standing in for the card).
 """
@@ -468,6 +471,76 @@ def test_fold_refuses_a_batch_of_2_31_pixels():
     with pytest.raises(ValueError, match="fewer than 2\\^31"):
         kx.fold(w, None, mode=1, table=None, w0=True, wlast=True, tau=tau,
                 em=None)
+
+
+# -- the chord sampler's pixel tiles ------------------------------------------
+
+def _pixel_walk(rows: int, cols: int, lg: int) -> np.ndarray:
+    """The pixel (row-major index, or -1) of every thread of every block of
+    a chord sampler's launch: a plain copy of xray.cu's pixels_of /
+    pixel_of."""
+    th = CU["THREADS"]
+    assert th == 256
+    tiles_b = -(-cols // (1 << lg))
+    tiles_a = -(-rows // (1 << (8 - lg)))
+    tile = np.arange(tiles_a * tiles_b)[:, None]
+    t = np.arange(th)[None, :]
+    ta, tb = tile // tiles_b, tile % tiles_b
+    r = (ta << (8 - lg)) + (t >> lg)
+    c = (tb << lg) + (t & ((1 << lg) - 1))
+    return np.where((r < rows) & (c < cols), r * cols + c, -1)
+
+
+@pytest.mark.parametrize("lg", range(9))
+@pytest.mark.parametrize("rows,cols", [(431, 321), (41, 31), (1, 138_351),
+                                       (138_351, 1), (7, 9), (256, 256),
+                                       (3, 1000)])
+def test_pixel_tiles_take_each_pixel_once(rows, cols, lg):
+    """Every pixel of a rows x cols detector in exactly one thread, for
+    every tile width, detectors whose sides are not multiples of the tiles
+    among them."""
+    p = _pixel_walk(rows, cols, lg)
+    got = np.bincount(p[p >= 0], minlength=rows * cols)
+    assert got.shape == (rows * cols,) and (got == 1).all()
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_chord_lanes_take_each_pixel_lanes_times(lanes):
+    """The chord sampler's lanes: block b, thread t take the pixel of tile
+    b // LANES, thread ((b % LANES) THREADS + t) // LANES as lane t %
+    LANES, so each (tile, thread) pixel is taken by LANES consecutive
+    threads of one warp, one a lane (xray.cu's CHORD_LANES among them)."""
+    text = (_build.CSRC / "xray.cu").read_text()
+    shipped = int(re.search(r"constexpr int CHORD_LANES = (\d+);",
+                            text).group(1))
+    assert shipped in (1, 2, 4)
+    th, tiles = CU["THREADS"], 5
+    seen = {}
+    for b in range(tiles * lanes):
+        for t in range(th):
+            key = (b // lanes, ((b % lanes) * th + t) // lanes)
+            seen.setdefault(key, []).append((b * th + t, t % lanes))
+    assert len(seen) == tiles * th
+    for taken in seen.values():
+        g = sorted(taken)
+        assert [lane for _, lane in g] == list(range(lanes))
+        assert g[-1][0] - g[0][0] == lanes - 1
+        assert g[0][0] // 32 == g[-1][0] // 32
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 8, 9, 31, 32, 33, 431,
+                                  10**6])
+@pytest.mark.parametrize("default", [3, 5, 8])
+def test_pixel_tile_fits_the_rows(rows, default):
+    """``pixel_tile``: the default tile width, widened until a tile has no
+    more rows than the next power of two above the detector's (one row:
+    256 columns); always a width the kernel takes."""
+    lg = kx.pixel_tile(rows, default)
+    assert default <= lg <= 8
+    assert lg == default or (1 << (8 - lg)) >= rows
+    assert (1 << (8 - lg)) < 2 * max(rows, 1) or lg == default
+    if rows == 1:
+        assert lg == 8
 
 
 def test_kernels_refuse_a_table_of_one_node():
