@@ -2375,10 +2375,9 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
                             calls=20)
         bwd_call = batch_ms(lambda: cic.adjoint(x, y, vals, dacc, bins_, lx,
                                                 ly), calls=20)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plans = {k: cic.plan(k, bins_, V, x.shape[0], sms)
+        grids = {k: cic.grid(k, bins_, V, x.shape[0], dev)
                  for k in ("forward", "adjoint")}
-        part = plans["forward"].partials * cic.image_bytes(bins_, V)
+        part = grids["forward"] * cic.pitch(bins_, V) * 4
         fwd_plain = best_ms(lambda: cic.cic_plain(x, y, vals, bins_, lx,
                                                   ly), reps=3)
         bwd_plain = best_ms(lambda: cic.cic_vjp_plain(x, y, vals, dacc,
@@ -2413,25 +2412,24 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
         # operations from cic.cu: coordinates and fractions ~12, weights 6,
         # a corner's V products and adds (the atomic counted as the add);
         # the adjoint's corners 4 V gathers of two products and adds each.
-        # Bytes: each ray read once, the image written once, and the shared
-        # form's partial images written and read (the first design's count
-        # beside it)
-        fwd_b = bound(N * (8 + 4 * V) + nxy * V * 4 + 2 * part,
-                      N * (18 + 8 * V))
-        fwd_b_first = bound(N * (8 + 4 * V) + nxy * V * 4, N * (18 + 8 * V))
+        # Bytes: each ray read once, the image written once (the function's
+        # need); beside it the design's count, with the shared form's
+        # partial images written and read
+        fwd_b = bound(N * (8 + 4 * V) + nxy * V * 4, N * (18 + 8 * V))
+        fwd_b_design = bound(N * (8 + 4 * V) + nxy * V * 4 + 2 * part,
+                             N * (18 + 8 * V))
         bwd_b = bound(2 * N * (8 + 4 * V) + nxy * V * 4, N * (34 + 16 * V))
         return {"forward_ms": fwd_ms, "adjoint_ms": bwd_ms,
                 "forward_call_ms": fwd_call, "adjoint_call_ms": bwd_call,
                 "forward_plain_ms": fwd_plain, "adjoint_plain_ms": bwd_plain,
                 "library_ms": lib_ms, "forward_bound": fwd_b,
-                "forward_bound_first_design": fwd_b_first,
+                "forward_bound_design": fwd_b_design,
                 "adjoint_bound": bwd_b,
-                "plan": {k: {**p._asdict(), "shared_bytes": (
-                    cic.image_bytes(bins_, V) if p.grid else 0),
-                             "form": "shared" if p.grid else "global",
-                             **({"partials": p.partials}
-                                if k == "forward" else {})}
-                         for k, p in plans.items()}}
+                "plan": {k: {"grid": g, "form": "shared" if g else "global",
+                             "shared_bytes": (cic.pitch(bins_, V) * 4
+                                              if g else 0),
+                             **({"partials": g} if k == "forward" else {})}
+                         for k, g in grids.items()}}
 
     k12_t = {V: k12_times(V) for V in (1, 2, 4)}
     k19_t = {"forward_ms": k19_fwd_ms, "adjoint_ms": k19_adj_ms,
@@ -2471,7 +2469,7 @@ def inverse_path(torch, dev, kernels, bound, reset, path_launches,
                 "time of a call (its two kernels; calls replayed as a CUDA "
                 "graph); call_ms: CUDA events around back-to-back calls",
          "call_ms": t1["forward_call_ms"], "form": t1["plan"]["forward"],
-         "bound_first_design_ms": t1["forward_bound_first_design"][0],
+         "bound_design_ms": t1["forward_bound_design"][0],
          "V2": {k: k12_t[2][k] for k in ("forward_ms", "forward_call_ms",
                                          "forward_plain_ms", "library_ms")},
          "V4": {k: k12_t[4][k] for k in ("forward_ms", "forward_call_ms",
@@ -3165,8 +3163,6 @@ def radiography(torch, dev, kernels, bound, reset, path_launches, controls,
          "ms": chords_ms, "plain_ms": chords_plain_s * 1e3,
          "bound_ms": chords_b[0], "bound_by": chords_b[1],
          "library_ms": None, "call_ms": chords_call_ms,
-         "tile": ("flat" if kx.CHORDS_TILE_LG is None
-                  else 2 ** kx.CHORDS_TILE_LG),
          "per": f"{res_d}^3, {P} chords of {XRAY['n_steps']} samples; ms "
                 "as pp_fold's"}]
     for mod, name, fn in originals:

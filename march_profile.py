@@ -29,7 +29,7 @@ image) on the inversion path's exit rays.
     python3 march_profile.py btable [--root DIR] [--reps N] [--save F]
                                     [--against F] [--variants]
     python3 march_profile.py cic [--root DIR] [--reps N] [--save F]
-                                 [--against F] [--variants]
+                                 [--against F]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -198,8 +198,8 @@ the shipped build. It also times K16 there: ``pp_fold`` on the survey
 batch's w planes with the survey's 431 x 321 detector, with the w nodes
 its crossings read and the 32-byte sectors they lie in, and ``pp_chords``
 at 256^3 with that detector and 160 samples a chord (mode 0 along x, y
-and z, mode 1 along y; ``--variants``: 2-D tiles of its pixels, lanes a
-chord, unrolls), each with ``graph_ms`` (calls replayed as a CUDA graph);
+and z, mode 1 along y; ``--variants``: lanes a chord, unrolls), each with
+``graph_ms`` (calls replayed as a CUDA graph);
 and C.13's
 cases, the survey batch (K15) and the chords along y with NaN Te planted
 at 64 seeded voxels: NaN where the plain version gives NaN
@@ -216,12 +216,11 @@ adjoint's ms (CUDA events around 20 back-to-back calls, best of
 calls replayed as a CUDA graph, ``profiling.graph_ms``; the forward's two
 kernels apart from a profiler trace), the forward's largest error
 relative to ``cic_plain`` and its run-to-run spread, the plan (where the
-tree has ``cic.plan``: grid, cluster, partial images, shared bytes a
-block) and the bytes bounds (the first design's count, and the design's
-with its partial images written and read); the adjoint's outputs are
-hashed for the other tree. Then the path's V = 4 rays onto 431 x 321
-pixels (the global form). ``--variants`` times the forward at the plans
-of ``CIC_VARIANTS`` (blocks a cluster, blocks an SM).
+tree has ``cic.grid``: each kernel's grid, the forward's partial images,
+shared bytes a block) and the bytes bounds (the function's count, and the
+design's with its partial images written and read); the adjoint's outputs
+are hashed for the other tree. Then the path's V = 4 rays onto 431 x 321
+pixels (the global form).
 
 ``btable`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does. It
 times K14 (``kernels.btable.write``) on a 32-plane 1024^2 x 3 batch of a
@@ -1797,13 +1796,11 @@ def _nan_te_case(kx, rb, tb, tab, cases, hashes):
     emit({"case": "survey_nan_te", **cases["survey_nan_te"]})
 
 
-# the chord sampler's tiles ``xray --variants`` times (log2 of a tile's
-# detector columns; the shipped kernel walks the detector flat), and
-# builds of xray.cu with other lanes a chord or sample-loop unrolls
-CHORDS_TILE_VARIANTS = (3, 5, 8)
+# builds of xray.cu with other lanes a chord or sample-loop unrolls that
+# ``xray --variants`` times
 _LANES = "constexpr int CHORD_LANES = 2;"
 _UNROLL = ("#pragma unroll 2\n"
-           "  for (int k0 = 0; k0 <= last; k0 += CHORD_LANES) {")
+           "  for (int k0 = 0; k0 <= last; k0 += LANES) {")
 CHORDS_BUILD_VARIANTS = {
     "chord_lanes_1": [(_LANES, _LANES.replace("2", "1"))],
     "chord_lanes_4": [(_LANES, _LANES.replace("2", "4"))],
@@ -1892,24 +1889,8 @@ def _chords_cases(kx, xray, ax, rho, te, tab, best, cases, hashes,
     cases["chords_y_mode1"] = {
         "ms": best(lambda: kx.pp_chords(rho, te, g, 160, 1))}
     del smp
-    if variants and hasattr(kx, "CHORDS_TILE_LG"):
-        shipped, res = kx.CHORDS_TILE_LG, {}
-        for lg in CHORDS_TILE_VARIANTS:
-            kx.CHORDS_TILE_LG = lg
-            try:
-                tau = kx.pp_chords(rho, te, g, 160, 0, tab)
-                torch.cuda.synchronize()
-                res[f"tile_lg_{lg}"] = {
-                    "ms": best(lambda: kx.pp_chords(rho, te, g, 160, 0,
-                                                    tab)),
-                    "graph_ms": graph_ms(
-                        lambda: kx.pp_chords(rho, te, g, 160, 0, tab),
-                        calls=5),
-                    "bit_equal": _sha(tau) == hashes["chords_y"]["tau"]}
-            finally:
-                kx.CHORDS_TILE_LG = shipped
-            emit({"variant": f"chords_tile_lg_{lg}",
-                  **res[f"tile_lg_{lg}"]})
+    if variants:
+        res = {}
         from synthpy_tpu_torch.kernels import _build, profiling
         kern = kx.PP_CHORDS_KERNEL
         builds = {n: profiling.variant(kern, f"k16_{n}", subs)
@@ -1986,11 +1967,6 @@ def _xray_variants(kx, rb, tb, tab, img, wout, best, want):
     return res
 
 
-# the K12 plans ``cic --variants`` times beside the default one (where the
-# tree has ``cic.plan``): (blocks a cluster, blocks an SM)
-CIC_VARIANTS = ((1, 1), (2, 1), (4, 1), (8, 1), (1, 2), (2, 2))
-
-
 def cic_part(args):
     """The ``cic`` part (see the module's docstring)."""
     import torch
@@ -2005,7 +1981,7 @@ def cic_part(args):
 
     dev = torch.device("cuda")
     out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
-           "planned": hasattr(cic, "plan")}
+           "planned": hasattr(cic, "grid")}
     kern, _, cubin = ptxas(_build.CSRC / cic.KERNEL.source,
                            cic.KERNEL.flags)
     out["ptxas"] = {k: v for k, v in kern.items() if "cic" in k}
@@ -2013,7 +1989,7 @@ def cic_part(args):
     out["sass"] = {}
     here = _here_profiling()
     for V in (1, 4):
-        for pat in (rf"cic_forward_sharedILi{V}ELb0E", rf"cic_forwardILi{V}E"):
+        for pat in (rf"cic_forward_sharedILi{V}E", rf"cic_forwardILi{V}E"):
             dump = Path("chiprun_out") / f"cic_{Path(args.root).name}_{V}.sass"
             try:
                 here.sass_loop_mix(cubin, pat, dump)
@@ -2077,42 +2053,23 @@ def cic_part(args):
                        .max()) for _ in range(5))}
         nxy = bins[0] * bins[1]
         if out["planned"]:
-            pf = cic.plan("forward", bins, V, N, cic._sms(dev))
-            pa = cic.plan("adjoint", bins, V, N, cic._sms(dev))
-            c["plan"] = {"forward": pf._asdict(), "adjoint": pa._asdict(),
-                         "partials": pf.partials,
-                         "shared_bytes": cic.image_bytes(bins, V)}
-            part = pf.partials * cic.image_bytes(bins, V)
+            gf = cic.grid("forward", bins, V, N, dev)
+            c["plan"] = {"forward": gf,
+                         "adjoint": cic.grid("adjoint", bins, V, N, dev),
+                         "partials": gf,
+                         "shared_bytes": cic.pitch(bins, V) * 4}
+            part = gf * cic.pitch(bins, V) * 4
         else:
             part = 0
         # bytes: each ray's position and values read once, the image
-        # written once, and the design's partial images written and read
-        c["forward_bound_ms"] = (N * (8 + 4 * V) + nxy * V * 4
-                                 + 2 * part) / 3.35e12 * 1e3
-        c["forward_bound_first_ms"] = (N * (8 + 4 * V)
-                                       + nxy * V * 4) / 3.35e12 * 1e3
+        # written once (the function's need), and beside it the design's
+        # count, with its partial images written and read
+        c["forward_bound_ms"] = (N * (8 + 4 * V)
+                                 + nxy * V * 4) / 3.35e12 * 1e3
+        c["forward_bound_design_ms"] = (N * (8 + 4 * V) + nxy * V * 4
+                                        + 2 * part) / 3.35e12 * 1e3
         c["adjoint_bound_ms"] = (2 * N * (8 + 4 * V)
                                  + nxy * V * 4) / 3.35e12 * 1e3
-        if args.variants and out["planned"]:
-            c["variants"] = {}
-            shipped = cic.plan
-            for cl, per in CIC_VARIANTS:
-                def forced(kind, *a, _cl=cl, _per=per, **k):
-                    if kind == "forward":
-                        k.update(cluster=_cl, per_sm=_per)
-                    return shipped(kind, *a, **k)
-                cic.plan = forced
-                try:
-                    got = cic.deposit(x, y, vals, bins, lx, ly)
-                    c["variants"][f"cluster{cl}_per_sm{per}"] = {
-                        "forward_ms": best(lambda: cic.deposit(
-                            x, y, vals, bins, lx, ly)),
-                        "forward_graph_ms": graph_ms(
-                            lambda: cic.deposit(x, y, vals, bins, lx, ly)),
-                        "rel_err": float((got - ref).abs().max())
-                        / float(ref.abs().max())}
-                finally:
-                    cic.plan = shipped
         cases[f"V{V}"] = c
         hashes[f"V{V}"] = {"dx": _sha(grads[0]), "dy": _sha(grads[1]),
                            "dvals": _sha(grads[2])}

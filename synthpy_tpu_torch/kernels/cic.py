@@ -14,17 +14,18 @@ rays parked off the detector with value 0 (and a zero, not NaN, gradient),
 corners below 0 masked and corners at n or above dropped. V is 1, 2 or 4
 (``CHANNELS``).
 
-Each kernel has two forms, chosen on the host by the image's size
-(``plan``): images that fit a block's shared memory are built in private
-copies there by persistent blocks, summed across a cluster's blocks and
-then across the partial images in a fixed order (the forward), or staged
-there for the gathers (the adjoint); larger images keep the first design's
-atomics into, and gathers from, device memory.
+Each kernel has two forms, which ``csrc/cic.cu`` chooses by the image's
+size and the card's attributes (``cic_grid``, asked through ``grid``):
+images that fit a block's shared memory are built in private copies there
+by persistent blocks and summed across the partial images in a fixed order
+(the forward), or staged there for the gathers (the adjoint); larger
+images keep the first design's atomics into, and gathers from, device
+memory.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -32,86 +33,38 @@ import torch
 from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
 
 _ARGS = [P, P, P, I, L, I, I, F, F, F, F, I]
-KERNEL = Kernel("cic.cu", {"cic_deposit": _ARGS + [I, P, P, P]},
-                flags=["--fmad=false"], helpers={"cic_pitch": [I, I, I]})
+KERNEL = Kernel("cic.cu", {"cic_deposit": _ARGS + [P, P, P]},
+                flags=["--fmad=false"],
+                helpers={"cic_pitch": [I, I, I],
+                         "cic_grid": [I, I, I, I, I, L]})
 BACKWARD_KERNEL = Kernel("cic.cu", {"cic_adjoint": _ARGS + [P, P, P, P, P]},
                          flags=["--fmad=false"])
 
 CHANNELS = (1, 2, 4)
-SMEM_MAX = 232448        # a block's shared memory on an H100 (227 KB)
-SMEM_SM = 233472         # an H100 SM's (228 KB), 1 KB of it each block's own
-RAYS_A_BLOCK = 4096      # the fewest rays a shared-form block is given
-# the shared forward's blocks a cluster, by V, and blocks an SM
-FORWARD_CLUSTER = {1: 1, 2: 1, 4: 1}
-FORWARD_PER_SM = 1
-ADJOINT_PER_SM = 2       # at most (1024-thread blocks)
 
 
-class Plan(NamedTuple):
-    """K12's launch plan: ``grid`` persistent blocks of the shared form
-    (the forward's private images, the adjoint's staged one), or 0 for the
-    global form (one thread a ray, the image in device memory); the
-    forward's blocks a ``cluster``, which sum their images through
-    distributed shared memory into one partial image (``partials`` of them
-    in the scratch)."""
-
-    grid: int
-    cluster: int
-
-    @property
-    def partials(self) -> int:
-        return self.grid // self.cluster if self.grid else 0
-
-
-def image_bytes(bins: Tuple[int, int], V: int) -> int:
-    """A shared-form block's image: V planes of nx ny floats, each to a
-    16-byte boundary (``cic.cu`` pitch_of; the forward's partial image)."""
-    return V * -(-int(bins[0]) * int(bins[1]) // 4) * 16
-
-
-def plan(kind: str, bins: Tuple[int, int], V: int, N: int, sms: int,
-         cluster: Optional[int] = None,
-         per_sm: Optional[int] = None) -> Plan:
-    """The launch plan of the ``kind`` ("forward" or "adjoint") kernel for
-    N rays onto ``bins`` pixels of V channels on a card of ``sms`` SMs: the
-    global form where the image passes ``SMEM_MAX``; else blocks enough for
-    ``RAYS_A_BLOCK`` rays each, at most ``per_sm`` an SM (the forward's
-    ``FORWARD_PER_SM``, the adjoint's ``ADJOINT_PER_SM``; fewer where the
-    blocks' images do not fit an SM's ``SMEM_SM``), in whole clusters of
-    ``cluster`` (default ``FORWARD_CLUSTER[V]``; the adjoint: 1): rounded
-    down to whole clusters, at least one."""
+def grid(kind: str, bins: Tuple[int, int], V: int, N: int,
+         dev: torch.device) -> int:
+    """The persistent blocks of the ``kind`` ("forward" or "adjoint")
+    kernel's shared form for N rays onto ``bins`` pixels of V channels on
+    card ``dev`` (the forward's partial images), or 0 for the global form:
+    ``cic.cu``'s ``cic_grid``."""
     if kind not in ("forward", "adjoint"):
         raise ValueError(f"no K12 kernel {kind!r}")
-    if V not in CHANNELS:
-        raise ValueError(f"K12 takes {CHANNELS} channels, not {V}")
-    img = image_bytes(bins, V)
-    if img > SMEM_MAX:
-        return Plan(0, 1)
-    if kind == "forward":
-        cl = FORWARD_CLUSTER[V] if cluster is None else int(cluster)
-        per = FORWARD_PER_SM if per_sm is None else int(per_sm)
-    else:
-        cl = 1
-        per = ADJOINT_PER_SM if per_sm is None else int(per_sm)
-    per = min(per, SMEM_SM // (img + 1024))
-    if cl < 1 or per < 1:
-        raise ValueError(f"a K12 plan of {per} blocks an SM in clusters of "
-                         f"{cl}")
-    grid = min(sms * per, -(-int(N) // RAYS_A_BLOCK))
-    return Plan(max(cl, grid // cl * cl), cl)
+    dev = torch.device(dev)
+    index = dev.index
+    if index is None:
+        index = torch.cuda.current_device() if dev.type == "cuda" else 0
+    g = KERNEL.load().cic_grid(index, int(kind == "adjoint"), V, *bins, N)
+    if g < 0:
+        raise RuntimeError(f"cic_grid refused {V} channels on {bins} pixels")
+    return g
 
 
-_SMS = {}
-
-
-def _sms(dev: torch.device) -> int:
-    """The SMs of card ``dev`` (1 for the meta device, which stands in for a
-    card where there is none)."""
-    if dev.type != "cuda":
-        return 1
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[dev]
+def pitch(bins: Tuple[int, int], V: int) -> int:
+    """The floats of one of the forward's partial images (``cic.cu``'s
+    ``cic_pitch``)."""
+    return KERNEL.load().cic_pitch(V, *bins)
 
 
 # None, or a list to which ``cic`` appends each deposit's inputs as
@@ -203,18 +156,17 @@ def deposit(x: torch.Tensor, y: torch.Tensor, vals: torch.Tensor,
     x, y, vals, V = _checked(x, y, vals, bins)
     nx, ny = bins
     dev = x.device
-    pl = plan("forward", bins, V, x.shape[0], _sms(dev))
-    if pl.grid:
+    g = grid("forward", bins, V, x.shape[0], dev)
+    if g:
         acc = torch.empty((nx, ny, V), dtype=torch.float32, device=dev)
-        # a partial image: image_bytes (cic.cu's cic_pitch floats)
-        scratch = torch.empty((pl.partials * image_bytes(bins, V) // 4,),
-                              dtype=torch.float32, device=dev)
+        scratch = torch.empty((g * pitch(bins, V),), dtype=torch.float32,
+                              device=dev)
     else:
         acc = torch.zeros((nx, ny, V), dtype=torch.float32, device=dev)
         scratch = None
     KERNEL.launch("cic_deposit", dev, x.data_ptr(), y.data_ptr(),
                   vals.data_ptr(), V, x.shape[0], nx, ny,
-                  *_scales(bins, Lx, Ly), pl.grid, pl.cluster,
+                  *_scales(bins, Lx, Ly), g,
                   None if scratch is None else scratch.data_ptr(),
                   acc.data_ptr())
     return acc
@@ -236,10 +188,10 @@ def adjoint(x: torch.Tensor, y: torch.Tensor, vals: torch.Tensor,
     dacc = dacc.contiguous()
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     dvals = torch.empty_like(vals)
-    pl = plan("adjoint", bins, V, x.shape[0], _sms(x.device))
     BACKWARD_KERNEL.launch(
         "cic_adjoint", x.device, x.data_ptr(), y.data_ptr(), vals.data_ptr(),
-        V, x.shape[0], nx, ny, *_scales(bins, Lx, Ly), pl.grid,
+        V, x.shape[0], nx, ny, *_scales(bins, Lx, Ly),
+        grid("adjoint", bins, V, x.shape[0], x.device),
         dacc.data_ptr(), dx.data_ptr(), dy.data_ptr(), dvals.data_ptr())
     return dx, dy, dvals
 

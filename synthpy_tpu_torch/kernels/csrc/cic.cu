@@ -32,44 +32,43 @@
 //     persistent block takes a contiguous range of rays and adds each into
 //     a private copy of the image in shared memory, a plane a channel
 //     (shared-memory atomicAdd, a compare-and-swap loop on this card; each
-//     ray's V values one vector load, RAYS rays' loads in flight). A
-//     cluster of ``cluster`` blocks then sums its copies through distributed
-//     shared memory, each block one slice of the image in rank order, and
-//     writes the cluster's partial image to scratch (one block a cluster,
-//     the plan's default: clusters of 2-8 ran slower on the inversion
-//     path's images); a second kernel adds the grid / cluster partials in a
-//     fixed order. The order across blocks is fixed, so the partials' sum is
-//     repeatable given the partials; the shared-memory atomics inside a
-//     block are not, so a block's copy, and the image, can differ by the
-//     order of its adds from run to run.
+//     ray's V values one vector load, RAYS rays' loads in flight), one
+//     block an SM, and writes its copy to scratch as a partial image; a
+//     second kernel adds the partials in a fixed order. The order across
+//     blocks is fixed, so the partials' sum is repeatable given the
+//     partials; the shared-memory atomics inside a block are not, so a
+//     block's copy, and the image, can differ by the order of its adds
+//     from run to run.
 //   * The adjoint's staged form: persistent blocks stage the cotangent
 //     image in shared memory once and gather each ray's four corners from
 //     it; each ray's arithmetic is the first kernel's, operation by
 //     operation, so its results are bit-equal to it.
 //   * Images too large for shared memory keep the first design (the global
 //     form: atomics into the image in device memory, corners gathered from
-//     it), chosen on the host by the image's bytes (kernels/cic.py plan).
+//     it). cic_grid chooses the form and the grid from the image's bytes
+//     and the card's attributes.
 //
 // Built with --fmad=false: each product is rounded as the plain version
 // rounds it, so the forward differs from it only by the order of the adds
 // and the adjoint is its arithmetic in another summation order.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "deposit.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr int THREADS = 256;
 // the shared forms' blocks
 constexpr int SM_THREADS = 1024;
-// the largest cluster the shared forward takes (the portable limit)
-constexpr int MAX_CLUSTER = 8;
+// the fewest rays a shared-form block is given
+constexpr int RAYS_A_BLOCK = 4096;
+// the shared forms' blocks an SM, at most (the forward's one: two ran
+// slower)
+constexpr int FORWARD_PER_SM = 1;
+constexpr int ADJOINT_PER_SM = 2;
 // rays a shared-form thread has in flight a trip
 constexpr int RAYS = 4;
 // runs of partials the sum kernel adds apart (one warp each)
@@ -209,20 +208,14 @@ __global__ void __launch_bounds__(THREADS)
                         [&](float v[V]) { load_vals<V>(vals, i, v); }, acc);
 }
 
-// the shared form's image: pitch floats (V planes), a block's slice of
-// it in a cluster of cl
+// the shared form's image: pitch floats (V planes)
 __host__ __device__ inline int pitch_of(const Geometry& G, int V) {
   return V * plane_of(G.nx * G.ny);
 }
 
-__host__ __device__ inline int slice_of(int pitch, int cl) {
-  return (pitch / 4 + cl - 1) / cl * 4;
-}
-
 // the shared form: a block's contiguous range of rays into its copy of
-// the image, the cluster's copies summed slice by slice in rank order into
-// the cluster's partial image (partials + cluster index x pitch)
-template <int V, bool CLUSTER>
+// the image, written to its partial image (partials + blockIdx.x pitch)
+template <int V>
 __global__ void __launch_bounds__(SM_THREADS)
     cic_forward_shared(const float* x, const float* y, const float* vals,
                        long long N, Geometry G, float* partials) {
@@ -256,36 +249,12 @@ __global__ void __launch_bounds__(SM_THREADS)
           for (int k = 0; k < V; ++k) u[k] = v[r][k];
         }, img);
   }
-  int rank = 0, cl = 1;
-  if constexpr (CLUSTER) {
-    rank = (int)cg::this_cluster().block_rank();
-    cl = (int)cg::this_cluster().num_blocks();
-    // every copy of the cluster is complete
-    cg::this_cluster().sync();
-  } else {
-    __syncthreads();
-  }
-  const int slice = slice_of(pitch, cl);
-  const int s0 = rank * slice, s1 = min(pitch, s0 + slice);
+  __syncthreads();
   float4* out = reinterpret_cast<float4*>(
-      partials + (long long)(blockIdx.x / cl) * pitch);
+      partials + (long long)blockIdx.x * pitch);
   const int plane = plane_of(G.nx * G.ny);
-  for (int k = s0 / 4 + threadIdx.x; k < s1 / 4; k += SM_THREADS) {
-    float4 sum = chunk_of<V>(img, plane, k);
-    if constexpr (CLUSTER) {
-      cg::cluster_group cluster = cg::this_cluster();
-      sum = chunk_of<V>(cluster.map_shared_rank(img, 0), plane, k);
-      for (int r = 1; r < cl; ++r) {
-        const float4 q = chunk_of<V>(cluster.map_shared_rank(img, r), plane,
-                                     k);
-        sum.x = sum.x + q.x; sum.y = sum.y + q.y;
-        sum.z = sum.z + q.z; sum.w = sum.w + q.w;
-      }
-    }
-    out[k] = sum;
-  }
-  // no block leaves while another reads its copy
-  if constexpr (CLUSTER) cg::this_cluster().sync();
+  for (int k = threadIdx.x; k < pitch / 4; k += SM_THREADS)
+    out[k] = chunk_of<V>(img, plane, k);
 }
 
 // acc[k], the sum of the partial images' element k in a fixed order:
@@ -441,38 +410,16 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <int V>
 int forward_shared(const float* x, const float* y, const float* vals,
-                   long long N, const Geometry& G, int grid, int cl,
-                   float* scratch, float* acc, cudaStream_t s) {
+                   long long N, const Geometry& G, int grid, float* scratch,
+                   float* acc, cudaStream_t s) {
   const size_t smem = (size_t)pitch_of(G, V) * sizeof(float);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid);
-  cfg.blockDim = dim3(SM_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t rc;
-  if (cl > 1) {
-    rc = allow_smem(cic_forward_shared<V, true>, smem);
-    if (rc == cudaSuccess)
-      rc = cudaLaunchKernelEx(&cfg, cic_forward_shared<V, true>, x, y, vals,
-                              N, G, scratch);
-  } else {
-    cfg.numAttrs = 0;
-    rc = allow_smem(cic_forward_shared<V, false>, smem);
-    if (rc == cudaSuccess)
-      rc = cudaLaunchKernelEx(&cfg, cic_forward_shared<V, false>, x, y, vals,
-                              N, G, scratch);
-  }
+  const cudaError_t rc = allow_smem(cic_forward_shared<V>, smem);
   if (rc != cudaSuccess) return (int)rc;
+  cic_forward_shared<V><<<(unsigned)grid, SM_THREADS, smem, s>>>(
+      x, y, vals, N, G, scratch);
   const int n = G.nx * G.ny * V;
-  cic_sum<<<(n + 31) / 32, THREADS, 0, s>>>(scratch, grid / cl,
-                                             pitch_of(G, V), n, acc);
+  cic_sum<<<(n + 31) / 32, THREADS, 0, s>>>(scratch, grid, pitch_of(G, V),
+                                             n, acc);
   return (int)cudaGetLastError();
 }
 
@@ -488,14 +435,42 @@ int adjoint_staged(const float* x, const float* y, const float* vals,
   return (int)cudaGetLastError();
 }
 
-// whether the shared forms take an image of nx ny V floats on this card
-bool image_fits(int nx, int ny, int V) {
-  int dev = 0, most = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+// The shared forms' persistent blocks for N rays onto an nx x ny x V image
+// on card dev: 0 (the global form) where the image (V planes, each to a
+// 16-byte boundary) passes a block's shared memory; else one block for
+// each RAYS_A_BLOCK rays, at most as many as the card holds at once
+// (FORWARD_PER_SM or ADJOINT_PER_SM an SM, fewer where the SM's shared
+// memory takes fewer images), at least one. -1 where the card's
+// attributes cannot be read.
+int grid_of(int dev, bool adjoint, int V, int nx, int ny, long long N) {
+  int sms = 0, block = 0, sm = 0, reserved = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&block, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved,
+                             cudaDevAttrReservedSharedMemoryPerBlock,
                              dev) != cudaSuccess)
-    return false;
-  return (long long)V * ((nx * (long long)ny + 3) / 4) * 16 <= most;
+    return -1;
+  const long long img = (long long)V * ((nx * (long long)ny + 3) / 4) * 16;
+  if (img > block || (long long)nx * ny * V >= 0x7fffffffLL) return 0;
+  long long per = adjoint ? ADJOINT_PER_SM : FORWARD_PER_SM;
+  per = per < sm / (img + reserved) ? per : sm / (img + reserved);
+  if (per < 1) per = 1;
+  long long grid = (N + RAYS_A_BLOCK - 1) / RAYS_A_BLOCK;
+  if (grid > per * sms) grid = per * sms;
+  return grid < 1 ? 1 : (int)grid;
+}
+
+// whether a shared form of grid blocks takes this image on the current
+// card: at most the blocks grid_of gives N rays' worth of the card
+bool shared_ok(bool adjoint, int V, int nx, int ny, int grid) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  const int most = grid_of(dev, adjoint, V, nx, ny, 0x7fffffffffffLL);
+  return most > 0 && grid <= most;
 }
 
 }  // namespace
@@ -508,35 +483,38 @@ extern "C" int cic_pitch(int V, int nx, int ny) {
   return pitch_of(G, V);
 }
 
+// The launch plan of cic_deposit (adjoint 0; its partial images) or
+// cic_adjoint (1) for N rays onto an nx x ny x V image on card dev: the
+// shared form's grid, or 0 for the global form (grid_of); -1 where the
+// card's attributes cannot be read.
+extern "C" int cic_grid(int dev, int adjoint, int V, int nx, int ny,
+                        long long N) {
+  if ((V != 1 && V != 2 && V != 4) || nx < 1 || ny < 1 || N < 0) return -1;
+  return grid_of(dev, adjoint != 0, V, nx, ny, N);
+}
+
 // x, y: (N,) f32 positions [mm]; vals: (N, V) f32, V = 1, 2 or 4, 4 V-byte
 // aligned; hx, hy = L/2 and sx, sy = n/L of each axis as float32. grid 0:
-// the global form, acc (nx, ny, V) f32 zeroed. grid > 0: the shared form,
-// grid blocks in clusters of ``cluster`` (1 to MAX_CLUSTER, dividing grid),
-// scratch grid / cluster partial images of cic_pitch floats, acc written.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for what the form
-// does not take.
+// the global form, acc (nx, ny, V) f32 zeroed. grid > 0 (cic_grid's, or
+// fewer blocks): the shared form, scratch grid partial images of
+// cic_pitch floats, acc written. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the form does not take.
 extern "C" int cic_deposit(const float* x, const float* y, const float* vals,
                            int V, long long N, int nx, int ny, float hx,
                            float sx, float hy, float sy, int grid,
-                           int cluster, float* scratch, float* acc,
-                           void* stream) {
+                           float* scratch, float* acc, void* stream) {
   if ((V != 1 && V != 2 && V != 4) || nx < 1 || ny < 1 || grid < 0)
     return (int)cudaErrorInvalidValue;
-  if (grid > 0 && (cluster < 1 || cluster > MAX_CLUSTER ||
-                   grid % cluster != 0 || !image_fits(nx, ny, V) ||
-                   (long long)nx * ny * V >= 0x7fffffffLL))
+  if (grid > 0 && !shared_ok(false, V, nx, ny, grid))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Geometry G = geometry(nx, ny, hx, sx, hy, sy);
   if (grid > 0) {
     if (V == 1)
-      return forward_shared<1>(x, y, vals, N, G, grid, cluster, scratch, acc,
-                               s);
+      return forward_shared<1>(x, y, vals, N, G, grid, scratch, acc, s);
     if (V == 2)
-      return forward_shared<2>(x, y, vals, N, G, grid, cluster, scratch, acc,
-                               s);
-    return forward_shared<4>(x, y, vals, N, G, grid, cluster, scratch, acc,
-                             s);
+      return forward_shared<2>(x, y, vals, N, G, grid, scratch, acc, s);
+    return forward_shared<4>(x, y, vals, N, G, grid, scratch, acc, s);
   }
   if (N == 0) return 0;
   const unsigned b = blocks_of(N);
@@ -551,8 +529,9 @@ extern "C" int cic_deposit(const float* x, const float* y, const float* vals,
 
 // The adjoint of cic_deposit at the same inputs: dacc (nx, ny, V) f32 in;
 // dx, dy (N,) and dvals (N, V) f32 out (4 V-byte aligned), every element
-// written. grid 0: the global form; grid > 0: the staged form, grid
-// persistent blocks. Returns cudaGetLastError(), or cudaErrorInvalidValue.
+// written. grid 0: the global form; grid > 0 (cic_grid's, or fewer): the
+// staged form, grid persistent blocks. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue.
 extern "C" int cic_adjoint(const float* x, const float* y, const float* vals,
                            int V, long long N, int nx, int ny, float hx,
                            float sx, float hy, float sy, int grid,
@@ -560,8 +539,7 @@ extern "C" int cic_adjoint(const float* x, const float* y, const float* vals,
                            float* dvals, void* stream) {
   if ((V != 1 && V != 2 && V != 4) || nx < 1 || ny < 1 || grid < 0)
     return (int)cudaErrorInvalidValue;
-  if (grid > 0 && (!image_fits(nx, ny, V) ||
-                   (long long)nx * ny * V >= 0x7fffffffLL))
+  if (grid > 0 && !shared_ok(true, V, nx, ny, grid))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;

@@ -40,15 +40,9 @@ PP_FOLD_KERNEL = Kernel("xray.cu", {
     "pp_fold": [P, I, I, I, P, P, L, P, P, F, F, F, F, P, P],
 }, flags=["--fmad=false"])
 PP_CHORDS_KERNEL = Kernel("xray.cu", {
-    "pp_chords": [P, P, L, L, L, I, I, I, P, P, P, I, I, L, L, I, I, I, I,
-                  I, I, *_TABLE, P, P, P, P, P],
+    "pp_chords": [P, P, L, L, L, I, I, I, P, P, P, I, I, I, I, I, I, I,
+                  *_TABLE, P, P, P, P, P],
 }, flags=["--fmad=false"])
-
-# the chord sampler's pixel tiles (``pixel_tile``): None, the detector
-# walked flat in row-major order (the default: 2-D tiles put more lines in
-# a warp's corner loads and ran slower), or log2 of a tile's detector
-# columns (a 256-thread block takes 2^8 pixels)
-CHORDS_TILE_LG = None
 
 
 class Axis(NamedTuple):
@@ -388,15 +382,6 @@ def pp_fold_plain(w: torch.Tensor, da: torch.Tensor, db: torch.Tensor,
     tau.copy_(tau + acc)
 
 
-def pixel_tile(rows: int, default: int) -> int:
-    """log2 of the detector columns a tile of the chord sampler takes for a
-    detector of ``rows`` rows: ``default``, widened until the tile (2^8
-    pixels, one a thread) has no more rows than the next power of two
-    above ``rows`` (one row: 256 columns)."""
-    need = max(int(rows) - 1, 0).bit_length()
-    return min(8, max(int(default), 8 - need))
-
-
 def pp_fold(w: torch.Tensor, da: torch.Tensor, db: torch.Tensor,
             fracs: torch.Tensor, wts: torch.Tensor, ca0: float, cb0: float,
             inv_sa: float, inv_sb: float, tau: torch.Tensor) -> None:
@@ -532,12 +517,10 @@ def pp_chords(rho: torch.Tensor, te: torch.Tensor, g: ChordGeometry,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rows, cols = (1, P) if CHORDS_TILE_LG is None else (na, nb)
     PP_CHORDS_KERNEL.launch(
         "pp_chords", dev, rho.data_ptr(), te.data_ptr(), *rho.stride(),
         *rho.shape, geo.data_ptr(), xa.data_ptr(), xb.data_ptr(), na, nb,
-        rows, cols, pixel_tile(rows, CHORDS_TILE_LG or 8), *g.axes,
-        int(n_steps), mode,
-        *_table_args(table if mode == 0 else None), ptr(tau), ptr(rho_s),
-        ptr(te_s), ptr(path))
+        *g.axes, int(n_steps), mode, *_table_args(table if mode == 0
+                                                  else None),
+        ptr(tau), ptr(rho_s), ptr(te_s), ptr(path))
     return tau if mode == 0 else (rho_s, te_s, path)

@@ -1,13 +1,15 @@
-"""K12's host-side launch plan on the CPU: ``kernels.cic.plan`` (the form an
-image takes, the shared forms' grid and cluster), the scratch the wrappers
-give the forward, and the work each block and thread of the shared forms
-takes, walked in numpy as ``csrc/cic.cu`` walks it (its constants read from
-the source). The wrappers' launches are recorded on the "meta" device,
-which stands in for the card.
+"""K12's launch plan on the CPU: what the wrappers ask ``csrc/cic.cu`` for
+(``cic_grid``, ``cic_pitch``) and pass its kernels, and the work each block
+and thread of the shared forms takes, walked in numpy as ``csrc/cic.cu``
+walks it (its constants read from the source). The wrappers' launches are
+recorded on the "meta" device, which stands in for the card, with the
+source's helpers answered by a stand-in; the card's own answers are held in
+``tests/test_torch_cuda.py``.
 """
 
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -27,81 +29,6 @@ def _const(name: str) -> int:
 
 SM_THREADS, RAYS, SUM_SPLIT = (_const(n) for n in ("SM_THREADS", "RAYS",
                                                    "SUM_SPLIT"))
-MAX_CLUSTER = _const("MAX_CLUSTER")
-
-
-@pytest.mark.parametrize("V", cic.CHANNELS)
-@pytest.mark.parametrize("bins", [(96, 96), (95, 97), (1, 1), (240, 240),
-                                  (431, 321)])
-def test_form_by_image_bytes(bins, V):
-    """The shared forms where a block's image fits ``SMEM_MAX``, the global
-    form (grid 0, no partials) where it does not."""
-    fits = cic.image_bytes(bins, V) <= cic.SMEM_MAX
-    for kind in ("forward", "adjoint"):
-        pl = cic.plan(kind, bins, V, 1_000_000, 132)
-        assert (pl.grid > 0) == fits, (kind, pl)
-        if not fits:
-            assert pl == cic.Plan(0, 1) and pl.partials == 0
-
-
-@pytest.mark.parametrize("V", cic.CHANNELS)
-def test_image_bytes_at_the_boundary(V):
-    """V planes of the pixels, each to a 16-byte boundary: the largest
-    image the shared forms take, and one pixel more."""
-    assert cic.image_bytes((96, 96), V) == 96 * 96 * V * 4
-    assert cic.image_bytes((95, 97), V) == V * 9216 * 4
-    npix = cic.SMEM_MAX // (4 * V) // 4 * 4
-    assert cic.image_bytes((1, npix), V) <= cic.SMEM_MAX
-    assert cic.plan("forward", (1, npix), V, 10**6, 132).grid > 0
-    assert cic.image_bytes((1, npix + 1), V) > cic.SMEM_MAX
-    assert cic.plan("forward", (1, npix + 1), V, 10**6, 132).grid == 0
-
-
-@pytest.mark.parametrize("sms", [132, 114, 1])
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-@pytest.mark.parametrize("N", [0, 1, 3000, 4096, 4097, 540_672, 1_000_000,
-                               50_000_000])
-def test_forward_grid_is_whole_clusters_in_one_wave(N, cluster, sms):
-    """The forward's grid: whole clusters, at least one, no more blocks
-    than the card holds at once (``FORWARD_PER_SM`` an SM) past the first
-    cluster, and none without ``RAYS_A_BLOCK`` rays past it; one partial
-    image a cluster."""
-    pl = cic.plan("forward", (96, 96), 4, N, sms, cluster=cluster)
-    assert pl.cluster == cluster
-    assert pl.grid % cluster == 0 and pl.grid >= cluster
-    if pl.grid > cluster:
-        assert pl.grid <= sms * cic.FORWARD_PER_SM
-        assert pl.grid <= -(-N // cic.RAYS_A_BLOCK)
-    assert pl.partials == pl.grid // cluster
-
-
-def test_blocks_an_sm_by_shared_memory():
-    """Blocks an SM are cut to what an SM's shared memory holds: one 147 KB
-    image at V = 4, ``ADJOINT_PER_SM`` at V = 1; the adjoint takes no
-    cluster."""
-    N = 10**7
-    assert cic.plan("adjoint", (96, 96), 4, N, 132).grid == 132
-    assert cic.plan("adjoint", (96, 96), 1, N, 132).grid == (
-        132 * cic.ADJOINT_PER_SM)
-    assert cic.plan("forward", (96, 96), 4, N, 132, per_sm=2).grid == 132
-    assert cic.plan("forward", (96, 96), 1, N, 132, per_sm=2).grid == 264
-    for V in cic.CHANNELS:
-        assert cic.plan("adjoint", (96, 96), V, N, 132).cluster == 1
-
-
-def test_default_clusters_are_the_kernels():
-    """The default cluster of each V is one the kernel takes."""
-    assert set(cic.FORWARD_CLUSTER) == set(cic.CHANNELS)
-    assert all(1 <= c <= MAX_CLUSTER for c in cic.FORWARD_CLUSTER.values())
-
-
-@pytest.mark.parametrize("kw", [dict(kind="backward"), dict(V=3),
-                                dict(cluster=0), dict(per_sm=0)])
-def test_plan_refuses(kw):
-    args = dict(kind="forward", bins=(96, 96), V=4, N=1000, sms=132)
-    args.update(kw)
-    with pytest.raises(ValueError):
-        cic.plan(**args)
 
 
 @pytest.mark.parametrize("N,grid", [(1, 1), (1023, 3), (4096, 1),
@@ -136,21 +63,6 @@ def test_staged_adjoint_takes_each_ray_once(N, grid):
     assert (seen == 1).all()
 
 
-@pytest.mark.parametrize("cl", range(1, MAX_CLUSTER + 1))
-@pytest.mark.parametrize("V", cic.CHANNELS)
-@pytest.mark.parametrize("bins", [(96, 96), (95, 97), (1, 1), (3, 5)])
-def test_cluster_slices_cover_the_image_once(bins, V, cl):
-    """A cluster's blocks sum slices of the image (``slice_of``, whole
-    float4 chunks) that cover its pitch once."""
-    pitch = cic.image_bytes(bins, V) // 4
-    slc = (pitch // 4 + cl - 1) // cl * 4
-    seen = np.zeros(pitch, np.int64)
-    for rank in range(cl):
-        s0, s1 = rank * slc, min(pitch, rank * slc + slc)
-        seen[s0:max(s0, s1)] += 1
-    assert (seen == 1).all() and slc % 4 == 0
-
-
 @pytest.mark.parametrize("n_partials", [1, 2, 7, 8, 9, 132, 264])
 def test_sum_runs_cover_the_partials_once(n_partials):
     """The sum kernel's runs of partials (one warp each): consecutive, each
@@ -165,30 +77,107 @@ def test_sum_runs_cover_the_partials_once(n_partials):
     assert all(p0 < p1 for p0, p1 in taken)
 
 
-def test_wrappers_launch_the_plan(monkeypatch):
-    """On the meta device the wrappers pass each kernel its plan: the
-    shared forms' grid and cluster and a scratch of one partial image a
-    cluster, the global form's grid 0; the deposit's image written whole
-    by the shared form and zeroed for the global one."""
-    calls = []
+@pytest.mark.parametrize("V", cic.CHANNELS)
+@pytest.mark.parametrize("bins", [(96, 96), (95, 97), (1, 1), (3, 5)])
+def test_partial_image_planes_are_whole_vectors(bins, V):
+    """A partial image (``cic_pitch``: V planes of the pixels, each to a
+    16-byte boundary, ``plane_of``) is whole float4 chunks, and the chunks
+    the forward writes, chunk_of's four floats k = 4c .. 4c + 3 of the
+    (nx, ny, V) image, cover the image's n = nx ny V floats once."""
+    npix = bins[0] * bins[1]
+    plane = -(-npix // 4) * 4
+    assert "return (npix + 3) / 4 * 4;" in CU
+    pitch = V * plane
+    assert pitch % 4 == 0 and pitch >= npix * V
+    # chunk k of the output holds floats 4k .. 4k + 3: pixel f // V,
+    # channel f % V, read from plane (f % V) at pixel (f // V)
+    f = np.arange(pitch)
+    pix, ch = f // V, f % V
+    src = ch * plane + pix
+    ok = pix < plane
+    assert len(np.unique(src[ok])) == ok.sum()
+    assert ok[:npix * V].all()
+
+
+def _stand_in(monkeypatch, grids, calls):
+    """The source's helpers answered by ``grids[(kind, bins, V)]`` (and
+    cic.cu's pitch), the launches recorded in ``calls``."""
+    def cic_grid(dev, adjoint, V, nx, ny, N):
+        calls.append(("cic_grid", (dev, adjoint, V, nx, ny, N)))
+        return grids[("adjoint" if adjoint else "forward", (nx, ny), V)]
+
+    lib = SimpleNamespace(
+        cic_grid=cic_grid,
+        cic_pitch=lambda V, nx, ny: V * (-(-nx * ny // 4) * 4))
+    monkeypatch.setattr(cic.KERNEL, "load", lambda: lib)
     for kern in (cic.KERNEL, cic.BACKWARD_KERNEL):
         monkeypatch.setattr(kern, "launch",
                             lambda name, dev, *a: calls.append((name, a)))
-    monkeypatch.setattr(cic, "_sms", lambda dev: 132)
+
+
+@pytest.mark.parametrize("fwd,adj", [(132, 264), (132, 132), (1, 1),
+                                     (0, 0), (7, 3)])
+@pytest.mark.parametrize("V", cic.CHANNELS)
+@pytest.mark.parametrize("bins", [(96, 96), (431, 321)])
+def test_wrappers_launch_the_plan(monkeypatch, bins, V, fwd, adj):
+    """On the meta device the wrappers ask ``cic_grid`` for each kernel's
+    grid and pass it on as it is: the forward a scratch of that many
+    partial images of ``cic_pitch`` floats and an image it writes whole,
+    or, at grid 0, no scratch and a zeroed image; the adjoint its grid."""
+    calls = []
+    _stand_in(monkeypatch, {("forward", bins, V): fwd,
+                            ("adjoint", bins, V): adj}, calls)
     meta = torch.device("meta")
     N = 1_000_000
     x = torch.empty(N, device=meta)
-    for bins, V in (((96, 96), 4), ((96, 96), 1), ((431, 321), 4)):
-        vals = torch.empty((N, V), device=meta)
-        acc = cic.deposit(x, x, vals, bins, 8.0, 8.0)
-        assert tuple(acc.shape) == bins + (V,)
-        name, a = calls[-1]
-        want = cic.plan("forward", bins, V, N, 132)
-        assert name == "cic_deposit" and a[3] == V and a[4] == N
-        assert (a[11], a[12]) == (want.grid, want.cluster)
-        cic.adjoint(x, x, vals, torch.empty(bins + (V,), device=meta), bins,
-                    8.0, 8.0)
-        name, a = calls[-1]
-        assert name == "cic_adjoint"
-        assert a[11] == cic.plan("adjoint", bins, V, N, 132).grid
-    assert calls[0][1][11] > 0 and calls[-1][1][11] == 0
+    vals = torch.empty((N, V), device=meta)
+    acc = cic.deposit(x, x, vals, bins, 8.0, 8.0)
+    assert tuple(acc.shape) == bins + (V,)
+    assert calls[0] == ("cic_grid", (0, 0, V, *bins, N))
+    name, a = calls[-1]
+    assert name == "cic_deposit" and a[3] == V and a[4] == N
+    assert a[5:7] == bins and a[11] == fwd
+    assert (a[12] is None) == (fwd == 0)
+    cic.adjoint(x, x, vals, torch.empty(bins + (V,), device=meta), bins,
+                8.0, 8.0)
+    assert calls[-2] == ("cic_grid", (0, 1, V, *bins, N))
+    name, a = calls[-1]
+    assert name == "cic_adjoint" and a[11] == adj
+
+
+def test_forward_scratch_is_the_partials(monkeypatch):
+    """The forward's scratch holds grid partial images of ``cic_pitch``
+    floats, sized by what the source answers."""
+    sizes = []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        sizes.append(tuple(shape))
+        return real_empty(shape, **kw)
+
+    calls = []
+    _stand_in(monkeypatch, {("forward", (95, 97), 4): 5}, calls)
+    monkeypatch.setattr(cic.torch, "empty", empty)
+    meta = torch.device("meta")
+    cic.deposit(real_empty(10, device=meta), real_empty(10, device=meta),
+                real_empty((10, 4), device=meta), (95, 97), 8.0, 8.0)
+    assert (5 * 4 * 9216,) in sizes
+
+
+@pytest.mark.parametrize("answer", [-1, -3])
+def test_grid_refusal_raises(monkeypatch, answer):
+    """A plan the source cannot make (its card's attributes unread) raises
+    before any launch."""
+    calls = []
+    _stand_in(monkeypatch, {("forward", (96, 96), 1): answer}, calls)
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="cic_grid"):
+        cic.deposit(torch.empty(4, device=meta), torch.empty(4, device=meta),
+                    torch.empty((4, 1), device=meta), (96, 96), 8.0, 8.0)
+    assert [c[0] for c in calls] == ["cic_grid"]
+
+
+@pytest.mark.parametrize("kind", ["backward", "", "Forward"])
+def test_plan_refuses(kind):
+    with pytest.raises(ValueError):
+        cic.grid(kind, (96, 96), 4, 1000, torch.device("meta"))

@@ -1647,9 +1647,9 @@ def _cic_rays(dev, V, n, bins, L):
 def test_cic_forms_match_plain(dev, V, bins, monkeypatch):
     """K12's forms on 300,000 rays with parked, NaN, edge and far-off rays:
     the plan's form (shared memory at 96 x 96, the global form at 431 x
-    321) and the global form each within 1e-5 of the largest value of
-    cic_plain; the adjoint's staged form bit-equal to the global form (the
-    first design's arithmetic), parked rays exactly 0."""
+    321) and the global form (grid 0) each within 1e-5 of the largest
+    value of cic_plain; the adjoint's staged form bit-equal to the global
+    form (the first design's arithmetic), parked rays exactly 0."""
     from synthpy_tpu_torch.kernels import cic
 
     L = (18.0, 13.5)
@@ -1658,11 +1658,11 @@ def test_cic_forms_match_plain(dev, V, bins, monkeypatch):
     dacc = torch.randn(ref.shape, generator=torch.Generator(
         device=dev).manual_seed(V), device=dev)
     shared = bins == (96, 96)
-    assert (cic.plan("forward", bins, V, x.shape[0], 132).grid > 0) == shared
+    assert (cic.grid("forward", bins, V, x.shape[0], x.device) > 0) == shared
     out = {}
     for form in ("plan", "global"):
         if form == "global":
-            monkeypatch.setattr(cic, "SMEM_MAX", 0)
+            monkeypatch.setattr(cic, "grid", lambda *a: 0)
         acc = cic.deposit(x, y, vals, bins, *L)
         assert float((acc - ref).abs().max()) <= 1e-5 * float(
             ref.abs().max())
@@ -1674,16 +1674,16 @@ def test_cic_forms_match_plain(dev, V, bins, monkeypatch):
         assert float(a[2:6].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-def test_cic_forward_clusters_match_plain(dev, cluster, monkeypatch):
-    """The shared forward at every cluster size, V = 1, 2, 4 at 96 x 96 on
-    1 M rays (ranges of rays a block, one partial image a cluster): within
-    1e-5 of the largest value of cic_plain; a grid of one cluster too."""
+@pytest.mark.parametrize("blocks", [1, 2, 7, None])
+def test_cic_forward_grids_match_plain(dev, blocks, monkeypatch):
+    """The shared forward on 1 M and 3,000 rays at 96 x 96, V = 1, 2, 4,
+    over 1, 2 and 7 blocks and over cic_grid's (ranges of rays a block, one
+    partial image a block): within 1e-5 of the largest value of
+    cic_plain."""
     from synthpy_tpu_torch.kernels import cic
 
-    monkeypatch.setitem(cic.FORWARD_CLUSTER, 1, cluster)
-    monkeypatch.setitem(cic.FORWARD_CLUSTER, 2, cluster)
-    monkeypatch.setitem(cic.FORWARD_CLUSTER, 4, cluster)
+    if blocks is not None:
+        monkeypatch.setattr(cic, "grid", lambda *a: blocks)
     for V in (1, 2, 4):
         for n in (1_000_000, 3_000):
             x, y, vals = _cic_rays(dev, V, n, (96, 96), (18.0, 13.5))
@@ -1694,14 +1694,44 @@ def test_cic_forward_clusters_match_plain(dev, cluster, monkeypatch):
 
 
 def test_cic_pitch_is_the_kernels(dev):
-    """The scratch a partial image takes (``cic.image_bytes``) is the
-    kernel's own (``cic.cu`` cic_pitch)."""
+    """The card's plan (``cic.cu`` cic_grid, cic_pitch): V planes of the
+    pixels, each to a 16-byte boundary; the shared forms where that passes
+    no block's shared memory, one block for each 4,096 rays up to one wave
+    of the card (the forward one block an SM, the adjoint at most two, as
+    many as an SM's shared memory holds), the global form (0) past it; a
+    grid past the plan's refused at launch."""
     from synthpy_tpu_torch.kernels import cic
 
     lib = cic.KERNEL.load()
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    # an H100's where this PyTorch does not report them
+    block = getattr(props, "shared_memory_per_block_optin", 232448)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
     for V in cic.CHANNELS:
-        for bins in ((96, 96), (95, 97), (1, 1), (3, 5), (431, 321)):
-            assert lib.cic_pitch(V, *bins) * 4 == cic.image_bytes(bins, V)
+        for bins in ((96, 96), (95, 97), (1, 1), (3, 5), (431, 321),
+                     (1, block // (4 * V) // 4 * 4),
+                     (1, block // (4 * V) // 4 * 4 + 1)):
+            pitch = V * -(-bins[0] * bins[1] // 4) * 4
+            assert lib.cic_pitch(V, *bins) == pitch == cic.pitch(bins, V)
+            for N in (0, 1, 4096, 4097, 300_000, 10**7):
+                for kind, most in (("forward", 1), ("adjoint", 2)):
+                    g = cic.grid(kind, bins, V, N, dev)
+                    if pitch * 4 > block:
+                        assert g == 0
+                        continue
+                    wave = sms * min(most, per_sm // (pitch * 4 + 1024))
+                    assert g == max(1, min(wave, -(-N // 4096))), (
+                        kind, bins, V, N, g)
+    x, y, vals = _cic_rays(dev, 1, 10_000, (96, 96), (18.0, 13.5))
+    too_many = cic.grid("forward", (96, 96), 1, 10**9, dev) + 1
+    acc = torch.empty((96, 96, 1), device=dev)
+    scratch = torch.empty((too_many * cic.pitch((96, 96), 1),), device=dev)
+    with pytest.raises(RuntimeError):
+        cic.KERNEL.launch("cic_deposit", x.device, x.data_ptr(), y.data_ptr(),
+                          vals.data_ptr(), 1, 10_000, 96, 96,
+                          *cic._scales((96, 96), 18.0, 13.5), too_many,
+                          scratch.data_ptr(), acc.data_ptr())
 
 
 @pytest.mark.parametrize("tier", ["f32", "bf16"])
@@ -2358,21 +2388,16 @@ def test_pp_kernels_match_plain(dev):
         b[fin].abs().max())
 
 
-@pytest.mark.parametrize("tile", [None, 3])
 @pytest.mark.parametrize("mode", [0, 1])
 @pytest.mark.parametrize("probe", ["x", "y", "z"])
-def test_pp_chords_kernel_every_axis_and_mode(dev, probe, mode, tile,
-                                              monkeypatch):
-    """K16's chord sampler probing along x, y and z in both modes, its
-    pixels flat and in 2-D tiles of a detector whose sides are not
-    multiples of them, through strided volumes with a NaN Te voxel: within
-    1e-6 relative of its plain version, NaN at the same chords and
-    samples, and every other value bit-equal to the kernel's on the
-    volumes without the NaN."""
+def test_pp_chords_kernel_every_axis_and_mode(dev, probe, mode):
+    """K16's chord sampler probing along x, y and z in both modes, on a
+    37 x 45 detector (not whole blocks of pixels), through strided volumes
+    with a NaN Te voxel: within 1e-6 relative of its plain version, NaN at
+    the same chords and samples, and every other value bit-equal to the
+    kernel's on the volumes without the NaN."""
     from synthpy_tpu_torch.kernels import xray as kx
     from synthpy_tpu_torch.optics import xray
-
-    monkeypatch.setattr(kx, "CHORDS_TILE_LG", tile)
 
     rho, Te, kfn = _xray_scene(dev)
     coords = [np.linspace(-2e-3, 2e-3, k, dtype=np.float32)

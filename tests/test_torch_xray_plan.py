@@ -23,9 +23,9 @@ planes staged in shared memory. The kernel runs only on a card; here:
   (staged w and j, plane-ordered sums, the w scratch) is bit-equal to
   ``fold_plain`` in both modes, every output combination and every
   probing axis, with ragged tiles and several chunks;
-* the chord sampler's pixel tiles (``kernels.xray.pixel_tile`` and a plain
-  copy of the kernel's ``pixel_of``) take every pixel of a detector once,
-  for shapes off the tiles and flat;
+* the chord sampler's lanes (a plain copy of the kernel's pixel of a
+  thread) take every pixel of a detector, in row-major order, LANES
+  threads of one warp each;
 * the wrappers refuse, before a launch, what the kernels cannot take (the
   "meta" device standing in for the card).
 """
@@ -473,75 +473,66 @@ def test_fold_refuses_a_batch_of_2_31_pixels():
                 em=None)
 
 
-# -- the chord sampler's pixel tiles ------------------------------------------
+# -- the chord sampler's pixels ----------------------------------------------
 
-def _pixel_walk(rows: int, cols: int, lg: int) -> np.ndarray:
-    """The pixel (row-major index, or -1) of every thread of every block of
-    a chord sampler's launch: a plain copy of xray.cu's pixels_of /
-    pixel_of."""
+def _chord_walk(P: int, lanes: int) -> dict:
+    """(pixel -> [(global thread, lane)]) of a chord sampler's launch of
+    ``chord_blocks(P, LANES)`` blocks: block b, thread t take pixel b
+    (THREADS / LANES) + t // LANES as lane t % LANES, a plain copy of
+    xray.cu's chords_kernel; threads past P take none."""
     th = CU["THREADS"]
-    assert th == 256
-    tiles_b = -(-cols // (1 << lg))
-    tiles_a = -(-rows // (1 << (8 - lg)))
-    tile = np.arange(tiles_a * tiles_b)[:, None]
-    t = np.arange(th)[None, :]
-    ta, tb = tile // tiles_b, tile % tiles_b
-    r = (ta << (8 - lg)) + (t >> lg)
-    c = (tb << lg) + (t & ((1 << lg) - 1))
-    return np.where((r < rows) & (c < cols), r * cols + c, -1)
-
-
-@pytest.mark.parametrize("lg", range(9))
-@pytest.mark.parametrize("rows,cols", [(431, 321), (41, 31), (1, 138_351),
-                                       (138_351, 1), (7, 9), (256, 256),
-                                       (3, 1000)])
-def test_pixel_tiles_take_each_pixel_once(rows, cols, lg):
-    """Every pixel of a rows x cols detector in exactly one thread, for
-    every tile width, detectors whose sides are not multiples of the tiles
-    among them."""
-    p = _pixel_walk(rows, cols, lg)
-    got = np.bincount(p[p >= 0], minlength=rows * cols)
-    assert got.shape == (rows * cols,) and (got == 1).all()
+    blocks = -(-P * lanes // th)
+    seen = {}
+    for b in range(blocks):
+        t = np.arange(th)
+        p = b * (th // lanes) + t // lanes
+        for tt, pp in zip(t[p < P], p[p < P]):
+            seen.setdefault(int(pp), []).append((b * th + int(tt),
+                                                 int(tt) % lanes))
+    return seen
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 4])
 def test_chord_lanes_take_each_pixel_lanes_times(lanes):
-    """The chord sampler's lanes: block b, thread t take the pixel of tile
-    b // LANES, thread ((b % LANES) THREADS + t) // LANES as lane t %
-    LANES, so each (tile, thread) pixel is taken by LANES consecutive
-    threads of one warp, one a lane (xray.cu's CHORD_LANES among them)."""
+    """The chord sampler's lanes: every pixel of a row-major detector taken
+    by LANES consecutive threads of one warp, one a lane (xray.cu's
+    CHORD_LANES of mode 0 and mode 1's one among them), over detectors of
+    whole blocks and not."""
     text = (_build.CSRC / "xray.cu").read_text()
     shipped = int(re.search(r"constexpr int CHORD_LANES = (\d+);",
                             text).group(1))
     assert shipped in (1, 2, 4)
-    th, tiles = CU["THREADS"], 5
-    seen = {}
-    for b in range(tiles * lanes):
-        for t in range(th):
-            key = (b // lanes, ((b % lanes) * th + t) // lanes)
-            seen.setdefault(key, []).append((b * th + t, t % lanes))
-    assert len(seen) == tiles * th
-    for taken in seen.values():
-        g = sorted(taken)
-        assert [lane for _, lane in g] == list(range(lanes))
-        assert g[-1][0] - g[0][0] == lanes - 1
-        assert g[0][0] // 32 == g[-1][0] // 32
+    assert "return mode == 0 ? CHORD_LANES : 1;" in text
+    assert ("const long long found = (long long)blockIdx.x * (THREADS / "
+            "LANES) +") in text
+    for P in (1, 127, 128, 129, 5 * CU["THREADS"] + 3):
+        seen = _chord_walk(P, lanes)
+        assert sorted(seen) == list(range(P))
+        for taken in seen.values():
+            g = sorted(taken)
+            assert [lane for _, lane in g] == list(range(lanes))
+            assert g[-1][0] - g[0][0] == lanes - 1
+            assert g[0][0] // 32 == g[-1][0] // 32
 
 
-@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 8, 9, 31, 32, 33, 431,
-                                  10**6])
-@pytest.mark.parametrize("default", [3, 5, 8])
-def test_pixel_tile_fits_the_rows(rows, default):
-    """``pixel_tile``: the default tile width, widened until a tile has no
-    more rows than the next power of two above the detector's (one row:
-    256 columns); always a width the kernel takes."""
-    lg = kx.pixel_tile(rows, default)
-    assert default <= lg <= 8
-    assert lg == default or (1 << (8 - lg)) >= rows
-    assert (1 << (8 - lg)) < 2 * max(rows, 1) or lg == default
-    if rows == 1:
-        assert lg == 8
-
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("na,nb", [(431, 321), (41, 31), (37, 45), (1, 1),
+                                   (7, 9), (256, 256), (3, 1000)])
+def test_chord_pixels_are_row_major(na, nb, mode):
+    """Consecutive pixels go to consecutive runs of LANES threads in
+    row-major order (ia = p / nb), the first kernel's order, at each
+    mode's lanes (mode 0 CHORD_LANES, mode 1 one): a warp's chords are
+    neighbouring pixels of one or a few rows."""
+    text = (_build.CSRC / "xray.cu").read_text()
+    lanes = 1 if mode else int(re.search(
+        r"constexpr int CHORD_LANES = (\d+);", text).group(1))
+    assert "const int ia = (int)(p / C.nb)" in text
+    seen = _chord_walk(na * nb, lanes)
+    first = np.array([min(seen[p])[0] for p in range(na * nb)])
+    assert (np.diff(first) == lanes).all()
+    warp_pixels = 32 // lanes
+    rows = {p // nb for p in range(min(warp_pixels, na * nb))}
+    assert len(rows) <= 1 + (warp_pixels - 1) // nb + 1
 
 def test_kernels_refuse_a_table_of_one_node():
     """The kernels' table needs two nodes an axis: refused before a
