@@ -65,7 +65,9 @@ to the port on the card at the CPU suite's tolerances; and
 ``K3_long_table`` holds K3 to its plain chain on 25-, 1,201- and
 4,001-stage tables (the device copy, read in place) and a 36-stage
 coherent one. Then the scale slice (``scale_slice``): K10 against its
-plain version at 2 x 512^3 draws (``random_vs_plain``), K2's dithered
+plain version at 2 x 512^3 draws and across 2^32 in every mode, a beam's
+four streams in one launch (``draw_many``) and the GRF's complex pair
+(``draw_pair``) bit-equal to single draws (``random_vs_plain``), K2's dithered
 builds at 512^3 (``K2_dither_vs_plain``), K9 on upload and synth batches
 (``K9_vs_plain``), the upload route of 512^3 full-physics host volumes
 (~3 GB pinned) against K2's device build, bit for bit
@@ -147,10 +149,12 @@ read just after. Each phase prints one JSON line, with the script's
 seconds so far (``t_s``); then a
 ``{"kernels": [...]}`` line with each kernel's launches on its path
 (calls of its C entry point: the int8 and int4 builds start two device
-kernels, an adaptive step two, the step and its one-block controller; a K2
-row per tier), its time (CUDA events around back-to-back calls, per call;
-for K6 around back-to-back steps, per step), its bound (a dithered row's
-counts the dither's integer operations, ``dithered_bound``), its plain
+kernels, an adaptive step two, the step and its one-block controller, a K8
+deposit six; a K2 row per tier), its time (CUDA events around
+back-to-back calls, per call; for K6 around back-to-back steps, per step;
+for K8, K10, K12 and K16 calls replayed in a CUDA graph, the device's
+time, with the calls' ``call_ms`` beside), its bound (a dithered row's and
+K10's count the threefry hash's integer operations, ``dithered_bound``), its plain
 version's time and a library call's time (best single calls); then the
 card's name and power limit;
 and last ``{"ok": true, "device": {...}}``. The ``bounds`` line carries
@@ -265,7 +269,8 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
     from synthpy_tpu_torch.fields import layout_of
     from synthpy_tpu_torch.fields.domain import ScalarDomain, build_pack
     from synthpy_tpu_torch.kernels import binning, deposit, detector
-    from synthpy_tpu_torch.kernels.profiling import batch_ms, best_ms
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     graph_ms)
     from synthpy_tpu_torch.ops import histogram as ophist
     from synthpy_tpu_torch.ops import dft
     from synthpy_tpu_torch.ops.fresnel import prepare_field_for_propagation
@@ -515,8 +520,11 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
     # shapes (the fused amplitude-phase deposit; the histogram; the
     # refractogram's field sums)
     vals = torch.stack([amp, phase], 1)
-    k8_ms = batch_ms(lambda: deposit.deposit(x, y, vals, grid, grid),
-                     calls=20)
+    k8_ms = graph_ms(lambda: deposit.deposit(x, y, vals, grid, grid))
+    k8_call_ms = batch_ms(lambda: deposit.deposit(x, y, vals, grid, grid),
+                          calls=20)
+    k8_v1_ms = graph_ms(lambda: deposit.deposit(x, y, amp[:, None], grid,
+                                                grid))
     k8_plain = best_ms(lambda: deposit.deposit_plain(x, y, vals, grid,
                                                      grid), reps=3)
     # library yardstick: index_put_(accumulate=True) of the four corners'
@@ -551,6 +559,15 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
     # a ray (deposit.cu): t 4, the inside test 6, corners 6, fractions 6,
     # weights 6, 4 corners x (2 products + 3 adds)
     k8_b = bound(N * 16 + 512 * 512 * 2 * 4 + 2 * 512 * 4, N * 48)
+    # the tiled design's bytes: x and y read twice (count, scatter), the
+    # values once, each 16-byte bucket entry written and read once, the
+    # grid written, and at most a partial tile (3 channels of 32 x 32
+    # nodes) an item written and read (256 tiles, 8 items an SM planned)
+    entries = deposit.tiles_plain(x, y, grid, grid)[0].numel()
+    items = 256 + 8 * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    k8_design = bound(N * 24 + entries * 32 + 512 * 512 * 2 * 4
+                      + 2 * items * 3 * 4096, 0)[0]
     # the entry points themselves on ready inputs and bin parameters (the
     # ops wrappers' host work stays in the path's step times)
     bpx, bpy = (ophist.bin_params(-9.0, 9.0, bins[0]),
@@ -604,9 +621,11 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
          "replaces": "synthpy_tpu/ops/histogram.py:158",
          "launches": launches["deposit"],
          "max_abs_err": max(v["max_abs_err"] for v in k8.values()),
-         "ms": k8_ms, "plain_ms": k8_plain, "bound_ms": k8_b[0],
-         "bound_by": k8_b[1], "library_ms": k8_lib,
-         "device_kernels_per_launch": 2},
+         "ms": k8_ms, "call_ms": k8_call_ms, "v1_ms": k8_v1_ms,
+         "plain_ms": k8_plain, "bound_ms": k8_b[0],
+         "bound_by": k8_b[1], "bound_design_ms": k8_design,
+         "bucket_entries": entries, "library_ms": k8_lib,
+         "device_kernels_per_launch": 6},
         {"name": "bin_image", "route": "cuda",
          "source": csrc + "detector.cu",
          "replaces": "synthpy_tpu/ops/histogram.py:26",
@@ -716,7 +735,8 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
     from synthpy_tpu_torch.fields import ScalarDomain, grf, layout_of
     from synthpy_tpu_torch.kernels import detector, fill, march, pack
     from synthpy_tpu_torch.kernels import random as krand
-    from synthpy_tpu_torch.kernels.profiling import batch_ms, best_ms
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     graph_ms)
     from synthpy_tpu_torch.optics.compose import BENCHES
     from synthpy_tpu_torch.tracer import init_beam, zscan
 
@@ -836,21 +856,60 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
             same = torch.equal(a.view(torch.int32), b.view(torch.int32))
             check(same, f"K10 {mode} differs from its plain version")
             rnd[mode] = {"bit_equal": True}
-        rnd[mode].update(ms=batch_ms(lambda: krand.draw(
-            key, n_big, mode, lo, hi, device=dev), calls=5),
+        rnd[mode].update(
+            ms=graph_ms(lambda: krand.draw(key, n_big, mode, lo, hi,
+                                           device=dev), calls=3),
+            call_ms=batch_ms(lambda: krand.draw(
+                key, n_big, mode, lo, hi, device=dev), calls=5),
             plain_ms=plain_s * 1e3)
         del a, b
-    # counters past 2^32 (a non-zero high word)
-    a = krand.draw(key, 1 << 21, "bits", device=dev, offset=2**32 - 2**20)
-    b = krand.draw_plain(key, 1 << 21, "bits", device=dev,
-                         offset=2**32 - 2**20)
-    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
-          "K10 past 2^32 differs from its plain version")
+    # counters straddling 2^32 (the 64-bit counter form), every mode
+    for mode in ("bits", "uniform", "normal"):
+        a = krand.draw(key, 1 << 21, mode, device=dev, offset=2**32 - 2**20)
+        b = krand.draw_plain(key, 1 << 21, mode, device=dev,
+                             offset=2**32 - 2**20)
+        check(ulp32(a, b) <= 4 if mode == "normal" else torch.equal(
+            a.view(torch.int32), b.view(torch.int32)),
+            f"K10 {mode} past 2^32 differs from its plain version")
+    # draw_many: a beam's four streams (phi, chi, two positions) at 4 M
+    # rays, each row bit-equal to its single draw; the complex pair of the
+    # GRF's noise at 256^3 likewise
+    bkeys = [jrandom.key_data(k) for k in jrandom.split(key, 4)]
+    bmodes = ["uniform", "normal", "uniform", "uniform"]
+    rows = krand.draw_many(bkeys, SCALE_CHUNK, bmodes, device=dev)
+    pair = krand.draw_pair(bkeys[0], bkeys[1], 256**3, device=dev)
+    for s_, (k_, m_) in enumerate(zip(bkeys, bmodes)):
+        one = krand.draw(k_, SCALE_CHUNK, m_, device=dev)
+        p_ = krand.draw_plain(k_, SCALE_CHUNK, m_, device=dev)
+        check(torch.equal(rows[s_].view(torch.int32), one.view(torch.int32))
+              and (ulp32(rows[s_], p_) <= 4 if m_ == "normal"
+                   else torch.equal(rows[s_], p_)),
+              f"K10 draw_many row {s_} differs from its single draw")
+    for part, k_ in ((pair.real, bkeys[0]), (pair.imag, bkeys[1])):
+        one = krand.draw(k_, 256**3, "normal", device=dev)
+        check(torch.equal(part.contiguous().view(torch.int32),
+                          one.view(torch.int32)),
+              "K10 draw_pair differs from its two draws")
+    rnd["draw_many_4M_beam"] = {
+        "ms": graph_ms(lambda: krand.draw_many(bkeys, SCALE_CHUNK, bmodes,
+                                               device=dev)),
+        "four_single_draws_ms": graph_ms(lambda: [
+            krand.draw(k_, SCALE_CHUNK, m_, device=dev)
+            for k_, m_ in zip(bkeys, bmodes)]),
+        "rows_bit_equal_to_single_draws": True}
+    rnd["draw_pair_256_3"] = {
+        "ms": graph_ms(lambda: krand.draw_pair(bkeys[0], bkeys[1], 256**3,
+                                               device=dev)),
+        "two_draws_and_complex_ms": graph_ms(lambda: torch.complex(
+            krand.draw(bkeys[0], 256**3, "normal", device=dev),
+            krand.draw(bkeys[1], 256**3, "normal", device=dev))),
+        "bit_equal_to_two_draws": True}
+    del rows, pair, one, p_, a, b
     rnd["randn_ms_context"] = best_ms(lambda: torch.randn(n_big, device=dev),
                                       reps=3)
     torch.cuda.empty_cache()
     emit({"phase": "random_vs_plain", "draws": n_big, **rnd,
-          "past_2_32_bit_equal": True})
+          "past_2_32_equal": True})
     detail["random_vs_plain"] = rnd
 
     # -- K2's dither: the 512^3 bench lens, K = 512 ---------------------------
@@ -1177,14 +1236,26 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
         acc = imgs if acc is None else {k: acc[k] + imgs[k] for k in acc}
     run_launch = path_launches(("march", "detector", "detector_field",
                                 "random"), "1024^3 run")
-    # one beam's K10 draws alone (each launch's CUDA events): a circular
-    # beam draws phi, chi (a normal) and two positions, SCALE_CHUNK each
+    check(run_launch["random"] == len(keys), f"path a: {run_launch['random']}"
+          f" K10 launches for {len(keys)} beams (one a beam)")
+    # one beam's K10 draws alone: a circular beam draws phi, chi (a normal)
+    # and two positions, SCALE_CHUNK each, in one launch; its device time
+    # (a CUDA graph) and its launch's CUDA events (the host's time between
+    # them included where the card waits on the host)
+    bk = jrandom.split(keys[0], 5)
+    bkeys = [jrandom.key_data(bk[s_]) for s_ in (2, 3, 0, 1)]
+    beam_draw_ms = graph_ms(lambda: krand.draw_many(
+        bkeys, SCALE_CHUNK, ["uniform", "normal", "uniform", "uniform"],
+        device=dev))
     kernels["random"].events = []
     init_beam(keys[0], SCALE_CHUNK, 2.5e-3, 0.0, EXT, "circular",
               device=dev)
     torch.cuda.synchronize()
-    beam_draw_ms = [a.elapsed_time(b) for a, b in kernels["random"].events]
+    beam_event_ms = [a.elapsed_time(b) for a, b in kernels["random"].events]
     kernels["random"].events = None
+    beam_call_ms = best_ms(lambda: init_beam(
+        keys[0], SCALE_CHUNK, 2.5e-3, 0.0, EXT, "circular", device=dev),
+        reps=5)
     final = {n: pipeline.finalize_coherent(acc[n], n) for n in acc}
     for n, im in final.items():
         check(tuple(im.shape) == (BINS[1], BINS[0])
@@ -1262,7 +1333,8 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
              "build_launches": build_launch, "peak_gb": peak_gb,
              "rays": SCALE_RAYS, "chunk_rays": SCALE_CHUNK,
              "run_ms_per_chunk": chunk_ms, "run_launches": run_launch,
-             "beam_draw_ms": beam_draw_ms,
+             "beam_draw_ms": beam_draw_ms, "beam_event_ms": beam_event_ms,
+             "init_beam_call_ms": beam_call_ms,
              "calls_per_chunk": -(-SCALE_CHUNK // max(int(
                  (1 << 30) // (4 * spack.seg_planes.shape[-1])), 1024)),
              "image_sums": {n: float(im.sum()) for n, im in final.items()},
@@ -1367,8 +1439,10 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
         uf_t, p_end_b, turb.extent, "z", BENCHES["schlieren_df"][0](),
         BINS, det_range)), "path b: run's image != the plain detector's on "
         "K1's exit states")
-    k10_ms = batch_ms(lambda: krand.draw(k10_keys[0], n_turb, "normal",
-                                         device=dev), calls=20)
+    k10_ms = graph_ms(lambda: krand.draw(k10_keys[0], n_turb, "normal",
+                                         device=dev))
+    k10_call_ms = batch_ms(lambda: krand.draw(k10_keys[0], n_turb, "normal",
+                                              device=dev), calls=20)
     k10_plain_ms = best_ms(lambda: krand.draw_plain(
         k10_keys[0], n_turb, "normal", device=dev), reps=2)
     pack_bytes_b = sp_b.seg_planes.numel() * sp_b.seg_planes.element_size()
@@ -1382,17 +1456,33 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
              "k2_plain_ms": k2_plain_s * 1e3, "k2_bound": bound(
                  n_turb * 4 + pack_bytes_b, 0), "pack_gb": pack_bytes_b / 1e9,
              "k1_vs_plain": k1_b, "k3_vs_plain": k3_b,
-             "k10_normal_ms": k10_ms, "k10_normal_plain_ms": k10_plain_ms}
+             "k10_normal_ms": k10_ms, "k10_normal_call_ms": k10_call_ms,
+             "k10_normal_plain_ms": k10_plain_ms}
     emit({"phase": "turbulence_path", **turbd})
     detail["turbulence_path"] = turbd
     del f, turb, s0, H, sp_b, vols, u_t, uf_t
     torch.cuda.empty_cache()
 
     # -- the kernels-line rows of this slice, each at its path's shapes -----
-    # a normal draw: the hash ~110 operations, log1pf ~20, the square root
-    # and the 9-term polynomial ~25; counted at the float32 peak (one of
-    # path b's two 256^3 draws)
-    k10_b = bound(n_turb * 4, n_turb * 155)
+    # a draw's threefry hash on the INT32 lanes (dithered_bound: 43 rotates,
+    # xors, the shift and the or that only they take), beside the float
+    # operations of a normal (log1pf ~16, the uniform's 4, the polynomial's
+    # 18 and ~7 more) at the float32 peak; one of path b's 256^3 draws and a
+    # MAGPIE beam's 16 M (4 M normals). The first design counted all ~155
+    # operations of a normal as float ones (bound_float_ms)
+    def k10_bound(n, normals):
+        ib = dithered_bound(n * 4, n)
+        fb = bound(0, normals * 45)[0]
+        b_ = (ib["bound_ms"], ib["bound_by"])
+        if fb > b_[0]:
+            b_ = (fb, "operations")
+        return {"bound_ms": b_[0], "bound_by": b_[1],
+                "int_ops_bound_ms": ib["int_ops_bound_ms"],
+                "float_ops_bound_ms": fb,
+                "bytes_bound_ms": ib["bytes_bound_ms"]}
+
+    k10_b = k10_bound(n_turb, n_turb)
+    beam_b = k10_bound(4 * SCALE_CHUNK, SCALE_CHUNK)
     k9_checks = [v for k_, v in k9.items() if k_ != "planted_controls_fail"]
     rows_out += [
         {"name": "fill", "route": "cuda", "source": csrc + "fill.cu",
@@ -1408,15 +1498,19 @@ def scale_slice(torch, dev, kernels, bound, reset, path_launches, close):
          "replaces": "synthpy_tpu/fields/grf.py:151",
          "launches": grf_launch["random"],
          "max_abs_err": max(k10_ulp), "max_abs_err_unit": "ulp",
-         "ms": k10_ms, "plain_ms": k10_plain_ms, "bound_ms": k10_b[0],
-         "bound_by": k10_b[1], "library_ms": None,
+         "ms": k10_ms, "call_ms": k10_call_ms, "plain_ms": k10_plain_ms,
+         **k10_b, "bound_float_ms": bound(n_turb * 4, n_turb * 155)[0],
+         "library_ms": None,
          "torch_randn_ms_context": rnd["randn_ms_context"],
          "ms_2x512_3": rnd["normal"]["ms"],
-         # the MAGPIE path's beams: 4 draws a beam, 16 launches on the path
+         "call_ms_2x512_3": rnd["normal"]["call_ms"],
+         "bound_ms_2x512_3": k10_bound(n_big, n_big)["bound_ms"],
+         # the MAGPIE path's beams: one launch a beam (four streams)
          "magpie_beam_draws_ms": scale["beam_draw_ms"],
+         "magpie_beam_event_ms": scale["beam_event_ms"],
          "magpie_beam_launches": run_launch["random"],
-         "magpie_beam_normal_bound_ms": bound(SCALE_CHUNK * 4,
-                                              SCALE_CHUNK * 155)[0]}]
+         "magpie_beam_bound_ms": beam_b["bound_ms"],
+         "magpie_beam_bound_by": beam_b["bound_by"]}]
     # K2's dithered builds on the pack_dither path (512^3 z-pinch, C = 8,
     # int4 K = 256 and int8 K = 64), the 512^3 lens's (K = 512) beside them
     for name in ("int8", "int4"):
@@ -3953,6 +4047,8 @@ def sharded_field_path(torch, dev, kernels, bound, reset, path_launches):
     (coords, fs), syn_ms, syn_peak = peaked(
         lambda: grf.grf_domain_fft(*gargs, mesh=mesh, device=dev))
     syn_launches = path_launches(("random",), "sharded synthesis")
+    check(syn_launches["random"] == G, f"sharded synthesis: "
+          f"{syn_launches['random']} K10 launches for {G} shards")
     n = fs.shape[0] // G
     check(all(tuple(b.shape) == (n, *fs.shape[1:]) and b.device == sdev[g]
               for g, b in enumerate(fs.shards)),
@@ -5247,6 +5343,9 @@ def main():
     # window), the grid-sharded march
     shf_rows, shf_detail = sharded_field_path(torch, dev, kernels, bound,
                                               reset, path_launches)
+    next(r for r in sc_rows if r["name"] == "random_normal")[
+        "syn_launches"] = shf_detail["sharded_field_path"][
+        "synthesis_launches"]["random"]
 
     # -- 4. kernel times at the main path's shapes, bounds, plain times -------
     k1_call_ms = best_ms(lambda: march.march(u_all, sp.seg_planes,
@@ -5593,7 +5692,9 @@ def main():
                   "pack_int4": 2, "detector": 1, "slab_march": 1,
                   "time_march": 1, "adaptive_step": k6_dev_per_step,
                   "analytic": 1,
-                  "detector_field": 1, "deposit": 2, "bin_image": 1,
+                  # the count, column, plan, scatter, tile and finish
+                  # kernels
+                  "detector_field": 1, "deposit": 6, "bin_image": 1,
                   "bin_field": 1, "fill": 2, "random_normal": 1,
                   "pack_dither": 2, "march_adjoint": 1, "cic": 1,
                   "cic_adjoint": 1, "boris": 1, "btable_bf16": 1,

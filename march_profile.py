@@ -2218,12 +2218,429 @@ def _btable_variants(btable, batch, scale, key, best, want):
     return res
 
 
+# -- K10 (threefry draws) and K8 (the Fresnel deposit) ------------------------
+
+# the SASS opcodes by the pipe that issues them on sm_90 (the CUDA C++
+# programming guide's throughput table: 64 INT32 lanes an SM take the
+# integer adds, logic, shifts, compares, selects and float min / max; 128
+# FMA lanes the float adds and products and the integer multiply-adds)
+PIPES = {
+    "int32": ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "IMNMX", "SEL", "PRMT",
+              "FLO", "POPC", "BMSK", "IABS", "FSEL", "FMNMX", "FSETP",
+              "SHL", "SHR", "LOP", "IADD", "VOTE", "PLOP3"),
+    "fma": ("FFMA", "FMUL", "FADD", "IMAD", "IMUL", "FSWZADD"),
+    "mufu": ("MUFU",),
+}
+
+
+def _pipes(opcodes: dict) -> dict:
+    """``opcodes`` ({root: count}) summed by ``PIPES`` (the rest as
+    ``other``), with the total."""
+    out = {k: 0 for k in PIPES}
+    out["other"] = 0
+    for op, n in opcodes.items():
+        pipe = next((k for k, ops in PIPES.items() if op in ops), "other")
+        out[pipe] += n
+    out["total"] = sum(opcodes.values())
+    return out
+
+
+def _sass_functions(cubin: Path, tag: str, keep) -> dict:
+    """Every kernel of ``cubin`` whose name ``keep`` accepts: its whole
+    SASS and each innermost loop as opcode counts (roots before the first
+    '.', NOPs left out) and by pipe (``PIPES``). A static count."""
+    import subprocess
+    from synthpy_tpu_torch.kernels import _build
+    from synthpy_tpu_torch.kernels.profiling import _SASS_LINE
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(cubin)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if keep(m.group(1)) else None
+            if name:
+                funcs[name] = []
+            continue
+        m = _SASS_LINE.search(line) if name else None
+        if m and m.group(2) != "NOP":
+            funcs[name].append((int(m.group(1), 16), m.group(2),
+                                m.group(3)))
+    dump = Path("chiprun_out") / f"sass_{tag}.txt"
+    dump.parent.mkdir(parents=True, exist_ok=True)
+    dump.write_text(sass)
+
+    def count(ops):
+        c = {}
+        for op in ops:
+            c[op] = c.get(op, 0) + 1
+        return dict(sorted(c.items(), key=lambda kv: -kv[1]))
+
+    out = {}
+    for name, code in funcs.items():
+        spans = []
+        for addr, op, rest in code:
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and m and int(m.group(1), 16) < addr:
+                spans.append((int(m.group(1), 16), addr))
+        inner = [(lo, hi) for lo, hi in spans
+                 if not any((a, b) != (lo, hi) and lo <= a and b <= hi
+                            for a, b in spans)]
+        whole = count(o for _, o, _ in code)
+        loops = []
+        for lo, hi in sorted(inner):
+            ops = count(o for a, o, _ in code if lo <= a <= hi)
+            loops.append({"opcodes": ops, "pipes": _pipes(ops)})
+        out[name] = {"opcodes": whole, "pipes": _pipes(whole),
+                     "inner_loops": loops}
+    return out
+
+
+# builds of random.cu that ``random --variants`` times beside the shipped
+# one: each rotate as a 64-bit product by 2^r from constant memory (its two
+# words or-ed: the rotate's bits on the FMA pipe, one LOP3 for the or and
+# the xor), and half the blocks an SM
+_ROT = ("      x1 = threefry::rotl(x1, rot[g & 1][r]);\n"
+        "      x1 ^= x0;")
+RANDOM_VARIANTS = {
+    "rotate_by_product": [
+        ("// threefry::hash's 20 rounds and injections",
+         "__constant__ uint32_t ROTATE_MUL[2][4] = {\n"
+         "    {1u << 13, 1u << 15, 1u << 26, 1u << 6},\n"
+         "    {1u << 17, 1u << 29, 1u << 16, 1u << 24}};\n\n"
+         "// threefry::hash's 20 rounds and injections"),
+        (_ROT, "      {\n        const unsigned long long p_ =\n"
+               "            (unsigned long long)x1 * ROTATE_MUL[g & 1][r];\n"
+               "        x1 = ((uint32_t)p_ | (uint32_t)(p_ >> 32)) ^ x0;\n"
+               "      }")],
+    "blocks_8": [("constexpr int BLOCKS_PER_SM = 16;",
+                  "constexpr int BLOCKS_PER_SM = 8;")],
+}
+
+# the draws' sizes: a beam's 4 M rays, path (b)'s 256^3 field, and
+# random_vs_plain's 2 x 512^3
+K10_SIZES = (4_000_000, 256 ** 3, 2 * 512 ** 3)
+
+
+def random_part(args):
+    """The ``random`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.kernels import _build
+    from synthpy_tpu_torch.kernels import random as krand
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
+                                                     nvidia_smi, ptxas)
+    from synthpy_tpu_torch.tracer import init_beam
+    graph_ms = _graph_ms()
+
+    dev = torch.device("cuda")
+    many = hasattr(krand, "draw_many")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "draw_many": many}
+    kern, _, cubin = ptxas(_build.CSRC / krand.KERNEL.source,
+                           krand.KERNEL.flags)
+    out["ptxas"] = kern
+    out["sass"] = _sass_functions(cubin, f"k10_{Path(args.root).name}",
+                                  lambda n: True)
+
+    def best(fn):
+        return min(batch_ms(fn, calls=10) for _ in range(args.reps))
+
+    def beam_draws(keys, n):
+        """A circular beam's four draws: phi, chi, the two positions."""
+        ks = [jrandom.key_data(keys[s]) for s in (2, 3, 0, 1)]
+        modes = ["uniform", "normal", "uniform", "uniform"]
+        if many:
+            return krand.draw_many(ks, n, modes, device=dev)
+        return [krand.draw(k, n, m, device=dev) for k, m in zip(ks, modes)]
+
+    def pair(kr_, ki_, n):
+        """The GRF's complex noise: normal(kr) + 1j normal(ki)."""
+        a, b = jrandom.key_data(kr_), jrandom.key_data(ki_)
+        if many:
+            return krand.draw_pair(a, b, n, device=dev)
+        return torch.complex(krand.draw(a, n, "normal", device=dev),
+                             krand.draw(b, n, "normal", device=dev))
+
+    key7 = jrandom.key_of(7)
+    chunk_key = jrandom.split(jrandom.PRNGKey(7), 4)[0]
+    beam_keys = jrandom.split(chunk_key, 5)
+    kr0, ki0 = jrandom.split(jrandom.PRNGKey(0))
+    n4, n256, n512 = K10_SIZES
+    cases = {
+        "uniform_4M": lambda: krand.draw(key7, n4, "uniform", device=dev),
+        "normal_4M": lambda: krand.draw(key7, n4, "normal", device=dev),
+        "beam_draws_4M": lambda: beam_draws(beam_keys, n4),
+        "normal_256^3": lambda: krand.draw(jrandom.key_data(kr0), n256,
+                                           "normal", device=dev),
+        "grf_noise_256^3": lambda: pair(kr0, ki0, n256),
+        "bits_2x512^3": lambda: krand.draw(key7, n512, "bits", device=dev),
+        "uniform_2x512^3": lambda: krand.draw(key7, n512, "uniform", -0.5,
+                                              0.5, device=dev),
+        "normal_2x512^3": lambda: krand.draw(key7, n512, "normal",
+                                             device=dev)}
+    res, hashes = {}, {}
+    for name, fn in cases.items():
+        got = fn()
+        torch.cuda.synchronize()
+        got = torch.stack(got) if isinstance(got, list) else got
+        hashes[name] = _sha(torch.view_as_real(got) if got.is_complex()
+                            else got.view(torch.int32))
+        res[name] = {"graph_ms": graph_ms(fn, calls=10),
+                     "batch_ms": best(fn)}
+        del got
+        torch.cuda.empty_cache()
+        emit({"case": name, **res[name]})
+    # a whole init_beam of 4 M rays: device time (a CUDA graph) and the
+    # host's wall time a call
+    def beam():
+        return init_beam(chunk_key, n4, 2.5e-3, 0.0, EXT, "circular",
+                         device=dev)
+    s0 = beam()
+    hashes["init_beam_4M"] = _sha(s0)
+    res["init_beam_4M"] = {"graph_ms": graph_ms(beam, calls=5),
+                           "call_ms": best_ms(beam, reps=5)}
+    krand.KERNEL.launches = 0
+    beam()
+    res["init_beam_4M"]["launches"] = krand.KERNEL.launches
+    emit({"case": "init_beam_4M", **res["init_beam_4M"]})
+    del s0
+    # counters: odd offsets, a draw straddling 2^32, short draws
+    for mode in ("bits", "uniform", "normal"):
+        for n, off in ((1, 0), (3, 7), (5, 1), ((1 << 20) + 7, 12345),
+                       (1 << 21, 2 ** 32 - 2 ** 20)):
+            hashes[f"{mode}_{n}_at_{off}"] = _sha(krand.draw(
+                (123, 456), n, mode, -0.5, 0.5, device=dev,
+                offset=off).view(torch.int32))
+    if args.variants:
+        res["variants"] = _random_variants(krand, cases, hashes, graph_ms)
+    out["cases"] = res
+    _save_against(out, hashes, args)
+    print(json.dumps({"part": "random", **out}), flush=True)
+
+
+def _random_variants(krand, cases, hashes, graph_ms):
+    """``RANDOM_VARIANTS``' builds on the cases of ``random_part``: device
+    times in turns with the shipped build, outputs hashed against its."""
+    import torch
+    from synthpy_tpu_torch.kernels import profiling
+    from synthpy_tpu_torch.kernels.profiling import ptxas
+    res = {}
+    timed = ("beam_draws_4M", "normal_256^3", "grf_noise_256^3",
+             "bits_2x512^3", "uniform_2x512^3", "normal_2x512^3")
+    for name, subs in RANDOM_VARIANTS.items():
+        v = profiling.variant(krand.KERNEL, f"k10_{name}", subs)
+        kern, _, cubin = ptxas(Path(v.source), v.flags)
+        r = {"ptxas": kern, "sass": _sass_functions(
+            cubin, f"k10_{name}", lambda n: "draw_rows" in n)}
+        for case in timed:
+            fn = cases[case]
+            with profiling.kernel_of(krand, v):
+                got = fn()
+                got = torch.stack(got) if isinstance(got, list) else got
+                same = _sha(torch.view_as_real(got) if got.is_complex()
+                            else got.view(torch.int32)) == hashes[case]
+                del got
+                t_v = graph_ms(fn, calls=10)
+            r[case] = {"graph_ms": t_v, "shipped_graph_ms": graph_ms(
+                fn, calls=10), "bit_equal": same}
+            torch.cuda.empty_cache()
+        res[name] = r
+        emit({"variant": name, **{k: v_ for k, v_ in r.items()
+                                  if k != "sass"}})
+    return res
+
+
+def _fresnel_inputs(dev):
+    """The diagnostics path's Fresnel deposit inputs (``chip_smoke.py``'s
+    ``diagnostics_path``: the 512^3 lens, ne_0 = 2e25, 4 M rays of a 2.5 mm
+    beam traced by ``solve_zscan``, ``fresnel_solve`` onto 512 x 512 nodes
+    over [-3, 3] mm): (x, y, amplitude, phase, grid), recorded where
+    ``ops.fresnel.propagate`` calls the deposit."""
+    import torch
+    from synthpy_tpu_torch.fields import layout_of
+    from synthpy_tpu_torch.fields.domain import ScalarDomain, build_pack
+    from synthpy_tpu_torch.ops import fresnel
+    from synthpy_tpu_torch.optics import diagnostics as dg
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+
+    lwl = 1064e-9
+    lens = ScalarDomain(2 * EXT, DIM, phaseshift=True, device=dev)
+    lens.test_lens(ne_0=2e25, LR=2e-3)
+    zp = zscan.make_zscan_pack(build_pack(lens, lwl), layout_of(lens), "z")
+    s0 = init_beam(0, RAYS, 2.5e-3, 0.0, EXT, "circular", device=dev)
+    res = zscan.solve_zscan(s0, lens, lwl=lwl, return_E=True, zpack=zp)
+    del zp, lens, s0
+    grid = torch.linspace(-3.0, 3.0, 512, device=dev)
+    fr = dg.Refractometry(lwl, res.rf, None, x=grid, y=grid, x_l=6e-3,
+                          y_l=6e-3, amp=res.Jf[1].abs(), phase=res.sf[7])
+    seen = []
+    shipped = fresnel.deposit
+
+    def record(*a, **k):
+        seen.append(a)
+        return shipped(*a, **k)
+
+    fresnel.deposit = record
+    try:
+        fr.fresnel_solve(z=0.3)
+    finally:
+        fresnel.deposit = shipped
+    x, y, vals = (t.contiguous() for t in seen[0][:3])
+    return x, y, vals[:, 0].contiguous(), vals[:, 1].contiguous(), grid
+
+
+def _tile_counts(x, y, grid, tile: int) -> dict:
+    """Of the rays (x, y) on ``grid`` x ``grid`` nodes: the entries a
+    ``tile`` x ``tile``-node tiling gives (a ray once in each tile its
+    four corners touch; rays outside with finite positions none, NaN ones
+    at index 0), the tiles holding any, the fullest tile's entries and the
+    mean over those holding any."""
+    import torch
+    n = grid.shape[0]
+    d = grid[1] - grid[0]
+    ts = [(v - grid[0]) / d for v in (x, y)]
+    inside = (torch.isfinite(ts[0]) & torch.isfinite(ts[1])
+              & (ts[0] >= 0) & (ts[0] <= n - 1) & (ts[1] >= 0)
+              & (ts[1] <= n - 1))
+    keep = inside | ts[0].isnan() | ts[1].isnan()
+    cs = [torch.floor(t).nan_to_num(0).clamp(0, n - 2).long()[keep]
+          for t in ts]
+    nt = (n + tile - 1) // tile
+    ids = torch.cat([((cs[0] + a) // tile) * nt + (cs[1] + b) // tile
+                     for a in (0, 1) for b in (0, 1)])
+    # a ray's distinct tiles: its four corners' tiles, each ray once a tile
+    ray = torch.arange(cs[0].numel(), device=x.device).repeat(4)
+    pairs = torch.unique(ray * (nt * nt) + ids)
+    counts = torch.bincount(pairs % (nt * nt), minlength=nt * nt)
+    held = counts[counts > 0].double()
+    return {"tile": tile, "tiles": nt * nt, "entries": int(counts.sum()),
+            "rays_kept": int(keep.sum()), "tiles_held": int(held.numel()),
+            "fullest": int(counts.max()),
+            "mean_held": float(held.mean()) if held.numel() else 0.0}
+
+
+# builds of deposit.cu that ``deposit --variants`` times beside the shipped
+# one on the path's V = 2 deposit
+DEPOSIT_VARIANTS = {
+    "tile16": [("constexpr int TILE = 32;", "constexpr int TILE = 16;")],
+    "items_4": [("constexpr int ITEMS_PER_SM = 8;",
+                 "constexpr int ITEMS_PER_SM = 4;")],
+    "rays_8": [("constexpr int RAYS = 4;", "constexpr int RAYS = 8;")],
+    "sort_2": [("constexpr int SORT_PER_SM = 4;",
+                "constexpr int SORT_PER_SM = 2;")],
+    "sort_8": [("constexpr int SORT_PER_SM = 4;",
+                "constexpr int SORT_PER_SM = 8;")],
+}
+
+
+def deposit_part(args):
+    """The ``deposit`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch.kernels import _build, deposit
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, kernel_ms,
+                                                     nvidia_smi, ptxas)
+    graph_ms = _graph_ms()
+
+    dev = torch.device("cuda")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi()}
+    kern, _, cubin = ptxas(_build.CSRC / deposit.KERNEL.source,
+                           deposit.KERNEL.flags)
+    out["ptxas"] = kern
+    out["sass"] = _sass_functions(cubin, f"k8_{Path(args.root).name}",
+                                  lambda n: True)
+    x, y, amp, phase, grid = _fresnel_inputs(dev)
+    N = x.shape[0]
+    out["rays"] = N
+    out["tiles"] = [_tile_counts(x, y, grid, t) for t in (16, 32, 64)]
+    emit({"tiles": out["tiles"]})
+
+    def best(fn):
+        return min(batch_ms(fn, calls=20) for _ in range(args.reps))
+
+    cases = {}
+    for name, vals in (("V1", amp[:, None].contiguous()),
+                       ("V2", torch.stack([amp, phase], 1))):
+        def call(ret=False):
+            return deposit.deposit(x, y, vals, grid, grid, return_acc=ret)
+        acc, got = call(True), call()
+        acc_p = deposit.deposit_plain(x, y, vals, grid, grid,
+                                      return_acc=True)
+        want = deposit.deposit_plain(x, y, vals, grid, grid)
+        scale = acc_p.nan_to_num(0).abs().amax((0, 1)).clamp_min(1e-30)
+        c = {"nan_as_plain": bool(torch.equal(acc.isnan(), acc_p.isnan())
+                                  and torch.equal(got.isnan(),
+                                                  want.isnan())),
+             "sum_rel_err": ((acc - acc_p).nan_to_num(0).abs().amax((0, 1))
+                             / scale).tolist(),
+             "value_rel_err": float((got - want).nan_to_num(0).abs().max())
+             / float(want.nan_to_num(0).abs().max()),
+             "repeat_max_abs": max(float((call(True) - acc).nan_to_num(0)
+                                         .abs().max()) for _ in range(3)),
+             "graph_ms": graph_ms(call), "batch_ms": best(call),
+             "acc_graph_ms": graph_ms(lambda: call(True)),
+             "kernels_ms": kernel_ms(call, Path("chiprun_out")
+                                     / f"k8_{name}_trace.json")}
+        # bytes: the rays' positions and values read once, the grid
+        # written once; the tiled design's count beside it: the positions
+        # read twice (count, scatter), the values once, each 16-byte bucket
+        # entry written and read, the grid written and each work item's
+        # partial tile (at most one an item) written and read
+        V = vals.shape[1]
+        c["bound_ms"] = (N * (8 + 4 * V) + 512 * 512 * V * 4
+                         + 2 * 512 * 4) / 3.35e12 * 1e3
+        entries = out["tiles"][1]["entries"]
+        items = 256 + torch.cuda.get_device_properties(
+            dev).multi_processor_count * 8
+        c["bound_design_ms"] = (N * (16 + 4 * V) + entries * 32
+                                + 512 * 512 * V * 4
+                                + 2 * items * (V + 1) * 4096) / 3.35e12 * 1e3
+        cases[name] = c
+        emit({"case": name, **c})
+    if args.variants and hasattr(deposit, "tiles_plain"):
+        from synthpy_tpu_torch.kernels import profiling
+        vals = torch.stack([amp, phase], 1)
+        want = deposit.deposit_plain(x, y, vals, grid, grid, return_acc=True)
+        scale = want.nan_to_num(0).abs().amax((0, 1)).clamp_min(1e-30)
+        var = {}
+        for name, subs in DEPOSIT_VARIANTS.items():
+            v = profiling.variant(deposit.KERNEL, f"k8_{name}", subs)
+            with profiling.kernel_of(deposit, v):
+                def call(ret=False):
+                    return deposit.deposit(x, y, vals, grid, grid,
+                                           return_acc=ret)
+                acc = call(True)
+                var[name] = {
+                    "graph_ms": graph_ms(call),
+                    "sum_rel_err": ((acc - want).nan_to_num(0).abs()
+                                    .amax((0, 1)) / scale).tolist(),
+                    "kernels_ms": kernel_ms(call, Path("chiprun_out")
+                                            / f"k8_{name}_trace.json")}
+            var[name]["shipped_graph_ms"] = graph_ms(
+                lambda: deposit.deposit(x, y, vals, grid, grid))
+            emit({"variant": name, **var[name]})
+        out["variants"] = var
+    out["cases"] = cases
+    _save_against(out, {}, args)
+    print(json.dumps({"part": "deposit", **out}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("part", nargs="?",
                     choices=["march", "adjoint", "boris", "adaptive", "time",
                              "k18", "zscan", "analytic", "k17", "k19",
-                             "xray", "btable", "cic"],
+                             "xray", "btable", "cic", "random",
+                             "deposit"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -2258,6 +2675,10 @@ def main():
         return btable_part(args)
     if args.part == "cic":
         return cic_part(args)
+    if args.part == "random":
+        return random_part(args)
+    if args.part == "deposit":
+        return deposit_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

@@ -66,8 +66,9 @@ def grf_fft(key, N: int, k_func: Callable, ndim: int = 3, d: float = 1.0,
     kr, ki = jrandom.split(key)
     shape = (M,) * ndim
     amp = torch.sqrt(_safe_spectrum(k_func, K))
-    Wr = jrandom.normal(kr, shape, device=dev)
-    Wi = jrandom.normal(ki, shape, device=dev)
+    Wr, Wi = (w.reshape(shape) for w in _krandom.draw_many(
+        [jrandom.key_data(kr), jrandom.key_data(ki)], M ** ndim,
+        ["normal", "normal"], device=dev))
     dims = tuple(range(ndim))
     Wr = Wr + torch.flip(Wr, dims)
     Wi = Wi - torch.flip(Wi, dims)
@@ -103,8 +104,8 @@ def grf_domain_fft(key, k_func: Callable, l_max: float, l_min: float,
     ``mesh`` (a ``parallel.Mesh``): the field is a ``parallel.Sharded`` of
     axis-0 row blocks over ``mesh_axis``, each on its shard's device (the
     JAX package's sharded jit), equal to the single-device field to the
-    order of the FFT sums. Each shard draws its rows of the two normal
-    fields (K10 at the rows' flat offset: the bits of an index do not
+    order of the FFT sums. Each shard draws its rows of the complex noise
+    (one K10 launch at the rows' flat offset: the bits of an index do not
     depend on the split) and transforms them along axes 1.. with
     ``torch.fft``; an all-to-all splits the blocks along axis 1 for the
     transform along axis 0, and a second brings the real part back to
@@ -132,10 +133,17 @@ def grf_domain_fft(key, k_func: Callable, l_max: float, l_min: float,
             kr, ki, k_func, ks, k_min, k_max, mesh, mesh_axis)
     shape = tuple(kv.shape[0] for kv in ks)
     amp = _band_amplitude(k_func, ks, k_min, k_max)
-    noise = torch.complex(jrandom.normal(kr, shape, device=dev),
-                          jrandom.normal(ki, shape, device=dev))
+    noise = _noise(kr, ki, shape, dev)
     field = dft.ifftn(noise * amp).real
     return tuple(coords), field / torch.max(torch.abs(field))
+
+
+def _noise(kr, ki, shape, dev, offset: int = 0) -> torch.Tensor:
+    """normal(kr) + 1j normal(ki) of ``shape`` at flat indices offset ..,
+    complex64 (one K10 launch on the card)."""
+    return _krandom.draw_pair(jrandom.key_data(kr), jrandom.key_data(ki),
+                              math.prod(shape), device=dev,
+                              offset=offset).reshape(shape)
 
 
 def _domain_fft_sharded(kr, ki, k_func, ks, k_min, k_max, mesh, axis):
@@ -159,17 +167,13 @@ def _domain_fft_sharded(kr, ki, k_func, ks, k_min, k_max, mesh, axis):
     per = m * math.prod(shape[1:])
     devs = [mesh.flat_devices[p] for p in mesh.groups(axis)[0]]
     line = Mesh((G,), (axis,), devices=devs)
-    keys = [jrandom.key_data(kr), jrandom.key_data(ki)]
     blocks = []
     for g, dev in enumerate(devs):
         kg = [kv.to(dev) for kv in ks]
         kg[0] = kg[0][g * m:(g + 1) * m]
         amp = _band_amplitude(k_func, kg, k_min, k_max)
-        re_, im_ = (_krandom.draw(k, per, "normal", device=dev,
-                                  offset=g * per).reshape(m, *shape[1:])
-                    for k in keys)
-        spec = torch.complex(re_, im_) * amp
-        del re_, im_, amp
+        spec = _noise(kr, ki, (m, *shape[1:]), dev, offset=g * per) * amp
+        del amp
         blocks.append(torch.fft.ifftn(spec, dim=tuple(range(1, ndim))))
         del spec
     cols = all_to_all(blocks, line, axis, split_dim=1, concat_dim=0)
@@ -197,12 +201,11 @@ def _cos_modes(key, k_func, wn1, wnn, nmodes, ndim, dev):
                                        device=dev) * dk
     A_m = torch.sqrt(2.0 * _safe_spectrum(k_func, wn) * dk**ndim)
     keys = jrandom.split(key, 2 ** (ndim - 1) + ndim - 1)
-    two_pi = 2 * math.pi
-    psis = [two_pi * jrandom.uniform(keys[i], (nmodes,), device=dev)
-            for i in range(2 ** (ndim - 1))]
-    angles = [two_pi * jrandom.uniform(keys[2 ** (ndim - 1) + i],
-                                       (nmodes,), device=dev)
-              for i in range(ndim - 1)]
+    rows = 2 * math.pi * _krandom.draw_many(
+        [jrandom.key_data(k) for k in keys], nmodes,
+        ["uniform"] * keys.shape[0], device=dev)
+    psis = list(rows[:2 ** (ndim - 1)])
+    angles = list(rows[2 ** (ndim - 1):])
     return wn, A_m, psis, angles
 
 
@@ -380,9 +383,7 @@ def grf_vector_solenoidal(key, k_func: Callable, l_max: float, l_min: float,
                     _safe_spectrum(k_func, kmag), torch.zeros_like(kmag))
     amp = torch.sqrt(S)
     keys = jrandom.split(key, 6)
-    F = [torch.complex(jrandom.normal(keys[2 * i], amp.shape, device=dev),
-                       jrandom.normal(keys[2 * i + 1], amp.shape,
-                                      device=dev)) * amp
+    F = [_noise(keys[2 * i], keys[2 * i + 1], amp.shape, dev) * amp
          for i in range(3)]
     k2 = torch.clamp_min(kx**2 + ky**2 + kz**2, 1e-30)
     kdotF = kx * F[0] + ky * F[1] + kz * F[2]

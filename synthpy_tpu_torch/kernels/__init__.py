@@ -15,8 +15,7 @@ of the grid-sharded march for the shards one device holds), K18 ``sharded_rhs`` 
 grid-sharded time tracer) and K19 ``pack_chain`` (the renderer's pack
 chain, forward and adjoint, under one autograd Function). The sources are
 in ``csrc/`` (K5 and K6 share ``time_rhs.cuh``, K4, K7 and K11
-``zscan_rhs.cuh``, K2, K9 and K19 ``channels.cuh``, K8 and K12
-``deposit.cuh``) and are built with ``nvcc`` for ``sm_90a`` at first
+``zscan_rhs.cuh``, K2, K9 and K19 ``channels.cuh``) and are built with ``nvcc`` for ``sm_90a`` at first
 launch (``_build``, which builds any source by its name: a new kernel
 needs no entry there).
 """

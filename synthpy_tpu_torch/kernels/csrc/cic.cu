@@ -56,9 +56,17 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "deposit.cuh"
-
 namespace {
+
+// V values of one ray, each times its corner weight, added atomically into
+// the V channels of one node of the image in device memory (the global
+// form); each product is rounded before its add (--fmad=false)
+template <int V>
+__device__ __forceinline__ void add_weighted(float* node, const float v[V],
+                                             float w) {
+#pragma unroll
+  for (int c = 0; c < V; ++c) atomicAdd(node + c, v[c] * w);
+}
 
 constexpr int THREADS = 256;
 // the shared forms' blocks
@@ -190,7 +198,7 @@ __device__ __forceinline__ void deposit_ray(const Geometry& G, float x,
                       v, gx[a] * gy[b]);
       } else {
         float* node = img + ((long long)(c.ix + a) * G.ny + c.iy + b) * V;
-        deposit::add_weighted<V>(node, v, gx[a] * gy[b]);
+        add_weighted<V>(node, v, gx[a] * gy[b]);
       }
     }
   }

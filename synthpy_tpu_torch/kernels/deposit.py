@@ -7,6 +7,10 @@ node coordinates, and return the (nx, ny, V) grid of weight-normalised
 values in the JAX package's layout. ``ops.histogram.deposit_cic`` calls it
 with the real or complex value of one deposit, ``ops.fresnel.propagate``
 with the amplitude and phase that it deposits at the same positions.
+
+The kernel buckets the rays by tile of the grid before it adds them in
+shared memory (``deposit.cu``); ``tiles_plain`` is that bucketing's plain
+version, which the CPU tests hold to the deposit's rule.
 """
 
 from __future__ import annotations
@@ -16,10 +20,13 @@ import torch
 from synthpy_tpu_torch.kernels._build import I, L, P, Kernel, refuse_grad
 
 KERNEL = Kernel("deposit.cu", {
-    "deposit_cic": [P, P, P, I, P, P, I, I, P, P, L, P],
-}, flags=["--fmad=false"])
+    "deposit_cic": [P, P, P, I, P, P, I, I, P, L, P, I, L, I, P],
+}, flags=["--fmad=false"], helpers={
+    "deposit_scratch_blocks": [L, I, I, I, I]})
 
 MAX_CHANNELS = 2  # value channels of one deposit (deposit.cu)
+MAX_RAYS = 1 << 29  # rays a call takes (deposit.cu's 32-bit bucket slots)
+TILE = 32  # nodes a tile along x and y (deposit.cu)
 
 
 def _corner(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -59,6 +66,29 @@ def deposit_plain(x: torch.Tensor, y: torch.Tensor, vals: torch.Tensor,
     return (acc[:, :-1] / den).reshape(nx, ny, vals.shape[1])
 
 
+def tiles_plain(x: torch.Tensor, y: torch.Tensor, x_coords: torch.Tensor,
+                y_coords: torch.Tensor, tile: int = TILE):
+    """The kernel's buckets: (rays, tiles), each entry a ray and a tile of
+    ``tile`` x ``tile`` nodes (row-major over the tiles, nodes along y
+    fastest) that its four corners touch, each pair once. A ray outside
+    the grid with finite positions has none (it adds exactly 0); a NaN
+    coordinate puts the ray in the tiles at corner index 0 along it."""
+    nx, ny = x_coords.shape[0], y_coords.shape[0]
+    tx = (x - x_coords[0]) / (x_coords[1] - x_coords[0])
+    ty = (y - y_coords[0]) / (y_coords[1] - y_coords[0])
+    inside = (torch.isfinite(tx) & torch.isfinite(ty) & (tx >= 0)
+              & (tx <= nx - 1) & (ty >= 0) & (ty <= ny - 1))
+    keep = torch.nonzero(inside | tx.isnan() | ty.isnan()).reshape(-1)
+    ix, iy = (_corner(t[keep], n).long() for t, n in ((tx, nx), (ty, ny)))
+    nty = (ny + tile - 1) // tile
+    n_t = ((nx + tile - 1) // tile) * nty
+    # (ray, tile) pairs as one integer each, every pair once
+    pairs = torch.unique(torch.cat([
+        keep * n_t + ((ix + a) // tile) * nty + (iy + b) // tile
+        for a in (0, 1) for b in (0, 1)]))
+    return pairs // n_t, pairs % n_t
+
+
 def deposit(x: torch.Tensor, y: torch.Tensor, vals: torch.Tensor,
             x_coords: torch.Tensor, y_coords: torch.Tensor,
             return_acc: bool = False) -> torch.Tensor:
@@ -86,12 +116,19 @@ def deposit(x: torch.Tensor, y: torch.Tensor, vals: torch.Tensor,
                 or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be a float32 tensor of shape "
                              f"{shape} on the rays' device")
+    if n > MAX_RAYS:
+        raise ValueError(f"{n} rays: the deposit takes at most {MAX_RAYS} "
+                         "a call")
     x, y, vals = x.contiguous(), y.contiguous(), vals.contiguous()
     x_coords, y_coords = x_coords.contiguous(), y_coords.contiguous()
-    acc = torch.zeros((nx, ny, V + 1), dtype=torch.float32, device=dev)
-    out = torch.empty((nx, ny, V), dtype=torch.float32, device=dev)
+    lib = KERNEL.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = lib.deposit_scratch_blocks(n, V, nx, ny, sms)
+    scratch = torch.empty((blocks * 256,), dtype=torch.uint8, device=dev)
+    out = torch.empty((nx, ny, V + 1 if return_acc else V),
+                      dtype=torch.float32, device=dev)
     KERNEL.launch("deposit_cic", dev, x.data_ptr(), y.data_ptr(),
                   vals.data_ptr(), V, x_coords.data_ptr(),
-                  y_coords.data_ptr(), nx, ny, acc.data_ptr(), out.data_ptr(),
-                  n)
-    return acc if return_acc else out
+                  y_coords.data_ptr(), nx, ny, scratch.data_ptr(),
+                  scratch.numel(), out.data_ptr(), int(return_acc), n, sms)
+    return out

@@ -7,8 +7,13 @@ the draws of flat index 0 .. n-1 of ``jax.random.bits`` (mode "bits"),
 key, with ``jax_threefry_partitionable`` on (the JAX default): bits and
 uniforms bit for bit, normals to a few ulp (XLA's float32 ``erf_inv`` on
 the accurate ``log1p``; the CPU's ``log1p`` and the card's differ in the
-last place). The stream (``csrc/threefry.cuh``) is shared with the dither
-of K2 and K9; ``uniform_rows_plain`` is their plain versions' draw.
+last place). ``draw_many`` draws up to ``MAX_STREAMS`` streams of one
+length in one launch, a row each (a beam's four streams), and
+``draw_pair`` two normal streams as one complex64 tensor, real parts from
+the first (the GRF's noise); ``draw_many_plain`` and ``draw_pair_plain``
+are their plain versions. The stream (``csrc/threefry.cuh``) is shared
+with the dither of K2, K9 and K14; ``uniform_rows_plain`` is their plain
+versions' draw.
 
 The plain version holds the 32-bit words in int64 tensors, masking after
 every add, because PyTorch's uint32 arithmetic is partial. It draws in
@@ -18,18 +23,20 @@ temporaries.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel
+from synthpy_tpu_torch.kernels._build import I, L, P, Kernel
 
 KERNEL = Kernel("random.cu", {
-    "random_draw": [P, I, L, L, L, L, F, F, P],
+    "random_draw": [P, I, P, P, P, P, L, L, I, P],
 }, flags=["--fmad=false"])
 
 MODES = {"bits": 0, "uniform": 1, "normal": 2}
+MAX_STREAMS = 8  # streams of one launch (random.cu)
 MASK = 0xFFFFFFFF
 CHUNK = 1 << 22
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -124,6 +131,26 @@ def draw_plain(key: Tuple[int, int], n: int, mode: str, lo: float = 0.0,
     return out.view(torch.uint32) if mode == "bits" else out
 
 
+def _launch(out: torch.Tensor, keys, modes, lo, hi, n: int, offset: int,
+            pair: bool) -> None:
+    """One ``random_draw`` launch of len(keys) streams into ``out``."""
+    S = len(keys)
+    words = (ctypes.c_uint32 * (2 * S))(*[int(w) & MASK for k in keys
+                                          for w in k])
+    codes = (ctypes.c_int * S)(*[MODES[m] for m in modes])
+    los = (ctypes.c_float * S)(*[float(v) for v in lo])
+    his = (ctypes.c_float * S)(*[float(v) for v in hi])
+    KERNEL.launch("random_draw", out.device, out.data_ptr(), S,
+                  ctypes.addressof(words), ctypes.addressof(codes),
+                  ctypes.addressof(los), ctypes.addressof(his), int(n),
+                  int(offset), int(pair))
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown draw mode {mode!r}")
+
+
 def draw(key: Tuple[int, int], n: int, mode: str, lo: float = 0.0,
          hi: float = 1.0, device="cuda", offset: int = 0) -> torch.Tensor:
     """(n,) draws of flat index offset .. offset+n-1 under ``key`` (two
@@ -131,16 +158,79 @@ def draw(key: Tuple[int, int], n: int, mode: str, lo: float = 0.0,
     "normal" (float32). K10 on a CUDA device, the plain version on the
     CPU."""
     dev = torch.device(device)
-    if mode not in MODES:
-        raise ValueError(f"unknown draw mode {mode!r}")
+    _check_mode(mode)
     if dev.type == "cpu":
         return draw_plain(key, n, mode, lo, hi, dev, offset)
     out = torch.empty((n,), dtype=torch.int32 if mode == "bits"
                       else torch.float32, device=dev)
-    KERNEL.launch("random_draw", dev, out.data_ptr(), MODES[mode],
-                  int(key[0]), int(key[1]), int(n), int(offset), float(lo),
-                  float(hi))
+    _launch(out, [key], [mode], [lo], [hi], n, offset, False)
     return out.view(torch.uint32) if mode == "bits" else out
+
+
+def _per_row(v, S: int) -> Sequence[float]:
+    return [v] * S if isinstance(v, (int, float)) else list(v)
+
+
+def draw_many_plain(keys: Sequence[Tuple[int, int]], n: int,
+                    modes: Sequence[str], lo: Union[float, Sequence] = 0.0,
+                    hi: Union[float, Sequence] = 1.0, device="cpu",
+                    offset: int = 0) -> torch.Tensor:
+    """Plain version of ``draw_many``: one ``draw_plain`` a row."""
+    S = len(keys)
+    lo, hi = _per_row(lo, S), _per_row(hi, S)
+    return torch.stack([draw_plain(k, n, m, a, b, device, offset)
+                        for k, m, a, b in zip(keys, modes, lo, hi)])
+
+
+def draw_many(keys: Sequence[Tuple[int, int]], n: int,
+              modes: Sequence[str], lo: Union[float, Sequence] = 0.0,
+              hi: Union[float, Sequence] = 1.0, device="cuda",
+              offset: int = 0) -> torch.Tensor:
+    """(S, n) float32 draws, row s those of ``draw(keys[s], n, modes[s],
+    lo[s], hi[s], offset=offset)``: S = len(keys) <= ``MAX_STREAMS``
+    streams, each "uniform" or "normal"; ``lo`` and ``hi`` a float for
+    every row or one a row. One K10 launch on a CUDA device, the plain
+    version on the CPU."""
+    S = len(keys)
+    if not 1 <= S <= MAX_STREAMS or len(modes) != S:
+        raise ValueError(f"{S} keys and {len(modes)} modes: draw_many "
+                         f"takes 1-{MAX_STREAMS} streams, a mode each")
+    for m in modes:
+        _check_mode(m)
+        if m == "bits":
+            raise ValueError("draw_many draws float rows: take bits with "
+                             "draw")
+    lo, hi = _per_row(lo, S), _per_row(hi, S)
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return draw_many_plain(keys, n, modes, lo, hi, dev, offset)
+    out = torch.empty((S, n), dtype=torch.float32, device=dev)
+    _launch(out, keys, modes, lo, hi, n, offset, False)
+    return out
+
+
+def draw_pair_plain(key_re: Tuple[int, int], key_im: Tuple[int, int],
+                    n: int, device="cpu", offset: int = 0) -> torch.Tensor:
+    """Plain version of ``draw_pair``: two ``draw_plain`` normals."""
+    return torch.complex(draw_plain(key_re, n, "normal", device=device,
+                                    offset=offset),
+                         draw_plain(key_im, n, "normal", device=device,
+                                    offset=offset))
+
+
+def draw_pair(key_re: Tuple[int, int], key_im: Tuple[int, int], n: int,
+              device="cuda", offset: int = 0) -> torch.Tensor:
+    """(n,) complex64 ``normal(key_re) + 1j normal(key_im)`` at flat
+    indices offset .. offset+n-1 (JAX's ``normal(kr) + 1j * normal(ki)``).
+    One K10 launch writing the pairs in place on a CUDA device, the plain
+    version on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return draw_pair_plain(key_re, key_im, n, dev, offset)
+    out = torch.empty((n,), dtype=torch.complex64, device=dev)
+    _launch(out, [key_re, key_im], ["normal", "normal"], [0.0, 0.0],
+            [1.0, 1.0], n, offset, True)
+    return out
 
 
 def uniform_rows_plain(key: Tuple[int, int], planes: torch.Tensor, n: int,

@@ -21,6 +21,7 @@ import torch
 from synthpy_tpu_torch import _device
 from synthpy_tpu_torch import random as jrandom
 from synthpy_tpu_torch.constants import C
+from synthpy_tpu_torch.kernels import random as _krandom
 
 BEAM_TYPES = ("circular", "square", "rectangular", "linear", "even",
               "rect_trackers")
@@ -51,7 +52,8 @@ def _assemble(pos_a, pos_b, chi, phi, ne_extent: float,
 class _Draws:
     """Uniform and normal draws of the five streams of a beam: from a key,
     ``split(key, 5)`` as in the JAX package (position 1, position 2, phi,
-    chi, trackers); from a torch.Generator, one shared stream."""
+    chi, trackers), the streams a beam needs in one K10 launch; from a
+    torch.Generator, one shared stream."""
 
     def __init__(self, source, dev):
         self.dev = dev
@@ -60,17 +62,18 @@ class _Draws:
         else:
             self.gen, self.keys = None, jrandom.split(source, 5)
 
-    def uniform(self, stream: int, n: int) -> torch.Tensor:
+    def take(self, draws, n: int):
+        """The (n,) draws of each (stream, "uniform" | "normal") of
+        ``draws``: from a key, rows of one ``draw_many``; from a generator,
+        one after another in that order."""
         if self.keys is not None:
-            return jrandom.uniform(self.keys[stream], (n,), device=self.dev)
-        return torch.rand((n,), generator=self.gen,
-                          device=self.gen.device).to(self.dev)
-
-    def normal(self, stream: int, n: int) -> torch.Tensor:
-        if self.keys is not None:
-            return jrandom.normal(self.keys[stream], (n,), device=self.dev)
-        return torch.randn((n,), generator=self.gen,
-                           device=self.gen.device).to(self.dev)
+            return list(_krandom.draw_many(
+                [jrandom.key_data(self.keys[s]) for s, _ in draws], n,
+                [m for _, m in draws], device=self.dev))
+        fn = {"uniform": torch.rand, "normal": torch.randn}
+        return [fn[m]((n,), generator=self.gen,
+                      device=self.gen.device).to(self.dev)
+                for _, m in draws]
 
     def choice(self, n: int, k: int) -> torch.Tensor:
         """k of range(n) without replacement."""
@@ -118,22 +121,28 @@ def init_beam(
         generator = torch.Generator(device=dev)
         generator.manual_seed(key)
     draws = _Draws(generator, dev)
-    phi = 2 * math.pi * draws.uniform(PHI, Np)
-    chi = divergence * draws.normal(CHI, Np)
+    # phi, chi and the positions a beam type draws, in this order (a
+    # generator's stream follows it)
+    angles = [(PHI, "uniform"), (CHI, "normal")]
+    n_pos = {"linear": 1, "even": 0}.get(beam_type, 2)
+    u_phi, n_chi, *u = draws.take(
+        angles + [(POS1, "uniform"), (POS2, "uniform")][:n_pos], Np)
+    phi = 2 * math.pi * u_phi
+    chi = divergence * n_chi
     if beam_type == "circular":
-        t = 2 * math.pi * draws.uniform(POS1, Np)
-        r = beam_size * torch.sqrt(draws.uniform(POS2, Np))
+        t = 2 * math.pi * u[0]
+        r = beam_size * torch.sqrt(u[1])
         a, b = r * torch.cos(t), r * torch.sin(t)
     elif beam_type == "square":
-        a = beam_size * (2 * draws.uniform(POS1, Np) - 1.0)
-        b = beam_size * (2 * draws.uniform(POS2, Np) - 1.0)
+        a = beam_size * (2 * u[0] - 1.0)
+        b = beam_size * (2 * u[1] - 1.0)
     elif beam_type in ("rectangular", "rect_trackers"):
         s1, s2 = beam_size
-        a = s1 * (2 * draws.uniform(POS1, Np) - 1.0)
-        b = s2 * (2 * draws.uniform(POS2, Np) - 1.0)
+        a = s1 * (2 * u[0] - 1.0)
+        b = s2 * (2 * u[1] - 1.0)
     elif beam_type == "linear":
         # along a line in the x-z plane, probing along z
-        a = beam_size * (2 * draws.uniform(POS1, Np) - 1.0)
+        a = beam_size * (2 * u[0] - 1.0)
         b = torch.zeros((Np,), device=dev)
         phi = torch.zeros((Np,), device=dev)
         probing_direction = "z"
@@ -148,8 +157,9 @@ def init_beam(
         u = torch.tensor(u, dtype=torch.float32, device=dev)
         t = torch.tensor(t, dtype=torch.float32, device=dev)
         a, b = beam_size * u * torch.cos(t), beam_size * u * torch.sin(t)
-        phi = 2 * math.pi * draws.uniform(PHI, Np)
-        chi = divergence * draws.normal(CHI, Np)
+        u_phi, n_chi = draws.take(angles, Np)
+        phi = 2 * math.pi * u_phi
+        chi = divergence * n_chi
     s0 = _assemble(a.to(dtype), b.to(dtype), chi, phi, ne_extent,
                    probing_direction, dtype)
     if beam_type != "rect_trackers":

@@ -940,6 +940,91 @@ def test_deposit_kernel_matches_plain(dev, V, nan):
         assert bool(acc_p.isnan().any())
 
 
+def _deposit_case(dev, case, V, g):
+    """(x, y, vals, x_coords, y_coords) of a named K8 card case."""
+    n = 3000
+    vals = torch.rand((n, V), generator=g, device=dev)
+    # node coordinates 0 .. 63: a position is its grid index, exactly
+    grid = torch.arange(64, dtype=torch.float32, device=dev)
+    if case in ("one_node", "tile_corner", "last_node"):
+        # every ray on node 10; on the corner of four 32-node tiles (a cell
+        # spanning nodes 31 and 32 along both axes); on node n - 1. Values
+        # of four bits and weights 1 or 1/4: every sum is exact, in any
+        # order
+        p = {"one_node": 10.0, "tile_corner": 31.5, "last_node": 63.0}[case]
+        x = torch.full((n,), p, device=dev)
+        vals = torch.randint(0, 16, (n, V), generator=g, device=dev) / 16.0
+        return x, x.clone(), vals, grid, grid
+    if case == "nan_values":
+        x = torch.rand(n, generator=g, device=dev) * 70 - 3
+        y = torch.rand(n, generator=g, device=dev) * 70 - 3
+        vals[:10] = float("nan")
+        vals[10:20] = float("inf")
+        x[20:30] = float("nan")
+        y[30:40] = float("nan")
+        x[40:45] = 63.0            # on the last node along x
+        return x, y, vals, grid, grid
+    nx, ny = {"ragged": (70, 45), "two_by_two": (2, 2),
+              "long": (1000, 3)}[case]
+    xc = torch.linspace(-1.0, 1.0, nx, device=dev)
+    yc = torch.linspace(-0.5, 0.75, ny, device=dev)
+    x = torch.rand(n, generator=g, device=dev) * 2.4 - 1.2
+    y = torch.rand(n, generator=g, device=dev) * 1.6 - 0.7
+    x[:50], y[50:100], x[100:110] = 1.0, 0.75, float("nan")
+    return x, y, vals, xc, yc
+
+
+@pytest.mark.parametrize("case", ["one_node", "tile_corner", "last_node",
+                                  "nan_values", "ragged", "two_by_two",
+                                  "long"])
+@pytest.mark.parametrize("V", [1, 2])
+def test_deposit_kernel_cases(dev, V, case):
+    """K8's tiles against deposit_plain: piles of 3,000 rays on one node, on
+    a node four tiles share and on the last node (more than one work item
+    a tile: the partial tiles' sum); NaN and inf values and positions;
+    grids off the tile size, 2 x 2 and 1000 x 3. NaN and zero patterns
+    equal, sums within 1e-5 of a channel's largest, values 1e-4."""
+    from synthpy_tpu_torch.kernels import deposit
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x, y, vals, xc, yc = _deposit_case(dev, case, V, g)
+    for ret in (True, False):
+        got = deposit.deposit(x, y, vals, xc, yc, return_acc=ret)
+        want = deposit.deposit_plain(x, y, vals, xc, yc, return_acc=ret)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got == 0, want == 0)
+        scale = want.nan_to_num(0).abs().amax((0, 1)).clamp_min(1e-30)
+        err = (got - want).nan_to_num(0).abs().amax((0, 1)) / scale
+        assert bool((err <= (1e-5 if ret else 1e-4)).all()), err
+
+
+def test_deposit_pile_is_no_farther_from_exact_than_plain(dev):
+    """5,000 rays on one off-node position of a linspace grid: each adds
+    the same four inexact weights. The plain version adds them one after
+    another; the kernel in work items of at most a few thousand entries,
+    then the items' partial tiles (so the two differ by up to 5e-5 of the
+    largest sum in a CPU build of the kernel). Every tiled sum is at least
+    as close to the float64 sum of the same float32 weights as the plain
+    one."""
+    from synthpy_tpu_torch.kernels import deposit
+
+    grid = torch.linspace(-3.0, 3.0, 64, device=dev)
+    x = torch.full((5000,), float(grid[32]), device=dev)
+    args = (x, x.clone(), torch.ones((5000, 1), device=dev), grid, grid)
+    acc = deposit.deposit(*args, return_acc=True)
+    plain = deposit.deposit_plain(*args, return_acc=True)
+    t = float(((x[:1] - grid[0]) / (grid[1] - grid[0]))[0])
+    i = min(max(int(np.floor(t)), 0), 62)
+    f = np.float32(min(max(np.float32(t) - np.float32(i), 0.0), 1.0))
+    w = [np.float32(1 - f) * np.float32(1 - f), np.float32(1 - f) * f,
+         f * np.float32(1 - f), f * f]
+    for (a, b), wk in zip(((0, 0), (0, 1), (1, 0), (1, 1)), w):
+        exact = 5000.0 * float(wk)
+        for c in (0, 1):
+            assert abs(float(acc[i + a, i + b, c]) - exact) <= abs(
+                float(plain[i + a, i + b, c]) - exact)
+
+
 def test_deposit_fused_channels_match_two_plain_calls(dev):
     from synthpy_tpu_torch.kernels import deposit
     from synthpy_tpu_torch.ops import histogram
@@ -1241,6 +1326,124 @@ def test_random_kernel_matches_plain(dev, mode, offset):
         assert bool(torch.isfinite(a).all())
     else:
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# SHA-256 of the int32 view of krand.draw((123, 456), n, mode, -0.5, 0.5,
+# offset=off) from the one-draw-a-thread K10 this design replaced (H100,
+# march_profile.py random): its normals' bits, which the plain version's
+# log1p does not give to the last place
+PARENT_DRAW_SHA = {
+    ("bits", 1, 0): "6d051ef68477b3c9c97d0efacd759cecf565743ffe444854db4c7ef867250618",
+    ("bits", 3, 7): "bb58a5c7e21f55860816a74f73f3972b282e71a2999b4113612be8bb83c4ca59",
+    ("bits", 5, 1): "7d5d97919444a79421d1194a85df90f6ad8ece4295c101b0d814a5ea434598b6",
+    ("bits", 1048583, 12345): "38c3707b7b64ef129ea85840fb0674466299d17799b3949e24e6ec7304551623",
+    ("bits", 2097152, 4293918720): "b94cbac72180a50f6b00f4f570f776a3e8c13c27de9ae298191f05f2b28a8a05",
+    ("uniform", 1, 0): "92a422f5ddd2fb6ff45cb0684a956aa23ab9496de6b6280022962dcb68190d27",
+    ("uniform", 3, 7): "c101b1eaca60b52e4cb6a95fd4d7307800a276595baa0517cf61007a75921f7a",
+    ("uniform", 5, 1): "a8bd043e7ca5755786240956853cdf17dc667db16210911a687546c46eb05dda",
+    ("uniform", 1048583, 12345): "46e97396a9997f3fe813ca955d51fa22126c9ae50bde0aaa77b8dab9fc20b829",
+    ("uniform", 2097152, 4293918720): "c1a2ba2bf519eaca7b98b5fcc3ffd00252b816b65da0a55bf991abc1eb08af4c",
+    ("normal", 1, 0): "253849bf577b5b6d1f1dc42444348c230ad93cdf3ac65a728a11ec08938d8066",
+    ("normal", 3, 7): "cc8a555f7e55e8dfc69a4f46ca0b834a5e346756edfc22d9b0104c082f224e0a",
+    ("normal", 5, 1): "75b336af4876289a833bb6929fe48257c282db61f392fa86a145ea65c66abc97",
+    ("normal", 1048583, 12345): "9395818e5740962957dc193b925e76b98c682b619651d231da7e270b84b91a76",
+    ("normal", 2097152, 4293918720): "61fe6fbcacd17d28824119ed13b15620167b964d706497a7dca7f1128adf7c72",
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARENT_DRAW_SHA), ids=str)
+def test_random_kernel_keeps_the_first_designs_bits(dev, case):
+    """Bits, uniforms and normals bit-equal to the first K10 design's at
+    n = 1, 3, 5, 2^20 + 7 and 2^21, offsets 0, odd and straddling 2^32;
+    bits and uniforms also to the plain version, normals within 4 ulp."""
+    import hashlib
+
+    from synthpy_tpu_torch.kernels import random as krand
+
+    mode, n, off = case
+    a = krand.draw((123, 456), n, mode, -0.5, 0.5, device=dev, offset=off)
+    h = hashlib.sha256(a.view(torch.int32).cpu().numpy().tobytes())
+    assert h.hexdigest() == PARENT_DRAW_SHA[case]
+    b = krand.draw_plain((123, 456), n, mode, -0.5, 0.5, device=dev,
+                         offset=off)
+    if mode == "normal":
+        assert _ulp32(a, b) <= 4
+    else:
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0, 12345, 2**32 - 1000])
+@pytest.mark.parametrize("n", [1, 3, 5, (1 << 20) + 7])
+@pytest.mark.parametrize("S", range(1, 9))
+def test_random_draw_many_rows_are_single_draws(dev, S, n, offset):
+    """draw_many's row s is draw(keys[s], n, modes[s], lo[s], hi[s]) bit for
+    bit (one kernel, the same device code), and the plain version's (bits
+    for uniforms, 4 ulp for normals); rows start off 16-byte boundaries
+    where n is odd."""
+    from synthpy_tpu_torch.kernels import random as krand
+
+    keys = [(7 * s + 1, 11 * s + 3) for s in range(S)]
+    modes = [("uniform", "normal", "uniform")[s % 3] for s in range(S)]
+    lo = [-1.0 - s for s in range(S)]
+    hi = [0.5 + s for s in range(S)]
+    krand.KERNEL.launches = 0
+    rows = krand.draw_many(keys, n, modes, lo, hi, device=dev, offset=offset)
+    assert krand.KERNEL.launches == 1 and rows.shape == (S, n)
+    for s in range(S):
+        one = krand.draw(keys[s], n, modes[s], lo[s], hi[s], device=dev,
+                         offset=offset)
+        assert torch.equal(rows[s].view(torch.int32), one.view(torch.int32))
+        p = krand.draw_plain(keys[s], n, modes[s], lo[s], hi[s], device=dev,
+                             offset=offset)
+        if modes[s] == "normal":
+            assert _ulp32(rows[s], p) <= 4
+        else:
+            assert torch.equal(rows[s], p)
+
+
+@pytest.mark.parametrize("offset", [0, 12345, 2**32 - 1000])
+@pytest.mark.parametrize("n", [1, 3, 5, (1 << 20) + 7])
+def test_random_pair_is_two_normal_draws(dev, n, offset):
+    """draw_pair's real parts are draw(key_re)'s normals and its imaginary
+    parts draw(key_im)'s, bit for bit, in one launch."""
+    from synthpy_tpu_torch.kernels import random as krand
+
+    krand.KERNEL.launches = 0
+    z = krand.draw_pair((1, 2), (3, 4), n, device=dev, offset=offset)
+    assert krand.KERNEL.launches == 1 and z.dtype == torch.complex64
+    for part, key in ((z.real, (1, 2)), (z.imag, (3, 4))):
+        one = krand.draw(key, n, "normal", device=dev, offset=offset)
+        assert torch.equal(part.contiguous().view(torch.int32),
+                           one.view(torch.int32))
+    p = krand.draw_pair_plain((1, 2), (3, 4), n, device=dev, offset=offset)
+    assert _ulp32(torch.view_as_real(z), torch.view_as_real(p)) <= 4
+
+
+def test_random_beam_is_one_launch(dev):
+    """A key-drawn circular beam draws its four streams in one K10 launch,
+    and its s0 equals the one made from four single draws."""
+    import math
+
+    from synthpy_tpu_torch import random as jrandom
+    from synthpy_tpu_torch.kernels import random as krand
+
+    key = jrandom.PRNGKey(3)
+    krand.KERNEL.launches = 0
+    s0 = init_beam(key, 100003, 2.5e-3, 1e-3, EXT, "circular", device=dev)
+    assert krand.KERNEL.launches == 1
+    k = jrandom.split(key, 5)
+    u = [krand.draw(jrandom.key_data(k[i]), 100003, m, device=dev)
+         for i, m in ((2, "uniform"), (3, "normal"), (0, "uniform"),
+                      (1, "uniform"))]
+    r = 2.5e-3 * torch.sqrt(u[3])
+    t = 2 * math.pi * u[2]
+    assert torch.equal(s0[0], r * torch.cos(t))
+    assert torch.equal(s0[1], r * torch.sin(t))
+    chi = 1e-3 * u[1]
+    phi = 2 * math.pi * u[0]
+    assert torch.equal(s0[5], (constants.C * torch.cos(chi)).float())
+    assert torch.equal(s0[3], (constants.C * torch.sin(chi)
+                               * torch.cos(phi)).float())
 
 
 @pytest.mark.parametrize("stride", [1, 2])

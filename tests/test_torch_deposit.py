@@ -141,3 +141,106 @@ def test_deposit_takes_one_or_two_channels():
         33, 17, 2)
     with pytest.raises(ValueError, match="1-2 channels"):
         kdeposit.deposit(t[0], t[1], vals, t[2], t[3])
+
+
+# -- K8's tile buckets (tiles_plain: the plain form of deposit.cu's sort) ---
+
+def _tiles_of_each_ray(x, y, xc, yc, tile):
+    """{ray: set of tiles} by the deposit's rule, one ray at a time: the
+    tiles of its four corner nodes, none for a ray outside with finite
+    positions, index 0 along a NaN coordinate."""
+    nx, ny = xc.size, yc.size
+    nty = -(-ny // tile)
+    out = {}
+    for i in range(x.size):
+        tx = np.float32((x[i] - xc[0]) / np.float32(xc[1] - xc[0]))
+        ty = np.float32((y[i] - yc[0]) / np.float32(yc[1] - yc[0]))
+        inside = (np.isfinite(tx) and np.isfinite(ty) and 0 <= tx <= nx - 1
+                  and 0 <= ty <= ny - 1)
+        if not inside and not (np.isnan(tx) or np.isnan(ty)):
+            continue
+        ix = 0 if np.isnan(tx) else int(min(max(np.floor(tx), 0), nx - 2))
+        iy = 0 if np.isnan(ty) else int(min(max(np.floor(ty), 0), ny - 2))
+        out[i] = {((ix + a) // tile) * nty + (iy + b) // tile
+                  for a in (0, 1) for b in (0, 1)}
+    return out
+
+
+@pytest.mark.parametrize("tile", [2, 4, 32])
+@pytest.mark.parametrize("grid", [(33, 17), (2, 2), (1000, 3), (70, 45)],
+                         ids=str)
+def test_tiles_plain_puts_each_ray_once_in_each_tile_it_touches(grid, tile):
+    """Every ray that adds anything lands once in each tile its four
+    corners touch (rays on a tile's last row and column, at n - 1 and
+    outside included), and nowhere else."""
+    nx, ny = grid
+    rng = np.random.default_rng(nx * ny + tile)
+    xc = np.linspace(-1, 1, nx, dtype=np.float32)
+    yc = np.linspace(-0.5, 0.75, ny, dtype=np.float32)
+    n = 3000
+    x = rng.uniform(-1.2, 1.2, n).astype(np.float32)
+    y = rng.uniform(-0.7, 0.9, n).astype(np.float32)
+    x[:40] = xc[rng.integers(0, nx, 40)]     # on nodes, tile edges among them
+    y[:40] = yc[rng.integers(0, ny, 40)]
+    x[40:60], y[60:80] = xc[-1], yc[-1]      # at n - 1
+    x[80], y[81] = np.nan, np.nan
+    x[82], y[82] = np.nan, np.float32(0.75)
+    x[83], y[84] = np.inf, -np.inf
+    rays, tiles = kdeposit.tiles_plain(
+        *(torch.from_numpy(a) for a in (x, y, xc, yc)), tile=tile)
+    got = {}
+    for r, t in zip(rays.tolist(), tiles.tolist()):
+        assert t not in got.setdefault(r, set())
+        got[r].add(t)
+    assert got == _tiles_of_each_ray(x, y, xc, yc, tile)
+
+
+def test_tiles_plain_nan_rays_go_to_index_zero():
+    """A NaN x puts the ray in the tiles of corner index 0 along x; a NaN y
+    likewise along y (the JAX program's float-to-int of NaN)."""
+    xc = np.linspace(0, 99, 100, dtype=np.float32)
+    x = np.array([np.nan, 50.5, np.nan], np.float32)
+    y = np.array([70.5, np.nan, np.nan], np.float32)
+    rays, tiles = kdeposit.tiles_plain(
+        *(torch.from_numpy(a) for a in (x, y, xc, xc)), tile=32)
+    by = {}
+    for r, t in zip(rays.tolist(), tiles.tolist()):
+        by.setdefault(r, set()).add(t)
+    nty = 4
+    assert by[0] == {0 * nty + 2}
+    assert by[1] == {1 * nty + 0}
+    assert by[2] == {0}
+
+
+def test_tiled_walk_equals_the_deposit():
+    """A walk of the kernel's design on the CPU: the rays bucketed by
+    tiles_plain, each bucket cut into items of at most 500 entries, each
+    item adding only the corners its tile owns into a partial tile, the
+    partials summed in item order; equal to deposit_plain's sums within
+    float32 summation order, NaN nodes the same."""
+    x, y = _rays(n=6000)
+    xc, yc = _grid()
+    rng = np.random.default_rng(9)
+    vals = torch.from_numpy(rng.normal(size=(x.size, 2)).astype(np.float32))
+    t = [torch.from_numpy(a) for a in (x, y, xc, yc)]
+    want = kdeposit.deposit_plain(t[0], t[1], vals, t[2], t[3],
+                                  return_acc=True)
+    tile = 8
+    rays, tiles = kdeposit.tiles_plain(*t, tile=tile)
+    nx, ny = xc.size, yc.size
+    nty = -(-ny // tile)
+    acc = torch.zeros((nx, ny, 3))
+    for k in torch.unique(tiles).tolist():
+        mine = rays[tiles == k]
+        x0, y0 = (k // nty) * tile, (k % nty) * tile
+        for i0 in range(0, mine.numel(), 500):
+            r = mine[i0:i0 + 500]
+            part = kdeposit.deposit_plain(t[0][r], t[1][r], vals[r], t[2],
+                                          t[3], return_acc=True)
+            own = torch.zeros((nx, ny, 1), dtype=torch.bool)
+            own[x0:x0 + tile, y0:y0 + tile] = True
+            acc += torch.where(own, part, torch.zeros_like(part))
+    assert torch.equal(acc.isnan(), want.isnan())
+    scale = want.nan_to_num(0).abs().amax((0, 1))
+    assert bool(((acc - want).nan_to_num(0).abs().amax((0, 1))
+                 <= 1e-5 * scale).all())

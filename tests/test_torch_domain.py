@@ -175,3 +175,49 @@ def test_beam_from_a_key_draws_jax_stream(beam_type, size):
     g = torch.Generator().manual_seed(4)
     other = init_beam(g, 500, size, 1e-3, 5e-3, beam_type, device="cpu")
     assert other.shape == want.shape
+
+
+def _beam_of_single_draws(key, Np, size, div, ext, beam_type):
+    """init_beam's s0 drawn the first way: one K10 draw a stream (phi, chi,
+    then the positions), the arithmetic as init_beam's."""
+    import math
+
+    from synthpy_tpu_torch import random as trandom
+    from synthpy_tpu_torch.tracer.beam import _assemble
+
+    k = trandom.split(key, 5)
+
+    def u(s, n):
+        return trandom.uniform(k[s], (n,), device="cpu")
+
+    phi = 2 * math.pi * u(2, Np)
+    chi = div * trandom.normal(k[3], (Np,), device="cpu")
+    direction = "z"
+    if beam_type == "circular":
+        t = 2 * math.pi * u(0, Np)
+        r = size * torch.sqrt(u(1, Np))
+        a, b = r * torch.cos(t), r * torch.sin(t)
+    elif beam_type == "square":
+        a, b = size * (2 * u(0, Np) - 1.0), size * (2 * u(1, Np) - 1.0)
+    elif beam_type == "rectangular":
+        a = size[0] * (2 * u(0, Np) - 1.0)
+        b = size[1] * (2 * u(1, Np) - 1.0)
+    else:  # linear
+        a = size * (2 * u(0, Np) - 1.0)
+        b = torch.zeros((Np,))
+        phi = torch.zeros((Np,))
+    return _assemble(a, b, chi, phi, ext, direction, torch.float32)
+
+
+@pytest.mark.parametrize("beam_type", ["circular", "square", "rectangular",
+                                       "linear"])
+def test_key_beams_equal_single_draw_beams(beam_type):
+    """A key-drawn beam takes its streams as rows of one draw_many; its s0
+    equals the one made from one draw a stream, bit for bit."""
+    from synthpy_tpu_torch import random as trandom
+
+    key = trandom.PRNGKey(11)
+    size = (2e-3, 1e-3) if beam_type == "rectangular" else 2e-3
+    got = init_beam(key, 1001, size, 1e-3, 5e-3, beam_type, device="cpu")
+    want = _beam_of_single_draws(key, 1001, size, 1e-3, 5e-3, beam_type)
+    assert torch.equal(got, want)

@@ -165,3 +165,79 @@ def test_draws_at_an_offset_are_the_tail_of_one_draw():
                            torch.arange(7, 10, dtype=torch.int64))
     assert torch.equal(hi.view(torch.int32).to(torch.int64) & kr.MASK,
                        y0 ^ y1)
+
+
+# -- draw_many and draw_pair: several streams a K10 launch -------------------
+
+MANY_MODES = ("uniform", "normal", "uniform", "normal", "normal", "uniform",
+              "uniform", "normal")
+
+
+@pytest.mark.parametrize("n", [13, 1030])
+@pytest.mark.parametrize("S", range(1, 9))
+def test_draw_many_rows_are_jax_draws(S, n):
+    """Row s of draw_many (the plain version here) is jax.random.uniform /
+    normal of key s: uniforms bit-equal (each row on its own [lo, hi)),
+    normals within 4 ulp; n off a multiple of 4 and 8, as the kernel's
+    head and tail take it."""
+    keys = jax.random.split(jax.random.PRNGKey(S), S)
+    modes = MANY_MODES[:S]
+    # spans of a power of two: f * (hi - lo) is exact, so XLA's contraction
+    # of f * (hi - lo) + lo into a fused multiply-add rounds as the port
+    lo = [-0.5 * s for s in range(S)]
+    hi = [v + 2.0 ** (s % 3) for s, v in enumerate(lo)]
+    rows = kr.draw_many([tr.key_data(convert.key(k)) for k in keys], n,
+                        modes, lo, hi, device="cpu").numpy()
+    assert rows.shape == (S, n) and rows.dtype == np.float32
+    for s in range(S):
+        if modes[s] == "uniform":
+            want = jax.random.uniform(keys[s], (n,), minval=lo[s],
+                                      maxval=hi[s])
+            np.testing.assert_array_equal(rows[s], np.asarray(want))
+        else:
+            want = np.asarray(jax.random.normal(keys[s], (n,)))
+            assert _ulp(rows[s], want).max() <= 4
+
+
+@pytest.mark.parametrize("offset", [0, 3, 2**32 - 5])
+def test_draw_many_and_pair_at_an_offset_are_draws_tails(offset):
+    """draw_many and draw_pair at an offset give the rows of single draws
+    at that offset (the sharded GRF's shard rows), across 2^32 too."""
+    keys = [(3, 4), (5, 6)]
+    rows = kr.draw_many(keys, 11, ["normal", "uniform"], device="cpu",
+                        offset=offset)
+    assert torch.equal(rows[0], kr.draw_plain(keys[0], 11, "normal",
+                                              offset=offset))
+    assert torch.equal(rows[1], kr.draw_plain(keys[1], 11, "uniform",
+                                              offset=offset))
+    z = kr.draw_pair(keys[0], keys[1], 11, device="cpu", offset=offset)
+    assert torch.equal(z.real, rows[0])
+    assert torch.equal(z.imag, kr.draw_plain(keys[1], 11, "normal",
+                                             offset=offset))
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5, 7), (33, 33)], ids=str)
+def test_draw_pair_is_jax_complex_noise(shape):
+    """draw_pair(kr, ki) is jax.random.normal(kr) + 1j * normal(ki) (the
+    GRF's noise): each part within 4 ulp, 90% bit-equal."""
+    kr_, ki_ = jax.random.split(jax.random.PRNGKey(21))
+    n = int(np.prod(shape))
+    z = kr.draw_pair(tr.key_data(convert.key(kr_)),
+                     tr.key_data(convert.key(ki_)), n,
+                     device="cpu").reshape(shape).numpy()
+    want = np.asarray(jax.random.normal(kr_, shape)
+                      + 1j * jax.random.normal(ki_, shape))
+    assert z.dtype == np.complex64
+    for part in (np.real, np.imag):
+        d = _ulp(np.ascontiguousarray(part(z)),
+                 np.ascontiguousarray(part(want)).astype(np.float32))
+        assert d.max() <= 4 and (d == 0).mean() >= 0.9
+
+
+def test_draw_many_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="1-8 streams"):
+        kr.draw_many([(1, 2)] * 9, 4, ["uniform"] * 9, device="cpu")
+    with pytest.raises(ValueError, match="draw_many draws float rows"):
+        kr.draw_many([(1, 2)], 4, ["bits"], device="cpu")
+    with pytest.raises(ValueError, match="unknown draw mode"):
+        kr.draw_many([(1, 2)], 4, ["gamma"], device="cpu")
