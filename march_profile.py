@@ -234,6 +234,27 @@ dithered int8 instance's main loop (``sass``), ``cases`` (ms, as for
 a 3-plane batch written at every destination offset 0-15 mod 16;
 ``--save`` / ``--against`` as for ``k19``; ``--variants`` times builds
 changed by ``BTABLE_VARIANTS``.
+
+``random`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does. It
+times K10 by device time (``graph_ms``) and by ``batch_ms`` at the paths'
+sizes (a 4 M uniform and normal, a circular beam's four draws, 256^3
+normals, the GRF's complex noise pair at 256^3, 2 x 512^3 bits, uniforms
+and normals) and a whole 4 M-ray ``init_beam`` (with the host's call time
+and its K10 launches), and hashes every output, short draws and draws
+across 2^32 too, for the other tree; ``ptxas`` and the SASS opcodes by
+pipe (``sass``); ``--save`` / ``--against`` as for ``k19``;
+``--variants`` times builds changed by ``RANDOM_VARIANTS``.
+
+``deposit`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does.
+It records K8's inputs where the diagnostics path makes them (4 M exit
+rays of the 512^3 lens onto 512 x 512 nodes) and prints the rays a tile
+takes at 16, 32 and 64-node tiles, then for V = 1 and the fused V = 2:
+device time (``graph_ms``), ``batch_ms``, each device kernel's time from
+a profiler trace, the sums' error against ``deposit_plain``, the spread
+between runs and both bytes bounds; where the tree has ``deposit.BATCH``,
+the V = 2 deposit in batches of 2^20 and 2^21 rays beside the shipped
+batch (device time, error, scratch). ``ptxas`` and ``sass`` as for
+``random``; ``--variants`` times builds changed by ``DEPOSIT_VARIANTS``.
 """
 
 from __future__ import annotations
@@ -1567,12 +1588,15 @@ def _save_against(out: dict, hashes: dict, args) -> None:
         Path(args.save).write_text(json.dumps(hashes))
     if args.against:
         ref = json.loads(Path(args.against).read_text())
+        # a case's hash, or its hashes by name
         out["against"] = {"file": args.against, **{
-            c: {k: hashes[c][k] == ref[c].get(k) for k in hashes[c]}
+            c: hashes[c] == ref[c] if isinstance(hashes[c], str) else
+            {k: hashes[c][k] == ref[c].get(k) for k in hashes[c]}
             for c in hashes if c in ref}}
         out["against"]["all_bit_equal"] = all(
             v for c in hashes if c in ref
-            for v in out["against"][c].values())
+            for v in ([out["against"][c]] if isinstance(hashes[c], str)
+                      else out["against"][c].values()))
 
 
 def _xray_scene(res: int, dev):
@@ -2305,6 +2329,18 @@ def _sass_functions(cubin: Path, tag: str, keep) -> dict:
 # the xor), and half the blocks an SM
 _ROT = ("      x1 = threefry::rotl(x1, rot[g & 1][r]);\n"
         "      x1 ^= x0;")
+_PAIR_LOOP = """#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      a[k] = value<NORMAL>(bits_at<WIDE>(A, offset, i + k), 0.0f, 0.0f);
+      b[k] = value<NORMAL>(bits_at<WIDE>(B, offset, i + k), 0.0f, 0.0f);
+    }"""
+_PAIR_LOOPS = """#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      a[k] = value<NORMAL>(bits_at<WIDE>(A, offset, i + k), 0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      b[k] = value<NORMAL>(bits_at<WIDE>(B, offset, i + k), 0.0f, 0.0f);"""
+
 RANDOM_VARIANTS = {
     "rotate_by_product": [
         ("// threefry::hash's 20 rounds and injections",
@@ -2318,6 +2354,13 @@ RANDOM_VARIANTS = {
                "      }")],
     "blocks_8": [("constexpr int BLOCKS_PER_SM = 16;",
                   "constexpr int BLOCKS_PER_SM = 8;")],
+    # the GRF's pair kernel: no register cap from the bounds; the two
+    # streams' four draws in two loops
+    "pair_bounds_1": [("__global__ void __launch_bounds__(THREADS)\n"
+                       "    draw_pair(",
+                       "__global__ void __launch_bounds__(THREADS, 1)\n"
+                       "    draw_pair(")],
+    "pair_two_loops": [(_PAIR_LOOP, _PAIR_LOOPS)],
 }
 
 # the draws' sizes: a beam's 4 M rays, path (b)'s 256^3 field, and
@@ -2438,7 +2481,7 @@ def _random_variants(krand, cases, hashes, graph_ms):
         v = profiling.variant(krand.KERNEL, f"k10_{name}", subs)
         kern, _, cubin = ptxas(Path(v.source), v.flags)
         r = {"ptxas": kern, "sass": _sass_functions(
-            cubin, f"k10_{name}", lambda n: "draw_rows" in n)}
+            cubin, f"k10_{name}", lambda n: "draw_" in n)}
         for case in timed:
             fn = cases[case]
             with profiling.kernel_of(krand, v):
@@ -2606,6 +2649,32 @@ def deposit_part(args):
                                 + 2 * items * (V + 1) * 4096) / 3.35e12 * 1e3
         cases[name] = c
         emit({"case": name, **c})
+    if hasattr(deposit, "BATCH"):
+        # the V = 2 deposit in batches of fewer rays than the call's (each
+        # batch's sums added to those before it): device time, error and
+        # scratch beside one batch's
+        vals = torch.stack([amp, phase], 1)
+        want = deposit.deposit_plain(x, y, vals, grid, grid, return_acc=True)
+        scale = want.nan_to_num(0).abs().amax((0, 1)).clamp_min(1e-30)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        shipped, res = deposit.BATCH, {}
+        for b in (1 << 20, 1 << 21, shipped):
+            deposit.BATCH = b
+            try:
+                acc = deposit.deposit(x, y, vals, grid, grid, return_acc=True)
+                res[str(b)] = {
+                    "batches": -(-N // b),
+                    "graph_ms": graph_ms(lambda: deposit.deposit(
+                        x, y, vals, grid, grid)),
+                    "sum_rel_err": ((acc - want).nan_to_num(0).abs()
+                                    .amax((0, 1)) / scale).tolist(),
+                    "scratch_mb": deposit.KERNEL.load()
+                    .deposit_scratch_blocks(N, 2, 512, 512, sms, b, 0)
+                    * 256 / 2**20}
+            finally:
+                deposit.BATCH = shipped
+            emit({"batch": b, **res[str(b)]})
+        out["batches"] = res
     if args.variants and hasattr(deposit, "tiles_plain"):
         from synthpy_tpu_torch.kernels import profiling
         vals = torch.stack([amp, phase], 1)

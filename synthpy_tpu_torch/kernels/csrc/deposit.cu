@@ -48,6 +48,12 @@
 //     tile has one item, else its partial tile to scratch; finish_kernel
 //     sums a split tile's partials in item order and writes its nodes.
 //     Every node is written once: no zeroed grid, no global float atomics.
+//   * A call takes its rays in batches of at most `batch` (the caller's
+//     choice), so that the bucket array, sized for four entries a ray, is
+//     bounded whatever the rays: each batch runs the six kernels, its nodes
+//     written as sums added to the batches' before it (into the grid for
+//     return_acc, else into an accumulator in scratch), and the last
+//     batch's nodes divided by the weight.
 // A float atomicAdd to shared memory is a compare-and-swap loop on this
 // card, and the entries of a cell are summed in the order the atomics gave
 // their slots, so a node's last bits may change from run to run, as the
@@ -360,11 +366,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// a node's V outputs from its sums (weight last): the sums themselves, or
-// each value divided by max(weight, 1e-12) (a NaN weight stays NaN)
+// a node's V outputs from its sums (weight last), first added to the
+// earlier batches' sums where `prev` is given: the sums themselves, or each
+// value divided by max(weight, 1e-12) (a NaN weight stays NaN)
 template <int V>
-__device__ __forceinline__ void write_node(float* out, long long j,
-                                           const float* s, bool ret_acc) {
+__device__ __forceinline__ void write_node(float* out, long long j, float* s,
+                                           bool ret_acc, const float* prev) {
+  if (prev)
+#pragma unroll
+    for (int c = 0; c <= V; ++c) s[c] = prev[j * (V + 1) + c] + s[c];
   if (ret_acc) {
 #pragma unroll
     for (int c = 0; c <= V; ++c) out[j * (V + 1) + c] = s[c];
@@ -383,7 +393,7 @@ __device__ __forceinline__ void write_tile(const float (*sums)[TILE_NODES],
                                           int it, int x0, int y0,
                                           bool split, const Geometry& G,
                                           float* out, float* partial,
-                                          int ret_acc) {
+                                          int ret_acc, const float* prev) {
   for (int j = threadIdx.x; j < TILE_NODES; j += THREADS) {
     if (split) {
 #pragma unroll
@@ -396,7 +406,7 @@ __device__ __forceinline__ void write_tile(const float (*sums)[TILE_NODES],
       float s[V + 1];
 #pragma unroll
       for (int c = 0; c <= V; ++c) s[c] = sums[c][j];
-      write_node<V>(out, (long long)i * G.ny + k, s, ret_acc);
+      write_node<V>(out, (long long)i * G.ny + k, s, ret_acc, prev);
     }
   }
 }
@@ -451,7 +461,7 @@ template <int V>
 __global__ void __launch_bounds__(THREADS)
     tile_kernel(const float4* entries, const Item* items, const int* n_items,
                 const int* nitems, Geometry G, float* out, float* partial,
-                int ret_acc) {
+                int ret_acc, const float* prev) {
   extern __shared__ float4 stage[];  // MAX_CHUNK entries in cell order
   __shared__ float sums[V + 1][TILE_NODES];
   __shared__ unsigned cells[CELLS];
@@ -535,7 +545,7 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
     write_tile<V>(sums, it, x0, y0, nitems[I.tile] > 1, G, out, partial,
-                  ret_acc);
+                  ret_acc, prev);
     __syncthreads();
   }
 }
@@ -545,7 +555,8 @@ __global__ void __launch_bounds__(THREADS)
 template <int V>
 __global__ void __launch_bounds__(TILE_NODES)
     finish_kernel(const float* partial, const int* item0, const int* nitems,
-                  Geometry G, float* out, int ret_acc) {
+                  Geometry G, float* out, int ret_acc,
+                  const float* prev) {
   const int t = blockIdx.x, n = nitems[t];
   if (n <= 1) return;
   const int k0 = item0[t], j = threadIdx.x;
@@ -560,30 +571,41 @@ __global__ void __launch_bounds__(TILE_NODES)
 #pragma unroll
     for (int c = 0; c <= V; ++c)
       s[c] += partial[((long long)(k0 + m) * (V + 1) + c) * TILE_NODES + j];
-  write_node<V>(out, (long long)i * G.ny + k, s, ret_acc);
+  write_node<V>(out, (long long)i * G.ny + k, s, ret_acc, prev);
 }
 
-// the scratch of a call: the bucket entries, the (tile, block) matrix, the
-// tiles' counts, starts and work items, and the partial tiles
+// the scratch of a call: a batch's bucket entries, the (tile, block)
+// matrix, the tiles' counts, starts and work items, the partial tiles, and
+// where the batches' sums are carried past the grid, their accumulator
 struct Layout {
   int T, B, target, items;  // tiles, sorting blocks, items planned, most
   long long bytes;
   long long o_col, o_count, o_start, o_item0, o_nitems, o_nit, o_items,
-      o_partial;
+      o_partial, o_acc;
 };
 
 long long align256(long long b) { return (b + 255) / 256 * 256; }
 
-Layout layout_of(long long N, int V, int nx, int ny, int sms) {
+// the most rays a batch takes: its four bucket entries a ray have 32-bit
+// positions
+constexpr long long MAX_BATCH = 1LL << 28;
+
+long long batches(long long N, long long batch) {
+  return N > batch ? (N + batch - 1) / batch : 1;
+}
+
+Layout layout_of(long long N, int V, int nx, int ny, int sms,
+                 long long batch, int ret_acc) {
   Layout L;
+  const long long Nb = min(N, batch);
   const int ntx = (nx + TILE - 1) / TILE, nty = (ny + TILE - 1) / TILE;
   L.T = ntx * nty;
   L.B = min(sms * SORT_PER_SM, PLAN_THREADS);
   L.target = sms * ITEMS_PER_SM;
   // sum over tiles of ceil(entries / chunk) <= T + entries / chunk
   L.items = L.T + (int)max((long long)L.target,
-                           (4 * N + MAX_CHUNK - 1) / MAX_CHUNK);
-  long long o = align256(4 * N * 16);  // at most four entries a ray
+                           (4 * Nb + MAX_CHUNK - 1) / MAX_CHUNK);
+  long long o = align256(4 * Nb * 16);  // at most four entries a ray
   L.o_col = o;
   o = align256(o + 4LL * L.T * L.B);
   L.o_count = o;
@@ -599,18 +621,17 @@ Layout layout_of(long long N, int V, int nx, int ny, int sms) {
   L.o_items = o;
   o = align256(o + (long long)sizeof(Item) * L.items);
   L.o_partial = o;
-  L.bytes = align256(o + 4LL * L.items * (V + 1) * TILE_NODES);
+  o = align256(o + 4LL * L.items * (V + 1) * TILE_NODES);
+  L.o_acc = o;
+  const bool carried = batches(N, batch) > 1 && !ret_acc;
+  L.bytes = align256(o + (carried ? 4LL * nx * ny * (V + 1) : 0));
   return L;
 }
-
-// the most rays a call takes: its four bucket entries a ray have 32-bit
-// positions
-constexpr long long MAX_RAYS = 1LL << 29;
 
 template <int V>
 int launch(const float* x, const float* y, const float* vals, Geometry G,
            char* scratch, const Layout& L, float* out, int ret_acc,
-           long long N, int sms, cudaStream_t s) {
+           long long N, long long batch, int sms, cudaStream_t s) {
   float4* entries = reinterpret_cast<float4*>(scratch);
   unsigned* col = reinterpret_cast<unsigned*>(scratch + L.o_col);
   unsigned* count = reinterpret_cast<unsigned*>(scratch + L.o_count);
@@ -620,64 +641,80 @@ int launch(const float* x, const float* y, const float* vals, Geometry G,
   int* n_items = reinterpret_cast<int*>(scratch + L.o_nit);
   Item* items = reinterpret_cast<Item*>(scratch + L.o_items);
   float* partial = reinterpret_cast<float*>(scratch + L.o_partial);
+  float* acc = ret_acc ? out : reinterpret_cast<float*>(scratch + L.o_acc);
   const int T = L.T;
   const size_t hist = T <= MAX_TILES ? 4 * (size_t)T : 0;
   const size_t smem = scatter_smem(T);
   cudaFuncSetAttribute(scatter_kernel<V>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  count_kernel<<<L.B, COUNT_THREADS, hist, s>>>(x, y, G, T, col, N);
-  column_kernel<<<T, PLAN_THREADS, 0, s>>>(col, L.B, count);
-  plan_kernel<<<1, PLAN_THREADS, 0, s>>>(count, T, L.target, start, item0,
-                                         nitems, items, n_items);
-  scatter_kernel<V><<<L.B, THREADS, smem, s>>>(x, y, vals, G, T, start, col,
-                                               entries, N);
   const int tb = min(sms * TILE_PER_SM, L.items);
   const int stage = MAX_CHUNK * sizeof(float4);
   cudaFuncSetAttribute(tile_kernel<V>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, stage);
-  tile_kernel<V><<<tb, THREADS, stage, s>>>(entries, items, n_items, nitems,
-                                            G, out, partial, ret_acc);
-  finish_kernel<V><<<T, TILE_NODES, 0, s>>>(partial, item0, nitems, G, out,
-                                            ret_acc);
+  const long long nb = batches(N, batch);
+  for (long long b = 0; b < nb; ++b) {
+    // batch b's rays; its nodes are the sums of the batches so far (in acc)
+    // until the last, whose nodes are the call's output
+    const long long r0 = b * batch, n = min(batch, N - r0);
+    const float *xb = x + r0, *yb = y + r0, *vb = vals + r0 * V;
+    const bool last = b == nb - 1;
+    const float* prev = b ? acc : nullptr;
+    float* dst = last ? out : acc;
+    const int ret = last ? ret_acc : 1;
+    count_kernel<<<L.B, COUNT_THREADS, hist, s>>>(xb, yb, G, T, col, n);
+    column_kernel<<<T, PLAN_THREADS, 0, s>>>(col, L.B, count);
+    plan_kernel<<<1, PLAN_THREADS, 0, s>>>(count, T, L.target, start, item0,
+                                           nitems, items, n_items);
+    scatter_kernel<V><<<L.B, THREADS, smem, s>>>(xb, yb, vb, G, T, start,
+                                                 col, entries, n);
+    tile_kernel<V><<<tb, THREADS, stage, s>>>(entries, items, n_items,
+                                              nitems, G, dst, partial, ret,
+                                              prev);
+    finish_kernel<V><<<T, TILE_NODES, 0, s>>>(partial, item0, nitems, G, dst,
+                                              ret, prev);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The scratch bytes a deposit_cic call needs, in 256-byte blocks (a ray's
-// four bucket entries, the tiles' counts, ranges and work items, the
-// (tile, block) matrix, partial tiles); 0 for arguments the deposit
+// The scratch bytes a deposit_cic call needs, in 256-byte blocks (a
+// batch's four bucket entries a ray, the tiles' counts, ranges and work
+// items, the (tile, block) matrix, partial tiles, and the accumulator of a
+// call of more than one batch without ret_acc); 0 for arguments the deposit
 // refuses.
 extern "C" int deposit_scratch_blocks(long long N, int V, int nx, int ny,
-                                      int sms) {
-  if (N < 0 || N > MAX_RAYS || V < 1 || V > 2 || nx < 2 || ny < 2 ||
-      sms < 1)
+                                      int sms, long long batch,
+                                      int ret_acc) {
+  if (N < 0 || V < 1 || V > 2 || nx < 2 || ny < 2 || sms < 1 ||
+      batch < 1 || batch > MAX_BATCH)
     return 0;
-  return (int)(layout_of(N, V, nx, ny, sms).bytes / 256);
+  return (int)(layout_of(N, V, nx, ny, sms, batch, ret_acc).bytes / 256);
 }
 
 // x, y: (N,) f32 positions; vals: (N, V) f32, V = 1 or 2; xc (nx,), yc
 // (ny,) f32 node coordinates in device memory, nx, ny >= 2; scratch:
-// deposit_scratch_blocks(N, V, nx, ny, sms) x 256 bytes in device memory,
-// 16-byte aligned; out: (nx, ny, V) f32, the weight-normalised grid, or
-// with ret_acc (nx, ny, V + 1), the sums (weight last); sms: the card's
-// SMs. Six device kernels. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue.
+// deposit_scratch_blocks(N, V, nx, ny, sms, batch, ret_acc) x 256 bytes in
+// device memory, 16-byte aligned; out: (nx, ny, V) f32, the
+// weight-normalised grid, or with ret_acc (nx, ny, V + 1), the sums (weight
+// last); batch: the most rays a batch takes, 1 .. 2^28; sms: the card's
+// SMs. Six device kernels a batch. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue.
 extern "C" int deposit_cic(const float* x, const float* y, const float* vals,
                            int V, const float* xc, const float* yc, int nx,
                            int ny, void* scratch, long long scratch_bytes,
-                           float* out, int ret_acc, long long N, int sms,
-                           void* stream) {
-  if (N < 0 || N > MAX_RAYS || V < 1 || V > 2 || nx < 2 || ny < 2 ||
-      sms < 1 || ((uintptr_t)scratch & 15))
+                           float* out, int ret_acc, long long N,
+                           long long batch, int sms, void* stream) {
+  if (N < 0 || V < 1 || V > 2 || nx < 2 || ny < 2 || sms < 1 ||
+      batch < 1 || batch > MAX_BATCH || ((uintptr_t)scratch & 15))
     return (int)cudaErrorInvalidValue;
-  const Layout L = layout_of(N, V, nx, ny, sms);
+  const Layout L = layout_of(N, V, nx, ny, sms, batch, ret_acc);
   if (scratch_bytes < L.bytes) return (int)cudaErrorInvalidValue;
   const Geometry G = {xc, yc, nx, ny, (ny + TILE - 1) / TILE};
   cudaStream_t s = (cudaStream_t)stream;
   char* sc = reinterpret_cast<char*>(scratch);
   if (V == 1)
-    return launch<1>(x, y, vals, G, sc, L, out, ret_acc, N, sms, s);
-  return launch<2>(x, y, vals, G, sc, L, out, ret_acc, N, sms, s);
+    return launch<1>(x, y, vals, G, sc, L, out, ret_acc, N, batch, sms, s);
+  return launch<2>(x, y, vals, G, sc, L, out, ret_acc, N, batch, sms, s);
 }

@@ -197,10 +197,12 @@ __global__ void __launch_bounds__(THREADS)
     draw_row<NORMAL, WIDE>(row, P, s, n, offset);
 }
 
-template <int MODE, bool WIDE>
-__device__ __forceinline__ void draw_pairs(uint2* out, const Streams& P,
-                                           long long n,
-                                           unsigned long long offset) {
+// pairs: the normals of streams 0 and 1 interleaved, (s0[i], s1[i]) at
+// element i (a complex64 tensor)
+template <bool WIDE>
+__global__ void __launch_bounds__(THREADS)
+    draw_pair(uint2* out, Streams P, long long n,
+              unsigned long long offset) {
   const Keyed A(P.key[0], offset), B(P.key[1], offset);
   const long long quads = n / VEC;
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -208,15 +210,15 @@ __device__ __forceinline__ void draw_pairs(uint2* out, const Streams& P,
   const long long i_tail = quads * VEC + t;
   if (i_tail < n)
     out[i_tail] = make_uint2(
-        value<MODE>(bits_at<WIDE>(A, offset, i_tail), P.lo[0], P.hi[0]),
-        value<MODE>(bits_at<WIDE>(B, offset, i_tail), P.lo[1], P.hi[1]));
+        value<NORMAL>(bits_at<WIDE>(A, offset, i_tail), 0.0f, 0.0f),
+        value<NORMAL>(bits_at<WIDE>(B, offset, i_tail), 0.0f, 0.0f));
   for (long long q = t; q < quads; q += stride) {
     const long long i = q * VEC;
     uint32_t a[VEC], b[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      a[k] = value<MODE>(bits_at<WIDE>(A, offset, i + k), P.lo[0], P.hi[0]);
-      b[k] = value<MODE>(bits_at<WIDE>(B, offset, i + k), P.lo[1], P.hi[1]);
+      a[k] = value<NORMAL>(bits_at<WIDE>(A, offset, i + k), 0.0f, 0.0f);
+      b[k] = value<NORMAL>(bits_at<WIDE>(B, offset, i + k), 0.0f, 0.0f);
     }
     uint4* o = reinterpret_cast<uint4*>(out + i);
     o[0] = make_uint4(a[0], b[0], a[1], b[1]);
@@ -224,40 +226,29 @@ __device__ __forceinline__ void draw_pairs(uint2* out, const Streams& P,
   }
 }
 
-// pairs: streams 0 and 1 interleaved, (s0[i], s1[i]) at element i
-template <bool WIDE>
-__global__ void __launch_bounds__(THREADS)
-    draw_pair(uint2* out, Streams P, long long n,
-              unsigned long long offset) {
-  if (P.mode[0] == BITS)
-    draw_pairs<BITS, WIDE>(out, P, n, offset);
-  else if (P.mode[0] == UNIFORM)
-    draw_pairs<UNIFORM, WIDE>(out, P, n, offset);
-  else
-    draw_pairs<NORMAL, WIDE>(out, P, n, offset);
-}
-
 }  // namespace
 
 // S streams of n draws each, flat indices offset .. offset + n - 1 of
-// stream s under the key (keys[2 s], keys[2 s + 1]) in mode modes[s] (0
-// bits (uint32), 1 uniform on [lo[s], hi[s]), 2 normal (float32)). pair 0:
-// stream s is row s of out, an (S, n) tensor; pair 1: S = 2 streams of one
-// mode interleaved, element i of out (n pairs) is (stream 0's, stream 1's).
-// out is 16-byte aligned; keys, modes, lo and hi are host arrays. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue.
+// stream s under the key (keys[2 s], keys[2 s + 1]). pair 0: stream s, in
+// mode modes[s] (0 bits (uint32), 1 uniform on [lo[s], hi[s]), 2 normal
+// (float32)), is row s of out, an (S, n) tensor; pair 1: the normals of
+// S = 2 streams interleaved, element i of out (n pairs) is (stream 0's,
+// stream 1's), and modes, lo and hi are not read. out is 16-byte aligned;
+// keys, modes, lo and hi are host arrays. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue.
 extern "C" int random_draw(void* out, int S, const uint32_t* keys,
                            const int* modes, const float* lo,
                            const float* hi, long long n, long long offset,
                            int pair, void* stream) {
   if (S < 1 || S > MAX_STREAMS || n < 0 || offset < 0 ||
-      ((uintptr_t)out & 15) || (pair && (S != 2 || modes[0] != modes[1])))
+      ((uintptr_t)out & 15) || (pair && S != 2))
     return (int)cudaErrorInvalidValue;
   Streams P = {};
   for (int s = 0; s < S; ++s) {
+    P.key[s] = make_uint2(keys[2 * s], keys[2 * s + 1]);
+    if (pair) continue;
     if (modes[s] < BITS || modes[s] > NORMAL)
       return (int)cudaErrorInvalidValue;
-    P.key[s] = make_uint2(keys[2 * s], keys[2 * s + 1]);
     P.mode[s] = modes[s];
     P.lo[s] = lo[s];
     P.hi[s] = hi[s];

@@ -9,8 +9,9 @@ with the real or complex value of one deposit, ``ops.fresnel.propagate``
 with the amplitude and phase that it deposits at the same positions.
 
 The kernel buckets the rays by tile of the grid before it adds them in
-shared memory (``deposit.cu``); ``tiles_plain`` is that bucketing's plain
-version, which the CPU tests hold to the deposit's rule.
+shared memory (``deposit.cu``), ``BATCH`` rays at a time; ``tiles_plain``
+is that bucketing's plain version, which the CPU tests hold to the
+deposit's rule.
 """
 
 from __future__ import annotations
@@ -20,12 +21,15 @@ import torch
 from synthpy_tpu_torch.kernels._build import I, L, P, Kernel, refuse_grad
 
 KERNEL = Kernel("deposit.cu", {
-    "deposit_cic": [P, P, P, I, P, P, I, I, P, L, P, I, L, I, P],
+    "deposit_cic": [P, P, P, I, P, P, I, I, P, L, P, I, L, L, I, P],
 }, flags=["--fmad=false"], helpers={
-    "deposit_scratch_blocks": [L, I, I, I, I]})
+    "deposit_scratch_blocks": [L, I, I, I, I, L, I]})
 
 MAX_CHANNELS = 2  # value channels of one deposit (deposit.cu)
-MAX_RAYS = 1 << 29  # rays a call takes (deposit.cu's 32-bit bucket slots)
+# rays a batch of the kernel takes: its scratch holds four 16-byte bucket
+# entries a ray of one batch (256 MiB), and a call of more rays runs in
+# batches, each adding its sums to those before it
+BATCH = 1 << 22
 TILE = 32  # nodes a tile along x and y (deposit.cu)
 
 
@@ -116,19 +120,18 @@ def deposit(x: torch.Tensor, y: torch.Tensor, vals: torch.Tensor,
                 or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be a float32 tensor of shape "
                              f"{shape} on the rays' device")
-    if n > MAX_RAYS:
-        raise ValueError(f"{n} rays: the deposit takes at most {MAX_RAYS} "
-                         "a call")
     x, y, vals = x.contiguous(), y.contiguous(), vals.contiguous()
     x_coords, y_coords = x_coords.contiguous(), y_coords.contiguous()
     lib = KERNEL.load()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = lib.deposit_scratch_blocks(n, V, nx, ny, sms)
+    blocks = lib.deposit_scratch_blocks(n, V, nx, ny, sms, BATCH,
+                                        int(return_acc))
     scratch = torch.empty((blocks * 256,), dtype=torch.uint8, device=dev)
     out = torch.empty((nx, ny, V + 1 if return_acc else V),
                       dtype=torch.float32, device=dev)
     KERNEL.launch("deposit_cic", dev, x.data_ptr(), y.data_ptr(),
                   vals.data_ptr(), V, x_coords.data_ptr(),
                   y_coords.data_ptr(), nx, ny, scratch.data_ptr(),
-                  scratch.numel(), out.data_ptr(), int(return_acc), n, sms)
+                  scratch.numel(), out.data_ptr(), int(return_acc), n, BATCH,
+                  sms)
     return out

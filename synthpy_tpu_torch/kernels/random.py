@@ -131,19 +131,23 @@ def draw_plain(key: Tuple[int, int], n: int, mode: str, lo: float = 0.0,
     return out.view(torch.uint32) if mode == "bits" else out
 
 
-def _launch(out: torch.Tensor, keys, modes, lo, hi, n: int, offset: int,
-            pair: bool) -> None:
-    """One ``random_draw`` launch of len(keys) streams into ``out``."""
+def _launch(out: torch.Tensor, keys, modes, lo, hi, n: int,
+            offset: int) -> None:
+    """One ``random_draw`` launch of len(keys) streams into ``out``: rows
+    in ``modes`` on [``lo``, ``hi``), or with ``modes`` None two streams'
+    normals as (re, im) pairs."""
     S = len(keys)
     words = (ctypes.c_uint32 * (2 * S))(*[int(w) & MASK for k in keys
                                           for w in k])
-    codes = (ctypes.c_int * S)(*[MODES[m] for m in modes])
-    los = (ctypes.c_float * S)(*[float(v) for v in lo])
-    his = (ctypes.c_float * S)(*[float(v) for v in hi])
+    # the host arrays stay referenced until the call returns
+    arrays = [] if modes is None else [
+        (ctypes.c_int * S)(*[MODES[m] for m in modes]),
+        (ctypes.c_float * S)(*[float(v) for v in lo]),
+        (ctypes.c_float * S)(*[float(v) for v in hi])]
+    args = [ctypes.addressof(a) for a in arrays] or [None, None, None]
     KERNEL.launch("random_draw", out.device, out.data_ptr(), S,
-                  ctypes.addressof(words), ctypes.addressof(codes),
-                  ctypes.addressof(los), ctypes.addressof(his), int(n),
-                  int(offset), int(pair))
+                  ctypes.addressof(words), *args, int(n), int(offset),
+                  int(modes is None))
 
 
 def _check_mode(mode: str) -> None:
@@ -163,7 +167,7 @@ def draw(key: Tuple[int, int], n: int, mode: str, lo: float = 0.0,
         return draw_plain(key, n, mode, lo, hi, dev, offset)
     out = torch.empty((n,), dtype=torch.int32 if mode == "bits"
                       else torch.float32, device=dev)
-    _launch(out, [key], [mode], [lo], [hi], n, offset, False)
+    _launch(out, [key], [mode], [lo], [hi], n, offset)
     return out.view(torch.uint32) if mode == "bits" else out
 
 
@@ -205,7 +209,7 @@ def draw_many(keys: Sequence[Tuple[int, int]], n: int,
     if dev.type == "cpu":
         return draw_many_plain(keys, n, modes, lo, hi, dev, offset)
     out = torch.empty((S, n), dtype=torch.float32, device=dev)
-    _launch(out, keys, modes, lo, hi, n, offset, False)
+    _launch(out, keys, modes, lo, hi, n, offset)
     return out
 
 
@@ -228,8 +232,7 @@ def draw_pair(key_re: Tuple[int, int], key_im: Tuple[int, int], n: int,
     if dev.type == "cpu":
         return draw_pair_plain(key_re, key_im, n, dev, offset)
     out = torch.empty((n,), dtype=torch.complex64, device=dev)
-    _launch(out, [key_re, key_im], ["normal", "normal"], [0.0, 0.0],
-            [1.0, 1.0], n, offset, True)
+    _launch(out, [key_re, key_im], None, None, None, n, offset)
     return out
 
 

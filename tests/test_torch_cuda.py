@@ -942,7 +942,9 @@ def test_deposit_kernel_matches_plain(dev, V, nan):
 
 def _deposit_case(dev, case, V, g):
     """(x, y, vals, x_coords, y_coords) of a named K8 card case."""
-    n = 3000
+    # grids past deposit.cu's MAX_TILES = 4096 tiles count and scatter
+    # through global counters: 4,097 tiles in a row, and 65 x 65
+    n = 200_000 if case in ("tiles_4097", "grid_2080") else 3000
     vals = torch.rand((n, V), generator=g, device=dev)
     # node coordinates 0 .. 63: a position is its grid index, exactly
     grid = torch.arange(64, dtype=torch.float32, device=dev)
@@ -965,7 +967,8 @@ def _deposit_case(dev, case, V, g):
         x[40:45] = 63.0            # on the last node along x
         return x, y, vals, grid, grid
     nx, ny = {"ragged": (70, 45), "two_by_two": (2, 2),
-              "long": (1000, 3)}[case]
+              "long": (1000, 3), "tiles_4097": (4097 * 32, 2),
+              "grid_2080": (2080, 2080)}[case]
     xc = torch.linspace(-1.0, 1.0, nx, device=dev)
     yc = torch.linspace(-0.5, 0.75, ny, device=dev)
     x = torch.rand(n, generator=g, device=dev) * 2.4 - 1.2
@@ -974,20 +977,10 @@ def _deposit_case(dev, case, V, g):
     return x, y, vals, xc, yc
 
 
-@pytest.mark.parametrize("case", ["one_node", "tile_corner", "last_node",
-                                  "nan_values", "ragged", "two_by_two",
-                                  "long"])
-@pytest.mark.parametrize("V", [1, 2])
-def test_deposit_kernel_cases(dev, V, case):
-    """K8's tiles against deposit_plain: piles of 3,000 rays on one node, on
-    a node four tiles share and on the last node (more than one work item
-    a tile: the partial tiles' sum); NaN and inf values and positions;
-    grids off the tile size, 2 x 2 and 1000 x 3. NaN and zero patterns
-    equal, sums within 1e-5 of a channel's largest, values 1e-4."""
-    from synthpy_tpu_torch.kernels import deposit
-
-    g = torch.Generator(device=dev).manual_seed(8)
-    x, y, vals, xc, yc = _deposit_case(dev, case, V, g)
+def _deposit_vs_plain(deposit, x, y, vals, xc, yc):
+    """K8 against deposit_plain, the sums and the values: NaN and zero
+    patterns equal, sums within 1e-5 of a channel's largest, values
+    1e-4."""
     for ret in (True, False):
         got = deposit.deposit(x, y, vals, xc, yc, return_acc=ret)
         want = deposit.deposit_plain(x, y, vals, xc, yc, return_acc=ret)
@@ -996,6 +989,69 @@ def test_deposit_kernel_cases(dev, V, case):
         scale = want.nan_to_num(0).abs().amax((0, 1)).clamp_min(1e-30)
         err = (got - want).nan_to_num(0).abs().amax((0, 1)) / scale
         assert bool((err <= (1e-5 if ret else 1e-4)).all()), err
+
+
+@pytest.mark.parametrize("case", ["one_node", "tile_corner", "last_node",
+                                  "nan_values", "ragged", "two_by_two",
+                                  "long", "tiles_4097", "grid_2080"])
+@pytest.mark.parametrize("V", [1, 2])
+def test_deposit_kernel_cases(dev, V, case):
+    """K8's tiles against deposit_plain: piles of 3,000 rays on one node, on
+    a node four tiles share and on the last node (more than one work item
+    a tile: the partial tiles' sum); NaN and inf values and positions;
+    grids off the tile size, 2 x 2 and 1000 x 3; grids of more tiles than
+    the block counters hold (4,097 x 1 and 65 x 65 tiles)."""
+    from synthpy_tpu_torch.kernels import deposit
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    _deposit_vs_plain(deposit, *_deposit_case(dev, case, V, g))
+
+
+@pytest.mark.parametrize("case", ["nan_values", "tile_corner", "ragged",
+                                  "tiles_4097"])
+@pytest.mark.parametrize("V", [1, 2])
+def test_deposit_kernel_in_batches(dev, monkeypatch, V, case):
+    """A call of more rays than deposit.BATCH runs in batches, each adding
+    its sums to those before it: held to deposit_plain as one call is,
+    with batches of 700 rays (the last one short)."""
+    from synthpy_tpu_torch.kernels import deposit
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    args = _deposit_case(dev, case, V, g)
+    monkeypatch.setattr(deposit, "BATCH", 700)
+    deposit.KERNEL.launches = 0
+    _deposit_vs_plain(deposit, *args)
+    assert deposit.KERNEL.launches == 2
+
+
+@pytest.mark.parametrize("case", ["one_node", "tile_corner", "last_node"])
+@pytest.mark.parametrize("V", [1, 2])
+def test_deposit_inexact_pile_near_float64(dev, V, case):
+    """6,000 rays with random values in [0, 1) at random positions within
+    0.4 of one node (node 10; the node four tiles share; the last node):
+    inexact weights and products, several work items a tile. The kernel
+    and the plain version each within 1e-5 of each channel's largest sum
+    from the float64 deposit of the same float32 inputs."""
+    from synthpy_tpu_torch.kernels import deposit
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    n = 6000
+    grid = torch.linspace(-3.0, 3.0, 64, device=dev)
+    node = {"one_node": 10, "tile_corner": 32, "last_node": 63}[case]
+    lo = max(node - 0.4, 0.0)
+    hi = min(node + 0.4, 63.0)
+    x, y = ((float(grid[0]) + (lo + (hi - lo) * torch.rand(
+        n, generator=g, device=dev)) * float(grid[1] - grid[0]))
+        for _ in range(2))
+    vals = torch.rand((n, V), generator=g, device=dev)
+    want = deposit.deposit_plain(x.double(), y.double(), vals.double(),
+                                 grid.double(), grid.double(),
+                                 return_acc=True)
+    scale = want.abs().amax((0, 1))
+    for fn in (deposit.deposit, deposit.deposit_plain):
+        got = fn(x, y, vals, grid, grid, return_acc=True)
+        err = (got.double() - want).abs().amax((0, 1)) / scale
+        assert bool((err <= 1e-5).all()), (fn.__name__, err)
 
 
 def test_deposit_pile_is_no_farther_from_exact_than_plain(dev):

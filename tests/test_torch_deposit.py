@@ -244,3 +244,28 @@ def test_tiled_walk_equals_the_deposit():
     scale = want.nan_to_num(0).abs().amax((0, 1))
     assert bool(((acc - want).nan_to_num(0).abs().amax((0, 1))
                  <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("node", [10, 32, 63], ids=["one_node", "tile_corner",
+                                                   "last_node"])
+@pytest.mark.parametrize("V", [1, 2])
+def test_inexact_pile_within_1e5_of_float64(V, node):
+    """6,000 rays with random values in [0, 1) at random positions within
+    0.4 of one node (the piles K8's card tests hold; node 32 is the corner of four
+    32-node tiles, 63 the last node): the plain version's sums within 1e-5
+    of each channel's largest from the float64 deposit of the same float32
+    inputs, the reference the card's kernel is held to on such piles."""
+    rng = np.random.default_rng(10 + node)
+    n = 6000
+    grid = torch.linspace(-3.0, 3.0, 64)
+    lo, hi = max(node - 0.4, 0.0), min(node + 0.4, 63.0)
+    d = float(grid[1] - grid[0])
+    x, y = (torch.from_numpy((-3.0 + rng.uniform(lo, hi, n) * d)
+                             .astype(np.float32)) for _ in range(2))
+    vals = torch.from_numpy(rng.uniform(0.0, 1.0, (n, V)).astype(np.float32))
+    want = kdeposit.deposit_plain(x.double(), y.double(), vals.double(),
+                                  grid.double(), grid.double(),
+                                  return_acc=True)
+    got = kdeposit.deposit(x, y, vals, grid, grid, return_acc=True)
+    err = (got.double() - want).abs().amax((0, 1)) / want.abs().amax((0, 1))
+    assert bool((err <= 1e-5).all()), err
