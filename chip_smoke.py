@@ -43,7 +43,9 @@ over 64 steps as bench.py's analytic tier, then rk4 over 511), K7 held to
 plain on every ray of each call. K3's coherent form is held to its plain
 chain (exact ray counts, field sums to the order of the atomic adds) for
 interferometry and coherent refractometry on the zscan_seg and the time
-tracer's exit states, and both benches run through ``pipeline.run`` on
+tracer's exit states, with every ray in one pixel and on an image past
+the largest cluster, and both benches run through
+``pipeline.run`` on
 the zscan_seg main path. Then ``examples/coherent_refractogram.py`` at the
 bench's scale (``diagnostics_path``): the 512^3 lens (ne_0 = 2e25, phase
 channel), 4 M rays traced by ``solve_zscan`` (K4 on an f32
@@ -56,7 +58,8 @@ channel), 4 M rays traced by ``solve_zscan`` (K4 on an f32
 on the fringes, each step timed, with the plain versions counted (none
 may run). K8 (real, complex, and amplitude with phase fused against two
 plain calls, and in batches of 2^20 rays) and both bin entry points are
-held to their plain versions on that path's 4 M rays (``K8_vs_plain``,
+held to their plain versions on that path's 4 M rays, with every ray in
+one bin and on an image past the largest cluster (``K8_vs_plain``,
 ``K3_bin_vs_plain``);
 ``multislice_path`` propagates through the 512^3 lens (511 FFT pairs of
 512^2); ``vs_jax`` holds every case of ``synthpy_tpu_torch/data/
@@ -154,10 +157,13 @@ seconds so far (``t_s``); then a
 kernels, an adaptive step two, the step and its one-block controller, a K8
 deposit six a batch of rays; a K2 row per tier), its time (CUDA events around
 back-to-back calls, per call; for K6 around back-to-back steps, per step;
-for K8, K10, K12 and K16 calls replayed in a CUDA graph, the device's
-time, with the calls' ``call_ms`` beside), its bound (a dithered row's and
-K10's count the threefry hash's integer operations, ``dithered_bound``), its plain
-version's time and a library call's time (best single calls); then the
+for K8, K10, K12, K16 and K3's ``bin_image``, ``bin_field`` and
+``detector_field`` calls replayed in a CUDA graph, the device's time, with
+the calls' ``call_ms`` beside; K3's rows carry the form ``detector.cu``
+picked (``binning.plan``), its cluster, the design's bound with the
+image's zeroing, and registers and shared bytes), its bound (a dithered
+row's and K10's count the threefry hash's integer operations,
+``dithered_bound``), its plain version's time and a library call's time (best single calls); then the
 card's name and power limit;
 and last ``{"ok": true, "device": {...}}``. The ``bounds`` line carries
 the script's own time (``script_s``). Any failed check raises, so
@@ -261,7 +267,7 @@ DITHER_BOUND_KEYS = ("bytes_bound_ms", "int_ops", "alu_ops",
 
 
 def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
-                ext):
+                ext, k3_regs=lambda: {}):
     """The slice's phases: K8 and K3's bare-ray entry points against their
     plain versions, the diagnostic classes' path (``diagnostics_path``),
     the multi-slice path, the committed JAX outputs (``vs_jax``) and K3 on
@@ -514,12 +520,71 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
         f_err = max(f_err, float((a - b).nan_to_num(0).abs().max()))
     check(f_err <= 1e-4 * n_max, f"bin_field sums off by {f_err} "
           f"({n_max} rays a pixel)")
+    # every ray in one bin (the path's rays moved to one position; NaN
+    # ones stay NaN), and an image past the largest cluster (the one-thread
+    # form), each entry point held to its plain version: counts equal,
+    # field sums within 1e-4 x the most rays a pixel; the weighted pile of
+    # n float32 adds in one bin, kernel and plain each within (n - 1)
+    # 2^-24 of its float64 sum (recursive summation's bound in any order)
+    k3_cases = {}
+    for case, cx, cy, cb in (
+            ("one_bin", sx * 0.0 + 0.123, sy * 0.0 - 0.456, bins),
+            ("past_the_largest_cluster", sx, sy, (4000, 3000))):
+        cxy = (cx.contiguous(), cy.contiguous())
+        form = binning.plan("bin_image", 0, cb, N, dev).form
+        Hc = ophist.histogram2d(*cxy, cb, rng_)[0]
+        check(torch.equal(Hc, ophist.histogram2d_plain(*cxy, cb, rng_)[0]),
+              f"bin_image {case}: counts differ from the plain")
+        Hcw = ophist.histogram2d(*cxy, cb, rng_, weights=w)[0]
+        Hcwp = ophist.histogram2d_plain(*cxy, cb, rng_, weights=w)[0]
+        ew = float((Hcw - Hcwp).abs().max())
+        if case == "one_bin":
+            H64 = ophist.histogram2d_plain(*cxy, cb, rng_,
+                                           weights=w.double())[0]
+            tol = (float(Hc.max()) - 1.0) * 2.0**-24 * float(H64.max())
+            pile = [float((h.double() - H64).abs().max())
+                    for h in (Hcw, Hcwp)]
+            check(max(pile) <= tol, f"bin_image weighted {case}: "
+                  f"{pile} from the float64 sum (kernel, plain; {tol})")
+        else:
+            check(ew <= 1e-5 * float(Hcwp.abs().max()), f"bin_image "
+                  f"weighted {case}: off by {ew}")
+        cc = (cb[0], cb[1], 18.0, 13.5)
+        nk = ophist.complex_histogram(*cxy, one, one, *cc,
+                                      return_acc=True)[..., 0]
+        npl = ophist.complex_histogram_plain(*cxy, one, one, *cc,
+                                             return_acc=True)[..., 0]
+        check(torch.equal(nk, npl), f"bin_field {case}: ray counts differ")
+        nm = float(npl.max())
+        ef = 0.0
+        for conv in ("legacy", "intensity"):
+            a = ophist.complex_histogram(*cxy, Ex, Ey, *cc, convention=conv,
+                                         return_acc=True)
+            b = ophist.complex_histogram_plain(*cxy, Ex, Ey, *cc,
+                                               convention=conv,
+                                               return_acc=True)
+            ef = max(ef, float((a - b).nan_to_num(0).abs().max()))
+        check(ef <= 1e-4 * nm, f"bin_field {case}: sums off by {ef}")
+        k3_cases[case] = {"bins": list(cb), "bin_image_form": form,
+                          "counts_equal": True, "image_sum": float(Hc.sum()),
+                          "weighted_max_abs_err": ew,
+                          "field_max_abs_err": ef,
+                          "max_rays_per_pixel": nm}
+        if case == "one_bin":
+            k3_cases[case]["weighted_from_float64"] = pile
+        del Hc, Hcw, Hcwp, nk, npl, a, b
+    check(k3_cases["one_bin"]["bin_image_form"] == "cluster"
+          and k3_cases["past_the_largest_cluster"]["bin_image_form"]
+          == "one_thread", f"bin_image forms {k3_cases}")
+    w_err = max(w_err, k3_cases["past_the_largest_cluster"][
+        "weighted_max_abs_err"])
     emit({"phase": "K3_bin_vs_plain", "rays": N, "bins": list(bins),
           "counts_equal": True, "weighted_max_abs_err": w_err,
           "field_ray_counts_equal": True, "field_max_abs_err": f_err,
-          "max_rays_per_pixel": n_max,
+          "max_rays_per_pixel": n_max, **k3_cases,
           "tolerance": "counts equal; weighted within 1e-5 of the largest "
-          "bin; field sums within 1e-4 x the most rays a pixel"})
+          "bin (a one-bin pile of n rays within (n - 1) 2^-24 of its float64 "
+          "sum); field sums within 1e-4 x the most rays a pixel"})
 
     # -- multi-slice through the 512^3 lens: 511 screens and FFT pairs ----
     coords = (lens.x, lens.y, lens.z)
@@ -602,8 +667,15 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
     # ops wrappers' host work stays in the path's step times)
     bpx, bpy = (ophist.bin_params(-9.0, 9.0, bins[0]),
                 ophist.bin_params(-6.75, 6.75, bins[1]))
-    bi_ms = batch_ms(lambda: binning.bin_image(sx, sy, None, *bins, bpx, bpy),
-                     calls=50)
+    # device time (a CUDA graph's: below ~0.05 ms a call's time is the
+    # host's), the call's beside it; the plan each call takes
+    bi_ms = graph_ms(lambda: binning.bin_image(sx, sy, None, *bins, bpx,
+                                               bpy))
+    bi_call_ms = batch_ms(lambda: binning.bin_image(sx, sy, None, *bins, bpx,
+                                                    bpy), calls=50)
+    bi_w_ms = graph_ms(lambda: binning.bin_image(px, py, w, *bins, bpx,
+                                                 bpy))
+    bi_plan = binning.plan("bin_image", 0, bins, N, dev)
     bi_plain = best_ms(lambda: ophist.histogram2d_plain(sx, sy, bins, rng_),
                        reps=3)
     from synthpy_tpu_torch.ops.histogram import _bin_index, _pixel_index
@@ -622,10 +694,19 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
     # bytes: x, y read, the image written; operations: two bins (sub,
     # mul, floor, compares and clamps ~12 each) and the add
     bi_b = bound(N * 8 + bins[0] * bins[1] * 4, N * 25)
+    # the design's bytes: the image zeroed besides (its counts then added
+    # in L2)
+    bi_design = bound(N * 8 + 2 * bins[0] * bins[1] * 4, 0)[0]
     fpx = (ophist.f32(9.0), ophist.f32(18.0 / (bins[0] - 1)))
     fpy = (ophist.f32(6.75), ophist.f32(13.5 / (bins[1] - 1)))
-    bf_ms = batch_ms(lambda: binning.bin_field(
+    bf_ms = graph_ms(lambda: binning.bin_field(
+        fx, fy, Ex, Ey, bins[0] - 1, bins[1] - 1, fpx, fpy, 2))
+    bf_call_ms = batch_ms(lambda: binning.bin_field(
         fx, fy, Ex, Ey, bins[0] - 1, bins[1] - 1, fpx, fpy, 2), calls=50)
+    bf_i_ms = graph_ms(lambda: binning.bin_field(
+        fx, fy, Ex, Ey, bins[0] - 1, bins[1] - 1, fpx, fpy, 4))
+    bf_plan = binning.plan("bin_field", 2, (bins[0] - 1, bins[1] - 1), N,
+                           dev)
     bf_plain = best_ms(lambda: ophist.complex_histogram_plain(
         fx, fy, Ex, Ey, *cargs, return_acc=True), reps=3)
     ixf, vxf = _pixel_index(fx, 18.0, bins[0] - 1)
@@ -645,6 +726,9 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
     # bytes: x, y and the two complex fields read, the sums written;
     # operations: two pixels (~10 each) and two adds
     bf_b = bound(N * 24 + (bins[0] - 1) * (bins[1] - 1) * 2 * 4, N * 22)
+    bf_design = bound(N * 24 + 2 * (bins[0] - 1) * (bins[1] - 1) * 2 * 4,
+                      0)[0]
+    regs = k3_regs()
     csrc = "synthpy_tpu_torch/kernels/csrc/"
     rows_out += [
         {"name": "deposit", "route": "cuda", "source": csrc + "deposit.cu",
@@ -660,14 +744,18 @@ def wave_optics(torch, dev, kernels, bound, reset, path_launches, uf, p_end,
          "source": csrc + "detector.cu",
          "replaces": "synthpy_tpu/ops/histogram.py:26",
          "launches": launches["bin_image"], "max_abs_err": w_err,
-         "ms": bi_ms, "plain_ms": bi_plain, "bound_ms": bi_b[0],
-         "bound_by": bi_b[1], "library_ms": bi_lib},
+         "ms": bi_ms, "call_ms": bi_call_ms, "weighted_ms": bi_w_ms,
+         "plain_ms": bi_plain, "bound_ms": bi_b[0], "bound_by": bi_b[1],
+         "bound_design_ms": bi_design, "library_ms": bi_lib,
+         **k3_plan_fields(bi_plan, regs, "bin_image_kernel")},
         {"name": "bin_field", "route": "cuda",
          "source": csrc + "detector.cu",
          "replaces": "synthpy_tpu/ops/histogram.py:69",
          "launches": launches["bin_field"], "max_abs_err": f_err,
-         "ms": bf_ms, "plain_ms": bf_plain, "bound_ms": bf_b[0],
-         "bound_by": bf_b[1], "library_ms": bf_lib}]
+         "ms": bf_ms, "call_ms": bf_call_ms, "intensity_ms": bf_i_ms,
+         "plain_ms": bf_plain, "bound_ms": bf_b[0], "bound_by": bf_b[1],
+         "bound_design_ms": bf_design, "library_ms": bf_lib,
+         **k3_plan_fields(bf_plan, regs, "bin_field_kernel")}]
     emit({"phase": "K8_bin_times", "kernels": rows_out})
 
     # -- the committed JAX outputs, every case on the card ----------------
@@ -1699,6 +1787,47 @@ def k11_registers():
                     and "LayoutILi0ELi1ELi0E" in n)
 
     return ptxas_in_thread(march_adjoint.KERNEL, pick)
+
+
+def k3_plan_fields(plan, regs, instance):
+    """A K3 row's plan fields: the form ``detector.cu`` picked (the cluster
+    form or the one-thread form), its cluster and clusters, a block's
+    shared bytes, and the registers (with shared bytes and spills) of the
+    form's kernel (``k3_registers``: ``instance`` is the one-thread
+    form's)."""
+    kern = "bin_image_cluster" if plan.cluster else instance
+    return {"form": plan.form, "cluster": plan.cluster,
+            "clusters": plan.clusters, "device_kernels_per_launch": 1,
+            "shared_bytes": plan.smem, "registers": regs.get(kern)}
+
+
+def k3_registers():
+    """K3's kernels (the cluster form of unweighted ``bin_image``, the
+    one-thread forms): registers, shared bytes and spills a thread, by
+    ``ptxas_in_thread``, keyed by the kernel's name and template
+    arguments."""
+    from synthpy_tpu_torch.kernels import detector
+
+    names = ("bin_image_cluster", "bin_image_kernel", "bin_field_kernel",
+             "field_kernel", "detect_kernel")
+
+    def pick(report, cubin):
+        out = {}
+        for n, v in report.items():
+            for kw in names:
+                j = n.find(kw)
+                if j < 0:
+                    continue
+                rest = n[j + len(kw):]
+                # the template arguments, to the close of the nested name
+                key = kw + (rest[:rest.index("EEv") + 1]
+                            if rest.startswith("I") else "")
+                out[key] = v
+                break
+        check("bin_image_cluster" in out, "no K3 cluster kernel")
+        return out
+
+    return ptxas_in_thread(detector.KERNEL, pick)
 
 
 def k6_registers():
@@ -4339,6 +4468,7 @@ def main():
         from synthpy_tpu_torch.kernels import xray as kxray
         from synthpy_tpu_torch.kernels.profiling import (batch_ms, best_ms,
                                                          device_kernels,
+                                                         graph_ms,
                                                          nvidia_smi,
                                                          slab_walk_model,
                                                          time_walk_model)
@@ -4386,6 +4516,7 @@ def main():
     k5_regs = k5_registers()
     k4_regs = k4_registers()
     k18_regs = k18_registers()
+    k3_regs = k3_registers()
     # K7's SASS a step on the bench lens (C = 3, probing along z), rk2 and
     # rk4 each with the integrator folded
     k7_sass = {i: sass_in_thread(
@@ -5317,6 +5448,35 @@ def main():
                     "counts_equal": True, "rays_kept": float(
                         counts_p.sum()),
                     "bit_equal": bool(torch.equal(Hk, Hp))}
+    # every ray in one pixel (the main path's most central exit state,
+    # repeated) and an image past the largest cluster
+    i0 = int((uf[:, 0].abs() + uf[:, 1].abs()).nan_to_num(1e9).argmin())
+    for case, ufx, cb in (
+            ("one_pixel", uf[i0:i0 + 1].expand(RAYS, 8).contiguous(), BINS),
+            ("past_the_largest_cluster", uf, (2000, 1500))):
+        st_c = BENCHES["interferometry"][0]()
+        st_n = [x for x in st_c if x[0] not in ("phase", "mark")]
+        cargs = (unit_field(ufx), p_end, ext, "z", st_n, cb, 18.0, 13.5,
+                 1064e-9)
+        counts_k = detector.detect_field(*cargs)[..., 1]
+        counts_p = detector.detect_field_plain(*cargs)[..., 1]
+        check(torch.equal(counts_k, counts_p), f"K3 field {case}: ray "
+              "counts differ")
+        n_max = float(counts_p.max())
+        check(n_max > 0, f"K3 field {case}: no ray kept")
+        for conv in ("legacy", "intensity"):
+            args = (ufx, p_end, ext, "z", st_c, cb, 18.0, 13.5, 1064e-9,
+                    conv)
+            Hk = detector.detect_field(*args, ref=(10.0, 20.0))
+            Hp = detector.detect_field_plain(*args, ref=(10.0, 20.0))
+            err = float((Hk - Hp).abs().max())
+            check(err <= 1e-4 * n_max, f"K3 field {case}/{conv}: off by "
+                  f"{err} ({n_max} rays a pixel)")
+            coh_err = max(coh_err, err)
+            coh[f"interferometry/{conv} {case}"] = {
+                "bins": list(cb), "max_abs_err": err,
+                "max_rays_per_pixel": n_max, "counts_equal": True}
+        del ufx
     del Hk, Hp, counts_k, counts_p
     emit({"phase": "K3_coherent_vs_plain", "rays": RAYS, "tolerance":
           "ray counts equal; |field sums| within 1e-4 x the most rays a "
@@ -5356,7 +5516,7 @@ def main():
     # -- 3b. the diagnostic classes, Fresnel and multi-slice wave optics, the
     # committed JAX outputs, long stage tables
     wo_rows, wo_detail = wave_optics(torch, dev, kernels, bound, reset,
-                                     path_launches, uf, p_end, ext)
+                                     path_launches, uf, p_end, ext, k3_regs)
 
     # -- 3c. the scale builders, the random streams, the MAGPIE and the
     # turbulence paths
@@ -5649,12 +5809,18 @@ def main():
     ref_i = (10.0, 20.0)
     fargs = (uf, p_end, ext, "z", st_i, BINS, 18.0, 13.5, 1064e-9)
     Hf = detector.detect_field(*fargs, ref=ref_i)
-    k3f_ms = batch_ms(lambda: detector.detect_field(*fargs, ref=ref_i),
-                      calls=50)
+    k3f_ms = graph_ms(lambda: detector.detect_field(*fargs, ref=ref_i))
+    k3f_call_ms = batch_ms(lambda: detector.detect_field(*fargs, ref=ref_i),
+                           calls=50)
+    k3f_i_ms = graph_ms(lambda: detector.detect_field(*fargs, "intensity",
+                                                      ref=ref_i))
+    k3f_plan = binning.plan("detect_field", 2, BINS, RAYS, dev)
     k3f_plain_ms = best_ms(lambda: detector.detect_field_plain(
         *fargs, ref=ref_i), reps=3)
     k3f_b = bound(RAYS * 32 + BINS[0] * BINS[1] * 2 * 4,
                   k3f_flops("interferometry", 2))
+    k3f_design = bound(RAYS * 32 + 2 * BINS[0] * BINS[1] * 2 * 4,
+                       k3f_flops("interferometry", 2))[0]
     # the library yardstick: index_put_(accumulate=True) of the two field
     # channels on precomputed pixels (the port never calls it)
     rf_i, J_i = ray_to_Jonesvector(
@@ -5706,9 +5872,11 @@ def main():
          "source": csrc + "detector.cu",
          "replaces": "synthpy_tpu/pipeline.py:115",
          "launches": launches["interferometry"]["detector_field"],
-         "max_abs_err": coh_err, "ms": k3f_ms, "plain_ms": k3f_plain_ms,
+         "max_abs_err": coh_err, "ms": k3f_ms, "call_ms": k3f_call_ms,
+         "intensity_ms": k3f_i_ms, "plain_ms": k3f_plain_ms,
          "bound_ms": k3f_b[0], "bound_by": k3f_b[1],
-         "library_ms": k3f_lib_ms}]
+         "bound_design_ms": k3f_design, "library_ms": k3f_lib_ms,
+         **k3_plan_fields(k3f_plan, k3_regs(), "field_kernelILb0EE")}]
     detail = {"k1_table_rows_touched": int(rows.numel()),
               "k1_order_ms": order_ms,
               "k1_flops": {i: k1_flops(i, q) for i, q in (

@@ -6,8 +6,9 @@ adaptive path's, K5 (the time march) on the time path's, K18 (the
 grid-sharded time tracer's stage) on its check trace, K19 (the
 renderer's pack chain) on the inversion path's volume, K15 and K16 (the
 X-ray fold, crossings and chords) on the X-ray path's scene, K14 (the
-B-table write) on the proton path's batch or K12 (the renderer's CIC
-image) on the inversion path's exit rays.
+B-table write) on the proton path's batch, K12 (the renderer's CIC
+image) on the inversion path's exit rays or K3's binning and field form
+on the diagnostics and zscan_seg paths' rays.
 
     python3 march_profile.py        # from the repository root, one GPU
     python3 march_profile.py adjoint [--root DIR] [--reps N] [--save F]
@@ -30,6 +31,8 @@ image) on the inversion path's exit rays.
                                     [--against F] [--variants]
     python3 march_profile.py cic [--root DIR] [--reps N] [--save F]
                                  [--against F]
+    python3 march_profile.py detector [--root DIR] [--reps N] [--save F]
+                                      [--against F] [--variants]
 
 What it measures on the 512^3 bench lens (K = 512, 4,000,000 rays of a
 2 mm circular beam, slab weights):
@@ -255,6 +258,24 @@ between runs and both bytes bounds; where the tree has ``deposit.BATCH``,
 the V = 2 deposit in batches of 2^20 and 2^21 rays beside the shipped
 batch (device time, error, scratch). ``ptxas`` and ``sass`` as for
 ``random``; ``--variants`` times builds changed by ``DEPOSIT_VARIANTS``.
+
+``detector`` imports ``synthpy_tpu_torch`` from ``DIR`` as ``time`` does.
+It makes K3's inputs on the paths that run them at 4 M rays (the
+diagnostics path's bare rays: the shadowgram's, the polarogram's with
+its analyser weight, the refractogram's with its fields; the zscan_seg
+main path's exit states) and times ``bin_image`` unweighted and weighted
+(431 x 321), ``bin_field`` legacy and intensity (430 x 320),
+``detect_field`` on the interferometry bench, legacy and intensity, and
+``detect_image`` (the control) by device time (``graph_ms``) and
+``batch_ms``, each beside its bytes bound (and, where the tree has
+``binning.plan``, the form ``detector.cu`` picked). Counts
+(``bin_image``, the field forms' unit-field ray counts) are held equal to
+plain and hashed with ``detect_image``'s image for the other tree (``--save`` / ``--against``); float sums give their error
+against plain and their run-to-run spread. Probe builds (``K3_PROBES``)
+time each form with its adds left out. ``ptxas`` with each kernel's stack
+frame (the local memory sinf / cosf's slow path reserves) and the SASS
+opcodes (``sass``); ``--variants`` times builds changed by
+``K3_VARIANTS`` on the calls that take the cluster form.
 """
 
 from __future__ import annotations
@@ -2703,13 +2724,356 @@ def deposit_part(args):
     print(json.dumps({"part": "deposit", **out}), flush=True)
 
 
+def _diag_inputs(dev):
+    """K3's inputs on the paths that run it at 4 M rays. The diagnostics
+    path's bare rays (``chip_smoke.py``'s ``diagnostics_path``: the 512^3
+    lens, ne_0 = 2e25, a 2.5 mm beam traced by ``solve_zscan``, each class
+    solved): the shadowgram's (x, y), the polarogram's (x, y) and analyser
+    weight, the refractogram's (x, y, Ex, Ey). Then the zscan_seg main
+    path's exit states (the 512^3 lens at ne_0 = 5e24, a 2 mm beam
+    through K1 on the bf16 K = 512 pack) and their exit plane."""
+    import torch
+    from synthpy_tpu_torch.fields import layout_of
+    from synthpy_tpu_torch.fields.domain import ScalarDomain, build_pack
+    from synthpy_tpu_torch.kernels import march
+    from synthpy_tpu_torch.optics import diagnostics as dg
+    from synthpy_tpu_torch.optics.compose import analyser_weight
+    from synthpy_tpu_torch.tracer import init_beam, zscan
+
+    lwl = 1064e-9
+    lens = ScalarDomain(2 * EXT, DIM, phaseshift=True, device=dev)
+    lens.test_lens(ne_0=2e25, LR=2e-3)
+    zp = zscan.make_zscan_pack(build_pack(lens, lwl), layout_of(lens), "z")
+    s0 = init_beam(0, RAYS, 2.5e-3, 0.0, EXT, "circular", device=dev)
+    res = zscan.solve_zscan(s0, lens, lwl=lwl, return_E=True, zpack=zp)
+    del zp, lens, s0
+    sh = dg.Shadowgraphy(lwl, res.rf)
+    sh.two_lens_solve()
+    po = dg.Polarimetry(lwl, res.rf, res.Jf)
+    po.two_lens_solve()
+    rr = dg.Refractometry(lwl, res.rf, res.Jf)
+    rr.coherent_solve()
+    rays = {"shadow": (sh.rf[0].contiguous(), sh.rf[2].contiguous()),
+            "polar": (po.rf[0].contiguous(), po.rf[2].contiguous(),
+                      analyser_weight(po.Jf, 85.0).contiguous()),
+            "refract": (rr.rf[0].contiguous(), rr.rf[2].contiguous(),
+                        rr.Jf[0].contiguous(), rr.Jf[1].contiguous())}
+    del res, sh, po, rr
+    domain = ScalarDomain(2 * EXT, DIM, device=dev).test_lens(ne_0=5e24,
+                                                              LR=1.5e-3)
+    sp = zscan.build_segment_pack_device(domain, K=K, dtype=torch.bfloat16)
+    s0 = init_beam(0, RAYS, 2e-3, 0.0, EXT, "circular", device=dev)
+    u = zscan.permute_state(s0, "z").contiguous()
+    uf = march.march(u, sp.seg_planes, sp.scales, shape_ab=sp.shape_ab,
+                     origin_ab=sp.origin_ab.tolist(),
+                     inv_ab=sp.inv_spacing_ab.tolist(), dp=sp.dp,
+                     layout=layout_of(domain), K=sp.K, integrator="rk2",
+                     weights="slab", qbits=sp.qbits)
+    p_end = sp.p0 + sp.seg_planes.shape[0] * sp.K * sp.dp
+    del sp, domain, s0, u
+    torch.cuda.empty_cache()
+    return rays, uf, p_end
+
+
+# the diagnostics path's detector geometry: the shadowgram's and
+# polarogram's numpy-rule bins, the refractogram's pixels, the benches'
+DIAG_BINS, DIAG_RANGE = (431, 321), ((-9.0, 9.0), (-6.75, 6.75))
+DIAG_PIXELS, DIAG_L = (430, 320), (18.0, 13.5)
+# probes of detector.cu built for the ``detector`` part: each leaves one
+# form's adds out (their operands still computed), as pack_profile.py's
+# ``no_atomics`` does for detect_image; a probe whose text a tree lacks is
+# reported as such
+K3_PROBES = {
+    "bin_image": ("global", ("bin_image", "bin_image_weighted"), [(
+        "    atomicAdd(H + iy * nx + ix, w ? w[i] : 1.0f);",
+        "    { const float v = w ? w[i] : 1.0f;\n"
+        "      if (v == -7.0f) H[iy * nx + ix] = v; }")]),
+    "field": ("global", ("bin_field_legacy", "bin_field_intensity",
+                         "detect_field_legacy", "detect_field_intensity"), [(
+        "  if (n_ch == 2) {\n    atomicAdd(cell, E[0]);\n"
+        "    atomicAdd(cell + 1, E[2]);\n  } else {\n"
+        "#pragma unroll\n"
+        "    for (int c = 0; c < 4; ++c) atomicAdd(cell + c, E[c]);\n"
+        "  }",
+        "  if (E[0] + E[1] + E[2] + E[3] == -7.0f) cell[0] = E[n_ch];")]),
+    # the cluster form's adds into the cluster's slices (the bins and the
+    # owner's address still computed)
+    "cluster": ("cluster", ("bin_image",), [(
+        "        atomicAdd(cl.map_shared_rank(img, iy[r] & mask) +\n"
+        "                      (iy[r] >> lg) * nx + ix[r], 1);",
+        "        { int* d = cl.map_shared_rank(img, iy[r] & mask) +\n"
+        "                   (iy[r] >> lg) * nx + ix[r];\n"
+        "          if (reinterpret_cast<uintptr_t>(d) == 7) *d = 1; }")]),
+}
+# each case's (entry, kind, bins) for ``binning.plan``
+K3_PLANS = {"bin_image": ("bin_image", 0, DIAG_BINS),
+            "bin_image_weighted": ("bin_image", 1, DIAG_BINS),
+            "bin_field_legacy": ("bin_field", 2, DIAG_PIXELS),
+            "bin_field_intensity": ("bin_field", 4, DIAG_PIXELS),
+            "detect_field_legacy": ("detect_field", 2, BINS),
+            "detect_field_intensity": ("detect_field", 4, BINS)}
+# builds of detector.cu that ``detector --variants`` times beside the
+# shipped one (forms of the cluster form of unweighted bin_image)
+K3_VARIANTS = {
+    "rays_2": [("constexpr int CL_RAYS = 4;", "constexpr int CL_RAYS = 2;")],
+    "threads_512": [("constexpr int CL_THREADS = 1024;",
+                     "constexpr int CL_THREADS = 512;")],
+    # clusters of 8 (slices of 70 KB: two 1024-thread blocks an SM)
+    "cluster_8": [("  for (int lg = 0; (1 << lg) <= MAX_CLUSTER; ++lg) {",
+                   "  for (int lg = 3; (1 << lg) <= MAX_CLUSTER; ++lg) {")],
+    "cluster_8_threads_512": [
+        ("  for (int lg = 0; (1 << lg) <= MAX_CLUSTER; ++lg) {",
+         "  for (int lg = 3; (1 << lg) <= MAX_CLUSTER; ++lg) {"),
+        ("constexpr int CL_THREADS = 1024;",
+         "constexpr int CL_THREADS = 512;")],
+    # a ray of the block's own rows added without the cluster's mapping
+    "own_rows_local": [(
+        "        atomicAdd(cl.map_shared_rank(img, iy[r] & mask) +\n"
+        "                      (iy[r] >> lg) * nx + ix[r], 1);",
+        "        atomicAdd(((iy[r] & mask) == rank\n"
+        "                       ? img : cl.map_shared_rank(img, iy[r] & mask))"
+        " +\n                      (iy[r] >> lg) * nx + ix[r], 1);")],
+}
+
+
+def _k3_cases(binning, detector, rays, uf, p_end):
+    """The timed calls of the ``detector`` part: {name: (call, kernel
+    attribute, module)}, each entry point on the path's inputs."""
+    from synthpy_tpu_torch.ops.histogram import bin_params, f32
+    from synthpy_tpu_torch.optics.compose import BENCHES
+
+    sx, sy = rays["shadow"]
+    px, py, w = rays["polar"]
+    fx, fy, Ex, Ey = rays["refract"]
+    (xlo, xhi), (ylo, yhi) = DIAG_RANGE
+    bpx = bin_params(xlo, xhi, DIAG_BINS[0])
+    bpy = bin_params(ylo, yhi, DIAG_BINS[1])
+    npx, npy = DIAG_PIXELS
+    fpx = (f32(DIAG_L[0] / 2.0), f32(DIAG_L[0] / npx))
+    fpy = (f32(DIAG_L[1] / 2.0), f32(DIAG_L[1] / npy))
+    st_i = BENCHES["interferometry"][0]()
+    st_s = BENCHES["shadowgraphy"][0]()
+    fargs = (uf, p_end, EXT, "z", st_i, BINS, *DIAG_L, 1064e-9)
+    return {
+        "bin_image": (lambda: binning.bin_image(sx, sy, None, *DIAG_BINS,
+                                                bpx, bpy),
+                      "BIN_KERNEL", binning),
+        "bin_image_weighted": (lambda: binning.bin_image(
+            px, py, w, *DIAG_BINS, bpx, bpy), "BIN_KERNEL", binning),
+        "bin_field_legacy": (lambda: binning.bin_field(
+            fx, fy, Ex, Ey, npx, npy, fpx, fpy, 2), "BIN_FIELD_KERNEL",
+            binning),
+        "bin_field_intensity": (lambda: binning.bin_field(
+            fx, fy, Ex, Ey, npx, npy, fpx, fpy, 4), "BIN_FIELD_KERNEL",
+            binning),
+        "detect_field_legacy": (lambda: detector.detect_field(
+            *fargs, "legacy", ref=(10.0, 20.0)), "FIELD_KERNEL", detector),
+        "detect_field_intensity": (lambda: detector.detect_field(
+            *fargs, "intensity", ref=(10.0, 20.0)), "FIELD_KERNEL",
+            detector),
+        "detect_image": (lambda: detector.detect(
+            uf, p_end, EXT, "z", st_s, BINS, DIAG_RANGE), "KERNEL",
+            detector)}
+
+
+def _k3_plain(detector, rays, uf, p_end):
+    """The plain versions of ``_k3_cases``' calls, and the ray counts of
+    the field forms (a unit field: the kernels' pixel of every ray)."""
+    import torch
+    from synthpy_tpu_torch.ops import histogram as oh
+    from synthpy_tpu_torch.optics.compose import BENCHES
+
+    sx, sy = rays["shadow"]
+    px, py, w = rays["polar"]
+    fx, fy, Ex, Ey = rays["refract"]
+    cargs = (DIAG_PIXELS[0] + 1, DIAG_PIXELS[1] + 1, *DIAG_L)
+    st_i = BENCHES["interferometry"][0]()
+    fargs = (uf, p_end, EXT, "z", st_i, BINS, *DIAG_L, 1064e-9)
+    one = torch.ones_like(Ex)
+    unit = uf.clone()
+    unit[:, 5], unit[:, 6], unit[:, 7] = 1.0, 0.0, 0.0
+    st_n = [x for x in st_i if x[0] not in ("phase", "mark")]
+    return {
+        "bin_image": oh.histogram2d_plain(sx, sy, DIAG_BINS, DIAG_RANGE)[0],
+        "bin_image_weighted": oh.histogram2d_plain(
+            px, py, DIAG_BINS, DIAG_RANGE, weights=w)[0],
+        "bin_field_legacy": oh.complex_histogram_plain(
+            fx, fy, Ex, Ey, *cargs, return_acc=True),
+        "bin_field_intensity": oh.complex_histogram_plain(
+            fx, fy, Ex, Ey, *cargs, convention="intensity",
+            return_acc=True),
+        "detect_field_legacy": detector.detect_field_plain(
+            *fargs, "legacy", ref=(10.0, 20.0)),
+        "detect_field_intensity": detector.detect_field_plain(
+            *fargs, "intensity", ref=(10.0, 20.0)),
+        # ray counts: the most rays a pixel bounds the field sums' error
+        "bin_field_counts": (lambda: oh.complex_histogram(
+            fx, fy, one, one, *cargs, return_acc=True)[..., 0],
+            oh.complex_histogram_plain(fx, fy, one, one, *cargs,
+                                       return_acc=True)[..., 0]),
+        "detect_field_counts": (lambda: detector.detect_field(
+            unit, p_end, EXT, "z", st_n, BINS, *DIAG_L, 1064e-9)[..., 1],
+            detector.detect_field_plain(
+                unit, p_end, EXT, "z", st_n, BINS, *DIAG_L,
+                1064e-9)[..., 1])}
+
+
+def _k3_bound(name: str, N: int) -> float:
+    """The function's bytes bound [ms] of a ``_k3_cases`` call: each
+    input read once (a ray's x, y and weight or fields, or its 32-byte
+    exit state), the image written once."""
+    if name.startswith("bin_image"):
+        per_ray, (nx, ny), ch = 8 + 4 * name.endswith("weighted"), \
+            DIAG_BINS, 1
+    elif name.startswith("bin_field"):
+        per_ray, (nx, ny) = 24, DIAG_PIXELS
+        ch = 4 if name.endswith("intensity") else 2
+    else:
+        per_ray, (nx, ny) = 32, BINS
+        ch = 4 if name.endswith("intensity") else (
+            2 if name.endswith("legacy") else 1)
+    return (N * per_ray + nx * ny * ch * 4) / 3.35e12 * 1e3
+
+
+def detector_part(args):
+    """The ``detector`` part (see the module's docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("march_profile: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from synthpy_tpu_torch.kernels import _build, binning, detector
+    from synthpy_tpu_torch.kernels import profiling
+    from synthpy_tpu_torch.kernels.profiling import (batch_ms, nvidia_smi,
+                                                     ptxas)
+    graph_ms = _graph_ms()
+
+    dev = torch.device("cuda")
+    planned = hasattr(binning, "plan")
+    out = {"root": os.path.abspath(args.root), "nvidia_smi": nvidia_smi(),
+           "planned": planned}
+    kern, log, cubin = ptxas(_build.CSRC / detector.KERNEL.source,
+                             detector.KERNEL.flags)
+    out["ptxas"] = kern
+    # a kernel's local memory (the stack frame that sinf / cosf's slow
+    # path for large arguments reserves), from the same log
+    out["stack_frame"] = {
+        m.group(1): int(m.group(2)) for m in re.finditer(
+            r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack frame",
+            log)}
+    out["sass"] = _sass_functions(cubin, f"k3_{Path(args.root).name}",
+                                  lambda n: True)
+    rays, uf, p_end = _diag_inputs(dev)
+    N = uf.shape[0]
+    cases = _k3_cases(binning, detector, rays, uf, p_end)
+    plain = _k3_plain(detector, rays, uf, p_end)
+
+    def best(fn):
+        return min(batch_ms(fn, calls=20) for _ in range(args.reps))
+
+    res, hashes = {}, {}
+    # the field forms' ray counts: equal to plain, hashed for the other
+    # tree, the most rays a pixel
+    n_max = {}
+    for name in ("bin_field_counts", "detect_field_counts"):
+        call, want = plain[name]
+        got = call()
+        n_max[name] = float(want.max())
+        hashes[name] = _sha(got)
+        res[name] = {"equal_to_plain": bool(torch.equal(got, want)),
+                     "max_rays_per_pixel": n_max[name],
+                     "pixels_held": int((want > 0).sum())}
+        emit({"case": name, **res[name]})
+    for name, (call, _, _) in cases.items():
+        got = call()
+        n = len(rays["shadow"][0]) if name.startswith("bin") else N
+        c = {"rays": n, "graph_ms": graph_ms(call), "batch_ms": best(call),
+             "bound_ms": _k3_bound(name, n)}
+        if name in ("bin_image", "detect_image"):
+            if name == "bin_image":
+                c["equal_to_plain"] = bool(torch.equal(got, plain[name]))
+                c["max_rays_per_bin"] = float(got.max())
+                c["bins_held"] = int((got > 0).sum())
+            hashes[name] = _sha(got)
+        else:
+            want = plain[name]
+            ref = n_max["detect_field_counts" if name.startswith("detect")
+                        else "bin_field_counts"] if "field" in name else \
+                float(want.abs().max())
+            c["max_abs_err"] = float((got - want).abs().max())
+            c["err_over_scale"] = c["max_abs_err"] / ref
+            c["repeat_max_abs"] = max(float((call() - got).abs().max())
+                                      for _ in range(3))
+        if planned and name != "detect_image":
+            pl = binning.plan(*K3_PLANS[name], n, dev)
+            c["plan"] = {**pl._asdict(), "form": pl.form}
+        res[name] = c
+        emit({"case": name, **c})
+    # each form's adds left out (a probe build), timed beside the shipped
+    # build in the same process
+    probes = {}
+    text = (_build.CSRC / detector.KERNEL.source).read_text()
+    for pname, (form, names, subs) in K3_PROBES.items():
+        if not all(a in text for a, _ in subs):
+            probes[pname] = "not in this tree's source"
+            continue
+        built = {}
+        for name in names:
+            if res[name].get("plan", {}).get("form", "one_thread") != \
+                    ("one_thread" if form == "global" else form):
+                continue
+            call, attr, mod = cases[name]
+            shipped = getattr(mod, attr)
+            if attr not in built:
+                built[attr] = profiling.variant(shipped, f"probe_{pname}",
+                                                subs)
+            setattr(mod, attr, built[attr])
+            try:
+                probes.setdefault(pname, {})[name] = graph_ms(call)
+            finally:
+                setattr(mod, attr, shipped)
+        emit({"probe": pname, **probes.get(pname, {})})
+    out["probes"] = probes
+    if args.variants:
+        var = {}
+        for vname, subs in K3_VARIANTS.items():
+            built = {}
+            var[vname] = {}
+            for name, (call, attr, mod) in cases.items():
+                if res[name].get("plan", {}).get("form") != "cluster":
+                    continue
+                shipped = getattr(mod, attr)
+                try:
+                    if attr not in built:
+                        built[attr] = profiling.variant(
+                            shipped, f"k3_{vname}", subs)
+                    setattr(mod, attr, built[attr])
+                    got = call()
+                    var[vname][name] = {"graph_ms": graph_ms(call)}
+                    if name == "bin_image":
+                        var[vname][name]["bit_equal"] = (
+                            _sha(got) == hashes[name])
+                    else:
+                        var[vname][name]["max_abs_err"] = float(
+                            (got - plain[name]).abs().max())
+                except Exception as exc:  # a build or launch that fails
+                    var[vname][name] = {"error": str(exc)[-600:]}
+                finally:
+                    setattr(mod, attr, shipped)
+                var[vname][name]["shipped_graph_ms"] = graph_ms(call)
+            emit({"variant": vname, **var[vname]})
+        out["variants"] = var
+    out["cases"] = res
+    _save_against(out, hashes, args)
+    print(json.dumps({"part": "detector", **out}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("part", nargs="?",
                     choices=["march", "adjoint", "boris", "adaptive", "time",
                              "k18", "zscan", "analytic", "k17", "k19",
                              "xray", "btable", "cic", "random",
-                             "deposit"],
+                             "deposit", "detector"],
                     default="march")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
@@ -2748,6 +3112,8 @@ def main():
         return random_part(args)
     if args.part == "deposit":
         return deposit_part(args)
+    if args.part == "detector":
+        return detector_part(args)
     import torch
     if not torch.cuda.is_available():
         sys.exit("march_profile: no CUDA device")

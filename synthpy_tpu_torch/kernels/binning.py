@@ -9,11 +9,18 @@ CUDA tensors, the diagnostic classes' detectors; the bodies of those two
 functions (``histogram2d_plain``, ``complex_histogram_plain``) are their
 plain versions, taken for CPU tensors only. Each entry point is its own
 ``Kernel`` object, so its launches count apart.
+
+``detector.cu`` picks the form of each call itself: unweighted
+``bin_image`` holds its counts in shared memory across a thread-block
+cluster where the image fits one (the cluster form), and every other call
+adds into the image in device memory (the one-thread form). ``plan``
+reports its choice (``k3_plan``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -21,10 +28,49 @@ from synthpy_tpu_torch.kernels._build import F, I, L, P, Kernel, refuse_grad
 
 BIN_KERNEL = Kernel("detector.cu", {
     "bin_image": [P, P, P, P, L, I, I, F, F, F, F, F, F, P],
-}, flags=["--fmad=false"])
+}, flags=["--fmad=false"], helpers={"k3_plan": [I, I, I, I, I, L, P]})
 BIN_FIELD_KERNEL = Kernel("detector.cu", {
     "bin_field": [P, P, P, P, P, L, I, I, F, F, F, F, I, P],
 }, flags=["--fmad=false"])
+
+
+# detector.cu's entry points, as k3_plan names them
+ENTRIES = {"bin_image": 0, "bin_field": 1, "detect_field": 2}
+
+
+class Plan(NamedTuple):
+    """How ``detector.cu`` runs one call (``k3_plan``)."""
+    cluster: int    # blocks a cluster; 0: the one-thread form
+    clusters: int   # the grid's clusters
+    rows: int       # image rows a block holds
+    smem: int       # a block's dynamic shared bytes
+    active: int     # clusters the card holds at once
+
+    @property
+    def form(self) -> str:
+        return "cluster" if self.cluster else "one_thread"
+
+
+def plan(entry: str, kind: int, bins: Tuple[int, int], N: int,
+         dev: torch.device) -> Plan:
+    """``detector.cu``'s plan of a call of ``entry`` ("bin_image": kind 0
+    unweighted, 1 weighted; "bin_field" or "detect_field": kind = n_ch, 2
+    or 4) for N rays onto ``bins`` = (nx, ny) pixels on card ``dev``."""
+    if entry not in ENTRIES:
+        raise ValueError(f"no K3 entry point {entry!r}")
+    dev = torch.device(dev)
+    index = dev.index
+    if index is None:
+        index = torch.cuda.current_device() if dev.type == "cuda" else 0
+    out = (ctypes.c_longlong * len(Plan._fields))()
+    rc = BIN_KERNEL.load().k3_plan(index, ENTRIES[entry], int(kind),
+                                   int(bins[0]), int(bins[1]), int(N),
+                                   ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"k3_plan refused {entry} (kind {kind}) of {N} "
+                           f"rays onto {tuple(bins)} pixels (cudaError "
+                           f"{rc})")
+    return Plan(*(int(v) for v in out))
 
 
 def _rays(*ts: torch.Tensor, dtype=torch.float32):

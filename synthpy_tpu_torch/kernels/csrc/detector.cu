@@ -52,14 +52,48 @@
 // ops.histogram's entry points (histogram.py:26-66 histogram2d with
 // optional weights, :69 complex_histogram's field sums): the same bin_of /
 // pixel_of rules and atomics, without the state read and the stages.
+//
+// The cluster form of unweighted bin_image. At the diagnostics path's
+// shapes 4 M rays land on ~12,600 bins of a 431 x 321 image (up to ~440 a
+// bin), and the one-thread-a-ray form's adds, queued in L2, take four
+// fifths of its time. So unweighted counts are held on chip: across a
+// thread-block cluster of 2^lg blocks on neighbouring SMs, block r holding
+// the image rows iy with iy % 2^lg == r (row iy >> lg of its slice) as
+// int32 in shared memory; rows are dealt out in turn, not in bands, so
+// that a beam's hot rows spread over every block. Each block takes a
+// contiguous range of rays (a cluster the ranges of its blocks), CL_RAYS
+// rays a thread a trip with their loads issued before their adds, and adds
+// 1 for each kept ray into the slice that owns its row through
+// cluster.map_shared_rank (distributed shared memory, a native integer
+// add): the 540 KiB of a 431 x 321 image in a cluster of 4. After the
+// cluster's last add each block adds its slice's nonzero counts into the
+// zeroed image with global float atomics: integer counts below 2^24 are
+// exact as floats and in any order, so the image is the one-thread form's,
+// bit for bit, and no partial images go through device memory (summing
+// them in a second kernel ran 12% slower). plan_of picks the cluster and
+// the grid from the image's bytes and the card's attributes (shared memory
+// a block, cudaOccupancyMaxActiveClusters) and is the plan's one owner:
+// bin_image derives it at each call, k3_plan reports it. An image past the
+// largest cluster keeps the one-thread form; a cluster launch that fails
+// returns its error.
+// Weighted bins and field sums keep the one-thread form: in distributed
+// shared memory a float add is a compare-and-swap loop (so is
+// red.shared::cluster.add.f32), and the cluster form ran 1.4-2.0x slower
+// than L2's native float reductions (PERF.md).
+//
 // Built with --fmad=false: every product and sum is rounded as the plain
 // PyTorch version rounds it (its complex products written out in real
 // arithmetic), so a ray near a bin edge lands in the same bin, counts match
 // exactly, and a ray's field is the plain version's; field sums then differ
 // only by the order of the atomic adds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -274,6 +308,167 @@ __global__ void bin_field_kernel(const float* x, const float* y,
   add_field(H + ((long long)iy * npx + ix) * n_ch, E, n_ch);
 }
 
+// -- the cluster form of unweighted bin_image ---------------------------------
+
+constexpr int CL_THREADS = 1024;     // a cluster block's threads
+constexpr int CL_RAYS = 4;           // rays a thread a trip, loads first
+constexpr int RAYS_A_BLOCK = 4096;   // the fewest rays a block is given
+constexpr int PORTABLE_CLUSTER = 8;  // the largest cluster any card takes
+constexpr int MAX_CLUSTER = 16;      // the largest the plan asks for
+constexpr int SMEM_KEEP = 1024;      // shared bytes a block keeps free
+
+// k3_plan's entry points (bin_image kind 0: unweighted, 1: weighted;
+// bin_field and detect_field kind = n_ch)
+enum Entry { BIN_IMAGE = 0, BIN_FIELD = 1, DETECT_FIELD = 2 };
+
+// The cluster form: the block's slice zeroed, its range of rays counted
+// into the cluster's slices, its nonzero counts added into H.
+__global__ void __launch_bounds__(CL_THREADS, 1)
+    bin_image_cluster(const float* __restrict__ x,
+                      const float* __restrict__ y, float* H, long long N,
+                      int nx, int ny, float xlo, float xhi, float xs,
+                      float ylo, float yhi, float ys, int lg) {
+  extern __shared__ __align__(16) int img[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int mask = (1 << lg) - 1;
+  const int words = ((ny + mask) >> lg) * nx;
+  for (int k = threadIdx.x; k < words; k += CL_THREADS) img[k] = 0;
+  cl.sync();  // every slice zeroed before any block adds into it
+  const long long per = (N + gridDim.x - 1) / gridDim.x;
+  const long long r0 = blockIdx.x * per;
+  const long long r1 = min(N, r0 + per);
+  for (long long i0 = r0 + threadIdx.x; i0 < r1;
+       i0 += (long long)CL_RAYS * CL_THREADS) {
+    int ix[CL_RAYS], iy[CL_RAYS];
+    bool keep[CL_RAYS];
+#pragma unroll
+    for (int r = 0; r < CL_RAYS; ++r) {
+      const long long i = i0 + (long long)r * CL_THREADS;
+      keep[r] = i < r1 &&
+                bin_of(__ldg(x + i), xlo, xhi, xs, nx, ix[r]) &
+                    bin_of(__ldg(y + i), ylo, yhi, ys, ny, iy[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < CL_RAYS; ++r)
+      if (keep[r])
+        atomicAdd(cl.map_shared_rank(img, iy[r] & mask) +
+                      (iy[r] >> lg) * nx + ix[r], 1);
+  }
+  cl.sync();  // every add landed; from here a block reads only its slice
+  for (int k = threadIdx.x; k < words; k += CL_THREADS) {
+    const int iy = ((k / nx) << lg) + rank;
+    if (img[k] && iy < ny) atomicAdd(H + iy * nx + k % nx, (float)img[k]);
+  }
+}
+
+// The launch plan of one call.
+struct Plan {
+  int cluster;   // blocks a cluster; 0: the one-thread form
+  int lg;        // log2(cluster)
+  int rows;      // image rows a block holds, ceil(ny / cluster)
+  int clusters;  // the grid's clusters
+  int smem;      // dynamic shared bytes a block
+  int active;    // clusters the card holds at once
+};
+
+// the cluster kernel's launch attributes: its slice's shared bytes, and
+// clusters past the portable size where asked
+cudaError_t set_attributes(int smem, int cluster) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      bin_image_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc == cudaSuccess && cluster > PORTABLE_CLUSTER)
+    rc = cudaFuncSetAttribute(
+        bin_image_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return rc;
+}
+
+cudaLaunchConfig_t cluster_config(int cluster, int clusters, int smem,
+                                  cudaLaunchAttribute* attr,
+                                  cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * cluster));
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster kernel at (cluster, smem)
+// on card dev, kept once asked (an attribute set and a query a call
+// otherwise); 0 where the card takes no cluster of that size
+cudaError_t active_clusters(int dev, int cluster, int smem, int& n) {
+  struct Seen {
+    int dev, cluster, smem, n;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> hold(lock);
+  for (int j = 0; j < n_seen; ++j)
+    if (seen[j].dev == dev && seen[j].cluster == cluster &&
+        seen[j].smem == smem) {
+      n = seen[j].n;
+      return cudaSuccess;
+    }
+  cudaError_t rc = set_attributes(smem, cluster);
+  if (rc == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(cluster, 1, smem, attr, 0);
+    rc = cudaOccupancyMaxActiveClusters(&n, bin_image_cluster, &cfg);
+  }
+  if (rc != cudaSuccess) {
+    // past the portable size a card may refuse the size: no cluster of
+    // it, and no error left behind
+    if (cluster <= PORTABLE_CLUSTER) return rc;
+    cudaGetLastError();
+    n = 0;
+  }
+  if (n_seen < 64) seen[n_seen++] = {dev, cluster, smem, n};
+  return cudaSuccess;
+}
+
+// The plan of N unweighted rays onto an nx x ny image on card dev: the
+// smallest cluster (1, 2, 4, ..., MAX_CLUSTER) whose slices, ceil(ny /
+// cluster) rows of nx int32 counts, fit a block's shared memory and of
+// which the card holds a cluster at once; one cluster for each
+// RAYS_A_BLOCK rays of its blocks, at most as many as the card holds.
+// None fits (or the card takes no cluster launch): the one-thread form,
+// cluster 0.
+cudaError_t plan_of(int dev, int nx, int ny, long long N, Plan& p) {
+  p = Plan{0, 0, 0, 0, 0, 0};
+  int optin = 0, clusters_ok = 0;
+  cudaError_t rc = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&clusters_ok, cudaDevAttrClusterLaunch, dev);
+  if (rc != cudaSuccess) return rc;
+  if (!clusters_ok) return cudaSuccess;
+  for (int lg = 0; (1 << lg) <= MAX_CLUSTER; ++lg) {
+    const int cluster = 1 << lg;
+    const int rows = (ny + cluster - 1) / cluster;
+    const long long bytes = (long long)rows * nx * 4;
+    if (bytes + SMEM_KEEP > optin) continue;
+    int active = 0;
+    rc = active_clusters(dev, cluster, (int)bytes, active);
+    if (rc != cudaSuccess) return rc;
+    if (active < 1) continue;
+    const long long want = (N + (long long)RAYS_A_BLOCK * cluster - 1) /
+                           ((long long)RAYS_A_BLOCK * cluster);
+    p = Plan{cluster, lg, rows,
+             (int)(want < 1 ? 1 : want < active ? want : active),
+             (int)bytes, active};
+    return cudaSuccess;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // uf: (N, 8) f32 exit states, 16-byte aligned; weights: (N,) f32 or null;
@@ -337,15 +532,32 @@ extern "C" int detect_field(const float* uf, float* H, long long N, int swap,
 }
 
 // Bare rays: x, y (N,) f32; w (N,) f32 or null; H (ny, nx) f32, zeroed;
-// (lo, hi, bins per unit) of each axis as bin_params gives them.
+// (lo, hi, bins per unit) of each axis as bin_params gives them. Unweighted
+// rays take the plan's form (plan_of), weighted ones the one-thread form.
 extern "C" int bin_image(const float* x, const float* y, const float* w,
                          float* H, long long N, int nx, int ny, float xlo,
                          float xhi, float xs, float ylo, float yhi, float ys,
                          void* stream) {
   if (N == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  Plan p;
+  if (!w) {
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess) rc = plan_of(dev, nx, ny, N, p);
+    if (rc == cudaSuccess && p.cluster) rc = set_attributes(p.smem, p.cluster);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  if (!w && p.cluster) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        cluster_config(p.cluster, p.clusters, p.smem, attr, s);
+    return (int)cudaLaunchKernelEx(&cfg, bin_image_cluster, x, y, H, N, nx,
+                                   ny, xlo, xhi, xs, ylo, yhi, ys, p.lg);
+  }
   const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
-  bin_image_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      x, y, w, H, N, nx, ny, xlo, xhi, xs, ylo, yhi, ys);
+  bin_image_kernel<<<blocks, THREADS, 0, s>>>(x, y, w, H, N, nx, ny, xlo, xhi,
+                                              xs, ylo, yhi, ys);
   return (int)cudaGetLastError();
 }
 
@@ -364,4 +576,28 @@ extern "C" int bin_field(const float* x, const float* y, const float* Ex,
       reinterpret_cast<const float2*>(Ey), H, N, npx, npy, xhalf, dx, yhalf,
       dy, n_ch);
   return (int)cudaGetLastError();
+}
+
+// The launch plan of an entry point's call on card dev: entry 0
+// (bin_image; kind 0 unweighted, 1 weighted), 1 (bin_field; kind = n_ch,
+// 2 or 4) or 2 (detect_field; kind = n_ch) for N rays onto an nx x ny
+// image. plan[0..4]: the blocks a cluster (0: the one-thread form), the
+// clusters, the rows a block holds, its shared bytes, the clusters the
+// card holds at once. Returns 0, or the cudaError that stopped the plan
+// (cudaErrorInvalidValue for an entry or kind the source does not take).
+extern "C" int k3_plan(int dev, int entry, int kind, int nx, int ny,
+                       long long N, long long* plan) {
+  const bool ok = entry == BIN_IMAGE ? kind == 0 || kind == 1
+                  : entry == BIN_FIELD || entry == DETECT_FIELD
+                      ? kind == 2 || kind == 4
+                      : false;
+  if (!ok || nx < 1 || ny < 1 || N < 0) return (int)cudaErrorInvalidValue;
+  Plan p = Plan{0, 0, 0, 0, 0, 0};
+  if (entry == BIN_IMAGE && kind == 0) {
+    const cudaError_t rc = plan_of(dev, nx, ny, N, p);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const long long out[5] = {p.cluster, p.clusters, p.rows, p.smem, p.active};
+  for (int j = 0; j < 5; ++j) plan[j] = out[j];
+  return 0;
 }

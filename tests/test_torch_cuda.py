@@ -1150,6 +1150,198 @@ def test_bin_field_kernel_matches_plain(dev, convention):
     assert float((img - img_p).abs().sum()) <= 1e-4 * float(img_p.sum())
 
 
+def _spread_rays(dev, n, lx, ly, seed=0):
+    """n rays over [-lx/2, lx/2] x [-ly/2, ly/2] and a little past it, the
+    first ones on the edges, NaN and +-inf: (x, y, w, Ex, Ey)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = ((torch.rand(n, generator=g, device=dev) - 0.5) * lx * 1.02)
+    y = ((torch.rand(n, generator=g, device=dev) - 0.5) * ly * 1.02)
+    edge = torch.tensor([lx / 2, -lx / 2, float("nan"), float("inf"),
+                         -float("inf"), 0.0, lx / 2, 0.0], device=dev)
+    k = min(n, edge.numel())
+    x[:k] = edge[:k]
+    y[:k] = torch.tensor([ly / 2, 0.0, 0.0, 0.0, 0.0, float("nan"),
+                          -ly / 2, float("inf")], device=dev)[:k]
+    w = torch.rand(n, generator=g, device=dev)
+    E = [torch.complex(torch.randn(n, generator=g, device=dev),
+                       torch.randn(n, generator=g, device=dev))
+         for _ in range(2)]
+    return x.contiguous(), y.contiguous(), w, E[0], E[1]
+
+
+def _bins_vs_plain(x, y, w, Ex, Ey, bins, field_bins, pile=False):
+    """bin_image (unweighted, weighted) and bin_field (legacy, intensity)
+    held to their plain versions: counts equal, weighted sums within 1e-5
+    of the largest bin (``pile``: every ray in one bin, where n float32
+    adds in any order round off by up to (n - 1) 2^-24 of the sum: kernel
+    and plain each held that near the float64 sum), field sums within 1e-4
+    x the most rays a pixel."""
+    from synthpy_tpu_torch.ops import histogram
+
+    rng = ((-9.0, 9.0), (-6.75, 6.75))
+    H = histogram.histogram2d(x, y, bins, rng)[0]
+    Hp = histogram.histogram2d_plain(x, y, bins, rng)[0]
+    assert torch.equal(H, Hp)
+    Hw = histogram.histogram2d(x, y, bins, rng, weights=w)[0]
+    Hwp = histogram.histogram2d_plain(x, y, bins, rng, weights=w)[0]
+    if pile:
+        H64 = histogram.histogram2d_plain(x, y, bins, rng,
+                                          weights=w.double())[0]
+        tol = (float(Hp.max()) - 1.0) * 2.0**-24 * float(H64.max())
+        for h in (Hw, Hwp):
+            assert float((h.double() - H64).abs().max()) <= tol
+    else:
+        assert float((Hw - Hwp).abs().max()) <= 1e-5 * max(
+            float(Hwp.abs().max()), 1.0)
+    cargs = (field_bins[0] + 1, field_bins[1] + 1, 18.0, 13.5)
+    one = torch.ones_like(Ex)
+    n = histogram.complex_histogram(x, y, one, one, *cargs,
+                                    return_acc=True)[..., 0]
+    n_p = histogram.complex_histogram_plain(x, y, one, one, *cargs,
+                                            return_acc=True)[..., 0]
+    assert torch.equal(n, n_p)
+    for conv in ("legacy", "intensity"):
+        a = histogram.complex_histogram(x, y, Ex, Ey, *cargs,
+                                        convention=conv, return_acc=True)
+        b = histogram.complex_histogram_plain(x, y, Ex, Ey, *cargs,
+                                              convention=conv,
+                                              return_acc=True)
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(n_p.max()),
+                                                        1.0)
+    return float(Hp.sum())
+
+
+@pytest.mark.parametrize("case", ["path", "one_pixel", "empty", "ragged",
+                                  "edges"])
+def test_k3_bare_ray_forms_match_plain(dev, case):
+    """K3's bare-ray entry points on the diagnostics path's images (431 x
+    321 counts in a cluster of 4; weights and 430 x 320 fields in the
+    one-thread form): a spread of rays with edge, NaN and +-inf ones; every
+    ray in one pixel; no ray; 1,003 rays; only edge rays."""
+    n = {"path": 1_000_000, "one_pixel": 200_000, "empty": 0,
+         "ragged": 1003, "edges": 8}[case]
+    x, y, w, Ex, Ey = _spread_rays(dev, n, 18.0, 13.5)
+    if case == "one_pixel":
+        x.fill_(0.123)
+        y.fill_(-0.456)
+    total = _bins_vs_plain(x, y, w, Ex, Ey, (431, 321), (430, 320),
+                           pile=case == "one_pixel")
+    if case in ("path", "one_pixel"):
+        assert total > 0.9 * n
+
+
+def _boundary(nx, cluster, dev):
+    """The most rows of nx bins the plan holds in a cluster of at most
+    ``cluster`` blocks (0 if none)."""
+    from synthpy_tpu_torch.kernels import binning
+
+    lo, hi = 0, 1 << 15
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        c = binning.plan("bin_image", 0, (nx, mid), 10**6, dev).cluster
+        lo, hi = (mid, hi) if 0 < c <= cluster else (lo, mid - 1)
+    return lo
+
+
+@pytest.mark.parametrize("nx", [431, 4096])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_k3_count_forms_at_their_boundaries(dev, nx, cluster):
+    """At the most rows a cluster's slices hold, one row past them and one
+    column past them, unweighted counts are equal to plain (the weighted
+    call beside, in the one-thread form); the plan takes a larger cluster
+    (or the one-thread form) one row past."""
+    from synthpy_tpu_torch.kernels import binning
+    from synthpy_tpu_torch.ops import histogram
+
+    ny = _boundary(nx, cluster, dev)
+    if ny == 0:
+        pytest.skip(f"the card holds no cluster of {cluster} here")
+    past = binning.plan("bin_image", 0, (nx, ny + 1), 10**6, dev)
+    assert past.cluster > cluster or past.cluster == 0
+    assert 0 < binning.plan("bin_image", 0, (nx, ny), 10**6,
+                            dev).cluster <= cluster
+    rng = ((-9.0, 9.0), (-6.75, 6.75))
+    for bins in ((nx, ny), (nx, ny + 1), (nx + 1, ny)):
+        x, y, w, _, _ = _spread_rays(dev, 300_000, 18.0, 13.5, seed=ny)
+        H = histogram.histogram2d(x, y, bins, rng)[0]
+        assert torch.equal(H, histogram.histogram2d_plain(x, y, bins,
+                                                          rng)[0])
+        assert float(H.sum()) > 0.9 * 300_000
+        Hw = histogram.histogram2d(x, y, bins, rng, weights=w)[0]
+        Hwp = histogram.histogram2d_plain(x, y, bins, rng, weights=w)[0]
+        assert float((Hw - Hwp).abs().max()) <= 1e-5 * float(
+            Hwp.abs().max())
+
+
+def test_k3_plan_on_the_card(dev):
+    """The card's plans (an H100: the diagnostics path's 431 x 321 counts
+    in a cluster of 4, weights and fields in the one-thread form, a 4000 x
+    3000 image past the largest cluster), and a plan refused for a kind the
+    source does not take."""
+    from synthpy_tpu_torch.kernels import binning
+
+    p = binning.plan("bin_image", 0, (431, 321), 4_000_000, dev)
+    assert p.cluster == 4 and p.rows == 81 and p.smem == 81 * 431 * 4
+    assert 1 <= p.clusters == p.active
+    assert binning.plan("bin_image", 0, (431, 321), 1003, dev).clusters == 1
+    for entry, kind, bins in (("bin_image", 1, (431, 321)),
+                              ("bin_field", 2, (430, 320)),
+                              ("detect_field", 4, (431, 321)),
+                              ("bin_image", 0, (4000, 3000))):
+        assert binning.plan(entry, kind, bins, 4_000_000, dev).form == \
+            "one_thread"
+    with pytest.raises(RuntimeError, match="k3_plan"):
+        binning.plan("bin_field", 3, (430, 320), 10, dev)
+
+
+@pytest.mark.parametrize("bins", [(431, 321), (2000, 1500)])
+@pytest.mark.parametrize("probe", ["z", "y"])
+def test_k3_field_form_matches_plain(dev, bins, probe):
+    """detect_field at the path's image and a large one: probing along z
+    and y, the time tracer's per-ray exit coordinates, a stage table longer
+    than MAX_OPS; ray counts equal, sums within 1e-4 x the most rays a
+    pixel."""
+    from synthpy_tpu_torch.optics.compose import compose
+
+    n = 200_000
+    s0 = init_beam(3, n, 4e-3, 8e-3, EXT, "circular",
+                   probing_direction=probe, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    s0[6] = 0.5 + torch.rand(n, generator=g, device=dev)
+    s0[7] = 300.0 * torch.rand(n, generator=g, device=dev)
+    s0[8] = torch.linspace(-1, 1, n, device=dev)
+    uf = zscan.permute_state(s0, probe).contiguous()
+    p_ray = (EXT + 1e-3 * torch.rand(n, generator=g, device=dev)
+             ).contiguous()
+    long_st = compose([el for _ in range(20) for el in (
+        ("travel", 20.0), ("phase",), ("aperture", 25.0))])
+    assert len(long_st) > detector.MAX_OPS
+    for p, st, ref in ((EXT * 1.01, BENCHES["interferometry"][0](),
+                        (10.0, 20.0)),
+                       (p_ray, BENCHES["refractometry_coherent"][0](), None),
+                       (EXT * 1.01, long_st, (10.0, 20.0))):
+        unit = _unit_field(uf)
+        st_n = [s for s in st if s[0] not in ("phase", "mark")]
+        cargs = (EXT, probe, st_n, bins, 18.0, 13.5, 1064e-9)
+        ck = detector.detect_field(unit, p, *cargs)[..., 1]
+        cp = detector.detect_field_plain(unit, p, *cargs)[..., 1]
+        assert torch.equal(ck, cp) and float(cp.sum()) > 0
+        nmax = float(cp.max())
+        for conv in ("legacy", "intensity"):
+            args = (EXT, probe, st, bins, 18.0, 13.5, 1064e-9, conv)
+            H = detector.detect_field(uf, p, *args, ref=ref)
+            Hp = detector.detect_field_plain(uf, p, *args, ref=ref)
+            assert float((H - Hp).abs().max()) <= 1e-4 * nmax
+
+
+def test_k3_field_form_without_rays(dev):
+    uf = torch.empty((0, 8), device=dev)
+    H = detector.detect_field(uf, EXT, EXT, "z",
+                              BENCHES["interferometry"][0](), (431, 321),
+                              18.0, 13.5, 1064e-9, ref=(10.0, 20.0))
+    assert tuple(H.shape) == (321, 431, 2) and not bool(H.any())
+
+
 @pytest.mark.parametrize("n_pairs", [12, 20, 600, 2500])
 def test_long_stage_tables_match_plain(dev, n_pairs):
     """Alternating travels and apertures (which compose cannot fold): 25 to

@@ -113,7 +113,7 @@ def test_kernel_argtypes_match_the_c_entry_points():
             "march_adjoint", "cic_deposit", "cic_adjoint", "boris_push",
             "btable_write", "xray_fold", "pp_fold", "pp_chords",
             "march_shards", "exchange_rows", "stage_gather",
-            "sharded_trace_fill"} <= seen
+            "sharded_trace_fill", "k3_plan"} <= seen
 
 
 def test_entry_points_default_to_cuda():
